@@ -3,17 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernel from ``hpa2_tpu_torch/csrc`` with nvcc, holds it
-bit for bit against its plain PyTorch version on the card, drives the
-streamed fast path (``CudaEngine``) at the repo's headline width
-(32,768 systems x 8 nodes x 128 instructions per core), the ``run``
+Builds the CUDA kernel from ``hpa2_tpu_torch/csrc`` with nvcc (node
+bounds 8, 21 and 64), holds it bit for bit against its plain PyTorch
+version on the card (cases a-e at up to 8 nodes; f: split sharer
+planes at 22, 33 and 64 nodes; g: packed planes), drives the streamed
+fast path (``CudaEngine``) at the repo's headline width (32,768 systems
+x 8 nodes x 128 instructions per core) and at its 64-node single-chip
+width (1,024 systems x 64 nodes x 64 instructions, unpacked and
+packed; ``scripts/scale_runs.py``'s single-device rung), the ``run``
 command on a small trace directory and the ``bench`` command, and
 prints:
 
 * the card's name and power limit (``nvidia-smi``);
-* one ``{"kernels": [...]}`` line: per kernel its launches on the main
-  path, its largest disagreement with the plain version, its time and
-  the plain version's at the headline shape, and its bytes bound;
+* one ``{"kernels": [...]}`` line: per kernel its launches on the
+  64-node path, its largest disagreement with the plain version, its
+  time and the plain version's at that shape, and its bytes bound
+  (``by_path`` holds the same for every path driven);
 * last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero and prints no
@@ -45,6 +50,9 @@ SCALAR_OPS_PER_S = 67e12
 
 HEADLINE = dict(num_procs=8, msg_buffer_size=16)   # bench.py:50-51, 74-82
 HEADLINE_RUN = dict(block=512, k=128, window=32, gate=True)
+# scripts/scale_runs.py:265-276, the single-device rung of `nodeshard`
+WIDE = dict(num_procs=64, msg_buffer_size=16, max_instr_num=0)
+WIDE_RUN = dict(block=512, k=64, window=16, gate=True)
 
 
 def card_line() -> str:
@@ -55,7 +63,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def planes_for(cfg, b, t, seed, snapshots, window):
+def planes_for(cfg, b, t, seed, snapshots, window, packed=False):
     """Initial planes and packed traces on the card, from a seed."""
     from hpa2_tpu_torch.convert import state_from_numpy
     from hpa2_tpu_torch.ops.layout import _init_state, _pack_traces
@@ -65,7 +73,7 @@ def planes_for(cfg, b, t, seed, snapshots, window):
     n_seg = -(-t // window)
     tr = _pack_traces(cfg, op, addr, val, length)
     tr = np.pad(tr, ((0, 0), (0, n_seg * window - t), (0, 0)))
-    state = state_from_numpy(_init_state(cfg, b, snapshots), "cuda")
+    state = state_from_numpy(_init_state(cfg, b, snapshots, packed), "cuda")
     return (state, torch.from_numpy(tr).cuda(),
             torch.from_numpy(np.ascontiguousarray(length.T)).cuda(), n_seg)
 
@@ -95,19 +103,55 @@ def time_kernel(cfg, state, tr, tr_len, kw, reps):
     return times, got, status
 
 
+def plane_diff(cfg, snapshots, got, want, packed=False):
+    """Largest abs difference per plane of two runs' carried planes."""
+    from hpa2_tpu_torch.ops.layout import fields_of
+
+    return {f: int((got[f].long() - want[f].long()).abs().max())
+            for f in fields_of(cfg, snapshots, packed)}
+
+
+def joined_diff(cfg, snapshots, packed_state, state):
+    """Largest abs difference per plane of a packed run (its narrow
+    planes joined into words) and an unpacked run."""
+    from hpa2_tpu_torch.ops.layout import _join_word_planes_np, fields_of
+
+    out = {}
+    for f in fields_of(cfg, snapshots):
+        if f.endswith(("cachew", "dirw")):
+            pre = f[:-len("cachew")] if f.endswith("cachew") else f[:-4]
+            words = _join_word_planes_np(*(
+                packed_state[pre + g].cpu().numpy()
+                for g in ("cvalw", "cmetaw", "dmemw", "dmetaw")))
+            joined = words[0] if f.endswith("cachew") else words[1]
+            out[f] = int(np.abs(joined.astype(np.int64)
+                                - state[f].cpu().numpy()).max())
+        else:
+            out[f] = int((packed_state[f].long() - state[f].long()).abs().max())
+    return out
+
+
+def check_diff(label, diff):
+    bad = [f for f, d in diff.items() if d]
+    if bad:
+        raise AssertionError(f"{label}: planes differ on {bad}")
+    return max(diff.values())
+
+
 def kernel_vs_plain(label, cfg, b, t, seed, *, snapshots, block, k, window,
-                    gate, max_calls, stall, reps=1):
+                    gate, max_calls, stall, reps=1, packed=False):
     """``reps`` kernel launches and one plain run from the same planes;
     every carried plane and the stall plane must agree bit for bit, and
     the stall must be as ``stall`` says (True, False, or None for
     either).  Returns (max abs difference, mean kernel ms, plain ms,
     kernel planes, stall plane)."""
-    from hpa2_tpu_torch.ops.layout import _mb_layout, _state_fields
     from hpa2_tpu_torch.ops.stream_run import stream_run_plain
 
-    state, tr, tr_len, n_seg = planes_for(cfg, b, t, seed, snapshots, window)
+    state, tr, tr_len, n_seg = planes_for(cfg, b, t, seed, snapshots, window,
+                                          packed)
     kw = dict(block=block, k=k, window=window, n_seg=n_seg,
-              max_calls=max_calls, gate=gate, snapshots=snapshots)
+              max_calls=max_calls, gate=gate, snapshots=snapshots,
+              packed=packed)
     times, got, status = time_kernel(cfg, state, tr, tr_len, kw, reps)
     ms = sum(times) / reps
     if stall is not None and bool(status.any()) != stall:
@@ -115,27 +159,23 @@ def kernel_vs_plain(label, cfg, b, t, seed, *, snapshots, block, k, window,
             f"{label}: the kernel {'did not stall' if stall else 'stalled'}")
     (want, want_status), plain_ms = elapsed_ms(
         lambda: stream_run_plain(cfg, state, tr, tr_len, **kw))
-    layout, W = _mb_layout(cfg)
-    err = int((status.long() - want_status.long()).abs().max())
-    bad = [] if err == 0 else ["status"]
-    for f in _state_fields(W, snapshots, "recv" in layout):
-        d = int((got[f].long() - want[f].long()).abs().max())
-        err = max(err, d)
-        if d:
-            bad.append(f)
+    diff = plane_diff(cfg, snapshots, got, want, packed)
+    diff["status"] = int((status.long() - want_status.long()).abs().max())
+    err = max(diff.values())
     stalled = int(status.any())
     print(f"[compare] {label}: {b} systems x {cfg.num_procs} nodes x {t} "
-          f"instrs, cap {cfg.msg_buffer_size}, block {block}, window "
-          f"{window}, gate {gate}, snapshots {snapshots}: stalled={stalled} "
-          f"max_abs_err={err} kernel {ms:.3f} ms "
+          f"instrs, cache {cfg.cache_size}, mem {cfg.mem_size}, cap "
+          f"{cfg.msg_buffer_size}, block {block}, window {window}, gate "
+          f"{gate}, snapshots {snapshots}, packed {packed}: stalled="
+          f"{stalled} max_abs_err={err} kernel {ms:.3f} ms "
           f"({', '.join(f'{x:.3f}' for x in times)}), plain {plain_ms:.1f} ms")
-    if bad:
-        raise AssertionError(f"{label}: kernel and plain differ on {bad}")
+    check_diff(label, diff)
     return err, ms, plain_ms, got, status
 
 
 def phase_compare():
-    """Phase 3: the kernel against its plain version, cases (a)-(e)."""
+    """Cases (a)-(e): the kernel against its plain version at up to 8
+    nodes."""
     from hpa2_tpu_torch.config import Semantics, SystemConfig
 
     robust = Semantics().robust()
@@ -176,48 +216,115 @@ def phase_compare():
     return max(errs)
 
 
-def phase_full_width():
-    """Phase 4: the main path, ``CudaEngine`` at the headline width."""
+def phase_wide_compare():
+    """Cases (f) split sharer planes against the plain version at 22
+    (one window, snapshots), 33 (two windows) and 64 nodes; (g) packed
+    planes: the packed kernel against the unpacked kernel at 2,048 x 8
+    x 64, and packed x split at 22 nodes against the plain packed
+    version and the unpacked kernel (planes joined)."""
     from hpa2_tpu_torch.config import Semantics, SystemConfig
+
+    robust = Semantics().robust()
+    errs = []
+    cfg22 = SystemConfig(num_procs=22, cache_size=2, mem_size=4,
+                         msg_buffer_size=16, semantics=robust)
+    errs.append(kernel_vs_plain("f 22 nodes", cfg22, 256, 12, 11,
+                                snapshots=True, block=64, k=32, window=12,
+                                gate=True, max_calls=10_000, stall=False)[0])
+    cfg33 = SystemConfig(num_procs=33, cache_size=4, mem_size=8,
+                         msg_buffer_size=32, semantics=robust)
+    errs.append(kernel_vs_plain("f 33 nodes", cfg33, 256, 20, 12,
+                                snapshots=False, block=128, k=64, window=10,
+                                gate=True, max_calls=10_000, stall=False)[0])
+    cfg64 = SystemConfig(semantics=robust, **WIDE)
+    errs.append(kernel_vs_plain("f 64 nodes", cfg64, 512, 16, 13,
+                                snapshots=False, block=256, k=64, window=16,
+                                gate=True, max_calls=10_000, stall=False)[0])
+
+    def packed_vs_unpacked(label, cfg, b, t, seed, snapshots, kw, packed_got):
+        state, tr, tr_len, n_seg = planes_for(cfg, b, t, seed, snapshots,
+                                              kw["window"])
+        run = dict(kw, n_seg=n_seg, max_calls=10_000, snapshots=snapshots)
+        (ms,), got, status = time_kernel(cfg, state, tr, tr_len, run, 1)
+        if packed_got is None:
+            pstate = planes_for(cfg, b, t, seed, snapshots, kw["window"],
+                                True)[0]
+            (pms,), packed_got, pstatus = time_kernel(
+                cfg, pstate, tr, tr_len, dict(run, packed=True), 1)
+            if bool(pstatus.any()) or bool(status.any()):
+                raise AssertionError(f"{label}: a run stalled")
+            print(f"[compare] {label}: packed kernel {pms:.3f} ms")
+        err = check_diff(label, joined_diff(cfg, snapshots, packed_got, got))
+        print(f"[compare] {label}: {b} systems x {cfg.num_procs} nodes x {t}"
+              f" instrs, packed kernel against the unpacked kernel "
+              f"({ms:.3f} ms), planes joined: max_abs_err={err}")
+        return err
+
+    cfg = SystemConfig(semantics=robust, **HEADLINE)
+    errs.append(packed_vs_unpacked("g packed 8 nodes", cfg, 2048, 64, 1,
+                                   False, HEADLINE_RUN, None))
+    kw22 = dict(block=64, k=32, window=12, gate=True)
+    err, _, _, got, _ = kernel_vs_plain(
+        "g packed 22 nodes", cfg22, 256, 12, 14, snapshots=True,
+        max_calls=10_000, stall=False, packed=True, **kw22)
+    errs.append(err)
+    errs.append(packed_vs_unpacked("g packed 22 nodes", cfg22, 256, 12, 14,
+                                   True, kw22, got))
+    return max(errs)
+
+
+def drive_path(label, cfg, b, t, run, *, packed=False, ref=None,
+               probe=()):
+    """One path of the port at full width: ``CudaEngine.run()`` with the
+    launch counts read around it, then the kernel alone (mean of 3
+    launches) on the same inputs, held against the plain version (and,
+    packed, against the unpacked kernel's planes ``ref``), the bytes
+    bound and a lane-block probe (one launch per block size)."""
     from hpa2_tpu_torch.ops import kernels
     from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
     from hpa2_tpu_torch.ops.layout import _SC_CYCLE, _SC_MSGS
     from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
 
-    b, t = 32768, 128
-    cfg = SystemConfig(semantics=Semantics().robust(), **HEADLINE)
     arrays = gen_uniform_random_arrays(cfg, b, t, seed=0)
 
     def engine():
-        return CudaEngine(cfg, *arrays, block=HEADLINE_RUN["block"],
-                          cycles_per_call=HEADLINE_RUN["k"],
-                          snapshots=False,
-                          trace_window=HEADLINE_RUN["window"],
-                          gate=HEADLINE_RUN["gate"])
+        return CudaEngine(cfg, *arrays, block=run["block"],
+                          cycles_per_call=run["k"], snapshots=False,
+                          trace_window=run["window"], gate=run["gate"],
+                          packed=packed)
 
     engine().run()  # warm-up
     eng = engine()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     for kern in kernels.KERNELS:
         kern.launches = 0
     _, run_ms = elapsed_ms(eng.run)
     launches = {kern.name: kern.launches for kern in kernels.KERNELS}
     if 0 in launches.values():
-        raise AssertionError(f"a kernel of the main path never ran: {launches}")
+        raise AssertionError(
+            f"{label}: a kernel of the path never ran: {launches}")
     want_instr = int(arrays[3].sum())
     if eng.instructions != want_instr:
         raise AssertionError(
-            f"{eng.instructions} instructions retired of {want_instr}")
+            f"{label}: {eng.instructions} instructions retired of "
+            f"{want_instr}")
     peak = torch.cuda.max_memory_allocated()
     sc = eng.state["scalars"].long()
     lane_cycles = int(sc[_SC_CYCLE].sum())
 
-    # the kernel alone, on fresh planes, and its plain version on the
-    # same inputs (these launches are not main-path launches)
-    err, ms, plain_ms, _, _ = kernel_vs_plain(
-        "full width", cfg, b, t, 0, snapshots=False, max_calls=10_000,
-        stall=False, reps=3, **HEADLINE_RUN)
+    # the kernel alone, on fresh planes, and the plain version (these
+    # launches are not the path's launches)
+    err, ms, plain_ms, got, _ = kernel_vs_plain(
+        label, cfg, b, t, 0, snapshots=False, max_calls=10_000, stall=False,
+        reps=3, packed=packed, **run)
+    if ref is not None:
+        err = max(err, check_diff(label, joined_diff(cfg, False, got, ref)))
+        print(f"[compare] {label}: against the unpacked kernel, planes "
+              f"joined: max_abs_err={err}")
+    err = max(err, check_diff(label, plane_diff(cfg, False, eng.state, got,
+                                                packed)))
 
     state_bytes = sum(v.numel() * v.element_size()
                       for v in eng.state.values())
@@ -229,40 +336,43 @@ def phase_full_width():
     # system-cycle
     ops_ms = lane_cycles * cfg.num_procs / SCALAR_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    print(f"[full] {b} systems x {cfg.num_procs} nodes x {t} instrs "
-          f"(cap {cfg.msg_buffer_size}, block {HEADLINE_RUN['block']}, "
-          f"window {HEADLINE_RUN['window']}, k {HEADLINE_RUN['k']}): "
-          f"status 0, {eng.instructions} RD/WR retired, "
-          f"{int(sc[_SC_MSGS].sum())} messages, max cycle {eng.cycle}, "
-          f"{lane_cycles} system-cycles")
-    print(f"[full] engine run {run_ms:.3f} ms "
+    print(f"[{label}] {b} systems x {cfg.num_procs} nodes x {t} instrs "
+          f"(cache {cfg.cache_size}, mem {cfg.mem_size}, cap "
+          f"{cfg.msg_buffer_size}, block {run['block']}, window "
+          f"{run['window']}, k {run['k']}, packed {packed}): status 0, "
+          f"{eng.instructions} RD/WR retired, {int(sc[_SC_MSGS].sum())} "
+          f"messages, max cycle {eng.cycle}, {lane_cycles} system-cycles")
+    print(f"[{label}] engine run {run_ms:.3f} ms "
           f"({eng.instructions / run_ms * 1e3:.4e} RD/WR ops/s), kernel "
           f"{ms:.3f} ms ({eng.instructions / ms * 1e3:.4e} RD/WR ops/s), "
           f"plain {plain_ms:.1f} ms, launches {launches}")
-    print(f"[full] bytes bound: {moved} B (state {state_bytes} B read and "
+    print(f"[{label}] bytes bound: {moved} B (state {state_bytes} B read and "
           f"written, traces {trace_bytes} B) / 3.35 TB/s = {bytes_ms:.4f} "
-          f"ms; ops floor {ops_ms:.4f} ms; CTAs {b // HEADLINE_RUN['block']}"
-          f" on 132 SMs; peak device memory {peak} B")
+          f"ms; ops floor {ops_ms:.4f} ms; CTAs {b // run['block']} on 132 "
+          f"SMs; peak device memory {peak} B ({held} B of it held before "
+          "the run)")
 
     # SM fill: the same inputs with other lane blocks (a block is the
     # unit of gating, so each is its own run); one launch each
-    state, tr, tr_len, n_seg = planes_for(cfg, b, t, 0, False,
-                                          HEADLINE_RUN["window"])
-    fill = []
-    for blk in (128, 256, 1024):
-        kw = dict(HEADLINE_RUN, block=blk, n_seg=n_seg, max_calls=10_000,
-                  snapshots=False)
-        times, _, status = time_kernel(cfg, state, tr, tr_len, kw, 1)
-        fill.append(f"block {blk} ({b // blk} CTAs) {times[0]:.3f} ms"
-                    f"{' STALLED' if status.any() else ''}")
-    print(f"[full] other lane blocks: {'; '.join(fill)}")
+    if probe:
+        state, tr, tr_len, n_seg = planes_for(cfg, b, t, 0, False,
+                                              run["window"], packed)
+        fill = []
+        for blk in probe:
+            kwp = dict(run, block=blk, n_seg=n_seg, max_calls=10_000,
+                       snapshots=False, packed=packed)
+            times, _, status = time_kernel(cfg, state, tr, tr_len, kwp, 1)
+            fill.append(f"block {blk} ({b // blk} CTAs) {times[0]:.3f} ms"
+                        f"{' STALLED' if status.any() else ''}")
+        print(f"[{label}] other lane blocks: {'; '.join(fill)}")
     return dict(launches=launches, err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms,
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                state=got)
 
 
 def phase_run_command():
-    """Phase 5: ``python -m hpa2_tpu_torch run`` on a synthesized trace
+    """``python -m hpa2_tpu_torch run`` on a synthesized trace
     directory, on the card and on the CPU (the dumps must be equal),
     and ``bench`` on the card (every instruction must retire)."""
     from hpa2_tpu_torch import cli
@@ -322,6 +432,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from hpa2_tpu_torch.config import Semantics, SystemConfig
     from hpa2_tpu_torch.ops import kernels
 
     card = card_line()
@@ -331,28 +442,51 @@ def main() -> int:
     secs = kernels.build_all()
     names = ", ".join(k.library_path().name for k in kernels.KERNELS)
     print(f"[build] {secs:.1f} s: {names}")
+    # registers, stack frame and spills of each instantiation
     for line in kernels.STREAM_RUN.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("Compiling entry", "Function properties",
+                                   "registers", "spill")):
             print(f"[build] {line.strip()}")
 
+    robust = Semantics().robust()
     t0 = time.perf_counter()
     err = phase_compare()
     t1 = time.perf_counter()
-    full = phase_full_width()
+    err = max(err, phase_wide_compare())
     t2 = time.perf_counter()
+    paths = {
+        "headline": drive_path(
+            "headline", SystemConfig(semantics=robust, **HEADLINE), 32768,
+            128, HEADLINE_RUN, probe=(128, 256, 1024)),
+        "wide": drive_path(
+            "wide", SystemConfig(semantics=robust, **WIDE), 1024, 64,
+            WIDE_RUN, probe=(64, 128, 256)),
+    }
+    paths["wide packed"] = drive_path(
+        "wide packed", SystemConfig(semantics=robust, **WIDE), 1024, 64,
+        WIDE_RUN, packed=True, ref=paths["wide"]["state"])
+    t3 = time.perf_counter()
     phase_run_command()
-    print(f"[wall] compare {t1 - t0:.1f} s, full width {t2 - t1:.1f} s, "
-          f"run command {time.perf_counter() - t2:.1f} s")
+    print(f"[wall] compare a-e {t1 - t0:.1f} s, compare f-g {t2 - t1:.1f} s,"
+          f" full-width paths {t3 - t2:.1f} s, run command "
+          f"{time.perf_counter() - t3:.1f} s")
 
     kern = kernels.STREAM_RUN
+    wide = paths["wide"]
     print(json.dumps({"kernels": [{
         "name": kern.name, "route": "cuda", "source": kern.source,
         "replaces": kern.replaces,
-        "launches": full["launches"][kern.name],
-        "max_abs_err": max(err, full["err"]),
-        "ms": full["ms"], "plain_ms": full["plain_ms"],
-        "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+        "variants": ["unsplit (num_procs <= 21)",
+                     "split sharer planes (22 <= num_procs <= 64)",
+                     "packed u8/u16 planes"],
+        "launches": wide["launches"][kern.name],
+        "max_abs_err": max([err] + [p["err"] for p in paths.values()]),
+        "ms": wide["ms"], "plain_ms": wide["plain_ms"],
+        "bound_ms": wide["bound_ms"], "bound_by": wide["bound_by"],
         "library_ms": None,
+        "by_path": {name: {k: p[k] for k in (
+            "launches", "ms", "plain_ms", "bound_ms", "bound_by")}
+            for name, p in paths.items()},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,35 +9,63 @@
 //
 // Plain C interface, bound with ctypes by hpa2_tpu_torch/ops/kernels.py.
 // The entry allocates nothing and does not synchronise: it launches on
-// the caller's stream and returns cudaGetLastError().
+// the caller's stream and returns cudaGetLastError().  The kernel is
+// instantiated for node bounds 8, 21 and 64 (the local frame grows with
+// the bound; split mode is the bound's), each with int32 or packed
+// cache and directory planes; wider systems are refused.
 #include <cuda_runtime.h>
 
 #include "cycle.cuh"
 
 namespace {
 
-template <int MAXN>
+template <int MAXN, bool PACKED>
 __global__ void __launch_bounds__(hpa2::kMaxBlock)
     stream_run_kernel(const hpa2::Args a) {
   const int l = blockIdx.x * a.bb + threadIdx.x;
-  hpa2::stream_lanes<MAXN>(a, l, l + 1);
+  hpa2::stream_lanes<MAXN, PACKED>(a, l, l + 1);
+}
+
+// the instantiation of node bound MAXN holds this system: its split
+// mode is the bound's and its words fit the bound's frame
+template <int MAXN>
+bool fits(const hpa2::Args& a) {
+  using B = hpa2::Bound<MAXN>;
+  return a.n >= 1 && a.n <= MAXN && (a.n > 21) == B::SPLIT && a.W >= 1 &&
+         a.W <= B::W && a.SW >= 1 && a.SW <= B::SW;
+}
+
+template <int MAXN>
+void launch(const hpa2::Args& a, cudaStream_t s) {
+  const dim3 grid(a.b / a.bb), block(a.bb);
+  if (a.packed)
+    stream_run_kernel<MAXN, true><<<grid, block, 0, s>>>(a);
+  else
+    stream_run_kernel<MAXN, false><<<grid, block, 0, s>>>(a);
 }
 
 }  // namespace
 
+// sizeof(Args), checked against the ctypes mirror at load
+extern "C" int hpa2_args_size() { return (int)sizeof(hpa2::Args); }
+
 extern "C" int hpa2_stream_run(const hpa2::Args* args, int device,
                                void* stream) {
   const hpa2::Args& a = *args;
-  if (a.bb < 1 || a.bb > hpa2::kMaxBlock || a.b % a.bb != 0 || a.n < 1 ||
-      a.n > 21 || a.W < 1 || a.W > hpa2::kMaxW)
+  // the smallest node bound that holds the system
+  const int bound = a.n <= 8 ? 8 : (a.n <= 21 ? 21 : hpa2::kMaxNodes);
+  const bool ok = bound == 8 ? fits<8>(a)
+                  : bound == 21 ? fits<21>(a) : fits<hpa2::kMaxNodes>(a);
+  if (!ok || a.bb < 1 || a.bb > hpa2::kMaxBlock || a.b % a.bb != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.b / a.bb), block(a.bb);
   cudaStream_t s = (cudaStream_t)stream;
-  if (a.n <= 8)
-    stream_run_kernel<8><<<grid, block, 0, s>>>(a);
+  if (bound == 8)
+    launch<8>(a, s);
+  else if (bound == 21)
+    launch<21>(a, s);
   else
-    stream_run_kernel<21><<<grid, block, 0, s>>>(a);
+    launch<hpa2::kMaxNodes>(a, s);
   return (int)cudaGetLastError();
 }

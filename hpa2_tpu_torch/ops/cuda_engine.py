@@ -6,10 +6,11 @@ One ``run()`` is one launch of the streamed-run kernel
 that reads the status word.  The engine owns its state planes and the
 kernel updates them in place.
 
-This slice covers MESI with a full directory on the ideal topology,
-``num_procs <= 21`` (the sharer mask sits in the directory word),
-unpacked int32 planes, no occupancy schedule and no sharding; anything
-else is refused with a ``ValueError`` that names the later slice.
+It covers MESI with a full directory on the ideal topology, split
+sharer planes (``num_procs > 21``; the kernel takes up to
+``kernels.MAX_NODES`` nodes, the plain version any number), packed
+planes, no occupancy schedule and no sharding; anything else is
+refused with a ``ValueError`` that names the later slice.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from hpa2_tpu_torch.ops import kernels
 from hpa2_tpu_torch.ops.layout import (
     _SC_CYCLE, _SC_EV, _SC_INSTR, _SC_INV, _SC_MSGS, _SC_OVERFLOW, _SC_RH,
     _SC_RM, _SC_WH, _SC_WM, StallError, _check_geometry, _check_semantics,
-    _init_state, _pack_traces, _scalar_layout, choose_block, decode_dumps,
+    _init_state, _join_word_planes_np, _pack_traces, _scalar_layout,
+    _split_sw, choose_block, decode_dumps, packed_plane_dtypes,
 )
 from hpa2_tpu_torch.utils.dump import NodeDump
 
@@ -60,7 +62,8 @@ class CudaEngine:
     status, and bit-identical state planes.  ``trace_window=w`` runs
     traces longer than ``w`` as successive windows that quiesce in
     between; ``gate`` skips 8-cycle bursts of quiescent lane blocks;
-    ``snapshots=False`` drops the phase-D snapshot planes.
+    ``snapshots=False`` drops the phase-D snapshot planes; ``packed``
+    stores the cache and directory words as narrow u8/u16 planes.
 
     ``device="cpu"`` runs the kernel's plain PyTorch version (the
     tests); the default ``"cuda"`` launches the kernel and raises when
@@ -92,9 +95,7 @@ class CudaEngine:
         _check_geometry(config)
         _check_semantics(config)
         if packed:
-            raise ValueError(
-                "packed=True (narrow u8/u16 planes) is a later slice of the "
-                "port; run with packed=False")
+            packed_plane_dtypes(config)  # raises on unpackable geometry
         if not stream:
             raise ValueError(
                 "stream=False (the per-call kernel driven from the host) is "
@@ -104,6 +105,8 @@ class CudaEngine:
                 "the occupancy scheduler (schedule=) is a later slice of "
                 "the port; run without a schedule")
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            kernels.check_kernel_bound(config)
         b, _, t = tr_op.shape
         self.config = config
         self.b = b
@@ -115,6 +118,7 @@ class CudaEngine:
         self.cycles_per_call = cycles_per_call
         self._snapshots = snapshots
         self._gate = gate
+        self._packed = packed
 
         tr_len = tr_len.astype(np.int32)
         tr_words = _pack_traces(config, tr_op, tr_addr, tr_val, tr_len)
@@ -135,7 +139,7 @@ class CudaEngine:
         self._tr_full = torch.from_numpy(tr_words).to(self.device)
         self._tr_len_full = torch.from_numpy(tr_len_nb).to(self.device)
         self.state = state_from_numpy(
-            _init_state(config, b, snapshots), self.device)
+            _init_state(config, b, snapshots, packed), self.device)
         self._completed = False
         self._poisoned = False
 
@@ -170,7 +174,7 @@ class CudaEngine:
             self.config, self.state, self._tr_full, self._tr_len_full,
             block=self.block, k=self.cycles_per_call, window=self._window,
             n_seg=self._n_seg, max_calls=max_calls, gate=self._gate,
-            snapshots=self._snapshots,
+            snapshots=self._snapshots, packed=self._packed,
         )
         overflow = (self.state["scalars"][_SC_OVERFLOW] > 0).any()
         status = (stall != 0).any().to(torch.int32) | (
@@ -184,17 +188,30 @@ class CudaEngine:
     def _plane(self, f: str) -> np.ndarray:
         return self.state[f].cpu().numpy()
 
+    def _split_planes(self, prefix: str):
+        """The split sharer-word planes ``prefix{w}``, or None when the
+        sharers sit in the directory word."""
+        sw = _split_sw(self.config)
+        return [self._plane(f"{prefix}{w}") for w in range(sw)] or None
+
+    def _word_planes(self, prefix: str = ""):
+        """(cachew, dirw) as int32 words; packed planes are joined."""
+        if self._packed:
+            return _join_word_planes_np(*(self._plane(prefix + f) for f in (
+                "cvalw", "cmetaw", "dmemw", "dmetaw")))
+        return self._plane(f"{prefix}cachew"), self._plane(f"{prefix}dirw")
+
     def system_snapshots(self, sys_idx: int) -> List[NodeDump]:
         if not self._snapshots:
             raise ValueError(
                 "engine built with snapshots=False has no phase-D state"
             )
-        return decode_dumps(self.config, self._plane("snap_cachew"),
-                            self._plane("snap_dirw"), sys_idx)
+        return decode_dumps(self.config, *self._word_planes("snap_"),
+                            sys_idx, dirs=self._split_planes("snap_dirs"))
 
     def system_final_dumps(self, sys_idx: int) -> List[NodeDump]:
-        return decode_dumps(self.config, self._plane("cachew"),
-                            self._plane("dirw"), sys_idx)
+        return decode_dumps(self.config, *self._word_planes(), sys_idx,
+                            dirs=self._split_planes("dirs"))
 
     # single-system aliases matching the other engines' interface (the
     # CLI's `run` path)

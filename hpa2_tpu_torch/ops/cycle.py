@@ -2,10 +2,13 @@
 
 This is the plain version of the cycle body that the CUDA kernel
 (``csrc/cycle.cuh``) runs per system, and it is what a CPU tensor runs
-on.  It translates ``hpa2_tpu/ops/pallas_engine.py:build_cycle`` for
-the unsplit, unpacked, unsharded layout: every op works on whole
+on.  It translates ``hpa2_tpu/ops/pallas_engine.py:build_cycle``
+(without its node-sharded exchange): every op works on whole
 ``[N, ..., B]`` planes, one system per lane, and the result is bit for
-bit the JAX cycle's.
+bit the JAX cycle's.  Sharer sets are lists of SW word tensors (one
+word in the directory word up to 21 nodes, split ``dirs{w}`` planes
+beyond); packed planes are widened to the int32 words at cycle entry
+and narrowed at exit.
 
 Per cycle:
 
@@ -32,9 +35,10 @@ from hpa2_tpu_torch.models.protocol import INVALID_ADDR, MsgType
 from hpa2_tpu_torch.ops.layout import (
     _CW_ADDR_SHIFT, _CW_VAL_SHIFT, _DS, _DU, _DW_SH_SHIFT,
     _DW_STATE_SHIFT, _E, _EM, _I, _M, _NO_MSG, _NSCALAR, _NSLOTS,
-    _NTYPES, _S, _SC_OVERFLOW, _TR_ADDR_SHIFT, _ADDR_MASK,
-    _check_geometry, _check_semantics, _mb_layout,
-    _scalar_layout, deferred_valid, field,
+    _NTYPES, _PACKED_CACHE, _PACKED_DIR, _S, _SC_OVERFLOW, _SPLIT_BPW,
+    _TR_ADDR_SHIFT, _ADDR_MASK, TORCH_DTYPES, _check_geometry,
+    _check_semantics, _mb_layout, _scalar_layout, _sharer_words,
+    _split_mode, deferred_valid, field, packed_plane_dtypes,
 )
 
 I32 = torch.int32
@@ -71,7 +75,33 @@ def _isum(x: torch.Tensor, dim) -> torch.Tensor:
     return x.to(I32).sum(dim, dtype=I32)
 
 
-def build_cycle(config: SystemConfig, snapshots: bool = True):
+def _widen_cache(cvalw, cmetaw) -> torch.Tensor:
+    """Packed cache planes -> the cachew word."""
+    cv, cm = cvalw.to(I32), cmetaw.to(I32)
+    return (cm & 3) | (cv << _CW_VAL_SHIFT) | ((cm >> 2) << _CW_ADDR_SHIFT)
+
+
+def _narrow_cache(cachew, meta_dtype):
+    """The cachew word -> (cvalw, cmetaw)."""
+    return (((cachew >> _CW_VAL_SHIFT) & 0xFF).to(torch.uint8),
+            ((cachew & 3) | ((cachew >> _CW_ADDR_SHIFT) << 2)).to(meta_dtype))
+
+
+def _widen_dir(dmemw, dmetaw) -> torch.Tensor:
+    """Packed directory planes -> the dirw word."""
+    dm, dmt = dmemw.to(I32), dmetaw.to(I32)
+    return dm | ((dmt & 3) << _DW_STATE_SHIFT) | ((dmt >> 2) << _DW_SH_SHIFT)
+
+
+def _narrow_dir(dirw, meta_dtype):
+    """The dirw word -> (dmemw, dmetaw)."""
+    return ((dirw & 0xFF).to(torch.uint8),
+            (((dirw >> _DW_STATE_SHIFT) & 3)
+             | ((dirw >> _DW_SH_SHIFT) << 2)).to(meta_dtype))
+
+
+def build_cycle(config: SystemConfig, snapshots: bool = True,
+                packed: bool = False):
     """The cycle function ``state dict -> state dict`` for ``config``.
     The dict holds the carried planes plus ``tr`` [N, T, B] (the trace
     window) and ``tr_len`` [N, B]."""
@@ -83,7 +113,9 @@ def build_cycle(config: SystemConfig, snapshots: bool = True):
     nack = sem.intervention_miss_policy == "nack"
     layout, W = _mb_layout(config)
     recv_packed = "recv" in layout
-    sh_mask = (1 << n) - 1
+    split = _split_mode(config)
+    SW = _sharer_words(config)
+    sh_mask = (1 << min(n, _SPLIT_BPW)) - 1
 
     def dec(words, name):
         return field(layout, words, name)
@@ -147,21 +179,75 @@ def build_cycle(config: SystemConfig, snapshots: bool = True):
         dw = read(s["dirw"], blk)
         mem_blk = dw & 0xFF
         ds = (dw >> _DW_STATE_SHIFT) & 3
-        dsh = (dw >> _DW_SH_SHIFT) & sh_mask
         pw = pw_in
+
+        # sharer sets as SW-word lists; every helper reduces to the
+        # single-word op when SW == 1
+        if split:
+            dshw = [read(s[f"dirs{w}"], blk) for w in range(SW)]
+        else:
+            dshw = [(dw >> _DW_SH_SHIFT) & sh_mask]
+
+        def sv_bit(proc):
+            """One-hot sharer vector of node id(s); negative -> 0."""
+            if SW == 1:
+                return [_bit(proc)]
+            return [
+                _bit(where((proc >= w * _SPLIT_BPW)
+                           & (proc < (w + 1) * _SPLIT_BPW),
+                           proc - w * _SPLIT_BPW, neg1))
+                for w in range(SW)
+            ]
+
+        def sv_test(sv, proc):
+            if SW == 1:
+                return _test_bit(sv[0], proc)
+            hit = torch.zeros_like(proc)
+            for w in range(SW):
+                b = proc - w * _SPLIT_BPW
+                vw = (sv[w] >> b.clamp(0, _SPLIT_BPW - 1)) & 1
+                hit = hit | where((b >= 0) & (b < _SPLIT_BPW), vw,
+                                  torch.zeros_like(vw))
+            return hit == 1
+
+        def sv_count(sv):
+            cnt = _popcount(sv[0])
+            for w in range(1, SW):
+                cnt = cnt + _popcount(sv[w])
+            return cnt
+
+        def sv_owner(sv):
+            """Lowest set bit across the words."""
+            own = _find_owner(sv[SW - 1])
+            if SW > 1:
+                own = where(own >= 0, own + (SW - 1) * _SPLIT_BPW, own)
+            for w in range(SW - 2, -1, -1):
+                own = where(sv[w] != 0,
+                            _find_owner(sv[w]) + w * _SPLIT_BPW, own)
+            return own
+
+        def sv_where(mask, x, y):
+            return [where(mask, x[w], y[w]) for w in range(SW)]
 
         line_match = line_addr == a
         line_me = (line_state == _M) | (line_state == _E)
-        owner = _find_owner(dsh)
+        owner = sv_owner(dshw)
         owner_is_snd = owner == snd
-        snd_bit = _bit(snd)
+        snd_bitw = sv_bit(snd)
 
         def slot():
             return {"recv": neg1, "w": [zero] * W}
 
-        def pack(type_, addr, aux=None, second=None):
-            """Wire words with the sender field left zero."""
+        def pack(type_, addr, aux=None, second=None, shr=None):
+            """Wire words with the sender field left zero; ``shr`` is a
+            sharer vector (the ``shr{w}`` fields in split mode, the aux
+            union otherwise)."""
             vals = {"type": type_, "addr": addr}
+            if shr is not None:
+                if split:
+                    vals.update({f"shr{w}": shr[w] for w in range(SW)})
+                else:
+                    aux = shr[0]
             if aux is not None:
                 vals["aux"] = aux
             if second is not None:
@@ -198,12 +284,12 @@ def build_cycle(config: SystemConfig, snapshots: bool = True):
             return vv
 
         sA0, sA1 = slot(), slot()
-        inv_sh = zero
+        inv_shw = [zero] * SW
         inv_addr = zero
 
         nl_addr, nl_val, nl_state = line_addr, line_val, line_state
         upd_line = false
-        nd_state, nd_sh = ds, dsh
+        nd_state, nd_shw = ds, list(dshw)
         upd_dir = false
         mem_write = false
         mem_val = mem_blk
@@ -228,8 +314,9 @@ def build_cycle(config: SystemConfig, snapshots: bool = True):
         upd_dir = upd_dir | (mk & (du | dss | fwd))
         nd_state = where(mk & du, const(_EM), nd_state)
         nd_state = where(fwd, const(_DS), nd_state)
-        nd_sh = where(mk & du, snd_bit, nd_sh)
-        nd_sh = where(mk & (dss | fwd), nd_sh | snd_bit, nd_sh)
+        nd_shw = sv_where(mk & du, snd_bitw, nd_shw)
+        nd_shw = sv_where(mk & (dss | fwd),
+                          [x | y for x, y in zip(nd_shw, snd_bitw)], nd_shw)
 
         # --- REPLY_RD -------------------------------------------------
         mk = typ(MsgType.REPLY_RD)
@@ -272,11 +359,12 @@ def build_cycle(config: SystemConfig, snapshots: bool = True):
 
         # --- UPGRADE --------------------------------------------------
         mk = typ(MsgType.UPGRADE) & is_home
-        reply_sh = where(mk & (ds == _DS), dsh & ~snd_bit, zero)
-        put(sA0, mk, snd, pack(int(MsgType.REPLY_ID), a, aux=reply_sh))
+        reply_shw = [where(mk & (ds == _DS), x & ~y, zero)
+                     for x, y in zip(dshw, snd_bitw)]
+        put(sA0, mk, snd, pack(int(MsgType.REPLY_ID), a, shr=reply_shw))
         upd_dir = upd_dir | mk
         nd_state = where(mk, const(_EM), nd_state)
-        nd_sh = where(mk, snd_bit, nd_sh)
+        nd_shw = sv_where(mk, snd_bitw, nd_shw)
 
         # --- REPLY_ID -------------------------------------------------
         mk = typ(MsgType.REPLY_ID)
@@ -285,7 +373,13 @@ def build_cycle(config: SystemConfig, snapshots: bool = True):
         nl_val = where(fill, pw, nl_val)
         nl_state = where(fill, const(_M), nl_state)
         fan = mk & line_match
-        inv_sh = where(fan, aux & ~_bit(iota_n), inv_sh)
+        if split:
+            msg_shw = [dec(heads, f"shr{w}") for w in range(SW)]
+        else:
+            msg_shw = [aux]
+        self_bitw = sv_bit(iota_n)
+        inv_shw = sv_where(fan, [x & ~y for x, y in zip(msg_shw, self_bitw)],
+                           inv_shw)
         inv_addr = where(fan, a, inv_addr)
         waiting = where(mk, zero, waiting)
 
@@ -305,13 +399,14 @@ def build_cycle(config: SystemConfig, snapshots: bool = True):
         put(sA0, mk & (du | (dem & owner_is_snd)), snd,
             pack(int(MsgType.REPLY_WR), a))
         put(sA0, mk & dss, snd,
-            pack(int(MsgType.REPLY_ID), a, aux=dsh & ~snd_bit))
+            pack(int(MsgType.REPLY_ID), a,
+                 shr=[x & ~y for x, y in zip(dshw, snd_bitw)]))
         wr_fwd = mk & dem & ~owner_is_snd
         put(sA0, wr_fwd, owner,
             pack(int(MsgType.WRITEBACK_INV), a, second=snd))
         upd_dir = upd_dir | (mk & (du | dss | wr_fwd))
         nd_state = where(mk & (du | dss), const(_EM), nd_state)
-        nd_sh = where(mk & (du | dss | wr_fwd), snd_bit, nd_sh)
+        nd_shw = sv_where(mk & (du | dss | wr_fwd), snd_bitw, nd_shw)
 
         # --- REPLY_WR -------------------------------------------------
         mk = typ(MsgType.REPLY_WR)
@@ -341,8 +436,8 @@ def build_cycle(config: SystemConfig, snapshots: bool = True):
         mem_val = where(hm, v, mem_val)
         upd_dir = upd_dir | hm
         nd_state = where(hm, const(_EM), nd_state)
-        sr_bit = _bit(sr)
-        nd_sh = where(hm, sr_bit, nd_sh)
+        sr_bitw = sv_bit(sr)
+        nd_shw = sv_where(hm, sr_bitw, nd_shw)
         rq = mk & is_second
         upd_line = upd_line | rq
         nl_addr = where(rq, a, nl_addr)
@@ -353,15 +448,15 @@ def build_cycle(config: SystemConfig, snapshots: bool = True):
         waiting = where(rq, zero, waiting)
 
         # --- EVICT_SHARED (home role) ---------------------------------
-        mk = typ(MsgType.EVICT_SHARED) & is_home & _test_bit(dsh, snd)
-        after = dsh & ~snd_bit
-        cnt = _popcount(after)
+        mk = typ(MsgType.EVICT_SHARED) & is_home & sv_test(dshw, snd)
+        after = [x & ~y for x, y in zip(dshw, snd_bitw)]
+        cnt = sv_count(after)
         upd_dir = upd_dir | mk
-        nd_sh = where(mk, after, nd_sh)
+        nd_shw = sv_where(mk, after, nd_shw)
         nd_state = where(mk & (cnt == 0), const(_DU), nd_state)
         upg = mk & (cnt == 1) & (ds == _DS)
         nd_state = where(upg, const(_EM), nd_state)
-        put(sA0, upg, _find_owner(after),
+        put(sA0, upg, sv_owner(after),
             pack(int(MsgType.UPGRADE_NOTIFY), a))
 
         # --- UPGRADE_NOTIFY -------------------------------------------
@@ -374,10 +469,10 @@ def build_cycle(config: SystemConfig, snapshots: bool = True):
         mk = typ(MsgType.EVICT_MODIFIED) & is_home
         mem_write = mem_write | mk
         mem_val = where(mk, v, mem_val)
-        drop = mk & (ds == _EM) & _test_bit(dsh, snd)
+        drop = mk & (ds == _EM) & sv_test(dshw, snd)
         upd_dir = upd_dir | drop
         nd_state = where(drop, const(_DU), nd_state)
-        nd_sh = where(drop, zero, nd_sh)
+        nd_shw = sv_where(drop, [zero] * SW, nd_shw)
 
         # --- NACK re-serve (robust mode) ------------------------------
         if nack:
@@ -387,8 +482,9 @@ def build_cycle(config: SystemConfig, snapshots: bool = True):
             upd_dir = upd_dir | mk
             nd_state = where(rd, const(_DS), nd_state)
             nd_state = where(wr, const(_EM), nd_state)
-            nd_sh = where(rd, nd_sh | sr_bit, nd_sh)
-            nd_sh = where(wr, sr_bit, nd_sh)
+            nd_shw = sv_where(rd, [x | y for x, y in zip(nd_shw, sr_bitw)],
+                              nd_shw)
+            nd_shw = sv_where(wr, sr_bitw, nd_shw)
             put(sA0, rd, sr, pack(int(MsgType.REPLY_RD), a, aux=mem_blk))
             put(sA0, wr, sr, pack(int(MsgType.REPLY_WR), a))
 
@@ -400,10 +496,14 @@ def build_cycle(config: SystemConfig, snapshots: bool = True):
         cachew = write(s["cachew"], ci, upd_line, cw_val)
         new_mem = where(mem_write, mem_val, mem_blk)
         new_ds = where(upd_dir, nd_state, ds)
-        new_sh = where(upd_dir, nd_sh, dsh)
-        dw_val = (
-            new_mem | (new_ds << _DW_STATE_SHIFT) | (new_sh << _DW_SH_SHIFT)
-        )
+        new_shw = sv_where(upd_dir, nd_shw, dshw)
+        dw_val = new_mem | (new_ds << _DW_STATE_SHIFT)
+        if split:
+            dirsp = [write(s[f"dirs{w}"], blk, upd_dir, new_shw[w])
+                     for w in range(SW)]
+        else:
+            dw_val = dw_val | (new_shw[0] << _DW_SH_SHIFT)
+            dirsp = []
         dirw = write(s["dirw"], blk, mem_write | upd_dir, dw_val)
 
         # ===== phase B: instruction issue ============================
@@ -469,7 +569,11 @@ def build_cycle(config: SystemConfig, snapshots: bool = True):
         merge_slot(sA1, 1)
         pend_inv = dv[:, 2, :] != 0
         ob2 = [s[f"ob{w}"][:, 2, :] for w in range(W)]
-        inv_sh = where(pend_inv, dec(ob2, "aux"), inv_sh)
+        if split:
+            ob2_shw = [dec(ob2, f"shr{w}") for w in range(SW)]
+        else:
+            ob2_shw = [dec(ob2, "aux")]
+        inv_shw = sv_where(pend_inv, ob2_shw, inv_shw)
         inv_addr = where(pend_inv, dec(ob2, "addr"), inv_addr)
         merge_slot(sB0, 3)
         merge_slot(sB1, 4)
@@ -510,7 +614,8 @@ def build_cycle(config: SystemConfig, snapshots: bool = True):
         for sender in range(n):
             vA0 = iota_n == sA0["recv"][sender][None, :]
             vA1 = iota_n == sA1["recv"][sender][None, :]
-            vInv = _test_bit(inv_sh[sender][None, :].expand(n, bb), iota_n)
+            vInv = sv_test([x[sender][None, :].expand(n, bb) for x in inv_shw],
+                           iota_n)
             wsel = [
                 where(vA1, words5[1][w][sender][None, :],
                       where(vInv, words5[2][w][sender][None, :],
@@ -533,8 +638,17 @@ def build_cycle(config: SystemConfig, snapshots: bool = True):
             [torch.stack(acc_masks[k], 0) for k in range(_NSLOTS)], 1
         )
         dcount = _isum(accs, 2)                                # [S, 5, B]
-        rbit = torch.arange(n, dtype=I32, device=dev)[None, :, None]
-        remaining = inv_sh & ~_isum(accs[:, 2] << rbit, 1)
+        # the INV remainder: the fan-out mask minus accepted receivers
+        remaining = []
+        for w in range(SW):
+            lo = w * _SPLIT_BPW
+            hi = min(n, lo + _SPLIT_BPW)
+            rbit = torch.arange(hi - lo, dtype=I32, device=dev)[None, :, None]
+            remaining.append(
+                inv_shw[w] & ~_isum(accs[:, 2, lo:hi] << rbit, 1))
+        rem_any = remaining[0]
+        for w in range(1, SW):
+            rem_any = rem_any | remaining[w]
 
         md = _isum(dcount, (0, 1))                             # [B]
         type_arr = torch.stack(
@@ -550,14 +664,19 @@ def build_cycle(config: SystemConfig, snapshots: bool = True):
         ]
         # non-deferred slots write a zero word, so deferred_valid() of
         # the next cycle is exact
-        defer5 = [rej[0], rej[1], (remaining != 0).to(I32), rej[2], rej[3]]
+        defer5 = [rej[0], rej[1], (rem_any != 0).to(I32), rej[2], rej[3]]
         recvs5 = [sl["recv"] for sl in slots5]
-        aux_w, aux_off, _ = layout["aux"]
+        rem_fields = (
+            [(f"shr{w}", remaining[w]) for w in range(SW)] if split
+            else [("aux", remaining[0])]
+        )
         ob_new = []
         for w in range(W):
             ws = [words5[k][w] for k in range(_NSLOTS)]
-            if w == aux_w:
-                ws[2] = ws[2] | (remaining << aux_off)
+            for fname, rw in rem_fields:
+                fw, foff, _ = layout[fname]
+                if fw == w:
+                    ws[2] = ws[2] | (rw << foff)
             if recv_packed and w == layout["recv"][0]:
                 recv_off = layout["recv"][1]
                 ws = [
@@ -588,6 +707,8 @@ def build_cycle(config: SystemConfig, snapshots: bool = True):
                 [where(defer5[k] != 0, recvs5[k], neg1)
                  for k in range(_NSLOTS)], 1
             )
+        for w in range(len(dirsp)):
+            out[f"dirs{w}"] = dirsp[w]
         for w in range(W):
             out[f"mb{w}"] = mbs[w]
             out[f"ob{w}"] = ob_new[w]
@@ -603,6 +724,9 @@ def build_cycle(config: SystemConfig, snapshots: bool = True):
             out["snap_taken"] = (taken | done_node).to(I32)
             out["snap_cachew"] = where(s2, cachew, s["snap_cachew"])
             out["snap_dirw"] = where(s2, dirw, s["snap_dirw"])
+            for w in range(len(dirsp)):
+                out[f"snap_dirs{w}"] = where(s2, dirsp[w],
+                                             s[f"snap_dirs{w}"])
 
         # ===== counters ==============================================
         # a lane accrues a cycle only while it has outstanding work at
@@ -633,4 +757,27 @@ def build_cycle(config: SystemConfig, snapshots: bool = True):
         out["msg_counts"] = s["msg_counts"] + mc
         return out
 
-    return cycle
+    if not packed:
+        return cycle
+
+    pdt = {f: TORCH_DTYPES[d] for f, d in packed_plane_dtypes(config).items()}
+    prefixes = [""] + (["snap_"] if snapshots else [])
+
+    def packed_cycle(s: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The same cycle over the narrow planes, widened at entry and
+        narrowed at exit (lossless both ways)."""
+        wide = dict(s)
+        for pre in prefixes:
+            wide[f"{pre}cachew"] = _widen_cache(
+                *(wide.pop(pre + f) for f in _PACKED_CACHE))
+            wide[f"{pre}dirw"] = _widen_dir(
+                *(wide.pop(pre + f) for f in _PACKED_DIR))
+        out = cycle(wide)
+        for pre in prefixes:
+            out[f"{pre}cvalw"], out[f"{pre}cmetaw"] = _narrow_cache(
+                out.pop(f"{pre}cachew"), pdt["cmetaw"])
+            out[f"{pre}dmemw"], out[f"{pre}dmetaw"] = _narrow_dir(
+                out.pop(f"{pre}dirw"), pdt["dmetaw"])
+        return out
+
+    return packed_cycle

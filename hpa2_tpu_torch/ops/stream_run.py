@@ -30,10 +30,21 @@ import torch
 from hpa2_tpu_torch.config import SystemConfig
 from hpa2_tpu_torch.ops.cycle import build_cycle
 from hpa2_tpu_torch.ops.layout import (
-    _GATE, _mb_layout, _scalar_layout, _state_fields, deferred_valid,
+    _GATE, _scalar_layout, deferred_valid, fields_of,
 )
 
 I32 = torch.int32
+
+
+def _keep(mask: torch.Tensor, new: torch.Tensor,
+          old: torch.Tensor) -> torch.Tensor:
+    """``new`` on the lanes of ``mask``, else ``old``.  A u16 plane is
+    selected through its int16 view (the same bits): CUDA has no
+    ``where`` for u16."""
+    if new.dtype == torch.uint16:
+        return torch.where(mask, new.view(torch.int16),
+                           old.view(torch.int16)).view(torch.uint16)
+    return torch.where(mask, new, old)
 
 
 def active_count(config: SystemConfig, st, tl, slsc) -> torch.Tensor:
@@ -52,12 +63,12 @@ def active_count(config: SystemConfig, st, tl, slsc) -> torch.Tensor:
 def stream_run_plain(config: SystemConfig, state: Dict[str, torch.Tensor],
                      tr: torch.Tensor, tr_len: torch.Tensor, *,
                      block: int, k: int, window: int, n_seg: int,
-                     max_calls: int, gate: bool, snapshots: bool):
+                     max_calls: int, gate: bool, snapshots: bool,
+                     packed: bool = False):
     """Run every system to the end of its trace.  Returns the new
     carried planes and the [1, B] per-lane stall plane."""
-    layout, W = _mb_layout(config)
-    fields = _state_fields(W, snapshots, "recv" in layout)
-    cycle = build_cycle(config, snapshots)
+    fields = fields_of(config, snapshots, packed)
+    cycle = build_cycle(config, snapshots, packed)
     slsc = _scalar_layout(config, window)
     b = tr_len.shape[1]
     nb = b // block
@@ -84,7 +95,7 @@ def stream_run_plain(config: SystemConfig, state: Dict[str, torch.Tensor],
             for _ in range(cycles):
                 out = cycle({**st, "tr": trw, "tr_len": tl})
                 st = {
-                    f: out[f] if every else torch.where(lanes, out[f], st[f])
+                    f: out[f] if every else _keep(lanes, out[f], st[f])
                     for f in fields
                 }
 

@@ -1,6 +1,7 @@
 """``python -m hpa2_tpu_torch run --device cpu`` writes the same dump
-bytes as ``python -m hpa2_tpu.cli run --backend spec`` on a synthesized
-trace directory, and ``bench --device cpu`` retires every instruction."""
+bytes as ``python -m hpa2_tpu.cli run --backend spec`` (and, on a
+33-node system, ``--backend pallas``) on a synthesized trace directory,
+and ``bench --device cpu`` retires every instruction."""
 
 import json
 import os
@@ -54,6 +55,25 @@ def test_run_matches_spec_cli_bytes(tmp_path, final_dump):
     assert "[cpu]" in proc.stderr
     want = _outputs(want_dir)
     assert len(want) == 4
+    assert _outputs(got_dir) == want
+
+
+@pytest.mark.filterwarnings(
+    "ignore:pltpu.ANY is deprecated:DeprecationWarning")
+def test_run_33_nodes_matches_pallas_cli_bytes(tmp_path):
+    """A split-plane system (two sharer words) through both CLIs."""
+    traces = tmp_path / "traces"
+    traces.mkdir()
+    _write_traces(traces, seed=5, n=33, t=4, n_addr=33 * 4)
+    geom = ["--nodes", "33", "--cache-size", "2", "--mem-size", "4",
+            "--msg-buffer-size", "16", "--robust"]
+    want_dir, got_dir = tmp_path / "pallas", tmp_path / "port"
+    assert jcli.main(["run", str(traces), "--backend", "pallas",
+                      "--out", str(want_dir)] + geom) == 0
+    assert cli.main(["run", str(traces), "--device", "cpu",
+                     "--out", str(got_dir)] + geom) == 0
+    want = _outputs(want_dir)
+    assert len(want) == 33
     assert _outputs(got_dir) == want
 
 

@@ -15,6 +15,7 @@ import pytest
 from hpa2_tpu.models.spec_engine import SpecEngine
 from hpa2_tpu.utils.trace import gen_local_only, gen_uniform_random_arrays
 from hpa2_tpu_torch.config import InterconnectConfig, Semantics, SystemConfig
+from hpa2_tpu_torch.ops import kernels
 from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
 from hpa2_tpu_torch.ops.layout import StallError
 from torch_pairs import (
@@ -106,8 +107,6 @@ def _arrays(cfg, b=2, t=4):
 @pytest.mark.parametrize(
     "cfg_kw,eng_kw,match",
     [
-        (dict(num_procs=22, cache_size=2, mem_size=4), {}, "split"),
-        ({}, dict(packed=True), "packed"),
         ({}, dict(stream=False), "stream=False"),
         ({}, dict(schedule=object()), "schedule"),
         ({}, dict(trace_window=2), "snapshots=False"),
@@ -132,3 +131,16 @@ def test_block_above_kernel_limit_refused():
     with pytest.raises(ValueError, match="1024"):
         CudaEngine(cfg, *_arrays(cfg, b=2048, t=1), block=2048,
                    device="cpu")
+
+
+def test_kernel_node_bound():
+    """The CUDA kernel's frame is sized for at most 64 nodes: a wider
+    system is refused on the card, and runs on the plain version."""
+    cfg = SystemConfig(num_procs=65, cache_size=2, mem_size=4,
+                       msg_buffer_size=16, semantics=Semantics().robust())
+    kernels.check_kernel_bound(SystemConfig(num_procs=64))
+    with pytest.raises(ValueError, match="node bound of 64"):
+        kernels.check_kernel_bound(cfg)
+    ce = CudaEngine(cfg, *_arrays(cfg, b=2, t=1), block=2, snapshots=False,
+                    device="cpu").run()
+    assert ce.instructions == 2 * 65
