@@ -2,7 +2,10 @@
 in both packages, and the port's engine run beside ``PallasEngine`` on
 the same traces."""
 
+import warnings
+
 import numpy as np
+from jax.experimental.pallas import tpu as pltpu
 
 from hpa2_tpu.config import Semantics as JSemantics
 from hpa2_tpu.config import SystemConfig as JSystemConfig
@@ -18,6 +21,25 @@ from hpa2_tpu_torch.ops.layout import StallError
 #: the streamed JAX run reaches ``pltpu.ANY``, whose deprecation is the
 #: JAX package's and not the port's
 IGNORE_PLTPU_ANY = "ignore:pltpu.ANY is deprecated:DeprecationWarning"
+
+
+def _settle_pltpu_any():
+    """Look ``pltpu.ANY`` up once, with its deprecation ignored.
+
+    jax caches a deprecated attribute of ``pltpu`` only after a lookup
+    that did not raise, and ``pytest.ini`` raises the deprecation when
+    ``hpa2_tpu`` reaches it. So whether a JAX test that builds the
+    streamed path failed on it depended on whether a test that ignores
+    it had run first in the same process. This module is imported while
+    tests are collected, before any of them runs, so each process starts
+    the run with the attribute settled and the outcome no longer depends
+    on the order of the tests."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        getattr(pltpu, "ANY", None)
+
+
+_settle_pltpu_any()
 
 
 def config_pair(robust: bool, **kw):
