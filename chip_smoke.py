@@ -3,22 +3,40 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernel from ``hpa2_tpu_torch/csrc`` with nvcc (node
-bounds 8, 21 and 64), holds it bit for bit against its plain PyTorch
-version on the card (cases a-e at up to 8 nodes; f: split sharer
-planes at 22, 33 and 64 nodes; g: packed planes), drives the streamed
-fast path (``CudaEngine``) at the repo's headline width (32,768 systems
-x 8 nodes x 128 instructions per core) and at its 64-node single-chip
-width (1,024 systems x 64 nodes x 64 instructions, unpacked and
-packed; ``scripts/scale_runs.py``'s single-device rung), the ``run``
-command on a small trace directory and the ``bench`` command, and
-prints:
+Builds both CUDA kernels from ``hpa2_tpu_torch/csrc`` with nvcc, the two
+compilers at once (the streamed run ``stream_run.cu`` and the per-call
+kernel ``call_run.cu``, each for node bounds 8, 21 and 64), holds each
+bit for bit against its plain PyTorch version on the card (streamed
+run: cases a-e at up to 8 nodes, f: split sharer planes at 22, 33 and
+64 nodes, g: packed planes; per-call kernel under its host loop:
+case h at 4, 8, 22 and 33 nodes, ragged windows, gate on and off,
+packed, and a stall), and drives through ``CudaEngine``:
+
+* the streamed fast path at the repo's headline width (32,768 systems
+  x 8 nodes x 128 instructions per core) and at its 64-node
+  single-chip width (1,024 systems x 64 nodes x 64 instructions,
+  unpacked and packed; ``scripts/scale_runs.py``'s single-device
+  rung);
+* the per-call path (``stream=False``) at the same two widths, held
+  against the streamed run's planes;
+* the occupancy scheduler on ``bench.py --trace-len-dist zipf``'s
+  workload at the headline shape: unscheduled, fused, fused with 8,192
+  resident lanes, the same with host barriers, and with the per-call
+  kernel inside;
+* a resident-lane session (``CudaLaneSession``) against the one-shot
+  run;
+* the ``run`` command on a small trace directory and the ``bench``
+  command, unscheduled and scheduled,
+
+and prints:
 
 * the card's name and power limit (``nvidia-smi``);
-* one ``{"kernels": [...]}`` line: per kernel its launches on the
-  64-node path, its largest disagreement with the plain version, its
-  time and the plain version's at that shape, and its bytes bound
-  (``by_path`` holds the same for every path driven);
+* the host syncs of each path (``[syncs]``);
+* one ``{"kernels": [...]}`` line: per kernel its launches on its main
+  path (the 64-node streamed run; the headline per-call run), its
+  largest disagreement with the plain version, its time and the plain
+  version's at that shape, and its bytes bound (``by_path`` holds the
+  same for every path driven);
 * last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero and prints no
@@ -302,9 +320,9 @@ def drive_path(label, cfg, b, t, run, *, packed=False, ref=None,
         kern.launches = 0
     _, run_ms = elapsed_ms(eng.run)
     launches = {kern.name: kern.launches for kern in kernels.KERNELS}
-    if 0 in launches.values():
+    if launches["stream_run"] == 0 or launches["call_run"] != 0:
         raise AssertionError(
-            f"{label}: a kernel of the path never ran: {launches}")
+            f"{label}: the streamed kernel did not run alone: {launches}")
     want_instr = int(arrays[3].sum())
     if eng.instructions != want_instr:
         raise AssertionError(
@@ -371,6 +389,414 @@ def drive_path(label, cfg, b, t, run, *, packed=False, ref=None,
                 state=got)
 
 
+def plain_call(cfg, state, tr, tr_len, **kw):
+    """One call of the per-call kernel's plain version, in place."""
+    from hpa2_tpu_torch.ops.call_run import call_plain
+
+    for f, v in call_plain(cfg, state, tr, tr_len, **kw).items():
+        state[f].copy_(v)
+
+
+def per_call_kernel(cfg, state, tr, tr_len, kw):
+    """The per-call kernel under its host loop on fresh copies of
+    ``state``, each launch timed by CUDA events.  Returns (per-launch
+    ms, planes, status word, host reads of the loop)."""
+    from hpa2_tpu_torch.ops import kernels
+    from hpa2_tpu_torch.ops.call_run import run_windows
+
+    events = []
+
+    def timed(*a, **k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        kernels.call_run(*a, **k)
+        end.record()
+        events.append((start, end))
+
+    got = {f: v.clone() for f, v in state.items()}
+    reads = kernels.HOST_SYNCS.count
+    status = int(run_windows(cfg, got, tr, tr_len, call=timed, **kw))
+    reads = kernels.HOST_SYNCS.count - reads
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in events], got, status, reads
+
+
+def per_call_vs_plain(label, cfg, b, t, seed, *, snapshots, block, k,
+                      window, gate, max_calls, stall, packed=False):
+    """The per-call kernel under its host loop and the same loop over the
+    plain version, from the same planes; every carried plane and the
+    status word must agree, and the stall must be as ``stall`` says
+    (True, False, or None for either)."""
+    from hpa2_tpu_torch.ops.call_run import run_windows
+
+    state, tr, tr_len, n_seg = planes_for(cfg, b, t, seed, snapshots, window,
+                                          packed)
+    kw = dict(block=block, k=k, window=window, n_seg=n_seg,
+              max_calls=max_calls, gate=gate, snapshots=snapshots,
+              packed=packed)
+    times, got, status, reads = per_call_kernel(cfg, state, tr, tr_len, kw)
+    if stall is not None and bool(status & 1) != stall:
+        raise AssertionError(
+            f"{label}: the kernel {'did not stall' if stall else 'stalled'}")
+    want = {f: v.clone() for f, v in state.items()}
+    want_status, plain_ms = elapsed_ms(lambda: int(run_windows(
+        cfg, want, tr, tr_len, call=plain_call, **kw)))
+    diff = plane_diff(cfg, snapshots, got, want, packed)
+    diff["status"] = abs(status - want_status)
+    err = max(diff.values())
+    print(f"[compare] {label}: {b} systems x {cfg.num_procs} nodes x {t} "
+          f"instrs, cache {cfg.cache_size}, mem {cfg.mem_size}, cap "
+          f"{cfg.msg_buffer_size}, block {block}, window {window}, k {k}, "
+          f"gate {gate}, snapshots {snapshots}, packed {packed}: status "
+          f"{status}, {len(times)} launches, {reads} host reads, "
+          f"max_abs_err={err} kernel {sum(times):.3f} ms summed over "
+          f"launches, plain {plain_ms:.1f} ms")
+    check_diff(label, diff)
+    return dict(err=err, ms=sum(times), plain_ms=plain_ms,
+                launches=len(times), state=got, status=status, reads=reads)
+
+
+def phase_call_compare():
+    """Case (h): the per-call kernel against its plain version."""
+    from hpa2_tpu_torch.config import Semantics, SystemConfig
+
+    robust = Semantics().robust()
+    errs = []
+    cfg4 = SystemConfig(semantics=robust)
+    for gate in (True, False):
+        errs.append(per_call_vs_plain(
+            f"h 4 nodes gate {gate}", cfg4, 256, 32, 21, snapshots=True,
+            block=64, k=32, window=32, gate=gate, max_calls=10_000,
+            stall=False)["err"])
+    cfg8 = SystemConfig(semantics=robust, **HEADLINE)
+    for w, t, gate in ((7, 20, False), (8, 40, True), (1, 6, True)):
+        errs.append(per_call_vs_plain(
+            f"h 8 nodes window {w}/{t}", cfg8, 1024, t, 22 + w,
+            snapshots=False, block=256, k=32, window=w, gate=gate,
+            max_calls=10_000, stall=False)["err"])
+    cfg22 = SystemConfig(num_procs=22, cache_size=2, mem_size=4,
+                         msg_buffer_size=16, semantics=robust)
+    errs.append(per_call_vs_plain(
+        "h 22 nodes", cfg22, 256, 12, 23, snapshots=True, block=64, k=32,
+        window=12, gate=True, max_calls=10_000, stall=False)["err"])
+    cfg33 = SystemConfig(num_procs=33, cache_size=4, mem_size=8,
+                         msg_buffer_size=32, semantics=robust)
+    errs.append(per_call_vs_plain(
+        "h 33 nodes", cfg33, 256, 20, 24, snapshots=False, block=128, k=64,
+        window=10, gate=False, max_calls=10_000, stall=False)["err"])
+    errs.append(per_call_vs_plain(
+        "h packed 8 nodes", cfg8, 2048, 64, 25, snapshots=False,
+        max_calls=10_000, stall=False, packed=True, **HEADLINE_RUN)["err"])
+    errs.append(per_call_vs_plain(
+        "h packed 22 nodes", cfg22, 256, 12, 26, snapshots=True, block=64,
+        k=32, window=12, gate=True, max_calls=10_000, stall=False,
+        packed=True)["err"])
+    # 8 nodes, 4 mailbox slots: some systems deadlock, so the budget is
+    # short and the stall status must agree
+    cfg_cap4 = SystemConfig(num_procs=8, msg_buffer_size=4, semantics=robust)
+    errs.append(per_call_vs_plain(
+        "h cap4", cfg_cap4, 256, 32, 4, snapshots=False, block=32, k=128,
+        window=32, gate=True, max_calls=8, stall=None)["err"])
+    return max(errs)
+
+
+def drive_per_call_path(label, cfg, b, t, run, ref, packed=False):
+    """The per-call path at full width: ``CudaEngine(stream=False).run()``
+    with the counts read around it, then the kernel alone under its
+    loop (each launch timed) and the plain version, all held against
+    each other and against the streamed run's planes ``ref``; the bytes
+    bound counts every call: state read and written once, the window's
+    traces read once."""
+    from hpa2_tpu_torch.ops import kernels
+    from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
+    from hpa2_tpu_torch.ops.layout import _SC_CYCLE
+    from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
+
+    arrays = gen_uniform_random_arrays(cfg, b, t, seed=0)
+
+    def engine():
+        return CudaEngine(cfg, *arrays, block=run["block"],
+                          cycles_per_call=run["k"], snapshots=False,
+                          trace_window=run["window"], gate=run["gate"],
+                          stream=False, packed=packed)
+
+    engine().run()  # warm-up
+    eng = engine()
+    torch.cuda.synchronize()
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    syncs = kernels.HOST_SYNCS.count
+    _, run_ms = elapsed_ms(eng.run)
+    launches = {kern.name: kern.launches for kern in kernels.KERNELS}
+    syncs = kernels.HOST_SYNCS.count - syncs
+    if launches["call_run"] == 0 or launches["stream_run"] != 0:
+        raise AssertionError(f"{label}: launches {launches}")
+    if eng.instructions != int(arrays[3].sum()):
+        raise AssertionError(f"{label}: not every instruction retired")
+    res = per_call_vs_plain(label, cfg, b, t, 0, snapshots=False,
+                            max_calls=10_000, stall=False, packed=packed,
+                            **run)
+    err = max(res["err"],
+              check_diff(label, plane_diff(cfg, False, eng.state,
+                                           res["state"], packed)),
+              check_diff(label, plane_diff(cfg, False, eng.state, ref,
+                                           packed)))
+    if res["launches"] != launches["call_run"] or \
+            syncs != res["reads"] + 1:
+        raise AssertionError(
+            f"{label}: the engine made {launches['call_run']} launches and "
+            f"{syncs} host reads, the kernel alone {res['launches']} and "
+            f"{res['reads']} (+1 status read)")
+    state_bytes = sum(v.numel() * v.element_size()
+                      for v in eng.state.values())
+    n, w = cfg.num_procs, run["window"]
+    window_bytes = (n * w * b + n * b) * 4
+    moved = res["launches"] * (2 * state_bytes + window_bytes)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    lane_cycles = int(eng.state["scalars"][_SC_CYCLE].long().sum())
+    ops_ms = lane_cycles * n / SCALAR_OPS_PER_S * 1e3
+    print(f"[{label}] {b} systems x {n} nodes x {t} instrs (block "
+          f"{run['block']}, window {w}, k {run['k']}, packed {packed}, "
+          f"stream=False): status 0, {eng.instructions} RD/WR retired, max "
+          f"cycle {eng.cycle}, {lane_cycles} system-cycles; planes equal "
+          "the streamed run's")
+    rate = eng.instructions / run_ms * 1e3
+    print(f"[{label}] engine run {run_ms:.3f} ms ({rate:.4e} RD/WR ops/s), "
+          f"{launches['call_run']} launches, "
+          f"{syncs} host syncs; kernel {res['ms']:.3f} ms summed over "
+          f"launches; plain {res['plain_ms']:.1f} ms")
+    print(f"[{label}] bytes bound: {res['launches']} calls x ({state_bytes} "
+          f"B state read and written + {window_bytes} B window) = {moved} B "
+          f"/ 3.35 TB/s = {bytes_ms:.4f} ms; ops floor {ops_ms:.4f} ms")
+    print(f"[syncs] {label}: {syncs} host syncs in one run() "
+          f"({res['reads']} quiescence reads of the per-call loop over "
+          f"{launches['call_run']} calls, 1 status read)")
+    return dict(launches=launches, err=err, ms=res["ms"],
+                plain_ms=res["plain_ms"],
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                run_ms=run_ms, syncs=syncs)
+
+
+#: bench.py --trace-len-dist zipf at its defaults, at the headline shape
+ZIPF_BATCH, ZIPF_INSTRS, ZIPF_SPREAD, ZIPF_RESIDENT = 32768, 128, 8.0, 8192
+
+
+def phase_scheduled():
+    """The occupancy scheduler at full width: five runs of the zipf
+    workload; the dump planes (``cachew``, ``dirw``), ``scalars`` and
+    ``msg_counts`` of each equal the unscheduled run's, the fused and
+    host-barrier runs with 8,192 resident lanes equal plane for plane,
+    and so do the runs with the streamed and the per-call kernel
+    inside."""
+    from hpa2_tpu_torch.config import Semantics, SystemConfig
+    from hpa2_tpu_torch.ops import kernels
+    from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
+    from hpa2_tpu_torch.ops.schedule import Schedule
+    from hpa2_tpu_torch.utils.trace import gen_heterogeneous_random_arrays
+
+    cfg = SystemConfig(semantics=Semantics().robust(), **HEADLINE)
+    arrays = gen_heterogeneous_random_arrays(
+        cfg, ZIPF_BATCH, ZIPF_INSTRS, dist="zipf", spread=ZIPF_SPREAD, seed=0)
+    want_instr = int(arrays[3].sum())
+    base = dict(block=HEADLINE_RUN["block"],
+                cycles_per_call=HEADLINE_RUN["k"], snapshots=False,
+                trace_window=HEADLINE_RUN["window"],
+                gate=HEADLINE_RUN["gate"])
+    runs = [
+        ("unscheduled", {}),
+        ("fused", dict(schedule=Schedule())),
+        ("resident 8192 fused", dict(schedule=Schedule(
+            resident=ZIPF_RESIDENT))),
+        ("resident 8192 host barriers", dict(schedule=Schedule(
+            resident=ZIPF_RESIDENT, fused=False))),
+        ("resident 8192 per-call", dict(schedule=Schedule(
+            resident=ZIPF_RESIDENT), stream=False)),
+    ]
+    out, states = {}, {}
+    for label, kw in runs:
+        CudaEngine(cfg, *arrays, **base, **kw).run()  # warm-up
+        eng = CudaEngine(cfg, *arrays, **base, **kw)
+        torch.cuda.synchronize()
+        for kern in kernels.KERNELS:
+            kern.launches = 0
+        syncs = kernels.HOST_SYNCS.count
+        t0 = time.perf_counter()
+        _, ms = elapsed_ms(eng.run)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        syncs = kernels.HOST_SYNCS.count - syncs
+        launches = {kern.name: kern.launches for kern in kernels.KERNELS}
+        used = "call_run" if kw.get("stream") is False else "stream_run"
+        if launches[used] == 0:
+            raise AssertionError(f"scheduled {label}: launches {launches}")
+        if eng.instructions != want_instr:
+            raise AssertionError(
+                f"scheduled {label}: {eng.instructions} of {want_instr} "
+                "instructions retired")
+        occ = eng.occupancy.as_dict() if eng.occupancy else None
+        sched = kw.get("schedule")
+        if sched is not None and sched.fused and used == "stream_run" \
+                and syncs != 1:
+            raise AssertionError(
+                f"scheduled {label}: {syncs} host syncs, not 1")
+        if sched is not None and not sched.fused \
+                and syncs != occ["intervals"]:
+            raise AssertionError(
+                f"scheduled {label}: {syncs} host syncs over "
+                f"{occ['intervals']} intervals")
+        if used == "call_run" and syncs != 1 + occ["intervals"] + \
+                launches["call_run"]:
+            raise AssertionError(
+                f"scheduled {label}: {syncs} host syncs, not 1 + "
+                f"{occ['intervals']} window-base reads + "
+                f"{launches['call_run']} per-call reads")
+        states[label] = eng.state
+        print(f"[scheduled] {label}: {ZIPF_BATCH} systems x 8 nodes x up to "
+              f"{ZIPF_INSTRS} instrs (zipf, spread {ZIPF_SPREAD}, seed 0), "
+              f"{eng.instructions} RD/WR retired; run {ms:.3f} ms by CUDA "
+              f"events, {host_ms:.3f} ms by the host clock "
+              f"({eng.instructions / ms * 1e3:.4e} RD/WR ops/s); launches "
+              f"{launches}; {syncs} host syncs; occupancy {occ}")
+        out[label] = dict(ms=ms, launches=launches, syncs=syncs,
+                          occupancy=occ)
+    ref = states["unscheduled"]
+    for label, st in states.items():
+        diff = {f: int((st[f].long() - ref[f].long()).abs().max())
+                for f in ("cachew", "dirw", "scalars", "msg_counts")}
+        check_diff(f"scheduled {label} against unscheduled", diff)
+    a, b, c = (states[x] for x in ("resident 8192 fused",
+                                   "resident 8192 host barriers",
+                                   "resident 8192 per-call"))
+    check_diff("scheduled fused against host barriers",
+               {f: int((a[f].long() - b[f].long()).abs().max()) for f in a})
+    check_diff("scheduled streamed against per-call",
+               {f: int((a[f].long() - c[f].long()).abs().max()) for f in a})
+    print("[scheduled] dump planes, scalars and msg_counts of every run "
+          "equal the unscheduled run's; resident 8192: fused, host-barrier "
+          "and per-call runs equal plane for plane")
+
+    # the host's share of the runs above, timed alone: the plan replay
+    # of the fused runs, and the host-barrier loop's replay with its
+    # window assembly
+    from hpa2_tpu_torch.ops.cuda_engine import interval_windows
+    from hpa2_tpu_torch.ops.layout import _pack_traces
+    from hpa2_tpu_torch.ops.schedule import (
+        LaneScheduler, build_plan, segments_needed,
+    )
+
+    w, block = HEADLINE_RUN["window"], HEADLINE_RUN["block"]
+    tr = _pack_traces(cfg, *arrays)
+    tl = np.ascontiguousarray(arrays[3].T)
+    nseg = segments_needed(tl, w)
+    replay = {}
+    for resident in (ZIPF_BATCH, ZIPF_RESIDENT):
+        t0 = time.perf_counter()
+        build_plan(nseg, resident=resident, block=block)
+        replay[resident] = (time.perf_counter() - t0) * 1e3
+    sched = LaneScheduler(nseg, resident=ZIPF_RESIDENT, block=block)
+    t0 = time.perf_counter()
+    assemble = 0.0
+    while not sched.done():
+        live = sched.begin_interval()
+        t1 = time.perf_counter()
+        interval_windows(tr, tl, sched.lane_sys, sched.lane_seg, live, w)
+        assemble += time.perf_counter() - t1
+        sched.end_interval()
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[scheduled] host work timed alone: plan replay "
+          f"{replay[ZIPF_BATCH]:.1f} ms (all resident), "
+          f"{replay[ZIPF_RESIDENT]:.1f} ms (8192 resident); host-barrier "
+          f"loop {loop_ms:.1f} ms over {sched.stats.intervals} intervals, "
+          f"{assemble * 1e3:.1f} ms of it window assembly")
+    out["host"] = dict(replay_all=replay[ZIPF_BATCH],
+                       replay_resident=replay[ZIPF_RESIDENT],
+                       host_barrier_loop=loop_ms, assembly=assemble * 1e3)
+    return out
+
+
+def phase_session():
+    """A resident-lane session (512 systems through 256 lanes, windows
+    of 16) on the card, with the streamed and the per-call kernel,
+    against the one-shot run: every harvested system's planes equal its
+    one-shot columns, the resident planes keep their storage, and every
+    compile count is 1."""
+    from hpa2_tpu_torch.config import Semantics, SystemConfig
+    from hpa2_tpu_torch.ops import kernels
+    from hpa2_tpu_torch.ops.cuda_engine import CudaEngine, interval_windows
+    from hpa2_tpu_torch.ops.layout import _pack_traces
+    from hpa2_tpu_torch.ops.schedule import LaneScheduler, segments_needed
+    from hpa2_tpu_torch.ops.session import CudaLaneSession
+    from hpa2_tpu_torch.utils.trace import gen_heterogeneous_random_arrays
+
+    cfg = SystemConfig(semantics=Semantics().robust(), **HEADLINE)
+    b, t, w, r, block, k = 512, 64, 16, 256, 128, 64
+    arrays = gen_heterogeneous_random_arrays(cfg, b, t, dist="zipf",
+                                             spread=4.0, seed=5)
+    tr = _pack_traces(cfg, *arrays)
+    tl = np.ascontiguousarray(arrays[3].T)
+    one_shot = CudaEngine(cfg, *arrays, block=block, cycles_per_call=k,
+                          snapshots=False, trace_window=w).run()
+    out = {}
+    for stream in (True, False):
+        sess = CudaLaneSession(cfg, r, w, block=block, cycles_per_call=k,
+                               stream=stream)
+        ptrs = {f: v.data_ptr() for f, v in sess.state.items()}
+        sched = LaneScheduler(segments_needed(tl, w), resident=r,
+                              block=block)
+        for kern in kernels.KERNELS:
+            kern.launches = 0
+        harvested, pending = {}, None
+        t0 = time.perf_counter()
+        while not sched.done():
+            live = sched.begin_interval()
+            status = sess.advance(*sess.stage(*interval_windows(
+                tr, tl, sched.lane_sys, sched.lane_seg, live, w)))
+            plan = sched.end_interval()
+            for lane, s in plan.finished:
+                harvested[s] = sess.harvest(lane)
+            if not plan.trivial:
+                perm = plan.perm if plan.perm is not None else np.arange(r)
+                reset = np.zeros(r, bool)
+                reset[[lane for lane, _ in plan.admitted]] = True
+                sess.barrier(perm, reset)
+            if pending is not None:
+                sess.check(pending)  # one interval behind
+            pending = status
+        sess.check(pending)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        launches = {kern.name: kern.launches for kern in kernels.KERNELS}
+        used = "stream_run" if stream else "call_run"
+        if launches[used] == 0:
+            raise AssertionError(f"session: launches {launches}")
+        if sorted(harvested) != list(range(b)):
+            raise AssertionError("session: not every system was harvested")
+        err = 0
+        # the one-shot run goes on clearing pc at window bases that a
+        # short system's session never reaches, so nsw is not compared
+        for f in ("cachew", "dirw", "scalars", "msg_counts"):
+            got = torch.cat([harvested[s][f] for s in range(b)], dim=-1)
+            err = max(err, check_diff(
+                f"session stream={stream} plane {f}",
+                {f: int((got.long() - one_shot.state[f].long()).abs().max())}))
+        if {f: v.data_ptr() for f, v in sess.state.items()} != ptrs:
+            raise AssertionError("session: the resident planes moved")
+        counts = sess.compile_counts()
+        if set(counts.values()) != {1}:
+            raise AssertionError(f"session: compile counts {counts}")
+        occ = sched.stats.as_dict()
+        print(f"[session] stream={stream}: {b} systems x 8 nodes x up to {t} "
+              f"instrs through {r} resident lanes, {occ['intervals']} "
+              f"intervals, {occ['admissions']} admissions, "
+              f"{occ['compactions']} compactions; {host_ms:.1f} ms by the "
+              f"host clock; launches {launches}; every harvested system's "
+              f"dump planes, scalars and msg_counts equal the one-shot "
+              f"run's (max_abs_err={err}); "
+              f"resident planes kept their storage; compile counts {counts}")
+        out[stream] = dict(launches=launches, err=err)
+    return out
+
+
 def phase_run_command():
     """``python -m hpa2_tpu_torch run`` on a synthesized trace
     directory, on the card and on the CPU (the dumps must be equal),
@@ -422,9 +848,28 @@ def phase_run_command():
             or rec["instrs"] != batch * 8 * instrs \
             or kernels.STREAM_RUN.launches != before + 2:
         raise AssertionError(f"bench on the card: rc {rc}, {rec}")
-    print(f"[bench] {batch} systems x 8 nodes x {instrs} instrs (engine "
-          f"defaults: block 1024, one window, snapshots on): "
-          f"{rec['seconds']} s, {rec['ops_per_sec']} RD/WR ops/s")
+    print(f"[bench] {batch} systems x 8 nodes x {instrs} instrs (block "
+          f"1024, one window, snapshots off): {rec['seconds']} s, "
+          f"{rec['ops_per_sec']} RD/WR ops/s")
+
+    # the scheduled bench: zipf lengths through 1,024 resident lanes
+    before = kernels.STREAM_RUN.launches
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench", "--batch", str(batch), "--instrs",
+                       str(instrs), "--nodes", "8", "--msg-buffer-size", "16",
+                       "--robust", "--seed", "0", "--block", "512",
+                       "--trace-window", "32", "--trace-len-dist", "zipf",
+                       "--schedule-resident", "1024"])
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    occ = rec.get("occupancy") or {}
+    if rc != 0 or rec["workload"] != "zipf" \
+            or occ.get("admissions") != batch - 1024 \
+            or kernels.STREAM_RUN.launches == before:
+        raise AssertionError(f"scheduled bench on the card: rc {rc}, {rec}")
+    print(f"[bench] --trace-len-dist zipf --schedule-resident 1024, {batch} "
+          f"systems: {rec['seconds']} s, {rec['ops_per_sec']} RD/WR ops/s, "
+          f"occupancy {occ}")
 
 
 def main() -> int:
@@ -441,53 +886,91 @@ def main() -> int:
           f" CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     secs = kernels.build_all()
     names = ", ".join(k.library_path().name for k in kernels.KERNELS)
-    print(f"[build] {secs:.1f} s: {names}")
+    print(f"[build] {secs:.1f} s, both compilers at once: {names}")
     # registers, stack frame and spills of each instantiation
-    for line in kernels.STREAM_RUN.build_log.splitlines():
-        if any(w in line for w in ("Compiling entry", "Function properties",
-                                   "registers", "spill")):
-            print(f"[build] {line.strip()}")
+    for kern in kernels.KERNELS:
+        for line in kern.build_log.splitlines():
+            if any(w in line for w in ("Compiling entry",
+                                       "Function properties", "registers",
+                                       "spill")):
+                print(f"[build] {kern.name}: {line.strip()}")
 
     robust = Semantics().robust()
+    wall = {}
     t0 = time.perf_counter()
     err = phase_compare()
-    t1 = time.perf_counter()
     err = max(err, phase_wide_compare())
-    t2 = time.perf_counter()
+    call_err = phase_call_compare()
+    wall["compare a-h"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    headline_cfg = SystemConfig(semantics=robust, **HEADLINE)
+    wide_cfg = SystemConfig(semantics=robust, **WIDE)
     paths = {
-        "headline": drive_path(
-            "headline", SystemConfig(semantics=robust, **HEADLINE), 32768,
-            128, HEADLINE_RUN, probe=(128, 256, 1024)),
-        "wide": drive_path(
-            "wide", SystemConfig(semantics=robust, **WIDE), 1024, 64,
-            WIDE_RUN, probe=(64, 128, 256)),
+        "headline": drive_path("headline", headline_cfg, 32768, 128,
+                               HEADLINE_RUN, probe=(128, 256, 1024)),
+        "wide": drive_path("wide", wide_cfg, 1024, 64, WIDE_RUN,
+                           probe=(64, 128, 256)),
     }
     paths["wide packed"] = drive_path(
-        "wide packed", SystemConfig(semantics=robust, **WIDE), 1024, 64,
-        WIDE_RUN, packed=True, ref=paths["wide"]["state"])
-    t3 = time.perf_counter()
+        "wide packed", wide_cfg, 1024, 64, WIDE_RUN, packed=True,
+        ref=paths["wide"]["state"])
+    wall["streamed paths"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    call_paths = {
+        "headline": drive_per_call_path(
+            "per-call headline", headline_cfg, 32768, 128, HEADLINE_RUN,
+            paths["headline"]["state"]),
+        "wide": drive_per_call_path(
+            "per-call wide", wide_cfg, 1024, 64, WIDE_RUN,
+            paths["wide"]["state"]),
+    }
+    wall["per-call paths"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scheduled = phase_scheduled()
+    wall["scheduled"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    session = phase_session()
+    wall["session"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     phase_run_command()
-    print(f"[wall] compare a-e {t1 - t0:.1f} s, compare f-g {t2 - t1:.1f} s,"
-          f" full-width paths {t3 - t2:.1f} s, run command "
-          f"{time.perf_counter() - t3:.1f} s")
+    wall["run and bench commands"] = time.perf_counter() - t0
+    print("[wall] " + ", ".join(f"{k} {v:.1f} s" for k, v in wall.items()))
 
-    kern = kernels.STREAM_RUN
-    wide = paths["wide"]
-    print(json.dumps({"kernels": [{
-        "name": kern.name, "route": "cuda", "source": kern.source,
-        "replaces": kern.replaces,
-        "variants": ["unsplit (num_procs <= 21)",
-                     "split sharer planes (22 <= num_procs <= 64)",
-                     "packed u8/u16 planes"],
-        "launches": wide["launches"][kern.name],
-        "max_abs_err": max([err] + [p["err"] for p in paths.values()]),
-        "ms": wide["ms"], "plain_ms": wide["plain_ms"],
-        "bound_ms": wide["bound_ms"], "bound_by": wide["bound_by"],
-        "library_ms": None,
-        "by_path": {name: {k: p[k] for k in (
-            "launches", "ms", "plain_ms", "bound_ms", "bound_by")}
-            for name, p in paths.items()},
-    }]}))
+    keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by")
+
+    def entry(kern, main, by_path, err, variants):
+        return {
+            "name": kern.name, "route": "cuda", "source": kern.source,
+            "replaces": kern.replaces, "variants": variants,
+            "launches": main["launches"][kern.name],
+            "max_abs_err": max([err] + [p["err"] for p in by_path.values()]),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None,
+            "by_path": {name: {k: p[k] for k in keys}
+                        for name, p in by_path.items()},
+        }
+
+    variants = ["unsplit (num_procs <= 21)",
+                "split sharer planes (22 <= num_procs <= 64)",
+                "packed u8/u16 planes"]
+    stream_entry = entry(kernels.STREAM_RUN, paths["wide"], paths, err,
+                         variants)
+    call_entry = entry(kernels.CALL_RUN, call_paths["headline"], call_paths,
+                       call_err, variants)
+    for name, run in scheduled.items():
+        if name == "host":
+            continue
+        for kern_entry in (stream_entry, call_entry):
+            n = run["launches"][kern_entry["name"]]
+            if n:
+                kern_entry["by_path"][f"scheduled {name}"] = {
+                    "launches": n, "engine_ms": run["ms"]}
+    for stream, run in session.items():
+        kern_entry = stream_entry if stream else call_entry
+        kern_entry["by_path"]["session"] = {
+            "launches": run["launches"][kern_entry["name"]]}
+    print(json.dumps({"kernels": [stream_entry, call_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,13 +3,18 @@ path, with the flag names of ``python -m hpa2_tpu.cli``.
 
     python -m hpa2_tpu_torch run TRACE_DIR [--out DIR] [--final-dump]
     python -m hpa2_tpu_torch bench --batch 4096 --instrs 128 --seed 0
+    python -m hpa2_tpu_torch bench --batch 32768 --instrs 128 --nodes 8 \
+        --msg-buffer-size 16 --robust --block 512 --trace-window 32 \
+        --trace-len-dist zipf --schedule-resident 8192 [--host-barriers]
 
 ``run`` simulates one system from ``core_<n>.txt`` traces and writes
 ``core_<n>_output.txt`` dumps (at local completion, or of the final
 state with ``--final-dump``), byte-identical to
 ``python -m hpa2_tpu.cli run --backend pallas``.  ``bench`` times an
-ensemble of uniform-random workloads and prints one JSON line.  Both
-run on the GPU unless ``--device cpu`` is given.
+ensemble of random workloads (``snapshots=False``, as ``bench.py``),
+uniform or with heterogeneous per-system trace lengths, optionally
+under the occupancy scheduler, and prints one JSON line.  Both run on
+the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -70,14 +75,29 @@ def cmd_run(args) -> int:
 
 def cmd_bench(args) -> int:
     from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
-    from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
+    from hpa2_tpu_torch.ops.schedule import Schedule
+    from hpa2_tpu_torch.utils.trace import (
+        gen_heterogeneous_random_arrays, gen_uniform_random_arrays,
+    )
 
     config = _build_config(args)
-    arrays = gen_uniform_random_arrays(config, args.batch, args.instrs,
-                                       seed=args.seed)
+    if args.trace_len_dist:
+        arrays = gen_heterogeneous_random_arrays(
+            config, args.batch, args.instrs, dist=args.trace_len_dist,
+            spread=max(1.0, args.trace_len_spread), seed=args.seed)
+    else:
+        arrays = gen_uniform_random_arrays(config, args.batch, args.instrs,
+                                           seed=args.seed)
+    schedule = None
+    if args.schedule_resident:
+        schedule = Schedule(resident=min(args.schedule_resident, args.batch),
+                            fused=not args.host_barriers)
 
     def build():
-        return CudaEngine(config, *arrays, device=args.device)
+        return CudaEngine(config, *arrays, block=args.block,
+                          cycles_per_call=args.cycles_per_call,
+                          snapshots=False, trace_window=args.trace_window,
+                          schedule=schedule, device=args.device)
 
     build().run(args.max_cycles)  # warm-up (builds the kernel)
     eng = build()
@@ -85,15 +105,18 @@ def cmd_bench(args) -> int:
     eng.run(args.max_cycles)  # ends in the status readback
     dt = time.perf_counter() - t0
     instrs = eng.instructions
-    print(json.dumps({
+    rec = {
         "backend": "cuda" if eng.device.type == "cuda" else "cpu",
-        "workload": "uniform",
+        "workload": args.trace_len_dist or "uniform",
         "nodes": config.num_procs,
         "batch": args.batch,
         "instrs": instrs,
         "seconds": round(dt, 4),
         "ops_per_sec": round(instrs / dt, 1),
-    }))
+    }
+    if schedule is not None:
+        rec["occupancy"] = eng.occupancy.as_dict()
+    print(json.dumps(rec))
     return 0
 
 
@@ -138,6 +161,27 @@ def main(argv: Optional[List[str]] = None) -> int:
     bp.add_argument("--instrs", type=int, default=1000)
     bp.add_argument("--batch", type=int, default=1)
     bp.add_argument("--seed", type=int, default=0)
+    bp.add_argument("--block", type=int, default=1024,
+                    help="lanes per lane block (one CTA)")
+    bp.add_argument("--trace-window", type=int, default=None,
+                    help="instructions per trace window (default: all)")
+    bp.add_argument("--cycles-per-call", type=int, default=128)
+    bp.add_argument(
+        "--trace-len-dist", choices=("uniform", "zipf"), default=None,
+        help="heterogeneous per-system trace lengths over "
+             "[instrs/spread, instrs] (default: every trace --instrs long)",
+    )
+    bp.add_argument("--trace-len-spread", type=float, default=8.0,
+                    help="longest over shortest trace length")
+    bp.add_argument(
+        "--schedule-resident", type=int, default=0,
+        help="occupancy scheduler with this many resident lanes (0: off)",
+    )
+    bp.add_argument(
+        "--host-barriers", action="store_true",
+        help="scheduled run as one host-synced interval at a time "
+             "(default: the whole plan fused on the device)",
+    )
     _add_common(bp)
     bp.set_defaults(fn=cmd_bench)
 

@@ -1,9 +1,11 @@
-// One lockstep cycle of one simulated system, and the streamed run
-// driver around it, as scalar code over the lane-last planes.
+// One lockstep cycle of one simulated system, and the two run loops
+// around it, as scalar code over the lane-last planes.
 //
 // Replaces: hpa2_tpu/ops/pallas_engine.py:build_cycle (the cycle body,
-// phases A-D and counters) and :_make_stream_run.kernel (the whole-run
-// loop: trace windows x while-to-quiescence x gated 8-cycle bursts).
+// phases A-D and counters), :_make_stream_run.kernel (the whole-run
+// loop: trace windows x while-to-quiescence x gated 8-cycle bursts;
+// stream_lanes below) and :_build_call.kernel (one call of up to k
+// gated cycles on one resident trace window; call_lanes below).
 //
 // The TPU kernel runs the cycle vectorised over a block of lanes; here
 // one thread runs one system, and the code is __host__ __device__ so
@@ -118,6 +120,7 @@ struct Args {
   int32_t n, c, m, cap, W, SW;
   int32_t b, bb;                 // lanes, lanes per block
   int32_t window, n_seg, t_pad;  // trace window, windows, padded length
+  int32_t seg;                   // the per-call kernel's window index
   int32_t k, max_calls, gate, snapshots;
   int32_t nack, eager_write, flush_old_fill, recv_packed;
   int32_t packed, cmeta_u16, dmeta_u16;  // meta planes u16 (else u8)
@@ -200,6 +203,25 @@ HPA2_HD int block_any(int x) {
 #else
   return x;
 #endif
+}
+
+// the instantiation of node bound MAXN holds this system: its split
+// mode is the bound's and its words fit the bound's frame
+template <int MAXN>
+HPA2_HD bool fits(const Args& a) {
+  using B = Bound<MAXN>;
+  return a.n >= 1 && a.n <= MAXN && (a.n > 21) == B::SPLIT && a.W >= 1 &&
+         a.W <= B::W && a.SW >= 1 && a.SW <= B::SW;
+}
+
+// the smallest node bound that holds the system and takes its lane
+// blocks, or 0 when none does (the launch is then refused)
+HPA2_HD int node_bound(const Args& a) {
+  const int bound = a.n <= 8 ? 8 : (a.n <= 21 ? 21 : kMaxNodes);
+  const bool ok = bound == 8 ? fits<8>(a)
+                  : bound == 21 ? fits<21>(a) : fits<kMaxNodes>(a);
+  if (!ok || a.bb < 1 || a.bb > kMaxBlock || a.b % a.bb != 0) return 0;
+  return bound;
 }
 
 // element (row, lane) of a lane-last plane
@@ -934,6 +956,32 @@ HPA2_HD void stream_lanes(const Args& a, const int l0, const int l1) {
     stalled |= block_any(act);
   }
   for (int l = l0; l < l1; ++l) HPA2_AT(a.status, 0) = stalled;
+}
+
+// One call of the per-call kernel on lanes [l0, l1) of one lane block:
+// up to k cycles in trace window a.seg, read in place from the whole
+// [N, t_pad, B] trace plane.  With the gate, each of the ceil(k/8)
+// bursts of 8 cycles runs only while the block has work (burst 0 is
+// gated too: unlike the streamed run, the call does not know that the
+// block is busy); without it, k cycles run straight.  The host loop
+// (ops/call_run.py:run_windows) clears pc at window bases and decides,
+// from the whole ensemble, whether another call is needed.
+template <int MAXN, bool PACKED>
+HPA2_HD void call_lanes(const Args& a, const int l0, const int l1) {
+  const int seg = a.seg;
+  if (!a.gate) {
+    for (int j = 0; j < a.k; ++j)
+      for (int l = l0; l < l1; ++l) run_cycle<MAXN, PACKED>(a, l, seg);
+    return;
+  }
+  const int bursts = (a.k + kGate - 1) / kGate;
+  for (int g = 0; g < bursts; ++g) {
+    int act = 0;
+    for (int l = l0; l < l1; ++l) act |= lane_active<MAXN>(a, l, seg) != 0;
+    if (!block_any(act)) break;  // a quiescent block stays quiescent
+    for (int j = 0; j < kGate; ++j)
+      for (int l = l0; l < l1; ++l) run_cycle<MAXN, PACKED>(a, l, seg);
+  }
 }
 
 }  // namespace hpa2

@@ -26,15 +26,6 @@ __global__ void __launch_bounds__(hpa2::kMaxBlock)
   hpa2::stream_lanes<MAXN, PACKED>(a, l, l + 1);
 }
 
-// the instantiation of node bound MAXN holds this system: its split
-// mode is the bound's and its words fit the bound's frame
-template <int MAXN>
-bool fits(const hpa2::Args& a) {
-  using B = hpa2::Bound<MAXN>;
-  return a.n >= 1 && a.n <= MAXN && (a.n > 21) == B::SPLIT && a.W >= 1 &&
-         a.W <= B::W && a.SW >= 1 && a.SW <= B::SW;
-}
-
 template <int MAXN>
 void launch(const hpa2::Args& a, cudaStream_t s) {
   const dim3 grid(a.b / a.bb), block(a.bb);
@@ -52,12 +43,8 @@ extern "C" int hpa2_args_size() { return (int)sizeof(hpa2::Args); }
 extern "C" int hpa2_stream_run(const hpa2::Args* args, int device,
                                void* stream) {
   const hpa2::Args& a = *args;
-  // the smallest node bound that holds the system
-  const int bound = a.n <= 8 ? 8 : (a.n <= 21 ? 21 : hpa2::kMaxNodes);
-  const bool ok = bound == 8 ? fits<8>(a)
-                  : bound == 21 ? fits<21>(a) : fits<hpa2::kMaxNodes>(a);
-  if (!ok || a.bb < 1 || a.bb > hpa2::kMaxBlock || a.b % a.bb != 0)
-    return (int)cudaErrorInvalidValue;
+  const int bound = hpa2::node_bound(a);
+  if (bound == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;

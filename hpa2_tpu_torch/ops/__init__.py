@@ -1,2 +1,3 @@
-"""The streamed fast path: state layout, the plain PyTorch cycle and run,
-the CUDA kernel's build and binding, and the engine."""
+"""The fast path: state layout, the plain PyTorch cycle and runs, the
+CUDA kernels' build and binding, the occupancy scheduler, the engine and
+the resident-lane session."""

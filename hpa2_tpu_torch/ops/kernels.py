@@ -1,19 +1,28 @@
-"""The CUDA kernel of the streamed run: its build, its binding, its
-launch count and the dispatch between it and its plain version.
+"""The CUDA kernels of the fast path: their build, their binding, their
+launch counts and the dispatch between each and its plain version.
 
-``csrc/stream_run.cu`` (with the cycle in ``csrc/cycle.cuh``) is
-compiled by ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface under ``hpa2_tpu_torch/build/`` at first use, and loaded with
-``ctypes``.  The library's name carries a hash of the sources and flags,
-so an edited source is rebuilt and a stale build is never loaded.  It
-holds the kernel instantiated for node bounds 8, 21 and 64, each with
-int32 or packed planes; the library reports ``sizeof(Args)``, which
-must equal the ctypes mirror's.
+Two kernels share the cycle in ``csrc/cycle.cuh``:
 
-:func:`stream_run` is the one entry the engine calls.  On CPU tensors it
-runs the plain PyTorch version (``ops/stream_run.py``); on CUDA tensors
-it launches the kernel or raises.  Either way the carried planes are
-updated in place and the per-lane stall plane is returned.
+* ``csrc/stream_run.cu``, the streamed run (``stream=True``): one
+  launch drives the whole run;
+* ``csrc/call_run.cu``, the per-call kernel (``stream=False``): one
+  launch is one call of up to ``k`` cycles in one trace window, driven
+  from the host by ``ops/call_run.py:run_windows``.
+
+Each is compiled by ``nvcc`` for ``sm_90a`` into a shared library with a
+plain C interface under ``hpa2_tpu_torch/build/`` at first use (the two
+builds run at once), and loaded with ``ctypes``.  A library's name
+carries a hash of its sources and flags, so an edited source is rebuilt
+and a stale build is never loaded.  Each holds its kernel instantiated
+for node bounds 8, 21 and 64, each with int32 or packed planes; the
+library reports ``sizeof(Args)``, which must equal the ctypes mirror's.
+
+:func:`stream_run` and :func:`call_run` are the entries the engine
+calls.  On CPU tensors they run the plain PyTorch version
+(``ops/stream_run.py``, ``ops/call_run.py``); on CUDA tensors they
+launch the kernel or raise.  Either way the carried planes are updated
+in place.  :data:`HOST_SYNCS` counts the device values the engines read
+back to the host.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -34,14 +43,15 @@ from hpa2_tpu_torch.ops.layout import (
     TORCH_DTYPES, _mb_layout, _scalar_layout, _sharer_words, _split_sw,
     fields_of, packed_plane_dtypes, state_dtypes, state_shapes,
 )
+from hpa2_tpu_torch.ops.call_run import call_plain
 from hpa2_tpu_torch.ops.stream_run import stream_run_plain
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 
-#: sources of the one library (the .cu includes the .cuh)
-SOURCES = ("stream_run.cu", "cycle.cuh")
+#: the header every kernel source includes
+SHARED_SOURCES = ("cycle.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -75,8 +85,8 @@ class Args(ctypes.Structure):
     _fields_ = (
         [(f, ctypes.c_int32) for f in (
             "n", "c", "m", "cap", "W", "SW", "b", "bb", "window",
-            "n_seg", "t_pad", "k", "max_calls", "gate", "snapshots", "nack",
-            "eager_write", "flush_old_fill", "recv_packed", "packed",
+            "n_seg", "t_pad", "seg", "k", "max_calls", "gate", "snapshots",
+            "nack", "eager_write", "flush_old_fill", "recv_packed", "packed",
             "cmeta_u16", "dmeta_u16")]
         + [("f_word", ctypes.c_int32 * len(_FIELDS)),
            ("f_off", ctypes.c_int32 * len(_FIELDS)),
@@ -107,57 +117,77 @@ def find_nvcc() -> str:
         "kernel of hpa2_tpu_torch is built from source at first use")
 
 
-def _source_hash() -> str:
+def _source_hash(sources: Tuple[str, ...]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in sources:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-class StreamRunKernel:
-    """The built and bound kernel, with its launch count.
+class CudaKernel:
+    """One kernel: its library's build and binding, and its launch count.
 
     ``launches`` counts kernel launches and nothing else; the plain
-    version never touches it."""
+    version never touches it.  ``loads`` counts loads of the library
+    (one a process)."""
 
-    name = "stream_run"
-    source = "hpa2_tpu_torch/csrc/stream_run.cu"
-    replaces = "hpa2_tpu/ops/pallas_engine.py:2244"
-
-    def __init__(self) -> None:
+    def __init__(self, name: str, source: str, entry: str,
+                 replaces: str) -> None:
+        self.name = name
+        self.source = f"hpa2_tpu_torch/csrc/{source}"
+        self.replaces = replaces
+        self.entry = entry
         self.launches = 0
+        self.loads = 0
         self.build_log = ""
+        self._sources = (source,) + SHARED_SOURCES
         self._lib: Optional[ctypes.CDLL] = None
+        self._proc: Optional[subprocess.Popen] = None
 
     def library_path(self) -> Path:
-        return BUILD_DIR / f"libhpa2_stream_run_{_source_hash()}.so"
+        digest = _source_hash(self._sources)
+        return BUILD_DIR / f"libhpa2_{self.name}_{digest}.so"
+
+    def _tmp_path(self) -> Path:
+        return self.library_path().with_suffix(f".{os.getpid()}.tmp")
+
+    def start_build(self) -> None:
+        """Start ``nvcc`` on this kernel's source unless it is built,
+        loaded or being built; :meth:`build` waits for it."""
+        if self._lib is not None or self._proc is not None \
+                or self.library_path().exists():
+            return
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(self._tmp_path()),
+               str(CSRC_DIR / self._sources[0])]
+        self._proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
 
     def build(self) -> Path:
         """Compile the library unless this source's build exists; load
         it.  Returns the library's path."""
-        if self._lib is not None:
-            return self.library_path()
         path = self.library_path()
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC_DIR / SOURCES[0])]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            self.build_log = proc.stdout + proc.stderr
+        if self._lib is not None:
+            return path
+        self.start_build()
+        log = BUILD_DIR / (path.stem + ".log")
+        if self._proc is not None:
+            proc, self._proc = self._proc, None
+            self.build_log = proc.communicate()[0]
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{self.build_log}")
-            (BUILD_DIR / (path.stem + ".log")).write_text(self.build_log)
-            os.replace(tmp, path)
+                    f"nvcc failed on {self.source} ({proc.returncode}):\n"
+                    f"{self.build_log}")
+            log.write_text(self.build_log)
+            os.replace(self._tmp_path(), path)
         else:
-            log = BUILD_DIR / (path.stem + ".log")
             self.build_log = log.read_text() if log.exists() else ""
         lib = ctypes.CDLL(str(path))
-        lib.hpa2_stream_run.argtypes = [
-            ctypes.POINTER(Args), ctypes.c_int, ctypes.c_void_p]
-        lib.hpa2_stream_run.restype = ctypes.c_int
+        fn = getattr(lib, self.entry)
+        fn.argtypes = [ctypes.POINTER(Args), ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
         lib.hpa2_args_size.argtypes = []
         lib.hpa2_args_size.restype = ctypes.c_int
         size = lib.hpa2_args_size()
@@ -166,23 +196,42 @@ class StreamRunKernel:
                 f"hpa2::Args is {size} bytes but the ctypes mirror is "
                 f"{ctypes.sizeof(Args)}: kernels.Args is out of date")
         self._lib = lib
+        self.loads += 1
         return path
 
     def launch(self, args: Args, device: torch.device) -> None:
         self.build()
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = self._lib.hpa2_stream_run(
+        err = getattr(self._lib, self.entry)(
             ctypes.byref(args), device.index or 0, stream)
         if err != 0:
             raise RuntimeError(
-                f"stream_run kernel launch failed: CUDA error {err}")
+                f"{self.name} kernel launch failed: CUDA error {err}")
         self.launches += 1
 
 
-STREAM_RUN = StreamRunKernel()
+class HostSyncs:
+    """Count of the device values the engines read back to the host
+    (each is a host sync on the card)."""
 
-#: every kernel of the streamed path
-KERNELS = (STREAM_RUN,)
+    def __init__(self) -> None:
+        self.count = 0
+
+    def read(self, x: torch.Tensor):
+        """``x.item()``, counted."""
+        self.count += 1
+        return x.item()
+
+
+STREAM_RUN = CudaKernel("stream_run", "stream_run.cu", "hpa2_stream_run",
+                        "hpa2_tpu/ops/pallas_engine.py:2244")
+CALL_RUN = CudaKernel("call_run", "call_run.cu", "hpa2_call_run",
+                      "hpa2_tpu/ops/pallas_engine.py:2027")
+
+#: every kernel of the fast path
+KERNELS = (STREAM_RUN, CALL_RUN)
+
+HOST_SYNCS = HostSyncs()
 
 
 def check_kernel_bound(config: SystemConfig) -> None:
@@ -196,8 +245,11 @@ def check_kernel_bound(config: SystemConfig) -> None:
 
 
 def build_all() -> float:
-    """Build every kernel; returns the seconds it took."""
+    """Build every kernel, all compilers started at once; returns the
+    seconds it took."""
     t0 = time.perf_counter()
+    for k in KERNELS:
+        k.start_build()
     for k in KERNELS:
         k.build()
     return time.perf_counter() - t0
@@ -244,7 +296,7 @@ def _plane_ptrs(state, prefix: str, split_sw: int) -> WordPlanes:
 
 def _kernel_args(config: SystemConfig, state, tr, tr_len, status, *,
                  block, k, window, n_seg, max_calls, gate,
-                 snapshots, packed=False) -> Args:
+                 snapshots, packed=False, seg=0) -> Args:
     layout, W = _mb_layout(config)
     slsc = _scalar_layout(config, window)
     sem = config.semantics
@@ -254,7 +306,7 @@ def _kernel_args(config: SystemConfig, state, tr, tr_len, status, *,
     a.cap, a.W = config.msg_buffer_size, W
     a.SW = _sharer_words(config)
     a.b, a.bb = tr_len.shape[1], block
-    a.window, a.n_seg, a.t_pad = window, n_seg, tr.shape[1]
+    a.window, a.n_seg, a.t_pad, a.seg = window, n_seg, tr.shape[1], seg
     a.k, a.max_calls, a.gate, a.snapshots = k, max_calls, gate, snapshots
     a.nack = sem.intervention_miss_policy == "nack"
     a.eager_write = sem.eager_write_request_memory
@@ -279,9 +331,26 @@ def _kernel_args(config: SystemConfig, state, tr, tr_len, status, *,
         a.snap_taken = ptr("snap_taken")
         a.snap = _plane_ptrs(state, "snap_", split_sw)
     a.scalars, a.msg_counts = ptr("scalars"), ptr("msg_counts")
-    a.tr, a.tr_len, a.status = tr.data_ptr(), tr_len.data_ptr(), \
-        status.data_ptr()
+    a.tr, a.tr_len = tr.data_ptr(), tr_len.data_ptr()
+    a.status = None if status is None else status.data_ptr()
     return a
+
+
+def _check_launch(config, state, tr, tr_len, *, block, window, n_seg,
+                  snapshots, packed) -> None:
+    b = tr_len.shape[-1]
+    if block < 1 or block > MAX_BLOCK or b % block:
+        raise ValueError(
+            f"block={block} must divide the {b} lanes and be at most "
+            f"{MAX_BLOCK} (one thread per system)")
+    _check_planes(config, state, tr, tr_len,
+                  fields_of(config, snapshots, packed), snapshots,
+                  n_seg * window, packed)
+    dev = tr.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {dev}")
+    if dev.type == "cuda":
+        check_kernel_bound(config)
 
 
 def stream_run(config: SystemConfig, state: Dict[str, torch.Tensor],
@@ -294,27 +363,51 @@ def stream_run(config: SystemConfig, state: Dict[str, torch.Tensor],
 
     CPU tensors run the plain version; CUDA tensors launch the kernel,
     which takes at most ``MAX_NODES`` nodes."""
-    fields = fields_of(config, snapshots, packed)
-    b = tr_len.shape[-1]
-    if block < 1 or block > MAX_BLOCK or b % block:
-        raise ValueError(
-            f"block={block} must divide the {b} lanes and be at most "
-            f"{MAX_BLOCK} (one thread per system)")
-    _check_planes(config, state, tr, tr_len, fields, snapshots,
-                  n_seg * window, packed)
+    _check_launch(config, state, tr, tr_len, block=block, window=window,
+                  n_seg=n_seg, snapshots=snapshots, packed=packed)
     kw = dict(block=block, k=k, window=window, n_seg=n_seg,
               max_calls=max_calls, gate=gate, snapshots=snapshots,
               packed=packed)
     dev = tr.device
     if dev.type == "cpu":
         new, status = stream_run_plain(config, state, tr, tr_len, **kw)
-        for f in fields:
+        for f in fields_of(config, snapshots, packed):
             state[f].copy_(new[f])
         return status
-    if dev.type != "cuda":
-        raise ValueError(f"no stream_run for device {dev}")
-    check_kernel_bound(config)
+    b = tr_len.shape[-1]
     status = torch.empty((1, b), dtype=torch.int32, device=dev)
     args = _kernel_args(config, state, tr, tr_len, status, **kw)
     STREAM_RUN.launch(args, dev)
     return status
+
+
+def call_run(config: SystemConfig, state: Dict[str, torch.Tensor],
+             tr: torch.Tensor, tr_len: torch.Tensor, *, seg: int,
+             block: int, k: int, window: int, gate: bool, snapshots: bool,
+             packed: bool = False) -> None:
+    """One call of up to ``k`` cycles of every lane block in trace window
+    ``seg`` of ``tr`` [N, n_seg*window, B], updating the carried planes
+    in place.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (asynchronously, on the current stream), which takes at most
+    ``MAX_NODES`` nodes."""
+    if window < 1 or tr.shape[1] % window:
+        raise ValueError(
+            f"the trace plane's {tr.shape[1]} rows are not whole windows "
+            f"of {window}")
+    n_seg = tr.shape[1] // window
+    if not 0 <= seg < n_seg:
+        raise ValueError(f"window {seg} outside 0..{n_seg - 1}")
+    _check_launch(config, state, tr, tr_len, block=block, window=window,
+                  n_seg=n_seg, snapshots=snapshots, packed=packed)
+    kw = dict(block=block, k=k, window=window, gate=gate,
+              snapshots=snapshots, packed=packed)
+    if tr.device.type == "cpu":
+        new = call_plain(config, state, tr, tr_len, seg=seg, **kw)
+        for f in fields_of(config, snapshots, packed):
+            state[f].copy_(new[f])
+        return
+    args = _kernel_args(config, state, tr, tr_len, None, n_seg=n_seg,
+                        max_calls=0, seg=seg, **kw)
+    CALL_RUN.launch(args, tr.device)

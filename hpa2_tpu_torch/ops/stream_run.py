@@ -60,6 +60,30 @@ def active_count(config: SystemConfig, st, tl, slsc) -> torch.Tensor:
     )
 
 
+def block_busy(config: SystemConfig, st, tl, slsc,
+               block: int) -> torch.Tensor:
+    """[B / block] bool: the lane blocks with outstanding work."""
+    act = active_count(config, st, tl, slsc) != 0
+    return act.view(-1, block).any(1)
+
+
+def advance_blocks(cycle, st, fields, trw, tl, open_blocks: torch.Tensor,
+                   block: int, cycles: int):
+    """``cycles`` cycles of the lanes of the open blocks; the other
+    lanes keep their planes.  Running every lane and keeping the result
+    on the open ones is what running the open blocks alone gives, since
+    the blocks are independent."""
+    lanes = open_blocks.repeat_interleave(block)
+    every = bool(open_blocks.all())
+    for _ in range(cycles):
+        out = cycle({**st, "tr": trw, "tr_len": tl})
+        st = {
+            f: out[f] if every else _keep(lanes, out[f], st[f])
+            for f in fields
+        }
+    return st
+
+
 def stream_run_plain(config: SystemConfig, state: Dict[str, torch.Tensor],
                      tr: torch.Tensor, tr_len: torch.Tensor, *,
                      block: int, k: int, window: int, n_seg: int,
@@ -84,37 +108,28 @@ def stream_run_plain(config: SystemConfig, state: Dict[str, torch.Tensor],
         tl = (tr_len - si * window).clamp(0, window)
         st["nsw"] = st["nsw"] & ~(slsc["pc_mask"] << slsc["off_pc"])
 
-        def busy():                                    # [nb] bool
-            return (active_count(config, st, tl, slsc) != 0).view(
-                nb, block).any(1)
-
-        def advance(open_blocks, cycles):
-            nonlocal st
-            lanes = open_blocks.repeat_interleave(block)
-            every = bool(open_blocks.all())
-            for _ in range(cycles):
-                out = cycle({**st, "tr": trw, "tr_len": tl})
-                st = {
-                    f: out[f] if every else _keep(lanes, out[f], st[f])
-                    for f in fields
-                }
-
         while True:
-            running = busy() & (calls < max_calls)
+            running = block_busy(config, st, tl, slsc, block) & (
+                calls < max_calls)
             if not bool(running.any()):
                 break
             if gate:
                 for g in range(outer):
                     # gate 0 opens on every running block: the loop
                     # condition just found it active
-                    open_blocks = running if g == 0 else running & busy()
+                    open_blocks = running
+                    if g > 0:
+                        open_blocks = running & block_busy(
+                            config, st, tl, slsc, block)
                     if not bool(open_blocks.any()):
                         break
-                    advance(open_blocks, _GATE)
+                    st = advance_blocks(cycle, st, fields, trw, tl,
+                                        open_blocks, block, _GATE)
             else:
-                advance(running, k)
+                st = advance_blocks(cycle, st, fields, trw, tl, running,
+                                    block, k)
             calls = calls + running.to(I32)
-        stalled = stalled | busy()
+        stalled = stalled | block_busy(config, st, tl, slsc, block)
 
     status = stalled.repeat_interleave(block).to(I32)[None, :]
     return st, status

@@ -1,10 +1,10 @@
-"""Trace loading and the synthetic uniform workload.
+"""Trace loading and the synthetic uniform and heterogeneous workloads.
 
 ``core_<n>.txt`` holds one instruction per line, ``RD <hexaddr>`` or
 ``WR <hexaddr> <decvalue>``; values wrap mod 256, blank lines are
 skipped, malformed lines and out-of-range addresses raise.  For the
-same seed the generator gives the same arrays as
-``hpa2_tpu.utils.trace.gen_uniform_random_arrays``.
+same seed the generators give the same arrays as their namesakes in
+``hpa2_tpu.utils.trace``.
 """
 
 from __future__ import annotations
@@ -102,4 +102,61 @@ def gen_uniform_random_arrays(
     length = np.full(
         (batch, config.num_procs), instrs_per_core, dtype=np.int32
     )
+    return op, addr, val, length
+
+
+def heterogeneous_lengths(
+    batch: int,
+    max_instrs: int,
+    dist: str = "zipf",
+    spread: float = 8.0,
+    seed: int = 0,
+):
+    """Per-system trace lengths for a heterogeneous ensemble workload.
+
+    ``zipf``: lengths are ``floor * k`` for ``k ~ Zipf(2)``, clipped to
+    ``[floor, max_instrs]`` with ``floor = max_instrs / spread``: most
+    systems run the shortest trace while a heavy tail of stragglers
+    runs up to ``spread`` times longer.  ``uniform``: lengths uniform
+    over ``[floor, max_instrs]``.  The first system drawn always gets
+    ``max_instrs``.  For the same arguments the lengths equal
+    ``hpa2_tpu.utils.trace.heterogeneous_lengths``'s.
+    """
+    if max_instrs < 1 or batch < 1:
+        raise ValueError("batch and max_instrs must be >= 1")
+    if spread < 1:
+        raise ValueError(f"spread must be >= 1, got {spread}")
+    floor = max(1, int(round(max_instrs / spread)))
+    rng = np.random.default_rng(seed)
+    if dist == "zipf":
+        k = rng.zipf(2.0, size=batch)
+        lens = np.clip(floor * k, floor, max_instrs)
+    elif dist == "uniform":
+        lens = rng.integers(floor, max_instrs + 1, size=batch)
+    else:
+        raise ValueError(f"dist must be 'uniform' or 'zipf', got {dist!r}")
+    lens = lens.astype(np.int64)
+    lens[rng.integers(0, batch)] = max_instrs
+    return lens
+
+
+def gen_heterogeneous_random_arrays(
+    config: SystemConfig,
+    batch: int,
+    max_instrs: int,
+    dist: str = "zipf",
+    spread: float = 8.0,
+    seed: int = 0,
+    write_frac: float = 0.5,
+):
+    """:func:`gen_uniform_random_arrays` with per-system trace lengths
+    from :func:`heterogeneous_lengths` (the occupancy scheduler's
+    workload, ``bench --trace-len-dist``)."""
+    op, addr, val, _ = gen_uniform_random_arrays(
+        config, batch, max_instrs, seed=seed, write_frac=write_frac
+    )
+    lens = heterogeneous_lengths(batch, max_instrs, dist, spread, seed)
+    length = np.broadcast_to(
+        lens[:, None], (batch, config.num_procs)
+    ).astype(np.int32).copy()
     return op, addr, val, length

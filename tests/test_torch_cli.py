@@ -1,7 +1,8 @@
 """``python -m hpa2_tpu_torch run --device cpu`` writes the same dump
 bytes as ``python -m hpa2_tpu.cli run --backend spec`` (and, on a
 33-node system, ``--backend pallas``) on a synthesized trace directory,
-and ``bench --device cpu`` retires every instruction."""
+and ``bench --device cpu`` retires every instruction, on uniform and on
+zipf trace lengths, unscheduled and under the occupancy scheduler."""
 
 import json
 import os
@@ -85,3 +86,33 @@ def test_bench_cpu_retires_every_instruction(capsys):
     assert rec["backend"] == "cpu"
     assert rec["instrs"] == 4 * 4 * 16
     assert rec["ops_per_sec"] > 0
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--schedule-resident", "8"],
+    ["--schedule-resident", "8", "--host-barriers"],
+    ["--schedule-resident", "64"],
+])
+def test_bench_cpu_zipf_lengths(capsys, extra):
+    """``--trace-len-dist zipf`` with the headline's shape flags; a
+    scheduled run's JSON line carries its occupancy counters."""
+    from hpa2_tpu_torch.utils.trace import heterogeneous_lengths
+
+    assert cli.main(["bench", "--batch", "16", "--instrs", "24", "--seed",
+                     "1", "--nodes", "4", "--msg-buffer-size", "16",
+                     "--robust", "--block", "4", "--trace-window", "8",
+                     "--cycles-per-call", "32", "--trace-len-dist", "zipf",
+                     "--trace-len-spread", "3", "--device", "cpu"]
+                    + extra) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    lens = heterogeneous_lengths(16, 24, "zipf", 3.0, seed=1)
+    assert rec["workload"] == "zipf"
+    assert rec["instrs"] == 4 * int(lens.sum())
+    if not extra:
+        assert "occupancy" not in rec
+        return
+    occ = rec["occupancy"]
+    fused = "--host-barriers" not in extra
+    assert occ["host_barriers"] == (0 if fused else occ["intervals"])
+    assert occ["admissions"] == (8 if extra[1] == "8" else 0)

@@ -107,7 +107,10 @@ def _arrays(cfg, b=2, t=4):
 @pytest.mark.parametrize(
     "cfg_kw,eng_kw,match",
     [
-        ({}, dict(stream=False), "stream=False"),
+        # the per-call path runs now; it keeps the whole-trace snapshot
+        # gate of windowed runs
+        pytest.param({}, dict(stream=False, trace_window=2),
+                     "snapshots=False", id="cfg_kw0-eng_kw0-stream=False"),
         ({}, dict(schedule=object()), "schedule"),
         ({}, dict(trace_window=2), "snapshots=False"),
         (dict(interconnect=InterconnectConfig(topology="mesh2d")), {},
@@ -124,6 +127,21 @@ def test_refusal_gates(cfg_kw, eng_kw, match):
     cfg = SystemConfig(**{"msg_buffer_size": 16, **cfg_kw})
     with pytest.raises(ValueError, match=match):
         CudaEngine(cfg, *_arrays(cfg), block=2, device="cpu", **eng_kw)
+
+
+def test_per_call_and_scheduled_runs_are_accepted():
+    """``stream=False`` and ``schedule=`` no longer raise: both run and
+    retire every instruction."""
+    from hpa2_tpu_torch.ops.schedule import Schedule
+
+    cfg = SystemConfig(msg_buffer_size=16, semantics=Semantics().robust())
+    for kw in (dict(stream=False),
+               dict(schedule=Schedule(resident=2), snapshots=False),
+               dict(stream=False, schedule=Schedule(fused=False),
+                    snapshots=False)):
+        eng = CudaEngine(cfg, *_arrays(cfg, b=4), block=2, device="cpu",
+                         **kw).run()
+        assert eng.instructions == 4 * 4 * 4, kw
 
 
 def test_block_above_kernel_limit_refused():

@@ -6,9 +6,10 @@ the same cycle and run loop into a throwaway shared library (under the
 ignored ``hpa2_tpu_torch/build/``) that works on CPU tensors through the
 kernel's own argument block.  The library is test tooling only; the
 engine never reaches it.  Planes and the stall plane must agree bit for
-bit with ``ops/cycle.py`` and ``ops/stream_run.py``, at every node
-bound the kernel is built for (8, 21 and 64: split sharer planes above
-21 nodes) and with packed planes."""
+bit with ``ops/cycle.py``, ``ops/stream_run.py`` and the per-call
+kernel's ``ops/call_run.py``, at every node bound the kernels are built
+for (8, 21 and 64: split sharer planes above 21 nodes) and with packed
+planes."""
 
 import ctypes
 import hashlib
@@ -23,8 +24,11 @@ import torch
 from hpa2_tpu_torch.config import Semantics, SystemConfig
 from hpa2_tpu_torch.convert import state_from_numpy
 from hpa2_tpu_torch.ops import kernels
+from hpa2_tpu_torch.ops.call_run import call_plain
 from hpa2_tpu_torch.ops.cycle import build_cycle
-from hpa2_tpu_torch.ops.layout import _init_state, _pack_traces, fields_of
+from hpa2_tpu_torch.ops.layout import (
+    _init_state, _pack_traces, _scalar_layout, fields_of,
+)
 from hpa2_tpu_torch.ops.stream_run import stream_run_plain
 from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
 
@@ -38,24 +42,35 @@ template <int MAXN, bool PACKED> void stream_blocks(const hpa2::Args* a) {
   for (int l0 = 0; l0 < a->b; l0 += a->bb)
     hpa2::stream_lanes<MAXN, PACKED>(*a, l0, l0 + a->bb);
 }
-template <int MAXN> void run(const hpa2::Args* a, int seg, bool whole) {
-  if (whole)
-    a->packed ? stream_blocks<MAXN, true>(a) : stream_blocks<MAXN, false>(a);
-  else
-    a->packed ? cycle_lanes<MAXN, true>(a, seg) : cycle_lanes<MAXN, false>(a, seg);
+template <int MAXN, bool PACKED> void call_blocks(const hpa2::Args* a) {
+  for (int l0 = 0; l0 < a->b; l0 += a->bb)
+    hpa2::call_lanes<MAXN, PACKED>(*a, l0, l0 + a->bb);
 }
-void dispatch(const hpa2::Args* a, int seg, bool whole) {
-  if (a->n <= 8) run<8>(a, seg, whole);
-  else if (a->n <= 21) run<21>(a, seg, whole);
-  else run<64>(a, seg, whole);
+// what: 0 one cycle of every lane, 1 the streamed run, 2 one call
+template <int MAXN, bool PACKED> void run_as(const hpa2::Args* a, int seg, int what) {
+  if (what == 0) cycle_lanes<MAXN, PACKED>(a, seg);
+  else if (what == 1) stream_blocks<MAXN, PACKED>(a);
+  else call_blocks<MAXN, PACKED>(a);
+}
+template <int MAXN> void run(const hpa2::Args* a, int seg, int what) {
+  a->packed ? run_as<MAXN, true>(a, seg, what) : run_as<MAXN, false>(a, seg, what);
+}
+void dispatch(const hpa2::Args* a, int seg, int what) {
+  if (a->n <= 8) run<8>(a, seg, what);
+  else if (a->n <= 21) run<21>(a, seg, what);
+  else run<64>(a, seg, what);
 }
 extern "C" int hpa2_args_size() { return (int)sizeof(hpa2::Args); }
 extern "C" int hpa2_host_cycle(const hpa2::Args* a, int seg) {
-  dispatch(a, seg, false);
+  dispatch(a, seg, 0);
   return 0;
 }
 extern "C" int hpa2_host_stream_run(const hpa2::Args* a) {
-  dispatch(a, 0, true);
+  dispatch(a, 0, 1);
+  return 0;
+}
+extern "C" int hpa2_host_call_run(const hpa2::Args* a) {
+  dispatch(a, a->seg, 2);
   return 0;
 }
 """
@@ -85,6 +100,7 @@ def host_lib():
     lib.hpa2_host_cycle.argtypes = [ctypes.POINTER(kernels.Args),
                                     ctypes.c_int]
     lib.hpa2_host_stream_run.argtypes = [ctypes.POINTER(kernels.Args)]
+    lib.hpa2_host_call_run.argtypes = [ctypes.POINTER(kernels.Args)]
     return lib
 
 
@@ -180,3 +196,48 @@ def test_host_stream_run_matches_plain(host_lib, n, cap, robust, window, t,
         assert int(host["scalars"][1].sum()) == int(tr_len.sum())
     else:
         assert status.any()
+
+
+@pytest.mark.parametrize(
+    "n,cap,robust,window,t,gate,snapshots,geom,packed",
+    [
+        (4, 16, True, 24, 24, True, True, None, False),
+        (4, 16, True, 24, 24, False, True, None, False),
+        (8, 16, True, 7, 20, False, False, None, False),
+        (8, 4, True, 8, 24, True, False, None, False),   # backpressure
+        (4, 16, False, 12, 12, True, True, None, False),  # drop semantics
+        (8, 16, True, 8, 16, True, False, None, True),
+        (22, 16, True, 5, 10, True, True, SPLIT22, False),
+        (33, 32, True, 6, 6, False, False, SPLIT33, True),
+    ],
+)
+def test_host_call_matches_plain(host_lib, n, cap, robust, window, t, gate,
+                                 snapshots, geom, packed):
+    """Calls of the per-call kernel in every window, with the host loop's
+    pc clear at each window base, against ``call_plain``."""
+    b, block, k = 8, 2, 12
+    if n > 21:
+        b = 4
+    cfg, state, tr, tr_len, n_seg = _setup(n, cap, robust, b, t, seed=n + 3,
+                                           snapshots=snapshots,
+                                           window=window, geom=geom,
+                                           packed=packed)
+    fields = fields_of(cfg, snapshots, packed)
+    slsc = _scalar_layout(cfg, window)
+    pc_clear = ~(slsc["pc_mask"] << slsc["off_pc"])
+    host = {f: v.clone() for f, v in state.items()}
+    want = {f: v.clone() for f, v in state.items()}
+    kw = dict(block=block, k=k, window=window, gate=gate,
+              snapshots=snapshots, packed=packed)
+    for seg in range(n_seg):
+        host["nsw"].bitwise_and_(pc_clear)
+        want["nsw"].bitwise_and_(pc_clear)
+        args = kernels._kernel_args(cfg, host, tr, tr_len, None, n_seg=n_seg,
+                                    max_calls=0, seg=seg, **kw)
+        for call in range(3):
+            want.update(call_plain(cfg, want, tr, tr_len, seg=seg, **kw))
+            host_lib.hpa2_host_call_run(ctypes.byref(args))
+            for f in fields:
+                assert torch.equal(host[f], want[f]), \
+                    f"window {seg}, call {call}, plane {f!r}"
+    assert int(host["scalars"][1].sum()) > 0

@@ -76,13 +76,14 @@ def _run(eng, max_cycles, stall_type):
     return None
 
 
-def run_both(jcfg, tcfg, arrays, max_cycles=1_000_000, **kw):
-    """``PallasEngine`` (interpreted, streamed) and ``CudaEngine`` on the
-    CPU over the same traces.  Asserts that they stall alike and that
-    every carried plane agrees; returns both engines and the stall
-    message (None when the run completed)."""
-    pe = PallasEngine(jcfg, *arrays, interpret=True, stream=True, **kw)
-    ce = CudaEngine(tcfg, *arrays, device="cpu", **kw)
+def run_both(jcfg, tcfg, arrays, max_cycles=1_000_000, stream=True, **kw):
+    """``PallasEngine`` (interpreted; streamed unless ``stream=False``)
+    and ``CudaEngine`` on the CPU over the same traces, with the same
+    ``stream``.  Asserts that they stall alike and that every carried
+    plane agrees; returns both engines and the stall message (None when
+    the run completed)."""
+    pe = PallasEngine(jcfg, *arrays, interpret=True, stream=stream, **kw)
+    ce = CudaEngine(tcfg, *arrays, device="cpu", stream=stream, **kw)
     outcome = (_run(pe, max_cycles, JStallError),
                _run(ce, max_cycles, StallError))
     assert outcome[0] == outcome[1]
