@@ -22,8 +22,10 @@ packed, and a stall), and drives through ``CudaEngine``:
 * the occupancy scheduler on ``bench.py --trace-len-dist zipf``'s
   workload at the headline shape: unscheduled, fused, fused with 8,192
   resident lanes, the same with host barriers, and with the per-call
-  kernel inside;
-* a resident-lane session (``CudaLaneSession``) against the one-shot
+  kernel inside; each first in a run whose every launch is held
+  against the plain version on its own planes and windows;
+* a resident-lane session (``CudaLaneSession``), its launches held
+  against the plain version, and its results against the one-shot
   run;
 * the ``run`` command on a small trace directory and the ``bench``
   command, unscheduled and scheduled,
@@ -189,6 +191,68 @@ def kernel_vs_plain(label, cfg, b, t, seed, *, snapshots, block, k, window,
           f"({', '.join(f'{x:.3f}' for x in times)}), plain {plain_ms:.1f} ms")
     check_diff(label, diff)
     return err, ms, plain_ms, got, status
+
+
+@contextlib.contextmanager
+def checked_kernels(label):
+    """Hold every kernel launch made inside against the plain version:
+    ``kernels.stream_run`` and ``kernels.call_run`` are wrapped so that
+    each keeps a copy of the planes it is given, launches the kernel as
+    usual, runs the plain version on the copy with the same trace
+    planes and arguments, and compares every carried plane (and the
+    streamed run's stall plane) bit for bit.  The launches are the
+    code's own, so the launch counts are unchanged; the time is not.
+    Yields the record: checks per kernel, lanes checked with an empty
+    window (idle lanes, ``tr_len`` 0 on every node) and with a window
+    that ends early on some node, and the largest difference."""
+    from hpa2_tpu_torch.ops import kernels
+    from hpa2_tpu_torch.ops.call_run import call_plain, window_planes
+    from hpa2_tpu_torch.ops.stream_run import stream_run_plain
+
+    rec = {"stream_run": 0, "call_run": 0, "idle_lanes": 0,
+           "ragged_lanes": 0, "err": 0, "seconds": 0.0}
+    launch = {"stream_run": kernels.stream_run,
+              "call_run": kernels.call_run}
+
+    def coverage(tl, window):
+        rec["idle_lanes"] += int((tl == 0).all(0).sum())
+        rec["ragged_lanes"] += int((tl % window != 0).any(0).sum())
+
+    def compare(name, config, kw, got, want, extra=None):
+        diff = plane_diff(config, kw["snapshots"], got, want,
+                          kw.get("packed", False))
+        diff.update(extra or {})
+        rec["err"] = max(rec["err"], check_diff(f"{label} {name}", diff))
+        rec[name] += 1
+
+    def stream_run(config, state, tr, tr_len, **kw):
+        before = {f: v.clone() for f, v in state.items()}
+        status = launch["stream_run"](config, state, tr, tr_len, **kw)
+        t0 = time.perf_counter()
+        want, want_status = stream_run_plain(config, before, tr, tr_len,
+                                             **kw)
+        stall = int((status.long() - want_status.long()).abs().max())
+        compare("stream_run", config, kw, state, want, {"stall": stall})
+        coverage(tr_len, kw["window"])
+        rec["seconds"] += time.perf_counter() - t0
+        return status
+
+    def call_run(config, state, tr, tr_len, *, seg, **kw):
+        before = {f: v.clone() for f, v in state.items()}
+        launch["call_run"](config, state, tr, tr_len, seg=seg, **kw)
+        t0 = time.perf_counter()
+        want = call_plain(config, before, tr, tr_len, seg=seg, **kw)
+        compare("call_run", config, kw, state, want)
+        coverage(window_planes(tr, tr_len, seg, kw["window"])[1],
+                 kw["window"])
+        rec["seconds"] += time.perf_counter() - t0
+
+    kernels.stream_run, kernels.call_run = stream_run, call_run
+    try:
+        yield rec
+    finally:
+        kernels.stream_run = launch["stream_run"]
+        kernels.call_run = launch["call_run"]
 
 
 def phase_compare():
@@ -581,15 +645,25 @@ def drive_per_call_path(label, cfg, b, t, run, ref, packed=False):
 
 #: bench.py --trace-len-dist zipf at its defaults, at the headline shape
 ZIPF_BATCH, ZIPF_INSTRS, ZIPF_SPREAD, ZIPF_RESIDENT = 32768, 128, 8.0, 8192
+#: the scheduled runs whose launches are each held against the plain
+#: version: the unscheduled reference, and the resident runs with the
+#: streamed and the per-call kernel inside (the other two must equal
+#: these plane for plane)
+CHECKED_SCHEDULED = ("unscheduled", "resident 8192 fused",
+                     "resident 8192 per-call")
 
 
 def phase_scheduled():
     """The occupancy scheduler at full width: five runs of the zipf
-    workload; the dump planes (``cachew``, ``dirw``), ``scalars`` and
-    ``msg_counts`` of each equal the unscheduled run's, the fused and
-    host-barrier runs with 8,192 resident lanes equal plane for plane,
-    and so do the runs with the streamed and the per-call kernel
-    inside."""
+    workload.  The warm-ups of the runs in ``CHECKED_SCHEDULED`` hold
+    every kernel launch against the plain version on the same planes
+    and windows (the unscheduled run whole; the scheduled runs interval
+    by interval, idle lanes and windows that end early included).  Then
+    the timed runs: the dump
+    planes (``cachew``, ``dirw``), ``scalars`` and ``msg_counts`` of
+    each equal the unscheduled run's, the fused and host-barrier runs
+    with 8,192 resident lanes equal plane for plane, and so do the runs
+    with the streamed and the per-call kernel inside."""
     from hpa2_tpu_torch.config import Semantics, SystemConfig
     from hpa2_tpu_torch.ops import kernels
     from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
@@ -616,7 +690,26 @@ def phase_scheduled():
     ]
     out, states = {}, {}
     for label, kw in runs:
-        CudaEngine(cfg, *arrays, **base, **kw).run()  # warm-up
+        # the warm-up; in a checked run every launch is held against
+        # the plain version on the same planes and windows
+        if label not in CHECKED_SCHEDULED:
+            CudaEngine(cfg, *arrays, **base, **kw).run()
+            chk = None
+        else:
+            with checked_kernels(f"scheduled {label}") as chk:
+                CudaEngine(cfg, *arrays, **base, **kw).run()
+            if chk["stream_run"] + chk["call_run"] == 0 \
+                    or chk["ragged_lanes"] == 0 \
+                    or ("resident" in label and chk["idle_lanes"] == 0):
+                raise AssertionError(
+                    f"scheduled {label}: the checks missed a case: {chk}")
+            print(f"[compare] scheduled {label}: {chk['stream_run']} "
+                  f"streamed and {chk['call_run']} per-call launches held "
+                  f"against the plain version on their own planes and "
+                  f"windows ({chk['idle_lanes']} idle lanes, "
+                  f"{chk['ragged_lanes']} lanes with a window ending early,"
+                  f" summed over the checks): max_abs_err={chk['err']}, "
+                  f"plain {chk['seconds']:.1f} s")
         eng = CudaEngine(cfg, *arrays, **base, **kw)
         torch.cuda.synchronize()
         for kern in kernels.KERNELS:
@@ -660,6 +753,9 @@ def phase_scheduled():
               f"{launches}; {syncs} host syncs; occupancy {occ}")
         out[label] = dict(ms=ms, launches=launches, syncs=syncs,
                           occupancy=occ)
+        if chk is not None:
+            out[label].update(err=chk["err"],
+                              checked=chk["stream_run"] + chk["call_run"])
     ref = states["unscheduled"]
     for label, st in states.items():
         diff = {f: int((st[f].long() - ref[f].long()).abs().max())
@@ -716,11 +812,12 @@ def phase_scheduled():
 
 
 def phase_session():
-    """A resident-lane session (512 systems through 256 lanes, windows
-    of 16) on the card, with the streamed and the per-call kernel,
-    against the one-shot run: every harvested system's planes equal its
-    one-shot columns, the resident planes keep their storage, and every
-    compile count is 1."""
+    """A resident-lane session (512 zipf systems through 256 lanes,
+    windows of 16) on the card, with the streamed and the per-call kernel: a
+    first pass holds every launch against the plain version, then a
+    second pass against the one-shot run: every harvested system's
+    planes equal its one-shot columns, the resident planes keep their
+    storage, and every compile count is 1."""
     from hpa2_tpu_torch.config import Semantics, SystemConfig
     from hpa2_tpu_torch.ops import kernels
     from hpa2_tpu_torch.ops.cuda_engine import CudaEngine, interval_windows
@@ -731,21 +828,23 @@ def phase_session():
 
     cfg = SystemConfig(semantics=Semantics().robust(), **HEADLINE)
     b, t, w, r, block, k = 512, 64, 16, 256, 128, 64
+    # spread 5: lengths are multiples of 13, so windows end early
     arrays = gen_heterogeneous_random_arrays(cfg, b, t, dist="zipf",
-                                             spread=4.0, seed=5)
+                                             spread=5.0, seed=5)
     tr = _pack_traces(cfg, *arrays)
     tl = np.ascontiguousarray(arrays[3].T)
     one_shot = CudaEngine(cfg, *arrays, block=block, cycles_per_call=k,
                           snapshots=False, trace_window=w).run()
-    out = {}
-    for stream in (True, False):
+
+    def serve(stream):
+        """One session over the whole workload: (session, harvested
+        columns by system, scheduler, plane pointers at the start, host
+        ms)."""
         sess = CudaLaneSession(cfg, r, w, block=block, cycles_per_call=k,
                                stream=stream)
         ptrs = {f: v.data_ptr() for f, v in sess.state.items()}
         sched = LaneScheduler(segments_needed(tl, w), resident=r,
                               block=block)
-        for kern in kernels.KERNELS:
-            kern.launches = 0
         harvested, pending = {}, None
         t0 = time.perf_counter()
         while not sched.done():
@@ -764,7 +863,24 @@ def phase_session():
                 sess.check(pending)  # one interval behind
             pending = status
         sess.check(pending)
-        host_ms = (time.perf_counter() - t0) * 1e3
+        return sess, harvested, sched, ptrs, (time.perf_counter() - t0) * 1e3
+
+    out = {}
+    for stream in (True, False):
+        # first pass: every launch held against the plain version
+        with checked_kernels(f"session stream={stream}") as chk:
+            serve(stream)
+        if chk["idle_lanes"] == 0 or chk["ragged_lanes"] == 0:
+            raise AssertionError(f"session: the checks missed a case: {chk}")
+        print(f"[compare] session stream={stream}: {chk['stream_run']} "
+              f"streamed and {chk['call_run']} per-call launches held "
+              f"against the plain version on their own planes and windows "
+              f"({chk['idle_lanes']} idle lanes, {chk['ragged_lanes']} "
+              f"lanes with a window ending early): "
+              f"max_abs_err={chk['err']}")
+        for kern in kernels.KERNELS:
+            kern.launches = 0
+        sess, harvested, sched, ptrs, host_ms = serve(stream)
         launches = {kern.name: kern.launches for kern in kernels.KERNELS}
         used = "stream_run" if stream else "call_run"
         if launches[used] == 0:
@@ -793,7 +909,8 @@ def phase_session():
               f"dump planes, scalars and msg_counts equal the one-shot "
               f"run's (max_abs_err={err}); "
               f"resident planes kept their storage; compile counts {counts}")
-        out[stream] = dict(launches=launches, err=err)
+        out[stream] = dict(launches=launches, err=max(err, chk["err"]),
+                           checked=chk["stream_run"] + chk["call_run"])
     return out
 
 
@@ -958,18 +1075,30 @@ def main() -> int:
                          variants)
     call_entry = entry(kernels.CALL_RUN, call_paths["headline"], call_paths,
                        call_err, variants)
+    # the scheduled runs and the session: launches of the counted run,
+    # and the largest difference of the checked run's launches from the
+    # plain version
     for name, run in scheduled.items():
         if name == "host":
             continue
         for kern_entry in (stream_entry, call_entry):
             n = run["launches"][kern_entry["name"]]
             if n:
-                kern_entry["by_path"][f"scheduled {name}"] = {
-                    "launches": n, "engine_ms": run["ms"]}
+                path = {"launches": n, "engine_ms": run["ms"]}
+                if "err" in run:
+                    path.update(checked_launches=run["checked"],
+                                max_abs_err=run["err"])
+                kern_entry["by_path"][f"scheduled {name}"] = path
     for stream, run in session.items():
         kern_entry = stream_entry if stream else call_entry
         kern_entry["by_path"]["session"] = {
-            "launches": run["launches"][kern_entry["name"]]}
+            "launches": run["launches"][kern_entry["name"]],
+            "checked_launches": run["checked"], "max_abs_err": run["err"]}
+    for kern_entry in (stream_entry, call_entry):
+        kern_entry["max_abs_err"] = max(
+            [kern_entry["max_abs_err"]]
+            + [p.get("max_abs_err", 0)
+               for p in kern_entry["by_path"].values()])
     print(json.dumps({"kernels": [stream_entry, call_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

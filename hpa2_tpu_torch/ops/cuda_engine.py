@@ -56,6 +56,35 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def fast_path_setup(config: SystemConfig, *, lanes: int, block: int,
+                    packed: bool, device):
+    """The refusals ``CudaEngine`` and ``CudaLaneSession`` share: the
+    ideal topology, the geometry and semantics the kernels implement,
+    packable planes when ``packed``, a CUDA device that exists and a
+    node count its kernels take, and a lane block of at most
+    ``kernels.MAX_BLOCK`` threads.  Returns the device and the lane
+    block chosen for ``lanes`` lanes."""
+    if config.interconnect.enabled:
+        raise ValueError(
+            "the fast path implements the ideal topology only; use the "
+            "spec or XLA engines of hpa2_tpu for "
+            f"topology={config.interconnect.topology!r}"
+        )
+    _check_geometry(config)
+    _check_semantics(config)
+    if packed:
+        packed_plane_dtypes(config)  # raises on unpackable geometry
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        kernels.check_kernel_bound(config)
+    block = choose_block(lanes, block)
+    if block > kernels.MAX_BLOCK:
+        raise ValueError(
+            f"block={block} exceeds the kernel's {kernels.MAX_BLOCK}"
+            " threads per lane block (one thread per system)")
+    return dev, block
+
+
 def format_stats(core: dict, msg_counts) -> dict:
     """Counter dict in the spec engine's key names; per-type message
     counts appear only when nonzero."""
@@ -180,19 +209,6 @@ class CudaEngine:
         packed: bool = False,
         device="cuda",
     ):
-        if config.interconnect.enabled:
-            raise ValueError(
-                "the fast path implements the ideal topology only; use the "
-                "spec or XLA engines of hpa2_tpu for "
-                f"topology={config.interconnect.topology!r}"
-            )
-        _check_geometry(config)
-        _check_semantics(config)
-        if packed:
-            packed_plane_dtypes(config)  # raises on unpackable geometry
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            kernels.check_kernel_bound(config)
         b, _, t = tr_op.shape
         self.config = config
         self.b = b
@@ -216,11 +232,9 @@ class CudaEngine:
             self._resident = b
         # the device carries `resident` lanes, so the blocks tile that
         # lane count
-        self.block = choose_block(self._resident, block)
-        if self.block > kernels.MAX_BLOCK:
-            raise ValueError(
-                f"block={self.block} exceeds the kernel's {kernels.MAX_BLOCK}"
-                " threads per lane block (one thread per system)")
+        self.device, self.block = fast_path_setup(
+            config, lanes=self._resident, block=block, packed=packed,
+            device=device)
         self.cycles_per_call = cycles_per_call
         self._snapshots = snapshots
         self._gate = gate

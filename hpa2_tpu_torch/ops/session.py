@@ -34,12 +34,11 @@ from hpa2_tpu_torch.config import SystemConfig
 from hpa2_tpu_torch.convert import state_from_numpy
 from hpa2_tpu_torch.ops import kernels
 from hpa2_tpu_torch.ops.cuda_engine import (
-    barrier_, resolve_device, run_program,
+    barrier_, fast_path_setup, run_program,
 )
 from hpa2_tpu_torch.ops.layout import (
-    _SC_CYCLE, _SC_INSTR, _SC_MSGS, StallError, _check_geometry,
-    _check_semantics, _init_state, _join_word_planes_np, _split_sw,
-    choose_block, decode_dumps, packed_plane_dtypes,
+    _SC_CYCLE, _SC_INSTR, _SC_MSGS, StallError, _init_state,
+    _join_word_planes_np, _split_sw, decode_dumps,
 )
 from hpa2_tpu_torch.utils.dump import NodeDump
 
@@ -66,27 +65,11 @@ class CudaLaneSession:
         max_cycles: int = 1_000_000,
         device="cuda",
     ):
-        if config.interconnect.enabled:
-            raise ValueError(
-                "the fast path implements the ideal topology only; use the "
-                "spec or XLA engines of hpa2_tpu for "
-                f"topology={config.interconnect.topology!r}"
-            )
-        _check_geometry(config)
-        _check_semantics(config)
-        if packed:
-            packed_plane_dtypes(config)
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            kernels.check_kernel_bound(config)
         self.config = config
         self.r = int(resident)
         self.window = int(window)
-        self.block = choose_block(self.r, block)
-        if self.block > kernels.MAX_BLOCK:
-            raise ValueError(
-                f"block={self.block} exceeds the kernel's {kernels.MAX_BLOCK}"
-                " threads per lane block (one thread per system)")
+        self.device, self.block = fast_path_setup(
+            config, lanes=self.r, block=block, packed=packed, device=device)
         self.cycles_per_call = cycles_per_call
         self.max_cycles = max_cycles
         self._gate = gate
