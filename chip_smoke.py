@@ -3,14 +3,19 @@
 
     python3 chip_smoke.py
 
-Builds both CUDA kernels from ``hpa2_tpu_torch/csrc`` with nvcc, the two
-compilers at once (the streamed run ``stream_run.cu`` and the per-call
-kernel ``call_run.cu``, each for node bounds 8, 21 and 64), holds each
-bit for bit against its plain PyTorch version on the card (streamed
-run: cases a-e at up to 8 nodes, f: split sharer planes at 22, 33 and
-64 nodes, g: packed planes; per-call kernel under its host loop:
-case h at 4, 8, 22 and 33 nodes, ragged windows, gate on and off,
-packed, and a stall), and drives through ``CudaEngine``:
+Builds the three CUDA libraries from ``hpa2_tpu_torch/csrc`` with nvcc,
+the compilers at once (the streamed run ``stream_run.cu`` and the
+per-call kernel ``call_run.cu``, each for node bounds 8, 21 and 64, and
+the op-pattern micro-kernels ``micro_kernels.cu``), runs the
+micro-kernels' runner (``hpa2_tpu_torch.scripts.micro_kernels``: its
+``main()`` at 8,192 lanes and its ``bench`` at 32,768) and holds each
+pattern's kernel bit for bit against its plain version at both sizes,
+holds the fast path's kernels bit for bit against their plain PyTorch
+versions on the card (streamed run: cases a-e at up to 8 nodes, f:
+split sharer planes at 22, 33 and 64 nodes, g: packed planes; per-call
+kernel under its host loop: case h at 4, 8, 22 and 33 nodes, ragged
+windows, gate on and off, packed, and a stall), and drives through
+``CudaEngine``:
 
 * the streamed fast path at the repo's headline width (32,768 systems
   x 8 nodes x 128 instructions per core) and at its 64-node
@@ -35,10 +40,11 @@ and prints:
 * the card's name and power limit (``nvidia-smi``);
 * the host syncs of each path (``[syncs]``);
 * one ``{"kernels": [...]}`` line: per kernel its launches on its main
-  path (the 64-node streamed run; the headline per-call run), its
-  largest disagreement with the plain version, its time and the plain
-  version's at that shape, and its bytes bound (``by_path`` holds the
-  same for every path driven);
+  path (the 64-node streamed run; the headline per-call run; the
+  micro-kernels' runner), its largest disagreement with the plain
+  version, its time and the plain version's at that shape, and its
+  bound (``by_path`` holds the same for every path driven,
+  ``patterns`` the micro-kernels' per pattern and size);
 * last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero and prints no
@@ -65,8 +71,14 @@ ROOT = pathlib.Path(__file__).resolve().parent
 #: H100 SXM device memory rate (NVIDIA data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM float32 rate outside the tensor cores, ops/s; the scalar
-#: 32-bit integer work of the cycle is held to it
+#: 32-bit integer work of the kernels is held to it (one warp
+#: instruction a clock in each quarter of an SM, a fused IMAD, IADD3 or
+#: LOP3 counted as two ops; the INT32 pipe's 64 lanes an SM alone give a
+#: quarter of it, which IMAD on the FMA pipe can beat)
 SCALAR_OPS_PER_S = 67e12
+#: the micro-kernels' sizes: the script's own grid of 256-lane blocks,
+#: and the headline's 32,768 lanes
+MICRO_GRIDS = (32, 128)
 
 HEADLINE = dict(num_procs=8, msg_buffer_size=16)   # bench.py:50-51, 74-82
 HEADLINE_RUN = dict(block=512, k=128, window=32, gate=True)
@@ -989,6 +1001,152 @@ def phase_run_command():
           f"occupancy {occ}")
 
 
+def micro_ops(name, planes, out, iters, block):
+    """Integer operations pattern ``name`` does on ``planes`` (its
+    inputs on the card) to give ``out``: the JAX body's elementwise ops
+    per (row, lane), not its one-hot expansion, counted for what these
+    inputs need (the candidates that are valid and accepted, the sums
+    that are even, the blocks whose gate stays open)."""
+    from hpa2_tpu_torch.scripts import micro_kernels as mk
+
+    n, lanes = planes["rows"].shape
+    if name == "empty":
+        return 0
+    if name == "scalar_gate":
+        # 2N adds a lane an iteration; a block whose sum is 0 leaves its
+        # loop after the first
+        sums = torch.stack([planes["rows"], planes["cnt"]]).long().reshape(
+            2 * n, -1, block).sum((0, 2))
+        live = int((sums != 0).sum())
+        return (live * iters + (sums.numel() - live)) * block * 2 * n
+    if name == "rowops300":
+        # a step: &, ==, +, select, *, +, &
+        return lanes * n * iters * 100 * 7
+    if name == "deliver40":
+        # a candidate: recv (+, &) and valid (>>, &, ==); a valid one:
+        # pos (+) and the < CAP test; an accepted one: w (*, +) and
+        # acc += 1; per node an iteration: cnt + acc
+        rows = planes["rows"]
+        valid = sum(int(((rows[(j + 1) % n] >> (j & 3)) & 1).sum())
+                    for j in range(mk.J))
+        accepted = int(out["cnt"].long().sum() - planes["cnt"].long().sum())
+        return iters * (lanes * mk.J * 5 + valid * 2 + lanes * n) \
+            + accepted * 3
+    # rw_9x: six reads (+, &, out +=), the parity test (&, ==), the
+    # final & 127; per even sum three write indices (+, &).  rows after
+    # an iteration is out & 127, so it has out's parity.
+    even, st = 0, planes
+    for _ in range(iters):
+        st = mk.plain(name, st, iters=1, block=block)
+        even += int(((st["rows"] & 1) == 0).sum())
+    return lanes * n * iters * 21 + even * 6
+
+
+def phase_micro():
+    """K4, the op-pattern micro-kernels.  The path is the runner:
+    ``main()`` (every pattern at grid 32) and ``bench`` at grid 128,
+    with the launch counts zeroed just before and read just after.
+    Then each pattern's kernel at both sizes, on fresh planes, is held
+    bit for bit against its plain version on the card, and the
+    runner's checksum against the plain version's; the bound is the
+    larger of the bytes (each plane read and written once) over 3.35
+    TB/s and the integer operations over ``SCALAR_OPS_PER_S``."""
+    from hpa2_tpu_torch.ops import kernels
+    from hpa2_tpu_torch.scripts import micro_kernels as mk
+
+    arrays = {grid: mk.make_arrays(mk.B * grid) for grid in MICRO_GRIDS}
+    kernels.MICRO.launches = 0
+    for name in mk.LAUNCHES:
+        mk.LAUNCHES[name] = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        recs = {MICRO_GRIDS[0]: mk.main("cuda")}
+        recs[MICRO_GRIDS[1]] = [
+            mk.bench(name, arrays[MICRO_GRIDS[1]], MICRO_GRIDS[1],
+                     device="cuda") for name in mk.PATTERNS]
+    launches = dict(mk.LAUNCHES)
+    total = kernels.MICRO.launches
+    if min(launches.values()) == 0 or total != sum(launches.values()):
+        raise AssertionError(f"micro-kernels: launches {launches}, {total}")
+    for line in buf.getvalue().splitlines():
+        print(f"[micro] {line}")
+
+    res, err = {}, 0
+    for grid, grid_recs in recs.items():
+        for rec in grid_recs:
+            name = rec["name"]
+            label = f"micro {name} grid {grid}"
+            planes = {k: torch.from_numpy(arrays[grid][k]).cuda()
+                      for k in mk.PATTERNS[name]}
+            got = {k: v.clone() for k, v in planes.items()}
+            mk.micro_run(name, got, iters=mk.K, block=mk.B)
+            want, plain_ms = elapsed_ms(lambda: mk.plain(
+                name, planes, iters=mk.K, block=mk.B))
+            e = check_diff(label, {
+                k: int((got[k].long() - want[k].long()).abs().max())
+                for k in want})
+            err = max(err, e)
+            first = mk.PATTERNS[name][0]
+            if rec["checksum"] != mk.checksum(want[first]):
+                raise AssertionError(
+                    f"{label}: the runner's checksum {rec['checksum']} is "
+                    f"not the plain version's {mk.checksum(want[first])}")
+            moved = 2 * sum(v.numel() * v.element_size()
+                            for v in planes.values())
+            ops = micro_ops(name, planes, want, mk.K, mk.B)
+            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+            ms = rec["total_s"] * 1e3
+            row = dict(ms=ms, plain_ms=plain_ms,
+                       bound_ms=max(bytes_ms, ops_ms),
+                       bound_by="bytes" if bytes_ms >= ops_ms
+                       else "operations", bytes=moved, ops=ops,
+                       us_per_iter_per_block=rec["us_per_iter_per_block"],
+                       checksum=rec["checksum"])
+            if "accepted" in rec:
+                row["accepted"] = rec["accepted"]
+            res[name, grid] = row
+            print(f"[micro] {name} grid {grid} ({mk.B * grid} lanes, K "
+                  f"{mk.K}): kernel {ms:.6f} ms (median of 3; "
+                  f"{rec['us_per_iter_per_block']:.6f} us per iteration "
+                  f"per block), plain {plain_ms:.3f} ms, max_abs_err={e}; "
+                  f"bound {row['bound_ms']:.6f} ms by {row['bound_by']} "
+                  f"({moved} B / 3.35 TB/s = {bytes_ms:.6f} ms; {ops} int "
+                  f"ops / {SCALAR_OPS_PER_S:.4e} ops/s = {ops_ms:.6f} ms)"
+                  + (f"; {rec['accepted']} deliveries accepted"
+                     if "accepted" in rec else ""))
+    return dict(launches=launches, total=total, err=err, res=res)
+
+
+def micro_entry(kern, micro):
+    """The micro-kernels' line: the runner's launches, and at the
+    script's grid the five patterns' summed kernel and plain times
+    against the bound of the five patterns' work together; per pattern
+    and size in ``patterns``."""
+    grid = MICRO_GRIDS[0]
+    rows = {name: r for (name, g), r in micro["res"].items() if g == grid}
+    bytes_ms = sum(r["bytes"] for r in rows.values()) / HBM_BYTES_PER_S * 1e3
+    ops_ms = sum(r["ops"] for r in rows.values()) / SCALAR_OPS_PER_S * 1e3
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by",
+            "us_per_iter_per_block", "accepted")
+    return {
+        "name": kern.name, "route": "cuda", "source": kern.source,
+        "replaces": kern.replaces, "launches": micro["total"],
+        "max_abs_err": micro["err"],
+        "ms": sum(r["ms"] for r in rows.values()),
+        "plain_ms": sum(r["plain_ms"] for r in rows.values()),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+        "patterns": {
+            name: {"launches": n, **{
+                f"grid {g}": {k: micro["res"][name, g][k] for k in keys
+                              if k in micro["res"][name, g]}
+                for g in MICRO_GRIDS}}
+            for name, n in micro["launches"].items()},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1002,10 +1160,10 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__},"
           f" CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     secs = kernels.build_all()
-    names = ", ".join(k.library_path().name for k in kernels.KERNELS)
-    print(f"[build] {secs:.1f} s, both compilers at once: {names}")
+    names = ", ".join(k.library_path().name for k in kernels.LIBRARIES)
+    print(f"[build] {secs:.1f} s, all compilers at once: {names}")
     # registers, stack frame and spills of each instantiation
-    for kern in kernels.KERNELS:
+    for kern in kernels.LIBRARIES:
         for line in kern.build_log.splitlines():
             if any(w in line for w in ("Compiling entry",
                                        "Function properties", "registers",
@@ -1014,6 +1172,9 @@ def main() -> int:
 
     robust = Semantics().robust()
     wall = {}
+    t0 = time.perf_counter()
+    micro = phase_micro()
+    wall["micro-kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     err = phase_compare()
     err = max(err, phase_wide_compare())
@@ -1099,7 +1260,8 @@ def main() -> int:
             [kern_entry["max_abs_err"]]
             + [p.get("max_abs_err", 0)
                for p in kern_entry["by_path"].values()])
-    print(json.dumps({"kernels": [stream_entry, call_entry]}))
+    print(json.dumps({"kernels": [stream_entry, call_entry,
+                                  micro_entry(kernels.MICRO, micro)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

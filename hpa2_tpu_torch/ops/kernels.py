@@ -1,5 +1,5 @@
-"""The CUDA kernels of the fast path: their build, their binding, their
-launch counts and the dispatch between each and its plain version.
+"""The CUDA kernels: their build, their binding, their launch counts
+and, for the fast path, the dispatch between each and its plain version.
 
 Two kernels share the cycle in ``csrc/cycle.cuh``:
 
@@ -9,13 +9,17 @@ Two kernels share the cycle in ``csrc/cycle.cuh``:
   launch is one call of up to ``k`` cycles in one trace window, driven
   from the host by ``ops/call_run.py:run_windows``.
 
+A third library, ``csrc/micro_kernels.cu`` (:data:`MICRO`), holds the
+five op-pattern micro-kernels that ``scripts/micro_kernels.py`` drives.
+
 Each is compiled by ``nvcc`` for ``sm_90a`` into a shared library with a
-plain C interface under ``hpa2_tpu_torch/build/`` at first use (the two
+plain C interface under ``hpa2_tpu_torch/build/`` at first use (the
 builds run at once), and loaded with ``ctypes``.  A library's name
 carries a hash of its sources and flags, so an edited source is rebuilt
-and a stale build is never loaded.  Each holds its kernel instantiated
-for node bounds 8, 21 and 64, each with int32 or packed planes; the
-library reports ``sizeof(Args)``, which must equal the ctypes mirror's.
+and a stale build is never loaded.  The two fast-path libraries hold
+their kernel instantiated for node bounds 8, 21 and 64, each with int32
+or packed planes, and report ``sizeof(Args)``, which must equal the
+ctypes mirror's.
 
 :func:`stream_run` and :func:`call_run` are the entries the engine
 calls.  On CPU tensors they run the plain PyTorch version
@@ -126,14 +130,19 @@ def _source_hash(sources: Tuple[str, ...]) -> str:
 
 
 class CudaKernel:
-    """One kernel: its library's build and binding, and its launch count.
+    """One kernel library: its build and binding, and its launch count.
 
+    The entry takes ``params`` (ctypes types), then the device index and
+    the stream, and returns a CUDA error code.  With a ``mirror``, the
+    library's ``hpa2_args_size()`` must equal that structure's size.
     ``launches`` counts kernel launches and nothing else; the plain
     version never touches it.  ``loads`` counts loads of the library
     (one a process)."""
 
-    def __init__(self, name: str, source: str, entry: str,
-                 replaces: str) -> None:
+    def __init__(self, name: str, source: str, entry: str, replaces: str,
+                 *, headers: Tuple[str, ...] = SHARED_SOURCES,
+                 params: Tuple = (ctypes.POINTER(Args),),
+                 mirror: Optional[type] = Args) -> None:
         self.name = name
         self.source = f"hpa2_tpu_torch/csrc/{source}"
         self.replaces = replaces
@@ -141,8 +150,11 @@ class CudaKernel:
         self.launches = 0
         self.loads = 0
         self.build_log = ""
-        self._sources = (source,) + SHARED_SOURCES
+        self._sources = (source,) + headers
+        self._params = params
+        self._mirror = mirror
         self._lib: Optional[ctypes.CDLL] = None
+        self._path: Optional[Path] = None
         self._proc: Optional[subprocess.Popen] = None
 
     def library_path(self) -> Path:
@@ -168,9 +180,9 @@ class CudaKernel:
     def build(self) -> Path:
         """Compile the library unless this source's build exists; load
         it.  Returns the library's path."""
+        if self._lib is not None:  # hashing the sources costs ~0.1 ms
+            return self._path
         path = self.library_path()
-        if self._lib is not None:
-            return path
         self.start_build()
         log = BUILD_DIR / (path.stem + ".log")
         if self._proc is not None:
@@ -186,24 +198,28 @@ class CudaKernel:
             self.build_log = log.read_text() if log.exists() else ""
         lib = ctypes.CDLL(str(path))
         fn = getattr(lib, self.entry)
-        fn.argtypes = [ctypes.POINTER(Args), ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [*self._params, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.hpa2_args_size.argtypes = []
-        lib.hpa2_args_size.restype = ctypes.c_int
-        size = lib.hpa2_args_size()
-        if size != ctypes.sizeof(Args):
-            raise RuntimeError(
-                f"hpa2::Args is {size} bytes but the ctypes mirror is "
-                f"{ctypes.sizeof(Args)}: kernels.Args is out of date")
-        self._lib = lib
+        if self._mirror is not None:
+            lib.hpa2_args_size.argtypes = []
+            lib.hpa2_args_size.restype = ctypes.c_int
+            size = lib.hpa2_args_size()
+            if size != ctypes.sizeof(self._mirror):
+                raise RuntimeError(
+                    f"hpa2::Args is {size} bytes but the ctypes mirror is "
+                    f"{ctypes.sizeof(self._mirror)}: kernels.Args is out "
+                    "of date")
+        self._lib, self._path = lib, path
         self.loads += 1
         return path
 
-    def launch(self, args: Args, device: torch.device) -> None:
+    def launch(self, *args, device: torch.device) -> None:
+        """Launch on ``device``'s current stream with ``args`` (as the
+        entry's ``params``); raises if the launch is refused."""
         self.build()
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(self._lib, self.entry)(
-            ctypes.byref(args), device.index or 0, stream)
+            *args, device.index or 0, stream)
         if err != 0:
             raise RuntimeError(
                 f"{self.name} kernel launch failed: CUDA error {err}")
@@ -231,6 +247,17 @@ CALL_RUN = CudaKernel("call_run", "call_run.cu", "hpa2_call_run",
 #: every kernel of the fast path
 KERNELS = (STREAM_RUN, CALL_RUN)
 
+#: the op-pattern micro-kernels (``scripts/micro_kernels.py:micro_run``):
+#: pattern index, the mb/mem/rows/cnt planes, lanes, iterations, block
+MICRO = CudaKernel(
+    "micro_kernels", "micro_kernels.cu", "hpa2_micro_run",
+    "scripts/micro_kernels.py:33", headers=("micro_kernels.cuh",),
+    params=(ctypes.c_int,) + (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3,
+    mirror=None)
+
+#: every library, in the order :func:`build_all` builds them
+LIBRARIES = KERNELS + (MICRO,)
+
 HOST_SYNCS = HostSyncs()
 
 
@@ -245,12 +272,12 @@ def check_kernel_bound(config: SystemConfig) -> None:
 
 
 def build_all() -> float:
-    """Build every kernel, all compilers started at once; returns the
+    """Build every library, all compilers started at once; returns the
     seconds it took."""
     t0 = time.perf_counter()
-    for k in KERNELS:
+    for k in LIBRARIES:
         k.start_build()
-    for k in KERNELS:
+    for k in LIBRARIES:
         k.build()
     return time.perf_counter() - t0
 
@@ -377,7 +404,7 @@ def stream_run(config: SystemConfig, state: Dict[str, torch.Tensor],
     b = tr_len.shape[-1]
     status = torch.empty((1, b), dtype=torch.int32, device=dev)
     args = _kernel_args(config, state, tr, tr_len, status, **kw)
-    STREAM_RUN.launch(args, dev)
+    STREAM_RUN.launch(ctypes.byref(args), device=dev)
     return status
 
 
@@ -410,4 +437,4 @@ def call_run(config: SystemConfig, state: Dict[str, torch.Tensor],
         return
     args = _kernel_args(config, state, tr, tr_len, None, n_seg=n_seg,
                         max_calls=0, seg=seg, **kw)
-    CALL_RUN.launch(args, tr.device)
+    CALL_RUN.launch(ctypes.byref(args), device=tr.device)

@@ -1,9 +1,10 @@
 """The CUDA kernels on the card against their plain PyTorch versions
 (every node bound: 8, 21 and 64 with split sharer planes, and packed
 planes): the streamed run, and the per-call kernel under its host
-loop; and the engine's ``run`` on the card against the CPU, unscheduled
-and scheduled.  These need an NVIDIA GPU with nvcc (sm_90a) and skip
-elsewhere; on the card run them with
+loop; the engine's ``run`` on the card against the CPU, unscheduled
+and scheduled; and the five op-pattern micro-kernels.  These need an
+NVIDIA GPU with nvcc (sm_90a) and skip elsewhere; on the card run them
+with
 
     python -m pytest tests/test_torch_card.py -m cuda
 """
@@ -20,6 +21,7 @@ from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
 from hpa2_tpu_torch.ops.layout import _init_state, _pack_traces, fields_of
 from hpa2_tpu_torch.ops.schedule import Schedule
 from hpa2_tpu_torch.ops.stream_run import stream_run_plain
+from hpa2_tpu_torch.scripts import micro_kernels
 from hpa2_tpu_torch.utils.trace import (
     gen_heterogeneous_random_arrays, gen_uniform_random_arrays,
 )
@@ -163,3 +165,20 @@ def test_scheduled_engine_on_card_matches_cpu(card, stream, fused):
         assert _same(on_card.state[f], v), f
     assert on_card.occupancy.as_dict() == on_cpu.occupancy.as_dict()
     assert on_card.stats() == on_cpu.stats()
+
+
+@pytest.mark.parametrize("name", list(micro_kernels.PATTERNS))
+def test_micro_kernel_matches_plain_on_card(card, name):
+    """Each op-pattern kernel at the script's size (grid=32, K=256)."""
+    mk = micro_kernels
+    arrays = {k: torch.from_numpy(v).to(card)
+              for k, v in mk.make_arrays(mk.B * 32).items()
+              if k in mk.PATTERNS[name]}
+    got = {k: v.clone() for k, v in arrays.items()}
+    before = mk.LAUNCHES[name]
+    mk.micro_run(name, got, iters=mk.K, block=mk.B)
+    want = mk.plain(name, arrays, iters=mk.K, block=mk.B)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES[name] == before + 1
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k

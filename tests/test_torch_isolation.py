@@ -4,6 +4,7 @@ its entry points run on the card unless told otherwise; and the kernel
 wrapper refuses planes it cannot take instead of running them."""
 
 import ast
+import inspect
 import os
 import pathlib
 import subprocess
@@ -18,6 +19,7 @@ from hpa2_tpu_torch.convert import state_from_numpy
 from hpa2_tpu_torch.ops import kernels
 from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
 from hpa2_tpu_torch.ops.layout import _init_state, _pack_traces
+from hpa2_tpu_torch.scripts import micro_kernels
 from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -90,6 +92,14 @@ def test_engine_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             CudaEngine(cfg, *arrays)
+
+
+def test_micro_kernels_runner_defaults_to_the_card():
+    assert inspect.signature(micro_kernels.main).parameters[
+        "device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            micro_kernels.main()
 
 
 def _planes(cfg, arrays):
