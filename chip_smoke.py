@@ -14,8 +14,10 @@ holds the fast path's kernels bit for bit against their plain PyTorch
 versions on the card (streamed run: cases a-e at up to 8 nodes, f:
 split sharer planes at 22, 33 and 64 nodes, g: packed planes; per-call
 kernel under its host loop: case h at 4, 8, 22 and 33 nodes, ragged
-windows, gate on and off, packed, and a stall), and drives through
-``CudaEngine``:
+windows, gate on and off, packed, and a stall; both kernels: case i, a
+lane block over several CTAs with one CTA idle from the start and
+snapshots on, and case j, a stalled block over two CTAs), and drives
+through ``CudaEngine``:
 
 * the streamed fast path at the repo's headline width (32,768 systems
   x 8 nodes x 128 instructions per core) and at its 64-node
@@ -38,12 +40,17 @@ windows, gate on and off, packed, and a stall), and drives through
 and prints:
 
 * the card's name and power limit (``nvidia-smi``);
+* per kernel instantiation, ptxas's registers, stack frame and spills,
+  and the shared memory, CTAs an SM and clusters the card holds at
+  once at lane blocks of 512 and 1,024 (``[build]``);
 * the host syncs of each path (``[syncs]``);
 * one ``{"kernels": [...]}`` line: per kernel its launches on its main
   path (the 64-node streamed run; the headline per-call run; the
   micro-kernels' runner), its largest disagreement with the plain
   version, its time and the plain version's at that shape, and its
-  bound (``by_path`` holds the same for every path driven,
+  bound: the larger of the bytes over 3.35 TB/s and the integer
+  operations the run's own counters say it needed (``cycle_ops``) over
+  ``SCALAR_OPS_PER_S`` (``by_path`` holds the same for every path driven,
   ``patterns`` the micro-kernels' per pattern and size);
 * last, ``{"ok": true, "device": {...}}``.
 
@@ -76,6 +83,25 @@ HBM_BYTES_PER_S = 3.35e12
 #: LOP3 counted as two ops; the INT32 pipe's 64 lanes an SM alone give a
 #: quarter of it, which IMAD on the FMA pipe can beat)
 SCALAR_OPS_PER_S = 67e12
+#: Integer operations a run of the cycle needs, counted from
+#: csrc/cycle.cuh for what any implementation must compute (loads,
+#: stores and this design's exchange not counted; a division counts as
+#: one op).  Per node and system-cycle with work, its checks: decode the
+#: four nsw fields (7), the window's length (5), the five outbox slots'
+#: validity (15), the blocked, activity and issue tests (16) and the nsw
+#: repack (7).
+OPS_NODE_CYCLE = 50
+#: per message, handled (decode five fields and split the address: 19;
+#: decode the cache and directory words and the sharer set: 15; the
+#: protocol's tests and updates: 18; pack one reply: 8; encode the cache
+#: and directory words written back: 10) and delivered (the candidate
+#: and room tests, the queue count, the type count: 10)
+OPS_MESSAGE = 80
+#: per retired RD/WR: decode the trace word and split its address (7),
+#: decode the cache word and test the hit (10), the read/write and
+#: upgrade tests (12), pack the request (8), encode the line (6), the
+#: counters (7)
+OPS_ISSUE = 50
 #: the micro-kernels' sizes: the script's own grid of 256-lane blocks,
 #: and the headline's 32,768 lanes
 MICRO_GRIDS = (32, 128)
@@ -95,19 +121,30 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def planes_for(cfg, b, t, seed, snapshots, window, packed=False):
-    """Initial planes and packed traces on the card, from a seed."""
+def planes_for(cfg, b, t, seed, snapshots, window, packed=False, idle=0,
+               block=1):
+    """Initial planes and packed traces on the card, from a seed; the
+    first ``idle`` lanes of each ``block`` get empty traces."""
     from hpa2_tpu_torch.convert import state_from_numpy
     from hpa2_tpu_torch.ops.layout import _init_state, _pack_traces
     from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
 
     op, addr, val, length = gen_uniform_random_arrays(cfg, b, t, seed=seed)
+    length.reshape(b // block, block, -1)[:, :idle] = 0
     n_seg = -(-t // window)
     tr = _pack_traces(cfg, op, addr, val, length)
     tr = np.pad(tr, ((0, 0), (0, n_seg * window - t), (0, 0)))
     state = state_from_numpy(_init_state(cfg, b, snapshots, packed), "cuda")
     return (state, torch.from_numpy(tr).cuda(),
             torch.from_numpy(np.ascontiguousarray(length.T)).cuda(), n_seg)
+
+
+def cycle_ops(n, system_cycles, messages, instructions):
+    """Integer operations a run needs (see ``OPS_NODE_CYCLE``): every
+    node's checks in every system-cycle with work, every message handled
+    and delivered, every RD/WR issued; from the run's own counters."""
+    return (system_cycles * n * OPS_NODE_CYCLE + messages * OPS_MESSAGE
+            + instructions * OPS_ISSUE)
 
 
 def elapsed_ms(fn):
@@ -171,16 +208,17 @@ def check_diff(label, diff):
 
 
 def kernel_vs_plain(label, cfg, b, t, seed, *, snapshots, block, k, window,
-                    gate, max_calls, stall, reps=1, packed=False):
-    """``reps`` kernel launches and one plain run from the same planes;
-    every carried plane and the stall plane must agree bit for bit, and
-    the stall must be as ``stall`` says (True, False, or None for
-    either).  Returns (max abs difference, mean kernel ms, plain ms,
-    kernel planes, stall plane)."""
+                    gate, max_calls, stall, reps=1, packed=False, idle=0):
+    """``reps`` kernel launches and one plain run from the same planes
+    (the first ``idle`` lanes of each block without work); every carried
+    plane and the stall plane must agree bit for bit, and the stall must
+    be as ``stall`` says (True, False, or None for either).  Returns
+    (max abs difference, mean kernel ms, plain ms, kernel planes, stall
+    plane)."""
     from hpa2_tpu_torch.ops.stream_run import stream_run_plain
 
     state, tr, tr_len, n_seg = planes_for(cfg, b, t, seed, snapshots, window,
-                                          packed)
+                                          packed, idle, block)
     kw = dict(block=block, k=k, window=window, n_seg=n_seg,
               max_calls=max_calls, gate=gate, snapshots=snapshots,
               packed=packed)
@@ -426,23 +464,29 @@ def drive_path(label, cfg, b, t, run, *, packed=False, ref=None,
     status_bytes = b * 4
     moved = 2 * state_bytes + trace_bytes + status_bytes
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    # a loose floor on the work: one scalar op per node per active
-    # system-cycle
-    ops_ms = lane_cycles * cfg.num_procs / SCALAR_OPS_PER_S * 1e3
+    messages = int(sc[_SC_MSGS].sum())
+    ops = cycle_ops(cfg.num_procs, lane_cycles, messages, eng.instructions)
+    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     print(f"[{label}] {b} systems x {cfg.num_procs} nodes x {t} instrs "
           f"(cache {cfg.cache_size}, mem {cfg.mem_size}, cap "
           f"{cfg.msg_buffer_size}, block {run['block']}, window "
           f"{run['window']}, k {run['k']}, packed {packed}): status 0, "
-          f"{eng.instructions} RD/WR retired, {int(sc[_SC_MSGS].sum())} "
+          f"{eng.instructions} RD/WR retired, {messages} "
           f"messages, max cycle {eng.cycle}, {lane_cycles} system-cycles")
     print(f"[{label}] engine run {run_ms:.3f} ms "
           f"({eng.instructions / run_ms * 1e3:.4e} RD/WR ops/s), kernel "
-          f"{ms:.3f} ms ({eng.instructions / ms * 1e3:.4e} RD/WR ops/s), "
+          f"{ms:.3f} ms ({eng.instructions / ms * 1e3:.4e} RD/WR ops/s, "
+          f"{ms / eng.cycle * 1e3:.3f} us a cycle of the longest system), "
           f"plain {plain_ms:.1f} ms, launches {launches}")
-    print(f"[{label}] bytes bound: {moved} B (state {state_bytes} B read and "
+    threads = kernels.threads_per_system(cfg)
+    geo = kernels.launch_geometry(run["block"], threads)
+    print(f"[{label}] bound: bytes {moved} B (state {state_bytes} B read and "
           f"written, traces {trace_bytes} B) / 3.35 TB/s = {bytes_ms:.4f} "
-          f"ms; ops floor {ops_ms:.4f} ms; CTAs {b // run['block']} on 132 "
+          f"ms; operations {ops} / {SCALAR_OPS_PER_S:.3g} ops/s = "
+          f"{ops_ms:.4f} ms; kernel / bound {ms / bound_ms:.1f}; "
+          f"{b // run['block']} clusters of {geo[0]} CTAs ({geo[3]} systems "
+          f"x {threads} threads, {geo[2]} rounds) on 132 "
           f"SMs; peak device memory {peak} B ({held} B of it held before "
           "the run)")
 
@@ -499,15 +543,16 @@ def per_call_kernel(cfg, state, tr, tr_len, kw):
 
 
 def per_call_vs_plain(label, cfg, b, t, seed, *, snapshots, block, k,
-                      window, gate, max_calls, stall, packed=False):
+                      window, gate, max_calls, stall, packed=False, idle=0):
     """The per-call kernel under its host loop and the same loop over the
-    plain version, from the same planes; every carried plane and the
-    status word must agree, and the stall must be as ``stall`` says
-    (True, False, or None for either)."""
+    plain version, from the same planes (the first ``idle`` lanes of
+    each block without work); every carried plane and the status word
+    must agree, and the stall must be as ``stall`` says (True, False, or
+    None for either)."""
     from hpa2_tpu_torch.ops.call_run import run_windows
 
     state, tr, tr_len, n_seg = planes_for(cfg, b, t, seed, snapshots, window,
-                                          packed)
+                                          packed, idle, block)
     kw = dict(block=block, k=k, window=window, n_seg=n_seg,
               max_calls=max_calls, gate=gate, snapshots=snapshots,
               packed=packed)
@@ -577,6 +622,56 @@ def phase_call_compare():
     return max(errs)
 
 
+def phase_team_compare():
+    """Cases (i) and (j): lane blocks spread over several CTAs of a
+    cluster.  (i) The first CTA of each block has no work from the start
+    (its lanes' traces are empty) while the block's others do: it runs
+    only because the block's gate is open, and with snapshots on its
+    systems take their snapshots in the block's first cycle; streamed at
+    8 and 22 nodes and per-call at 8.  (j) 4 mailbox slots and a budget
+    of 2 calls: every busy block stalls, streamed and per-call.  Each
+    against its plain version bit for bit."""
+    from hpa2_tpu_torch.config import Semantics, SystemConfig
+    from hpa2_tpu_torch.ops import kernels
+
+    robust = Semantics().robust()
+    cfg8 = SystemConfig(semantics=robust, **HEADLINE)
+    cfg22 = SystemConfig(num_procs=22, cache_size=2, mem_size=4,
+                         msg_buffer_size=16, semantics=robust)
+    cap4 = SystemConfig(num_procs=8, msg_buffer_size=4, semantics=robust)
+    errs = []
+    def geometry(cfg, block):
+        return kernels.launch_geometry(block,
+                                       kernels.threads_per_system(cfg))[:2]
+
+    for label, cfg, block in (("i idle CTA 8 nodes", cfg8, 512),
+                              ("i idle CTA 22 nodes", cfg22, 256)):
+        cl, per_cta = geometry(cfg, block)
+        err, _, _, got, _ = kernel_vs_plain(
+            f"{label} ({cl} CTAs a block)", cfg, 2048, 30, 31,
+            snapshots=True, block=block, k=32, window=12, gate=True,
+            max_calls=10_000, stall=False, idle=per_cta)
+        idle = got["snap_taken"].reshape(cfg.num_procs, -1, block)
+        if not bool(idle[:, :, :per_cta].all()):
+            raise AssertionError(f"{label}: idle systems took no snapshot")
+        errs.append(err)
+    cl, per_cta = geometry(cfg8, 512)
+    errs.append(per_call_vs_plain(
+        f"i idle CTA per-call 8 nodes ({cl} CTAs a block)", cfg8, 2048, 30,
+        32, snapshots=True, block=512, k=32, window=12, gate=True,
+        max_calls=10_000, stall=False, idle=per_cta)["err"])
+    cl, per_cta = geometry(cap4, 512)
+    errs.append(kernel_vs_plain(
+        f"j stalled {cl} CTAs a block", cap4, 1024, 32, 33, snapshots=False,
+        block=512, k=16, window=32, gate=True, max_calls=2, stall=True,
+        idle=per_cta)[0])
+    errs.append(per_call_vs_plain(
+        f"j stalled per-call {cl} CTAs a block", cap4, 1024, 32, 34,
+        snapshots=True, block=512, k=16, window=32, gate=True, max_calls=2,
+        stall=True, idle=per_cta)["err"])
+    return max(errs)
+
+
 def drive_per_call_path(label, cfg, b, t, run, ref, packed=False):
     """The per-call path at full width: ``CudaEngine(stream=False).run()``
     with the counts read around it, then the kernel alone under its
@@ -586,7 +681,7 @@ def drive_per_call_path(label, cfg, b, t, run, ref, packed=False):
     traces read once."""
     from hpa2_tpu_torch.ops import kernels
     from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
-    from hpa2_tpu_torch.ops.layout import _SC_CYCLE
+    from hpa2_tpu_torch.ops.layout import _SC_CYCLE, _SC_MSGS
     from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
 
     arrays = gen_uniform_random_arrays(cfg, b, t, seed=0)
@@ -631,7 +726,10 @@ def drive_per_call_path(label, cfg, b, t, run, ref, packed=False):
     moved = res["launches"] * (2 * state_bytes + window_bytes)
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     lane_cycles = int(eng.state["scalars"][_SC_CYCLE].long().sum())
-    ops_ms = lane_cycles * n / SCALAR_OPS_PER_S * 1e3
+    ops = cycle_ops(n, lane_cycles,
+                    int(eng.state["scalars"][_SC_MSGS].long().sum()),
+                    eng.instructions)
+    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
     print(f"[{label}] {b} systems x {n} nodes x {t} instrs (block "
           f"{run['block']}, window {w}, k {run['k']}, packed {packed}, "
           f"stream=False): status 0, {eng.instructions} RD/WR retired, max "
@@ -641,10 +739,13 @@ def drive_per_call_path(label, cfg, b, t, run, ref, packed=False):
     print(f"[{label}] engine run {run_ms:.3f} ms ({rate:.4e} RD/WR ops/s), "
           f"{launches['call_run']} launches, "
           f"{syncs} host syncs; kernel {res['ms']:.3f} ms summed over "
-          f"launches; plain {res['plain_ms']:.1f} ms")
-    print(f"[{label}] bytes bound: {res['launches']} calls x ({state_bytes} "
+          f"launches ({res['ms'] / eng.cycle * 1e3:.3f} us a cycle of the "
+          f"longest system); plain {res['plain_ms']:.1f} ms")
+    print(f"[{label}] bound: bytes {res['launches']} calls x ({state_bytes} "
           f"B state read and written + {window_bytes} B window) = {moved} B "
-          f"/ 3.35 TB/s = {bytes_ms:.4f} ms; ops floor {ops_ms:.4f} ms")
+          f"/ 3.35 TB/s = {bytes_ms:.4f} ms; operations {ops} / "
+          f"{SCALAR_OPS_PER_S:.3g} ops/s = {ops_ms:.4f} ms; kernel / bound "
+          f"{res['ms'] / max(bytes_ms, ops_ms):.1f}")
     print(f"[syncs] {label}: {syncs} host syncs in one run() "
           f"({res['reads']} quiescence reads of the per-call loop over "
           f"{launches['call_run']} calls, 1 status read)")
@@ -1169,6 +1270,25 @@ def main() -> int:
                                        "Function properties", "registers",
                                        "spill")):
                 print(f"[build] {kern.name}: {line.strip()}")
+    # shared memory and occupancy of each instantiation at the main
+    # paths' lane block (512: one cluster of 8 CTAs) and at 1024 (two
+    # rounds a CTA)
+    for n, lanes in ((8, 32768), (12, 1024), (64, 1024)):
+        cfg = SystemConfig(num_procs=n, msg_buffer_size=16)
+        for packed in (False, True):
+            for block in (512, 1024):
+                for kern in kernels.KERNELS:
+                    occ = kern.occupancy(
+                        kernels.geometry_args(cfg, lanes=lanes, block=block,
+                                              packed=packed),
+                        device=torch.device("cuda"))
+                    print(f"[build] {kern.name} node bound "
+                          f"{8 if n <= 8 else 21 if n <= 21 else 64} packed "
+                          f"{packed} block {block}: {occ['threads']} threads"
+                          f" and {occ['smem']} B dynamic shared memory a "
+                          f"CTA, {occ['ctas_per_sm']} CTAs an SM, "
+                          f"{occ['clusters']} clusters of "
+                          f"{occ['cl']} CTAs at once")
 
     robust = Semantics().robust()
     wall = {}
@@ -1179,7 +1299,8 @@ def main() -> int:
     err = phase_compare()
     err = max(err, phase_wide_compare())
     call_err = phase_call_compare()
-    wall["compare a-h"] = time.perf_counter() - t0
+    err = max(err, phase_team_compare())
+    wall["compare a-j"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     headline_cfg = SystemConfig(semantics=robust, **HEADLINE)
     wide_cfg = SystemConfig(semantics=robust, **WIDE)

@@ -62,7 +62,7 @@ def fast_path_setup(config: SystemConfig, *, lanes: int, block: int,
     ideal topology, the geometry and semantics the kernels implement,
     packable planes when ``packed``, a CUDA device that exists and a
     node count its kernels take, and a lane block of at most
-    ``kernels.MAX_BLOCK`` threads.  Returns the device and the lane
+    ``kernels.MAX_BLOCK`` lanes.  Returns the device and the lane
     block chosen for ``lanes`` lanes."""
     if config.interconnect.enabled:
         raise ValueError(
@@ -81,7 +81,7 @@ def fast_path_setup(config: SystemConfig, *, lanes: int, block: int,
     if block > kernels.MAX_BLOCK:
         raise ValueError(
             f"block={block} exceeds the kernel's {kernels.MAX_BLOCK}"
-            " threads per lane block (one thread per system)")
+            " lanes per lane block")
     return dev, block
 
 

@@ -21,6 +21,13 @@ their kernel instantiated for node bounds 8, 21 and 64, each with int32
 or packed planes, and report ``sizeof(Args)``, which must equal the
 ctypes mirror's.
 
+Their launch geometry (:func:`launch_geometry`): each system runs on
+:func:`threads_per_system` threads (2, 8 or 16 by the node bound), one
+per node rank; a CTA has at most :data:`MAX_CTA` threads, so it runs
+at most 256, 64 or 32 systems at once, in rounds when it holds more; a
+lane block of ``block`` systems is one thread-block cluster of at most
+:data:`MAX_CLUSTER` CTAs.
+
 :func:`stream_run` and :func:`call_run` are the entries the engine
 calls.  On CPU tensors they run the plain PyTorch version
 (``ops/stream_run.py``, ``ops/call_run.py``); on CUDA tensors they
@@ -61,8 +68,13 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-#: the kernel's thread-block limit (one thread per system)
+#: the most lanes (systems) a lane block takes
 MAX_BLOCK = 1024
+#: threads a CTA (kMaxCta in csrc/cycle.cuh)
+MAX_CTA = 512
+#: CTAs a lane block: one thread-block cluster, above 8 CTAs of a
+#: non-portable size (kMaxCluster)
+MAX_CLUSTER = 16
 #: the widest system of the largest compiled node bound (kMaxNodes)
 MAX_NODES = 64
 #: message and sharer words of that bound's frame (kMaxW, kMaxSW)
@@ -88,7 +100,8 @@ class Args(ctypes.Structure):
 
     _fields_ = (
         [(f, ctypes.c_int32) for f in (
-            "n", "c", "m", "cap", "W", "SW", "b", "bb", "window",
+            "n", "c", "m", "cap", "W", "SW", "b", "bb", "cl", "per_cta",
+            "rounds", "group", "window",
             "n_seg", "t_pad", "seg", "k", "max_calls", "gate", "snapshots",
             "nack", "eager_write", "flush_old_fill", "recv_packed", "packed",
             "cmeta_u16", "dmeta_u16")]
@@ -225,6 +238,23 @@ class CudaKernel:
                 f"{self.name} kernel launch failed: CUDA error {err}")
         self.launches += 1
 
+    def occupancy(self, args: Args, *, device: torch.device) -> Dict[str, int]:
+        """What the card makes of a launch with ``args`` (a fast-path
+        kernel): CTAs an SM holds, clusters the card holds at once, and
+        a CTA's dynamic shared memory and threads.  Launches nothing."""
+        self.build()
+        out = (ctypes.c_int * 4)()
+        fn = self._lib.hpa2_occupancy
+        fn.argtypes = [ctypes.POINTER(Args), ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        err = fn(ctypes.byref(args), device.index or 0, out)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.name} occupancy query failed: CUDA error {err}")
+        return dict(ctas_per_sm=out[0], clusters=out[1], smem=out[2],
+                    threads=out[3], cl=args.cl)
+
 
 class HostSyncs:
     """Count of the device values the engines read back to the host
@@ -269,6 +299,47 @@ def check_kernel_bound(config: SystemConfig) -> None:
             f"num_procs={config.num_procs} exceeds the CUDA kernel's node "
             f"bound of {MAX_NODES} (its per-thread frame is sized at "
             "compile time); run it on the CPU with device='cpu'")
+
+
+def threads_per_system(config: SystemConfig) -> int:
+    """Threads the kernels spread one system over (Bound<MAXN>::T in
+    csrc/cycle.cuh): 2 up to 8 nodes, 8 up to 21, 16 above (split sharer
+    planes); thread t owns nodes t, t+T, ..."""
+    n = config.num_procs
+    return 2 if n <= 8 else (8 if n <= 21 else 16)
+
+
+def launch_geometry(block: int, threads: int,
+                    max_group: Optional[int] = None):
+    """``(cl, per_cta, rounds, group)`` of a lane block of ``block``
+    systems of ``threads`` threads each: ``cl`` CTAs (one cluster, at
+    most :data:`MAX_CLUSTER`), none empty, each holding ``per_cta``
+    systems and running them in ``rounds`` rounds of ``group`` systems,
+    at most ``max_group`` (default: a full CTA, :data:`MAX_CTA`
+    threads)."""
+    most = MAX_CTA // threads
+    max_group = most if max_group is None else max_group
+    if not 1 <= max_group <= most:
+        raise ValueError(f"max_group={max_group} outside 1..{most}")
+    cl = min(MAX_CLUSTER, -(-block // max_group))
+    per_cta = -(-block // cl)
+    cl = -(-block // per_cta)
+    rounds = -(-per_cta // max_group)
+    return cl, per_cta, rounds, -(-per_cta // rounds)
+
+
+def geometry_args(config: SystemConfig, *, lanes: int, block: int,
+                  packed: bool = False,
+                  max_group: Optional[int] = None) -> Args:
+    """The fields of a launch's ``Args`` that pick its instantiation and
+    geometry (for :meth:`CudaKernel.occupancy`)."""
+    a = Args()
+    a.n, a.W = config.num_procs, _mb_layout(config)[1]
+    a.SW, a.cap = _sharer_words(config), config.msg_buffer_size
+    a.b, a.bb, a.packed = lanes, block, packed
+    a.cl, a.per_cta, a.rounds, a.group = launch_geometry(
+        block, threads_per_system(config), max_group)
+    return a
 
 
 def build_all() -> float:
@@ -323,7 +394,8 @@ def _plane_ptrs(state, prefix: str, split_sw: int) -> WordPlanes:
 
 def _kernel_args(config: SystemConfig, state, tr, tr_len, status, *,
                  block, k, window, n_seg, max_calls, gate,
-                 snapshots, packed=False, seg=0) -> Args:
+                 snapshots, packed=False, seg=0,
+                 max_group: Optional[int] = None) -> Args:
     layout, W = _mb_layout(config)
     slsc = _scalar_layout(config, window)
     sem = config.semantics
@@ -333,6 +405,8 @@ def _kernel_args(config: SystemConfig, state, tr, tr_len, status, *,
     a.cap, a.W = config.msg_buffer_size, W
     a.SW = _sharer_words(config)
     a.b, a.bb = tr_len.shape[1], block
+    a.cl, a.per_cta, a.rounds, a.group = launch_geometry(
+        block, threads_per_system(config), max_group)
     a.window, a.n_seg, a.t_pad, a.seg = window, n_seg, tr.shape[1], seg
     a.k, a.max_calls, a.gate, a.snapshots = k, max_calls, gate, snapshots
     a.nack = sem.intervention_miss_policy == "nack"
@@ -369,7 +443,7 @@ def _check_launch(config, state, tr, tr_len, *, block, window, n_seg,
     if block < 1 or block > MAX_BLOCK or b % block:
         raise ValueError(
             f"block={block} must divide the {b} lanes and be at most "
-            f"{MAX_BLOCK} (one thread per system)")
+            f"{MAX_BLOCK} lanes")
     _check_planes(config, state, tr, tr_len,
                   fields_of(config, snapshots, packed), snapshots,
                   n_seg * window, packed)

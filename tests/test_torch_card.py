@@ -147,6 +147,59 @@ def test_call_kernel_matches_plain_on_card(card, n, cap, robust, window, t,
         assert _same(got[f], want[f]), f
 
 
+@pytest.mark.parametrize(
+    "n,stream,cap,snapshots,max_calls,block",
+    [(8, True, 16, True, 100, 512),    # 2 CTAs a block, CTA 0 idle
+     (8, False, 16, True, 100, 1024),  # 4 CTAs a block
+     (8, True, 4, False, 2, 512),      # every busy block stalls
+     (8, False, 4, True, 2, 512),
+     (22, True, 16, True, 100, 256),   # a cluster of 8 CTAs
+     (22, True, 16, True, 100, 1024)],  # 16 CTAs of two rounds
+)
+def test_multi_cta_block_matches_plain_on_card(card, n, stream, cap,
+                                               snapshots, max_calls, block):
+    """Lane blocks spread over several CTAs of a cluster, the first CTA
+    of each block idle from the start (it runs while its block's gate is
+    open, and takes its snapshots then), against the plain version:
+    planes and the stall status."""
+    c, m = (4, 16) if n <= 8 else (2, 4)
+    cfg = SystemConfig(num_procs=n, msg_buffer_size=cap, cache_size=c,
+                       mem_size=m, semantics=Semantics().robust())
+    b, t, window = 2048, 30, 12
+    op, addr, val, length = gen_uniform_random_arrays(cfg, b, t, seed=cap)
+    per_cta = kernels.launch_geometry(
+        block, kernels.threads_per_system(cfg))[1]
+    length.reshape(b // block, block, -1)[:, :per_cta] = 0
+    n_seg = -(-t // window)
+    tr = torch.from_numpy(np.pad(_pack_traces(cfg, op, addr, val, length),
+                                 ((0, 0), (0, n_seg * window - t), (0, 0))))
+    tr_len = torch.from_numpy(np.ascontiguousarray(length.T))
+    state = state_from_numpy(_init_state(cfg, b, snapshots), "cpu")
+    kw = dict(block=block, k=16, window=window, n_seg=n_seg,
+              max_calls=max_calls, gate=True, snapshots=snapshots)
+    got = {f: v.to(card) for f, v in state.items()}
+    want = {f: v.clone() for f, v in state.items()}
+    if stream:
+        status = kernels.stream_run(cfg, got, tr.to(card), tr_len.to(card),
+                                    **kw)
+        new, want_status = stream_run_plain(cfg, state, tr, tr_len, **kw)
+        want.update(new)
+        stalled = bool(status.any())
+        assert torch.equal(status.cpu(), want_status)
+    else:
+        status = run_windows(cfg, got, tr.to(card), tr_len.to(card), **kw)
+        want_status = run_windows(cfg, want, tr, tr_len, **kw)
+        stalled = bool(int(status) & 1)
+        assert int(status) == int(want_status)
+    torch.cuda.synchronize()
+    assert stalled == (cap == 4)
+    for f in fields_of(cfg, snapshots):
+        assert _same(got[f], want[f]), f
+    if snapshots and cap != 4:
+        idle = got["snap_taken"].reshape(n, -1, block)[:, :, :per_cta]
+        assert bool(idle.all())
+
+
 @pytest.mark.parametrize("stream,fused", [(True, True), (True, False),
                                           (False, True), (False, False)])
 def test_scheduled_engine_on_card_matches_cpu(card, stream, fused):

@@ -9,7 +9,10 @@ engine never reaches it.  Planes and the stall plane must agree bit for
 bit with ``ops/cycle.py``, ``ops/stream_run.py`` and the per-call
 kernel's ``ops/call_run.py``, at every node bound the kernels are built
 for (8, 21 and 64: split sharer planes above 21 nodes) and with packed
-planes."""
+planes.  Each lane block runs as the card runs it: a cluster of CTAs,
+each system spread over ``kernels.threads_per_system`` threads, phase by
+phase; small ``max_group`` values split small blocks over several CTAs
+and rounds."""
 
 import ctypes
 import hashlib
@@ -32,46 +35,38 @@ from hpa2_tpu_torch.ops.layout import (
 from hpa2_tpu_torch.ops.stream_run import stream_run_plain
 from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
 
-# the same MAXN dispatch as csrc/stream_run.cu
+# the same MAXN dispatch as csrc/stream_run.cu; each lane block runs on
+# a host team (every CTA and thread of its cluster, phase by phase)
 SHIM = r"""
 #include "cycle.cuh"
-template <int MAXN, bool PACKED> void cycle_lanes(const hpa2::Args* a, int seg) {
-  for (int l = 0; l < a->b; ++l) hpa2::run_cycle<MAXN, PACKED>(*a, l, seg);
-}
-template <int MAXN, bool PACKED> void stream_blocks(const hpa2::Args* a) {
-  for (int l0 = 0; l0 < a->b; l0 += a->bb)
-    hpa2::stream_lanes<MAXN, PACKED>(*a, l0, l0 + a->bb);
-}
-template <int MAXN, bool PACKED> void call_blocks(const hpa2::Args* a) {
-  for (int l0 = 0; l0 < a->b; l0 += a->bb)
-    hpa2::call_lanes<MAXN, PACKED>(*a, l0, l0 + a->bb);
-}
 // what: 0 one cycle of every lane, 1 the streamed run, 2 one call
 template <int MAXN, bool PACKED> void run_as(const hpa2::Args* a, int seg, int what) {
-  if (what == 0) cycle_lanes<MAXN, PACKED>(a, seg);
-  else if (what == 1) stream_blocks<MAXN, PACKED>(a);
-  else call_blocks<MAXN, PACKED>(a);
+  for (int blk = 0; blk < a->b / a->bb; ++blk) {
+    hpa2::HostTeam<MAXN> tm(*a, blk);
+    if (what == 0) hpa2::cycle_block<MAXN, PACKED>(*a, tm, seg);
+    else if (what == 1) hpa2::stream_block<MAXN, PACKED>(*a, tm);
+    else hpa2::call_block<MAXN, PACKED>(*a, tm);
+  }
 }
 template <int MAXN> void run(const hpa2::Args* a, int seg, int what) {
   a->packed ? run_as<MAXN, true>(a, seg, what) : run_as<MAXN, false>(a, seg, what);
 }
-void dispatch(const hpa2::Args* a, int seg, int what) {
-  if (a->n <= 8) run<8>(a, seg, what);
-  else if (a->n <= 21) run<21>(a, seg, what);
-  else run<64>(a, seg, what);
+int dispatch(const hpa2::Args* a, int seg, int what) {
+  const int bound = hpa2::node_bound(*a);
+  if (bound == 8) run<8>(a, seg, what);
+  else if (bound == 21) run<21>(a, seg, what);
+  else if (bound == 64) run<64>(a, seg, what);
+  return bound == 0;  // refused, as the launch would be
 }
 extern "C" int hpa2_args_size() { return (int)sizeof(hpa2::Args); }
 extern "C" int hpa2_host_cycle(const hpa2::Args* a, int seg) {
-  dispatch(a, seg, 0);
-  return 0;
+  return dispatch(a, seg, 0);
 }
 extern "C" int hpa2_host_stream_run(const hpa2::Args* a) {
-  dispatch(a, 0, 1);
-  return 0;
+  return dispatch(a, 0, 1);
 }
 extern "C" int hpa2_host_call_run(const hpa2::Args* a) {
-  dispatch(a, a->seg, 2);
-  return 0;
+  return dispatch(a, a->seg, 2);
 }
 """
 #: (num_procs, cache_size, mem_size) of the wide geometries: SW = 1, 2, 3
@@ -152,7 +147,7 @@ def test_host_cycle_matches_plain(host_lib, n, cap, robust, snapshots, geom,
     for i in range(cycles):
         out = plain({**cur, "tr": tr, "tr_len": tr_len})
         cur = {f: out[f] for f in fields}
-        host_lib.hpa2_host_cycle(ctypes.byref(args), 0)
+        assert host_lib.hpa2_host_cycle(ctypes.byref(args), 0) == 0
         for f in fields:
             assert torch.equal(host[f], cur[f]), f"cycle {i}, plane {f!r}"
     assert int(cur["scalars"][1].sum()) > 0
@@ -187,7 +182,7 @@ def test_host_stream_run_matches_plain(host_lib, n, cap, robust, window, t,
     host = {f: v.clone() for f, v in state.items()}
     status = torch.full((1, b), -1, dtype=torch.int32)
     args = kernels._kernel_args(cfg, host, tr, tr_len, status, **kw)
-    host_lib.hpa2_host_stream_run(ctypes.byref(args))
+    assert host_lib.hpa2_host_stream_run(ctypes.byref(args)) == 0
     for f in fields_of(cfg, snapshots, packed):
         assert torch.equal(host[f], want[f]), f"plane {f!r}"
     assert torch.equal(status, want_status)
@@ -236,8 +231,119 @@ def test_host_call_matches_plain(host_lib, n, cap, robust, window, t, gate,
                                     max_calls=0, seg=seg, **kw)
         for call in range(3):
             want.update(call_plain(cfg, want, tr, tr_len, seg=seg, **kw))
-            host_lib.hpa2_host_call_run(ctypes.byref(args))
+            assert host_lib.hpa2_host_call_run(ctypes.byref(args)) == 0
             for f in fields:
                 assert torch.equal(host[f], want[f]), \
                     f"window {seg}, call {call}, plane {f!r}"
+    assert int(host["scalars"][1].sum()) > 0
+
+
+def test_launch_geometry_covers_every_block():
+    """Every accepted block size gets at most 16 CTAs, none empty, whose
+    rounds of at most ``max_group`` systems cover the block."""
+    for threads in (2, 8, 16):
+        for max_group in (1, 2, 3, 7, None):
+            for block in range(1, kernels.MAX_BLOCK + 1):
+                cl, per_cta, rounds, group = kernels.launch_geometry(
+                    block, threads, max_group)
+                assert 1 <= cl <= kernels.MAX_CLUSTER, (block, max_group)
+                assert 1 <= group * threads <= kernels.MAX_CTA
+                assert group <= (max_group or group)
+                assert cl * per_cta >= block > (cl - 1) * per_cta
+                assert rounds * group >= per_cta > (rounds - 1) * group
+    assert kernels.launch_geometry(512, 8) == (8, 64, 1, 64)
+    assert kernels.launch_geometry(1024, 8) == (16, 64, 1, 64)
+    assert kernels.launch_geometry(512, 2) == (2, 256, 1, 256)
+    assert kernels.launch_geometry(512, 16) == (16, 32, 1, 32)
+    assert kernels.launch_geometry(1024, 16) == (16, 64, 2, 32)
+
+
+def test_host_refuses_a_bad_geometry(host_lib):
+    cfg, state, tr, tr_len, n_seg = _setup(8, 16, True, 16, 8, seed=1,
+                                           snapshots=False, window=8)
+    args = kernels._kernel_args(
+        cfg, state, tr, tr_len, torch.zeros((1, 16), dtype=torch.int32),
+        block=16, k=8, window=8, n_seg=n_seg, max_calls=4, gate=True,
+        snapshots=False)
+    args.cl = kernels.MAX_CLUSTER + 1
+    assert host_lib.hpa2_host_stream_run(ctypes.byref(args)) == 1
+
+
+#: (num_procs, cache_size, mem_size) of a system on the 21-node bound
+MID12 = (12, 4, 8)
+
+
+@pytest.mark.parametrize(
+    "n,geom,packed,what,block,max_group,snapshots,cap,max_calls",
+    [
+        # a block over 4 CTAs of 2 systems; CTA 0 idle from the start
+        (8, None, False, "stream", 8, 2, True, 16, 10_000),
+        (8, None, True, "call", 8, 3, True, 16, 0),
+        # two rounds a CTA (20 systems on 7 CTAs of 3, rounds of 2)
+        (8, None, False, "stream", 20, 2, False, 16, 10_000),
+        (12, MID12, False, "stream", 6, 2, True, 16, 10_000),
+        (12, MID12, True, "call", 6, 1, False, 16, 0),
+        (64, SPLIT64, False, "stream", 4, 1, True, 16, 10_000),
+        (64, SPLIT64, True, "call", 4, 2, True, 16, 0),
+        # mailboxes longer than 32 slots settle cycle by cycle
+        (8, None, False, "call", 8, 2, False, 48, 0),
+        # 4 mailbox slots and a short budget: blocks stall
+        (8, None, False, "stream", 8, 2, False, 4, 2),
+        (8, None, True, "stream", 8, 1, True, 4, 3),
+    ],
+)
+def test_host_team_matches_plain(host_lib, n, geom, packed, what, block,
+                                 max_group, snapshots, cap, max_calls):
+    """Lane blocks split over several CTAs (and rounds) of the card's
+    layout against the plain versions.  In every other block the first
+    CTA's systems are idle from the start (``tr_len`` 0): they run only
+    because their block's gate is open, and with snapshots on their
+    first cycle takes their snapshots (phase D); ragged windows (the
+    last window ends early).  Planes and (streamed) the stall plane."""
+    b, t, window, k = 2 * block, (6 if n > 21 else 12), 5, 16
+    cfg, state, tr, tr_len, n_seg = _setup(n, cap, True, b, t, seed=n + b,
+                                           snapshots=snapshots,
+                                           window=window, geom=geom,
+                                           packed=packed)
+    per_cta = kernels.launch_geometry(
+        block, kernels.threads_per_system(cfg), max_group)[1]
+    assert per_cta < block  # the block spans several CTAs
+    # block 0's first CTA idle; with the short budget, all of block 0
+    idle = block if cap == 4 else per_cta
+    tr_len[:, :idle] = 0
+    fields = fields_of(cfg, snapshots, packed)
+    host = {f: v.clone() for f, v in state.items()}
+    if what == "stream":
+        kw = dict(block=block, k=k, window=window, n_seg=n_seg,
+                  max_calls=max_calls, gate=True, snapshots=snapshots,
+                  packed=packed)
+        want, want_status = stream_run_plain(cfg, state, tr, tr_len, **kw)
+        status = torch.full((1, b), -1, dtype=torch.int32)
+        args = kernels._kernel_args(cfg, host, tr, tr_len, status,
+                                    max_group=max_group, **kw)
+        assert host_lib.hpa2_host_stream_run(ctypes.byref(args)) == 0
+        assert torch.equal(status, want_status)
+        if cap == 4:  # the budget runs out on the busy block only
+            assert status[0, block:].all() and not status[0, :block].any()
+        else:
+            assert not status.any()
+    else:
+        slsc = _scalar_layout(cfg, window)
+        pc_clear = ~(slsc["pc_mask"] << slsc["off_pc"])
+        want = {f: v.clone() for f, v in state.items()}
+        kw = dict(block=block, k=k, window=window, gate=True,
+                  snapshots=snapshots, packed=packed)
+        for seg in range(n_seg):
+            host["nsw"].bitwise_and_(pc_clear)
+            want["nsw"].bitwise_and_(pc_clear)
+            want.update(call_plain(cfg, want, tr, tr_len, seg=seg, **kw))
+            args = kernels._kernel_args(cfg, host, tr, tr_len, None,
+                                        n_seg=n_seg, max_calls=0, seg=seg,
+                                        max_group=max_group, **kw)
+            assert host_lib.hpa2_host_call_run(ctypes.byref(args)) == 0
+    for f in fields:
+        assert torch.equal(host[f], want[f]), f"plane {f!r}"
+    if snapshots:  # idle systems snapshot iff their block's gate opened
+        assert bool(host["snap_taken"][:, :per_cta].all()) == (cap != 4)
+    assert int(host["scalars"][0, :per_cta].sum()) == 0
     assert int(host["scalars"][1].sum()) > 0
