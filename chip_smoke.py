@@ -16,8 +16,9 @@ split sharer planes at 22, 33 and 64 nodes, g: packed planes; per-call
 kernel under its host loop: case h at 4, 8, 22 and 33 nodes, ragged
 windows, gate on and off, packed, and a stall; both kernels: case i, a
 lane block over several CTAs with one CTA idle from the start and
-snapshots on, and case j, a stalled block over two CTAs), and drives
-through ``CudaEngine``:
+snapshots on, and case j, a stalled block over two CTAs; case k, lane
+blocks above 1,024 lanes, up to the card's largest at the 8-node
+bound), and drives through ``CudaEngine``:
 
 * the streamed fast path at the repo's headline width (32,768 systems
   x 8 nodes x 128 instructions per core) and at its 64-node
@@ -34,6 +35,13 @@ through ``CudaEngine``:
 * a resident-lane session (``CudaLaneSession``), its launches held
   against the plain version, and its results against the one-shot
   run;
+* always-on serving (``hpa2_tpu_torch.serving.serve``) at
+  ``bench.py``'s accelerator geometry (16,384 zipf jobs through 4,096
+  resident lanes, window 32, block 512): a checked pass at a smaller
+  feed whose every launch is held against the plain version, then the
+  pipelined run, the serial run, a Poisson-arrival run, a framed-wire
+  run with two clients and the ``serve`` command, every served job's
+  dumps equal to the one-shot scheduled run's;
 * the ``run`` command on a small trace directory and the ``bench``
   command, unscheduled and scheduled,
 
@@ -44,9 +52,14 @@ and prints:
   and the shared memory, CTAs an SM and clusters the card holds at
   once at lane blocks of 512 and 1,024 (``[build]``);
 * the host syncs of each path (``[syncs]``);
+* per serving run, its jobs, intervals, admissions and compactions,
+  sustained RD/WR ops/s and wall time, the host staging, device wait
+  and readback split, p50/p99 latency, launches, host syncs and compile
+  counts, and the time the pipeline hid against the serial run
+  (``[serve]``);
 * one ``{"kernels": [...]}`` line: per kernel its launches on its main
   path (the 64-node streamed run; the headline per-call run; the
-  micro-kernels' runner), its largest disagreement with the plain
+  micro-kernels' runner; the pipelined serving run under ``by_path``), its largest disagreement with the plain
   version, its time and the plain version's at that shape, and its
   bound: the larger of the bytes over 3.35 TB/s and the integer
   operations the run's own counters say it needed (``cycle_ops``) over
@@ -65,6 +78,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import pathlib
 import shutil
 import subprocess
@@ -305,10 +319,46 @@ def checked_kernels(label):
         kernels.call_run = launch["call_run"]
 
 
+@contextlib.contextmanager
+def timed_launches():
+    """A pair of CUDA events around every K2 library launch made inside
+    (``kernels.STREAM_RUN.launch``, not the Python wrapper, so the
+    wrapper's argument checks and assembly on the host fall outside),
+    recorded on the stream and read only afterwards (no host sync); the
+    launch count is the code's own.  Yields the list of (start, end)
+    pairs."""
+    from hpa2_tpu_torch.ops import kernels
+
+    kern = kernels.STREAM_RUN
+    launch = kern.launch
+    pairs = []
+
+    def timed(*args, device):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(torch.cuda.current_stream(device))
+        launch(*args, device=device)
+        end.record(torch.cuda.current_stream(device))
+        pairs.append((start, end))
+
+    kern.launch = timed
+    try:
+        yield pairs
+    finally:
+        del kern.launch
+
+
+def launches_ms(pairs):
+    """Device ms of the launches :func:`timed_launches` recorded."""
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs)
+
+
 def phase_compare():
-    """Cases (a)-(e): the kernel against its plain version at up to 8
-    nodes."""
+    """Cases (a)-(e) and (k): the kernel against its plain version at up
+    to 8 nodes."""
     from hpa2_tpu_torch.config import Semantics, SystemConfig
+    from hpa2_tpu_torch.ops import kernels
 
     robust = Semantics().robust()
     errs = []
@@ -344,6 +394,18 @@ def phase_compare():
     errs.append(kernel_vs_plain("e gate-off", cfg, 1024, 64, 5,
                                 snapshots=False, block=256, k=128,
                                 window=32, gate=False, max_calls=10_000,
+                                stall=False)[0])
+    # (k) lane blocks above 1,024 at the headline geometry: 2,048 (a
+    # cluster of 8 CTAs, the first idle from the start) and the card's
+    # largest at the 8-node bound (16 CTAs of 5 rounds)
+    errs.append(kernel_vs_plain("k block 2048", cfg, 6144, 32, 6,
+                                snapshots=False, block=2048, k=128,
+                                window=32, gate=True, max_calls=10_000,
+                                stall=False, idle=256)[0])
+    most = kernels.MAX_LANE_BLOCK[8]
+    errs.append(kernel_vs_plain(f"k block {most}", cfg, most, 8, 7,
+                                snapshots=False, block=most, k=128,
+                                window=8, gate=True, max_calls=10_000,
                                 stall=False)[0])
     return max(errs)
 
@@ -1003,11 +1065,14 @@ def phase_session():
         err = 0
         # the one-shot run goes on clearing pc at window bases that a
         # short system's session never reaches, so nsw is not compared
+        cols = [sess.columns_of(harvested[s]) for s in range(b)]
         for f in ("cachew", "dirw", "scalars", "msg_counts"):
-            got = torch.cat([harvested[s][f] for s in range(b)], dim=-1)
+            got = np.concatenate([c[f] for c in cols], axis=-1)
+            want = one_shot.state[f].cpu().numpy()
             err = max(err, check_diff(
                 f"session stream={stream} plane {f}",
-                {f: int((got.long() - one_shot.state[f].long()).abs().max())}))
+                {f: int(np.abs(got.astype(np.int64)
+                               - want.astype(np.int64)).max())}))
         if {f: v.data_ptr() for f, v in sess.state.items()} != ptrs:
             raise AssertionError("session: the resident planes moved")
         counts = sess.compile_counts()
@@ -1025,6 +1090,276 @@ def phase_session():
         out[stream] = dict(launches=launches, err=max(err, chk["err"]),
                            checked=chk["stream_run"] + chk["call_run"])
     return out
+
+
+#: the serving geometry ``bench.py`` uses on an accelerator
+#: (``_serve_knobs`` at bench.py:538-556, ``serve_child_main`` at
+#: :559-690, on ``_bench_config()``): 16,384 zipf-length jobs (spread 4,
+#: seed 0) of up to 128 instructions a core through 4,096 resident lanes
+SERVE = dict(resident=4096, window=32, block=512, policy="fcfs",
+             backend="pallas")
+SERVE_JOBS, SERVE_INSTRS = 16384, 128
+
+
+def serve_line(label, st, card, extra=""):
+    """One ``[serve]`` line of a run's stats, with the card."""
+    d = st.as_dict()
+    occ, ph, lat = d["occupancy"], d["phases"], d["latency_s"]
+    print(f"[serve] {label}: {d['jobs_completed']} jobs, "
+          f"{occ['intervals']} intervals, {occ['admissions']} admissions, "
+          f"{occ['compactions']} compactions; {d['instructions']} RD/WR in "
+          f"{st.wall_s:.6f} s wall: {st.ops_per_s:.1f} RD/WR ops/s "
+          f"sustained; host_staging_s {st.host_staging_s:.6f}, "
+          f"device_wait_s {st.device_wait_s:.6f}, readback_s "
+          f"{st.readback_s:.6f}; latency p50 {lat['p50']} s, p99 "
+          f"{lat['p99']} s; compile counts {d['compile_counts']}{extra} "
+          f"({card})")
+
+
+def phase_serve(card):
+    """Always-on serving on the card through ``hpa2_tpu_torch.serving``
+    at ``bench.py``'s accelerator geometry (``SERVE``): a checked pass at
+    that geometry on 8,192 jobs (every K2 launch held against the plain
+    version), a warm-up, the pipelined run (the main path: launches counted from 0),
+    the serial run, a Poisson-arrival run at 60% of the pipelined
+    capacity, a framed-wire run with two clients, and the ``serve``
+    command.  Every served job's dumps (and, untimed, counters) must
+    equal the port's one-shot scheduled run's."""
+    import threading
+
+    from hpa2_tpu_torch.config import Semantics, SystemConfig
+    from hpa2_tpu_torch.ops import kernels
+    from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
+    from hpa2_tpu_torch.ops.layout import (
+        _SC_CYCLE, _SC_INSTR, _SC_MSGS, decode_dumps,
+    )
+    from hpa2_tpu_torch.ops.schedule import Schedule
+    from hpa2_tpu_torch.service import WireClient, WireJobSource
+    from hpa2_tpu_torch.serving import (
+        ListJobSource, build_serving, job_to_record, poisson_arrivals,
+        serve, synthetic_jobs,
+    )
+    from hpa2_tpu_torch.utils.dump import format_processor_state
+
+    cfg = SystemConfig(semantics=Semantics().robust(), **HEADLINE)
+
+    def feed(count, seed, spread=4.0, arrivals=None):
+        return synthetic_jobs(cfg, count, SERVE_INSTRS, seed=seed,
+                              dist="zipf", spread=spread, arrivals=arrivals)
+
+    # 1. the checked pass, at the main path's geometry (SERVE) on twice
+    # the resident lanes' worth of jobs; spread 5 makes lengths multiples
+    # of 26, so windows of 32 end early, and the feed's tail leaves lanes
+    # idle
+    checked_jobs = 2 * SERVE["resident"]
+    with checked_kernels("serve") as chk:
+        _, st = serve(cfg, ListJobSource(feed(checked_jobs, 3, spread=5.0)),
+                      overlap=True, **SERVE)
+    if chk["stream_run"] == 0 or chk["idle_lanes"] == 0 \
+            or chk["ragged_lanes"] == 0:
+        raise AssertionError(f"serve: the checks missed a case: {chk}")
+    print(f"[compare] serve: {checked_jobs} jobs through "
+          f"{SERVE['resident']} lanes (block {SERVE['block']}, window "
+          f"{SERVE['window']}, pipelined): {chk['stream_run']} K2 launches "
+          f"held against the plain version on their own planes and windows "
+          f"({chk['idle_lanes']} idle lanes, {chk['ragged_lanes']} lanes "
+          f"with a window ending early): max_abs_err={chk['err']}; "
+          f"{st.occupancy['intervals']} intervals, plain "
+          f"{chk['seconds']:.1f} s")
+
+    # the reference: the port's one-shot scheduled run of the same jobs
+    jobs = feed(SERVE_JOBS, 0)
+    arrays = [np.stack([getattr(j, f) for j in jobs])
+              for f in ("tr_op", "tr_addr", "tr_val", "tr_len")]
+    t0 = time.perf_counter()
+    ref = CudaEngine(cfg, *arrays, block=SERVE["block"],
+                     trace_window=SERVE["window"], snapshots=False,
+                     schedule=Schedule(resident=SERVE["resident"],
+                                       fused=False)).run()
+    ref_s = time.perf_counter() - t0
+    cw, dw = ref._word_planes()
+    sc = ref.state["scalars"].cpu().numpy()
+    want = {j.job_id: decode_dumps(cfg, cw, dw, s)
+            for s, j in enumerate(jobs)}
+    counters = {j.job_id: {"instructions": int(sc[_SC_INSTR, s]),
+                           "cycles": int(sc[_SC_CYCLE, s]),
+                           "messages": int(sc[_SC_MSGS, s])}
+                for s, j in enumerate(jobs)}
+
+    def check(label, results, ids, with_counters=True):
+        if sorted(r.job_id for r in results) != sorted(ids):
+            raise AssertionError(f"serve {label}: jobs served {len(results)}"
+                                 f" of {len(ids)}, or some twice")
+        for r in results:
+            if r.dumps != want[r.job_id]:
+                raise AssertionError(f"serve {label}: {r.job_id}'s dumps "
+                                     "differ from the one-shot run's")
+            if with_counters and r.counters != counters[r.job_id]:
+                raise AssertionError(
+                    f"serve {label}: {r.job_id}'s counters {r.counters} "
+                    f"differ from the one-shot run's {counters[r.job_id]}")
+
+    # 2. warm-up, then the pipelined run: the main path
+    serve(cfg, ListJobSource(feed(2 * SERVE["resident"], 99)), **SERVE)
+    drv = build_serving(cfg, ListJobSource(jobs), overlap=True, **SERVE)
+    ptrs = {f: v.data_ptr() for f, v in drv.session.state.items()}
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    syncs = kernels.HOST_SYNCS.count
+    with timed_launches() as pairs:
+        results, pipelined = drv.run()
+    launches = {kern.name: kern.launches for kern in kernels.KERNELS}
+    syncs = kernels.HOST_SYNCS.count - syncs
+    k2_ms = launches_ms(pairs)
+    check("pipelined", results, want)
+    intervals = pipelined.occupancy["intervals"]
+    if launches["stream_run"] != intervals or launches["call_run"]:
+        raise AssertionError(f"serve: launches {launches} over {intervals} "
+                             "intervals")
+    if set(pipelined.compile_counts.values()) != {1}:
+        raise AssertionError(f"serve: compile counts "
+                             f"{pipelined.compile_counts}")
+    if {f: v.data_ptr() for f, v in drv.session.state.items()} != ptrs:
+        raise AssertionError("serve: the resident planes moved")
+    # K2's bound over the run: each launch reads and writes the resident
+    # planes once and reads its window; the operations the jobs' own
+    # counters say they needed
+    n, r = cfg.num_procs, SERVE["resident"]
+    state_bytes = sum(v.numel() * v.element_size()
+                      for v in drv.session.state.values())
+    moved = intervals * (2 * state_bytes
+                         + (n * SERVE["window"] * r + n * r + 1) * 4)
+    ops = cycle_ops(n, *(sum(res.counters[k] for res in results)
+                         for k in ("cycles", "messages", "instructions")))
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    serve_line("pipelined", pipelined, card,
+               f"; launches {launches}; {syncs} host syncs; K2 "
+               f"{k2_ms:.3f} ms on the card over the {intervals} launches "
+               f"(device idle {1 - k2_ms / 1e3 / pipelined.wall_s:.4f} of "
+               f"the wall), bound {bound_ms:.4f} ms by {bound_by} (bytes "
+               f"{moved} B = {bytes_ms:.4f} ms, operations {ops} = "
+               f"{ops_ms:.4f} ms)")
+    print(f"[serve] one-shot reference (CudaEngine, Schedule(resident="
+          f"{SERVE['resident']}, fused=False), block {SERVE['block']}, "
+          f"window {SERVE['window']}): {ref_s:.3f} s; every served job's "
+          "dumps and counters equal its own; the resident planes kept "
+          "their storage")
+
+    # 3. the serial baseline on the same feed, in turns with the
+    # pipelined run (pipelined, serial, serial, pipelined): the host
+    # clock's spread decides what a difference means
+    walls = {True: [pipelined.wall_s], False: []}
+    serial = None
+    for overlap in (False, False, True):
+        with timed_launches() as pairs:
+            res, st = serve(cfg, ListJobSource(jobs), overlap=overlap,
+                            **SERVE)
+        check("pipelined" if overlap else "serial", res, want)
+        walls[overlap].append(st.wall_s)
+        if serial is None:
+            serial = st
+            serve_line("serial", st, card,
+                       f"; K2 {launches_ms(pairs):.3f} ms on the card")
+    hidden_s = max(0.0, serial.wall_s - pipelined.wall_s)
+    frac = (min(1.0, hidden_s / serial.host_staging_s)
+            if serial.host_staging_s > 0 else 0.0)
+    print(f"[serve] overlap: pipelined {pipelined.wall_s:.6f} s, serial "
+          f"{serial.wall_s:.6f} s: hidden_s {hidden_s:.6f}, "
+          f"staging_hidden_frac {frac:.3f}; in turns (pipelined, serial, "
+          f"serial, pipelined) pipelined walls "
+          f"{', '.join(f'{w:.6f}' for w in walls[True])} s, serial walls "
+          f"{', '.join(f'{w:.6f}' for w in walls[False])} s ({card})")
+
+    # 4. Poisson arrivals at 60% of the pipelined capacity
+    rate = 0.6 * pipelined.jobs_completed / pipelined.wall_s
+    timed = feed(SERVE_JOBS, 0, arrivals=poisson_arrivals(SERVE_JOBS, rate,
+                                                          seed=1))
+    results_p, poisson = serve(cfg, ListJobSource(timed, timed=True),
+                               **SERVE)
+    check("poisson", results_p, want, with_counters=False)
+    serve_line(f"poisson at {rate:.1f} jobs/s", poisson, card)
+
+    # 5. the framed wire: 512 jobs from two clients on 127.0.0.1
+    wire_jobs = jobs[:512]
+    recs = [job_to_record(j) for j in wire_jobs]
+    src = WireJobSource(cfg, "127.0.0.1", 0)
+    acks, got, errors = {}, {}, []
+
+    def client(k, mine):
+        try:
+            with WireClient(*src.address, timeout_s=120.0) as cli:
+                acks[k] = [cli.submit(r) for r in mine]
+                got[k] = cli.finish()
+        except Exception as e:  # reported below, never passed over
+            errors.append(f"client {k}: {e!r}")
+
+    halves = (recs[:256], recs[256:])
+    threads = [threading.Thread(target=client, args=(k, h), daemon=True)
+               for k, h in enumerate(halves)]
+    for t in threads:
+        t.start()
+    try:
+        results_w, wire = serve(cfg, src, emit=src.deliver, resident=512,
+                                window=SERVE["window"], block=128)
+    finally:
+        src.close()
+    for t in threads:
+        t.join(timeout=120)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serve wire: clients failed: {errors}")
+    check("wire", results_w, [j.job_id for j in wire_jobs],
+          with_counters=False)
+    for k, mine in enumerate(halves):
+        seqs = [a["seq"] for a in acks[k]]
+        if seqs != sorted(seqs) or [a["id"] for a in acks[k]] != [
+                r["id"] for r in mine]:
+            raise AssertionError(f"serve wire: client {k}'s acks out of "
+                                 "order")
+        if sorted(r["id"] for r in got[k]) != sorted(r["id"] for r in mine):
+            raise AssertionError(f"serve wire: client {k}'s results are not"
+                                 " its jobs, each once")
+    if sorted(a["seq"] for k in acks for a in acks[k]) != list(range(512)):
+        raise AssertionError("serve wire: the ack seqs are not 0..511")
+    serve_line("wire, two clients", wire, card,
+               "; every result arrived once, acks in seq order")
+
+    # 6. the serve command on a jobs file
+    work = ROOT / "hpa2_tpu_torch" / "build" / "smoke_serve"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    path = work / "jobs.jsonl"
+    path.write_text("".join(json.dumps(r) + "\n" for r in recs[:64]))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+    proc = subprocess.run(
+        [sys.executable, "-m", "hpa2_tpu_torch", "serve", str(path),
+         "--nodes", "8", "--msg-buffer-size", "16", "--robust",
+         "--resident", "64", "--window", str(SERVE["window"]), "--block",
+         "64", "--immediate", "--out", str(work / "out")],
+        capture_output=True, text=True, env=env, timeout=600, cwd=str(work))
+    if proc.returncode != 0:
+        raise AssertionError(f"serve command exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    cli_stats = json.loads(proc.stdout.strip().splitlines()[-1])
+    files = 0
+    for j in wire_jobs[:64]:
+        for d in want[j.job_id]:
+            f = work / "out" / j.job_id / f"core_{d.proc_id}_output.txt"
+            if f.read_text() != format_processor_state(d, cfg):
+                raise AssertionError(f"serve command: {f} differs from the "
+                                     "one-shot run's dump")
+            files += 1
+    print(f"[serve] python -m hpa2_tpu_torch serve (64 jobs): {files} dump "
+          f"files equal the one-shot run's; jobs_completed "
+          f"{cli_stats['jobs_completed']}, compile counts "
+          f"{cli_stats['compile_counts']}")
+    return dict(launches=launches, checked=chk["stream_run"],
+                err=chk["err"], wall_ms=pipelined.wall_s * 1e3, ms=k2_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_run_command():
@@ -1271,12 +1606,13 @@ def main() -> int:
                                        "spill")):
                 print(f"[build] {kern.name}: {line.strip()}")
     # shared memory and occupancy of each instantiation at the main
-    # paths' lane block (512: one cluster of 8 CTAs) and at 1024 (two
-    # rounds a CTA)
-    for n, lanes in ((8, 32768), (12, 1024), (64, 1024)):
+    # paths' lane block (512), at 1024, and at the card's largest block
+    # of the node bound (kernels.MAX_LANE_BLOCK: 16 CTAs, most rounds)
+    for n, base in ((8, 32768), (12, 1024), (64, 1024)):
         cfg = SystemConfig(num_procs=n, msg_buffer_size=16)
+        most = kernels.MAX_LANE_BLOCK[kernels.node_bound(cfg)]
         for packed in (False, True):
-            for block in (512, 1024):
+            for block, lanes in ((512, base), (1024, base), (most, most)):
                 for kern in kernels.KERNELS:
                     occ = kern.occupancy(
                         kernels.geometry_args(cfg, lanes=lanes, block=block,
@@ -1331,6 +1667,9 @@ def main() -> int:
     session = phase_session()
     wall["session"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    served = phase_serve(card)
+    wall["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     phase_run_command()
     wall["run and bench commands"] = time.perf_counter() - t0
     print("[wall] " + ", ".join(f"{k} {v:.1f} s" for k, v in wall.items()))
@@ -1376,6 +1715,10 @@ def main() -> int:
         kern_entry["by_path"]["session"] = {
             "launches": run["launches"][kern_entry["name"]],
             "checked_launches": run["checked"], "max_abs_err": run["err"]}
+    stream_entry["by_path"]["serve"] = {
+        "launches": served["launches"]["stream_run"],
+        "checked_launches": served["checked"], "max_abs_err": served["err"],
+        **{k: served[k] for k in ("ms", "bound_ms", "bound_by", "wall_ms")}}
     for kern_entry in (stream_entry, call_entry):
         kern_entry["max_abs_err"] = max(
             [kern_entry["max_abs_err"]]

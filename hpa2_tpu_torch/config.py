@@ -5,12 +5,15 @@ keyword dictionary builds the same configuration for either package.
 Only what the streamed fast path reads (or refuses on) is kept: the
 geometry, the protocol semantics, and enough of the interconnect,
 protocol and directory-format choices to refuse what this engine does
-not implement.
+not implement; and the serving plane's failure plan
+(``hpa2_tpu/config.py:129-228``, ``SystemConfig.failures`` at l.351),
+whose ``sever`` events the wire frontend honours.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 #: the registered interconnect topologies (``ideal`` = next-cycle
 #: delivery, the only one the fast path implements)
@@ -36,6 +39,108 @@ class Semantics:
     def robust(self) -> "Semantics":
         """Fixture semantics + the at-scale soundness fixes."""
         return dataclasses.replace(self, intervention_miss_policy="nack")
+
+
+#: Failure kinds a :class:`FailurePlan` can schedule.  All fire above
+#: the link layer.  The port's wire frontend honours ``sever``; the
+#: other three are read by the recovery supervisor, which the port does
+#: not have yet:
+#:   kill    the whole backend engine dies at the given serving
+#:           interval (supervisor migrates to the next target);
+#:   hang    a node shard stops quiescing at the interval — the
+#:           exchange never drains, so detection is via the watchdog /
+#:           StallDiagnostic path rather than an error return;
+#:   poison  one resident lane block is marked bad at the interval
+#:           (supervisor evacuates its lanes onto a fresh session of
+#:           the same backend);
+#:   sever   the framed wire connection is cut mid-frame once the
+#:           global admission seq reaches the event's ``at`` (the
+#:           frontend sends a torn ACK header and hard-closes).
+FAILURE_KINDS = ("kill", "hang", "poison", "sever")
+
+
+@dataclasses.dataclass(frozen=True)
+class FailureEvent:
+    """One scheduled failure: ``kind`` at serving interval (or, for
+    ``sever``, admission seq) ``at``, aimed at ``target`` (a shard /
+    lane-block / connection index; 0 when there is only one thing to
+    break)."""
+
+    kind: str
+    at: int
+    target: int = 0
+
+    def __post_init__(self) -> None:
+        if self.kind not in FAILURE_KINDS:
+            raise ValueError(
+                f"unknown failure kind {self.kind!r}; expected one of "
+                f"{FAILURE_KINDS}"
+            )
+        if self.at < 0:
+            raise ValueError(f"failure 'at' must be >= 0, got {self.at}")
+
+    def spec(self) -> str:
+        base = f"{self.kind}@{self.at}"
+        return f"{base}:{self.target}" if self.target else base
+
+
+@dataclasses.dataclass(frozen=True)
+class FailurePlan:
+    """A deterministic, seeded failure schedule for the serving plane.
+
+    Pure data: which failures fire, and when — no RNG and no clocks at
+    runtime (the same purity rule the interconnect lint enforces).
+    ``seed`` only feeds *derived* deterministic choices (e.g. the wire
+    client's jittered backoff), never a runtime entropy source.
+
+    Grammar (``FailurePlan.parse``)::
+
+        kill@K [ ; hang@K[:SHARD] ; poison@K[:BLOCK] ; sever@SEQ[:CONN] ]
+
+    i.e. semicolon-separated ``kind@at[:target]`` events.  ``at`` is a
+    serving interval index for kill/hang/poison and a global admission
+    sequence number for sever.
+    """
+
+    events: Tuple[FailureEvent, ...] = ()
+    seed: int = 0
+
+    @classmethod
+    def parse(cls, spec: str, seed: int = 0) -> "FailurePlan":
+        events = []
+        for part in spec.split(";"):
+            part = part.strip()
+            if not part:
+                continue
+            kind, sep, rest = part.partition("@")
+            if not sep:
+                raise ValueError(
+                    f"bad failure event {part!r}; expected "
+                    "kind@at[:target]"
+                )
+            at, _, target = rest.partition(":")
+            try:
+                events.append(
+                    FailureEvent(
+                        kind.strip(), int(at), int(target) if target else 0
+                    )
+                )
+            except ValueError as e:
+                raise ValueError(
+                    f"bad failure event {part!r}: {e}"
+                ) from None
+        return cls(tuple(events), seed=seed)
+
+    def spec(self) -> str:
+        """Inverse of :meth:`parse` (round-trips through checkpoints)."""
+        return ";".join(e.spec() for e in self.events)
+
+    @property
+    def enabled(self) -> bool:
+        return bool(self.events)
+
+    def of_kind(self, *kinds: str) -> Tuple[FailureEvent, ...]:
+        return tuple(e for e in self.events if e.kind in kinds)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +181,8 @@ class SystemConfig:
     )
     protocol: str = "mesi"
     directory_format: str = "full"
+    # the serving plane's failure schedule; the kernels never read it
+    failures: Optional[FailurePlan] = None
 
     def __post_init__(self) -> None:
         if self.num_procs < 1:

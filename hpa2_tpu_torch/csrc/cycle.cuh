@@ -103,7 +103,6 @@ constexpr int kNScalar = 10;
 constexpr int kNTypes = 15;
 constexpr int kNCount = kNScalar + kNTypes;  // per-system counters
 constexpr int kGate = 8;
-constexpr int kMaxBlock = 1024;  // lanes a lane block
 constexpr int kMaxCta = 512;     // threads a CTA
 // CTAs a lane block: one cluster, above 8 CTAs of a non-portable size
 constexpr int kMaxCluster = 16;
@@ -298,7 +297,7 @@ HPA2_HD int node_bound(const Args& a) {
   const bool ok = bound == 8 ? fits<8>(a) && geometry_ok<8>(a)
                   : bound == 21 ? fits<21>(a) && geometry_ok<21>(a)
                                 : fits<kMaxNodes>(a) && geometry_ok<kMaxNodes>(a);
-  if (!ok || a.bb < 1 || a.bb > kMaxBlock || a.b % a.bb != 0 ||
+  if (!ok || a.bb < 1 || a.b % a.bb != 0 ||
       a.cap < 1 || a.cap > kRingMask)
     return 0;
   return bound;

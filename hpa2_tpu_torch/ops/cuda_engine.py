@@ -60,10 +60,11 @@ def fast_path_setup(config: SystemConfig, *, lanes: int, block: int,
                     packed: bool, device):
     """The refusals ``CudaEngine`` and ``CudaLaneSession`` share: the
     ideal topology, the geometry and semantics the kernels implement,
-    packable planes when ``packed``, a CUDA device that exists and a
-    node count its kernels take, and a lane block of at most
-    ``kernels.MAX_BLOCK`` lanes.  Returns the device and the lane
-    block chosen for ``lanes`` lanes."""
+    packable planes when ``packed``, and on the card a CUDA device that
+    exists, a node count its kernels take and a lane block they take
+    (``kernels.MAX_LANE_BLOCK``; the plain versions take any divisor of
+    the lanes).  Returns the device and the lane block chosen for
+    ``lanes`` lanes."""
     if config.interconnect.enabled:
         raise ValueError(
             "the fast path implements the ideal topology only; use the "
@@ -75,13 +76,10 @@ def fast_path_setup(config: SystemConfig, *, lanes: int, block: int,
     if packed:
         packed_plane_dtypes(config)  # raises on unpackable geometry
     dev = resolve_device(device)
+    block = choose_block(lanes, block)
     if dev.type == "cuda":
         kernels.check_kernel_bound(config)
-    block = choose_block(lanes, block)
-    if block > kernels.MAX_BLOCK:
-        raise ValueError(
-            f"block={block} exceeds the kernel's {kernels.MAX_BLOCK}"
-            " lanes per lane block")
+        kernels.check_block(config, block)
     return dev, block
 
 

@@ -68,10 +68,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-#: the most lanes (systems) a lane block takes
-MAX_BLOCK = 1024
-#: threads a CTA (kMaxCta in csrc/cycle.cuh)
+#: threads a CTA of the fast-path kernels (kMaxCta in csrc/cycle.cuh)
 MAX_CTA = 512
+#: threads any CTA may have (a CUDA limit); a lane block of the
+#: micro-kernels is one CTA, one thread a lane
+MAX_CTA_THREADS = 1024
 #: CTAs a lane block: one thread-block cluster, above 8 CTAs of a
 #: non-portable size (kMaxCluster)
 MAX_CLUSTER = 16
@@ -80,6 +81,19 @@ MAX_NODES = 64
 #: message and sharer words of that bound's frame (kMaxW, kMaxSW)
 MAX_WORDS = 5
 MAX_SHARER_WORDS = 3
+
+#: the largest lane block the card takes at each node bound (2, 8 and
+#: 16 threads a system): one cluster of MAX_CLUSTER CTAs of 256, 64 and
+#: 32 systems a round, in as many rounds as a CTA's dynamic shared
+#: memory allows (``Shared<MAXN>::bytes`` in csrc/cycle.cuh grows by
+#: 29,696, 9,088 and 7,296 B a round from 74,760, 45,320 and 99,464 B,
+#: against the 232,448 B a CTA may opt into): 5, 20 and 18 rounds.
+#: Measured by ``scripts/block_limits.py`` on an NVIDIA H100 80GB HBM3
+#: (700 W): at each bound, unpacked and packed, the card accepts the
+#: launch of that block (223,240, 227,080 and 230,792 B a CTA, one CTA
+#: an SM, at least one cluster at once) and refuses one more round.
+#: The plain versions take any block that divides the lanes.
+MAX_LANE_BLOCK = {8: 20480, 21: 20480, 64: 9216}
 
 _FIELDS = ("type", "sender", "second", "addr", "aux", "recv") + tuple(
     f"shr{w}" for w in range(MAX_SHARER_WORDS))
@@ -297,8 +311,29 @@ def check_kernel_bound(config: SystemConfig) -> None:
     if config.num_procs > MAX_NODES:
         raise ValueError(
             f"num_procs={config.num_procs} exceeds the CUDA kernel's node "
-            f"bound of {MAX_NODES} (its per-thread frame is sized at "
+            f"bound of {MAX_NODES} (a system's shared-memory records and "
+            "its message words in registers are sized by the bound at "
             "compile time); run it on the CPU with device='cpu'")
+
+
+def node_bound(config: SystemConfig) -> int:
+    """The node bound whose instantiation runs ``config`` (8, 21 or
+    64; ``node_bound`` in csrc/cycle.cuh)."""
+    n = config.num_procs
+    return 8 if n <= 8 else (21 if n <= 21 else MAX_NODES)
+
+
+def check_block(config: SystemConfig, block: int) -> None:
+    """Raise unless the card takes lane blocks of ``block`` systems at
+    ``config``'s node bound (:data:`MAX_LANE_BLOCK`)."""
+    most = MAX_LANE_BLOCK[node_bound(config)]
+    if block > most:
+        raise ValueError(
+            f"block={block} exceeds the {most} lanes a lane block takes "
+            f"on the card at the {node_bound(config)}-node bound (one "
+            "cluster, as many rounds a CTA as its shared memory holds); "
+            "the plain version (device='cpu') takes any divisor of the "
+            "lanes")
 
 
 def threads_per_system(config: SystemConfig) -> int:
@@ -440,10 +475,8 @@ def _kernel_args(config: SystemConfig, state, tr, tr_len, status, *,
 def _check_launch(config, state, tr, tr_len, *, block, window, n_seg,
                   snapshots, packed) -> None:
     b = tr_len.shape[-1]
-    if block < 1 or block > MAX_BLOCK or b % block:
-        raise ValueError(
-            f"block={block} must divide the {b} lanes and be at most "
-            f"{MAX_BLOCK} lanes")
+    if block < 1 or b % block:
+        raise ValueError(f"block={block} must divide the {b} lanes")
     _check_planes(config, state, tr, tr_len,
                   fields_of(config, snapshots, packed), snapshots,
                   n_seg * window, packed)
@@ -452,6 +485,7 @@ def _check_launch(config, state, tr, tr_len, *, block, window, n_seg,
         raise ValueError(f"no kernel for device {dev}")
     if dev.type == "cuda":
         check_kernel_bound(config)
+        check_block(config, block)
 
 
 def stream_run(config: SystemConfig, state: Dict[str, torch.Tensor],
@@ -463,7 +497,8 @@ def stream_run(config: SystemConfig, state: Dict[str, torch.Tensor],
     Returns the [1, B] int32 per-lane stall plane (its block's flag).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel,
-    which takes at most ``MAX_NODES`` nodes."""
+    which takes at most ``MAX_NODES`` nodes and lane blocks of at most
+    ``MAX_LANE_BLOCK`` systems."""
     _check_launch(config, state, tr, tr_len, block=block, window=window,
                   n_seg=n_seg, snapshots=snapshots, packed=packed)
     kw = dict(block=block, k=k, window=window, n_seg=n_seg,

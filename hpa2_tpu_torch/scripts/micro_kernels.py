@@ -155,11 +155,11 @@ def _check(name, arrays, block) -> int:
         raise ValueError(f"no pattern {name!r}; one of {list(PATTERNS)}")
     planes = [arrays[k] for k in PATTERNS[name]]
     lanes = planes[0].shape[-1]
-    if block < 32 or block > kernels.MAX_BLOCK or block % 32 \
+    if block < 32 or block > kernels.MAX_CTA_THREADS or block % 32 \
             or lanes % block:
         raise ValueError(
             f"{lanes} lanes are not whole blocks of {block} (a block is "
-            f"one CTA of whole warps, at most {kernels.MAX_BLOCK} threads)")
+            f"one CTA of whole warps, at most {kernels.MAX_CTA_THREADS} threads)")
     dev = planes[0].device
     for k, x in zip(PATTERNS[name], planes):
         if x.device != dev:

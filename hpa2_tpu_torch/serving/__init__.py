@@ -1,0 +1,39 @@
+"""Always-on serving on the port: continuous-batching ingest over
+resident lanes, the counterpart of ``hpa2_tpu.serving`` on the
+single-GPU fast backend.
+
+- :mod:`hpa2_tpu_torch.serving.jobs`: the JSONL job format and
+  generators.
+- :mod:`hpa2_tpu_torch.serving.ingest`: file / socket / in-memory job
+  sources and seeded arrival processes.
+- :mod:`hpa2_tpu_torch.serving.loop`: the serving loop itself: trace
+  pool, overlapped admission pipeline, phase timers, no-rebuild guard.
+
+Quick start::
+
+    from hpa2_tpu_torch.serving import serve, ListJobSource, synthetic_jobs
+    jobs = synthetic_jobs(config, 64, 96, seed=7)
+    results, stats = serve(config, ListJobSource(jobs),
+                           backend="pallas", resident=16, window=16)
+
+``BatchServingSession`` and the recovery supervisor
+(``ServeSupervisor``, ``default_targets``, ``supervised_serve``) are
+not ported yet.
+"""
+
+from hpa2_tpu_torch.serving.ingest import (
+    FileJobSource, JobSource, ListJobSource, SocketJobSource,
+    poisson_arrivals, zipf_burst_arrivals)
+from hpa2_tpu_torch.serving.jobs import (
+    Job, JobResult, job_from_record, job_to_record, load_jobs_file,
+    parse_jobs_lines, synthetic_jobs)
+from hpa2_tpu_torch.serving.loop import (
+    ServingSession, ServingStats, TracePool, build_serving, serve)
+
+__all__ = [
+    "FileJobSource", "Job", "JobResult", "JobSource", "ListJobSource",
+    "ServingSession", "ServingStats", "SocketJobSource", "TracePool",
+    "build_serving", "job_from_record", "job_to_record", "load_jobs_file",
+    "parse_jobs_lines", "poisson_arrivals", "serve", "synthetic_jobs",
+    "zipf_burst_arrivals",
+]

@@ -1,8 +1,10 @@
 """The CUDA kernels on the card against their plain PyTorch versions
 (every node bound: 8, 21 and 64 with split sharer planes, and packed
 planes): the streamed run, and the per-call kernel under its host
-loop; the engine's ``run`` on the card against the CPU, unscheduled
-and scheduled; and the five op-pattern micro-kernels.  These need an
+loop; lane blocks above 1,024 lanes up to the card's bound; the
+engine's ``run`` on the card against the CPU, unscheduled and
+scheduled; serving on the card against the CPU, pipelined and serial;
+and the five op-pattern micro-kernels.  These need an
 NVIDIA GPU with nvcc (sm_90a) and skip elsewhere; on the card run them
 with
 
@@ -22,6 +24,7 @@ from hpa2_tpu_torch.ops.layout import _init_state, _pack_traces, fields_of
 from hpa2_tpu_torch.ops.schedule import Schedule
 from hpa2_tpu_torch.ops.stream_run import stream_run_plain
 from hpa2_tpu_torch.scripts import micro_kernels
+from hpa2_tpu_torch.serving import ListJobSource, serve, synthetic_jobs
 from hpa2_tpu_torch.utils.trace import (
     gen_heterogeneous_random_arrays, gen_uniform_random_arrays,
 )
@@ -198,6 +201,62 @@ def test_multi_cta_block_matches_plain_on_card(card, n, stream, cap,
     if snapshots and cap != 4:
         idle = got["snap_taken"].reshape(n, -1, block)[:, :, :per_cta]
         assert bool(idle.all())
+
+
+@pytest.mark.parametrize("n,c,m,rounds", [(8, 4, 16, 1), (8, 4, 16, 5),
+                                         (64, 2, 4, 18)])
+def test_block_above_1024_matches_plain_on_card(card, n, c, m, rounds):
+    """Lane blocks of one cluster of 16 full CTAs in ``rounds`` rounds:
+    2,048 lanes a block at 8 nodes (beside 4,096 more in two blocks),
+    and the card's largest blocks at 8 and 64 nodes
+    (``kernels.MAX_LANE_BLOCK``), against the plain version."""
+    cfg = SystemConfig(num_procs=n, msg_buffer_size=16, cache_size=c,
+                       mem_size=m, semantics=Semantics().robust())
+    threads = kernels.threads_per_system(cfg)
+    block = kernels.MAX_CLUSTER * (kernels.MAX_CTA // threads) * rounds
+    if rounds > 1:
+        assert block == kernels.MAX_LANE_BLOCK[kernels.node_bound(cfg)]
+    block = block if rounds > 1 else 2048
+    b, t = (3 * block if rounds == 1 else block), (12 if n <= 8 else 3)
+    op, addr, val, length = gen_uniform_random_arrays(cfg, b, t, seed=rounds)
+    tr = torch.from_numpy(_pack_traces(cfg, op, addr, val, length))
+    tr_len = torch.from_numpy(np.ascontiguousarray(length.T))
+    state = state_from_numpy(_init_state(cfg, b, False), "cpu")
+    kw = dict(block=block, k=32, window=t, n_seg=1, max_calls=100,
+              gate=True, snapshots=False)
+    got = {f: v.to(card) for f, v in state.items()}
+    before = kernels.STREAM_RUN.launches
+    status = kernels.stream_run(cfg, got, tr.to(card), tr_len.to(card), **kw)
+    want, want_status = stream_run_plain(cfg, state, tr, tr_len, **kw)
+    torch.cuda.synchronize()
+    assert kernels.STREAM_RUN.launches == before + 1
+    assert torch.equal(status.cpu(), want_status) and not status.any()
+    for f in fields_of(cfg, False):
+        assert _same(got[f], want[f]), f
+    with pytest.raises(ValueError, match="lane block takes on the card"):
+        kernels.check_block(
+            cfg, kernels.MAX_LANE_BLOCK[kernels.node_bound(cfg)] + 1)
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_serve_on_card_matches_cpu(card, overlap):
+    """``serve`` on the card against ``serve(device="cpu")``: every job's
+    dumps and counters, the occupancy dict, and one kernel launch an
+    interval; every compile count is 1."""
+    cfg = SystemConfig(num_procs=8, msg_buffer_size=16,
+                       semantics=Semantics().robust())
+    jobs = synthetic_jobs(cfg, 96, 48, seed=4, spread=4.0)
+    kw = dict(resident=32, window=8, block=16, overlap=overlap)
+    before = kernels.STREAM_RUN.launches
+    results, stats = serve(cfg, ListJobSource(jobs), **kw)
+    launched = kernels.STREAM_RUN.launches - before
+    want, want_stats = serve(cfg, ListJobSource(jobs), device="cpu", **kw)
+    assert launched == stats.occupancy["intervals"] > 0
+    assert stats.occupancy == want_stats.occupancy
+    assert set(stats.compile_counts.values()) == {1}
+    assert [r.job_id for r in results] == [r.job_id for r in want]
+    for r, w in zip(results, want):
+        assert r.dumps == w.dumps and r.counters == w.counters, r.job_id
 
 
 @pytest.mark.parametrize("stream,fused", [(True, True), (True, False),

@@ -116,3 +116,73 @@ def test_bench_cpu_zipf_lengths(capsys, extra):
     fused = "--host-barriers" not in extra
     assert occ["host_barriers"] == (0 if fused else occ["intervals"])
     assert occ["admissions"] == (8 if extra[1] == "8" else 0)
+
+
+def _serve_feed(path, n_jobs=8):
+    """A JSONL feed of ``n_jobs`` zipf-length 4-node jobs."""
+    from hpa2_tpu_torch.config import Semantics, SystemConfig
+    from hpa2_tpu_torch.serving import job_to_record, synthetic_jobs
+
+    cfg = SystemConfig(num_procs=4, semantics=Semantics().robust())
+    jobs = synthetic_jobs(cfg, n_jobs, 24, seed=7, spread=3.0)
+    path.write_text("".join(json.dumps(job_to_record(j)) + "\n"
+                            for j in jobs))
+    return [j.job_id for j in jobs]
+
+
+def _tree(d: pathlib.Path):
+    return {str(p.relative_to(d)): p.read_bytes()
+            for p in sorted(d.rglob("*")) if p.is_file()}
+
+
+@pytest.mark.filterwarnings(
+    "ignore:pltpu.ANY is deprecated:DeprecationWarning")
+def test_serve_matches_jax_serve_dump_files(tmp_path, capsys):
+    """``serve JOBS.jsonl --out DIR`` writes the same dump files as
+    ``python -m hpa2_tpu.cli serve`` (its ``pallas`` backend), and its
+    last line is the stats JSON with every job completed."""
+    feed = tmp_path / "jobs.jsonl"
+    ids = _serve_feed(feed)
+    flags = ["--robust", "--resident", "4", "--window", "8", "--block", "4",
+             "--immediate"]
+    want_dir, got_dir = tmp_path / "jax", tmp_path / "port"
+    assert jcli.main(["serve", str(feed), "--out", str(want_dir)]
+                     + flags) == 0
+    jstats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO_ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+    proc = subprocess.run(
+        [sys.executable, "-m", "hpa2_tpu_torch", "serve", str(feed),
+         "--device", "cpu", "--out", str(got_dir),
+         "--results-jsonl", str(tmp_path / "results.jsonl")] + flags,
+        capture_output=True, text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    stats = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert stats["jobs_completed"] == 8 and stats["backend"] == "pallas"
+    assert stats["occupancy"] == jstats["occupancy"]
+    assert stats["compile_counts"] == {"runner": 1, "barrier": 1,
+                                       "take_lane": 1}
+    want = _tree(want_dir)
+    assert len(want) == 8 * 4
+    assert sorted({k.split(os.sep)[0] for k in want}) == sorted(ids)
+    assert _tree(got_dir) == want
+    records = [json.loads(line) for line in
+               (tmp_path / "results.jsonl").read_text().splitlines()]
+    assert sorted(r["id"] for r in records) == sorted(ids)
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["--backend", "jax"], "item 2"),
+    (["--data-shards", "2"], "item 4"),
+    (["--node-shards", "2"], "item 4"),
+    (["--failure-plan", "kill@1"], "item 3"),
+    (["--checkpoint-dir", "ck"], "item 3"),
+    (["--migrate-to", "jax"], "item 3"),
+    (["--wire"], "--listen"),
+])
+def test_serve_refuses_what_the_port_lacks(tmp_path, extra, match):
+    feed = tmp_path / "jobs.jsonl"
+    _serve_feed(feed, 1)
+    with pytest.raises(SystemExit, match=match):
+        cli.main(["serve", str(feed), "--device", "cpu"] + extra)

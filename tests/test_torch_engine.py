@@ -145,10 +145,17 @@ def test_per_call_and_scheduled_runs_are_accepted():
 
 
 def test_block_above_kernel_limit_refused():
+    """The kernel's lane-block limit is the card's, by node bound
+    (``kernels.MAX_LANE_BLOCK``): a block above it is refused by the
+    check the card's setup and launch make, while the plain version
+    takes any block that divides the lanes, as ``PallasEngine`` does."""
     cfg = SystemConfig(msg_buffer_size=16)
-    with pytest.raises(ValueError, match="1024"):
-        CudaEngine(cfg, *_arrays(cfg, b=2048, t=1), block=2048,
-                   device="cpu")
+    most = kernels.MAX_LANE_BLOCK[8]
+    with pytest.raises(ValueError, match=f"exceeds the {most} lanes"):
+        kernels.check_block(cfg, most + 1)
+    eng = CudaEngine(cfg, *_arrays(cfg, b=2048, t=1), block=2048,
+                     device="cpu").run()
+    assert eng.block == 2048 and eng.instructions == 2048 * 4
 
 
 def test_kernel_node_bound():

@@ -94,6 +94,23 @@ def test_engine_defaults_to_the_card():
             CudaEngine(cfg, *arrays)
 
 
+def test_serve_defaults_to_the_card():
+    from hpa2_tpu_torch.serving import (
+        ListJobSource, build_serving, serve, synthetic_jobs,
+    )
+
+    params = inspect.signature(build_serving).parameters
+    assert params["device"].default == "cuda"
+    cfg, _ = _small()
+    jobs = synthetic_jobs(cfg, 2, 4, seed=0)
+    if torch.cuda.is_available():
+        drv = build_serving(cfg, ListJobSource(jobs), resident=2)
+        assert drv.session.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve(cfg, ListJobSource(jobs), resident=2)
+
+
 def test_micro_kernels_runner_defaults_to_the_card():
     assert inspect.signature(micro_kernels.main).parameters[
         "device"].default == "cuda"

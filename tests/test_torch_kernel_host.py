@@ -239,11 +239,18 @@ def test_host_call_matches_plain(host_lib, n, cap, robust, window, t, gate,
 
 
 def test_launch_geometry_covers_every_block():
-    """Every accepted block size gets at most 16 CTAs, none empty, whose
-    rounds of at most ``max_group`` systems cover the block."""
-    for threads in (2, 8, 16):
+    """Every block size the card takes (up to ``MAX_LANE_BLOCK`` at the
+    node bound of ``threads`` threads a system) gets at most 16 CTAs,
+    none empty, whose rounds of at most ``max_group`` systems cover the
+    block; the largest is one cluster of 16 full CTAs."""
+    for bound, threads in ((8, 2), (21, 8), (64, 16)):
+        most = kernels.MAX_LANE_BLOCK[bound]
+        rounds = most // (kernels.MAX_CLUSTER * (kernels.MAX_CTA // threads))
+        assert kernels.launch_geometry(most, threads) == (
+            kernels.MAX_CLUSTER, most // kernels.MAX_CLUSTER, rounds,
+            kernels.MAX_CTA // threads)
         for max_group in (1, 2, 3, 7, None):
-            for block in range(1, kernels.MAX_BLOCK + 1):
+            for block in range(1, most + 1):
                 cl, per_cta, rounds, group = kernels.launch_geometry(
                     block, threads, max_group)
                 assert 1 <= cl <= kernels.MAX_CLUSTER, (block, max_group)
@@ -281,6 +288,8 @@ MID12 = (12, 4, 8)
         (8, None, True, "call", 8, 3, True, 16, 0),
         # two rounds a CTA (20 systems on 7 CTAs of 3, rounds of 2)
         (8, None, False, "stream", 20, 2, False, 16, 10_000),
+        # a lane block above 1,024: 16 CTAs of 80 systems, 5 rounds each
+        (8, None, False, "stream", 1280, 16, False, 16, 10_000),
         (12, MID12, False, "stream", 6, 2, True, 16, 10_000),
         (12, MID12, True, "call", 6, 1, False, 16, 0),
         (64, SPLIT64, False, "stream", 4, 1, True, 16, 10_000),
