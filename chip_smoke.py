@@ -42,8 +42,20 @@ bound), and drives through ``CudaEngine``:
   pipelined run, the serial run, a Poisson-arrival run, a framed-wire
   run with two clients and the ``serve`` command, every served job's
   dumps equal to the one-shot scheduled run's;
+* the general engine (``hpa2_tpu_torch.ops.engine``, ``[general]``), at
+  ``bench.py``'s headline configuration: 4,096 systems x 8 nodes x 128
+  instructions, elision on and off, held against K2 on the same arrays
+  (dumps, snapshots, counters, cycle) and against the CPU on 64
+  systems; MOESI, MESIF, ``limited:2``, ``coarse:4``, ``mesh2d`` with
+  multicast, ``torus2d`` with combining, ``hierarchical`` and
+  ``bench.py``'s fault mix at 1,024 systems each, held against the CPU
+  on 32 systems in every state field; the 64-node configuration at 256
+  systems against K2; a severed edge whose ``StallDiagnostic`` must
+  equal the CPU's; and ``run``/``bench --backend jax`` (the CPU
+  references run in four spawned worker processes meanwhile);
 * the ``run`` command on a small trace directory and the ``bench``
-  command, unscheduled and scheduled,
+  command on the fast path (``--backend pallas``), unscheduled and
+  scheduled,
 
 and prints:
 
@@ -52,6 +64,9 @@ and prints:
   and the shared memory, CTAs an SM and clusters the card holds at
   once at lane blocks of 512 and 1,024 (``[build]``);
 * the host syncs of each path (``[syncs]``);
+* per general-engine run, its ms by CUDA events, cycles, device steps
+  after elision, RD/WR ops/s, launches a chunk, chunks and host syncs,
+  with the card's name and power limit (``[general]``);
 * per serving run, its jobs, intervals, admissions and compactions,
   sustained RD/WR ops/s and wall time, the host staging, device wait
   and readback split, p50/p99 latency, launches, host syncs and compile
@@ -59,8 +74,9 @@ and prints:
   (``[serve]``);
 * one ``{"kernels": [...]}`` line: per kernel its launches on its main
   path (the 64-node streamed run; the headline per-call run; the
-  micro-kernels' runner; the pipelined serving run under ``by_path``), its largest disagreement with the plain
-  version, its time and the plain version's at that shape, and its
+  micro-kernels' runner; the pipelined serving run, and K2's
+  cross-checks beside the general engine, under ``by_path``), its
+  largest disagreement with the plain version, its time and the plain version's at that shape, and its
   bound: the larger of the bytes over 3.35 TB/s and the integer
   operations the run's own counters say it needed (``cycle_ops``) over
   ``SCALAR_OPS_PER_S`` (``by_path`` holds the same for every path driven,
@@ -1362,6 +1378,477 @@ def phase_serve(card):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+# ---------------------------------------------------------------------------
+# [general]: the general engine (ops/engine.py, ops/step.py) on the card
+
+
+#: bench.py:_bench_config (l.74-82): 8 nodes, robust, cache 4, memory
+#: 16, 16-deep mailboxes, elision on; 128 uniform-random instructions a
+#: core, seed 0
+GENERAL = dict(num_procs=8, msg_buffer_size=16)
+GENERAL_INSTRS = 128
+GENERAL_SYSTEMS = 4096
+#: part (b): each variant at 1,024 systems, 32 of them also on the CPU
+VARIANT_SYSTEMS, VARIANT_CPU = 1024, 32
+GENERAL_VARIANTS = {
+    "moesi": dict(protocol="moesi"),
+    "mesif": dict(protocol="mesif"),
+    "limited:2": dict(directory_format="limited:2"),
+    "coarse:4": dict(directory_format="coarse:4"),
+    "mesh2d multicast": dict(topology="mesh2d", multicast=True),
+    "torus2d combining": dict(topology="torus2d", combining=True),
+    "hierarchical": dict(topology="hierarchical"),
+    # bench.py:517-521, the fault mix of every bench artifact
+    "faults": dict(fault=dict(drop=0.2, duplicate=0.05, reorder=0.05,
+                              delay=0.1, seed=7)),
+}
+#: part (c): scripts/scale_runs.py:265-276, 64 nodes x 64 instructions
+WIDE_GENERAL_SYSTEMS = 256
+#: part (d): every copy on edge 1 -> 0 drops
+SEVERED = {"severed": dict(fault=dict(drop=1.0, edge_sender=1,
+                                      edge_receiver=0, seed=1))}
+#: per-system fields a batch of other systems changes: the loop's cycle
+#: count is batch-global, the key splits once a cycle, and the jumps of
+#: elision are the minimum over the batch
+BATCH_GLOBAL = ("cycle", "rng_key", "n_elided", "n_multi_hit")
+
+
+def general_config(variant=None, elide=True, **over):
+    """The headline configuration of the general engine, with a
+    variant's protocol, directory format, topology or faults."""
+    from hpa2_tpu_torch.config import (
+        FaultModel, InterconnectConfig, Semantics, SystemConfig,
+    )
+
+    kw = dict(GENERAL, elide=elide, semantics=Semantics().robust())
+    kw.update(over)
+    v = dict(GENERAL_VARIANTS.get(variant) or SEVERED.get(variant) or {})
+    ic = {k: v.pop(k) for k in ("topology", "multicast", "combining")
+          if k in v}
+    if "fault" in v:
+        ic["fault"] = FaultModel(**v.pop("fault"))
+    return SystemConfig(interconnect=InterconnectConfig(**ic), **kw, **v)
+
+
+def general_cpu_reference(job):
+    """One CPU run of the general engine, in a worker process: the first
+    ``b`` systems of the full batch's arrays, through ``BatchTorchEngine``
+    (``engine=True``) or the batch loop on ``init_state_batched``.  Returns
+    the state as numpy arrays, or the stall diagnostic's fields."""
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(1)
+    from hpa2_tpu_torch.convert import sim_state_to_numpy
+    from hpa2_tpu_torch.ops.engine import BatchTorchEngine, build_batched_run
+    from hpa2_tpu_torch.ops.state import init_state_batched
+    from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
+
+    variant, elide, full, b, t, over, engine, watchdog = job
+    cfg = general_config(variant, elide, **over)
+    arrays = [a[:b] for a in gen_uniform_random_arrays(cfg, full, t, seed=0)]
+    t0 = time.perf_counter()
+    if engine:
+        eng = BatchTorchEngine(cfg, arrays_to_traces(arrays),
+                               watchdog_cycles=watchdog, device="cpu")
+        try:
+            eng.run()
+        except Exception as e:  # the severed edge's diagnostic is the
+            # result; it travels back as its fields
+            return dict(error=type(e).__name__, **{
+                f: getattr(e, f, None) for f in DIAG_FIELDS})
+        st = eng.state
+    else:
+        st = build_batched_run(cfg)(init_state_batched(cfg, *arrays,
+                                                       device="cpu"))
+    out = sim_state_to_numpy(st)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+DIAG_FIELDS = ("reason", "cycle", "mailbox_depths", "waiting", "blocked",
+               "line_states", "recent_msgs", "invariant_violations",
+               "counters")
+
+
+def arrays_to_traces(arrays):
+    """``[B, N, T]`` trace arrays -> Instr lists per system."""
+    from hpa2_tpu_torch.models.protocol import Instr
+
+    op, addr, val, length = arrays
+    return [[[Instr("W", int(a), int(v)) if o == 1 else Instr("R", int(a))
+              for o, a, v in zip(op[s, i, :length[s, i]],
+                                 addr[s, i, :length[s, i]],
+                                 val[s, i, :length[s, i]])]
+             for i in range(op.shape[1])] for s in range(op.shape[0])]
+
+
+def state_err(label, got, want, fields=None):
+    """Largest abs difference of two states' fields (numpy dicts);
+    raises unless 0."""
+    fields = fields or [f for f in want if f != "seconds"]
+    diff = {f: int(np.abs(got[f].astype(np.int64)
+                          - want[f].astype(np.int64)).max())
+            if got[f].shape == want[f].shape else -1 for f in fields}
+    bad = [f for f, d in diff.items() if d]
+    if bad:
+        raise AssertionError(f"{label}: fields differ: {bad}")
+    return max(diff.values())
+
+
+def k2_planes_as_arrays(cfg, state):
+    """CudaEngine's (unpacked) planes as [B, N, ...] arrays of the
+    general engine's fields: memory, directory state and sharers (one
+    int per entry), cache address, value and state, live and snapshot,
+    and the per-system counters."""
+    from hpa2_tpu_torch.ops.layout import (
+        _ADDR_MASK, _CW_ADDR_SHIFT, _CW_VAL_SHIFT, _DW_SH_SHIFT,
+        _DW_STATE_SHIFT, _SC_EV, _SC_INSTR, _SC_INV, _SC_MSGS, _SC_RH,
+        _SC_RM, _SC_WH, _SC_WM, _SPLIT_BPW, _split_sw,
+    )
+
+    np_ = {f: v.cpu().numpy().astype(np.int64) for f, v in state.items()}
+    sw = _split_sw(cfg)
+    out = {}
+    for pre in ("", "snap_"):
+        c = np.moveaxis(np_[pre + "cachew"], -1, 0)
+        d = np.moveaxis(np_[pre + "dirw"], -1, 0)
+        if sw:
+            sh = sum(np.moveaxis(np_[f"{pre}dirs{w}"], -1, 0)
+                     << (w * _SPLIT_BPW) for w in range(sw))
+        else:
+            sh = (d >> _DW_SH_SHIFT) & ((1 << cfg.num_procs) - 1)
+        out.update({
+            pre + "mem": d & 0xFF,
+            pre + "dir_state": (d >> _DW_STATE_SHIFT) & 3,
+            pre + "dir_sharers": sh,
+            pre + "cache_addr": ((c >> _CW_ADDR_SHIFT) & _ADDR_MASK) - 1,
+            pre + "cache_val": (c >> _CW_VAL_SHIFT) & 0xFF,
+            pre + "cache_state": c & 3,
+        })
+    sc = np_["scalars"]
+    for f, row in (("n_instr", _SC_INSTR), ("n_msgs", _SC_MSGS),
+                   ("n_read_hits", _SC_RH), ("n_read_miss", _SC_RM),
+                   ("n_write_hits", _SC_WH), ("n_write_miss", _SC_WM),
+                   ("n_evictions", _SC_EV), ("n_invalidations", _SC_INV)):
+        out[f] = sc[row]
+    out["msg_counts"] = np_["msg_counts"].T
+    return out
+
+
+def general_as_k2_arrays(st):
+    """The general engine's state (numpy dict) in the same form."""
+    out = {}
+    for pre in ("", "snap_"):
+        words = st[pre + "dir_sharers"].astype(np.int64) & 0xFFFFFFFF
+        out[pre + "dir_sharers"] = sum(
+            words[..., w] << (32 * w) for w in range(words.shape[-1]))
+        for f in ("mem", "dir_state", "cache_addr", "cache_val",
+                  "cache_state"):
+            out[pre + f] = st[pre + f]
+    for f in ("n_instr", "n_msgs", "n_read_hits", "n_read_miss",
+              "n_write_hits", "n_write_miss", "n_evictions",
+              "n_invalidations", "msg_counts"):
+        out[f] = st[f]
+    return out
+
+
+def run_general(label, cfg, arrays, card, reps=1):
+    """The batch loop on the card from ``init_state_batched``: the
+    loop's graph captured, then ``reps`` timed runs (CUDA events).  Prints ms, cycles, device steps, RD/WR ops/s, launches a
+    chunk, chunks and host syncs; returns the last state as numpy."""
+    from hpa2_tpu_torch.convert import sim_state_to_numpy
+    from hpa2_tpu_torch.ops import kernels
+    from hpa2_tpu_torch.ops.engine import build_batched_run
+    from hpa2_tpu_torch.ops.state import init_state_batched
+
+    st = init_state_batched(cfg, *arrays, device="cuda")
+    run = build_batched_run(cfg)
+    t0 = time.perf_counter()
+    run.prepare(st)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    times = []
+    for _ in range(reps):
+        syncs = kernels.HOST_SYNCS.count
+        out, ms = elapsed_ms(lambda: run(st))
+        syncs = kernels.HOST_SYNCS.count - syncs
+        times.append(ms)
+    ms = min(times)
+    cycles = int(out.cycle.max())
+    steps = cycles - int(out.n_elided.max())
+    instrs = int(out.n_instr.sum())
+    b, n = arrays[0].shape[:2]
+    if instrs != int(arrays[3].sum()):
+        raise AssertionError(f"{label}: {instrs} RD/WR retired of "
+                             f"{int(arrays[3].sum())}")
+    print(f"[general] {label}: {b} systems x {n} nodes x "
+          f"{arrays[0].shape[2]} instrs: {ms:.3f} ms "
+          f"({', '.join(f'{x:.3f}' for x in times)}; the graph's capture "
+          f"before them {capture_s:.3f} s), {cycles} cycles, {steps} device "
+          f"steps ({cycles - steps} elided), {ms / max(steps, 1):.4f} ms a "
+          f"step, {instrs / ms * 1e3:.4e} RD/WR ops/s, "
+          f"{run.launches_per_chunk} launches a chunk of {run.chunk} steps, "
+          f"{run.chunks} chunks, {syncs} host syncs, {card}")
+    return sim_state_to_numpy(out), dict(ms=ms, cycles=cycles, steps=steps,
+                                         instrs=instrs, run=run)
+
+
+def k2_cross_check(label, cfg, arrays, got, block):
+    """``CudaEngine`` (K2, snapshots on) on the same arrays, timed after
+    a warm-up; the general engine's dumps, snapshots and per-system
+    counters must equal its planes, and its cycle K2's longest
+    system's.  Returns (max abs err, K2 ms, K2 launches)."""
+    from hpa2_tpu_torch.ops import kernels
+    from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
+
+    def engine():
+        return CudaEngine(cfg, *arrays, block=block, snapshots=True,
+                          device="cuda")
+
+    engine().run()
+    eng = engine()
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    _, ms = elapsed_ms(eng.run)
+    launches = kernels.STREAM_RUN.launches
+    if launches == 0:
+        raise AssertionError(f"{label}: K2 never launched")
+    err = state_err(f"{label} against K2", general_as_k2_arrays(got),
+                    k2_planes_as_arrays(cfg, eng.state))
+    if int(got["cycle"].max()) != eng.cycle:
+        raise AssertionError(f"{label}: cycle {int(got['cycle'].max())} "
+                             f"against K2's {eng.cycle}")
+    print(f"[compare] {label}: against CudaEngine (K2, snapshots on, block "
+          f"{block}) on the same arrays: dumps, snapshots and per-system "
+          f"counters of {arrays[0].shape[0]} systems equal, cycle "
+          f"{eng.cycle} equal, max_abs_err={err}; K2 {ms:.3f} ms "
+          f"({eng.instructions / ms * 1e3:.4e} RD/WR ops/s, {launches} "
+          "launches)")
+    return err, ms, launches
+
+
+def phase_general(card):
+    """The general engine on the card at bench.py's headline
+    configuration: (a) MESI/full/ideal at 4,096 systems, elision on and
+    off, held against K2 on the same arrays and against the CPU on 64
+    systems; (b) every protocol, directory format, topology and the
+    fault mix at 1,024 systems, held bit for bit against the CPU on 32
+    of them; (c) the 64-node configuration at 256 systems against K2;
+    (d) a severed edge that must raise StallDiagnostic on the card as on
+    the CPU; and the ``run``/``bench --backend jax`` commands.  The CPU
+    references run in worker processes while the card works."""
+    import concurrent.futures
+    import multiprocessing
+
+    t_full = GENERAL_INSTRS
+    jobs = {}
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=4, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        for elide in (True, False):
+            jobs["a", elide] = pool.submit(
+                general_cpu_reference,
+                (None, elide, GENERAL_SYSTEMS, 64, t_full, {}, True, 0))
+        for v in GENERAL_VARIANTS:
+            jobs["b", v] = pool.submit(
+                general_cpu_reference,
+                (v, True, VARIANT_SYSTEMS, VARIANT_CPU, t_full, {}, False,
+                 0))
+        jobs["d"] = pool.submit(
+            general_cpu_reference, ("severed", True, 8, 8, 32, {}, True, 200))
+        res = _phase_general_card(card, jobs)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    return res
+
+
+def _phase_general_card(card, jobs):
+    from hpa2_tpu_torch import cli
+    from hpa2_tpu_torch.convert import sim_state_to_numpy
+    from hpa2_tpu_torch.ops.engine import BatchTorchEngine, StallDiagnostic
+    from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
+
+    err = 0
+    k2 = {}
+    k2_launches = 0
+    # (a) MESI/full/ideal at 4,096 systems, elision on and off
+    heads = {}
+    for elide in (True, False):
+        label = f"headline elision {'on' if elide else 'off'}"
+        cfg = general_config(elide=elide)
+        arrays = gen_uniform_random_arrays(cfg, GENERAL_SYSTEMS,
+                                           GENERAL_INSTRS, seed=0)
+        got, rec = run_general(label, cfg, arrays, card)
+        heads[elide] = (got, rec)
+        e, k2_ms, n = k2_cross_check(label, cfg, arrays, got, block=512)
+        err = max(err, e)
+        k2_launches += n
+        k2[label] = k2_ms
+        # 64 of the systems through BatchTorchEngine on the card, and on
+        # the CPU: every field; the 4,096-system run's first 64: every
+        # field a batch does not change
+        sub = [a[:64] for a in arrays]
+        eng = BatchTorchEngine(cfg, arrays_to_traces(sub),
+                               device="cuda").run()
+        mine = sim_state_to_numpy(eng.state)
+        want = jobs["a", elide].result()
+        e1 = state_err(f"{label}, 64 systems: card against CPU", mine, want)
+        # (and but tr_val: the engine's Instr lists carry no value for
+        # a read, the bench arrays a random one the step never reads)
+        e2 = state_err(
+            f"{label}: the 4,096-system run's first 64 against the CPU",
+            {f: v[:64] for f, v in got.items()}, want,
+            [f for f in want
+             if f not in BATCH_GLOBAL + ("tr_val", "seconds")])
+        err = max(err, e1, e2)
+        print(f"[compare] {label}: BatchTorchEngine on 64 systems, card "
+              f"against CPU ({want['seconds']:.1f} s there): every field "
+              f"equal, max_abs_err={e1}; the 4,096-system run's first 64 "
+              f"against the CPU: every field but {BATCH_GLOBAL} (batch-"
+              f"global) and tr_val equal, max_abs_err={e2}")
+    on, off = heads[True][0], heads[False][0]
+    e = state_err("elision on against off", on, off,
+                  [f for f in on if f not in ("n_elided", "n_multi_hit")])
+    print(f"[compare] headline: elision on against off: every field but "
+          f"n_elided/n_multi_hit equal, max_abs_err={e}; "
+          f"{int(on['n_elided'].max())} cycles elided")
+    # the profiler's count of kernels in one eager gated step
+    kernels_a_step = gated_step_kernels(general_config(), heads[True][1])
+
+    # (b) the variants at 1,024 systems
+    variants = {}
+    for v in GENERAL_VARIANTS:
+        cfg = general_config(v)
+        arrays = gen_uniform_random_arrays(cfg, VARIANT_SYSTEMS,
+                                           GENERAL_INSTRS, seed=0)
+        got, rec = run_general(v, cfg, arrays, card)
+        sub = [a[:VARIANT_CPU] for a in arrays]
+        mine, _ = run_general(f"{v}, first {VARIANT_CPU}", cfg, sub, card)
+        want = jobs["b", v].result()
+        e1 = state_err(f"{v}: card against CPU", mine, want)
+        e2 = state_err(f"{v}: the full run's first {VARIANT_CPU}",
+                       {f: x[:VARIANT_CPU] for f, x in got.items()}, want,
+                       [f for f in want
+                        if f not in BATCH_GLOBAL + ("seconds",)])
+        err = max(err, e1, e2)
+        extra = {k: int(got[f].sum()) for k, f in (
+            ("forwards", "n_forwards"), ("owner_transfers", "n_owner_xfer"),
+            ("dir_overflows", "n_dir_overflow"),
+            ("topo_delay_cycles", "n_topo_delay"),
+            ("multicast_saved", "n_multicast_saved"),
+            ("combined", "n_combined"), ("link_traversals",
+                                         "link_traversals"),
+            ("fault_retransmissions", "n_retrans"),
+            ("fault_dups", "n_dup_filtered"),
+            ("fault_reorders", "n_reorder_fixed"),
+            ("fault_delays", "n_delays")) if int(got[f].sum())}
+        print(f"[compare] {v}: {VARIANT_CPU} systems, card against CPU "
+              f"({want['seconds']:.1f} s there): every field (link planes "
+              f"and fault counters included) equal, max_abs_err={e1}; the "
+              f"{VARIANT_SYSTEMS}-system run's first {VARIANT_CPU}: every "
+              f"field but {BATCH_GLOBAL} equal, max_abs_err={e2}; {extra}")
+        variants[v] = dict(ms=rec["ms"], cycles=rec["cycles"],
+                           steps=rec["steps"], err=max(e1, e2))
+
+    # (c) the 64-node configuration at 256 systems against K2
+    cfg = general_config(num_procs=64, max_instr_num=0)
+    arrays = gen_uniform_random_arrays(cfg, WIDE_GENERAL_SYSTEMS, 64, seed=0)
+    got, wide = run_general("64 nodes", cfg, arrays, card)
+    e, k2_ms, n = k2_cross_check("64 nodes", cfg, arrays, got, block=256)
+    err = max(err, e)
+    k2_launches += n
+    k2["64 nodes"] = k2_ms
+
+    # (d) a severed edge: the watchdog's diagnostic on the card and on
+    # the CPU
+    cfg = general_config("severed")
+    arrays = gen_uniform_random_arrays(cfg, 8, 32, seed=0)
+    try:
+        BatchTorchEngine(cfg, arrays_to_traces(arrays), watchdog_cycles=200,
+                         device="cuda").run()
+        raise AssertionError("severed edge: no StallDiagnostic on the card")
+    except StallDiagnostic as e:
+        diag = e
+    want = jobs["d"].result()
+    if want.get("error") != "StallDiagnostic" or any(
+            getattr(diag, f) != want[f] for f in DIAG_FIELDS):
+        raise AssertionError(f"severed edge: the card's diagnostic differs "
+                             f"from the CPU's: {want.get('error')}")
+    print(f"[compare] severed edge 1->0 (drop 1.0), 8 systems, watchdog 200 "
+          f"cycles: StallDiagnostic on the card at cycle {diag.cycle}, "
+          f"every field equal to the CPU's ({diag.reason})")
+
+    # the commands: run --backend jax on the card and the CPU, and bench
+    work = ROOT / "hpa2_tpu_torch" / "build" / "smoke_general"
+    shutil.rmtree(work, ignore_errors=True)
+    traces = work / "traces"
+    traces.mkdir(parents=True)
+    rng = np.random.default_rng(11)
+    for core in range(4):
+        (traces / f"core_{core}.txt").write_text("".join(
+            f"WR 0x{int(rng.integers(0, 64)):02X} {int(rng.integers(0, 256))}\n"
+            if rng.random() < 0.5 else f"RD 0x{int(rng.integers(0, 64)):02X}\n"
+            for _ in range(24)))
+    flags = ["--robust", "--protocol", "moesi", "--topology", "mesh2d",
+             "--multicast", "--fault-drop", "0.2", "--fault-seed", "3"]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["run", str(traces), "--backend", "jax", "--out",
+                           str(work / dev), "--device", dev] + flags)
+        if rc != 0:
+            raise AssertionError(f"run --backend jax --device {dev}: {rc}")
+        outs[dev] = {p.name: p.read_bytes()
+                     for p in sorted((work / dev).glob("core_*_output.txt"))}
+    if len(outs["cuda"]) != 4 or outs["cuda"] != outs["cpu"]:
+        raise AssertionError("run --backend jax: dumps differ between cuda "
+                             "and cpu")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench", "--backend", "jax", "--batch",
+                       str(VARIANT_SYSTEMS), "--instrs", str(GENERAL_INSTRS),
+                       "--nodes", "8", "--msg-buffer-size", "16", "--robust",
+                       "--device", "cuda"])
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or rec["backend"] != "jax" or rec["device"] != "cuda" \
+            or rec["instrs"] != VARIANT_SYSTEMS * 8 * GENERAL_INSTRS:
+        raise AssertionError(f"bench --backend jax on the card: {rec}")
+    print(f"[run] --backend jax {' '.join(flags)}: 4 dumps byte-identical "
+          f"between the card and the CPU; [bench] --backend jax --batch "
+          f"{VARIANT_SYSTEMS}: {rec['seconds']} s, {rec['ops_per_sec']} "
+          "RD/WR ops/s")
+    head = heads[True][1]
+    return dict(err=err, k2=k2, k2_launches=k2_launches, head=head,
+                head_off=heads[False][1], variants=variants, wide=wide,
+                kernels_a_step=kernels_a_step)
+
+
+def gated_step_kernels(cfg, head):
+    """Kernels one gated step of the headline launches, counted by the
+    profiler on an eager step (a chunk's graph holds ``chunk`` of
+    them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hpa2_tpu_torch.ops.state import init_state_batched
+    from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
+
+    arrays = gen_uniform_random_arrays(cfg, GENERAL_SYSTEMS, GENERAL_INSTRS,
+                                       seed=0)
+    st = init_state_batched(cfg, *arrays, device="cuda")
+    run = head["run"]
+    run.advance_chunk(st, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run.advance_chunk(st, 1)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(e.device_time for e in evs)
+    print(f"[general] one eager gated step of the headline (elision on): "
+          f"{len(evs)} kernels, {us:.1f} us of device time (profiler); "
+          f"the graph's ops a step: {run.launches_per_chunk // run.chunk}")
+    return len(evs)
+
+
 def phase_run_command():
     """``python -m hpa2_tpu_torch run`` on a synthesized trace
     directory, on the card and on the CPU (the dumps must be equal),
@@ -1386,8 +1873,8 @@ def phase_run_command():
         kern.launches = 0
     for dev in ("cuda", "cpu"):
         out = work / dev
-        rc = cli.main(["run", str(traces), "--robust", "--out", str(out),
-                       "--device", dev])
+        rc = cli.main(["run", str(traces), "--backend", "pallas",
+                       "--robust", "--out", str(out), "--device", dev])
         if rc != 0:
             raise AssertionError(f"run --device {dev} exited {rc}")
         outs[dev] = {p.name: p.read_bytes()
@@ -1405,9 +1892,9 @@ def phase_run_command():
     batch, instrs = 4096, 128
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = cli.main(["bench", "--batch", str(batch), "--instrs",
-                       str(instrs), "--nodes", "8", "--msg-buffer-size", "16",
-                       "--robust", "--seed", "0"])
+        rc = cli.main(["bench", "--backend", "pallas", "--batch",
+                       str(batch), "--instrs", str(instrs), "--nodes", "8",
+                       "--msg-buffer-size", "16", "--robust", "--seed", "0"])
     rec = json.loads(buf.getvalue().strip().splitlines()[-1])
     if rc != 0 or rec["backend"] != "cuda" \
             or rec["instrs"] != batch * 8 * instrs \
@@ -1421,9 +1908,10 @@ def phase_run_command():
     before = kernels.STREAM_RUN.launches
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = cli.main(["bench", "--batch", str(batch), "--instrs",
-                       str(instrs), "--nodes", "8", "--msg-buffer-size", "16",
-                       "--robust", "--seed", "0", "--block", "512",
+        rc = cli.main(["bench", "--backend", "pallas", "--batch",
+                       str(batch), "--instrs", str(instrs), "--nodes", "8",
+                       "--msg-buffer-size", "16", "--robust", "--seed", "0",
+                       "--block", "512",
                        "--trace-window", "32", "--trace-len-dist", "zipf",
                        "--schedule-resident", "1024"])
     rec = json.loads(buf.getvalue().strip().splitlines()[-1])
@@ -1670,6 +2158,9 @@ def main() -> int:
     served = phase_serve(card)
     wall["serve"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    general = phase_general(card)
+    wall["general"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     phase_run_command()
     wall["run and bench commands"] = time.perf_counter() - t0
     print("[wall] " + ", ".join(f"{k} {v:.1f} s" for k, v in wall.items()))
@@ -1719,6 +2210,14 @@ def main() -> int:
         "launches": served["launches"]["stream_run"],
         "checked_launches": served["checked"], "max_abs_err": served["err"],
         **{k: served[k] for k in ("ms", "bound_ms", "bound_by", "wall_ms")}}
+    # the general engine has no kernel of its own: K2 runs beside it as
+    # its cross-check at MESI/full/ideal
+    stream_entry["by_path"]["general cross-check"] = {
+        "launches": general["k2_launches"], "max_abs_err": general["err"],
+        "k2_ms": general["k2"],
+        "general_ms": {"headline elision on": general["head"]["ms"],
+                       "headline elision off": general["head_off"]["ms"],
+                       "64 nodes": general["wide"]["ms"]}}
     for kern_entry in (stream_entry, call_entry):
         kern_entry["max_abs_err"] = max(
             [kern_entry["max_abs_err"]]

@@ -1,16 +1,23 @@
-"""PyTorch/CUDA port of the ensemble fast path of ``hpa2_tpu``.
+"""PyTorch/CUDA port of ``hpa2_tpu``, the directory-MESI DSM simulator.
 
-The package runs the directory-MESI DSM simulator's lockstep ensemble
-engine on an NVIDIA GPU: ``hpa2_tpu_torch.ops.cuda_engine.CudaEngine``
-is the counterpart of ``hpa2_tpu.ops.pallas_engine.PallasEngine``
-(streamed or per-call, with or without the occupancy scheduler), and
-``hpa2_tpu_torch.ops.session.CudaLaneSession`` of its resident-lane
-session, with hand-written CUDA kernels (``csrc/``).  It imports
-neither JAX nor ``hpa2_tpu``; the state planes keep ``hpa2_tpu``'s
-layout bit for bit, so the two packages compare plane by plane.
+Two engines, each with the observable behaviour of its JAX counterpart:
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
-which runs the plain PyTorch version of the kernel.
+* the ensemble fast path: ``hpa2_tpu_torch.ops.cuda_engine.CudaEngine``
+  is the counterpart of ``hpa2_tpu.ops.pallas_engine.PallasEngine``
+  (streamed or per-call, with or without the occupancy scheduler), and
+  ``hpa2_tpu_torch.ops.session.CudaLaneSession`` of its resident-lane
+  session, with hand-written CUDA kernels (``csrc/``); its state planes
+  keep ``hpa2_tpu``'s layout bit for bit;
+* the general engine: ``hpa2_tpu_torch.ops.engine.TorchEngine`` and
+  ``BatchTorchEngine``, the counterparts of ``JaxEngine`` and
+  ``BatchJaxEngine``, which run what the fast path refuses (MOESI and
+  MESIF, the limited and coarse directories, non-ideal topologies,
+  link faults) with cycle elision, replay and the stall watchdog; its
+  ``SimState`` carries the JAX state's fields (``convert.py``).
+
+It imports neither JAX nor ``hpa2_tpu``.  Entry points run on ``cuda``
+unless the caller passes ``device="cpu"`` (the fast path then runs its
+kernels' plain PyTorch versions).
 """
 
 from hpa2_tpu_torch.config import Semantics, SystemConfig

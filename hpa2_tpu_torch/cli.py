@@ -1,21 +1,31 @@
-"""Command line of the port: ``run``, ``bench`` and ``serve`` on the
-fast path, with the flag names of ``python -m hpa2_tpu.cli``.
+"""Command line of the port: ``run``, ``bench`` and ``serve``, with the
+flag names of ``python -m hpa2_tpu.cli``.
 
     python -m hpa2_tpu_torch run TRACE_DIR [--out DIR] [--final-dump]
+    python -m hpa2_tpu_torch run TRACE_DIR --protocol moesi \
+        --topology mesh2d --multicast --fault-drop 0.2 [--replay ORDER]
     python -m hpa2_tpu_torch bench --batch 4096 --instrs 128 --seed 0
-    python -m hpa2_tpu_torch bench --batch 32768 --instrs 128 --nodes 8 \
-        --msg-buffer-size 16 --robust --block 512 --trace-window 32 \
-        --trace-len-dist zipf --schedule-resident 8192 [--host-barriers]
+    python -m hpa2_tpu_torch bench --backend pallas --batch 32768 \
+        --instrs 128 --nodes 8 --msg-buffer-size 16 --robust --block 512 \
+        --trace-window 32 --trace-len-dist zipf --schedule-resident 8192
     python -m hpa2_tpu_torch serve JOBS.jsonl --nodes 8 --robust --out DIR
     python -m hpa2_tpu_torch serve --listen 127.0.0.1:7000 --wire
 
 ``run`` simulates one system from ``core_<n>.txt`` traces and writes
 ``core_<n>_output.txt`` dumps (at local completion, or of the final
 state with ``--final-dump``), byte-identical to
-``python -m hpa2_tpu.cli run --backend pallas``.  ``bench`` times an
-ensemble of random workloads (``snapshots=False``, as ``bench.py``),
-uniform or with heterogeneous per-system trace lengths, optionally
-under the occupancy scheduler, and prints one JSON line.  ``serve``
+``python -m hpa2_tpu.cli run`` with the same ``--backend``.  ``bench``
+times random workloads and prints one JSON line.  ``--backend jax``
+(the default, as in the JAX CLI) runs the general engine
+(``ops/engine.py``): every protocol, directory format, topology and
+link fault, cycle elision, ``run --replay`` and the stall watchdog;
+``bench`` runs one system on ``TorchEngine``, or with ``--batch > 1``
+the batch loop of ``BatchTorchEngine`` on ``bench.py``'s uniform
+arrays, and prints the JAX CLI's keys.  ``--backend pallas`` runs the
+fast path (``CudaEngine``: MESI, full directory, ideal topology, no
+faults); its ``bench`` takes an ensemble (``snapshots=False``, as
+``bench.py``), uniform or with heterogeneous per-system trace lengths,
+optionally under the occupancy scheduler.  ``serve``
 admits a JSONL job feed (a file, or TCP with ``--listen``, framed with
 ``--wire``) into resident lanes, writes each job's dumps as it retires
 and prints the serving stats as its last line, as
@@ -32,19 +42,79 @@ import sys
 import time
 from typing import List, Optional
 
-from hpa2_tpu_torch.config import Semantics, SystemConfig
+import torch
+
+from hpa2_tpu_torch.config import (
+    FaultModel, InterconnectConfig, Semantics, SystemConfig,
+)
 
 
 def _build_config(args) -> SystemConfig:
+    """The configuration the flags ask for, refusing on the fast path
+    (``--backend pallas``) what only the general engine runs, with the
+    JAX CLI's checks (``hpa2_tpu/cli.py:38-158``)."""
     sem = Semantics().robust() if args.robust else Semantics()
-    return SystemConfig(
-        num_procs=args.nodes,
-        cache_size=args.cache_size,
-        mem_size=args.mem_size,
-        msg_buffer_size=args.msg_buffer_size,
-        max_instr_num=args.max_instr,
-        semantics=sem,
-    )
+    backend = getattr(args, "backend", "pallas")
+    edge_sender = edge_receiver = -1
+    if getattr(args, "fault_edge", ""):
+        try:
+            s, r = args.fault_edge.split(":")
+            edge_sender, edge_receiver = int(s), int(r)
+        except ValueError:
+            raise SystemExit(
+                "--fault-edge takes SENDER:RECEIVER (node ids, -1 = any)"
+            )
+    try:
+        fault = FaultModel(
+            drop=getattr(args, "fault_drop", 0.0),
+            duplicate=getattr(args, "fault_dup", 0.0),
+            reorder=getattr(args, "fault_reorder", 0.0),
+            delay=getattr(args, "fault_delay", 0.0),
+            seed=getattr(args, "fault_seed", 0),
+            max_retries=getattr(args, "fault_max_retries", 64),
+            edge_sender=edge_sender,
+            edge_receiver=edge_receiver,
+        )
+        interconnect = InterconnectConfig(
+            topology=getattr(args, "topology", "ideal"),
+            hop_latency=getattr(args, "hop_latency", 1),
+            link_bandwidth=getattr(args, "link_bandwidth", 1),
+            multicast=getattr(args, "multicast", False),
+            combining=getattr(args, "combining", False),
+            fault=fault,
+        )
+    except ValueError as e:
+        raise SystemExit(str(e))
+    protocol = getattr(args, "protocol", "mesi")
+    directory_format = getattr(args, "directory_format", "full")
+    if backend == "pallas":
+        if fault.enabled:
+            raise SystemExit(
+                "fault injection is implemented by the jax backend (the "
+                "pallas kernel has no link-layer fault model)")
+        if interconnect.enabled:
+            raise SystemExit(
+                "non-ideal topologies are implemented by the jax backend "
+                "(the pallas kernel delivers every message next cycle)")
+        if protocol != "mesi" or directory_format != "full":
+            raise SystemExit(
+                "protocol/directory-format variants are implemented by "
+                "the jax backend (the pallas kernel is specialized to "
+                "MESI/full-bitvector)")
+    try:
+        return SystemConfig(
+            num_procs=args.nodes,
+            cache_size=args.cache_size,
+            mem_size=args.mem_size,
+            msg_buffer_size=args.msg_buffer_size,
+            max_instr_num=args.max_instr,
+            semantics=sem,
+            interconnect=interconnect,
+            protocol=protocol,
+            directory_format=directory_format,
+        )
+    except ValueError as e:
+        raise SystemExit(str(e))
 
 
 def _write_dumps(dumps, config, out_dir: str) -> None:
@@ -57,25 +127,114 @@ def _write_dumps(dumps, config, out_dir: str) -> None:
 
 
 def cmd_run(args) -> int:
-    from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
-    from hpa2_tpu_torch.utils.trace import load_trace_dir, traces_to_arrays
+    from hpa2_tpu_torch.utils.trace import (
+        load_instruction_order, load_trace_dir, traces_to_arrays,
+    )
 
     config = _build_config(args)
     out_dir = args.out or os.getcwd()
     os.makedirs(out_dir, exist_ok=True)
     traces = load_trace_dir(args.trace_dir, config)
+    replay = load_instruction_order(args.replay) if args.replay else None
     t0 = time.perf_counter()
-    eng = CudaEngine(config, *traces_to_arrays(config, [traces]),
-                     snapshots=not args.final_dump, device=args.device)
-    eng.run(args.max_cycles)
+    if args.backend == "pallas":
+        from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
+
+        if replay is not None:
+            raise SystemExit(
+                "--replay runs on the jax backend (the pallas kernel has "
+                "no replay mode)")
+        eng = CudaEngine(config, *traces_to_arrays(config, [traces]),
+                         snapshots=not args.final_dump, device=args.device)
+        eng.run(args.max_cycles)
+    else:
+        from hpa2_tpu_torch.ops.engine import TorchEngine
+
+        eng = TorchEngine(config, traces, replay_order=replay,
+                          max_cycles=args.max_cycles,
+                          watchdog_cycles=args.watchdog_cycles,
+                          device=args.device)
+        eng.run()
     dt = time.perf_counter() - t0
     dumps = eng.final_dumps() if args.final_dump else eng.snapshots()
     _write_dumps(dumps, config, out_dir)
     print(
-        f"[{args.device}] {eng.instructions} instrs, {eng.messages} msgs, "
-        f"{eng.cycle} cycles, {dt:.4f}s",
+        f"[{args.backend} {args.device}] {eng.instructions} instrs, "
+        f"{eng.messages} msgs, {eng.cycle} cycles, {dt:.4f}s",
         file=sys.stderr,
     )
+    return 0
+
+
+def _bench_jax(args, config) -> int:
+    """``bench --backend jax``: the JAX CLI's bench of the general
+    engine (``hpa2_tpu/cli.py:590-652``): one system on ``TorchEngine``
+    (``gen_uniform_random`` traces), or a batch of ``bench.py``'s
+    uniform arrays through the batch loop, a warm-up run (which on the
+    card also captures the loop's CUDA graph), then the timed run."""
+    from hpa2_tpu_torch.ops.layout import StallError
+
+    for flag, value in (("--trace-len-dist", args.trace_len_dist),
+                        ("--schedule-resident", args.schedule_resident),
+                        ("--host-barriers", args.host_barriers)):
+        if value:
+            raise SystemExit(
+                f"{flag} is a fast-path flag (--backend pallas); the "
+                "general engine's scheduled modes are not ported yet "
+                "(ROADMAP queue 1 item 2b)")
+    if args.checkpoint_every:
+        raise SystemExit(
+            "--checkpoint-every/--checkpoint-dir checkpoint the batch "
+            "state, which the port does not do yet (ROADMAP queue 1 "
+            "item 3, checkpoints then recovery)")
+    if args.batch > 1:
+        from hpa2_tpu_torch.ops.cuda_engine import resolve_device
+        from hpa2_tpu_torch.ops.engine import build_batched_run
+        from hpa2_tpu_torch.ops.state import init_state_batched
+        from hpa2_tpu_torch.ops.step import quiescent
+        from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
+
+        dev = resolve_device(args.device)
+        arrays = gen_uniform_random_arrays(config, args.batch, args.instrs,
+                                           seed=args.seed)
+        state = init_state_batched(config, *arrays, device=dev)
+        run = build_batched_run(config, max_cycles=args.max_cycles)
+        run(state)  # warm-up (captures the loop's graph on the card)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(state)  # ends in the loop's last host read
+        dt = time.perf_counter() - t0
+        if bool(out.overflow.any()) or not bool(quiescent(out).all()):
+            raise StallError("batch did not reach quiescence")
+        instrs = int(out.n_instr.sum())
+    else:
+        from hpa2_tpu_torch.ops.engine import TorchEngine
+        from hpa2_tpu_torch.utils.trace import gen_uniform_random
+
+        traces = gen_uniform_random(config, args.instrs, seed=args.seed)
+        kw = dict(max_cycles=args.max_cycles,
+                  watchdog_cycles=args.watchdog_cycles, device=args.device)
+        TorchEngine(config, traces, **kw).run()
+        eng = TorchEngine(config, traces, **kw)
+        t0 = time.perf_counter()
+        eng.run()
+        dt = time.perf_counter() - t0
+        instrs = eng.instructions
+        dev = eng.device
+    print(json.dumps({
+        "backend": "jax",
+        "workload": "uniform",
+        "nodes": config.num_procs,
+        "batch": args.batch,
+        "node_shards": 1,
+        "data_shards": 1,
+        "instrs": instrs,
+        "resumed_instrs": 0,
+        "seconds": round(dt, 4),
+        "ops_per_sec": round(instrs / dt, 1),
+        "device": dev.type,
+    }))
     return 0
 
 
@@ -87,6 +246,8 @@ def cmd_bench(args) -> int:
     )
 
     config = _build_config(args)
+    if args.backend == "jax":
+        return _bench_jax(args, config)
     if args.trace_len_dist:
         arrays = gen_heterogeneous_random_arrays(
             config, args.batch, args.instrs, dist=args.trace_len_dist,
@@ -130,8 +291,9 @@ def cmd_serve(args) -> int:
     config = _build_config(args)
     if args.backend == "jax":
         raise SystemExit(
-            "serve --backend jax needs the XLA batch engine, which the "
-            "port does not have yet (ROADMAP queue 1 item 2)")
+            "serve --backend jax needs the general engine's serving "
+            "session (BatchServingSession), which the port does not have "
+            "yet (ROADMAP queue 1 item 2b)")
     if args.data_shards > 1 or args.node_shards > 1:
         raise SystemExit(
             "--data-shards/--node-shards > 1 serve on several GPUs, which "
@@ -250,7 +412,74 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="cuda launches the kernel; cpu runs its plain PyTorch version",
+        help="cuda runs on the GPU (the fast path launches its kernel); "
+        "cpu runs the same path on the CPU (the kernel's plain PyTorch "
+        "version)",
+    )
+    p.add_argument(
+        "--protocol", default="mesi", choices=("mesi", "moesi", "mesif"),
+        help="coherence protocol variant, compiled from its "
+        "TransitionTable (hpa2_tpu_torch/protocols/); moesi/mesif run "
+        "on the jax backend",
+    )
+    p.add_argument(
+        "--directory-format", default="full", metavar="FMT",
+        help="directory sharer representation: 'full' (exact "
+        "bitvector), 'limited:K' (K pointers, overflow -> broadcast), "
+        "'coarse:G' (G-node groups); non-full formats run on the jax "
+        "backend",
+    )
+    fg = p.add_argument_group(
+        "fault injection (jax backend; faults are masked by link-layer "
+        "retry, so dumps stay byte-identical to a fault-free run unless "
+        "a link is fully severed)"
+    )
+    fg.add_argument("--fault-drop", type=float, default=0.0, metavar="P",
+                    help="per-hop drop probability (dropped copies are "
+                    "retransmitted in-cycle, up to --fault-max-retries)")
+    fg.add_argument("--fault-dup", type=float, default=0.0, metavar="P",
+                    help="per-delivery duplicate probability (filtered; "
+                    "counted in stats)")
+    fg.add_argument("--fault-reorder", type=float, default=0.0,
+                    metavar="P",
+                    help="per-delivery reorder probability (reassembled; "
+                    "counted in stats)")
+    fg.add_argument("--fault-delay", type=float, default=0.0, metavar="P",
+                    help="per-delivery extra-latency probability "
+                    "(absorbed in the delivery cycle; counted in stats)")
+    fg.add_argument("--fault-seed", type=int, default=0)
+    fg.add_argument("--fault-max-retries", type=int, default=64,
+                    help="in-cycle retransmission budget per message; "
+                    "exhaustion defers the send to the next cycle")
+    fg.add_argument("--fault-edge", default="", metavar="S:R",
+                    help="restrict faults to the directed link S->R "
+                    "(-1 = any); --fault-drop 1.0 --fault-edge 1:0 "
+                    "severs one link to exercise the watchdog")
+    tg = p.add_argument_group(
+        "interconnect topology (jax backend; 'ideal' delivers every "
+        "message next cycle)"
+    )
+    tg.add_argument("--topology", default="ideal",
+                    choices=("ideal", "mesh2d", "torus2d", "hierarchical"),
+                    help="per-message delivery delay: base hop latency "
+                    "along the routed path plus per-link queueing under "
+                    "finite bandwidth")
+    tg.add_argument("--hop-latency", type=int, default=1, metavar="CYC",
+                    help="cycles per hop (the DCN tier of 'hierarchical' "
+                    "costs 4x)")
+    tg.add_argument("--link-bandwidth", type=int, default=1,
+                    metavar="MSGS",
+                    help="messages per link per cycle before queueing "
+                    "delay accrues")
+    tg.add_argument("--multicast", action="store_true",
+                    help="invalidation fan-outs traverse each shared "
+                    "path link once")
+    tg.add_argument("--combining", action="store_true",
+                    help="same-address read requests merge in-network")
+    p.add_argument(
+        "--watchdog-cycles", type=int, default=10_000, metavar="K",
+        help="jax backend: raise a StallDiagnostic when no instruction "
+        "retires and no mailbox drains for K cycles (0 disables)",
     )
 
 
@@ -263,7 +492,16 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     rp = sub.add_parser("run", help="run a trace directory, write dumps")
     rp.add_argument("trace_dir")
+    rp.add_argument(
+        "--backend", choices=("pallas", "jax"), default="jax",
+        help="jax = the general engine (every protocol, directory "
+        "format, topology and fault); pallas = the fast path",
+    )
     rp.add_argument("--out", help="output directory (default: CWD)")
+    rp.add_argument(
+        "--replay", default=None,
+        help="jax backend: instruction_order.txt to replay",
+    )
     rp.add_argument(
         "--final-dump", action="store_true",
         help="dump final quiescent state instead of at local completion",
@@ -272,6 +510,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     rp.set_defaults(fn=cmd_run)
 
     bp = sub.add_parser("bench", help="synthetic benchmark, JSON result")
+    bp.add_argument(
+        "--backend", choices=("pallas", "jax"), default="jax",
+        help="jax = the general engine; pallas = the fast path (the "
+        "--block, --trace-window, --cycles-per-call, --trace-len-* and "
+        "--schedule-* flags are its own)",
+    )
     bp.add_argument("--instrs", type=int, default=1000)
     bp.add_argument("--batch", type=int, default=1)
     bp.add_argument("--seed", type=int, default=0)
@@ -296,6 +540,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         help="scheduled run as one host-synced interval at a time "
              "(default: the whole plan fused on the device)",
     )
+    bp.add_argument(
+        "--checkpoint-every", type=int, default=0, metavar="CYCLES",
+        help="jax backend with --batch > 1: refused until the port "
+        "checkpoints (ROADMAP queue 1 item 3)",
+    )
+    bp.add_argument("--checkpoint-dir", default="hpa2_ckpt")
     _add_common(bp)
     bp.set_defaults(fn=cmd_bench)
 
@@ -334,8 +584,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     sp.add_argument(
         "--backend", choices=("pallas", "jax"), default="pallas",
         help="pallas = the resident-lane fast path (the port's only "
-        "serving backend); jax is refused until the port has the XLA "
-        "batch engine",
+        "serving backend); jax is refused until the port has the "
+        "general engine's serving session (ROADMAP queue 1 item 2b)",
     )
     sp.add_argument("--data-shards", type=int, default=1,
                     help="refused above 1 (no multi-GPU serving yet)")

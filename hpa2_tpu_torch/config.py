@@ -1,13 +1,18 @@
 """Runtime configuration of one simulated DSM system.
 
 Field names and defaults are those of ``hpa2_tpu.config``, so one
-keyword dictionary builds the same configuration for either package.
-Only what the streamed fast path reads (or refuses on) is kept: the
-geometry, the protocol semantics, and enough of the interconnect,
-protocol and directory-format choices to refuse what this engine does
-not implement; and the serving plane's failure plan
+keyword dictionary builds the same configuration for either package:
+the geometry, the protocol semantics, the interconnect (topology, link
+costs and the seeded link-layer ``FaultModel``,
+``hpa2_tpu/config.py:75-140, 230-276``), cycle elision
+(``SystemConfig.elide``, l.312), the node-sharding exchange choice
+(``exchange_mode``/``exchange_inner``, validated here; only node
+sharding reads them, which the port does not have yet), the protocol
+and directory-format choices, and the serving plane's failure plan
 (``hpa2_tpu/config.py:129-228``, ``SystemConfig.failures`` at l.351),
-whose ``sever`` events the wire frontend honours.
+whose ``sever`` events the wire frontend honours.  The fast path
+(``ops/cuda_engine.py``) refuses a non-ideal topology and reads no
+``fault``; the general engine (``ops/engine.py``) runs them all.
 """
 
 from __future__ import annotations
@@ -15,9 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-#: the registered interconnect topologies (``ideal`` = next-cycle
-#: delivery, the only one the fast path implements)
-TOPOLOGIES = ("ideal", "mesh2d", "torus2d", "hierarchical")
+from hpa2_tpu_torch.interconnect.topology import TOPOLOGIES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +42,57 @@ class Semantics:
     def robust(self) -> "Semantics":
         """Fixture semantics + the at-scale soundness fixes."""
         return dataclasses.replace(self, intervention_miss_policy="nack")
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultModel:
+    """Seeded fault injection for the interconnect.
+
+    Faults are injected, and masked, at the link layer inside the
+    delivery boundary: every message a receiver accepts in a cycle must
+    fully cross the wire before the cycle commits, by bounded in-cycle
+    retransmission (up to ``max_retries`` rounds), duplicate filtering
+    and reorder reassembly.  The protocol above therefore sees the
+    fault-free schedule and the dumps stay byte-identical to the golden
+    run.  A message that exhausts its retry budget defers to the
+    sender's outbox and retries next cycle; at 100% drop it never
+    crosses, progress stops and the watchdog fires.
+
+    ``edge_sender``/``edge_receiver`` restrict injection to one directed
+    edge (-1 = wildcard).
+    """
+
+    drop: float = 0.0       # P(one transmission attempt is lost)
+    duplicate: float = 0.0  # P(delivered copy arrives twice)
+    reorder: float = 0.0    # P(delivered copy arrives out of order)
+    delay: float = 0.0      # P(delivered copy is delayed in-flight)
+    seed: int = 0
+    max_retries: int = 64   # in-cycle retransmission budget per message
+    edge_sender: int = -1   # -1 = any sender
+    edge_receiver: int = -1  # -1 = any receiver
+
+    def __post_init__(self) -> None:
+        for name in ("drop", "duplicate", "reorder", "delay"):
+            v = getattr(self, name)
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(f"fault {name} rate {v} outside [0, 1]")
+        if self.max_retries < 1:
+            raise ValueError("fault max_retries must be >= 1")
+
+    @property
+    def enabled(self) -> bool:
+        return (
+            self.drop > 0.0
+            or self.duplicate > 0.0
+            or self.reorder > 0.0
+            or self.delay > 0.0
+        )
+
+    def applies(self, sender: int, receiver: int) -> bool:
+        """Does this model inject on the (sender -> receiver) edge?"""
+        return (self.edge_sender in (-1, sender)) and (
+            self.edge_receiver in (-1, receiver)
+        )
 
 
 #: Failure kinds a :class:`FailurePlan` can schedule.  All fire above
@@ -145,10 +199,24 @@ class FailurePlan:
 
 @dataclasses.dataclass(frozen=True)
 class InterconnectConfig:
-    """The interconnect topology; anything but ``ideal`` gives messages
-    a delivery delay, which the fast path does not model."""
+    """The interconnect as one subsystem: topology + faults.
+
+    ``ideal`` delivers every message next cycle (the only topology the
+    fast path implements); the others give every message a
+    deterministic delivery delay from per-edge base latency plus
+    per-cycle link contention at ``link_bandwidth`` messages per link
+    per cycle.  ``multicast`` ships one INV fan-out payload per shared
+    link; ``combining`` merges same-address READ_REQUESTs in-network.
+    Both need a non-ideal topology.  ``fault`` is the seeded link-layer
+    fault injection.
+    """
 
     topology: str = "ideal"
+    hop_latency: int = 1
+    link_bandwidth: int = 1
+    multicast: bool = False
+    combining: bool = False
+    fault: FaultModel = dataclasses.field(default_factory=FaultModel)
 
     def __post_init__(self) -> None:
         if self.topology not in TOPOLOGIES:
@@ -156,9 +224,19 @@ class InterconnectConfig:
                 f"unknown topology {self.topology!r}; "
                 f"registered: {TOPOLOGIES}"
             )
+        if self.hop_latency < 1:
+            raise ValueError("hop_latency must be >= 1")
+        if self.link_bandwidth < 1:
+            raise ValueError("link_bandwidth must be >= 1")
+        if self.topology == "ideal" and (self.multicast or self.combining):
+            raise ValueError(
+                "multicast/combining need a non-ideal topology "
+                "(the ideal interconnect has no links to share)"
+            )
 
     @property
     def enabled(self) -> bool:
+        """True when messages carry a topology-derived delivery delay."""
         return self.topology != "ideal"
 
 
@@ -179,10 +257,22 @@ class SystemConfig:
     interconnect: InterconnectConfig = dataclasses.field(
         default_factory=InterconnectConfig
     )
+    # event-driven cycle elision in the general engine: a pure
+    # performance knob (dumps, cycle counts and stats are identical
+    # either way); False is the lockstep escape hatch
+    elide: bool = True
+    # node-sharding exchange transport ("a2a", "butterfly", "hier",
+    # "pairwise") and the "hier" inner-tier size (0 = auto); only node
+    # sharding reads them
+    exchange_mode: str = "a2a"
+    exchange_inner: int = 0
     protocol: str = "mesi"
     directory_format: str = "full"
     # the serving plane's failure schedule; the kernels never read it
     failures: Optional[FailurePlan] = None
+    # deprecated alias for ``interconnect.fault``; after construction it
+    # always mirrors ``interconnect.fault``
+    fault: Optional[FaultModel] = None
 
     def __post_init__(self) -> None:
         if self.num_procs < 1:
@@ -193,6 +283,14 @@ class SystemConfig:
             raise ValueError("msg_buffer_size too small")
         if self.messages_per_cycle < 1:
             raise ValueError("messages_per_cycle must be >= 1")
+        if self.exchange_mode not in (
+            "pairwise", "a2a", "butterfly", "hier"
+        ):
+            raise ValueError(
+                f"unknown exchange_mode {self.exchange_mode!r}; expected"
+                f" one of 'pairwise', 'a2a', 'butterfly', 'hier'")
+        if self.exchange_inner < 0:
+            raise ValueError("exchange_inner must be >= 0 (0 = auto)")
         if self.protocol not in ("mesi", "moesi", "mesif"):
             raise ValueError(
                 f"unknown protocol {self.protocol!r}; expected one of "
@@ -211,6 +309,22 @@ class SystemConfig:
                     f"directory_format {fmt!r} is incompatible with "
                     f"num_procs={self.num_procs}: the parameter must be "
                     f"in [{lo}, num_procs)")
+        # fold the deprecated fault alias into the interconnect config
+        # (object.__setattr__: the dataclass is frozen) so eq/hash see
+        # one representation whichever path set the fault
+        ic = self.interconnect
+        if self.fault is not None and self.fault != ic.fault:
+            default = FaultModel()
+            if ic.fault == default:
+                ic = dataclasses.replace(ic, fault=self.fault)
+                object.__setattr__(self, "interconnect", ic)
+            elif self.fault != default:
+                raise ValueError(
+                    "conflicting fault models: Config.fault (deprecated"
+                    " alias) and Config.interconnect.fault are both set"
+                    " and differ; set interconnect.fault only"
+                )
+        object.__setattr__(self, "fault", ic.fault)
 
     @property
     def num_addresses(self) -> int:

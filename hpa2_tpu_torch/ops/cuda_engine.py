@@ -68,7 +68,7 @@ def fast_path_setup(config: SystemConfig, *, lanes: int, block: int,
     if config.interconnect.enabled:
         raise ValueError(
             "the fast path implements the ideal topology only; use the "
-            "spec or XLA engines of hpa2_tpu for "
+            "general engine (ops/engine.py) for "
             f"topology={config.interconnect.topology!r}"
         )
     _check_geometry(config)

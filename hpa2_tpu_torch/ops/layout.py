@@ -152,7 +152,7 @@ def _check_geometry(config: SystemConfig) -> None:
     if config.protocol != "mesi" or config.directory_format != "full":
         raise ValueError(
             "the fast path is specialized to the MESI/full-bitvector "
-            "build; use the spec or XLA engines of hpa2_tpu for "
+            "build; use the general engine (ops/engine.py) for "
             f"protocol={config.protocol!r} "
             f"directory_format={config.directory_format!r}"
         )

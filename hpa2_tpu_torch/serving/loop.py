@@ -457,7 +457,7 @@ class ServingSession:
 _NOT_PORTED = {
     "pallas-sharded": "queue 1 item 4 (multi-GPU)",
     "pallas-node-sharded": "queue 1 item 4 (multi-GPU)",
-    "jax": "queue 1 item 2 (the general engine family)",
+    "jax": "queue 1 item 2b (the general engine's serving session)",
 }
 
 

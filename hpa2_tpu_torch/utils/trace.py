@@ -1,17 +1,22 @@
-"""Trace loading and the synthetic uniform and heterogeneous workloads.
+"""Trace loading, replay orders and the synthetic uniform and
+heterogeneous workloads.
 
 ``core_<n>.txt`` holds one instruction per line, ``RD <hexaddr>`` or
 ``WR <hexaddr> <decvalue>``; values wrap mod 256, blank lines are
-skipped, malformed lines and out-of-range addresses raise.  For the
+skipped, malformed lines and out-of-range addresses raise.  A replay
+order (``instruction_order.txt``, the reference's DEBUG_INSTR lines)
+pins the issue interleaving of a run; it must be exactly an
+interleaving of the traces.  For the
 same seed the generators give the same arrays as their namesakes in
 ``hpa2_tpu.utils.trace``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -20,6 +25,10 @@ from hpa2_tpu_torch.models.protocol import Instr
 
 _RD_RE = re.compile(r"^RD\s+(?:0[xX])?([0-9a-fA-F]+)\s*$")
 _WR_RE = re.compile(r"^WR\s+(?:0[xX])?([0-9a-fA-F]+)\s+(\d+)\s*$")
+_ORDER_RE = re.compile(
+    r"^Processor\s+(\d+):\s+instr type=([RW]),\s+address=0x([0-9a-fA-F]+),"
+    r"\s+value=(\d+)\s*$"
+)
 
 
 def parse_core_trace(text: str, max_instr: Optional[int] = None) -> List[Instr]:
@@ -62,6 +71,68 @@ def load_trace_dir(trace_dir: str, config: SystemConfig) -> List[List[Instr]]:
     return traces
 
 
+@dataclasses.dataclass(frozen=True)
+class IssueRecord:
+    """One line of instruction_order.txt."""
+
+    proc: int
+    op: str  # 'R' | 'W'
+    address: int
+    value: int
+
+
+def parse_instruction_order(text: str) -> List[IssueRecord]:
+    records = []
+    for lineno, raw in enumerate(text.splitlines(), 1):
+        line = raw.strip()
+        if not line:
+            continue
+        m = _ORDER_RE.match(line)
+        if not m:
+            raise ValueError(f"malformed order line {lineno}: {raw!r}")
+        records.append(
+            IssueRecord(
+                proc=int(m.group(1)),
+                op=m.group(2),
+                address=int(m.group(3), 16),
+                value=int(m.group(4)),
+            )
+        )
+    return records
+
+
+def load_instruction_order(path: str) -> List[IssueRecord]:
+    with open(path, "r") as f:
+        return parse_instruction_order(f.read())
+
+
+def validate_order_against_traces(
+    order: Sequence[IssueRecord], traces: Sequence[Sequence[Instr]]
+) -> None:
+    """Check a recorded order is exactly an interleaving of the traces."""
+    cursors = [0] * len(traces)
+    for i, rec in enumerate(order):
+        if not (0 <= rec.proc < len(traces)):
+            raise ValueError(
+                f"order line {i}: processor id {rec.proc} out of range "
+                f"(have {len(traces)} traces)"
+            )
+        tr = traces[rec.proc]
+        if cursors[rec.proc] >= len(tr):
+            raise ValueError(f"order line {i}: proc {rec.proc} trace exhausted")
+        instr = tr[cursors[rec.proc]]
+        if (instr.op, instr.address) != (rec.op, rec.address) or (
+            instr.op == "W" and instr.value != rec.value
+        ):
+            raise ValueError(
+                f"order line {i}: {rec} does not match trace instr {instr}"
+            )
+        cursors[rec.proc] += 1
+    for p, c in enumerate(cursors):
+        if c != len(traces[p]):
+            raise ValueError(f"order incomplete: proc {p} at {c}/{len(traces[p])}")
+
+
 def traces_to_arrays(config: SystemConfig, batch_traces):
     """[[Instr]] per system -> ([B, N, T] op/addr/val, [B, N] length)."""
     b = len(batch_traces)
@@ -83,6 +154,29 @@ def traces_to_arrays(config: SystemConfig, batch_traces):
                 addr[bi, ni, j] = ins.address
                 val[bi, ni, j] = ins.value
     return op, addr, val, length
+
+
+def gen_uniform_random(
+    config: SystemConfig,
+    instrs_per_core: int,
+    seed: int = 0,
+    write_frac: float = 0.5,
+) -> List[List[Instr]]:
+    """Uniform-random RD/WR over the whole address space for one system
+    (the same traces as ``hpa2_tpu.utils.trace.gen_uniform_random``)."""
+    rng = np.random.default_rng(seed)
+    traces = []
+    for _ in range(config.num_procs):
+        ops = rng.random(instrs_per_core) < write_frac
+        addrs = rng.integers(0, config.num_addresses, instrs_per_core)
+        vals = rng.integers(0, 256, instrs_per_core)
+        traces.append(
+            [
+                Instr("W", int(a), int(v)) if w else Instr("R", int(a))
+                for w, a, v in zip(ops, addrs, vals)
+            ]
+        )
+    return traces
 
 
 def gen_uniform_random_arrays(

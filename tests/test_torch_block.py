@@ -20,6 +20,7 @@ from hpa2_tpu_torch.utils.trace import (
     gen_heterogeneous_random_arrays, gen_uniform_random_arrays,
 )
 from torch_pairs import IGNORE_PLTPU_ANY, config_pair, dicts, run_both
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BLOCK = 2048
 

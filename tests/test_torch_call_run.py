@@ -24,6 +24,7 @@ from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
 from torch_pairs import (
     config_pair, dicts, run_both, spec_on_windows, traces_of,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("gate", [True, False])

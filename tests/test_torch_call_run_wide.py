@@ -8,6 +8,7 @@ import pytest
 
 from hpa2_tpu.utils.trace import gen_uniform_random_arrays
 from torch_pairs import config_pair, dicts, run_both
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_split_22_nodes_matches_pallas():

@@ -4,7 +4,9 @@ planes): the streamed run, and the per-call kernel under its host
 loop; lane blocks above 1,024 lanes up to the card's bound; the
 engine's ``run`` on the card against the CPU, unscheduled and
 scheduled; serving on the card against the CPU, pipelined and serial;
-and the five op-pattern micro-kernels.  These need an
+the five op-pattern micro-kernels; and the general engine on the card
+against the CPU and K2 (its batch loop, a replayed system, a faulty
+mesh under MOESI), and its severed-edge stall.  These need an
 NVIDIA GPU with nvcc (sm_90a) and skip elsewhere; on the card run them
 with
 
@@ -294,3 +296,90 @@ def test_micro_kernel_matches_plain_on_card(card, name):
     assert mk.LAUNCHES[name] == before + 1
     for k, v in want.items():
         assert torch.equal(got[k], v), k
+
+
+@pytest.mark.parametrize("elide", [True, False])
+def test_general_engine_on_card_matches_cpu_and_k2(card, elide):
+    """The general engine on the card (its loop as captured CUDA graphs)
+    against the CPU, every field, and against K2 at MESI/full/ideal:
+    dumps, snapshots, counters and the longest system's cycle."""
+    from hpa2_tpu_torch.ops.engine import build_batched_run
+    from hpa2_tpu_torch.ops.state import init_state_batched
+
+    cfg = SystemConfig(num_procs=8, msg_buffer_size=16, elide=elide,
+                       semantics=Semantics().robust())
+    arrays = gen_uniform_random_arrays(cfg, 64, 24, seed=5)
+    run = build_batched_run(cfg)
+    syncs = kernels.HOST_SYNCS.count
+    got = run(init_state_batched(cfg, *arrays, device=card))
+    assert run.chunks >= 1 and kernels.HOST_SYNCS.count - syncs >= run.chunks
+    want = run(init_state_batched(cfg, *arrays, device="cpu"))
+    for f, x, y in zip(want._fields, got, want):
+        assert _same(x, y), f
+    k2 = CudaEngine(cfg, *arrays, block=64).run()
+    assert int(got.cycle.max()) == k2.cycle
+    for b in range(0, 64, 9):
+        st = {f: x[b].cpu().numpy() for f, x in zip(got._fields, got)}
+        dumps = k2.system_final_dumps(b)
+        for i, d in enumerate(dumps):
+            assert d.memory == st["mem"][i].tolist()
+            assert d.cache_addr == st["cache_addr"][i].tolist()
+            assert d.cache_value == st["cache_val"][i].tolist()
+            assert d.cache_state == st["cache_state"][i].tolist()
+            assert d.dir_state == st["dir_state"][i].tolist()
+
+
+def test_general_engine_severed_edge_stalls_on_card(card):
+    """A severed edge raises the watchdog's StallDiagnostic on the card
+    with every field equal to the CPU's."""
+    from hpa2_tpu_torch.config import FaultModel, InterconnectConfig
+    from hpa2_tpu_torch.ops.engine import BatchTorchEngine, StallDiagnostic
+    from hpa2_tpu_torch.utils.trace import gen_uniform_random
+
+    cfg = SystemConfig(
+        num_procs=4, semantics=Semantics().robust(),
+        interconnect=InterconnectConfig(fault=FaultModel(
+            drop=1.0, edge_sender=1, edge_receiver=0, seed=1)))
+    batch = [gen_uniform_random(cfg, 16, seed=s) for s in range(4)]
+    diags = []
+    for dev in (card, "cpu"):
+        with pytest.raises(StallDiagnostic) as ei:
+            BatchTorchEngine(cfg, batch, watchdog_cycles=50,
+                             device=dev).run()
+        diags.append(ei.value)
+    for f in ("reason", "cycle", "mailbox_depths", "waiting", "blocked",
+              "line_states", "recent_msgs", "invariant_violations",
+              "counters"):
+        assert getattr(diags[0], f) == getattr(diags[1], f), f
+
+
+@pytest.mark.parametrize("variant", ["replay", "moesi-mesh2d-faults"])
+def test_single_system_general_engine_on_card_matches_cpu(card, variant):
+    """``TorchEngine`` (a batch of one) on the card against the CPU: a
+    replayed issue order (the lockstep loop without elision), and MOESI
+    on a mesh with link faults under elision."""
+    from hpa2_tpu_torch.config import FaultModel, InterconnectConfig
+    from hpa2_tpu_torch.ops.engine import TorchEngine
+    from hpa2_tpu_torch.utils.trace import IssueRecord, gen_uniform_random
+
+    kw = {}
+    cfg = SystemConfig(num_procs=4, semantics=Semantics().robust())
+    traces = gen_uniform_random(cfg, 16, seed=2)
+    if variant == "replay":
+        # round-robin over the nodes: an interleaving of the traces
+        order = [IssueRecord(n, ins.op, ins.address, ins.value)
+                 for step in range(16) for n in range(4)
+                 for ins in [traces[n][step]]]
+        kw["replay_order"] = order
+    else:
+        cfg = SystemConfig(
+            num_procs=4, semantics=Semantics().robust(), protocol="moesi",
+            interconnect=InterconnectConfig(
+                topology="mesh2d", multicast=True,
+                fault=FaultModel(drop=0.2, duplicate=0.1, seed=4)))
+    got = TorchEngine(cfg, traces, device=card, **kw).run()
+    want = TorchEngine(cfg, traces, device="cpu", **kw).run()
+    for f, x, y in zip(want.state._fields, got.state, want.state):
+        assert _same(x, y), f
+    assert got.stats() == want.stats()
+    assert got.link_stats() == want.link_stats()

@@ -17,6 +17,7 @@ from hpa2_tpu.utils.trace import gen_uniform_random_arrays
 from hpa2_tpu_torch.convert import state_from_numpy, state_to_numpy
 from hpa2_tpu_torch.ops.cycle import build_cycle
 from torch_pairs import config_pair
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def jax_trajectory(jcfg, b, t, seed, snapshots, cycles, packed=False):

@@ -21,6 +21,7 @@ from hpa2_tpu_torch.ops.layout import StallError
 from torch_pairs import (
     IGNORE_PLTPU_ANY, config_pair, dicts, run_both, traces_of,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.filterwarnings(IGNORE_PLTPU_ANY)
 

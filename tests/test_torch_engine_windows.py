@@ -8,6 +8,7 @@ from hpa2_tpu.utils.trace import gen_uniform_random_arrays
 from torch_pairs import (
     IGNORE_PLTPU_ANY, config_pair, dicts, run_both, spec_on_windows,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.filterwarnings(IGNORE_PLTPU_ANY)
 

@@ -21,6 +21,7 @@ from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
 from hpa2_tpu_torch.ops.layout import _init_state, _pack_traces
 from hpa2_tpu_torch.scripts import micro_kernels
 from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO_ROOT / "hpa2_tpu_torch"

@@ -34,6 +34,7 @@ from hpa2_tpu_torch.ops.layout import (
 )
 from hpa2_tpu_torch.ops.stream_run import stream_run_plain
 from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # the same MAXN dispatch as csrc/stream_run.cu; each lane block runs on
 # a host team (every CTA and thread of its cluster, phase by phase)

@@ -12,6 +12,7 @@ from hpa2_tpu_torch.convert import state_from_numpy
 from hpa2_tpu_torch.ops import layout
 from hpa2_tpu_torch.utils import dump, trace
 from torch_pairs import config_pair
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GEOMETRIES = [(n, cap) for n in (1, 4, 8, 21) for cap in (4, 16, 256)]
 

@@ -30,6 +30,7 @@ import torch
 
 from hpa2_tpu_torch.ops import kernels
 from hpa2_tpu_torch.scripts import micro_kernels as mk
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SCRIPT = pathlib.Path(__file__).resolve().parent.parent / "scripts" / \
     "micro_kernels.py"

@@ -17,6 +17,7 @@ from hpa2_tpu_torch.convert import state_from_numpy, state_to_numpy
 from hpa2_tpu_torch.ops import layout
 from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
 from torch_pairs import IGNORE_PLTPU_ANY, config_pair, dicts, run_both
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.filterwarnings(IGNORE_PLTPU_ANY)
 

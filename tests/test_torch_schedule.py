@@ -14,6 +14,7 @@ from hpa2_tpu.utils import trace as jtrace
 from hpa2_tpu_torch.config import SystemConfig
 from hpa2_tpu_torch.ops import schedule as ts
 from hpa2_tpu_torch.utils import trace as ttrace
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _workload(seed, b):

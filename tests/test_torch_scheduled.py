@@ -23,6 +23,7 @@ from torch_pairs import IGNORE_PLTPU_ANY, config_pair
 from torch_scheduled import (
     KW, ZIPF_KW, run_scheduled_pair, same_as_unscheduled,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.filterwarnings(IGNORE_PLTPU_ANY)
 

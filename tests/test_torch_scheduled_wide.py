@@ -12,6 +12,7 @@ from hpa2_tpu_torch.ops import kernels
 from hpa2_tpu_torch.utils.trace import gen_heterogeneous_random_arrays
 from torch_pairs import IGNORE_PLTPU_ANY, config_pair
 from torch_scheduled import KW, run_scheduled_pair, same_as_unscheduled
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.filterwarnings(IGNORE_PLTPU_ANY)
 

@@ -27,6 +27,7 @@ from hpa2_tpu_torch.service import (
 from hpa2_tpu_torch.serving import job_to_record, serve, synthetic_jobs
 from hpa2_tpu_torch.serving.loop import ServingSession
 from torch_pairs import IGNORE_PLTPU_ANY, config_pair, dicts
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.filterwarnings(IGNORE_PLTPU_ANY)
 

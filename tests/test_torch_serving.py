@@ -39,6 +39,7 @@ from hpa2_tpu_torch.serving import (
 )
 from hpa2_tpu_torch.serving.loop import _guard_compiles
 from torch_pairs import IGNORE_PLTPU_ANY, config_pair, dicts
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.filterwarnings(IGNORE_PLTPU_ANY)
 

@@ -19,6 +19,7 @@ from hpa2_tpu_torch.ops.schedule import LaneScheduler, segments_needed
 from hpa2_tpu_torch.ops.session import CudaLaneSession
 from hpa2_tpu_torch.utils.trace import gen_heterogeneous_random_arrays
 from torch_pairs import IGNORE_PLTPU_ANY, config_pair, dicts
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.filterwarnings(IGNORE_PLTPU_ANY)
 

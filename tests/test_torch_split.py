@@ -22,6 +22,7 @@ from torch_pairs import (
     IGNORE_PLTPU_ANY, config_pair, dicts, run_both, spec_on_windows,
     traces_of,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.filterwarnings(IGNORE_PLTPU_ANY)
 
