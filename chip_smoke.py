@@ -2,8 +2,10 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only general-scheduled,serve-jax,recovery
 
-Builds the three CUDA libraries from ``hpa2_tpu_torch/csrc`` with nvcc,
+(the second form, a debugging aid, runs the build and the named phases
+alone and prints no kernels line).  Builds the three CUDA libraries from ``hpa2_tpu_torch/csrc`` with nvcc,
 the compilers at once (the streamed run ``stream_run.cu`` and the
 per-call kernel ``call_run.cu``, each for node bounds 8, 21 and 64, and
 the op-pattern micro-kernels ``micro_kernels.cu``), runs the
@@ -53,6 +55,23 @@ bound), and drives through ``CudaEngine``:
   systems against K2; a severed edge whose ``StallDiagnostic`` must
   equal the CPU's; and ``run``/``bench --backend jax`` (the CPU
   references run in four spawned worker processes meanwhile);
+* the general engine's scheduled runs (``[general scheduled]``): 4,096
+  zipf-length headline systems unscheduled, fused and by the host chunk
+  loop through 1,024 rows (each scheduled run's dumps, snapshots,
+  counters and ``stats()`` equal to the unscheduled run's), and 32 of
+  them through 8 rows against the CPU in every field;
+* serving on the general engine (``[serve jax]``): 4,096 zipf jobs
+  through 1,024 rows at interval 256, pipelined and serial, against
+  the one-shot host-loop run, then ``jax_window=32`` against the fast
+  path's serving with every K2 launch held against the plain version;
+* the recovery supervisor (``[recovery]``): the fast path primary at
+  1,024 lanes on 2,048 of those jobs under kill, hang and poison (and
+  kill again with the primary's K2 launches checked), each
+  byte-identical to the unfailed run; a jax -> jax kill that resumes
+  rows from a schema-v2 checkpoint; a checkpoint of rows on the card
+  loaded back; ``bench --backend jax --checkpoint-every`` straight and
+  resumed; and the ``serve --backend jax`` and ``serve --failure-plan``
+  commands;
 * the ``run`` command on a small trace directory and the ``bench``
   command on the fast path (``--backend pallas``), unscheduled and
   scheduled,
@@ -74,8 +93,9 @@ and prints:
   (``[serve]``);
 * one ``{"kernels": [...]}`` line: per kernel its launches on its main
   path (the 64-node streamed run; the headline per-call run; the
-  micro-kernels' runner; the pipelined serving run, and K2's
-  cross-checks beside the general engine, under ``by_path``), its
+  micro-kernels' runner; the pipelined serving run, K2's cross-checks
+  beside the general engine and its served rows, and the recovery
+  supervisor's primary, under ``by_path``), its
   largest disagreement with the plain version, its time and the plain version's at that shape, and its
   bound: the larger of the bytes over 3.35 TB/s and the integer
   operations the run's own counters say it needed (``cycle_ops``) over
@@ -1849,6 +1869,515 @@ def gated_step_kernels(cfg, head):
     return len(evs)
 
 
+# ---------------------------------------------------------------------------
+# [general scheduled], [serve jax], [recovery]: the general engine's
+# scheduled runs, its serving backend and the recovery supervisor
+
+
+#: part [general scheduled]: the scheduler's zipf workload at the
+#: headline configuration (bench.py:197-260; lengths over [16, 128]),
+#: streamed through 1,024 rows; 32 of the systems at 8 rows also run on
+#: the CPU
+SCHED_SYSTEMS, SCHED_RESIDENT, SCHED_INTERVAL = 4096, 1024, 256
+SCHED_CPU, SCHED_CPU_RESIDENT = 32, 8
+#: parts [serve jax] and [recovery]: bench.py:538-690's zipf feed
+#: (spread 4, seed 0) at the headline configuration
+SERVE_JAX_JOBS, RECOVERY_JOBS = 4096, 2048
+SERVE_JAX = dict(backend="jax", resident=1024, interval=256,
+                 max_trace_len=GENERAL_INSTRS, device="cuda")
+RECOVERY_PALLAS = dict(backend="pallas", resident=1024, window=32, block=512,
+                       device="cuda")
+#: the fields a schedule leaves as they are: everything but the
+#: batch-global ones (BATCH_GLOBAL) and the trace planes, which a
+#: scheduled run pads to its own longest trace
+SCHED_FIELDS_SKIP = BATCH_GLOBAL + ("seconds",)
+
+
+def sched_arrays(cfg):
+    from hpa2_tpu_torch.utils.trace import gen_heterogeneous_random_arrays
+
+    return gen_heterogeneous_random_arrays(cfg, SCHED_SYSTEMS,
+                                           GENERAL_INSTRS, dist="zipf",
+                                           spread=8.0, seed=0)
+
+
+def scheduled_cpu_reference(fused):
+    """The first ``SCHED_CPU`` systems of the scheduled workload through
+    ``BatchTorchEngine(schedule=Schedule(resident=8, ...))`` on the CPU,
+    in a worker process: (state as numpy arrays, occupancy dict)."""
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(1)
+    from hpa2_tpu_torch.convert import sim_state_to_numpy
+    from hpa2_tpu_torch.ops.engine import BatchTorchEngine
+    from hpa2_tpu_torch.ops.schedule import Schedule
+
+    cfg = general_config()
+    arrays = [a[:SCHED_CPU] for a in sched_arrays(cfg)]
+    t0 = time.perf_counter()
+    eng = BatchTorchEngine(
+        cfg, arrays_to_traces(arrays), device="cpu",
+        schedule=Schedule(resident=SCHED_CPU_RESIDENT,
+                          interval=SCHED_INTERVAL, fused=fused)).run()
+    out = sim_state_to_numpy(eng.state)
+    out["seconds"] = time.perf_counter() - t0
+    return out, eng.occupancy.as_dict()
+
+
+def _host_state(st):
+    from hpa2_tpu_torch.ops.state import SimState
+
+    return SimState(*(x.cpu() for x in st))
+
+
+def phase_general_scheduled(card):
+    """``BatchTorchEngine(schedule=...)`` on the card at the headline
+    configuration: 4,096 zipf-length systems unscheduled, then streamed
+    through 1,024 rows fused, then by the host chunk loop at interval
+    256.  Each scheduled run's dumps, snapshots, counters and
+    ``stats()`` must equal the unscheduled run's; on 32 of the systems
+    at 8 rows, fused and host loop, every field must equal the CPU's
+    (worker processes, started first)."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        jobs = {fused: pool.submit(scheduled_cpu_reference, fused)
+                for fused in (True, False)}
+        return _phase_general_scheduled_card(card, jobs)
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def _phase_general_scheduled_card(card, jobs):
+    from hpa2_tpu_torch.convert import sim_state_to_numpy
+    from hpa2_tpu_torch.ops import kernels
+    from hpa2_tpu_torch.ops.engine import BatchTorchEngine, build_batched_run
+    from hpa2_tpu_torch.ops.schedule import Schedule
+
+    cfg = general_config()
+    arrays = sched_arrays(cfg)
+    traces = arrays_to_traces(arrays)
+    instrs = int(arrays[3].sum())
+    strip = ("elided_cycles", "multi_hit_retired")
+    runs, states, err = {}, {}, 0
+    for label, schedule in (
+            ("unscheduled", None),
+            ("fused", Schedule(resident=SCHED_RESIDENT)),
+            ("host loop", Schedule(resident=SCHED_RESIDENT,
+                                   interval=SCHED_INTERVAL, fused=False))):
+        eng = BatchTorchEngine(cfg, traces, schedule=schedule,
+                               device="cuda")
+        # the unscheduled and fused runs' graphs are captured before the
+        # clock starts; the host loop's is captured on its bound rows,
+        # inside the run (its time printed apart)
+        if schedule is None:
+            build_batched_run(cfg).prepare(eng.state)
+        elif schedule.fused:
+            build_batched_run(cfg).prepare(
+                eng._fresh(np.arange(SCHED_RESIDENT)))
+        syncs = kernels.HOST_SYNCS.count
+        _, ms = elapsed_ms(eng.run)
+        syncs = kernels.HOST_SYNCS.count - syncs
+        if int(eng.state.n_instr.sum()) != instrs:
+            raise AssertionError(f"general scheduled {label}: "
+                                 f"{int(eng.state.n_instr.sum())} RD/WR "
+                                 f"retired of {instrs}")
+        states[label] = sim_state_to_numpy(eng.state)
+        stats = eng.stats()
+        occ = eng.occupancy.as_dict() if eng.occupancy else None
+        runs[label] = dict(ms=ms, syncs=syncs, stats=stats,
+                           chunks=(occ or {}).get("intervals"))
+        print(f"[general scheduled] {label}: {SCHED_SYSTEMS} systems x "
+              f"{cfg.num_procs} nodes x <= {GENERAL_INSTRS} instrs (zipf, "
+              f"spread 8): {ms:.3f} ms (CUDA events around run(), host "
+              f"work included), {instrs / ms * 1e3:.4e} RD/WR ops/s, "
+              f"{syncs} host syncs, chunks {runs[label]['chunks']}, "
+              f"occupancy {occ} ({card})")
+        if label == "unscheduled":
+            continue
+        e = state_err(f"general scheduled {label} against unscheduled",
+                      states[label], states["unscheduled"],
+                      [f for f in states[label]
+                       if f not in SCHED_FIELDS_SKIP])
+        want = {k: v for k, v in runs["unscheduled"]["stats"].items()
+                if k not in strip}
+        if {k: v for k, v in stats.items() if k not in strip} != want:
+            raise AssertionError(f"general scheduled {label}: stats() "
+                                 "differ from the unscheduled run's")
+        err = max(err, e)
+        print(f"[compare] general scheduled {label}: dumps, snapshots and "
+              f"per-system counters of {SCHED_SYSTEMS} systems equal the "
+              f"unscheduled run's, max_abs_err={e}; stats() equal but the "
+              "batch-dependent elision counters")
+    # 32 of the systems at 8 rows, fused and host loop: card against CPU
+    sub = arrays_to_traces([a[:SCHED_CPU] for a in arrays])
+    for fused in (True, False):
+        eng = BatchTorchEngine(
+            cfg, sub, device="cuda",
+            schedule=Schedule(resident=SCHED_CPU_RESIDENT,
+                              interval=SCHED_INTERVAL, fused=fused)).run()
+        want, want_occ = jobs[fused].result()
+        label = "fused" if fused else "host loop"
+        e = state_err(f"general scheduled {label}, {SCHED_CPU} systems: "
+                      "card against CPU", sim_state_to_numpy(eng.state),
+                      want)
+        if eng.occupancy.as_dict() != want_occ:
+            raise AssertionError(f"general scheduled {label}: occupancy "
+                                 "differs from the CPU's")
+        err = max(err, e)
+        print(f"[compare] general scheduled {label}, {SCHED_CPU} systems "
+              f"through {SCHED_CPU_RESIDENT} rows: every field and the "
+              f"occupancy equal the CPU's ({want['seconds']:.1f} s there), "
+              f"max_abs_err={e}")
+    return dict(err=err, runs=runs)
+
+
+@contextlib.contextmanager
+def timed_chunks(bound):
+    """A pair of CUDA events around the graph replays of every chunk a
+    bound chunk program (``ops/step.py:BoundChunk``) enqueues, read
+    only afterwards; yields the list of (start, end) pairs."""
+    advance = bound.advance
+    pairs = []
+
+    def timed():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        advance()
+        end.record()
+        pairs.append((start, end))
+
+    bound.advance = timed
+    try:
+        yield pairs
+    finally:
+        del bound.advance
+
+
+def served_map(results, cycles=True):
+    keys = ("instructions", "cycles", "messages") if cycles else (
+        "instructions", "messages")
+    return {r.job_id: (r.dumps, {k: r.counters[k] for k in keys})
+            for r in results}
+
+
+def check_served(label, results, want, cycles=True):
+    got = served_map(results, cycles)
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: jobs served {len(got)} of "
+                             f"{len(want)}, or some twice")
+    for jid, (dumps, counters) in got.items():
+        wd, wc = want[jid]
+        if dumps != wd or any(counters[k] != wc[k] for k in counters):
+            raise AssertionError(f"{label}: {jid}'s dumps or counters "
+                                 "differ from the reference's")
+
+
+def stats_line(tag, label, st, card, extra=""):
+    d = st.as_dict()
+    occ, lat = d["occupancy"], d["latency_s"]
+    print(f"[{tag}] {label}: {d['jobs_completed']} jobs, "
+          f"{occ.get('intervals')} intervals, {occ.get('admissions')} "
+          f"admissions; {d['instructions']} RD/WR in {st.wall_s:.6f} s "
+          f"wall: {st.ops_per_s:.1f} RD/WR ops/s; host_staging_s "
+          f"{st.host_staging_s:.6f}, device_wait_s {st.device_wait_s:.6f}, "
+          f"readback_s {st.readback_s:.6f}; latency p50 {lat['p50']} s, p99 "
+          f"{lat['p99']} s; compile counts {d['compile_counts']}{extra} "
+          f"({card})")
+
+
+def phase_serve_jax(card):
+    """``serve(backend="jax")`` on the card: 4,096 zipf jobs through
+    1,024 rows at interval 256, overlap on and off, every job's dumps
+    and counters equal to the one-shot host-loop run's (``cycles`` too
+    for the serial run, whose admissions land at the one-shot run's
+    barriers; the pipelined run admits a chunk later), zero recompiles;
+    then ``jax_window=32`` against ``serve(backend="pallas")`` at
+    window 32, block 512, in one pass whose every K2 launch is held
+    against the plain version."""
+    from hpa2_tpu_torch.ops import kernels
+    from hpa2_tpu_torch.ops.engine import BatchTorchEngine
+    from hpa2_tpu_torch.ops.schedule import Schedule
+    from hpa2_tpu_torch.serving import (
+        ListJobSource, build_serving, serve, synthetic_jobs,
+    )
+
+    cfg = general_config()
+    jobs = synthetic_jobs(cfg, SERVE_JAX_JOBS, GENERAL_INSTRS, seed=0,
+                          dist="zipf", spread=4.0)
+    t0 = time.perf_counter()
+    ref = BatchTorchEngine(
+        cfg, [j.batch_traces() for j in jobs], device="cuda",
+        schedule=Schedule(resident=SERVE_JAX["resident"],
+                          interval=SERVE_JAX["interval"], fused=False)).run()
+    ref_s = time.perf_counter() - t0
+    ref.state = _host_state(ref.state)
+    want = {j.job_id: (ref.system_final_dumps(s), {
+        "instructions": int(ref.state.n_instr[s]),
+        "cycles": int(ref.state.cycle[s]),
+        "messages": int(ref.state.n_msgs[s])}) for s, j in enumerate(jobs)}
+    print(f"[serve jax] one-shot reference (BatchTorchEngine, "
+          f"Schedule(resident={SERVE_JAX['resident']}, interval="
+          f"{SERVE_JAX['interval']}, fused=False)): {ref_s:.3f} s")
+    out = {}
+    for overlap in (True, False):
+        drv = build_serving(cfg, ListJobSource(jobs), overlap=overlap,
+                            **SERVE_JAX)
+        ptrs = [x.data_ptr() for x in drv.session.state]
+        syncs = kernels.HOST_SYNCS.count
+        with timed_chunks(drv.session._bound) as pairs:
+            results, st = drv.run()
+        syncs = kernels.HOST_SYNCS.count - syncs
+        busy_ms = launches_ms(pairs)
+        label = "pipelined" if overlap else "serial"
+        check_served(f"serve jax {label}", results, want,
+                     cycles=not overlap)
+        if set(st.compile_counts.values()) != {1}:
+            raise AssertionError(f"serve jax {label}: compile counts "
+                                 f"{st.compile_counts}")
+        if [x.data_ptr() for x in drv.session.state] != ptrs:
+            raise AssertionError(f"serve jax {label}: the rows moved")
+        cap = drv.session._bound.capture_s
+        stats_line("serve jax", label, st, card,
+                   f"; {syncs} host syncs; the chunks' replays "
+                   f"{busy_ms:.3f} ms on the card (device idle "
+                   f"{1 - busy_ms / 1e3 / st.wall_s:.4f} of the wall); the "
+                   f"chunk graph's capture {cap:.3f} s inside the wall")
+        out[label] = dict(wall_s=st.wall_s, syncs=syncs, busy_ms=busy_ms,
+                          ops_per_s=st.ops_per_s)
+    print(f"[compare] serve jax: {SERVE_JAX_JOBS} jobs, pipelined and "
+          "serial: every job's dumps and counters equal the one-shot "
+          "run's (cycles: the serial run), compile counts all 1, the "
+          "resident rows kept their storage")
+
+    # the window emulation against the fast path, every K2 launch checked
+    wkw = dict(SERVE_JAX, jax_window=RECOVERY_PALLAS["window"])
+    jres, jst = serve(cfg, ListJobSource(jobs), **wkw)
+    stats_line("serve jax", f"jax_window={wkw['jax_window']}", jst, card)
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    with checked_kernels("serve jax cross-check") as chk:
+        pres, pst = serve(cfg, ListJobSource(jobs), **RECOVERY_PALLAS)
+    launches = kernels.STREAM_RUN.launches
+    if launches == 0 or chk["stream_run"] != launches:
+        raise AssertionError(f"serve jax cross-check: {launches} K2 "
+                             f"launches, {chk['stream_run']} checked")
+    check_served("serve jax window against pallas", jres,
+                 served_map(pres, cycles=False), cycles=False)
+    print(f"[compare] serve jax cross-check: jax_window="
+          f"{wkw['jax_window']} against serve(backend='pallas', resident="
+          f"{RECOVERY_PALLAS['resident']}, window="
+          f"{RECOVERY_PALLAS['window']}, block={RECOVERY_PALLAS['block']}): "
+          f"every job's dumps, instructions and messages equal; "
+          f"{launches} K2 launches each held against the plain version, "
+          f"max_abs_err={chk['err']} ({chk['idle_lanes']} idle lanes, "
+          f"{chk['ragged_lanes']} with a window ending early)")
+    return dict(runs=out, launches=launches, checked=chk["stream_run"],
+                err=chk["err"], window_wall_s=jst.wall_s)
+
+
+def phase_recovery(card):
+    """The recovery supervisor on the card, the fast path primary at
+    1,024 lanes, window 32, block 512, on 2,048 of the zipf jobs:
+    ``kill@3``, ``hang@3`` and ``poison@3:1`` must each end
+    byte-identical to the unfailed run (the primary's K2 launches
+    counted from 0 in the kill run); a jax -> jax ``kill@4`` must resume
+    rows mid-state from a schema-v2 checkpoint; a checkpoint of rows on
+    the card must load back equal in every field; ``bench --backend jax
+    --checkpoint-every`` must finish, clear its directory and resume a
+    mid checkpoint to the straight run's counts; and the ``serve``
+    commands with ``--backend jax`` and with ``--failure-plan
+    kill@3 --checkpoint-dir`` must write the reference's dump files."""
+    import tempfile
+
+    from hpa2_tpu_torch import cli
+    from hpa2_tpu_torch.config import FailurePlan
+    from hpa2_tpu_torch.ops import kernels
+    from hpa2_tpu_torch.ops.engine import BatchLaneSession
+    from hpa2_tpu_torch.ops.state import init_state_batched
+    from hpa2_tpu_torch.ops.step import build_batched_run_chunk
+    from hpa2_tpu_torch.serving import (
+        ListJobSource, job_to_record, serve, supervised_serve,
+        synthetic_jobs,
+    )
+    from hpa2_tpu_torch.utils.checkpoint import load_state, save_state
+    from hpa2_tpu_torch.utils.dump import format_processor_state
+    from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
+
+    cfg = general_config()
+    jobs = synthetic_jobs(cfg, SERVE_JAX_JOBS, GENERAL_INSTRS, seed=0,
+                          dist="zipf", spread=4.0)[:RECOVERY_JOBS]
+    work = ROOT / "hpa2_tpu_torch" / "build" / "smoke_recovery"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    base, bst = serve(cfg, ListJobSource(jobs), **RECOVERY_PALLAS)
+    want = served_map(base, cycles=False)
+    stats_line("recovery", "unfailed fast path", bst, card)
+    res = {}
+    for plan in ("kill@3", "hang@3", "poison@3:1"):
+        ckdir = tempfile.mkdtemp(dir=work)
+        launches = kernels.STREAM_RUN.launches
+        got, st = supervised_serve(cfg, ListJobSource(jobs),
+                                   plan=FailurePlan.parse(plan),
+                                   checkpoint_dir=ckdir, **RECOVERY_PALLAS)
+        launches = kernels.STREAM_RUN.launches - launches
+        check_served(f"recovery {plan}", got, want, cycles=False)
+        rec = {k: v for k, v in st.occupancy["recovery"].items()
+               if k != "events"}
+        if rec["failures_detected"] != 1 or launches == 0 \
+                or st.jobs_completed != RECOVERY_JOBS:
+            raise AssertionError(f"recovery {plan}: {rec}, {launches} K2 "
+                                 "launches")
+        stats_line("recovery", plan, st, card,
+                   f"; recovery {rec}; K2 launches {launches}; wall "
+                   f"{st.wall_s / bst.wall_s:.2f}x the unfailed run's")
+        res[plan] = dict(launches=launches, wall_s=st.wall_s, rec=rec)
+    # the primary's path: kill@3 again, its launch counts from 0 and
+    # every K2 launch held against the plain version
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    with checked_kernels("recovery primary") as chk:
+        got, st = supervised_serve(
+            cfg, ListJobSource(jobs), plan=FailurePlan.parse("kill@3"),
+            checkpoint_dir=tempfile.mkdtemp(dir=work), **RECOVERY_PALLAS)
+    launches = kernels.STREAM_RUN.launches
+    check_served("recovery kill@3, checked", got, want, cycles=False)
+    if launches == 0 or chk["stream_run"] != launches:
+        raise AssertionError(f"recovery primary: {launches} K2 launches, "
+                             f"{chk['stream_run']} checked")
+    print(f"[compare] recovery: kill@3, hang@3 and poison@3:1 on "
+          f"{RECOVERY_JOBS} jobs: every job's dumps, instructions and "
+          "messages byte-identical to the unfailed run's; kill@3 again "
+          f"with each of the primary's {launches} K2 launches held against "
+          f"the plain version: max_abs_err={chk['err']}")
+
+    # jax -> jax: rows resume mid-state from the schema-v2 npz
+    jbase, jbst = serve(cfg, ListJobSource(jobs), **SERVE_JAX)
+    jwant = served_map(jbase, cycles=False)
+    ckdir = tempfile.mkdtemp(dir=work)
+    got, st = supervised_serve(
+        cfg, ListJobSource(jobs), plan=FailurePlan.parse("kill@4"),
+        targets=[{"backend": "jax", "data_shards": 1}],
+        checkpoint_dir=ckdir, **SERVE_JAX)
+    check_served("recovery jax -> jax kill@4", got, jwant, cycles=False)
+    rec = {k: v for k, v in st.occupancy["recovery"].items()
+           if k != "events"}
+    npz = sorted(p.name for p in pathlib.Path(ckdir).glob("*.npz"))
+    if rec["lanes_resumed"] < 1 or not npz:
+        raise AssertionError(f"recovery jax -> jax: {rec}, {npz}")
+    stats_line("recovery", "jax -> jax kill@4", st, card,
+               f"; recovery {rec}; checkpoints {npz}; wall "
+               f"{st.wall_s / jbst.wall_s:.2f}x the unfailed jax run's")
+
+    # a checkpoint of rows on the card loads back equal in every field
+    sess = BatchLaneSession(cfg, SERVE_JAX["resident"], GENERAL_INSTRS,
+                            interval=SERVE_JAX["interval"], device="cuda")
+    for i, j in enumerate(jobs[:SERVE_JAX["resident"]]):
+        sess.admit(i, sess.fresh_row(j.batch_traces()))
+    sess.advance()
+    sess.quiescent_rows()
+    path = str(work / "rows.npz")
+    save_state(path, sess.state, cfg, extra_meta={"rows": "card"})
+    back, back_cfg, meta = load_state(path, with_meta=True, device="cuda")
+    bad = [f for f, a, b in zip(back._fields, back, sess.state)
+           if a.dtype != b.dtype or not torch.equal(a, b)]
+    if bad or back_cfg != cfg or meta["rows"] != "card":
+        raise AssertionError(f"checkpoint round trip on the card: {bad}")
+    print(f"[compare] checkpoint: {SERVE_JAX['resident']} rows on the card "
+          f"after one chunk, saved ({os.path.getsize(path)} B) and loaded "
+          "back: every field equal")
+
+    # bench --backend jax --checkpoint-every: straight, then resumed
+    ck = work / "bench_ck"
+    bench = ["bench", "--backend", "jax", "--batch", "1024", "--instrs",
+             str(GENERAL_INSTRS), "--nodes", "8", "--msg-buffer-size", "16",
+             "--robust", "--checkpoint-every", "128", "--checkpoint-dir",
+             str(ck), "--device", "cuda"]
+    recs = []
+    for resume in (False, True):
+        if resume:
+            # the command's own config: general_config() is the one
+            # these flags build
+            st = init_state_batched(cfg, *gen_uniform_random_arrays(
+                cfg, 1024, GENERAL_INSTRS, seed=0), device="cuda")
+            run_chunk = build_batched_run_chunk(cfg, 128)
+            mid = run_chunk(run_chunk(st))
+            save_state(str(ck / "ckpt_2.npz"), mid, cfg, extra_meta={
+                "batch": 1024, "instrs": GENERAL_INSTRS,
+                "workload": "uniform", "seed": 0})
+        buf, err_buf = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(err_buf):
+            rc = cli.main(bench)
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        left = sorted(p.name for p in ck.glob("ckpt_*.npz"))
+        if rc != 0 or left or rec["device"] != "cuda" \
+                or ("resumed from" in err_buf.getvalue()) != resume:
+            raise AssertionError(f"bench --checkpoint-every: rc {rc}, "
+                                 f"{rec}, left {left}")
+        recs.append(rec)
+    straight, resumed = recs
+    if straight["instrs"] != 1024 * 8 * GENERAL_INSTRS \
+            or resumed["resumed_instrs"] != int(mid.n_instr.sum()) \
+            or resumed["instrs"] + resumed["resumed_instrs"] \
+            != straight["instrs"]:
+        raise AssertionError(f"bench resume: {straight}, {resumed}")
+    print(f"[bench] --backend jax --batch 1024 --checkpoint-every 128: "
+          f"{straight['seconds']} s, {straight['ops_per_sec']} RD/WR ops/s "
+          f"(checkpoint writes included), directory cleared; resumed from a "
+          f"mid checkpoint: {resumed['resumed_instrs']} RD/WR already "
+          f"retired + {resumed['instrs']} = the straight run's "
+          f"{straight['instrs']}")
+
+    # the serve commands on 64 of the jobs
+    feed = work / "jobs.jsonl"
+    feed.write_text("".join(json.dumps(job_to_record(j)) + "\n"
+                            for j in jobs[:64]))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+    common = ["--nodes", "8", "--msg-buffer-size", "16", "--robust",
+              "--resident", "64", "--max-instr", str(GENERAL_INSTRS),
+              "--immediate", "--device", "cuda"]
+    for name, flags, ref in (
+            ("jax", ["--backend", "jax", "--interval", "256"], jwant),
+            ("kill", ["--failure-plan", "kill@3", "--checkpoint-dir",
+                      str(work / "cli_ck"), "--window", "32", "--block",
+                      "64"], want)):
+        out = work / f"cli_{name}"
+        proc = subprocess.run(
+            [sys.executable, "-m", "hpa2_tpu_torch", "serve", str(feed)]
+            + common + flags + ["--out", str(out)],
+            capture_output=True, text=True, env=env, timeout=600,
+            cwd=str(work))
+        if proc.returncode != 0:
+            raise AssertionError(f"serve command ({name}) exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        stats = json.loads(proc.stdout.strip().splitlines()[-1])
+        if name == "kill" and stats["occupancy"].get("recovery", {}).get(
+                "failures_detected") != 1:
+            raise AssertionError(f"serve command ({name}): the kill did not "
+                                 f"fire: {stats['occupancy']}")
+        files = 0
+        for j in jobs[:64]:
+            for d in ref[j.job_id][0]:
+                f = out / j.job_id / f"core_{d.proc_id}_output.txt"
+                if f.read_text() != format_processor_state(d, cfg):
+                    raise AssertionError(f"serve command ({name}): {f} "
+                                         "differs from the reference")
+                files += 1
+        print(f"[recovery] python -m hpa2_tpu_torch serve {' '.join(flags)}"
+              f" ({len(jobs[:64])} jobs): {files} dump files equal the "
+              "reference's; "
+              f"jobs_completed {stats['jobs_completed']}, recovery "
+              f"{ {k: v for k, v in stats['occupancy'].get('recovery', {}).items() if k != 'events'} }")
+    return dict(runs=res, launches=launches, checked=chk["stream_run"],
+                err=chk["err"])
+
+
 def phase_run_command():
     """``python -m hpa2_tpu_torch run`` on a synthesized trace
     directory, on the card and on the CPU (the dumps must be equal),
@@ -2071,7 +2600,22 @@ def micro_entry(kern, micro):
     }
 
 
-def main() -> int:
+#: the phases ``--only`` may name (a debugging aid: those phases alone,
+#: after the build, and no kernels line); with no arguments every phase
+#: runs
+ONLY = ("general-scheduled", "serve-jax", "recovery")
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    only = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--only" or not set(
+                argv[1].split(",")) <= set(ONLY):
+            print(f"usage: chip_smoke.py [--only {','.join(ONLY)}]",
+                  file=sys.stderr)
+            return 2
+        only = argv[1].split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -2116,6 +2660,17 @@ def main() -> int:
 
     robust = Semantics().robust()
     wall = {}
+    if only:
+        for name, phase in (("general-scheduled", phase_general_scheduled),
+                            ("serve-jax", phase_serve_jax),
+                            ("recovery", phase_recovery)):
+            if name in only:
+                t0 = time.perf_counter()
+                phase(card)
+                wall[name] = time.perf_counter() - t0
+        print("[wall] " + ", ".join(f"{k} {v:.1f} s"
+                                    for k, v in wall.items()))
+        return 0
     t0 = time.perf_counter()
     micro = phase_micro()
     wall["micro-kernels"] = time.perf_counter() - t0
@@ -2160,6 +2715,15 @@ def main() -> int:
     t0 = time.perf_counter()
     general = phase_general(card)
     wall["general"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scheduled_general = phase_general_scheduled(card)
+    wall["general scheduled"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served_jax = phase_serve_jax(card)
+    wall["serve jax"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recovery = phase_recovery(card)
+    wall["recovery"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phase_run_command()
     wall["run and bench commands"] = time.perf_counter() - t0
@@ -2218,6 +2782,16 @@ def main() -> int:
         "general_ms": {"headline elision on": general["head"]["ms"],
                        "headline elision off": general["head_off"]["ms"],
                        "64 nodes": general["wide"]["ms"]}}
+    # the general engine's serving backend against the fast path, and
+    # the recovery supervisor's primary (K2 under CudaLaneSession)
+    stream_entry["by_path"]["serve jax cross-check"] = {
+        "launches": served_jax["launches"],
+        "checked_launches": served_jax["checked"],
+        "max_abs_err": served_jax["err"]}
+    stream_entry["by_path"]["recovery primary"] = {
+        "launches": recovery["launches"],
+        "checked_launches": recovery["checked"],
+        "max_abs_err": recovery["err"]}
     for kern_entry in (stream_entry, call_entry):
         kern_entry["max_abs_err"] = max(
             [kern_entry["max_abs_err"]]

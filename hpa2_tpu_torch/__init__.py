@@ -12,8 +12,14 @@ Two engines, each with the observable behaviour of its JAX counterpart:
   ``BatchTorchEngine``, the counterparts of ``JaxEngine`` and
   ``BatchJaxEngine``, which run what the fast path refuses (MOESI and
   MESIF, the limited and coarse directories, non-ideal topologies,
-  link faults) with cycle elision, replay and the stall watchdog; its
-  ``SimState`` carries the JAX state's fields (``convert.py``).
+  link faults) with cycle elision, replay and the stall watchdog, with
+  or without the occupancy scheduler, and ``BatchLaneSession`` of its
+  resident-row session; its ``SimState`` carries the JAX state's fields
+  (``convert.py``) and its checkpoints are the JAX package's files
+  (``utils/checkpoint.py``).
+
+Both serve jobs (``serving/``: ``backend="pallas"`` or ``"jax"``), under
+the recovery supervisor when asked (``serving/recovery.py``).
 
 It imports neither JAX nor ``hpa2_tpu``.  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"`` (the fast path then runs its

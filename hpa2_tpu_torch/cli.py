@@ -8,7 +8,12 @@ flag names of ``python -m hpa2_tpu.cli``.
     python -m hpa2_tpu_torch bench --backend pallas --batch 32768 \
         --instrs 128 --nodes 8 --msg-buffer-size 16 --robust --block 512 \
         --trace-window 32 --trace-len-dist zipf --schedule-resident 8192
+    python -m hpa2_tpu_torch bench --batch 1024 --instrs 128 \
+        --checkpoint-every 128 --checkpoint-dir CKPT
     python -m hpa2_tpu_torch serve JOBS.jsonl --nodes 8 --robust --out DIR
+    python -m hpa2_tpu_torch serve JOBS.jsonl --backend jax --interval 256
+    python -m hpa2_tpu_torch serve JOBS.jsonl --failure-plan kill@3 \
+        --checkpoint-dir CKPT
     python -m hpa2_tpu_torch serve --listen 127.0.0.1:7000 --wire
 
 ``run`` simulates one system from ``core_<n>.txt`` traces and writes
@@ -21,16 +26,19 @@ times random workloads and prints one JSON line.  ``--backend jax``
 link fault, cycle elision, ``run --replay`` and the stall watchdog;
 ``bench`` runs one system on ``TorchEngine``, or with ``--batch > 1``
 the batch loop of ``BatchTorchEngine`` on ``bench.py``'s uniform
-arrays, and prints the JAX CLI's keys.  ``--backend pallas`` runs the
+arrays (with ``--checkpoint-every`` in chunks, a checkpoint after each
+and resumed from the newest), and prints the JAX CLI's keys.  ``--backend pallas`` runs the
 fast path (``CudaEngine``: MESI, full directory, ideal topology, no
 faults); its ``bench`` takes an ensemble (``snapshots=False``, as
 ``bench.py``), uniform or with heterogeneous per-system trace lengths,
 optionally under the occupancy scheduler.  ``serve``
 admits a JSONL job feed (a file, or TCP with ``--listen``, framed with
-``--wire``) into resident lanes, writes each job's dumps as it retires
-and prints the serving stats as its last line, as
-``python -m hpa2_tpu.cli serve`` does on its ``pallas`` backend.  All
-run on the GPU unless ``--device cpu`` is given.
+``--wire``) into resident lanes (``--backend pallas``, the default) or
+rows of the general engine (``--backend jax``), writes each job's dumps
+as it retires and prints the serving stats as its last line, as
+``python -m hpa2_tpu.cli serve`` does; ``--failure-plan`` or
+``--checkpoint-dir`` put the recovery supervisor around it.  All run on
+the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -168,10 +176,12 @@ def cmd_run(args) -> int:
 
 def _bench_jax(args, config) -> int:
     """``bench --backend jax``: the JAX CLI's bench of the general
-    engine (``hpa2_tpu/cli.py:590-652``): one system on ``TorchEngine``
+    engine (``hpa2_tpu/cli.py:505-652``): one system on ``TorchEngine``
     (``gen_uniform_random`` traces), or a batch of ``bench.py``'s
     uniform arrays through the batch loop, a warm-up run (which on the
-    card also captures the loop's CUDA graph), then the timed run."""
+    card also captures the loop's CUDA graph), then the timed run; with
+    ``--checkpoint-every`` the chunked advance of :func:`_bench_chunked`
+    instead."""
     from hpa2_tpu_torch.ops.layout import StallError
 
     for flag, value in (("--trace-len-dist", args.trace_len_dist),
@@ -179,15 +189,14 @@ def _bench_jax(args, config) -> int:
                         ("--host-barriers", args.host_barriers)):
         if value:
             raise SystemExit(
-                f"{flag} is a fast-path flag (--backend pallas); the "
-                "general engine's scheduled modes are not ported yet "
-                "(ROADMAP queue 1 item 2b)")
-    if args.checkpoint_every:
-        raise SystemExit(
-            "--checkpoint-every/--checkpoint-dir checkpoint the batch "
-            "state, which the port does not do yet (ROADMAP queue 1 "
-            "item 3, checkpoints then recovery)")
-    if args.batch > 1:
+                f"{flag} is a fast-path flag: it runs with --backend "
+                "pallas (the general engine's bench, as the JAX CLI's, "
+                "has no scheduled mode)")
+    resumed_instrs = 0  # nonzero only when a checkpointed run resumes
+    if args.batch > 1 and args.checkpoint_every:
+        dev, out, dt, resumed_instrs = _bench_chunked(args, config)
+        instrs = int(out.n_instr.sum()) - resumed_instrs
+    elif args.batch > 1:
         from hpa2_tpu_torch.ops.cuda_engine import resolve_device
         from hpa2_tpu_torch.ops.engine import build_batched_run
         from hpa2_tpu_torch.ops.state import init_state_batched
@@ -230,12 +239,95 @@ def _bench_jax(args, config) -> int:
         "node_shards": 1,
         "data_shards": 1,
         "instrs": instrs,
-        "resumed_instrs": 0,
+        "resumed_instrs": resumed_instrs,
         "seconds": round(dt, 4),
         "ops_per_sec": round(instrs / dt, 1),
         "device": dev.type,
     }))
     return 0
+
+
+def _bench_chunked(args, config):
+    """The batch loop in chunks of ``--checkpoint-every`` simulated
+    cycles (``hpa2_tpu/cli.py:505-590``): resume from the newest
+    checkpoint in ``--checkpoint-dir`` when its config and workload
+    match (refuse one from another run), save a checkpoint after each
+    chunk, keep the newest two, and clear the directory at the end so
+    a rerun starts fresh.  -> (device, final state, seconds, the
+    instructions the resumed checkpoint had already retired)."""
+    from hpa2_tpu_torch.ops.cuda_engine import resolve_device
+    from hpa2_tpu_torch.ops.layout import StallError
+    from hpa2_tpu_torch.ops.state import init_state_batched
+    from hpa2_tpu_torch.ops.step import build_batched_run_chunk, quiescent
+    from hpa2_tpu_torch.utils.checkpoint import (
+        latest_checkpoint, load_state, save_state,
+    )
+    from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
+
+    dev = resolve_device(args.device)
+    state = init_state_batched(
+        config, *gen_uniform_random_arrays(config, args.batch, args.instrs,
+                                           seed=args.seed),
+        device=dev)
+    ckdir = args.checkpoint_dir
+    os.makedirs(ckdir, exist_ok=True)
+    workload_meta = {"batch": args.batch, "instrs": args.instrs,
+                     "workload": "uniform", "seed": args.seed}
+    resume = latest_checkpoint(ckdir)
+    if resume is not None:
+        state, ck_config, ck_meta = load_state(resume, with_meta=True,
+                                               device=dev)
+        # the recovery counters are history, not workload identity
+        ck_workload = {k: v for k, v in ck_meta.items() if k != "recovery"}
+        if ck_config != config or ck_workload != workload_meta:
+            raise SystemExit(
+                f"checkpoint {resume} was written for a different "
+                "config/workload; use a fresh --checkpoint-dir")
+        print(f"resumed from {resume}", file=sys.stderr)
+    run_chunk = build_batched_run_chunk(config, args.checkpoint_every)
+    run_chunk(state)  # warm-up (captures the chunk's graph on the card)
+    out = state
+    # work already in the checkpoint does not count toward this
+    # process's rate (read before the clock starts)
+    resumed_instrs = int(out.n_instr.sum())
+    t0 = time.perf_counter()
+    k = int(out.cycle.max()) // args.checkpoint_every
+
+    def seq(name):
+        try:
+            return int(name[5:-4])
+        except ValueError:
+            return None
+
+    while not bool(quiescent(out).all()):
+        if bool(out.overflow.any()):
+            raise StallError(
+                "internal invariant violated: mailbox overflow despite "
+                "backpressure")
+        if int(out.cycle.max()) >= args.max_cycles:
+            raise StallError("batch did not reach quiescence")
+        out = run_chunk(out)
+        k += 1
+        save_state(os.path.join(ckdir, f"ckpt_{k}.npz"), out, config,
+                   extra_meta=workload_meta)
+        # keep the newest two (the older guards against a crash while
+        # the newest is written); other ckpt_*.npz names are left alone
+        stale = sorted(
+            (nm for nm in os.listdir(ckdir)
+             if nm.startswith("ckpt_") and nm.endswith(".npz")
+             and seq(nm) is not None),
+            key=seq)[:-2]
+        for old in stale:
+            os.remove(os.path.join(ckdir, old))
+    dt = time.perf_counter() - t0
+    # finished: clear the checkpoints so a rerun starts fresh instead of
+    # resuming the quiescent final state
+    for name in os.listdir(ckdir):
+        if name.startswith("ckpt_") and name.endswith(".npz"):
+            os.remove(os.path.join(ckdir, name))
+    if bool(out.overflow.any()) or not bool(quiescent(out).all()):
+        raise StallError("batch did not reach quiescence")
+    return dev, out, dt, resumed_instrs
 
 
 def cmd_bench(args) -> int:
@@ -287,25 +379,39 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def _migration_targets(spec: str) -> List[dict]:
+    """``--migrate-to``'s ``backend[:data_shards[:node_shards]]``
+    entries (``hpa2_tpu/cli.py:688-708``); shards above 1 are refused
+    (ROADMAP queue 1 item 4)."""
+    targets = []
+    for part in spec.split(","):
+        fields = part.strip().split(":")
+        if not fields[0] or fields[0] not in ("jax", "pallas"):
+            raise SystemExit(
+                "--migrate-to takes backend[:data_shards[:node_shards]] "
+                "entries (backend jax|pallas)")
+        t = {"backend": fields[0]}
+        try:
+            if len(fields) > 1:
+                t["data_shards"] = int(fields[1])
+            if len(fields) > 2:
+                t["node_shards"] = int(fields[2])
+        except ValueError:
+            raise SystemExit(f"--migrate-to: bad shard count in {part!r}")
+        if t.get("data_shards", 1) > 1 or t.get("node_shards", 1) > 1:
+            raise SystemExit(
+                f"--migrate-to {part!r} serves on several GPUs, which the "
+                "port does not do yet (ROADMAP queue 1 item 4)")
+        targets.append(t)
+    return targets
+
+
 def cmd_serve(args) -> int:
     config = _build_config(args)
-    if args.backend == "jax":
-        raise SystemExit(
-            "serve --backend jax needs the general engine's serving "
-            "session (BatchServingSession), which the port does not have "
-            "yet (ROADMAP queue 1 item 2b)")
     if args.data_shards > 1 or args.node_shards > 1:
         raise SystemExit(
             "--data-shards/--node-shards > 1 serve on several GPUs, which "
             "the port does not do yet (ROADMAP queue 1 item 4)")
-    for flag, value in (("--failure-plan", args.failure_plan),
-                        ("--checkpoint-dir", args.checkpoint_dir),
-                        ("--migrate-to", args.migrate_to)):
-        if value is not None:
-            raise SystemExit(
-                f"{flag} arms the recovery supervisor, which the port "
-                "does not have yet (ROADMAP queue 1 item 3, checkpoints "
-                "then recovery)")
     if (args.jobs is None) == (args.listen is None):
         raise SystemExit(
             "serve needs exactly one job feed: a JOBS.jsonl path or "
@@ -323,6 +429,23 @@ def cmd_serve(args) -> int:
     except ValueError as e:
         raise SystemExit(f"--tenant-weights: {e}")
 
+    plan = None
+    if args.failure_plan:
+        import dataclasses
+
+        from hpa2_tpu_torch.config import FailurePlan
+
+        try:
+            plan = FailurePlan.parse(args.failure_plan,
+                                     seed=args.failure_seed)
+        except ValueError as e:
+            raise SystemExit(f"--failure-plan: {e}")
+        # the plan is config data: record it where checkpoints (and
+        # anything else hashing the run) can see it
+        config = dataclasses.replace(config, failures=plan)
+    targets = _migration_targets(args.migrate_to) if args.migrate_to \
+        else None
+
     wire_source = None
     if args.listen:
         host, _, port = args.listen.rpartition(":")
@@ -338,6 +461,7 @@ def cmd_serve(args) -> int:
                 credits=args.credits, tenants=tenants,
                 shed_threshold=args.shed_threshold,
                 heartbeat_s=args.heartbeat,
+                failures=plan,
             )
             print(
                 f"[serve] framed wire on "
@@ -373,8 +497,19 @@ def cmd_serve(args) -> int:
         if wire_source is not None:
             wire_source.deliver(res)
 
+    serve_fn = serve
+    serve_kw = {}
+    if (plan is not None and plan.enabled) or args.checkpoint_dir:
+        from hpa2_tpu_torch.serving import supervised_serve
+
+        serve_fn = supervised_serve
+        if args.checkpoint_dir:
+            os.makedirs(args.checkpoint_dir, exist_ok=True)
+        serve_kw = dict(plan=plan, targets=targets,
+                        checkpoint_dir=args.checkpoint_dir,
+                        checkpoint_every=args.checkpoint_every)
     try:
-        _, stats = serve(
+        _, stats = serve_fn(
             config, source,
             backend=args.backend,
             resident=args.resident,
@@ -382,11 +517,14 @@ def cmd_serve(args) -> int:
             block=args.block,
             policy=args.policy,
             overlap=not args.no_overlap,
+            interval=args.interval,
+            max_trace_len=args.max_instr,
             max_cycles=args.max_cycles,
             decode_dumps=bool(out),
             emit=emit,
             tenant_weights=tenants.weights or None,
             device=args.device,
+            **serve_kw,
         )
     finally:
         source.close()
@@ -542,8 +680,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     bp.add_argument(
         "--checkpoint-every", type=int, default=0, metavar="CYCLES",
-        help="jax backend with --batch > 1: refused until the port "
-        "checkpoints (ROADMAP queue 1 item 3)",
+        help="jax backend with --batch > 1: advance in chunks of CYCLES "
+        "simulated cycles, checkpoint after each into --checkpoint-dir "
+        "and resume from the newest there (0: off)",
     )
     bp.add_argument("--checkpoint-dir", default="hpa2_ckpt")
     _add_common(bp)
@@ -583,9 +722,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     sp.add_argument(
         "--backend", choices=("pallas", "jax"), default="pallas",
-        help="pallas = the resident-lane fast path (the port's only "
-        "serving backend); jax is refused until the port has the "
-        "general engine's serving session (ROADMAP queue 1 item 2b)",
+        help="pallas = the resident-lane fast path; jax = rows of the "
+        "general engine (the backend with fault injection, the protocol "
+        "variants and the topologies)",
     )
     sp.add_argument("--data-shards", type=int, default=1,
                     help="refused above 1 (no multi-GPU serving yet)")
@@ -596,9 +735,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         help="device-resident lanes (the fixed serving shape)",
     )
     sp.add_argument("--window", type=int, default=16,
-                    help="trace-window segment length")
+                    help="pallas backend: trace-window segment length")
     sp.add_argument("--block", type=int, default=1024,
-                    help="lane block width (clamped to resident)")
+                    help="pallas backend: lane block width (clamped to "
+                    "resident)")
+    sp.add_argument("--interval", type=int, default=256,
+                    help="jax backend: cycles per chunk between "
+                    "completion checks")
     sp.add_argument(
         "--policy", default="fcfs",
         choices=("fcfs", "longest-first", "deadline-edf", "fair-drr"),
@@ -634,12 +777,27 @@ def main(argv: Optional[List[str]] = None) -> int:
         "--heartbeat", type=float, default=0.0, metavar="SECS",
         help="--wire: HEARTBEAT frames to idle connections every SECS",
     )
-    fp = sp.add_argument_group(
-        "fault tolerance (refused: the recovery supervisor is not "
-        "ported yet)")
-    fp.add_argument("--failure-plan", default=None, metavar="SPEC")
-    fp.add_argument("--migrate-to", default=None, metavar="B[:D[:N]],...")
-    fp.add_argument("--checkpoint-dir", default=None, metavar="DIR")
+    fp = sp.add_argument_group("fault tolerance")
+    fp.add_argument(
+        "--failure-plan", default=None, metavar="SPEC",
+        help="seeded failure injection: 'kind@interval[:target]' events "
+        "joined by ';' (kill, hang, poison, sever); arms the recovery "
+        "supervisor")
+    fp.add_argument("--failure-seed", type=int, default=0,
+                    help="seed folded into the failure plan")
+    fp.add_argument(
+        "--migrate-to", default=None, metavar="B[:D[:N]],...",
+        help="migration target rotation: backend[:data_shards"
+        "[:node_shards]] entries tried in order on each kill/hang "
+        "(default: cross the pallas<->jax divide; shards above 1 are "
+        "refused)")
+    fp.add_argument(
+        "--checkpoint-dir", default=None, metavar="DIR",
+        help="supervisor checkpoints (schema-v2 npz of the rows on the "
+        "jax backend, JSON manifests on pallas) land here every "
+        "--checkpoint-every interval barriers; arms the supervisor")
+    fp.add_argument("--checkpoint-every", type=int, default=1,
+                    metavar="K")
     _add_common(sp)
     sp.set_defaults(fn=cmd_serve)
 

@@ -6,7 +6,8 @@
 * The general engine, the port of ``hpa2_tpu.ops``' XLA family
   (``state``, ``step``, ``engine``): every protocol, directory format,
   topology and link fault, cycle elision, replay and the watchdog, as
-  PyTorch on tensors.  Its names are the JAX package's, with
+  PyTorch on tensors, with its scheduled runs and its resident-row
+  serving session.  Its names are the JAX package's, with
   ``TorchEngine``/``BatchTorchEngine`` for ``JaxEngine``/
   ``BatchJaxEngine``.
 """
@@ -16,10 +17,13 @@ import importlib
 #: exported name -> its module (imported on first use: the submodules
 #: import each other and ``convert.py``, so the package stays light)
 _EXPORTS = {
+    "BatchLaneSession": "engine",
     "BatchTorchEngine": "engine",
     "StallDiagnostic": "engine",
     "TorchEngine": "engine",
     "build_batched_run": "engine",
+    "build_batched_run_chunk": "engine",
+    "build_fused_batched_run": "engine",
     "engine_stats": "engine",
     "link_stats": "engine",
     "stall_diagnostic": "engine",

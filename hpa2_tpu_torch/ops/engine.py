@@ -7,20 +7,43 @@ read back the dump-at-local-completion snapshots, the final dumps, the
 counters and the per-link interconnect counters.
 ``run_capturing_candidates`` steps the same cycle from the host and
 records every legal dump timing of each node.  ``BatchTorchEngine`` is
-the counterpart of ``BatchJaxEngine`` (l.549) without a schedule and
-with one data shard: an ensemble of independent systems advanced by one
-batched step under one batch-global loop.  Both run the loop of
-``ops/step.py:Run`` (a captured CUDA graph a chunk on the card).
+the counterpart of ``BatchJaxEngine`` (l.549) on one data shard: an
+ensemble of independent systems advanced by one batched step under one
+batch-global loop, and with ``schedule=`` streamed through ``resident``
+rows, fused (``build_fused_batched_run``, l.522) or as the host chunk
+loop (``ops/step.py:ChunkRun``, l.462-519).  ``BatchLaneSession``
+(l.970-1161) holds resident rows for the serving loop.
+``data_shards > 1`` is ROADMAP queue 1 item 4 and raises ``ValueError``.
 
-Not ported yet: ``BatchJaxEngine``'s ``schedule=`` modes
-(``_chunk_loop``, ``build_batched_run_chunk``,
-``build_fused_batched_run``) and ``BatchLaneSession``, which are ROADMAP
-queue 1 item 2b, and ``data_shards > 1``, which is item 4.  Each raises
-``ValueError``.
+Where trouble lies, and what the code does about it:
+
+* **One host read a chunk.**  A session's chunk is a few replays of a
+  captured graph of gated steps and one read that carries the loop
+  flag, the overflow flag and every row's quiescence
+  (``step.py:BoundChunk.status``); ``quiescent_rows`` is that read.
+* **Resident rows stay in the graph's buffers.**  The JAX session
+  donates its rows across chunks; here the chunk graph is captured on
+  the session's own tensors, and ``admit``, ``retire``,
+  ``window_extend`` and ``take_row`` index them in place.  Admissions
+  and trace-length updates wait in a pending set and go in before the
+  next chunk as one scatter per field, not one per row and field.
+* **Host reads of CUDA tensors.**  The JAX harvest reads
+  ``np.asarray(x)[row]`` per field and row (l.841-845); here the
+  finished rows are gathered on the device and copied to the host in
+  one transfer (``BatchLaneSession.take_rows``), and the scheduled
+  engine keeps its harvests on the device.
+* **Per-system ``cycle`` is not schedule invariant**, exactly as in
+  JAX: the batched step ticks it until the row's cohort drains.  Dumps,
+  snapshots, counters and ``stats()`` are; so is ``cycle`` between the
+  two packages for one schedule.
+* **Per-job keys.**  Every row starts from ``init_state``'s
+  ``PRNGKey(fault.seed)``, as ``BatchJaxEngine`` stacks them, so a
+  job's fault stream does not depend on the row it lands in.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -42,15 +65,18 @@ from hpa2_tpu_torch.ops.state import (
     stack_states,
     trace_arrays,
 )
-from hpa2_tpu_torch.ops.step import build_run, build_step, quiescent
+from hpa2_tpu_torch.ops.step import (
+    build_batched_run_chunk, build_run, build_step, quiescent,
+)
 from hpa2_tpu_torch.protocols.compiler import planes_for
 from hpa2_tpu_torch.utils.dump import NodeDump
 from hpa2_tpu_torch.utils.trace import IssueRecord
 
 __all__ = [
-    "BatchTorchEngine", "StallDiagnostic", "TorchEngine",
-    "build_batched_run", "engine_stats", "format_stats", "link_stats",
-    "stack_states", "stall_diagnostic",
+    "BatchLaneSession", "BatchTorchEngine", "StallDiagnostic",
+    "TorchEngine", "build_batched_run", "build_batched_run_chunk",
+    "build_fused_batched_run", "engine_stats", "format_stats",
+    "link_stats", "stack_states", "stall_diagnostic",
 ]
 
 
@@ -443,12 +469,52 @@ def build_batched_run(config: SystemConfig, max_cycles: int = 1_000_000,
                      watchdog_cycles=watchdog_cycles)
 
 
+
+
+def build_fused_batched_run(config: SystemConfig,
+                            max_cycles: int = 1_000_000,
+                            watchdog_cycles: int = 0):
+    """The fused scheduled run
+    (``hpa2_tpu/ops/engine.py:build_fused_batched_run``, l.522):
+    ``fused(waves, sys_src)`` runs each wave of ``resident`` rows to
+    quiescence with the unscheduled :func:`build_batched_run` loop, one
+    wave after another, then gathers every system's row out of the
+    waves' results (``sys_src[b]`` indexes wave * r + row).  The JAX
+    program scans the waves inside one jitted program; here the scan
+    is a host loop over the same loop, so the bits are the same."""
+    run = build_batched_run(config, max_cycles, watchdog_cycles)
+
+    def fused(waves: Sequence[SimState], sys_src) -> SimState:
+        flat = stack_states([run(w) for w in waves])
+        return select(flat, torch.as_tensor(
+            np.asarray(sys_src, np.int64), device=flat.pc.device))
+
+    return fused
+
+
+def _overflow_error() -> StallError:
+    return StallError(
+        "internal invariant violated: mailbox overflow despite "
+        "backpressure")
+
+
 class BatchTorchEngine:
     """An ensemble of B independent systems (``BatchJaxEngine``'s
-    interface without a schedule and on one data shard):
-    ``system_snapshots(b)``, ``system_final_dumps(b)``, ``stats()``,
-    ``link_stats()``, ``instructions``.  Every system starts from
-    ``PRNGKey(fault.seed)``, as ``BatchJaxEngine`` stacks them."""
+    interface on one data shard): ``run()``, ``system_snapshots(b)``,
+    ``system_final_dumps(b)``, ``stats()``, ``link_stats()``,
+    ``instructions``, and with ``schedule=`` the ``occupancy`` stats.
+    Every system starts from ``PRNGKey(fault.seed)``, as
+    ``BatchJaxEngine`` stacks them.
+
+    ``schedule=Schedule(...)`` streams the ensemble through
+    ``schedule.resident`` rows.  ``fused=True`` (the default) runs the
+    precomputed admission waves, each to quiescence, and gathers the
+    systems' rows (``build_fused_batched_run``); ``fused=False`` is the
+    host chunk loop: chunks of ``schedule.interval`` cycles, quiescent
+    rows harvested and backfilled from the admission queue at each
+    barrier.  Dumps, snapshots, counters and ``stats()`` equal the
+    unscheduled run's; per-system ``cycle`` does not (the module
+    docstring)."""
 
     def __init__(
         self,
@@ -460,12 +526,6 @@ class BatchTorchEngine:
         schedule=None,
         device="cuda",
     ):
-        if schedule is not None:
-            raise ValueError(
-                "BatchTorchEngine(schedule=...) is not ported yet (ROADMAP "
-                "queue 1 item 2b: the scheduled chunk loops and "
-                "BatchLaneSession); use the fast path's CudaEngine for "
-                "scheduled runs")
         if data_shards != 1:
             raise ValueError(
                 "data_shards > 1 runs on several GPUs, which the port does "
@@ -476,29 +536,187 @@ class BatchTorchEngine:
         self.watchdog_cycles = watchdog_cycles
         self.data_shards = data_shards
         self.schedule = schedule
+        self.occupancy = None
         self.device = resolve_device(device)
         # every system padded to the longest trace, as BatchJaxEngine
-        # stacks init_state(..., max_trace_len=max_t)
+        # stacks init_state(..., max_trace_len=max_t); one empty system
+        # after the last, which a row index of -1 picks
         max_t = max(
             (len(tr) for traces in batch_traces for tr in traces), default=1
         )
-        arrays = [np.stack(a) for a in zip(*(
-            trace_arrays(config, traces, max_t) for traces in batch_traces))]
-        self.state = init_state_batched(config, *arrays, device=self.device,
-                                        fold_keys=False)
+        empty = [[] for _ in range(config.num_procs)]
+        self._arrays = [np.stack(a) for a in zip(*(
+            trace_arrays(config, traces, max_t)
+            for traces in list(batch_traces) + [empty]))]
+        if schedule is not None:
+            self._resident = schedule.resident or self.b
+            if not (0 < self._resident <= self.b):
+                raise ValueError(
+                    f"schedule.resident={schedule.resident} outside "
+                    f"1..{self.b}")
+            # the resident rows are built in the scheduled runs; the
+            # ensemble's state exists only after the run, in system
+            # order
+            self.state = None
+            self._run = None
+            return
+        self.state = self._fresh(np.arange(self.b))
         self._run = build_batched_run(
             config, max_cycles=max_cycles, watchdog_cycles=watchdog_cycles)
 
+    def _fresh(self, systems: np.ndarray) -> SimState:
+        """Initial rows of ``systems`` (-1: the empty system)."""
+        return init_state_batched(
+            self.config, *(a[systems] for a in self._arrays),
+            device=self.device, fold_keys=False)
+
     def run(self) -> "BatchTorchEngine":
-        st = self._run(self.state)
-        self.state = st
+        if self.schedule is not None:
+            if self.schedule.fused:
+                return self._run_scheduled_fused()
+            return self._run_scheduled()
+        self.state = self._run(self.state)
+        return self._check_run()
+
+    def _check_run(self) -> "BatchTorchEngine":
+        st = self.state
         if bool(st.overflow.any()):
-            raise StallError(
-                "internal invariant violated: mailbox overflow despite "
-                "backpressure")
+            raise _overflow_error()
         vq = _np(quiescent(st))
         if not vq.all():
             raise self._batch_stall(vq)
+        return self
+
+    def _tr_len(self) -> np.ndarray:
+        """Each system's longest trace."""
+        return self._arrays[3][:self.b].max(axis=1, initial=0).astype(
+            np.int64)
+
+    def _group_order(self, tr_len: np.ndarray, g: int, gs: int
+                     ) -> np.ndarray:
+        """Group-local admission order of the schedule's policy
+        (``BatchJaxEngine._group_order``, l.669): fair-drr charges one
+        wave slot per system."""
+        from hpa2_tpu_torch.ops.schedule import policy_order
+
+        sl = slice(g * gs, (g + 1) * gs)
+        sc = self.schedule
+        keys = (
+            np.ones(gs, dtype=np.int64) if sc.policy == "fair-drr"
+            else tr_len[sl]
+        )
+        return policy_order(
+            keys, sc.policy,
+            deadline=(
+                None if sc.deadlines is None
+                else np.asarray(sc.deadlines[sl], dtype=np.int64)
+            ),
+            tenant=(
+                None if sc.tenants is None
+                else np.asarray(sc.tenants[sl], dtype=np.int64)
+            ),
+            weights=sc.tenant_weights,
+        )
+
+    def _run_scheduled_fused(self) -> "BatchTorchEngine":
+        """The precomputed waves of ``resident`` rows in admission
+        order, each run to quiescence, then every system's row gathered
+        (``_run_scheduled_fused``, l.697).  Dead rows of the last wave
+        carry the empty system: quiescent from cycle 0, they never hold
+        a wave open, and nothing gathers them."""
+        from hpa2_tpu_torch.ops.schedule import simulate
+
+        r, b = self._resident, self.b
+        n_waves = -(-b // r)
+        order = self._group_order(self._tr_len(), 0, b)
+        wave_sys = np.full((n_waves, r), -1, dtype=np.int64)
+        for k in range(n_waves):
+            chunk_s = order[k * r:(k + 1) * r]
+            wave_sys[k, :len(chunk_s)] = chunk_s
+        sys_src = np.empty(b, dtype=np.int64)
+        for k in range(n_waves):
+            live = wave_sys[k] >= 0
+            sys_src[wave_sys[k][live]] = k * r + np.nonzero(live)[0]
+        fused = build_fused_batched_run(self.config, self.max_cycles,
+                                        self.watchdog_cycles)
+        self.state = fused([self._fresh(w) for w in wave_sys], sys_src)
+        self._check_run()
+        sc = self.schedule
+        self.occupancy = simulate(
+            np.ones(b, dtype=np.int64), resident=r, block=1, groups=1,
+            threshold=sc.threshold, fused=True, policy=sc.policy,
+            deadline=sc.deadlines, tenant=sc.tenants,
+            tenant_weights=sc.tenant_weights,
+        ).attach_elision(self.state)
+        return self
+
+    def _run_scheduled(self) -> "BatchTorchEngine":
+        """The host chunk loop (``_run_scheduled``, l.784): chunks of
+        ``schedule.interval`` cycles over the resident rows, in place;
+        at each barrier the quiescent rows are gathered on the device
+        and refilled from the admission queue in row order, and a row
+        older than ``max_cycles`` raises the stall diagnostic."""
+        from hpa2_tpu_torch.ops.schedule import OccupancyStats
+
+        cfg, r = self.config, self._resident
+        chunk = max(1, self.schedule.interval)
+        order = self._group_order(self._tr_len(), 0, self.b)
+        row_sys = order[:r].astype(np.int64)
+        queue = deque(int(s) for s in order[r:])
+        st = self._fresh(row_sys)
+        bound = build_batched_run_chunk(cfg, chunk).bind(st)
+        done_sys: List[np.ndarray] = []
+        done_rows: List[SimState] = []
+        stats = OccupancyStats()
+        row_age = np.zeros(r, dtype=np.int64)  # cycles since admission
+        while (row_sys >= 0).any():
+            live = row_sys >= 0
+            stats.intervals += 1
+            stats.live_lane_intervals += int(live.sum())
+            stats.lane_intervals += r
+            stats.block_segments += int(live.sum())
+            bound.advance()
+            row_age += chunk
+            q, overflow = bound.status()
+            if overflow:
+                raise _overflow_error()
+            rows = np.nonzero(live & q)[0]
+            if len(rows):
+                done_sys.append(row_sys[rows].copy())
+                done_rows.append(select(st, torch.as_tensor(
+                    rows, device=self.device)))
+                row_sys[rows] = -1
+            stuck = (row_sys >= 0) & ~q & (row_age > self.max_cycles)
+            if stuck.any():
+                row = int(np.argmax(stuck))
+                raise stall_diagnostic(
+                    cfg, st,
+                    f"no quiescence within {self.max_cycles} cycles "
+                    f"(system {int(row_sys[row])} of {self.b}, "
+                    "scheduled run)",
+                    b=row)
+            repl = []
+            for row in range(r):
+                if not queue:
+                    break
+                if row_sys[row] < 0:
+                    s = queue.popleft()
+                    row_sys[row] = s
+                    row_age[row] = 0
+                    repl.append((row, s))
+            if repl:
+                stats.admissions += len(repl)
+                idx = torch.as_tensor([row for row, _ in repl],
+                                      device=self.device)
+                init = self._fresh(np.array([s for _, s in repl]))
+                for dst, src in zip(st, init):
+                    dst.index_copy_(0, idx, src)
+        # the rows in system order, so every readback works unchanged
+        perm = np.argsort(np.concatenate(done_sys), kind="stable")
+        self.state = select(stack_states(done_rows), torch.as_tensor(
+            perm, device=self.device))
+        self.occupancy = stats.set_mode(fused=False).attach_elision(
+            self.state)
         return self
 
     def _batch_stall(self, vq: np.ndarray) -> Exception:
@@ -539,3 +757,216 @@ class BatchTorchEngine:
     @property
     def instructions(self) -> int:
         return int(self.state.n_instr.sum())
+
+
+# ---------------------------------------------------------------------------
+# Resident-row serving session: the always-on analog of the scheduled
+# chunk loop above.  Row completion is device quiescence, so the serving
+# loop reads once a chunk; building arriving jobs' rows overlaps the
+# chunk in flight.
+
+
+def _signature(x) -> tuple:
+    return tuple((tuple(t.shape[1:]), t.dtype) for t in x)
+
+
+class BatchLaneSession:
+    """Resident-row serving session for the general engine
+    (``hpa2_tpu/ops/engine.py:BatchLaneSession``, l.970).
+
+    Holds ``resident`` rows of :class:`SimState` at fixed shapes; dead
+    rows carry the empty-trace state (quiescent from cycle 0, a fixed
+    point of the step).  The serving loop drives chunks of ``interval``
+    cycles:
+
+    1. ``row = fresh_row(batch_traces)``: an arriving job's initial row,
+       built on the host while a chunk runs;
+    2. ``admit(idx, row)`` / ``retire(idx)``: a job into a free row / a
+       finished row back to the empty state (both go in before the next
+       chunk, one scatter per field);
+    3. ``advance()``: enqueue one chunk;
+    4. ``quiescent_rows()``: the chunk's one host read; rows quiescent
+       with a job resident are finished;
+    5. ``take_rows(idxs)`` / ``take_row(idx)``: the rows' states on the
+       host, in one transfer.
+
+    ``window=w`` emulates the fast path's window schedule: each row
+    sees its trace clipped to successive ``w``-entry windows, with a
+    quiescence barrier between (the loop crosses it with
+    ``window_extend``), so a job migrated from the fast path keeps
+    byte-identical dumps.  ``compile_counts()`` reports, for each
+    program, the shapes it has taken (the chunk's graph captures on the
+    card); the serving loop's guard needs each at one.  This backend
+    has the fault layer, the protocol variants and the topologies.
+    """
+
+    def __init__(
+        self,
+        config: SystemConfig,
+        resident: int,
+        max_trace_len: int,
+        *,
+        interval: int = 256,
+        max_cycles: int = 1_000_000,
+        data_shards: int = 1,
+        window: Optional[int] = None,
+        device="cuda",
+    ):
+        if data_shards != 1:
+            raise ValueError(
+                "data_shards > 1 serves on several GPUs, which the port "
+                "does not do yet (ROADMAP queue 1 item 4)")
+        self.config = config
+        self.r = int(resident)
+        self._max_t = int(max_trace_len)
+        self.interval = max(1, int(interval))
+        self.max_cycles = max_cycles
+        self.device = resolve_device(device)
+        self.window = None if window is None else max(1, int(window))
+        self._full_len = np.zeros((self.r, config.num_procs), np.int32)
+        self._seg = np.ones(self.r, np.int64)
+        empty = [[] for _ in range(config.num_procs)]
+        self._empty_row = init_state(config, empty,
+                                     max_trace_len=self._max_t,
+                                     device="cpu")
+        self._st = stack_states([init_state(
+            config, empty, max_trace_len=self._max_t, device=self.device)
+        ] * self.r)
+        self._bound = build_batched_run_chunk(config, self.interval).bind(
+            self._st)
+        # writes waiting for the next chunk: whole rows, and trace
+        # lengths of resident rows (window barriers)
+        self._rows: Dict[int, SimState] = {}
+        self._lens: Dict[int, np.ndarray] = {}
+        self._signatures = {"admit": set(), "take_row": set(),
+                            "quiescent": set()}
+
+    @property
+    def state(self) -> SimState:
+        """The resident rows, with every pending write applied."""
+        self._flush()
+        return self._st
+
+    def _upload(self, t: torch.Tensor) -> torch.Tensor:
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _flush(self) -> None:
+        if self._rows:
+            idx = sorted(self._rows)
+            rows = [self._rows[i] for i in idx]
+            it = self._upload(torch.as_tensor(idx, dtype=torch.int64))
+            for f, dst in enumerate(self._st):
+                dst.index_copy_(0, it, self._upload(
+                    torch.cat([row[f] for row in rows])))
+            self._rows.clear()
+        if self._lens:
+            idx = sorted(self._lens)
+            it = self._upload(torch.as_tensor(idx, dtype=torch.int64))
+            self._st.tr_len.index_copy_(0, it, self._upload(
+                torch.as_tensor(np.stack([self._lens[i] for i in idx]))))
+            self._lens.clear()
+
+    def fresh_row(self, batch_traces) -> SimState:
+        """An arriving job's initial row on the host: the ``init_state``
+        call (same key) the one-shot engine makes, so served dumps equal
+        the batch's."""
+        return init_state(self.config, batch_traces,
+                          max_trace_len=self._max_t, device="cpu")
+
+    def admit(self, idx: int, row: SimState) -> None:
+        row = SimState(*(x.cpu() for x in row))
+        self._signatures["admit"].add(_signature(row))
+        if self.window is not None:
+            full = _np(row.tr_len[0]).astype(np.int32)
+            self._full_len[idx] = full
+            self._seg[idx] = 1
+            row = row._replace(tr_len=torch.as_tensor(
+                np.minimum(full, self.window)[None]))
+        self._rows[idx] = row
+        self._lens.pop(idx, None)
+
+    def window_done(self, idx: int) -> bool:
+        """Under window emulation: is a quiescent row finished (every
+        node's whole trace visible), or only at a barrier?"""
+        if self.window is None:
+            return True
+        return bool(
+            (self._seg[idx] * self.window >= self._full_len[idx]).all())
+
+    def window_extend(self, idx: int) -> None:
+        """Cross one window barrier: show a quiescent row the next
+        ``window`` trace entries (a quiescent state is a fixed point, so
+        where the chunk boundary fell changes nothing)."""
+        self._seg[idx] += 1
+        clip = np.minimum(self._full_len[idx],
+                          self._seg[idx] * self.window).astype(np.int32)
+        if idx in self._rows:
+            self._rows[idx] = self._rows[idx]._replace(
+                tr_len=torch.as_tensor(clip[None]))
+        else:
+            self._lens[idx] = clip
+
+    def retire(self, idx: int) -> None:
+        """Reset a harvested row to the empty-trace state so it stops
+        holding its chunk's loop open."""
+        self.admit(idx, self._empty_row)
+
+    def advance(self) -> None:
+        """Enqueue one chunk of up to ``interval`` cycles over every
+        row (no host read on the card)."""
+        self._flush()
+        self._bound.advance()
+
+    def quiescent_rows(self) -> np.ndarray:
+        """The chunk's one host read: per-row quiescence, and the
+        overflow invariant."""
+        self._signatures["quiescent"].add(())
+        quiet, overflow = self._bound.status()
+        if overflow:
+            raise _overflow_error()
+        return quiet
+
+    def take_rows(self, idxs: Sequence[int]) -> List[SimState]:
+        """Rows ``idxs`` as host states (batches of one): one gather
+        per field on the device, then one copy to the host."""
+        self._flush()
+        self._signatures["take_row"].add(())
+        it = self._upload(torch.as_tensor(list(idxs), dtype=torch.int64))
+        k = len(idxs)
+        parts = [x.index_select(0, it) for x in self._st]
+        flat = torch.cat([p.reshape(k, -1).to(torch.int32) for p in parts],
+                         dim=1).cpu()
+        fields, at = [], 0
+        for p in parts:
+            width = int(np.prod(p.shape[1:], dtype=np.int64))
+            v = flat[:, at:at + width].reshape(p.shape)
+            fields.append(v.bool() if p.dtype == torch.bool else v)
+            at += width
+        return [SimState(*(v[i:i + 1] for v in fields)) for i in range(k)]
+
+    def take_row(self, idx: int) -> SimState:
+        return self.take_rows([idx])[0]
+
+    def dumps_of(self, row: SimState) -> List[NodeDump]:
+        return _dumps(self.config, _live_arrays(row))
+
+    def counters_of(self, row: SimState) -> dict:
+        return {
+            "instructions": int(row.n_instr.sum()),
+            "cycles": int(row.cycle[0]),
+            "messages": int(row.n_msgs.sum()),
+        }
+
+    def stall_of(self, idx: int, reason: str) -> StallDiagnostic:
+        return stall_diagnostic(self.config, self.take_row(idx), reason)
+
+    def compile_counts(self) -> dict:
+        """For each program, the shapes it has taken: the chunk graph's
+        captures on the card (one shape on the CPU), the row shapes
+        admitted, and the gathers' and reads' shapes."""
+        out = {"runner": self._bound.graphs if self.device.type == "cuda"
+               else 1}
+        out.update({k: len(v) for k, v in self._signatures.items()})
+        return out

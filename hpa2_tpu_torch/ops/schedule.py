@@ -92,6 +92,15 @@ POLICIES = ("fcfs", "longest-first", "deadline-edf", "fair-drr")
 TenantWeights = Union[Dict[int, float], Sequence[float], None]
 
 
+def _total(x) -> int:
+    """Sum of a counter: a numpy array, or a tensor on any device (summed
+    where it lies, then read once; ``np.asarray`` cannot read a CUDA
+    tensor)."""
+    if hasattr(x, "detach"):
+        return int(x.detach().long().sum())
+    return int(np.sum(np.asarray(x)))
+
+
 def _weight_of(weights: TenantWeights, tenant: int) -> float:
     if weights is None:
         return 1.0
@@ -294,9 +303,10 @@ class OccupancyStats:
     def attach_elision(self, state) -> "OccupancyStats":
         """Fold the device elision counters from a finished run's
         state into the scheduler stats (lane-summed, matching
-        ``engine_stats``)."""
-        self.elided_cycles = int(np.sum(np.asarray(state.n_elided)))
-        self.multi_hit_retired = int(np.sum(np.asarray(state.n_multi_hit)))
+        ``engine_stats``).  The counters may be tensors on the card:
+        each is summed there and read as one number."""
+        self.elided_cycles = _total(state.n_elided)
+        self.multi_hit_retired = _total(state.n_multi_hit)
         return self
 
     def set_mode(self, fused: bool) -> "OccupancyStats":

@@ -55,6 +55,7 @@ Where the port departs from the JAX code, and why:
 from __future__ import annotations
 
 import functools
+import time
 from typing import Optional
 
 import numpy as np
@@ -1539,3 +1540,243 @@ def build_run(config: SystemConfig, replay: bool = False,
     (``hpa2_tpu/ops/step.py:build_run``)."""
     return Run(config, replay=replay, max_cycles=max_cycles,
                watchdog_cycles=watchdog_cycles)
+
+
+class ChunkRun:
+    """A bounded advance of a batch: up to ``interval`` simulated cycles
+    or until every system is quiescent, then back to the host -- the
+    ``_chunk_loop`` of ``hpa2_tpu/ops/engine.py`` (l.462-503) behind
+    ``build_batched_run_chunk`` (l.506) and the serving session's chunk
+    program (l.956-967).  Repeated calls continue bit for bit, so chunks
+    of a run equal one long run.
+
+    The loop condition is ``c < interval``, some system live and no
+    overflow: no ``max_cycles`` term and no watchdog (the host holds
+    both at barriers, in simulated cycles).  The budget ``c`` counts
+    simulated cycles, not device steps: under elision a jump is clamped
+    to ``interval - c`` and advances ``c`` by ``max(j, 1)``, so a
+    barrier lands on exactly the lockstep cycle.  The proposal is
+    built with ``max_cycles=2**31-1``.
+
+    On the CPU the loop runs on the host.  On the card a captured CUDA
+    graph holds :attr:`chunk` gated steps with ``c`` on the device, and
+    a chunk is ``ceil(interval / chunk)`` replays of it and one host
+    read: steps past the loop's end change nothing, and every step that
+    runs advances ``c`` by at least one, so the replays cover the
+    budget.  The same read carries the overflow flag and each system's
+    quiescence (``kernels.HOST_SYNCS`` counts it).  A fast-forward
+    under faults replays its key splits in the graph up to
+    ``key_bound``; a longer jump stops the chunk's steps, and the host
+    finishes it and replays again (``Run`` does the same).
+
+    :meth:`bind` returns a :class:`BoundChunk` whose graph works on the
+    given state's own tensors, which the caller then updates in place
+    between chunks (the serving session's resident rows, as the JAX
+    session donates them); calling the runner is the functional form.
+    """
+
+    #: gated steps a captured graph holds (``Run.chunk``)
+    chunk = Run.chunk
+
+    def __init__(self, config: SystemConfig, interval: int,
+                 key_bound: int = 4):
+        self.config = config
+        self.interval = max(1, int(interval))
+        self.key_bound = key_bound
+        self.elide = config.elide
+        self.fault_on = config.fault.enabled
+        self.step = build_step(config)
+        if self.elide:
+            self.propose = build_propose(config, max_cycles=2 ** 31 - 1)
+            self.ff = build_fast_forward(config)
+            self._ff_bounded = build_fast_forward(
+                config, key_bound=key_bound if self.fault_on else None)
+        self._bound = {}
+
+    def cond(self, st: SimState, c) -> torch.Tensor:
+        return (
+            (c < self.interval)
+            & (~quiescent(st)).any()
+            & ~st.overflow.any()
+        )
+
+    def host_step(self, st: SimState, c: int):
+        """One loop iteration read on the host -> (state, c)."""
+        if not self.elide:
+            return self.step(st), c + 1
+        j = min(int(self.propose(st).min()), self.interval - c)
+        if j > 0:
+            return self.ff(st, j), c + j
+        return self.step(st), c + 1
+
+    def run_host(self, st: SimState) -> SimState:
+        """The whole chunk as a host loop (the CPU's form)."""
+        c = 0
+        while bool(self.cond(st, c)):
+            st, c = self.host_step(st, c)
+        return st
+
+    def gated(self, st: SimState, c: torch.Tensor):
+        """One loop iteration with no host read -> (state, c, need);
+        ``need`` (None unless faults and elision) marks a jump too long
+        for the in-graph key replay, which leaves state and ``c`` as
+        they were."""
+        go = self.cond(st, c)
+        if not self.elide:
+            return _select(go, self.step(st), st), c + go.to(I32), None
+        j = torch.minimum(self.propose(st).min(), self.interval - c)
+        jump = j > 0
+        sel_ff = go & jump
+        need = None
+        if self.fault_on:
+            need = sel_ff & (j > self.key_bound)
+            sel_ff = sel_ff & ~need
+        sel_step = go & ~jump
+        stepped = _select(sel_step, self.step(st), st)
+        st = _select(sel_ff, self._ff_bounded(st, j), stepped)
+        c = c + torch.where(sel_ff, j, sel_step.to(I32))
+        return st, c, need
+
+    def advance_chunk(self, st: SimState, c: torch.Tensor, steps: int):
+        """``steps`` gated iterations -> (state, c, status): ``status``
+        is ``[flag, overflow, quiescent per system]`` (int32) with the
+        flag ``_DONE``, ``_LIVE`` or ``_HOST_FF`` as in ``Run``."""
+        need_any = None
+        for _ in range(steps):
+            st, c, need = self.gated(st, c)
+            if need is not None:
+                need_any = need if need_any is None else need_any | need
+        flag = self.cond(st, c).to(I32)
+        if need_any is not None:
+            flag = torch.where(need_any, _HOST_FF, flag)
+        status = torch.cat([flag[None], st.overflow.any()[None].to(I32),
+                            quiescent(st).to(I32)])
+        return st, c, status
+
+    def bind(self, st: SimState, gated: Optional[bool] = None
+             ) -> "BoundChunk":
+        """A chunk program over ``st``'s own tensors (see the class
+        docstring).  ``gated`` runs the card's form (replays of
+        ``chunk`` gated steps, one read); it is the default on the card,
+        and on the CPU runs those steps eagerly (the CPU test of the
+        graph's body)."""
+        return BoundChunk(self, st, st.pc.is_cuda if gated is None
+                          else gated)
+
+    def __call__(self, st: SimState) -> SimState:
+        """Advance a copy of ``st`` by one chunk and return it."""
+        if not st.pc.is_cuda:
+            return self.run_host(st)
+        key = tuple(tuple(x.shape) for x in st)
+        if key not in self._bound:
+            self._bound[key] = self.bind(SimState(*(x.clone() for x in st)))
+        bound = self._bound[key]
+        for s, x in zip(bound.st, st):
+            s.copy_(x)
+        bound.advance()
+        bound.status()
+        return SimState(*(x.clone() for x in bound.st))
+
+
+def _copy_into(dst: SimState, src: SimState) -> None:
+    for d, s in zip(dst, src):
+        if s is not d:
+            d.copy_(s)
+
+
+class BoundChunk:
+    """One chunk program bound to a state's tensors, which it updates in
+    place: ``advance()`` enqueues a chunk (no host read on the card),
+    ``status()`` reads it once -> (quiescent per system, overflow).
+    Ungated, the chunk is ``ChunkRun.run_host``; gated, it is
+    ``ceil(interval / chunk)`` rounds of ``chunk`` gated steps, each
+    round a replay of a CUDA graph on the card (captured at the first
+    ``advance()``; ``graphs`` counts the captures and ``capture_s`` their
+    seconds) or the same steps run eagerly on the CPU."""
+
+    def __init__(self, runner: ChunkRun, st: SimState, gated: bool):
+        self.runner = runner
+        self.st = st
+        self.gated = gated
+        self.graphs = 0
+        self.capture_s = 0.0
+        self._graph = None
+        dev = st.pc.device
+        self.c = torch.zeros((), dtype=I32, device=dev)
+        self.out = torch.zeros(st.pc.shape[0] + 2, dtype=I32, device=dev)
+
+    def _capture(self):
+        t0 = time.perf_counter()
+        r, st = self.runner, self.st
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            # warm-up: constants and the allocator, before capture
+            r.advance_chunk(SimState(*(x.clone() for x in st)),
+                            self.c.clone(), 1)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._round()
+        self._graph = graph
+        self.graphs += 1
+        self.capture_s += time.perf_counter() - t0
+
+    def _round(self) -> None:
+        """``chunk`` gated steps on the bound tensors (a graph replay's
+        work)."""
+        new, c, status = self.runner.advance_chunk(self.st, self.c,
+                                                   self.runner.chunk)
+        _copy_into(self.st, new)
+        self.c.copy_(c)
+        self.out.copy_(status)
+
+    def _rounds(self, cycles: int) -> None:
+        """Enough rounds to cover ``cycles`` of budget."""
+        for _ in range(max(1, -(-cycles // self.runner.chunk))):
+            if self._graph is not None:
+                self._graph.replay()
+            else:
+                self._round()
+
+    def advance(self) -> None:
+        r = self.runner
+        if not self.gated:
+            _copy_into(self.st, r.run_host(self.st))
+            return
+        if self.st.pc.is_cuda and self._graph is None:
+            self._capture()
+        self.c.zero_()
+        self._rounds(r.interval)
+
+    def status(self):
+        """Wait for the chunk and read it: (quiescent per system as a
+        bool array, overflow).  Under faults a jump longer than the
+        graph's key replay is finished here on the host, then the chunk
+        goes on."""
+        from hpa2_tpu_torch.ops.kernels import HOST_SYNCS
+
+        r, st = self.runner, self.st
+        if not self.gated:
+            return (quiescent(st).numpy(), bool(st.overflow.any()))
+        while True:
+            HOST_SYNCS.count += 1
+            out = self.out.cpu().numpy()
+            if out[0] == _DONE:
+                return out[2:].astype(bool), bool(out[1])
+            HOST_SYNCS.count += 1  # the budget spent
+            c = int(self.c)
+            if out[0] == _HOST_FF:
+                HOST_SYNCS.count += 1  # the jump
+                new, c = r.host_step(st, c)
+                _copy_into(st, new)
+                self.c.fill_(c)
+            self._rounds(r.interval - c)
+
+
+@functools.lru_cache(maxsize=16)
+def build_batched_run_chunk(config: SystemConfig, chunk: int) -> ChunkRun:
+    """The bounded advance of up to ``chunk`` simulated cycles, cached
+    per (config, chunk) (``hpa2_tpu/ops/engine.py:build_batched_run_chunk``,
+    l.506): the checkpointing granule."""
+    return ChunkRun(config, chunk)

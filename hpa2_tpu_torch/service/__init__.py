@@ -11,9 +11,10 @@ the counterpart of ``hpa2_tpu.service``.
 - :mod:`hpa2_tpu_torch.service.frontend`: :class:`WireJobSource`, the
   framed TCP listener the serving loop polls; results stream back to
   the owning *session*.
-
-The failure injector and the recovery log (``service/failover.py``)
-are not ported yet.
+- :mod:`hpa2_tpu_torch.service.failover`: deterministic failure
+  injection above the link layer (:class:`FailureInjector` driving the
+  seeded :class:`~hpa2_tpu_torch.config.FailurePlan`) and the
+  structured recovery log the supervisor publishes.
 
 Quick start (server side)::
 
@@ -36,6 +37,8 @@ and the client::
 from hpa2_tpu_torch.service.admission import (
     DEADLINE_CLASSES, AdmissionLedger, AdmissionReject, AdmissionShed,
     TenantTable, resolve_deadline)
+from hpa2_tpu_torch.service.failover import (
+    FailureInjector, InjectedFailure, RecoveryLog, recovery_record)
 from hpa2_tpu_torch.service.frontend import WireJobSource
 from hpa2_tpu_torch.service.wire import (
     ACK, BYE, CREDIT, EOF, HEARTBEAT, HELLO, NACK, RESULT, SUBMIT,
@@ -46,7 +49,8 @@ __all__ = [
     "ACK", "BYE", "CREDIT", "DEADLINE_CLASSES", "EOF", "Frame",
     "FrameReader", "HEARTBEAT", "HELLO", "NACK", "RESULT", "SUBMIT",
     "AdmissionLedger", "AdmissionReject", "AdmissionShed",
-    "ConnectionLost", "TenantTable", "WireClient", "WireError",
+    "ConnectionLost", "FailureInjector", "InjectedFailure",
+    "RecoveryLog", "TenantTable", "WireClient", "WireError",
     "WireJobSource", "WireNack", "backoff_delay", "encode_frame",
-    "resolve_deadline",
+    "recovery_record", "resolve_deadline",
 ]

@@ -1,10 +1,12 @@
-"""The always-on serving loop on the single-GPU fast backend: the
-port's own copy of ``hpa2_tpu/serving/loop.py`` — ``TracePool``
-(l.52-181), ``ServingStats`` and ``_percentile`` (l.184-240),
-``_guard_compiles`` (l.243), ``ServingSession`` (l.251-456),
-``build_serving`` and ``serve`` (l.720-826) — for the ``pallas``
-backend, which here builds a
-:class:`~hpa2_tpu_torch.ops.session.CudaLaneSession`.
+"""The always-on serving loop on one GPU: the port's own copy of
+``hpa2_tpu/serving/loop.py`` — ``TracePool`` (l.52-181),
+``ServingStats`` and ``_percentile`` (l.184-240), ``_guard_compiles``
+(l.243), ``ServingSession`` (l.251-456), ``BatchServingSession``
+(l.459-717), ``build_serving`` and ``serve`` (l.720-826) — for the
+``pallas`` backend, which here builds a
+:class:`~hpa2_tpu_torch.ops.session.CudaLaneSession`, and the ``jax``
+backend, the general engine's
+:class:`~hpa2_tpu_torch.ops.engine.BatchLaneSession`.
 
 Serving keeps the same resident lanes alive and grows the schedule as
 jobs arrive: admissions ride the segment-barrier transform, so the
@@ -27,23 +29,33 @@ only for the interval they belong to.  ``overlap=False`` waits right
 after each launch: the serial baseline that shows how much staging
 time the pipeline hides.
 
-The other backends of the JAX package are not here yet:
+:class:`BatchServingSession` drives the ``jax`` backend, the only one
+with the fault layer, the protocol variants and the topologies.  Row
+completion there is device quiescence, so the loop reads once a chunk
+(``BatchLaneSession.quiescent_rows``); with ``overlap=True`` the host
+builds arriving jobs' rows while the chunk runs and scatters them in at
+the chunk boundary.  The window emulation (``jax_window``) lets a job
+migrated from the fast path keep byte-identical dumps: ``_harvest``
+extends a row at a window barrier instead of retiring it, and resets
+its watchdog age.
+
 ``pallas-sharded`` and ``pallas-node-sharded`` come with the multi-GPU
-slice and ``jax`` (``BatchServingSession``) with the general engine
-family; :func:`build_serving` refuses them.
+slice (ROADMAP queue 1 item 4); :func:`build_serving` refuses them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from collections import deque
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from hpa2_tpu_torch.config import SystemConfig
-from hpa2_tpu_torch.ops.layout import _pack_traces
-from hpa2_tpu_torch.ops.schedule import LaneScheduler, segments_needed
+from hpa2_tpu_torch.ops.layout import StallError, _pack_traces
+from hpa2_tpu_torch.ops.schedule import (
+    LaneScheduler, OccupancyStats, policy_order, segments_needed)
 from hpa2_tpu_torch.serving.ingest import JobSource
 from hpa2_tpu_torch.serving.jobs import Job, JobResult
 
@@ -452,13 +464,272 @@ class ServingSession:
         return self.results, st
 
 
-#: the serving backends of the JAX package that the port does not run
-#: yet, and the ROADMAP item (queue 1) that brings each
-_NOT_PORTED = {
-    "pallas-sharded": "queue 1 item 4 (multi-GPU)",
-    "pallas-node-sharded": "queue 1 item 4 (multi-GPU)",
-    "jax": "queue 1 item 2b (the general engine's serving session)",
-}
+class BatchServingSession:
+    """Always-on serving over :class:`~hpa2_tpu_torch.ops.engine.\
+BatchLaneSession` rows (``hpa2_tpu/serving/loop.py:BatchServingSession``,
+    l.459).  Row completion is device quiescence, so the loop reads once
+    a chunk; with ``overlap=True`` the host builds arriving jobs' rows
+    *while* the chunk is in flight and scatters them in at the chunk
+    boundary.  The serving backend with the fault-injection layer."""
+
+    def __init__(
+        self,
+        session,
+        source: JobSource,
+        *,
+        policy: str = "fcfs",
+        overlap: bool = True,
+        decode_dumps: bool = True,
+        emit: Optional[Callable[[JobResult], None]] = None,
+        compile_guard: bool = True,
+        backend: str = "jax",
+        tenant_weights: Optional[Dict[str, float]] = None,
+        interval_hook: Optional[Callable[[int, "BatchServingSession"],
+                                         None]] = None,
+    ):
+        self.session = session
+        self.source = source
+        self.interval_hook = interval_hook
+        self.policy = policy
+        self.overlap = overlap
+        self.decode_dumps = decode_dumps
+        self.emit = emit
+        self.compile_guard = compile_guard
+        self._jobs: List[Job] = []
+        self._submitted: List[float] = []
+        self._tenant_ids: Dict[str, int] = {"": 0}
+        self._tenant_weights_named = dict(tenant_weights or {})
+        self._tenant_weights_by_id: Dict[int, float] = {}
+        for name in self._tenant_weights_named:
+            self._tid(name)
+        self._tenant_of: Dict[int, int] = {}   # system -> tenant id
+        self._dl_abs: Dict[int, int] = {}      # system -> abs deadline
+        self.stats = ServingStats(
+            backend=backend, policy=policy, resident=session.r,
+            overlap=overlap,
+        )
+
+    def _tid(self, name: str) -> int:
+        tid = self._tenant_ids.get(name)
+        if tid is None:
+            tid = len(self._tenant_ids)
+            self._tenant_ids[name] = tid
+            w = self._tenant_weights_named.get(name)
+            if w is not None:
+                self._tenant_weights_by_id[tid] = float(w)
+        return tid
+
+    def _poll(self, queue: deque, enq_at: Dict[int, int],
+              chunk: int) -> None:
+        t0 = time.perf_counter()
+        arrived = self.source.poll()
+        if arrived:
+            now = time.perf_counter()
+            for job in arrived:
+                s = len(self._jobs)
+                self._jobs.append(job)
+                self._submitted.append(now)
+                queue.append(s)
+                enq_at[s] = chunk
+                self._tenant_of[s] = self._tid(job.tenant)
+                self._dl_abs[s] = (
+                    chunk + job.deadline if job.deadline >= 0 else -1
+                )
+            if self.policy != "fcfs":
+                # fair-drr charges one row per job (keys of one):
+                # row-granularity serving has no segment cost
+                if self.policy == "fair-drr":
+                    keys = np.ones(len(queue), dtype=np.int64)
+                else:
+                    keys = np.asarray(
+                        [self._jobs[s].max_len for s in queue]
+                    )
+                order = policy_order(
+                    keys, self.policy,
+                    deadline=np.asarray(
+                        [self._dl_abs[s] for s in queue], np.int64
+                    ),
+                    tenant=np.asarray(
+                        [self._tenant_of[s] for s in queue], np.int64
+                    ),
+                    weights=self._tenant_weights_by_id,
+                )
+                items = list(queue)
+                queue.clear()
+                queue.extend(items[int(i)] for i in order)
+            self.stats.jobs_submitted += len(arrived)
+        self.stats.host_staging_s += time.perf_counter() - t0
+
+    def _stage(self, queue: deque, free: List[int]) -> list:
+        """Build rows for as many queued jobs as there are free rows
+        (the ingest cost hidden behind the in-flight chunk)."""
+        t0 = time.perf_counter()
+        staged = []
+        for idx in free:
+            if not queue:
+                break
+            s = queue.popleft()
+            staged.append(
+                (idx, s, self.session.fresh_row(
+                    self._jobs[s].batch_traces()))
+            )
+        self.stats.host_staging_s += time.perf_counter() - t0
+        return staged
+
+    def _harvest(self, row_sys: np.ndarray, quiet: np.ndarray,
+                 wait_of: Dict[int, int], occ: OccupancyStats,
+                 chunk: int) -> None:
+        sess = self.session
+        done_rows = [
+            int(i) for i in np.nonzero((row_sys >= 0) & quiet)[0]
+        ]
+        if getattr(sess, "window", None) is not None:
+            # window-schedule emulation: a quiescent row at a window
+            # barrier extends instead of retiring (and made progress,
+            # so its stall-watchdog age resets)
+            barrier = [i for i in done_rows if not sess.window_done(i)]
+            for i in barrier:
+                sess.window_extend(i)
+                self._row_age[i] = 0
+            done_rows = [i for i in done_rows if i not in barrier]
+        if not done_rows:
+            return
+        t0 = time.perf_counter()
+        # the finished rows in one gather and one copy to the host
+        rows = sess.take_rows(done_rows)
+        for idx, row in zip(done_rows, rows):
+            s = int(row_sys[idx])
+            job = self._jobs[s]
+            dl = self._dl_abs.get(s, -1)
+            if dl >= 0:
+                if chunk <= dl:
+                    occ.deadline_met += 1
+                else:
+                    occ.deadline_missed += 1
+            counters = sess.counters_of(row)
+            res = JobResult(
+                job_id=job.job_id,
+                dumps=sess.dumps_of(row) if self.decode_dumps else [],
+                counters=counters,
+                submitted_s=self._submitted[s],
+                retired_s=time.perf_counter(),
+                wait_intervals=wait_of.get(s, 0),
+                tenant=job.tenant,
+            )
+            self.results.append(res)
+            self.stats.jobs_completed += 1
+            self.stats.instructions += counters.get("instructions", 0)
+            self.stats.latencies_s.append(res.latency_s)
+            if self.emit:
+                self.emit(res)
+            sess.retire(idx)
+            row_sys[idx] = -1
+        self.stats.readback_s += time.perf_counter() - t0
+
+    def _account_chunk(self, occ: OccupancyStats, row_sys: np.ndarray,
+                       row_age: np.ndarray, queue: deque) -> None:
+        occ.intervals += 1
+        live = int((row_sys >= 0).sum())
+        occ.live_lane_intervals += live
+        occ.lane_intervals += self.session.r
+        # row granularity = block 1; serving has no lockstep baseline,
+        # so both segment counters accrue the live-row work
+        occ.block_segments += live
+        occ.lockstep_block_segments += live
+        if self._tenant_weights_by_id or len(self._tenant_ids) > 1:
+            for s in row_sys[row_sys >= 0]:
+                t = self._tenant_of.get(int(s), 0)
+                occ.tenant_live[t] = occ.tenant_live.get(t, 0) + 1
+        depth = len(queue)
+        occ.queue_depth_sum += depth
+        occ.queue_depth_peak = max(occ.queue_depth_peak, depth)
+        row_age[row_sys >= 0] += 1
+        max_chunks = -(-self.session.max_cycles
+                       // self.session.interval)
+        if (row_age > max_chunks).any():
+            bad = int(np.argmax(row_age))
+            raise StallError(
+                f"job {self._jobs[int(row_sys[bad])].job_id!r} made "
+                f"no quiescence within ~{self.session.max_cycles} "
+                f"cycles: "
+                f"{self.session.stall_of(bad, 'serving chunk limit')}"
+            )
+
+    def _chunk(self, occ, row_sys, row_age, queue, wait_of,
+               chunk: int) -> None:
+        """Read the chunk in flight, account it, harvest, and call the
+        interval hook."""
+        t0 = time.perf_counter()
+        quiet = self.session.quiescent_rows()
+        self.stats.device_wait_s += time.perf_counter() - t0
+        self._account_chunk(occ, row_sys, row_age, queue)
+        self._harvest(row_sys, quiet, wait_of, occ, chunk)
+        if self.interval_hook is not None:
+            # the supervisor's tap: checkpoint/failure-injection point
+            self.interval_hook(chunk, self)
+
+    def run(self) -> Tuple[List[JobResult], ServingStats]:
+        sess = self.session
+        st = self.stats
+        self.results: List[JobResult] = []
+        occ = OccupancyStats(lockstep_block_segments=0)
+        row_sys = np.full(sess.r, -1, np.int64)
+        row_age = np.zeros(sess.r, np.int64)  # chunks since admission
+        queue: deque = deque()
+        enq_at: Dict[int, int] = {}
+        wait_of: Dict[int, int] = {}
+        # live handles for the recovery supervisor: the interval hook
+        # reads these to checkpoint mid-run state at chunk barriers
+        self.row_sys = row_sys
+        self.wait_of = wait_of
+        self.occ = occ
+        self._row_age = row_age
+        chunk = 0
+        wall0 = time.perf_counter()
+        while True:
+            self._poll(queue, enq_at, chunk)
+            free = [int(i) for i in np.nonzero(row_sys < 0)[0]]
+            if not (row_sys >= 0).any() and not queue:
+                if self.source.exhausted:
+                    break
+                self.source.wait(0.002)
+                continue
+            if self.overlap and (row_sys >= 0).any():
+                # chunk k in flight while the host builds arrivals' rows
+                sess.advance()
+                staged = self._stage(queue, free)
+                chunk += 1
+                self._chunk(occ, row_sys, row_age, queue, wait_of, chunk)
+            else:
+                staged = self._stage(queue, free)
+            for idx, s, row in staged:
+                t0 = time.perf_counter()
+                sess.admit(idx, row)
+                st.host_staging_s += time.perf_counter() - t0
+                row_sys[idx] = s
+                row_age[idx] = 0
+                occ.admissions += 1
+                wait = chunk - enq_at[s]
+                wait_of[s] = wait
+                occ.wait_intervals_total += wait
+                occ.wait_intervals_max = max(
+                    occ.wait_intervals_max, wait
+                )
+            if not self.overlap and (row_sys >= 0).any():
+                sess.advance()
+                chunk += 1
+                self._chunk(occ, row_sys, row_age, queue, wait_of, chunk)
+        st.wall_s = time.perf_counter() - wall0
+        occ.shed_jobs = int(getattr(self.source, "shed_jobs", 0) or 0)
+        st.occupancy = occ.as_dict()
+        st.compile_counts = sess.compile_counts()
+        _guard_compiles(st.compile_counts, self.compile_guard)
+        return self.results, st
+
+
+#: the serving backends of the JAX package that run on several GPUs,
+#: which the port does not do yet (ROADMAP queue 1 item 4)
+_MULTI_GPU = ("pallas-sharded", "pallas-node-sharded")
 
 
 def build_serving(
@@ -485,46 +756,64 @@ def build_serving(
     interval_hook: Optional[Callable] = None,
     jax_window: Optional[int] = None,
     device="cuda",
-) -> ServingSession:
+):
     """Build the resident session and the serving loop for
-    ``backend`` without running it; :func:`serve` is
+    ``backend`` without running it (the recovery supervisor keeps the
+    loop and its interval hook); :func:`serve` is
     ``build_serving(...).run()``.  The keywords are the JAX package's,
     plus ``device``: the session runs on the card unless ``device="cpu"``
-    (the kernels' plain versions), and raises when asked for a card
-    that is not there.  ``interpret`` has no counterpart in the port
-    (its CPU path is ``device="cpu"``); ``data_shards``,
-    ``node_shards``, ``interval``, ``max_trace_len`` and ``jax_window``
-    belong to backends the port does not run yet."""
+    (the fast path's plain versions, the general engine's CPU loop), and
+    raises when asked for a card that is not there.  ``interpret`` has
+    no counterpart in the port (its CPU path is ``device="cpu"``).
+    ``pallas`` is the fast path (``window``, ``block``); ``jax`` the
+    general engine (``interval``, ``max_trace_len``, and ``jax_window``,
+    which opts it into the fast path's window schedule so a migrated
+    job's dumps stay byte-identical)."""
     if interpret:
         raise ValueError(
             "the port has no Pallas interpreter; run the plain versions "
             "with device='cpu'")
-    if backend in _NOT_PORTED:
+    if backend in _MULTI_GPU:
         raise ValueError(
-            f"serving backend {backend!r} is not ported yet (ROADMAP "
-            f"{_NOT_PORTED[backend]}); the port serves on 'pallas', the "
-            "single-GPU fast backend")
-    if backend != "pallas":
-        raise ValueError(
-            f"unknown serving backend {backend!r}; expected "
-            "pallas | pallas-sharded | pallas-node-sharded | jax"
-        )
-    from hpa2_tpu_torch.ops.session import CudaLaneSession
+            f"serving backend {backend!r} runs on several GPUs, which the "
+            "port does not do yet (ROADMAP queue 1 item 4); the port "
+            "serves on 'pallas' and 'jax'")
+    if backend == "pallas":
+        from hpa2_tpu_torch.ops.session import CudaLaneSession
 
-    sess = CudaLaneSession(
-        config, resident, window, block=block or 1024,
-        max_cycles=max_cycles, device=device,
-    )
-    return ServingSession(
-        sess, source, policy=policy, threshold=threshold,
-        overlap=overlap, decode_dumps=decode_dumps, emit=emit,
-        compile_guard=compile_guard, backend=backend,
-        tenant_weights=tenant_weights, interval_hook=interval_hook,
+        sess = CudaLaneSession(
+            config, resident, window, block=block or 1024,
+            max_cycles=max_cycles, device=device,
+        )
+        return ServingSession(
+            sess, source, policy=policy, threshold=threshold,
+            overlap=overlap, decode_dumps=decode_dumps, emit=emit,
+            compile_guard=compile_guard, backend=backend,
+            tenant_weights=tenant_weights, interval_hook=interval_hook,
+        )
+    if backend == "jax":
+        from hpa2_tpu_torch.ops.engine import BatchLaneSession
+
+        sess = BatchLaneSession(
+            config, resident, max_trace_len, interval=interval,
+            max_cycles=max_cycles, data_shards=data_shards,
+            window=jax_window, device=device,
+        )
+        return BatchServingSession(
+            sess, source, policy=policy, overlap=overlap,
+            decode_dumps=decode_dumps, emit=emit,
+            compile_guard=compile_guard, backend=backend,
+            tenant_weights=tenant_weights, interval_hook=interval_hook,
+        )
+    raise ValueError(
+        f"unknown serving backend {backend!r}; expected "
+        "pallas | pallas-sharded | pallas-node-sharded | jax"
     )
 
 
 def serve(config: SystemConfig, source: JobSource,
           **kwargs) -> Tuple[List[JobResult], ServingStats]:
     """Build the resident session for ``backend`` and drive the source
-    to exhaustion.  Accepts every :func:`build_serving` keyword."""
+    to exhaustion: ``pallas`` (the fast path) or ``jax`` (the general
+    engine).  Accepts every :func:`build_serving` keyword."""
     return build_serving(config, source, **kwargs).run()

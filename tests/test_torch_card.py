@@ -6,7 +6,8 @@ engine's ``run`` on the card against the CPU, unscheduled and
 scheduled; serving on the card against the CPU, pipelined and serial;
 the five op-pattern micro-kernels; and the general engine on the card
 against the CPU and K2 (its batch loop, a replayed system, a faulty
-mesh under MOESI), and its severed-edge stall.  These need an
+mesh under MOESI), and its severed-edge stall; its scheduled runs, its
+serving backend and a checkpoint of its rows.  These need an
 NVIDIA GPU with nvcc (sm_90a) and skip elsewhere; on the card run them
 with
 
@@ -383,3 +384,74 @@ def test_single_system_general_engine_on_card_matches_cpu(card, variant):
         assert _same(x, y), f
     assert got.stats() == want.stats()
     assert got.link_stats() == want.link_stats()
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_scheduled_general_engine_on_card_matches_cpu(card, fused):
+    """``BatchTorchEngine(schedule=...)`` on the card (the host loop's
+    chunks are replays of one captured graph and one read each) equals
+    the CPU in every field and occupancy counter, with faults."""
+    from hpa2_tpu_torch.config import FaultModel, InterconnectConfig
+    from hpa2_tpu_torch.convert import sim_state_to_numpy
+    from hpa2_tpu_torch.models.protocol import Instr
+    from hpa2_tpu_torch.ops.engine import BatchTorchEngine
+
+    cfg = SystemConfig(num_procs=4, semantics=Semantics().robust(),
+                       interconnect=InterconnectConfig(fault=FaultModel(
+                           drop=0.2, duplicate=0.1, reorder=0.2, seed=7)))
+    op, addr, val, length = gen_heterogeneous_random_arrays(
+        cfg, 12, 24, dist="zipf", spread=4.0, seed=3)
+    batch = [[[Instr("W", int(a), int(v)) if o == 1 else Instr("R", int(a))
+               for o, a, v in zip(op[s, i, :length[s, i]],
+                                  addr[s, i, :length[s, i]],
+                                  val[s, i, :length[s, i]])]
+              for i in range(4)] for s in range(12)]
+    sched = Schedule(resident=4, interval=64, fused=fused)
+    got = BatchTorchEngine(cfg, batch, schedule=sched, device="cuda").run()
+    want = BatchTorchEngine(cfg, batch, schedule=sched, device="cpu").run()
+    g, w = sim_state_to_numpy(got.state), sim_state_to_numpy(want.state)
+    assert [f for f in w if not np.array_equal(g[f], w[f])] == []
+    assert got.occupancy.as_dict() == want.occupancy.as_dict()
+
+
+@pytest.mark.parametrize("window", [None, 8])
+def test_serve_jax_on_card_matches_cpu(card, window):
+    """``serve(backend="jax")`` on the card: the chunk graph captured
+    once on the session's rows, which keep their storage; every job's
+    dumps and counters equal the CPU's."""
+    cfg = SystemConfig(num_procs=4, semantics=Semantics().robust())
+    jobs = synthetic_jobs(cfg, 12, 24, seed=7, spread=3.0)
+    kw = dict(backend="jax", resident=4, interval=16, max_trace_len=24,
+              jax_window=window)
+    from hpa2_tpu_torch.serving import build_serving
+
+    drv = build_serving(cfg, ListJobSource(jobs), device="cuda", **kw)
+    ptrs = [x.data_ptr() for x in drv.session.state]
+    got, st = drv.run()
+    want, _ = serve(cfg, ListJobSource(jobs), device="cpu", **kw)
+    assert [x.data_ptr() for x in drv.session.state] == ptrs
+    assert set(st.compile_counts.values()) == {1}
+    assert drv.session._bound.graphs == 1
+    w = {r.job_id: (r.dumps, r.counters) for r in want}
+    assert {r.job_id: (r.dumps, r.counters) for r in got} == w
+
+
+def test_checkpoint_round_trip_on_card(card, tmp_path):
+    """Rows of a session on the card, saved mid-run and loaded back on
+    the card and on the CPU: every field equal."""
+    from hpa2_tpu_torch.ops.engine import BatchLaneSession
+    from hpa2_tpu_torch.utils.checkpoint import load_state, save_state
+
+    cfg = SystemConfig(num_procs=4, semantics=Semantics().robust())
+    sess = BatchLaneSession(cfg, 4, 24, interval=8, device="cuda")
+    for i, job in enumerate(synthetic_jobs(cfg, 4, 24, seed=7)):
+        sess.admit(i, sess.fresh_row(job.batch_traces()))
+    sess.advance()
+    sess.quiescent_rows()
+    path = str(tmp_path / "ck.npz")
+    save_state(path, sess.state, cfg)
+    for dev in ("cuda", "cpu"):
+        back, back_cfg = load_state(path, device=dev)
+        assert back_cfg == cfg
+        assert all(a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+                   for a, b in zip(back, sess.state))

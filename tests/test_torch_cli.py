@@ -196,8 +196,10 @@ def test_bench_jax_backend_prints_the_jax_keys(capsys, batch):
 
 
 @pytest.mark.parametrize("args,match", [
-    (["bench", "--batch", "2", "--checkpoint-every", "5"], "item 3"),
-    (["bench", "--schedule-resident", "2", "--batch", "2"], "item 2b"),
+    (["bench", "--trace-len-dist", "zipf", "--batch", "2"],
+     "fast-path flag"),
+    (["bench", "--schedule-resident", "2", "--batch", "2"],
+     "fast-path flag"),
     (["bench", "--backend", "pallas", "--topology", "mesh2d"], "jax"),
     (["run", "TRACES", "--backend", "pallas", "--protocol", "moesi"],
      "jax"),
@@ -274,12 +276,12 @@ def test_serve_matches_jax_serve_dump_files(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--backend", "jax"], "item 2"),
     (["--data-shards", "2"], "item 4"),
     (["--node-shards", "2"], "item 4"),
-    (["--failure-plan", "kill@1"], "item 3"),
-    (["--checkpoint-dir", "ck"], "item 3"),
-    (["--migrate-to", "jax"], "item 3"),
+    (["--failure-plan", "kill@1", "--migrate-to", "jax:2"], "item 4"),
+    (["--failure-plan", "kill@1", "--migrate-to", "tpu"],
+     "backend jax|pallas"),
+    (["--failure-plan", "frob@1"], "--failure-plan"),
     (["--wire"], "--listen"),
 ])
 def test_serve_refuses_what_the_port_lacks(tmp_path, extra, match):

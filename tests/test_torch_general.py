@@ -26,6 +26,7 @@ from hpa2_tpu_torch.ops.engine import (
     BatchTorchEngine, StallDiagnostic, TorchEngine,
 )
 from hpa2_tpu_torch.ops.layout import StallError
+from hpa2_tpu_torch.ops.schedule import Schedule
 from hpa2_tpu_torch.ops.state import init_state as port_init_state
 
 from torch_general import (
@@ -208,7 +209,7 @@ def test_engines_default_to_the_card():
     ("node-shards", "item 4"),
     ("messages-per-cycle", "messages_per_cycle"),
     ("overloaded-notify", "fixture semantics"),
-    ("schedule", "item 2b"),
+    ("schedule", "outside"),
     ("data-shards", "item 4"),
 ])
 def test_engine_refuses_what_is_not_ported(what, match):
@@ -227,7 +228,8 @@ def test_engine_refuses_what_is_not_ported(what, match):
             build_step(dataclasses.replace(cfg, semantics=dataclasses.replace(
                 cfg.semantics, overloaded_evict_shared_notify=True)))
         elif what == "schedule":
-            BatchTorchEngine(cfg, [traces], schedule=object(), device="cpu")
+            BatchTorchEngine(cfg, [traces], schedule=Schedule(resident=2),
+                             device="cpu")
         else:
             BatchTorchEngine(cfg, [traces, traces], data_shards=2,
                              device="cpu")

@@ -112,6 +112,39 @@ def test_serve_defaults_to_the_card():
             serve(cfg, ListJobSource(jobs), resident=2)
 
 
+def test_general_serving_and_checkpoints_default_to_the_card(tmp_path):
+    """The general engine's lane session, its serving backend, the
+    recovery supervisor and checkpoint loading run on the card unless
+    told otherwise, and raise without one."""
+    from hpa2_tpu_torch.ops.engine import BatchLaneSession
+    from hpa2_tpu_torch.ops.state import init_state
+    from hpa2_tpu_torch.serving import (
+        ListJobSource, serve, supervised_serve, synthetic_jobs,
+    )
+    from hpa2_tpu_torch.utils.checkpoint import load_state, save_state
+
+    for fn in (BatchLaneSession, load_state):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    cfg, _ = _small()
+    path = str(tmp_path / "ck.npz")
+    save_state(path, init_state(cfg, [[]] * cfg.num_procs, device="cpu"),
+               cfg)
+    jobs = synthetic_jobs(cfg, 2, 4, seed=0)
+    calls = (
+        lambda: BatchLaneSession(cfg, 2, 4),
+        lambda: serve(cfg, ListJobSource(jobs), backend="jax", resident=2),
+        lambda: supervised_serve(cfg, ListJobSource(jobs), backend="jax",
+                                 resident=2),
+        lambda: load_state(path),
+    )
+    for call in calls:
+        if torch.cuda.is_available():
+            call()
+        else:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call()
+
+
 def test_micro_kernels_runner_defaults_to_the_card():
     assert inspect.signature(micro_kernels.main).parameters[
         "device"].default == "cuda"

@@ -178,8 +178,8 @@ def test_admission_policies(cfgs, jobs, one_shot):
 
 def test_unported_backends_raise(cfgs, jobs):
     tcfg = cfgs[1]
-    for backend in ("jax", "pallas-sharded", "pallas-node-sharded"):
-        with pytest.raises(ValueError, match="not ported yet"):
+    for backend in ("pallas-sharded", "pallas-node-sharded"):
+        with pytest.raises(ValueError, match="item 4"):
             serve(tcfg, ListJobSource(jobs[1]), backend=backend,
                   device="cpu", **SERVE_KW)
     with pytest.raises(ValueError, match="unknown serving backend"):
