@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only general-scheduled,serve-jax,recovery
+    python3 chip_smoke.py --only general-scheduled,serve-jax,recovery,entry
 
 (the second form, a debugging aid, runs the build and the named phases
 alone and prints no kernels line).  Builds the three CUDA libraries from ``hpa2_tpu_torch/csrc`` with nvcc,
@@ -38,9 +38,10 @@ bound), and drives through ``CudaEngine``:
   against the plain version, and its results against the one-shot
   run;
 * always-on serving (``hpa2_tpu_torch.serving.serve``) at
-  ``bench.py``'s accelerator geometry (16,384 zipf jobs through 4,096
-  resident lanes, window 32, block 512): a checked pass at a smaller
-  feed whose every launch is held against the plain version, then the
+  ``bench.py``'s accelerator geometry (4,096 resident lanes, window 32,
+  block 512; 8,192 zipf jobs where bench.py's feed has 16,384): a
+  checked pass whose every launch is held against the plain version,
+  then the
   pipelined run, the serial run, a Poisson-arrival run, a framed-wire
   run with two clients and the ``serve`` command, every served job's
   dumps equal to the one-shot scheduled run's;
@@ -60,7 +61,7 @@ bound), and drives through ``CudaEngine``:
   loop through 1,024 rows (each scheduled run's dumps, snapshots,
   counters and ``stats()`` equal to the unscheduled run's), and 32 of
   them through 8 rows against the CPU in every field;
-* serving on the general engine (``[serve jax]``): 4,096 zipf jobs
+* serving on the general engine (``[serve jax]``): 2,048 zipf jobs
   through 1,024 rows at interval 256, pipelined and serial, against
   the one-shot host-loop run, then ``jax_window=32`` against the fast
   path's serving with every K2 launch held against the plain version;
@@ -74,7 +75,14 @@ bound), and drives through ``CudaEngine``:
   commands;
 * the ``run`` command on a small trace directory and the ``bench``
   command on the fast path (``--backend pallas``), unscheduled and
-  scheduled,
+  scheduled;
+* the entry points (``[entry]``, :func:`phase_entry`): the bench
+  harness ``hpa2_tpu_torch.bench`` (the headline with the OpenMP
+  baseline, ``--topology``, ``--protocol``, ``--serve``,
+  ``--failover``), ``bench --workload producer-consumer|local`` against
+  the spec engine, K2 under the HEAD value quirks, and ``run`` with
+  ``--backend spec|omp``, ``--quirks`` and ``--crash-at``/``--resume``,
+  every K2 launch held against the plain version,
 
 and prints:
 
@@ -1130,11 +1138,12 @@ def phase_session():
 
 #: the serving geometry ``bench.py`` uses on an accelerator
 #: (``_serve_knobs`` at bench.py:538-556, ``serve_child_main`` at
-#: :559-690, on ``_bench_config()``): 16,384 zipf-length jobs (spread 4,
-#: seed 0) of up to 128 instructions a core through 4,096 resident lanes
+#: :559-690, on ``_bench_config()``): zipf-length jobs (spread 4, seed 0)
+#: of up to 128 instructions a core through 4,096 resident lanes; 8,192
+#: jobs where bench.py's feed has 16,384 (a cut of depth, for time)
 SERVE = dict(resident=4096, window=32, block=512, policy="fcfs",
              backend="pallas")
-SERVE_JOBS, SERVE_INSTRS = 16384, 128
+SERVE_JOBS, SERVE_INSTRS = 8192, 128
 
 
 def serve_line(label, st, card, extra=""):
@@ -1882,7 +1891,7 @@ SCHED_SYSTEMS, SCHED_RESIDENT, SCHED_INTERVAL = 4096, 1024, 256
 SCHED_CPU, SCHED_CPU_RESIDENT = 32, 8
 #: parts [serve jax] and [recovery]: bench.py:538-690's zipf feed
 #: (spread 4, seed 0) at the headline configuration
-SERVE_JAX_JOBS, RECOVERY_JOBS = 4096, 2048
+SERVE_JAX_JOBS, RECOVERY_JOBS = 2048, 2048
 SERVE_JAX = dict(backend="jax", resident=1024, interval=256,
                  max_trace_len=GENERAL_INSTRS, device="cuda")
 RECOVERY_PALLAS = dict(backend="pallas", resident=1024, window=32, block=512,
@@ -2090,7 +2099,7 @@ def stats_line(tag, label, st, card, extra=""):
 
 
 def phase_serve_jax(card):
-    """``serve(backend="jax")`` on the card: 4,096 zipf jobs through
+    """``serve(backend="jax")`` on the card: 2,048 zipf jobs through
     1,024 rows at interval 256, overlap on and off, every job's dumps
     and counters equal to the one-shot host-loop run's (``cycles`` too
     for the serial run, whose admissions land at the one-shot run's
@@ -2378,16 +2387,14 @@ def phase_recovery(card):
                 err=chk["err"])
 
 
-def phase_run_command():
-    """``python -m hpa2_tpu_torch run`` on a synthesized trace
-    directory, on the card and on the CPU (the dumps must be equal),
-    and ``bench`` on the card (every instruction must retire)."""
-    from hpa2_tpu_torch import cli
-    from hpa2_tpu_torch.ops import kernels
+RUN_WORK = ROOT / "hpa2_tpu_torch" / "build" / "smoke_run"
 
-    work = ROOT / "hpa2_tpu_torch" / "build" / "smoke_run"
-    shutil.rmtree(work, ignore_errors=True)
-    traces = work / "traces"
+
+def write_run_traces():
+    """A fresh work directory with a 4-node trace directory of 24
+    uniform-random instructions a core (seed 7); returns both."""
+    shutil.rmtree(RUN_WORK, ignore_errors=True)
+    traces = RUN_WORK / "traces"
     traces.mkdir(parents=True)
     rng = np.random.default_rng(7)
     for core in range(4):
@@ -2397,6 +2404,17 @@ def phase_run_command():
             lines.append(f"WR 0x{a:02X} {int(rng.integers(0, 256))}"
                          if rng.random() < 0.5 else f"RD 0x{a:02X}")
         (traces / f"core_{core}.txt").write_text("\n".join(lines) + "\n")
+    return RUN_WORK, traces
+
+
+def phase_run_command():
+    """``python -m hpa2_tpu_torch run`` on a synthesized trace
+    directory, on the card and on the CPU (the dumps must be equal),
+    and ``bench`` on the card (every instruction must retire)."""
+    from hpa2_tpu_torch import cli
+    from hpa2_tpu_torch.ops import kernels
+
+    work, traces = write_run_traces()
     outs = {}
     for kern in kernels.KERNELS:
         kern.launches = 0
@@ -2425,7 +2443,7 @@ def phase_run_command():
                        str(batch), "--instrs", str(instrs), "--nodes", "8",
                        "--msg-buffer-size", "16", "--robust", "--seed", "0"])
     rec = json.loads(buf.getvalue().strip().splitlines()[-1])
-    if rc != 0 or rec["backend"] != "cuda" \
+    if rc != 0 or rec["backend"] != "pallas" or rec["device"] != "cuda" \
             or rec["instrs"] != batch * 8 * instrs \
             or kernels.STREAM_RUN.launches != before + 2:
         raise AssertionError(f"bench on the card: rc {rc}, {rec}")
@@ -2452,6 +2470,349 @@ def phase_run_command():
     print(f"[bench] --trace-len-dist zipf --schedule-resident 1024, {batch} "
           f"systems: {rec['seconds']} s, {rec['ops_per_sec']} RD/WR ops/s, "
           f"occupancy {occ}")
+
+
+# ---------------------------------------------------------------------------
+# [entry]: the entry points of the port (the bench harness, the CLI's
+# workloads, backends and HEAD quirks, the model and serving studies)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def kept_launches():
+    """Keep every K2 launch made inside: its arguments, a copy of the
+    planes it was given (an asynchronous device copy, no host sync, so
+    a timed run inside is not held up) and the planes it updated in
+    place.  :func:`check_kept` holds them against the plain version
+    afterwards.  Yields the list of launches."""
+    from hpa2_tpu_torch.ops import kernels
+
+    launch = kernels.stream_run
+    kept = []
+
+    def stream_run(config, state, tr, tr_len, **kw):
+        if not tr.is_cuda:  # the CPU's plain version, not a launch
+            return launch(config, state, tr, tr_len, **kw)
+        before = {f: v.clone() for f, v in state.items()}
+        status = launch(config, state, tr, tr_len, **kw)
+        kept.append(dict(config=config, before=before, after=state,
+                         status=status, tr=tr, tr_len=tr_len, kw=dict(kw)))
+        return status
+
+    kernels.stream_run = stream_run
+    try:
+        yield kept
+    finally:
+        kernels.stream_run = launch
+
+
+def _same_inputs(a, b):
+    return (a["config"] == b["config"] and a["kw"] == b["kw"]
+            and a["tr"].shape == b["tr"].shape
+            and bool(torch.equal(a["tr"], b["tr"]))
+            and bool(torch.equal(a["tr_len"], b["tr_len"]))
+            and set(a["before"]) == set(b["before"])
+            and all(bool(torch.equal(a["before"][f], b["before"][f]))
+                    for f in a["before"]))
+
+
+def check_kept(label, kept, checked=None):
+    """Hold every kept launch against the plain version: the first
+    launch of each set of identical inputs (configuration, arguments,
+    traces and planes) runs ``stream_run_plain`` on its copy, and every
+    launch of the set must give those planes and that stall plane bit
+    for bit (a harness's warm-up and timed runs share one plain run).
+    ``checked`` (the planes of a launch already held against the plain
+    version on the same inputs) stands in for the plain run: the planes
+    must be digest-equal to it, and the run must not have stalled.
+    Returns (launches, plain runs, max abs difference, plain ms)."""
+    from hpa2_tpu_torch.ops.stream_run import stream_run_plain
+
+    refs, err, plain_ms = [], 0, 0.0
+    for rec in kept:
+        ref = next((r for r in refs if _same_inputs(r[0], rec)), None)
+        if ref is None and checked is not None:
+            ref = (rec, checked, torch.zeros_like(rec["status"]))
+        if ref is None:
+            before = {f: v.clone() for f, v in rec["before"].items()}
+            (want, want_status), ms = elapsed_ms(lambda: stream_run_plain(
+                rec["config"], before, rec["tr"], rec["tr_len"],
+                **rec["kw"]))
+            plain_ms += ms
+            ref = (rec, want, want_status)
+            refs.append(ref)
+        diff = plane_diff(rec["config"], rec["kw"]["snapshots"],
+                          rec["after"], ref[1],
+                          rec["kw"].get("packed", False))
+        diff["stall"] = int((rec["status"].long()
+                             - ref[2].long()).abs().max())
+        err = max(err, check_diff(label, diff))
+    return len(kept), len(refs), err, plain_ms
+
+
+def _zero_launches():
+    from hpa2_tpu_torch.ops import kernels
+
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+
+
+def _k2_launches(label):
+    """K2's launches since :func:`_zero_launches`; the streamed path
+    must have run it and the per-call kernel not at all."""
+    from hpa2_tpu_torch.ops import kernels
+
+    n = kernels.STREAM_RUN.launches
+    if n == 0 or kernels.CALL_RUN.launches:
+        raise AssertionError(
+            f"{label}: K2 launched {n} times, K3 "
+            f"{kernels.CALL_RUN.launches} times")
+    return n
+
+
+def _entry_path(paths, name, launches, kept, checked=None, **extra):
+    n, plain_runs, err, plain_ms = check_kept(f"entry {name}", kept,
+                                              checked)
+    if n != launches:
+        raise AssertionError(
+            f"entry {name}: {n} launches kept of {launches}")
+    paths[name] = dict(launches=launches, checked_launches=n,
+                       plain_runs=plain_runs, max_abs_err=err,
+                       plain_ms=plain_ms, **extra)
+    how = (f"{plain_runs} plain runs, {plain_ms:.1f} ms" if plain_runs
+           else "digest-equal to [headline]'s checked launch on the same "
+           "arrays")
+    print(f"[entry] {name}: {launches} K2 launches, each held against the "
+          f"plain version ({how}): max_abs_err={err}")
+    return paths[name]
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its stdout kept; -> (result, the lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().strip().splitlines()
+
+
+def _dump_dicts(dumps):
+    return [d.__dict__ for d in dumps]
+
+
+def phase_entry(card, headline=None):
+    """The port's entry points on the card, each K2 launch held against
+    the plain version (``kept_launches``):
+
+    1. the bench harness's headline (``hpa2_tpu_torch.bench``, in
+       process) at 32,768 x 8 x 128, its warm-up and timed launches on
+       one set of inputs (``headline``: the planes of ``[headline]``'s
+       checked launch on the same arrays, if that phase ran), with the
+       OpenMP baseline's rate required;
+    2. ``bench --backend pallas --workload producer-consumer`` and
+       ``local`` at 4,096 x 8 x 128, eight of each ensemble's systems
+       with dumps equal to the spec engine on the host;
+    3. the fast path under the HEAD value quirks (``eager-write``,
+       ``flush-old-fill``, both) at 4,096 x 8 x 128 uniform, NACK
+       policy on so that random traffic completes; both quirks under
+       fixture semantics, whose drop
+       policy livelocks random traffic, to a stall at a 512-cycle
+       budget; ``run --quirks`` on the 4-node trace directory
+       byte-identical on the card, the CPU, ``spec`` and ``omp``;
+    4. ``run --backend spec`` and ``omp`` equal to ``pallas`` on the
+       card, and a ``--crash-at`` / ``--resume`` pair equal to the
+       straight run;
+    5. ``--topology`` and ``--protocol`` at the JAX bench's sizes
+       (``spec_jax_agree_all``), ``--serve`` and ``--failover`` at
+       4,096 jobs through 1,024 lanes.
+    Returns the per-path records for K2's ``by_path``."""
+    import dataclasses
+
+    from hpa2_tpu_torch import bench, cli
+    from hpa2_tpu_torch.config import Semantics, SystemConfig
+    from hpa2_tpu_torch.models.spec_engine import SpecEngine, StallError
+    from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
+    from hpa2_tpu_torch.ops.layout import decode_dumps
+    from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
+
+    paths = {}
+
+    # 1. the headline of the bench harness
+    _zero_launches()
+    with kept_launches() as kept:
+        rec = bench.headline_main("cuda")
+    n = _k2_launches("entry bench headline")
+    if (rec["platform"] != "gpu" or not rec["indicative"]
+            or rec["jax_instrs"] != 32768 * 8 * 128
+            or not rec.get("omp_ops_per_sec") or rec["vs_baseline"] is None
+            or not rec["device"]["power_limit"]):
+        raise AssertionError(f"bench headline: {rec}")
+    _entry_path(paths, "bench headline", n, kept, checked=headline,
+                engine_ms=rec["jax_seconds"] * 1e3,
+                ops_per_sec=rec["value"], vs_baseline=rec["vs_baseline"])
+    print("[entry] bench headline line: " + json.dumps(rec))
+
+    # 2. the CLI's workloads
+    robust = Semantics().robust()
+    cfg = SystemConfig(semantics=robust, **HEADLINE)
+    batch, instrs = 4096, 128
+    for wl in ("producer-consumer", "local"):
+        _zero_launches()
+        t0 = time.perf_counter()
+        with kept_launches() as kept:
+            rc, lines = _quiet(cli.main, [
+                "bench", "--backend", "pallas", "--workload", wl,
+                "--batch", str(batch), "--instrs", str(instrs), "--nodes",
+                "8", "--msg-buffer-size", "16", "--robust", "--seed", "0"])
+        wall = time.perf_counter() - t0
+        n = _k2_launches(f"entry bench {wl}")
+        wrec = json.loads(lines[-1])
+        if (rc != 0 or wrec["backend"] != "pallas"
+                or wrec["workload"] != wl or wrec["device"] != "cuda"
+                or wrec["instrs"] != batch * 8 * instrs):
+            raise AssertionError(f"bench --workload {wl}: rc {rc}, {wrec}")
+        path = _entry_path(paths, f"bench {wl}", n, kept,
+                           engine_ms=wrec["seconds"] * 1e3)
+        final = kept[-1]["after"]
+        cachew = final["cachew"].cpu().numpy()
+        dirw = final["dirw"].cpu().numpy()
+        gen = cli._generator(wl)
+        picked = [int(b) for b in np.linspace(0, batch - 1, 8)]
+        for b in picked:
+            spec = SpecEngine(cfg, gen(cfg, instrs, seed=b))
+            spec.run()
+            if _dump_dicts(decode_dumps(cfg, cachew, dirw, b)) \
+                    != _dump_dicts(spec.final_dumps()):
+                raise AssertionError(
+                    f"bench --workload {wl}: system {b}'s dumps differ "
+                    "from the spec engine's")
+        path["spec_systems"] = picked
+        print(f"[entry] bench --workload {wl}: {batch} x 8 x {instrs}, "
+              f"{wrec['seconds']} s timed, {wrec['ops_per_sec']} RD/WR "
+              f"ops/s ({wall:.1f} s with the Python trace build); systems "
+              f"{picked} equal to the spec engine's final dumps")
+
+    # 3. the HEAD value quirks on K2
+    quirks = {
+        "eager-write": dict(eager_write_request_memory=True),
+        "flush-old-fill": dict(flush_invack_fills_old_value=True),
+        "eager-write,flush-old-fill": dict(
+            eager_write_request_memory=True,
+            flush_invack_fills_old_value=True),
+    }
+    arrays = gen_uniform_random_arrays(cfg, batch, instrs, seed=0)
+
+    def quirk_run(qcfg, max_cycles=1_000_000):
+        eng = CudaEngine(qcfg, *arrays, block=512, cycles_per_call=128,
+                         snapshots=False, trace_window=32, gate=True)
+        _, ms = elapsed_ms(lambda: eng.run(max_cycles))
+        return eng, ms
+
+    for name, flags in quirks.items():
+        qcfg = dataclasses.replace(
+            cfg, semantics=dataclasses.replace(robust, **flags))
+        _zero_launches()
+        with kept_launches() as kept:
+            eng, ms = quirk_run(qcfg)
+        n = _k2_launches(f"entry quirks {name}")
+        if eng.instructions != batch * 8 * instrs:
+            raise AssertionError(f"quirks {name}: {eng.instructions} "
+                                 "instructions retired")
+        _entry_path(paths, f"quirks {name}", n, kept, engine_ms=ms)
+        print(f"[entry] quirks {name} (NACK policy): {batch} x 8 x "
+              f"{instrs}, every instruction retired, in {ms:.3f} ms")
+    fixture = dataclasses.replace(
+        cfg, semantics=Semantics(**quirks["eager-write,flush-old-fill"]))
+    _zero_launches()
+    with kept_launches() as kept:
+        try:
+            quirk_run(fixture, max_cycles=512)
+            raise AssertionError("fixture semantics on random traffic "
+                                 "did not stall")
+        except StallError as e:
+            stall = str(e).splitlines()[0]
+    n = _k2_launches("entry quirks fixture stall")
+    _entry_path(paths, "quirks fixture stall", n, kept, stall=stall)
+
+    work, traces = write_run_traces()
+
+    def run_cmd(tag, *flags):
+        out = work / tag
+        rc, _ = _quiet(cli.main, ["run", str(traces), "--robust", "--out",
+                                  str(out), *flags])
+        if rc != 0:
+            raise AssertionError(f"run {tag} exited {rc}")
+        got = {p.name: p.read_bytes()
+               for p in sorted(out.glob("core_*_output.txt"))}
+        if len(got) != 4:
+            raise AssertionError(f"run {tag}: {len(got)} dumps")
+        return got
+
+    _zero_launches()
+    with kept_launches() as kept:
+        runs = {}
+        for q in ("", "eager-write,flush-old-fill"):
+            qf = ["--quirks", q] if q else []
+            for be, dev in (("pallas", "cuda"), ("pallas", "cpu"),
+                            ("spec", None), ("omp", None)):
+                tag = f"{be}-{dev or 'host'}-{q or 'none'}"
+                runs[tag] = run_cmd(
+                    tag, "--backend", be, *qf,
+                    *(["--device", dev] if dev else []))
+            want = runs[f"spec-host-{q or 'none'}"]
+            bad = [t for t, r in runs.items()
+                   if t.endswith(q or "none") and r != want]
+            if bad:
+                raise AssertionError(f"run --quirks {q!r}: {bad} differ "
+                                     "from spec")
+        if runs["spec-host-none"] == runs[
+                "spec-host-eager-write,flush-old-fill"]:
+            raise AssertionError("run: the quirks changed no dump")
+    n = _k2_launches("entry run")
+    _entry_path(paths, "run commands", n, kept)
+    ckpt = work / "spec_ckpt.json"
+    rc, _ = _quiet(cli.main, ["run", str(traces), "--backend", "spec",
+                              "--robust", "--crash-at", "20",
+                              "--crash-checkpoint", str(ckpt)])
+    resumed = run_cmd("resumed", "--backend", "spec", "--resume", str(ckpt))
+    if rc != 0 or resumed != runs["spec-host-none"]:
+        raise AssertionError("run --crash-at 20 / --resume: dumps differ "
+                             "from the straight run")
+    print("[entry] run on the 4-node trace directory: pallas on the card "
+          "and the CPU, spec and omp byte-identical with and without "
+          "--quirks eager-write,flush-old-fill (the quirks change the "
+          "dumps); spec --crash-at 20 then --resume equal to the straight "
+          "run")
+
+    # 5. the model and serving studies
+    for name, fn in (("topology", bench.topo_main),
+                     ("protocol", bench.protocol_main)):
+        t0 = time.perf_counter()
+        srec = fn("cuda")
+        if not srec["spec_jax_agree_all"] or srec["platform"] != "gpu":
+            raise AssertionError(f"bench --{name}: {srec}")
+        print(f"[entry] bench --{name}: {srec['metric']} {srec['value']} "
+              f"{srec['unit']}, spec_jax_agree_all true, "
+              f"{time.perf_counter() - t0:.1f} s")
+    os.environ["HPA2_SERVE_JOBS"] = "4096"
+    os.environ["HPA2_SERVE_RESIDENT"] = "1024"
+    try:
+        for name, fn in (("serve", bench.serve_main),
+                         ("failover", bench.failover_main)):
+            _zero_launches()
+            t0 = time.perf_counter()
+            srec = fn("cuda")
+            n = _k2_launches(f"entry bench --{name}")
+            if name == "failover" and not all(
+                    r["byte_identical"] for r in srec["runs"].values()):
+                raise AssertionError(f"bench --failover: {srec['runs']}")
+            paths[f"bench {name}"] = dict(launches=n, value=srec["value"],
+                                          unit=srec["unit"])
+            print(f"[entry] bench --{name} (4,096 jobs, 1,024 lanes): "
+                  f"{srec['metric']} {srec['value']} {srec['unit']}, {n} "
+                  f"K2 launches, {time.perf_counter() - t0:.1f} s: "
+                  + json.dumps(srec))
+    finally:
+        del os.environ["HPA2_SERVE_JOBS"], os.environ["HPA2_SERVE_RESIDENT"]
+    return paths
 
 
 def micro_ops(name, planes, out, iters, block):
@@ -2603,7 +2964,7 @@ def micro_entry(kern, micro):
 #: the phases ``--only`` may name (a debugging aid: those phases alone,
 #: after the build, and no kernels line); with no arguments every phase
 #: runs
-ONLY = ("general-scheduled", "serve-jax", "recovery")
+ONLY = ("general-scheduled", "serve-jax", "recovery", "entry")
 
 
 def main(argv=None) -> int:
@@ -2663,7 +3024,8 @@ def main(argv=None) -> int:
     if only:
         for name, phase in (("general-scheduled", phase_general_scheduled),
                             ("serve-jax", phase_serve_jax),
-                            ("recovery", phase_recovery)):
+                            ("recovery", phase_recovery),
+                            ("entry", phase_entry)):
             if name in only:
                 t0 = time.perf_counter()
                 phase(card)
@@ -2727,6 +3089,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_run_command()
     wall["run and bench commands"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    entry_paths = phase_entry(card, paths["headline"]["state"])
+    wall["entry"] = time.perf_counter() - t0
     print("[wall] " + ", ".join(f"{k} {v:.1f} s" for k, v in wall.items()))
 
     keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -2792,6 +3157,10 @@ def main(argv=None) -> int:
         "launches": recovery["launches"],
         "checked_launches": recovery["checked"],
         "max_abs_err": recovery["err"]}
+    # the entry points: the bench harness, the CLI's workloads, backends
+    # and quirks, the studies
+    for name, path in entry_paths.items():
+        stream_entry["by_path"][f"entry {name}"] = path
     for kern_entry in (stream_entry, call_entry):
         kern_entry["max_abs_err"] = max(
             [kern_entry["max_abs_err"]]

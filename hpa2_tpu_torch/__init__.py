@@ -19,7 +19,13 @@ Two engines, each with the observable behaviour of its JAX counterpart:
   (``utils/checkpoint.py``).
 
 Both serve jobs (``serving/``: ``backend="pallas"`` or ``"jax"``), under
-the recovery supervisor when asked (``serving/recovery.py``).
+the recovery supervisor when asked (``serving/recovery.py``).  Beside
+them run the host engines: the executable spec
+(``models/spec_engine.py``, with its JSON checkpoints) and the
+C++/OpenMP engine of ``native/`` (``native.py``, built into
+``hpa2_tpu_torch/build/native/``).  ``python -m hpa2_tpu_torch`` is the
+command line (``run``, ``bench``, ``serve`` with every backend) and
+``python -m hpa2_tpu_torch.bench`` the benchmark harness.
 
 It imports neither JAX nor ``hpa2_tpu``.  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"`` (the fast path then runs its

@@ -1,13 +1,21 @@
 """Command line of the port: ``run``, ``bench`` and ``serve``, with the
-flag names of ``python -m hpa2_tpu.cli``.
+flags, backends, messages and JSON keys of ``python -m hpa2_tpu.cli``.
 
     python -m hpa2_tpu_torch run TRACE_DIR [--out DIR] [--final-dump]
     python -m hpa2_tpu_torch run TRACE_DIR --protocol moesi \
         --topology mesh2d --multicast --fault-drop 0.2 [--replay ORDER]
+    python -m hpa2_tpu_torch run TRACE_DIR --backend spec \
+        --record-order ORDER --trace-msgs MSGS [--crash-at 40]
+    python -m hpa2_tpu_torch run TRACE_DIR --backend omp [--free-running]
+    python -m hpa2_tpu_torch run TRACE_DIR --backend pallas \
+        --quirks eager-write,flush-old-fill
     python -m hpa2_tpu_torch bench --batch 4096 --instrs 128 --seed 0
+    python -m hpa2_tpu_torch bench --backend pallas --batch 4096 \
+        --instrs 128 --nodes 8 --workload producer-consumer
     python -m hpa2_tpu_torch bench --backend pallas --batch 32768 \
         --instrs 128 --nodes 8 --msg-buffer-size 16 --robust --block 512 \
         --trace-window 32 --trace-len-dist zipf --schedule-resident 8192
+    python -m hpa2_tpu_torch bench --backend omp --nodes 8 --instrs 50000
     python -m hpa2_tpu_torch bench --batch 1024 --instrs 128 \
         --checkpoint-every 128 --checkpoint-dir CKPT
     python -m hpa2_tpu_torch serve JOBS.jsonl --nodes 8 --robust --out DIR
@@ -19,31 +27,45 @@ flag names of ``python -m hpa2_tpu.cli``.
 ``run`` simulates one system from ``core_<n>.txt`` traces and writes
 ``core_<n>_output.txt`` dumps (at local completion, or of the final
 state with ``--final-dump``), byte-identical to
-``python -m hpa2_tpu.cli run`` with the same ``--backend``.  ``bench``
-times random workloads and prints one JSON line.  ``--backend jax``
-(the default, as in the JAX CLI) runs the general engine
-(``ops/engine.py``): every protocol, directory format, topology and
-link fault, cycle elision, ``run --replay`` and the stall watchdog;
-``bench`` runs one system on ``TorchEngine``, or with ``--batch > 1``
-the batch loop of ``BatchTorchEngine`` on ``bench.py``'s uniform
-arrays (with ``--checkpoint-every`` in chunks, a checkpoint after each
-and resumed from the newest), and prints the JAX CLI's keys.  ``--backend pallas`` runs the
-fast path (``CudaEngine``: MESI, full directory, ideal topology, no
-faults); its ``bench`` takes an ensemble (``snapshots=False``, as
-``bench.py``), uniform or with heterogeneous per-system trace lengths,
-optionally under the occupancy scheduler.  ``serve``
-admits a JSONL job feed (a file, or TCP with ``--listen``, framed with
-``--wire``) into resident lanes (``--backend pallas``, the default) or
-rows of the general engine (``--backend jax``), writes each job's dumps
-as it retires and prints the serving stats as its last line, as
-``python -m hpa2_tpu.cli serve`` does; ``--failure-plan`` or
-``--checkpoint-dir`` put the recovery supervisor around it.  All run on
-the GPU unless ``--device cpu`` is given.
+``python -m hpa2_tpu.cli run`` with the same flags.  ``bench`` times a
+``--workload`` (uniform, producer-consumer, local) and prints one JSON
+line with the JAX CLI's keys.  The backends:
+
+* ``jax`` (the default, as in the JAX CLI): the general engine
+  (``ops/engine.py``): every protocol, directory format, topology and
+  link fault, cycle elision, ``--replay`` and the stall watchdog;
+  ``bench`` runs one system on ``TorchEngine`` or, with ``--batch >
+  1``, the batch loop of ``BatchTorchEngine`` (with
+  ``--checkpoint-every`` in chunks, a checkpoint after each and resumed
+  from the newest).
+* ``pallas``: the fast path (``CudaEngine``: MESI, full directory,
+  ideal topology, no faults, the two value quirks); its ``bench`` takes
+  an ensemble (``snapshots=False``, as ``bench.py``), optionally with
+  heterogeneous per-system trace lengths under the occupancy scheduler.
+* ``spec``: the executable spec (``models/spec_engine.py``), with
+  ``--messages-per-cycle``, ``--trace-msgs``, ``--record-order`` and
+  ``--crash-at``/``--resume`` (JSON checkpoints of either package).
+* ``omp``: the C++/OpenMP engine of ``native/`` (``native.py``, built
+  into ``hpa2_tpu_torch/build/native/``), lockstep or
+  ``--free-running``.
+
+``--head-quirks`` and ``--quirks`` switch the reference HEAD's
+divergences on (``overloaded-notify`` on ``spec``/``omp`` only).
+``serve`` admits a JSONL job feed (a file, or TCP with ``--listen``,
+framed with ``--wire``) into resident lanes (``--backend pallas``, the
+default) or rows of the general engine (``--backend jax``), writes each
+job's dumps as it retires and prints the serving stats as its last
+line, as ``python -m hpa2_tpu.cli serve`` does; ``--failure-plan`` or
+``--checkpoint-dir`` put the recovery supervisor around it.  ``jax``
+and ``pallas`` run on the GPU unless ``--device cpu`` is given;
+``spec`` and ``omp`` run on the host.  ``--data-shards`` and
+``--node-shards`` above 1 are refused (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -57,12 +79,49 @@ from hpa2_tpu_torch.config import (
 )
 
 
+_QUIRK_FIELDS = {
+    "eager-write": "eager_write_request_memory",
+    "flush-old-fill": "flush_invack_fills_old_value",
+    "overloaded-notify": "overloaded_evict_shared_notify",
+}
+
+
 def _build_config(args) -> SystemConfig:
-    """The configuration the flags ask for, refusing on the fast path
-    (``--backend pallas``) what only the general engine runs, with the
-    JAX CLI's checks (``hpa2_tpu/cli.py:38-158``)."""
-    sem = Semantics().robust() if args.robust else Semantics()
+    """The configuration the flags ask for, refusing what the chosen
+    backend does not implement, with the JAX CLI's checks and messages
+    (``hpa2_tpu/cli.py:38-147``): the head quirks (``overloaded-notify``
+    only on ``spec``/``omp``), ``--messages-per-cycle`` only on
+    ``spec``, faults only on ``spec``/``jax``, non-ideal topologies and
+    protocol or directory variants not on ``pallas``/``omp``."""
+    sem = Semantics()
+    if getattr(args, "head_quirks", False):
+        sem = sem.head_quirks()
+    quirks = getattr(args, "quirks", "")
+    for name in quirks.split(",") if quirks else []:
+        field = _QUIRK_FIELDS.get(name.strip())
+        if field is None:
+            raise SystemExit(
+                f"unknown quirk {name.strip()!r}; choose from "
+                + ", ".join(sorted(_QUIRK_FIELDS))
+            )
+        sem = dataclasses.replace(sem, **{field: True})
     backend = getattr(args, "backend", "pallas")
+    if sem.overloaded_evict_shared_notify and backend in ("jax", "pallas"):
+        raise SystemExit(
+            "the overloaded-notify quirk is implemented by the spec and "
+            "omp backends only; the jax/pallas engines support the "
+            "eager-write and flush-old-fill quirks "
+            "(--quirks eager-write,flush-old-fill)"
+        )
+    if args.robust:
+        sem = sem.robust()
+    k = getattr(args, "messages_per_cycle", 1)
+    if k != 1 and backend != "spec":
+        raise SystemExit(
+            "--messages-per-cycle > 1 is a spec-engine schedule knob "
+            "(PERF.md lever 4); the other backends drain one message "
+            "per node per cycle"
+        )
     edge_sender = edge_receiver = -1
     if getattr(args, "fault_edge", ""):
         try:
@@ -93,22 +152,27 @@ def _build_config(args) -> SystemConfig:
         )
     except ValueError as e:
         raise SystemExit(str(e))
+    if fault.enabled and backend in ("pallas", "omp"):
+        raise SystemExit(
+            "fault injection is implemented by the spec and jax "
+            "backends (the pallas kernel and the native engine have "
+            "no link-layer fault model)"
+        )
+    if interconnect.enabled and backend not in ("spec", "jax"):
+        raise SystemExit(
+            "non-ideal topologies are implemented by the spec and "
+            "jax backends (the pallas kernel and the native engine "
+            "deliver every message next cycle)"
+        )
     protocol = getattr(args, "protocol", "mesi")
     directory_format = getattr(args, "directory_format", "full")
-    if backend == "pallas":
-        if fault.enabled:
-            raise SystemExit(
-                "fault injection is implemented by the jax backend (the "
-                "pallas kernel has no link-layer fault model)")
-        if interconnect.enabled:
-            raise SystemExit(
-                "non-ideal topologies are implemented by the jax backend "
-                "(the pallas kernel delivers every message next cycle)")
-        if protocol != "mesi" or directory_format != "full":
-            raise SystemExit(
-                "protocol/directory-format variants are implemented by "
-                "the jax backend (the pallas kernel is specialized to "
-                "MESI/full-bitvector)")
+    if (protocol != "mesi" or directory_format != "full") \
+            and backend in ("pallas", "omp"):
+        raise SystemExit(
+            "protocol/directory-format variants are implemented by "
+            "the spec and jax backends (the pallas kernel and the "
+            "native engine are specialized to MESI/full-bitvector)"
+        )
     try:
         return SystemConfig(
             num_procs=args.nodes,
@@ -116,6 +180,7 @@ def _build_config(args) -> SystemConfig:
             mem_size=args.mem_size,
             msg_buffer_size=args.msg_buffer_size,
             max_instr_num=args.max_instr,
+            messages_per_cycle=k,
             semantics=sem,
             interconnect=interconnect,
             protocol=protocol,
@@ -123,6 +188,14 @@ def _build_config(args) -> SystemConfig:
         )
     except ValueError as e:
         raise SystemExit(str(e))
+
+
+def _refuse_shards(args) -> None:
+    """The sharding flags name the multi-GPU slice the port lacks."""
+    if args.data_shards > 1 or args.node_shards > 1:
+        raise SystemExit(
+            "--data-shards/--node-shards > 1 run on several GPUs, which "
+            "the port does not do yet (ROADMAP queue 1 item 4)")
 
 
 def _write_dumps(dumps, config, out_dir: str) -> None:
@@ -135,54 +208,222 @@ def _write_dumps(dumps, config, out_dir: str) -> None:
 
 
 def cmd_run(args) -> int:
+    """``run``: one system from a trace directory, dumps into ``--out``,
+    with the JAX CLI's backends (``hpa2_tpu/cli.py:178-347``).  ``spec``
+    and ``omp`` are host engines (``--device`` does not apply to them);
+    ``jax`` and ``pallas`` run on ``--device``."""
     from hpa2_tpu_torch.utils.trace import (
         load_instruction_order, load_trace_dir, traces_to_arrays,
     )
 
     config = _build_config(args)
+    _refuse_shards(args)
+    if (args.crash_at or args.resume) and args.backend != "spec":
+        raise SystemExit(
+            "--crash-at/--resume checkpoint the spec engine's Python "
+            "state (the jax bench path has its own --checkpoint-every)"
+        )
     out_dir = args.out or os.getcwd()
     os.makedirs(out_dir, exist_ok=True)
-    traces = load_trace_dir(args.trace_dir, config)
+
+    if args.backend == "omp":
+        from hpa2_tpu_torch import native
+
+        res = native.run_trace_dir(
+            config,
+            args.trace_dir,
+            out_dir,
+            mode="omp" if args.free_running else "lockstep",
+            replay_path=args.replay,
+            final_dump=args.final_dump,
+            max_cycles=args.max_cycles,
+            record_order_path=args.record_order,
+            msg_trace_path=args.trace_msgs,
+        )
+        print(
+            f"[omp] {res.instructions} instrs, {res.messages} msgs, "
+            f"{res.seconds:.4f}s",
+            file=sys.stderr,
+        )
+        return 0
+
+    # a --resume checkpoint carries its own traces; trace_dir is unused
+    traces = None if args.resume else load_trace_dir(args.trace_dir, config)
     replay = load_instruction_order(args.replay) if args.replay else None
+    tag = args.backend
     t0 = time.perf_counter()
-    if args.backend == "pallas":
-        from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
+    if args.backend == "spec":
+        from hpa2_tpu_torch.models.spec_engine import SpecEngine
+        from hpa2_tpu_torch.utils.checkpoint import (
+            load_spec_state, save_spec_state,
+        )
 
-        if replay is not None:
-            raise SystemExit(
-                "--replay runs on the jax backend (the pallas kernel has "
-                "no replay mode)")
-        eng = CudaEngine(config, *traces_to_arrays(config, [traces]),
-                         snapshots=not args.final_dump, device=args.device)
-        eng.run(args.max_cycles)
+        if args.resume:
+            eng = load_spec_state(args.resume)
+            config = eng.config  # the checkpoint's config wins
+            print(f"resumed from {args.resume} at cycle {eng.cycle}",
+                  file=sys.stderr)
+        else:
+            eng = SpecEngine(config, traces, replay_order=replay,
+                             trace_msgs=bool(args.trace_msgs))
+        if args.crash_at:
+            # a mid-run crash: advance to the cycle, persist, exit; a
+            # later --resume run finishes byte-identically
+            while eng.cycle < args.crash_at and not (
+                eng.quiescent() and all(n.dumped for n in eng.nodes)
+            ):
+                eng.step()
+            save_spec_state(args.crash_checkpoint, eng)
+            print(
+                f"checkpointed at cycle {eng.cycle} -> "
+                f"{args.crash_checkpoint} (resume with --resume)",
+                file=sys.stderr,
+            )
+            return 0
+        eng.run(max_cycles=args.max_cycles,
+                watchdog_cycles=args.watchdog_cycles)
+        if args.trace_msgs:
+            with open(args.trace_msgs, "w") as f:
+                f.writelines(line + "\n" for line in eng.msg_log)
+        if args.record_order:
+            from hpa2_tpu_torch.utils.trace import format_instruction_order
+
+            with open(args.record_order, "w") as f:
+                f.write(format_instruction_order(eng.issue_log))
     else:
-        from hpa2_tpu_torch.ops.engine import TorchEngine
+        if args.trace_msgs:
+            raise SystemExit(
+                "--trace-msgs is supported by the spec and omp "
+                "backends (the jax engines run entirely on device)"
+            )
+        if args.record_order:
+            raise SystemExit(
+                "--record-order is supported by the spec and omp "
+                "backends (the jax backend runs entirely on device; "
+                "its deterministic schedule is identical to the spec "
+                "engine's, so record there)"
+            )
+        tag = f"{args.backend} {args.device}"
+        if args.backend == "pallas":
+            from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
 
-        eng = TorchEngine(config, traces, replay_order=replay,
-                          max_cycles=args.max_cycles,
-                          watchdog_cycles=args.watchdog_cycles,
-                          device=args.device)
-        eng.run()
+            if replay is not None:
+                raise SystemExit(
+                    "--replay runs on the spec/jax/omp lockstep "
+                    "engines (the pallas kernel has no replay mode)"
+                )
+            eng = CudaEngine(config, *traces_to_arrays(config, [traces]),
+                             snapshots=not args.final_dump,
+                             device=args.device)
+            eng.run(args.max_cycles)
+        else:
+            from hpa2_tpu_torch.ops.engine import TorchEngine
+
+            eng = TorchEngine(config, traces, replay_order=replay,
+                              max_cycles=args.max_cycles,
+                              watchdog_cycles=args.watchdog_cycles,
+                              device=args.device)
+            eng.run()
     dt = time.perf_counter() - t0
     dumps = eng.final_dumps() if args.final_dump else eng.snapshots()
     _write_dumps(dumps, config, out_dir)
     print(
-        f"[{args.backend} {args.device}] {eng.instructions} instrs, "
-        f"{eng.messages} msgs, {eng.cycle} cycles, {dt:.4f}s",
+        f"[{tag}] {eng.instructions} instrs, {eng.messages} msgs, "
+        f"{eng.cycle} cycles, {dt:.4f}s",
         file=sys.stderr,
     )
     return 0
 
 
+def _workload_arrays(args, config):
+    """``--workload``'s ``[B, N, T]`` arrays: ``bench.py``'s uniform
+    arrays, or one Python trace list per system (seed + system index)
+    packed into arrays, as the JAX CLI builds them
+    (``hpa2_tpu/cli.py:409-420``)."""
+    from hpa2_tpu_torch.utils.trace import (
+        gen_uniform_random_arrays, traces_to_arrays,
+    )
+
+    if args.workload == "uniform":
+        return gen_uniform_random_arrays(config, args.batch, args.instrs,
+                                         seed=args.seed)
+    gen = _generator(args.workload)
+    return traces_to_arrays(
+        config, [gen(config, args.instrs, seed=args.seed + b)
+                 for b in range(args.batch)])
+
+
+def _generator(workload: str):
+    """The per-system trace generator of ``--workload``."""
+    from hpa2_tpu_torch.utils import trace
+
+    return {"uniform": trace.gen_uniform_random,
+            "producer-consumer": trace.gen_producer_consumer,
+            "local": trace.gen_local_only}[workload]
+
+
+def _bench_line(args, config, instrs, dt, resumed_instrs=0, **extra):
+    """The JAX CLI's bench keys (``hpa2_tpu/cli.py:614-629``), then
+    ``extra`` (the port's ``device``, a scheduled run's occupancy)."""
+    print(json.dumps({
+        "backend": args.backend,
+        "workload": args.workload,
+        "nodes": config.num_procs,
+        "batch": args.batch,
+        "node_shards": args.node_shards,
+        "data_shards": args.data_shards,
+        "instrs": instrs,
+        "resumed_instrs": resumed_instrs,
+        "seconds": round(dt, 4),
+        "ops_per_sec": round(instrs / dt, 1),
+        **extra,
+    }))
+    return 0
+
+
+def _bench_host(args, config) -> int:
+    """``bench --backend spec|omp``: the host engines, one system
+    (``hpa2_tpu/cli.py:371-401``)."""
+    if args.backend == "spec":
+        # the executable spec: not a performance path, but the
+        # reference point for schedule experiments (--messages-per-cycle)
+        if args.batch > 1:
+            raise SystemExit("the spec backend benchmarks batch 1 only")
+        from hpa2_tpu_torch.models.spec_engine import SpecEngine
+
+        traces = _generator(args.workload)(config, args.instrs,
+                                           seed=args.seed)
+        eng = SpecEngine(config, traces)
+        t0 = time.perf_counter()
+        eng.run(max_cycles=args.max_cycles,
+                watchdog_cycles=args.watchdog_cycles)
+        dt = time.perf_counter() - t0
+        instrs = eng.instructions
+        print(f"[spec] {eng.cycle} cycles", file=sys.stderr)
+    else:
+        if args.workload != "uniform" or args.batch > 1:
+            raise SystemExit(
+                "the omp backend benchmarks the uniform workload at "
+                "batch 1 only (native trace generation)"
+            )
+        from hpa2_tpu_torch import native
+
+        res = native.bench_random(
+            config, instrs_per_core=args.instrs, seed=args.seed,
+            mode="omp" if args.free_running else "lockstep")
+        instrs, dt = int(res.instructions), float(res.seconds)
+    return _bench_line(args, config, instrs, dt)
+
+
 def _bench_jax(args, config) -> int:
     """``bench --backend jax``: the JAX CLI's bench of the general
-    engine (``hpa2_tpu/cli.py:505-652``): one system on ``TorchEngine``
-    (``gen_uniform_random`` traces), or a batch of ``bench.py``'s
-    uniform arrays through the batch loop, a warm-up run (which on the
-    card also captures the loop's CUDA graph), then the timed run; with
+    engine (``hpa2_tpu/cli.py:479-612``): one system on ``TorchEngine``
+    (``--workload``'s generator), or a batch of ``--workload``'s arrays
+    through the batch loop, a warm-up run (which on the card also
+    captures the loop's CUDA graph), then the timed run; with
     ``--checkpoint-every`` the chunked advance of :func:`_bench_chunked`
     instead."""
-    from hpa2_tpu_torch.ops.layout import StallError
+    from hpa2_tpu_torch.models.spec_engine import StallError
 
     for flag, value in (("--trace-len-dist", args.trace_len_dist),
                         ("--schedule-resident", args.schedule_resident),
@@ -201,12 +442,10 @@ def _bench_jax(args, config) -> int:
         from hpa2_tpu_torch.ops.engine import build_batched_run
         from hpa2_tpu_torch.ops.state import init_state_batched
         from hpa2_tpu_torch.ops.step import quiescent
-        from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
 
         dev = resolve_device(args.device)
-        arrays = gen_uniform_random_arrays(config, args.batch, args.instrs,
-                                           seed=args.seed)
-        state = init_state_batched(config, *arrays, device=dev)
+        state = init_state_batched(config, *_workload_arrays(args, config),
+                                   device=dev)
         run = build_batched_run(config, max_cycles=args.max_cycles)
         run(state)  # warm-up (captures the loop's graph on the card)
         if dev.type == "cuda":
@@ -219,9 +458,9 @@ def _bench_jax(args, config) -> int:
         instrs = int(out.n_instr.sum())
     else:
         from hpa2_tpu_torch.ops.engine import TorchEngine
-        from hpa2_tpu_torch.utils.trace import gen_uniform_random
 
-        traces = gen_uniform_random(config, args.instrs, seed=args.seed)
+        traces = _generator(args.workload)(config, args.instrs,
+                                           seed=args.seed)
         kw = dict(max_cycles=args.max_cycles,
                   watchdog_cycles=args.watchdog_cycles, device=args.device)
         TorchEngine(config, traces, **kw).run()
@@ -231,20 +470,8 @@ def _bench_jax(args, config) -> int:
         dt = time.perf_counter() - t0
         instrs = eng.instructions
         dev = eng.device
-    print(json.dumps({
-        "backend": "jax",
-        "workload": "uniform",
-        "nodes": config.num_procs,
-        "batch": args.batch,
-        "node_shards": 1,
-        "data_shards": 1,
-        "instrs": instrs,
-        "resumed_instrs": resumed_instrs,
-        "seconds": round(dt, 4),
-        "ops_per_sec": round(instrs / dt, 1),
-        "device": dev.type,
-    }))
-    return 0
+    return _bench_line(args, config, instrs, dt, resumed_instrs,
+                       device=dev.type)
 
 
 def _bench_chunked(args, config):
@@ -255,24 +482,21 @@ def _bench_chunked(args, config):
     chunk, keep the newest two, and clear the directory at the end so
     a rerun starts fresh.  -> (device, final state, seconds, the
     instructions the resumed checkpoint had already retired)."""
+    from hpa2_tpu_torch.models.spec_engine import StallError
     from hpa2_tpu_torch.ops.cuda_engine import resolve_device
-    from hpa2_tpu_torch.ops.layout import StallError
     from hpa2_tpu_torch.ops.state import init_state_batched
     from hpa2_tpu_torch.ops.step import build_batched_run_chunk, quiescent
     from hpa2_tpu_torch.utils.checkpoint import (
         latest_checkpoint, load_state, save_state,
     )
-    from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
 
     dev = resolve_device(args.device)
-    state = init_state_batched(
-        config, *gen_uniform_random_arrays(config, args.batch, args.instrs,
-                                           seed=args.seed),
-        device=dev)
+    state = init_state_batched(config, *_workload_arrays(args, config),
+                               device=dev)
     ckdir = args.checkpoint_dir
     os.makedirs(ckdir, exist_ok=True)
     workload_meta = {"batch": args.batch, "instrs": args.instrs,
-                     "workload": "uniform", "seed": args.seed}
+                     "workload": args.workload, "seed": args.seed}
     resume = latest_checkpoint(ckdir)
     if resume is not None:
         state, ck_config, ck_meta = load_state(resume, with_meta=True,
@@ -331,22 +555,32 @@ def _bench_chunked(args, config):
 
 
 def cmd_bench(args) -> int:
+    """``bench``: one JSON line of a timed run with the JAX CLI's keys
+    (``hpa2_tpu/cli.py:350-630``) for every backend: ``spec`` and
+    ``omp`` on the host, ``jax`` (the general engine) and ``pallas``
+    (the fast path, ``snapshots=False`` as ``bench.py``; the port's
+    scheduler and trace-length flags are its own) on ``--device``."""
     from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
     from hpa2_tpu_torch.ops.schedule import Schedule
-    from hpa2_tpu_torch.utils.trace import (
-        gen_heterogeneous_random_arrays, gen_uniform_random_arrays,
-    )
+    from hpa2_tpu_torch.utils.trace import gen_heterogeneous_random_arrays
 
     config = _build_config(args)
+    _refuse_shards(args)
+    if args.backend in ("spec", "omp"):
+        return _bench_host(args, config)
     if args.backend == "jax":
         return _bench_jax(args, config)
     if args.trace_len_dist:
+        if args.workload != "uniform":
+            raise SystemExit(
+                "--trace-len-dist draws heterogeneous lengths of the "
+                "uniform workload; it does not apply to --workload "
+                f"{args.workload}")
         arrays = gen_heterogeneous_random_arrays(
             config, args.batch, args.instrs, dist=args.trace_len_dist,
             spread=max(1.0, args.trace_len_spread), seed=args.seed)
     else:
-        arrays = gen_uniform_random_arrays(config, args.batch, args.instrs,
-                                           seed=args.seed)
+        arrays = _workload_arrays(args, config)
     schedule = None
     if args.schedule_resident:
         schedule = Schedule(resident=min(args.schedule_resident, args.batch),
@@ -363,20 +597,12 @@ def cmd_bench(args) -> int:
     t0 = time.perf_counter()
     eng.run(args.max_cycles)  # ends in the status readback
     dt = time.perf_counter() - t0
-    instrs = eng.instructions
-    rec = {
-        "backend": "cuda" if eng.device.type == "cuda" else "cpu",
-        "workload": args.trace_len_dist or "uniform",
-        "nodes": config.num_procs,
-        "batch": args.batch,
-        "instrs": instrs,
-        "seconds": round(dt, 4),
-        "ops_per_sec": round(instrs / dt, 1),
-    }
+    extra = {"device": eng.device.type}
+    if args.trace_len_dist:  # the workload is named by its lengths
+        extra["workload"] = args.trace_len_dist
     if schedule is not None:
-        rec["occupancy"] = eng.occupancy.as_dict()
-    print(json.dumps(rec))
-    return 0
+        extra["occupancy"] = eng.occupancy.as_dict()
+    return _bench_line(args, config, eng.instructions, dt, **extra)
 
 
 def _migration_targets(spec: str) -> List[dict]:
@@ -408,10 +634,7 @@ def _migration_targets(spec: str) -> List[dict]:
 
 def cmd_serve(args) -> int:
     config = _build_config(args)
-    if args.data_shards > 1 or args.node_shards > 1:
-        raise SystemExit(
-            "--data-shards/--node-shards > 1 serve on several GPUs, which "
-            "the port does not do yet (ROADMAP queue 1 item 4)")
+    _refuse_shards(args)
     if (args.jobs is None) == (args.listen is None):
         raise SystemExit(
             "serve needs exactly one job feed: a JOBS.jsonl path or "
@@ -534,6 +757,13 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def _add_shards(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--data-shards", type=int, default=1,
+                   help="refused above 1 (no multi-GPU runs yet)")
+    p.add_argument("--node-shards", type=int, default=1,
+                   help="refused above 1 (no multi-GPU runs yet)")
+
+
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--nodes", type=int, default=4)
     p.add_argument("--cache-size", type=int, default=4)
@@ -545,14 +775,37 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument("--max-cycles", type=int, default=1_000_000)
     p.add_argument(
+        "--messages-per-cycle", type=int, default=1,
+        help="lockstep schedule: messages drained per node per cycle "
+        "(spec backend; >1 shortens latency chains on queue-bound "
+        "workloads)",
+    )
+    p.add_argument(
         "--robust", action="store_true",
         help="NACK/retry on stale interventions (sound at scale)",
     )
     p.add_argument(
+        "--head-quirks", action="store_true",
+        help="emulate all of the reference HEAD's divergences from its "
+        "own fixtures; spec and omp backends",
+    )
+    p.add_argument(
+        "--quirks", default="", metavar="LIST",
+        help="comma-separated HEAD quirks to enable individually: "
+        "eager-write, flush-old-fill (all backends), "
+        "overloaded-notify (spec/omp only)",
+    )
+    p.add_argument(
+        "--free-running", action="store_true",
+        help="omp backend: thread-per-node free-running mode like the "
+        "reference (nondeterministic interleavings)",
+    )
+    p.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="cuda runs on the GPU (the fast path launches its kernel); "
-        "cpu runs the same path on the CPU (the kernel's plain PyTorch "
-        "version)",
+        help="jax and pallas backends: cuda runs on the GPU (the fast "
+        "path launches its kernel); cpu runs the same path on the CPU "
+        "(the kernel's plain PyTorch version).  The spec and omp "
+        "backends run on the host",
     )
     p.add_argument(
         "--protocol", default="mesi", choices=("mesi", "moesi", "mesif"),
@@ -631,28 +884,64 @@ def main(argv: Optional[List[str]] = None) -> int:
     rp = sub.add_parser("run", help="run a trace directory, write dumps")
     rp.add_argument("trace_dir")
     rp.add_argument(
-        "--backend", choices=("pallas", "jax"), default="jax",
+        "--backend", choices=("spec", "jax", "omp", "pallas"),
+        default="jax",
         help="jax = the general engine (every protocol, directory "
-        "format, topology and fault); pallas = the fast path",
+        "format, topology and fault); pallas = the fast path; spec = "
+        "the executable spec; omp = the C++/OpenMP engine of native/",
     )
     rp.add_argument("--out", help="output directory (default: CWD)")
     rp.add_argument(
         "--replay", default=None,
-        help="jax backend: instruction_order.txt to replay",
+        help="instruction_order.txt to replay (spec, jax, omp)",
+    )
+    rp.add_argument(
+        "--trace-msgs", metavar="PATH", default=None,
+        help="write a per-message send/receive log in the reference's "
+        "DEBUG_MSG format; spec and omp backends",
+    )
+    rp.add_argument(
+        "--record-order", default=None, metavar="PATH",
+        help="write the executed issue interleaving in DEBUG_INSTR "
+        "format (replayable via --replay); spec and omp backends",
     )
     rp.add_argument(
         "--final-dump", action="store_true",
         help="dump final quiescent state instead of at local completion",
     )
+    rp.add_argument(
+        "--crash-at", type=int, default=0, metavar="CYCLE",
+        help="spec backend: simulate a crash: advance to CYCLE, write "
+        "--crash-checkpoint, exit (no dumps)",
+    )
+    rp.add_argument(
+        "--crash-checkpoint", default="hpa2_spec_ckpt.json",
+        metavar="PATH",
+        help="where --crash-at persists the engine state (JSON)",
+    )
+    rp.add_argument(
+        "--resume", default=None, metavar="PATH",
+        help="spec backend: resume from a --crash-at checkpoint (of "
+        "either package) and finish the run, byte-identical to an "
+        "uninterrupted one; trace_dir is ignored",
+    )
+    _add_shards(rp)
     _add_common(rp)
     rp.set_defaults(fn=cmd_run)
 
     bp = sub.add_parser("bench", help="synthetic benchmark, JSON result")
     bp.add_argument(
-        "--backend", choices=("pallas", "jax"), default="jax",
+        "--backend", choices=("jax", "pallas", "omp", "spec"),
+        default="jax",
         help="jax = the general engine; pallas = the fast path (the "
         "--block, --trace-window, --cycles-per-call, --trace-len-* and "
-        "--schedule-* flags are its own)",
+        "--schedule-* flags are its own); spec = the executable spec "
+        "(batch 1); omp = the C++/OpenMP engine (uniform, batch 1)",
+    )
+    bp.add_argument(
+        "--workload",
+        choices=("uniform", "producer-consumer", "local"),
+        default="uniform",
     )
     bp.add_argument("--instrs", type=int, default=1000)
     bp.add_argument("--batch", type=int, default=1)
@@ -685,6 +974,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "and resume from the newest there (0: off)",
     )
     bp.add_argument("--checkpoint-dir", default="hpa2_ckpt")
+    _add_shards(bp)
     _add_common(bp)
     bp.set_defaults(fn=cmd_bench)
 
@@ -726,10 +1016,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "general engine (the backend with fault injection, the protocol "
         "variants and the topologies)",
     )
-    sp.add_argument("--data-shards", type=int, default=1,
-                    help="refused above 1 (no multi-GPU serving yet)")
-    sp.add_argument("--node-shards", type=int, default=1,
-                    help="refused above 1 (no multi-GPU serving yet)")
+    _add_shards(sp)
     sp.add_argument(
         "--resident", type=int, default=16,
         help="device-resident lanes (the fixed serving shape)",

@@ -39,6 +39,18 @@ class Semantics:
     # "drop" | "nack": what an owner does with a stale intervention
     intervention_miss_policy: str = "drop"
 
+    def head_quirks(self) -> "Semantics":
+        """The reference HEAD's behaviour, for differential study only
+        (``hpa2_tpu/config.py:59-67``): all three quirks on and stale
+        interventions dropped, as HEAD does."""
+        return dataclasses.replace(
+            self,
+            eager_write_request_memory=True,
+            flush_invack_fills_old_value=True,
+            overloaded_evict_shared_notify=True,
+            intervention_miss_policy="drop",
+        )
+
     def robust(self) -> "Semantics":
         """Fixture semantics + the at-scale soundness fixes."""
         return dataclasses.replace(self, intervention_miss_policy="nack")
@@ -329,6 +341,15 @@ class SystemConfig:
     @property
     def num_addresses(self) -> int:
         return self.num_procs * self.mem_size
+
+    def home_of(self, addr: int) -> int:
+        return addr // self.mem_size
+
+    def block_of(self, addr: int) -> int:
+        return addr % self.mem_size
+
+    def cache_index_of(self, addr: int) -> int:
+        return addr % self.cache_size
 
     def make_addr(self, home: int, block: int) -> int:
         return home * self.mem_size + block

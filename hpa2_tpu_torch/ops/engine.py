@@ -53,7 +53,7 @@ from hpa2_tpu_torch.config import SystemConfig
 from hpa2_tpu_torch.models.protocol import CacheState, Instr, MsgType
 from hpa2_tpu_torch.ops import bits
 from hpa2_tpu_torch.ops.cuda_engine import format_stats, resolve_device
-from hpa2_tpu_torch.ops.layout import StallError
+from hpa2_tpu_torch.models.spec_engine import StallDiagnostic, StallError
 from hpa2_tpu_torch.ops.state import (
     MB_ADDR,
     MB_SENDER,
@@ -78,56 +78,6 @@ __all__ = [
     "build_fused_batched_run", "engine_stats", "format_stats",
     "link_stats", "stack_states", "stall_diagnostic",
 ]
-
-
-class StallDiagnostic(StallError):
-    """Structured stall/watchdog diagnostic
-    (``hpa2_tpu/models/spec_engine.py:StallDiagnostic``, l.156): a
-    ``StallError`` carrying per-node mailbox depths, the waiting and
-    send-blocked nodes, cache-line states, the still-queued mailbox
-    heads, an advisory mid-flight invariant check and the counters."""
-
-    def __init__(
-        self,
-        reason: str,
-        cycle: int,
-        mailbox_depths: Dict[int, int],
-        waiting: List[int],
-        blocked: List[int],
-        line_states: Dict[int, List[str]],
-        recent_msgs: List[str],
-        invariant_violations: List[str],
-        counters: Dict[str, int],
-    ):
-        self.reason = reason
-        self.cycle = cycle
-        self.mailbox_depths = mailbox_depths
-        self.waiting = waiting
-        self.blocked = blocked
-        self.line_states = line_states
-        self.recent_msgs = recent_msgs
-        self.invariant_violations = invariant_violations
-        self.counters = counters
-        super().__init__(self._render())
-
-    def _render(self) -> str:
-        out = [
-            f"{self.reason} (cycle {self.cycle})",
-            f"  waiting nodes: {self.waiting}; "
-            f"send-blocked nodes: {self.blocked}",
-            "  mailbox depths: "
-            + ", ".join(f"{n}:{d}" for n, d in self.mailbox_depths.items()),
-        ]
-        for node, lines in self.line_states.items():
-            if lines:
-                out.append(f"  node {node} cache: " + ", ".join(lines))
-        if self.recent_msgs:
-            out.append(f"  last {len(self.recent_msgs)} deliveries:")
-            out.extend("    " + m for m in self.recent_msgs)
-        if self.invariant_violations:
-            out.append("  invariant check (mid-flight subset):")
-            out.extend("    " + m for m in self.invariant_violations)
-        return "\n".join(out)
 
 
 def _np(x: torch.Tensor) -> np.ndarray:

@@ -36,12 +36,10 @@ import torch
 
 from hpa2_tpu_torch.config import SystemConfig
 from hpa2_tpu_torch.models.protocol import CacheState, DirState, MsgType
+# one stall class for every engine (the spec engine's, as in
+# ``hpa2_tpu/ops/engine.py:27``), re-exported here
+from hpa2_tpu_torch.models.spec_engine import StallError
 from hpa2_tpu_torch.utils.dump import NodeDump
-
-
-class StallError(RuntimeError):
-    """The run stopped making progress (protocol livelock, or a cycle
-    budget too small for the workload)."""
 
 
 # MESI cache and directory state indices

@@ -1,5 +1,6 @@
-"""Trace loading, replay orders and the synthetic uniform and
-heterogeneous workloads.
+"""Trace loading, replay orders, the spec engine's delivery ring and
+the synthetic uniform, heterogeneous, producer/consumer and node-local
+workloads.
 
 ``core_<n>.txt`` holds one instruction per line, ``RD <hexaddr>`` or
 ``WR <hexaddr> <decvalue>``; values wrap mod 256, blank lines are
@@ -8,20 +9,57 @@ order (``instruction_order.txt``, the reference's DEBUG_INSTR lines)
 pins the issue interleaving of a run; it must be exactly an
 interleaving of the traces.  For the
 same seed the generators give the same arrays as their namesakes in
-``hpa2_tpu.utils.trace``.
+``hpa2_tpu.utils.trace`` (``gen_producer_consumer`` l.231,
+``gen_local_only`` l.257, ``gen_producer_consumer_arrays`` l.504: the
+same numpy ``default_rng`` draws in the same order).  ``TraceRing``
+(l.34) is the spec engine's flight recorder.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import re
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from hpa2_tpu_torch.config import SystemConfig
-from hpa2_tpu_torch.models.protocol import Instr
+from hpa2_tpu_torch.models.protocol import Instr, MsgType
+
+
+class TraceRing:
+    """Bounded ring of recent interconnect deliveries for stall
+    diagnostics (the flight recorder a watchdog dumps).  Recording is a
+    bare tuple append on the delivery path; :meth:`lines` formats."""
+
+    def __init__(self, maxlen: int = 64):
+        self.maxlen = maxlen
+        self._ring: "collections.deque[Tuple[int, int, int, int, int]]" = (
+            collections.deque(maxlen=maxlen)
+        )
+
+    def record(
+        self, cycle: int, sender: int, receiver: int, mtype: int, address: int
+    ) -> None:
+        self._ring.append((cycle, sender, receiver, mtype, address))
+
+    def push(self, entry: Tuple[int, int, int, int, int]) -> None:
+        """Re-append a raw entry (checkpoint restore)."""
+        self._ring.append(entry)
+
+    def entries(self) -> List[Tuple[int, int, int, int, int]]:
+        return list(self._ring)
+
+    def __len__(self) -> int:
+        return len(self._ring)
+
+    def lines(self) -> List[str]:
+        return [
+            f"cycle {c}: {s} -> {r} {MsgType(t).name} 0x{a:02X}"
+            for c, s, r, t, a in self._ring
+        ]
 
 _RD_RE = re.compile(r"^RD\s+(?:0[xX])?([0-9a-fA-F]+)\s*$")
 _WR_RE = re.compile(r"^WR\s+(?:0[xX])?([0-9a-fA-F]+)\s+(\d+)\s*$")
@@ -52,14 +90,18 @@ def parse_core_trace(text: str, max_instr: Optional[int] = None) -> List[Instr]:
     return instrs
 
 
+def load_core_trace(path: str, max_instr: Optional[int] = None) -> List[Instr]:
+    with open(path, "r") as f:
+        return parse_core_trace(f.read(), max_instr)
+
+
 def load_trace_dir(trace_dir: str, config: SystemConfig) -> List[List[Instr]]:
     """``core_<n>.txt`` for every node; a missing file is an error."""
     cap = config.max_instr_num if config.max_instr_num > 0 else None
     traces = []
     for n in range(config.num_procs):
         path = os.path.join(trace_dir, f"core_{n}.txt")
-        with open(path, "r") as f:
-            trace = parse_core_trace(f.read(), cap)
+        trace = load_core_trace(path, cap)
         for i, instr in enumerate(trace):
             if not (0 <= instr.address < config.num_addresses):
                 raise ValueError(
@@ -104,6 +146,16 @@ def parse_instruction_order(text: str) -> List[IssueRecord]:
 def load_instruction_order(path: str) -> List[IssueRecord]:
     with open(path, "r") as f:
         return parse_instruction_order(f.read())
+
+
+def format_instruction_order(records: Sequence[IssueRecord]) -> str:
+    """Inverse of :func:`parse_instruction_order`: the DEBUG_INSTR
+    lines of every shipped ``instruction_order.txt``."""
+    return "".join(
+        f"Processor {r.proc}: instr type={r.op}, "
+        f"address=0x{r.address:02X}, value={r.value}\n"
+        for r in records
+    )
 
 
 def validate_order_against_traces(
@@ -253,4 +305,75 @@ def gen_heterogeneous_random_arrays(
     length = np.broadcast_to(
         lens[:, None], (batch, config.num_procs)
     ).astype(np.int32).copy()
+    return op, addr, val, length
+
+
+def gen_producer_consumer(
+    config: SystemConfig,
+    instrs_per_core: int,
+    seed: int = 0,
+) -> List[List[Instr]]:
+    """Neighbour producer/consumer sharing: node n writes its own
+    blocks on even steps and reads node (n+1)'s on odd ones."""
+    rng = np.random.default_rng(seed)
+    traces = []
+    for n in range(config.num_procs):
+        out: List[Instr] = []
+        peer = (n + 1) % config.num_procs
+        for i in range(instrs_per_core):
+            blk = int(rng.integers(0, config.mem_size))
+            if i % 2 == 0:
+                out.append(
+                    Instr("W", config.make_addr(n, blk), int(rng.integers(0, 256)))
+                )
+            else:
+                out.append(Instr("R", config.make_addr(peer, blk)))
+        traces.append(out)
+    return traces
+
+
+def gen_local_only(
+    config: SystemConfig,
+    instrs_per_core: int,
+    seed: int = 0,
+    write_frac: float = 0.5,
+) -> List[List[Instr]]:
+    """Node-local traffic only: every node touches its own blocks."""
+    rng = np.random.default_rng(seed)
+    traces = []
+    for n in range(config.num_procs):
+        ops = rng.random(instrs_per_core) < write_frac
+        blks = rng.integers(0, config.mem_size, instrs_per_core)
+        vals = rng.integers(0, 256, instrs_per_core)
+        traces.append(
+            [
+                Instr("W", config.make_addr(n, int(b)), int(v))
+                if w
+                else Instr("R", config.make_addr(n, int(b)))
+                for w, b, v in zip(ops, blks, vals)
+            ]
+        )
+    return traces
+
+
+def gen_producer_consumer_arrays(
+    config: SystemConfig,
+    batch: int,
+    instrs_per_core: int,
+    seed: int = 0,
+):
+    """The producer/consumer pattern as ``[B, N, T]`` arrays in one
+    vectorised draw (not the per-system :func:`gen_producer_consumer`
+    stream; equal to ``hpa2_tpu.utils.trace``'s namesake)."""
+    rng = np.random.default_rng(seed)
+    n, t = config.num_procs, instrs_per_core
+    shape = (batch, n, t)
+    blk = rng.integers(0, config.mem_size, shape, dtype=np.int32)
+    val = rng.integers(0, 256, shape, dtype=np.int32)
+    node = np.arange(n, dtype=np.int32)[None, :, None]
+    write = (np.arange(t, dtype=np.int32)[None, None, :] % 2) == 0
+    op = np.broadcast_to(write, shape).astype(np.int32)
+    home = np.where(write, node, (node + 1) % n)
+    addr = home * config.mem_size + blk
+    length = np.full((batch, n), t, dtype=np.int32)
     return op, addr, val, length

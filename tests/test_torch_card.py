@@ -7,7 +7,9 @@ scheduled; serving on the card against the CPU, pipelined and serial;
 the five op-pattern micro-kernels; and the general engine on the card
 against the CPU and K2 (its batch loop, a replayed system, a faulty
 mesh under MOESI), and its severed-edge stall; its scheduled runs, its
-serving backend and a checkpoint of its rows.  These need an
+serving backend and a checkpoint of its rows; the streamed run under
+the HEAD value quirks, and the bench harness
+(``python -m hpa2_tpu_torch.bench``) on the card.  These need an
 NVIDIA GPU with nvcc (sm_90a) and skip elsewhere; on the card run them
 with
 
@@ -455,3 +457,58 @@ def test_checkpoint_round_trip_on_card(card, tmp_path):
         assert back_cfg == cfg
         assert all(a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
                    for a, b in zip(back, sess.state))
+
+
+@pytest.mark.parametrize("quirks", [
+    dict(eager_write_request_memory=True),
+    dict(flush_invack_fills_old_value=True),
+    dict(eager_write_request_memory=True, flush_invack_fills_old_value=True),
+])
+@pytest.mark.parametrize("robust", [True, False])
+def test_kernel_with_value_quirks_matches_plain_on_card(card, quirks,
+                                                        robust):
+    """K2 under the HEAD value quirks (runtime flags of the kernel),
+    with the NACK policy (runs complete) and under fixture semantics
+    (random traffic stalls at the budget), against the plain version."""
+    sem = Semantics(**quirks)
+    cfg = SystemConfig(num_procs=8, msg_buffer_size=16,
+                       semantics=sem.robust() if robust else sem)
+    b, t, window = 256, 32, 8
+    op, addr, val, length = gen_uniform_random_arrays(cfg, b, t, seed=3)
+    n_seg = -(-t // window)
+    tr = torch.from_numpy(_pack_traces(cfg, op, addr, val, length)).to(card)
+    tr_len = torch.from_numpy(np.ascontiguousarray(length.T)).to(card)
+    state = state_from_numpy(_init_state(cfg, b, False), card)
+    kw = dict(block=64, k=32, window=window, n_seg=n_seg,
+              max_calls=200 if robust else 8, gate=True, snapshots=False)
+    got = {f: v.clone() for f, v in state.items()}
+    status = kernels.stream_run(cfg, got, tr, tr_len, **kw)
+    want, want_status = stream_run_plain(cfg, state, tr, tr_len, **kw)
+    assert _same(status, want_status)
+    assert bool(status.any()) != robust
+    for f in fields_of(cfg, False):
+        assert _same(got[f], want[f]), f
+
+
+def test_bench_harness_on_card(card):
+    """``python -m hpa2_tpu_torch.bench --topology`` and the headline
+    exit 0 with ``platform: "gpu"`` and the card's name."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    for extra in (["--topology"], []):
+        proc = subprocess.run(
+            [sys.executable, "-m", "hpa2_tpu_torch.bench", *extra],
+            capture_output=True, text=True, env=env, cwd=str(root),
+            timeout=600)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert rec["platform"] == "gpu" and rec["indicative"]
+        if not extra:
+            assert rec["omp_ops_per_sec"] > 0 and rec["vs_baseline"] > 0
+            assert rec["device"]["name"] == torch.cuda.get_device_name(0)

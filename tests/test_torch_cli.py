@@ -90,7 +90,7 @@ def test_bench_cpu_retires_every_instruction(capsys):
                      "--msg-buffer-size", "16", "--robust", "--device",
                      "cpu"]) == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert rec["backend"] == "cpu"
+    assert rec["backend"] == "pallas" and rec["device"] == "cpu"
     assert rec["instrs"] == 4 * 4 * 16
     assert rec["ops_per_sec"] > 0
 

@@ -190,3 +190,43 @@ def test_wrapper_refuses_bad_planes(fault):
         kw["block"] = 3
     with pytest.raises(ValueError):
         kernels.stream_run(cfg, state, tr, tr_len, **kw)
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    """The bench harness's studies and the CLI's device backends run on
+    the card unless told otherwise, and raise without one; the spec and
+    omp backends are host engines and run either way."""
+    from hpa2_tpu_torch import bench, cli
+
+    for fn in (bench.headline_main, bench.serve_main, bench.failover_main,
+               bench.topo_main, bench.protocol_main, bench.bench_pallas,
+               bench.bench_jax, bench.fault_counters):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    small = ["--batch", "2", "--instrs", "4", "--robust"]
+    calls = [lambda: bench.main(["--topology"]),
+             lambda: cli.main(["bench", "--backend", "pallas", *small]),
+             lambda: cli.main(["bench", "--backend", "jax", *small])]
+    for call in calls:
+        if torch.cuda.is_available():
+            continue
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    for backend in ("spec", "omp"):
+        assert cli.main(["bench", "--backend", backend, "--instrs", "4",
+                         "--robust"]) == 0
+
+
+def test_native_engine_builds_into_the_port():
+    """The OpenMP baseline is built from ``native/src`` into the port's
+    own build folder, never from or into ``native/build``."""
+    from hpa2_tpu_torch import native
+
+    assert native.BUILD_DIR == PORT / "build" / "native"
+    assert native.library_path().parent == native.BUILD_DIR
+    assert native.NATIVE_SRC == REPO_ROOT / "native" / "src"
+    tree = ast.parse((PORT / "native.py").read_text())
+    strings = [n.value for n in ast.walk(tree)
+               if isinstance(n, ast.Constant) and isinstance(n.value, str)
+               and len(n.value) < 40]
+    assert "make" not in strings and not any(
+        "native/build" in s for s in strings)
