@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only general-scheduled,serve-jax,recovery,entry
+    python3 chip_smoke.py --only general-scheduled,serve-jax,recovery,entry,analysis
 
 (the second form, a debugging aid, runs the build and the named phases
 alone and prints no kernels line).  Builds the three CUDA libraries from ``hpa2_tpu_torch/csrc`` with nvcc,
@@ -26,14 +26,18 @@ bound), and drives through ``CudaEngine``:
   x 8 nodes x 128 instructions per core) and at its 64-node
   single-chip width (1,024 systems x 64 nodes x 64 instructions,
   unpacked and packed; ``scripts/scale_runs.py``'s single-device
-  rung);
+  rung); the packed run is held against the unpacked kernel's planes,
+  which are held against the plain version, so it runs no plain
+  version of its own;
 * the per-call path (``stream=False``) at the same two widths, held
-  against the streamed run's planes;
+  against the streamed run's planes (at 64 nodes against those alone,
+  for the same reason);
 * the occupancy scheduler on ``bench.py --trace-len-dist zipf``'s
   workload at the headline shape: unscheduled, fused, fused with 8,192
   resident lanes, the same with host barriers, and with the per-call
-  kernel inside; each first in a run whose every launch is held
-  against the plain version on its own planes and windows;
+  kernel inside; the unscheduled and resident fused runs first in a
+  run whose every launch is held against the plain version on its own
+  planes and windows, the others held plane for plane against those;
 * a resident-lane session (``CudaLaneSession``), its launches held
   against the plain version, and its results against the one-shot
   run;
@@ -83,13 +87,20 @@ bound), and drives through ``CudaEngine``:
   the spec engine, K2 under the HEAD value quirks, and ``run`` with
   ``--backend spec|omp``, ``--quirks`` and ``--crash-at``/``--resume``,
   every K2 launch held against the plain version,
+* the analysis suite (``[analysis]``, :func:`phase_analysis`): ``equiv``
+  with K3 as the ``pallas`` table prober (every probeable MESI row a
+  lane of one launch, each launch held against the plain version),
+  ``spec``, ``jax`` and ``native`` at MESI and ``jax`` at MOESI and
+  MESIF; ``contracts`` on the card; the elision model's verify against
+  ``TorchEngine`` on the card; ``lint``; ``mutation-test``,
 
 and prints:
 
 * the card's name and power limit (``nvidia-smi``);
 * per kernel instantiation, ptxas's registers, stack frame and spills,
   and the shared memory, CTAs an SM and clusters the card holds at
-  once at lane blocks of 512 and 1,024 (``[build]``);
+  once at lane blocks of 512 and 1,024, each held against the Hopper
+  budget model (``analysis/vmem.py``; ``[build]``);
 * the host syncs of each path (``[syncs]``);
 * per general-engine run, its ms by CUDA events, cycles, device steps
   after elision, RD/WR ops/s, launches a chunk, chunks and host syncs,
@@ -102,8 +113,10 @@ and prints:
 * one ``{"kernels": [...]}`` line: per kernel its launches on its main
   path (the 64-node streamed run; the headline per-call run; the
   micro-kernels' runner; the pipelined serving run, K2's cross-checks
-  beside the general engine and its served rows, and the recovery
-  supervisor's primary, under ``by_path``), its
+  beside the general engine and its served rows, the recovery
+  supervisor's primary, and K3 as the analysis suite's table prober,
+  under ``by_path``; a path held against already-checked planes
+  instead of a plain run names them under ``held_to``), its
   largest disagreement with the plain version, its time and the plain version's at that shape, and its
   bound: the larger of the bytes over 3.35 TB/s and the integer
   operations the run's own counters say it needed (``cycle_ops``) over
@@ -203,6 +216,11 @@ def cycle_ops(n, system_cycles, messages, instructions):
     and delivered, every RD/WR issued; from the run's own counters."""
     return (system_cycles * n * OPS_NODE_CYCLE + messages * OPS_MESSAGE
             + instructions * OPS_ISSUE)
+
+
+def fmt_plain(ms):
+    """A plain version's time, or "not run"."""
+    return "not run" if ms is None else f"{ms:.1f} ms"
 
 
 def elapsed_ms(fn):
@@ -432,10 +450,10 @@ def phase_compare():
     cfg = SystemConfig(num_procs=8, msg_buffer_size=4, semantics=robust)
     errs.append(kernel_vs_plain("d cap4", cfg, 256, 32, 4, snapshots=False,
                                 block=32, k=128, window=32, gate=True,
-                                max_calls=8, stall=None)[0])
+                                max_calls=4, stall=None)[0])
     # (e) no quiescence gate
     cfg = SystemConfig(semantics=robust, **HEADLINE)
-    errs.append(kernel_vs_plain("e gate-off", cfg, 1024, 64, 5,
+    errs.append(kernel_vs_plain("e gate-off", cfg, 1024, 40, 5,
                                 snapshots=False, block=256, k=128,
                                 window=32, gate=False, max_calls=10_000,
                                 stall=False)[0])
@@ -475,8 +493,8 @@ def phase_wide_compare():
                                 snapshots=False, block=128, k=64, window=10,
                                 gate=True, max_calls=10_000, stall=False)[0])
     cfg64 = SystemConfig(semantics=robust, **WIDE)
-    errs.append(kernel_vs_plain("f 64 nodes", cfg64, 512, 16, 13,
-                                snapshots=False, block=256, k=64, window=16,
+    errs.append(kernel_vs_plain("f 64 nodes", cfg64, 512, 8, 13,
+                                snapshots=False, block=256, k=64, window=8,
                                 gate=True, max_calls=10_000, stall=False)[0])
 
     def packed_vs_unpacked(label, cfg, b, t, seed, snapshots, kw, packed_got):
@@ -515,9 +533,11 @@ def drive_path(label, cfg, b, t, run, *, packed=False, ref=None,
                probe=()):
     """One path of the port at full width: ``CudaEngine.run()`` with the
     launch counts read around it, then the kernel alone (mean of 3
-    launches) on the same inputs, held against the plain version (and,
-    packed, against the unpacked kernel's planes ``ref``), the bytes
-    bound and a lane-block probe (one launch per block size)."""
+    launches) on the same inputs, held against the plain version -- or,
+    given ``ref`` (the planes of another path already held against the
+    plain version on these inputs), against ``ref`` alone, with no
+    plain run -- the bytes bound and a lane-block probe (one launch per
+    block size)."""
     from hpa2_tpu_torch.ops import kernels
     from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
     from hpa2_tpu_torch.ops.layout import _SC_CYCLE, _SC_MSGS
@@ -554,13 +574,28 @@ def drive_path(label, cfg, b, t, run, *, packed=False, ref=None,
 
     # the kernel alone, on fresh planes, and the plain version (these
     # launches are not the path's launches)
-    err, ms, plain_ms, got, _ = kernel_vs_plain(
-        label, cfg, b, t, 0, snapshots=False, max_calls=10_000, stall=False,
-        reps=3, packed=packed, **run)
-    if ref is not None:
-        err = max(err, check_diff(label, joined_diff(cfg, False, got, ref)))
-        print(f"[compare] {label}: against the unpacked kernel, planes "
-              f"joined: max_abs_err={err}")
+    if ref is None:
+        err, ms, plain_ms, got, _ = kernel_vs_plain(
+            label, cfg, b, t, 0, snapshots=False, max_calls=10_000,
+            stall=False, reps=3, packed=packed, **run)
+    else:
+        # equality is transitive: ``ref`` equals the plain version on
+        # these inputs, so a plain run here would buy no coverage
+        state, tr, tr_len, n_seg = planes_for(cfg, b, t, 0, False,
+                                              run["window"], packed)
+        kwr = dict(run, n_seg=n_seg, max_calls=10_000, snapshots=False,
+                   packed=packed)
+        times, got, status = time_kernel(cfg, state, tr, tr_len, kwr, 3)
+        ms, plain_ms = sum(times) / 3, None
+        if bool(status.any()):
+            raise AssertionError(f"{label}: the kernel stalled")
+        diff = (joined_diff(cfg, False, got, ref) if packed
+                else plane_diff(cfg, False, got, ref))
+        err = check_diff(label, diff)
+        print(f"[compare] {label}: kernel {ms:.3f} ms "
+              f"({', '.join(f'{x:.3f}' for x in times)}), held against "
+              f"the checked planes of the unpacked kernel{', joined' if packed else ''}: "
+              f"max_abs_err={err} (no plain run)")
     err = max(err, check_diff(label, plane_diff(cfg, False, eng.state, got,
                                                 packed)))
 
@@ -584,7 +619,7 @@ def drive_path(label, cfg, b, t, run, *, packed=False, ref=None,
           f"({eng.instructions / run_ms * 1e3:.4e} RD/WR ops/s), kernel "
           f"{ms:.3f} ms ({eng.instructions / ms * 1e3:.4e} RD/WR ops/s, "
           f"{ms / eng.cycle * 1e3:.3f} us a cycle of the longest system), "
-          f"plain {plain_ms:.1f} ms, launches {launches}")
+          f"plain {fmt_plain(plain_ms)}, launches {launches}")
     threads = kernels.threads_per_system(cfg)
     geo = kernels.launch_geometry(run["block"], threads)
     print(f"[{label}] bound: bytes {moved} B (state {state_bytes} B read and "
@@ -609,10 +644,14 @@ def drive_path(label, cfg, b, t, run, *, packed=False, ref=None,
             fill.append(f"block {blk} ({b // blk} CTAs) {times[0]:.3f} ms"
                         f"{' STALLED' if status.any() else ''}")
         print(f"[{label}] other lane blocks: {'; '.join(fill)}")
-    return dict(launches=launches, err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms,
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                state=got)
+    out = dict(launches=launches, err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms,
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               state=got)
+    if ref is not None:
+        out["held_to"] = ("the streamed unpacked kernel's planes (held "
+                          "to the plain version)")
+    return out
 
 
 def plain_call(cfg, state, tr, tr_len, **kw):
@@ -649,12 +688,14 @@ def per_call_kernel(cfg, state, tr, tr_len, kw):
 
 
 def per_call_vs_plain(label, cfg, b, t, seed, *, snapshots, block, k,
-                      window, gate, max_calls, stall, packed=False, idle=0):
+                      window, gate, max_calls, stall, packed=False, idle=0,
+                      plain=True):
     """The per-call kernel under its host loop and the same loop over the
     plain version, from the same planes (the first ``idle`` lanes of
     each block without work); every carried plane and the status word
     must agree, and the stall must be as ``stall`` says (True, False, or
-    None for either)."""
+    None for either).  ``plain=False`` runs the kernel alone (its
+    caller holds the planes against planes already checked)."""
     from hpa2_tpu_torch.ops.call_run import run_windows
 
     state, tr, tr_len, n_seg = planes_for(cfg, b, t, seed, snapshots, window,
@@ -666,6 +707,15 @@ def per_call_vs_plain(label, cfg, b, t, seed, *, snapshots, block, k,
     if stall is not None and bool(status & 1) != stall:
         raise AssertionError(
             f"{label}: the kernel {'did not stall' if stall else 'stalled'}")
+    if not plain:
+        print(f"[compare] {label}: {b} systems x {cfg.num_procs} nodes x "
+              f"{t} instrs, block {block}, window {window}, k {k}: status "
+              f"{status}, {len(times)} launches, {reads} host reads, "
+              f"kernel {sum(times):.3f} ms summed over launches (no plain "
+              "run)")
+        return dict(err=0, ms=sum(times), plain_ms=None,
+                    launches=len(times), state=got, status=status,
+                    reads=reads)
     want = {f: v.clone() for f, v in state.items()}
     want_status, plain_ms = elapsed_ms(lambda: int(run_windows(
         cfg, want, tr, tr_len, call=plain_call, **kw)))
@@ -710,10 +760,10 @@ def phase_call_compare():
     cfg33 = SystemConfig(num_procs=33, cache_size=4, mem_size=8,
                          msg_buffer_size=32, semantics=robust)
     errs.append(per_call_vs_plain(
-        "h 33 nodes", cfg33, 256, 20, 24, snapshots=False, block=128, k=64,
-        window=10, gate=False, max_calls=10_000, stall=False)["err"])
+        "h 33 nodes", cfg33, 256, 12, 24, snapshots=False, block=128, k=64,
+        window=6, gate=False, max_calls=10_000, stall=False)["err"])
     errs.append(per_call_vs_plain(
-        "h packed 8 nodes", cfg8, 2048, 64, 25, snapshots=False,
+        "h packed 8 nodes", cfg8, 2048, 40, 25, snapshots=False,
         max_calls=10_000, stall=False, packed=True, **HEADLINE_RUN)["err"])
     errs.append(per_call_vs_plain(
         "h packed 22 nodes", cfg22, 256, 12, 26, snapshots=True, block=64,
@@ -724,7 +774,7 @@ def phase_call_compare():
     cfg_cap4 = SystemConfig(num_procs=8, msg_buffer_size=4, semantics=robust)
     errs.append(per_call_vs_plain(
         "h cap4", cfg_cap4, 256, 32, 4, snapshots=False, block=32, k=128,
-        window=32, gate=True, max_calls=8, stall=None)["err"])
+        window=32, gate=True, max_calls=4, stall=None)["err"])
     return max(errs)
 
 
@@ -754,7 +804,7 @@ def phase_team_compare():
                               ("i idle CTA 22 nodes", cfg22, 256)):
         cl, per_cta = geometry(cfg, block)
         err, _, _, got, _ = kernel_vs_plain(
-            f"{label} ({cl} CTAs a block)", cfg, 2048, 30, 31,
+            f"{label} ({cl} CTAs a block)", cfg, 2048, 20, 31,
             snapshots=True, block=block, k=32, window=12, gate=True,
             max_calls=10_000, stall=False, idle=per_cta)
         idle = got["snap_taken"].reshape(cfg.num_procs, -1, block)
@@ -778,13 +828,15 @@ def phase_team_compare():
     return max(errs)
 
 
-def drive_per_call_path(label, cfg, b, t, run, ref, packed=False):
+def drive_per_call_path(label, cfg, b, t, run, ref, packed=False,
+                        plain=True):
     """The per-call path at full width: ``CudaEngine(stream=False).run()``
     with the counts read around it, then the kernel alone under its
-    loop (each launch timed) and the plain version, all held against
-    each other and against the streamed run's planes ``ref``; the bytes
-    bound counts every call: state read and written once, the window's
-    traces read once."""
+    loop (each launch timed) and (``plain``) the plain version, all held
+    against each other and against the streamed run's planes ``ref``
+    (which are held against the plain version on the same inputs); the
+    bytes bound counts every call: state read and written once, the
+    window's traces read once."""
     from hpa2_tpu_torch.ops import kernels
     from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
     from hpa2_tpu_torch.ops.layout import _SC_CYCLE, _SC_MSGS
@@ -813,7 +865,7 @@ def drive_per_call_path(label, cfg, b, t, run, ref, packed=False):
         raise AssertionError(f"{label}: not every instruction retired")
     res = per_call_vs_plain(label, cfg, b, t, 0, snapshots=False,
                             max_calls=10_000, stall=False, packed=packed,
-                            **run)
+                            plain=plain, **run)
     err = max(res["err"],
               check_diff(label, plane_diff(cfg, False, eng.state,
                                            res["state"], packed)),
@@ -846,7 +898,8 @@ def drive_per_call_path(label, cfg, b, t, run, ref, packed=False):
           f"{launches['call_run']} launches, "
           f"{syncs} host syncs; kernel {res['ms']:.3f} ms summed over "
           f"launches ({res['ms'] / eng.cycle * 1e3:.3f} us a cycle of the "
-          f"longest system); plain {res['plain_ms']:.1f} ms")
+          f"longest system); plain "
+          f"{fmt_plain(res['plain_ms'])}")
     print(f"[{label}] bound: bytes {res['launches']} calls x ({state_bytes} "
           f"B state read and written + {window_bytes} B window) = {moved} B "
           f"/ 3.35 TB/s = {bytes_ms:.4f} ms; operations {ops} / "
@@ -855,11 +908,15 @@ def drive_per_call_path(label, cfg, b, t, run, ref, packed=False):
     print(f"[syncs] {label}: {syncs} host syncs in one run() "
           f"({res['reads']} quiescence reads of the per-call loop over "
           f"{launches['call_run']} calls, 1 status read)")
-    return dict(launches=launches, err=err, ms=res["ms"],
-                plain_ms=res["plain_ms"],
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                run_ms=run_ms, syncs=syncs)
+    out = dict(launches=launches, err=err, ms=res["ms"],
+               plain_ms=res["plain_ms"],
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               run_ms=run_ms, syncs=syncs)
+    if not plain:
+        out["held_to"] = ("the streamed kernel's planes (held to the "
+                          "plain version)")
+    return out
 
 
 #: bench.py --trace-len-dist zipf at its defaults, at the headline shape
@@ -868,16 +925,17 @@ ZIPF_BATCH, ZIPF_INSTRS, ZIPF_SPREAD, ZIPF_RESIDENT = 32768, 128, 8.0, 8192
 #: version: the unscheduled reference, and the resident runs with the
 #: streamed and the per-call kernel inside (the other two must equal
 #: these plane for plane)
-CHECKED_SCHEDULED = ("unscheduled", "resident 8192 fused",
-                     "resident 8192 per-call")
+CHECKED_SCHEDULED = ("unscheduled", "resident 8192 fused")
 
 
 def phase_scheduled():
     """The occupancy scheduler at full width: five runs of the zipf
     workload.  The warm-ups of the runs in ``CHECKED_SCHEDULED`` hold
     every kernel launch against the plain version on the same planes
-    and windows (the unscheduled run whole; the scheduled runs interval
-    by interval, idle lanes and windows that end early included).  Then
+    and windows (the unscheduled run whole; the scheduled run interval
+    by interval, idle lanes and windows that end early included); the
+    other runs are held against those runs' planes, which equality
+    carries to the plain version.  Then
     the timed runs: the dump
     planes (``cachew``, ``dirw``), ``scalars`` and ``msg_counts`` of
     each equal the unscheduled run's, the fused and host-barrier runs
@@ -2047,9 +2105,15 @@ def _phase_general_scheduled_card(card, jobs):
 def timed_chunks(bound):
     """A pair of CUDA events around the graph replays of every chunk a
     bound chunk program (``ops/step.py:BoundChunk``) enqueues, read
-    only afterwards; yields the list of (start, end) pairs."""
-    advance = bound.advance
-    pairs = []
+    only afterwards, and the host seconds of each graph capture; yields
+    (the list of (start, end) pairs, the list of capture seconds)."""
+    advance, capture = bound.advance, bound._capture
+    pairs, captures = [], []
+
+    def timed_capture():
+        t0 = time.perf_counter()
+        capture()
+        captures.append(time.perf_counter() - t0)
 
     def timed():
         start = torch.cuda.Event(enable_timing=True)
@@ -2059,11 +2123,11 @@ def timed_chunks(bound):
         end.record()
         pairs.append((start, end))
 
-    bound.advance = timed
+    bound.advance, bound._capture = timed, timed_capture
     try:
-        yield pairs
+        yield pairs, captures
     finally:
-        del bound.advance
+        del bound.advance, bound._capture
 
 
 def served_map(results, cycles=True):
@@ -2137,7 +2201,7 @@ def phase_serve_jax(card):
                             **SERVE_JAX)
         ptrs = [x.data_ptr() for x in drv.session.state]
         syncs = kernels.HOST_SYNCS.count
-        with timed_chunks(drv.session._bound) as pairs:
+        with timed_chunks(drv.session._bound) as (pairs, captures):
             results, st = drv.run()
         syncs = kernels.HOST_SYNCS.count - syncs
         busy_ms = launches_ms(pairs)
@@ -2149,7 +2213,7 @@ def phase_serve_jax(card):
                                  f"{st.compile_counts}")
         if [x.data_ptr() for x in drv.session.state] != ptrs:
             raise AssertionError(f"serve jax {label}: the rows moved")
-        cap = drv.session._bound.capture_s
+        cap = sum(captures)
         stats_line("serve jax", label, st, card,
                    f"; {syncs} host syncs; the chunks' replays "
                    f"{busy_ms:.3f} ms on the card (device idle "
@@ -2608,10 +2672,10 @@ def phase_entry(card, headline=None):
        checked launch on the same arrays, if that phase ran), with the
        OpenMP baseline's rate required;
     2. ``bench --backend pallas --workload producer-consumer`` and
-       ``local`` at 4,096 x 8 x 128, eight of each ensemble's systems
+       ``local`` at 1,024 x 8 x 64, eight of each ensemble's systems
        with dumps equal to the spec engine on the host;
     3. the fast path under the HEAD value quirks (``eager-write``,
-       ``flush-old-fill``, both) at 4,096 x 8 x 128 uniform, NACK
+       ``flush-old-fill``, both) at 1,024 x 8 x 64 uniform, NACK
        policy on so that random traffic completes; both quirks under
        fixture semantics, whose drop
        policy livelocks random traffic, to a stall at a 512-cycle
@@ -2622,7 +2686,7 @@ def phase_entry(card, headline=None):
        straight run;
     5. ``--topology`` and ``--protocol`` at the JAX bench's sizes
        (``spec_jax_agree_all``), ``--serve`` and ``--failover`` at
-       4,096 jobs through 1,024 lanes.
+       2,048 jobs through 1,024 lanes.
     Returns the per-path records for K2's ``by_path``."""
     import dataclasses
 
@@ -2653,7 +2717,7 @@ def phase_entry(card, headline=None):
     # 2. the CLI's workloads
     robust = Semantics().robust()
     cfg = SystemConfig(semantics=robust, **HEADLINE)
-    batch, instrs = 4096, 128
+    batch, instrs = 1024, 64
     for wl in ("producer-consumer", "local"):
         _zero_launches()
         t0 = time.perf_counter()
@@ -2792,7 +2856,7 @@ def phase_entry(card, headline=None):
         print(f"[entry] bench --{name}: {srec['metric']} {srec['value']} "
               f"{srec['unit']}, spec_jax_agree_all true, "
               f"{time.perf_counter() - t0:.1f} s")
-    os.environ["HPA2_SERVE_JOBS"] = "4096"
+    os.environ["HPA2_SERVE_JOBS"] = "2048"
     os.environ["HPA2_SERVE_RESIDENT"] = "1024"
     try:
         for name, fn in (("serve", bench.serve_main),
@@ -2806,7 +2870,7 @@ def phase_entry(card, headline=None):
                 raise AssertionError(f"bench --failover: {srec['runs']}")
             paths[f"bench {name}"] = dict(launches=n, value=srec["value"],
                                           unit=srec["unit"])
-            print(f"[entry] bench --{name} (4,096 jobs, 1,024 lanes): "
+            print(f"[entry] bench --{name} (2,048 jobs, 1,024 lanes): "
                   f"{srec['metric']} {srec['value']} {srec['unit']}, {n} "
                   f"K2 launches, {time.perf_counter() - t0:.1f} s: "
                   + json.dumps(srec))
@@ -2961,10 +3025,153 @@ def micro_entry(kern, micro):
     }
 
 
+def phase_analysis(budget_rows):
+    """``[analysis]``: ``python -m hpa2_tpu_torch.analysis``'s checks on
+    the card.  ``equiv`` on the semantics sets ``check`` uses: the
+    ``pallas`` prober, one cycle of K3 with every probeable MESI row a
+    lane of one launch, each launch held against the plain version on a
+    copy of its planes; ``spec``, ``jax`` (the general engine's step on
+    the card) and ``native`` at MESI and ``jax`` at MOESI and MESIF, with
+    the multi-message diffs; every table diff 0.  Then ``contracts`` on
+    the card (the 8 unsharded points clean, the wrappers' calls equal to
+    the libraries' launches, the 4 sharded points skipped naming ROADMAP
+    queue 1 item 4), ``elision``'s verify against ``TorchEngine`` on the
+    card, ``lint`` and ``mutation-test``.  ``budget_rows`` is the count
+    of ``[build]`` rows whose shared memory the Hopper budget model
+    matched.  Returns K3's ``by_path`` record."""
+    from hpa2_tpu_torch.analysis import contracts, elision, extract, ir
+    from hpa2_tpu_torch.analysis.lint import run_lint
+    from hpa2_tpu_torch.analysis.mutate import run_all_mutations
+    from hpa2_tpu_torch.analysis.table import build_table
+    from hpa2_tpu_torch.config import Semantics
+    from hpa2_tpu_torch.ops import kernels
+    from hpa2_tpu_torch.ops.call_run import call_plain
+    from hpa2_tpu_torch.ops.layout import _SC_INSTR, _SC_MSGS
+
+    sems = {"default": Semantics(), "robust": Semantics().robust()}
+    rows = {}
+    for kern in kernels.LIBRARIES:
+        kern.launches = 0
+    with checked_kernels("analysis prober") as rec:
+        for name, sem in sems.items():
+            table = build_table(sem, "mesi")
+            prober = extract.PallasProber(sem, device="cuda")
+            diffs = extract.diff_backend(table, "pallas", prober=prober)
+            rows[name] = len(extract.probeable_rows(table))
+            if diffs:
+                raise AssertionError(f"analysis equiv {name}/mesi pallas: "
+                                     + "; ".join(diffs[:5]))
+            print(f"[analysis] equiv {name}/mesi pallas: {rows[name]} rows "
+                  f"as the lanes of {prober.launches} K3 launch, 0 diffs")
+    launches = {k.name: k.launches for k in kernels.LIBRARIES}
+    if launches["call_run"] != len(sems) or launches["stream_run"] \
+            or rec["call_run"] != launches["call_run"]:
+        raise AssertionError(f"analysis prober: launches {launches}, "
+                             f"checked {rec['call_run']}")
+    print(f"[analysis] prober: {launches['call_run']} K3 launches, each "
+          f"held against the plain version plane for plane: "
+          f"max_abs_err={rec['err']}")
+
+    # the probe launch alone, timed, on the robust rows' planes
+    sem = sems["robust"]
+    prober = extract.PallasProber(sem, device="cuda")
+    scns = [extract.scenario_for(r)
+            for r in extract.probeable_rows(build_table(sem))]
+    state, tr, tl = prober.staged(scns)
+    kw = dict(seg=0, block=len(scns), k=1, window=1, gate=False,
+              snapshots=False)
+    times = []
+    for _ in range(20):
+        got = {f: v.clone() for f, v in state.items()}
+        _, t = elapsed_ms(lambda: kernels.call_run(prober.cfg, got, tr, tl,
+                                                   **kw))
+        times.append(t)
+    ms = sum(times[1:]) / (len(times) - 1)
+    want, plain_ms = elapsed_ms(lambda: call_plain(prober.cfg, state, tr, tl,
+                                                   **kw))
+    err = check_diff("analysis probe", plane_diff(prober.cfg, False, got,
+                                                  want))
+    state_bytes = sum(v.numel() * v.element_size() for v in state.values())
+    moved = 2 * state_bytes + (tr.numel() + tl.numel()) * 4
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    sc = got["scalars"].long()
+    ops = cycle_ops(prober.cfg.num_procs, len(scns),
+                    int(sc[_SC_MSGS].sum()), int(sc[_SC_INSTR].sum()))
+    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+    print(f"[analysis] probe launch: {len(scns)} lanes x "
+          f"{prober.cfg.num_procs} nodes, one cycle: kernel {ms:.4f} ms "
+          f"(mean of 19 after one warm-up), plain {plain_ms:.1f} ms, "
+          f"max_abs_err={err}; bound: bytes {moved} B / 3.35 TB/s = "
+          f"{bytes_ms:.6f} ms, operations {ops} = {ops_ms:.6f} ms")
+
+    # the other backends, on the card where they have a device
+    k3 = kernels.CALL_RUN.launches
+    for name, sem in sems.items():
+        for proto in ("mesi", "moesi", "mesif"):
+            table = build_table(sem, proto)
+            for backend in (("spec", "jax", "native") if proto == "mesi"
+                            else ("jax",)):
+                diffs = extract.diff_backend(table, backend, device="cuda")
+                if diffs:
+                    raise AssertionError(
+                        f"analysis equiv {name}/{proto} {backend}: "
+                        + "; ".join(diffs[:5]))
+            multi = extract.diff_multi_backend(sem, proto, device="cuda")
+            if multi:
+                raise AssertionError(f"analysis equiv {name}/{proto} "
+                                     "multi: " + "; ".join(multi[:5]))
+            print(f"[analysis] equiv {name}/{proto}: "
+                  f"{'spec, jax, native' if proto == 'mesi' else 'jax'} "
+                  "and the multi-message spec<->jax diff: 0 diffs")
+    if kernels.CALL_RUN.launches != k3:
+        raise AssertionError("the jax/spec/native probes launched K3")
+
+    # contracts on the card
+    with ir.launch_census() as census:
+        results = contracts.run_contracts(
+            device="cuda", out=lambda line: print(f"[analysis] {line}"))
+    status = {r.contract: r.status for r in results}
+    clean = [c for c, v in status.items() if v == "ok"]
+    skipped = [r for r in results if r.status == "skip"]
+    if len(clean) != 8 or len(skipped) != 4 or any(
+            "item 4" not in r.note for r in skipped):
+        raise AssertionError(f"analysis contracts: {status}")
+    for name in ("stream_run", "call_run"):
+        if census[f"calls.{name}"] != census[f"launches.{name}"]:
+            raise AssertionError(f"analysis contracts: {census}")
+    print(f"[analysis] contracts: 8 clean on the card, 4 sharded skipped "
+          f"(item 4); wrapper calls = launches: stream_run "
+          f"{census['launches.stream_run']}, call_run "
+          f"{census['launches.call_run']}; {census['host_syncs']} host syncs")
+    print(f"[analysis] Hopper budget: the model's shared memory, threads "
+          f"and cluster equal the card's for all {budget_rows} [build] rows")
+
+    text, rc = elision.elision_table(device="cuda")
+    for line in text.splitlines():
+        print(f"[analysis] {line}")
+    if rc:
+        raise AssertionError("analysis elision: model != TorchEngine")
+    findings = run_lint(str(ROOT))
+    if findings:
+        raise AssertionError(f"analysis lint: {findings[:5]}")
+    missed = [f"{p}/{r.name}" for p in ("mesi", "moesi", "mesif")
+              for r in run_all_mutations(Semantics(), p) if not r.caught]
+    if missed:
+        raise AssertionError(f"analysis mutation-test missed {missed}")
+    print("[analysis] elision: model = TorchEngine on the card; lint: 0 "
+          "findings; mutation-test: 36/36 caught")
+    return dict(launches=launches["call_run"],
+                checked_launches=rec["call_run"],
+                max_abs_err=max(rec["err"], err), ms=ms, plain_ms=plain_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                rows=sum(rows.values()))
+
+
 #: the phases ``--only`` may name (a debugging aid: those phases alone,
 #: after the build, and no kernels line); with no arguments every phase
 #: runs
-ONLY = ("general-scheduled", "serve-jax", "recovery", "entry")
+ONLY = ("general-scheduled", "serve-jax", "recovery", "entry", "analysis")
 
 
 def main(argv=None) -> int:
@@ -2981,6 +3188,7 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from hpa2_tpu_torch.analysis import vmem
     from hpa2_tpu_torch.config import Semantics, SystemConfig
     from hpa2_tpu_torch.ops import kernels
 
@@ -2988,7 +3196,9 @@ def main(argv=None) -> int:
     print(card)
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__},"
           f" CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    secs = kernels.build_all()
+    t0 = time.perf_counter()
+    kernels.build_all()
+    secs = time.perf_counter() - t0
     names = ", ".join(k.library_path().name for k in kernels.LIBRARIES)
     print(f"[build] {secs:.1f} s, all compilers at once: {names}")
     # registers, stack frame and spills of each instantiation
@@ -3000,7 +3210,9 @@ def main(argv=None) -> int:
                 print(f"[build] {kern.name}: {line.strip()}")
     # shared memory and occupancy of each instantiation at the main
     # paths' lane block (512), at 1024, and at the card's largest block
-    # of the node bound (kernels.MAX_LANE_BLOCK: 16 CTAs, most rounds)
+    # of the node bound (kernels.MAX_LANE_BLOCK: 16 CTAs, most rounds),
+    # each held against the Hopper budget model (analysis/vmem.py)
+    budget_rows = 0
     for n, base in ((8, 32768), (12, 1024), (64, 1024)):
         cfg = SystemConfig(num_procs=n, msg_buffer_size=16)
         most = kernels.MAX_LANE_BLOCK[kernels.node_bound(cfg)]
@@ -3018,6 +3230,19 @@ def main(argv=None) -> int:
                           f"CTA, {occ['ctas_per_sm']} CTAs an SM, "
                           f"{occ['clusters']} clusters of "
                           f"{occ['cl']} CTAs at once")
+                    model = vmem.vmem_budget(cfg, block, 32, packed=packed)
+                    if (model.smem_bytes, model.cta_threads, model.cl) != (
+                            occ["smem"], occ["threads"], occ["cl"]):
+                        raise AssertionError(
+                            f"Hopper budget: model {model.smem_bytes} B, "
+                            f"{model.cta_threads} threads, {model.cl} CTAs;"
+                            f" card {occ}")
+                    budget_rows += 1
+                    print(f"[build] the Hopper budget model: "
+                          f"{model.smem_bytes} B, {model.cta_threads} "
+                          f"threads, {model.cl} CTAs (equal), "
+                          f"{model.ctas_per_sm} CTAs an SM by threads and "
+                          "shared memory")
 
     robust = Semantics().robust()
     wall = {}
@@ -3025,7 +3250,9 @@ def main(argv=None) -> int:
         for name, phase in (("general-scheduled", phase_general_scheduled),
                             ("serve-jax", phase_serve_jax),
                             ("recovery", phase_recovery),
-                            ("entry", phase_entry)):
+                            ("entry", phase_entry),
+                            ("analysis", lambda card: phase_analysis(
+                                budget_rows))):
             if name in only:
                 t0 = time.perf_counter()
                 phase(card)
@@ -3062,7 +3289,7 @@ def main(argv=None) -> int:
             paths["headline"]["state"]),
         "wide": drive_per_call_path(
             "per-call wide", wide_cfg, 1024, 64, WIDE_RUN,
-            paths["wide"]["state"]),
+            paths["wide"]["state"], plain=False),
     }
     wall["per-call paths"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3092,6 +3319,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     entry_paths = phase_entry(card, paths["headline"]["state"])
     wall["entry"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    analysis = phase_analysis(budget_rows)
+    wall["analysis"] = time.perf_counter() - t0
     print("[wall] " + ", ".join(f"{k} {v:.1f} s" for k, v in wall.items()))
 
     keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -3105,7 +3335,8 @@ def main(argv=None) -> int:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None,
-            "by_path": {name: {k: p[k] for k in keys}
+            "by_path": {name: {k: p[k] for k in keys + ("held_to",)
+                               if k in p}
                         for name, p in by_path.items()},
         }
 
@@ -3129,6 +3360,9 @@ def main(argv=None) -> int:
                 if "err" in run:
                     path.update(checked_launches=run["checked"],
                                 max_abs_err=run["err"])
+                else:
+                    path["held_to"] = ("the checked unscheduled and "
+                                       "resident 8192 fused runs' planes")
                 kern_entry["by_path"][f"scheduled {name}"] = path
     for stream, run in session.items():
         kern_entry = stream_entry if stream else call_entry
@@ -3161,6 +3395,9 @@ def main(argv=None) -> int:
     # and quirks, the studies
     for name, path in entry_paths.items():
         stream_entry["by_path"][f"entry {name}"] = path
+    # the analysis suite's table prober: one cycle of K3, every probeable
+    # row a lane
+    call_entry["by_path"]["analysis prober"] = analysis
     for kern_entry in (stream_entry, call_entry):
         kern_entry["max_abs_err"] = max(
             [kern_entry["max_abs_err"]]

@@ -33,7 +33,7 @@ calls.  On CPU tensors they run the plain PyTorch version
 (``ops/stream_run.py``, ``ops/call_run.py``); on CUDA tensors they
 launch the kernel or raise.  Either way the carried planes are updated
 in place.  :data:`HOST_SYNCS` counts the device values the engines read
-back to the host.
+back to the host, and :data:`CALLS` the wrappers' calls.
 """
 
 from __future__ import annotations
@@ -43,7 +43,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -270,6 +269,17 @@ class CudaKernel:
                     threads=out[3], cl=args.cl)
 
 
+class WrapperCalls:
+    """Calls of :func:`stream_run` and :func:`call_run`, counted at the
+    wrapper, so that the plain versions on the CPU and the kernels on
+    the card count alike (on the card each call is one launch, so the
+    counts equal the libraries' ``launches``)."""
+
+    def __init__(self) -> None:
+        self.stream_run = 0
+        self.call_run = 0
+
+
 class HostSyncs:
     """Count of the device values the engines read back to the host
     (each is a host sync on the card)."""
@@ -278,9 +288,10 @@ class HostSyncs:
         self.count = 0
 
     def read(self, x: torch.Tensor):
-        """``x.item()``, counted."""
+        """``x`` on the host, counted: ``x.item()`` for a scalar tensor,
+        else a numpy copy."""
         self.count += 1
-        return x.item()
+        return x.item() if x.dim() == 0 else x.cpu().numpy()
 
 
 STREAM_RUN = CudaKernel("stream_run", "stream_run.cu", "hpa2_stream_run",
@@ -303,6 +314,7 @@ MICRO = CudaKernel(
 LIBRARIES = KERNELS + (MICRO,)
 
 HOST_SYNCS = HostSyncs()
+CALLS = WrapperCalls()
 
 
 def check_kernel_bound(config: SystemConfig) -> None:
@@ -377,15 +389,12 @@ def geometry_args(config: SystemConfig, *, lanes: int, block: int,
     return a
 
 
-def build_all() -> float:
-    """Build every library, all compilers started at once; returns the
-    seconds it took."""
-    t0 = time.perf_counter()
+def build_all() -> None:
+    """Build every library, all compilers started at once."""
     for k in LIBRARIES:
         k.start_build()
     for k in LIBRARIES:
         k.build()
-    return time.perf_counter() - t0
 
 
 def _check_planes(config: SystemConfig, state: Dict[str, torch.Tensor],
@@ -450,9 +459,9 @@ def _kernel_args(config: SystemConfig, state, tr, tr_len, status, *,
     a.recv_packed = "recv" in layout
     a.packed = packed
     if packed:
-        pdt = packed_plane_dtypes(config)
-        a.cmeta_u16 = pdt["cmetaw"].itemsize == 2
-        a.dmeta_u16 = pdt["dmetaw"].itemsize == 2
+        u16 = {f: d.itemsize == 2
+               for f, d in packed_plane_dtypes(config).items()}
+        a.cmeta_u16, a.dmeta_u16 = u16["cmetaw"], u16["dmetaw"]
     for i, f in enumerate(_FIELDS):
         a.f_word[i], a.f_off[i], a.f_width[i] = layout.get(f, (0, 0, 0))
     for f in ("count_mask", "off_wait", "off_pw", "off_pc", "pc_mask"):
@@ -504,6 +513,7 @@ def stream_run(config: SystemConfig, state: Dict[str, torch.Tensor],
     kw = dict(block=block, k=k, window=window, n_seg=n_seg,
               max_calls=max_calls, gate=gate, snapshots=snapshots,
               packed=packed)
+    CALLS.stream_run += 1
     dev = tr.device
     if dev.type == "cpu":
         new, status = stream_run_plain(config, state, tr, tr_len, **kw)
@@ -539,6 +549,7 @@ def call_run(config: SystemConfig, state: Dict[str, torch.Tensor],
                   n_seg=n_seg, snapshots=snapshots, packed=packed)
     kw = dict(block=block, k=k, window=window, gate=gate,
               snapshots=snapshots, packed=packed)
+    CALLS.call_run += 1
     if tr.device.type == "cpu":
         new = call_plain(config, state, tr, tr_len, seg=seg, **kw)
         for f in fields_of(config, snapshots, packed):

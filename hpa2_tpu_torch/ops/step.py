@@ -55,7 +55,6 @@ Where the port departs from the JAX code, and why:
 from __future__ import annotations
 
 import functools
-import time
 from typing import Optional
 
 import numpy as np
@@ -1430,6 +1429,10 @@ class Run:
     def __call__(self, st: SimState) -> SimState:
         if st.pc.is_cuda:
             return self._run_graphed(st)
+        return self._run_host(st)
+
+    def _run_host(self, st: SimState) -> SimState:
+        """The CPU's loop: one host branch a cycle."""
         while bool(self.cond(st)):
             st = self.body(st)
         return st
@@ -1468,17 +1471,8 @@ class Run:
         return st, flag
 
     def _capture(self, st: SimState):
-        from torch.utils._python_dispatch import TorchDispatchMode
-
-        class _Ops(TorchDispatchMode):
-            """Counts the ops the capture records (one kernel each)."""
-
-            count = 0
-
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                if not func.is_view:
-                    _Ops.count += 1
-                return func(*args, **(kwargs or {}))
+        # the ops the capture records (one kernel each)
+        from hpa2_tpu_torch.analysis.ir import OpCensus
 
         static = SimState(*(x.clone() for x in st))
         side = torch.cuda.Stream()
@@ -1490,13 +1484,13 @@ class Run:
         graph = torch.cuda.CUDAGraph()
         flag = torch.zeros((), dtype=I32, device=st.pc.device)
         with torch.cuda.graph(graph):
-            with _Ops():
+            with OpCensus() as ops:
                 out, f = self.advance_chunk(static, self.chunk)
                 for s, o in zip(static, out):
                     if o is not s:
                         s.copy_(o)
                 flag.copy_(f)
-        self.launches_per_chunk = _Ops.count
+        self.launches_per_chunk = ops.count
         return graph, static, flag
 
     def prepare(self, st: SimState) -> None:
@@ -1691,22 +1685,22 @@ class BoundChunk:
     Ungated, the chunk is ``ChunkRun.run_host``; gated, it is
     ``ceil(interval / chunk)`` rounds of ``chunk`` gated steps, each
     round a replay of a CUDA graph on the card (captured at the first
-    ``advance()``; ``graphs`` counts the captures and ``capture_s`` their
-    seconds) or the same steps run eagerly on the CPU."""
+    ``advance()``; ``graphs`` counts the captures) or the same steps run
+    eagerly on the CPU; ``rounds`` counts the rounds (the replays on the
+    card)."""
 
     def __init__(self, runner: ChunkRun, st: SimState, gated: bool):
         self.runner = runner
         self.st = st
         self.gated = gated
         self.graphs = 0
-        self.capture_s = 0.0
+        self.rounds = 0
         self._graph = None
         dev = st.pc.device
         self.c = torch.zeros((), dtype=I32, device=dev)
         self.out = torch.zeros(st.pc.shape[0] + 2, dtype=I32, device=dev)
 
     def _capture(self):
-        t0 = time.perf_counter()
         r, st = self.runner, self.st
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -1720,7 +1714,6 @@ class BoundChunk:
             self._round()
         self._graph = graph
         self.graphs += 1
-        self.capture_s += time.perf_counter() - t0
 
     def _round(self) -> None:
         """``chunk`` gated steps on the bound tensors (a graph replay's
@@ -1734,6 +1727,7 @@ class BoundChunk:
     def _rounds(self, cycles: int) -> None:
         """Enough rounds to cover ``cycles`` of budget."""
         for _ in range(max(1, -(-cycles // self.runner.chunk))):
+            self.rounds += 1
             if self._graph is not None:
                 self._graph.replay()
             else:
@@ -1749,6 +1743,10 @@ class BoundChunk:
         self.c.zero_()
         self._rounds(r.interval)
 
+    def _status_host(self):
+        """The host loop's status (the CPU's form, which reads no flag)."""
+        return (quiescent(self.st).numpy(), bool(self.st.overflow.any()))
+
     def status(self):
         """Wait for the chunk and read it: (quiescent per system as a
         bool array, overflow).  Under faults a jump longer than the
@@ -1758,14 +1756,12 @@ class BoundChunk:
 
         r, st = self.runner, self.st
         if not self.gated:
-            return (quiescent(st).numpy(), bool(st.overflow.any()))
+            return self._status_host()
         while True:
-            HOST_SYNCS.count += 1
-            out = self.out.cpu().numpy()
+            out = HOST_SYNCS.read(self.out)
             if out[0] == _DONE:
                 return out[2:].astype(bool), bool(out[1])
-            HOST_SYNCS.count += 1  # the budget spent
-            c = int(self.c)
+            c = HOST_SYNCS.read(self.c)  # the budget spent
             if out[0] == _HOST_FF:
                 HOST_SYNCS.count += 1  # the jump
                 new, c = r.host_step(st, c)

@@ -231,6 +231,48 @@ def gen_uniform_random(
     return traces
 
 
+def gen_hot_hit_zipf(
+    config: SystemConfig,
+    instrs_per_core: int,
+    seed: int = 0,
+    write_frac: float = 0.3,
+    spread: float = 8.0,
+    tail: float = 0.01,
+) -> List[List[Instr]]:
+    """Zipf-skewed private hot-set workload, the cycle-elision showcase
+    (the same traces as ``hpa2_tpu.utils.trace.gen_hot_hit_zipf``).
+
+    Each node hammers a private hot set of ``cache_size`` slot-distinct
+    addresses in its own home slice (every hot line keeps its
+    direct-mapped slot for the whole run) with Zipf-like weights of
+    max/min ratio ``spread``, plus a ``tail`` fraction of uniform-random
+    addresses over the whole space, which keeps a trickle of coherence
+    traffic alive."""
+    rng = np.random.default_rng(seed)
+    h = min(config.cache_size, config.mem_size)
+    w = np.arange(1, h + 1, dtype=np.float64) ** -(
+        np.log(spread) / np.log(float(h)) if h > 1 else 0.0
+    )
+    p = w / w.sum()
+    traces = []
+    for n in range(config.num_procs):
+        hot = n * config.mem_size + np.arange(h)
+        addrs = np.where(
+            rng.random(instrs_per_core) < tail,
+            rng.integers(0, config.num_addresses, instrs_per_core),
+            hot[rng.choice(h, size=instrs_per_core, p=p)],
+        )
+        writes = rng.random(instrs_per_core) < write_frac
+        vals = rng.integers(0, 256, instrs_per_core)
+        traces.append(
+            [
+                Instr("W", int(a), int(v)) if is_w else Instr("R", int(a))
+                for a, is_w, v in zip(addrs, writes, vals)
+            ]
+        )
+    return traces
+
+
 def gen_uniform_random_arrays(
     config: SystemConfig,
     batch: int,

@@ -9,7 +9,8 @@ against the CPU and K2 (its batch loop, a replayed system, a faulty
 mesh under MOESI), and its severed-edge stall; its scheduled runs, its
 serving backend and a checkpoint of its rows; the streamed run under
 the HEAD value quirks, and the bench harness
-(``python -m hpa2_tpu_torch.bench``) on the card.  These need an
+(``python -m hpa2_tpu_torch.bench``) on the card; the analysis suite's
+K3 table prober and its contract census on the card.  These need an
 NVIDIA GPU with nvcc (sm_90a) and skip elsewhere; on the card run them
 with
 
@@ -512,3 +513,40 @@ def test_bench_harness_on_card(card):
         if not extra:
             assert rec["omp_ops_per_sec"] > 0 and rec["vs_baseline"] > 0
             assert rec["device"]["name"] == torch.cuda.get_device_name(0)
+
+
+@pytest.mark.parametrize("robust", [False, True])
+def test_k3_table_prober_on_card(card, robust):
+    """The analysis suite's ``pallas`` prober on the card: one K3 launch,
+    every probeable MESI row a lane, 0 table diffs, and the launch's
+    planes equal to the plain version's on the same staged planes."""
+    from hpa2_tpu_torch.analysis import extract
+    from hpa2_tpu_torch.analysis.table import build_table
+    from hpa2_tpu_torch.ops.call_run import call_plain
+
+    sem = Semantics().robust() if robust else Semantics()
+    table = build_table(sem)
+    prober = extract.PallasProber(sem, device="cuda")
+    launches = kernels.CALL_RUN.launches
+    assert extract.diff_backend(table, "pallas", prober=prober) == []
+    assert kernels.CALL_RUN.launches == launches + 1
+    scns = [extract.scenario_for(r) for r in extract.probeable_rows(table)]
+    state, tr, tl = prober.staged(scns)
+    want = call_plain(prober.cfg, state, tr, tl, seg=0, block=len(scns),
+                      k=1, window=1, gate=False, snapshots=False)
+    prober.run(state, tr, tl)
+    assert all(_same(state[f], want[f]) for f in want)
+
+
+def test_contract_census_on_card(card):
+    """``contracts`` on the card: the 8 unsharded points clean with
+    their card rules, the 4 sharded ones skipped, and the wrappers'
+    calls equal to the libraries' launches."""
+    from hpa2_tpu_torch.analysis import contracts, ir
+
+    with ir.launch_census() as c:
+        results = contracts.run_contracts(device="cuda",
+                                          out=lambda line: None)
+    assert sorted(r.status for r in results) == ["ok"] * 8 + ["skip"] * 4
+    assert c["calls.stream_run"] == c["launches.stream_run"] > 0
+    assert c["calls.call_run"] == c["launches.call_run"]

@@ -230,3 +230,54 @@ def test_native_engine_builds_into_the_port():
                and len(n.value) < 40]
     assert "make" not in strings and not any(
         "native/build" in s for s in strings)
+
+
+#: the analysis suite's modules beside the table and checks copies
+ANALYSIS_MODULES = ("extract", "mutate", "elision", "vmem", "ir",
+                    "contracts", "lint", "__main__", "occupancy",
+                    "topology")
+
+
+def test_analysis_suite_stands_alone():
+    """The analysis modules, their pin folder and ``chip_smoke.py``'s
+    ``[analysis]`` phase import no JAX and nothing of the JAX package
+    or the native engine's Python; the pins are data only."""
+    import json
+
+    analysis = PORT / "analysis"
+    for name in ANALYSIS_MODULES:
+        path = analysis / f"{name}.py"
+        assert path.exists(), path
+        assert not set(_imported_roots(path)) & FORBIDDEN, path
+    pins = sorted((analysis / "contracts").iterdir())
+    assert pins and all(p.suffix == ".json" for p in pins)
+    for p in pins:
+        doc = json.loads(p.read_text())
+        assert doc["contract"] == p.stem
+    tree = ast.parse((REPO_ROOT / "chip_smoke.py").read_text())
+    phase = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+                 and n.name == "phase_analysis")
+    roots = {a.name.split(".")[0] for n in ast.walk(phase)
+             if isinstance(n, ast.Import) for a in n.names}
+    roots |= {n.module.split(".")[0] for n in ast.walk(phase)
+              if isinstance(n, ast.ImportFrom) and n.module}
+    assert roots == {"hpa2_tpu_torch"}
+
+
+def test_analysis_entry_points_default_to_the_card():
+    """The analysis suite's device entry points run on the card unless
+    told otherwise, and raise without one."""
+    from hpa2_tpu_torch.analysis import contracts, elision, extract, mutate
+
+    for fn in (extract.PallasProber, extract.JaxProber,
+               extract.diff_backend, extract.diff_multi_backend,
+               contracts.run_contracts, elision.elision_table,
+               mutate.run_fuzz):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    sem = Semantics().robust()
+    for call in (lambda: extract.PallasProber(sem),
+                 lambda: contracts.run_contracts(out=lambda line: None)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

@@ -69,6 +69,12 @@ extern "C" int hpa2_host_stream_run(const hpa2::Args* a) {
 extern "C" int hpa2_host_call_run(const hpa2::Args* a) {
   return dispatch(a, a->seg, 2);
 }
+// a CTA's dynamic shared memory, as the launch computes it
+extern "C" long long hpa2_shared_bytes(int bound, int group, int rounds) {
+  if (bound == 8) return (long long)hpa2::Shared<8>::bytes(group, rounds);
+  if (bound == 21) return (long long)hpa2::Shared<21>::bytes(group, rounds);
+  return (long long)hpa2::Shared<64>::bytes(group, rounds);
+}
 """
 #: (num_procs, cache_size, mem_size) of the wide geometries: SW = 1, 2, 3
 SPLIT22, SPLIT33, SPLIT64 = (22, 2, 4), (33, 4, 8), (64, 2, 4)
@@ -97,6 +103,8 @@ def host_lib():
                                     ctypes.c_int]
     lib.hpa2_host_stream_run.argtypes = [ctypes.POINTER(kernels.Args)]
     lib.hpa2_host_call_run.argtypes = [ctypes.POINTER(kernels.Args)]
+    lib.hpa2_shared_bytes.argtypes = [ctypes.c_int] * 3
+    lib.hpa2_shared_bytes.restype = ctypes.c_longlong
     return lib
 
 
