@@ -2,13 +2,14 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only general-scheduled,serve-jax,recovery,entry,analysis
+    python3 chip_smoke.py --only general-scheduled,serve-jax,recovery,entry,analysis,ablate
 
 (the second form, a debugging aid, runs the build and the named phases
-alone and prints no kernels line).  Builds the three CUDA libraries from ``hpa2_tpu_torch/csrc`` with nvcc,
+alone and prints no kernels line).  Builds the five CUDA libraries from ``hpa2_tpu_torch/csrc`` with nvcc,
 the compilers at once (the streamed run ``stream_run.cu`` and the
-per-call kernel ``call_run.cu``, each for node bounds 8, 21 and 64, and
-the op-pattern micro-kernels ``micro_kernels.cu``), runs the
+per-call kernel ``call_run.cu``, each for node bounds 8, 21 and 64,
+each again with ``-DHPA2_ABLATE`` as K1's ablation variant, and the
+op-pattern micro-kernels ``micro_kernels.cu``), runs the
 micro-kernels' runner (``hpa2_tpu_torch.scripts.micro_kernels``: its
 ``main()`` at 8,192 lanes and its ``bench`` at 32,768) and holds each
 pattern's kernel bit for bit against its plain version at both sizes,
@@ -93,6 +94,12 @@ bound), and drives through ``CudaEngine``:
   ``spec``, ``jax`` and ``native`` at MESI and ``jax`` at MOESI and
   MESIF; ``contracts`` on the card; the elision model's verify against
   ``TorchEngine`` on the card; ``lint``; ``mutation-test``,
+* K1's ablation variant (``[ablate]``, :func:`phase_ablate`): an
+  ablated ``CudaEngine`` run (a deliberately wrong cycle, stalled at its
+  budget) on every ablation instantiation, K2 and K3 at node bounds 8,
+  21 and 64, every stage alone and all three, in lane blocks of one CTA
+  and in the clusters of ``perf_sweep``'s attribution (block 512), each
+  launch held against the plain ablated version,
 
 and prints:
 
@@ -112,7 +119,8 @@ and prints:
   (``[serve]``);
 * one ``{"kernels": [...]}`` line: per kernel its launches on its main
   path (the 64-node streamed run; the headline per-call run; the
-  micro-kernels' runner; the pipelined serving run, K2's cross-checks
+  micro-kernels' runner; the ablation libraries' ``[ablate]`` runs, whose
+  bound is by bytes alone; the pipelined serving run, K2's cross-checks
   beside the general engine and its served rows, the recovery
   supervisor's primary, and K3 as the analysis suite's table prober,
   under ``by_path``; a path held against already-checked planes
@@ -3025,6 +3033,222 @@ def micro_entry(kern, micro):
     }
 
 
+#: the ``[ablate]`` cases: (kernel, node bound, stage set, num_procs,
+#: systems, instructions a core, lane block); every ablation
+#: instantiation (K2 and K3 at node bounds 8, 21 and 64) once, every stage
+#: alone and the three together at least once.  The small lane blocks
+#: fit one CTA; those of 512 give the clusters that
+#: ``scripts/perf_sweep.py``'s attribution times (``launch_geometry``: 2
+#: CTAs at 8 nodes, 8 at 21, 16 at 64), so the ablated cross-CTA code
+#: (the gate's cluster ORs, delivery and ``inv_acc`` across CTAs, the
+#: stubbed walks and clears) is held against the plain version at every
+#: stage set that the attribution times with K2, and at ``phase_a``
+#: (delivery kept) and ``deliver`` with K3.
+ABL_ALL = ("phase_a", "phase_b", "deliver")
+ABLATE_CASES = (
+    ("stream", 8, ("phase_a",), 8, 64, 16, 32),
+    ("stream", 21, ("phase_b",), 12, 32, 12, 16),
+    ("stream", 64, ("deliver",), 64, 16, 8, 16),
+    ("call", 8, ABL_ALL, 8, 64, 16, 32),
+    ("call", 21, ("deliver",), 12, 32, 12, 16),
+    ("call", 64, ABL_ALL, 64, 16, 8, 16),
+) + tuple(
+    ("stream", bound, names, n, 1024, t, 512)
+    for bound, n, t in ((8, 8, 16), (64, 64, 8))
+    for names in (("phase_a",), ("phase_b",), ("deliver",), ABL_ALL)
+) + tuple(
+    ("call", bound, names, n, b, t, 512)
+    for bound, n, b, t in ((8, 8, 1024, 16), (64, 64, 1024, 8))
+    for names in (("phase_a",), ("deliver",))
+) + (
+    ("stream", 21, ("phase_a",), 12, 512, 12, 512),
+    ("call", 21, ("phase_a",), 12, 512, 12, 512),
+)
+#: the ablated runs' budget: four calls of 8 cycles
+ABLATE_K, ABLATE_CYCLES = 8, 32
+
+
+def plane_bytes(planes) -> int:
+    return sum(v.numel() * v.element_size() for v in planes.values())
+
+
+def phase_ablate():
+    """``[ablate]``: K1's ablation variant inside K2 and K3
+    (``kernels.ABLATE_KERNELS``), driven through ``CudaEngine(_ablate=)``
+    as ``scripts/perf_sweep.py --ablate`` drives it, at a small depth
+    (:data:`ABLATE_CASES`, a budget of 32 cycles, which every ablated run
+    reaches with a ``StallError``).  Every launch is held plane for plane
+    (and, streamed, stall plane) against the plain ablated version on a
+    copy of its planes, and timed by CUDA events around the library
+    launch; the plain version is timed alone.  The ablation libraries'
+    counts are zeroed before the runs and read after; the default
+    libraries must not launch.  Returns the kernels line's records."""
+    from hpa2_tpu_torch.config import Semantics, SystemConfig
+    from hpa2_tpu_torch.ops import kernels
+    from hpa2_tpu_torch.ops.call_run import call_plain
+    from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
+    from hpa2_tpu_torch.ops.layout import StallError
+    from hpa2_tpu_torch.ops.stream_run import stream_run_plain
+    from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
+
+    robust = Semantics().robust()
+    libs = {"stream": kernels.STREAM_RUN_ABLATE,
+            "call": kernels.CALL_RUN_ABLATE}
+    rec = {kern.name: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "err": 0,
+                       "checked": 0, "cases": []} for kern in libs.values()}
+    wrapped = {"stream_run": kernels.stream_run,
+               "call_run": kernels.call_run}
+    pending = []
+
+    def timed(kern):
+        launch = kern.launch
+
+        def run(*args, device):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            launch(*args, device=device)
+            end.record()
+            pending.append((kern.name, start, end))
+        return run
+
+    def settle():
+        torch.cuda.synchronize()
+        for name, a, b in pending:
+            rec[name]["ms"] += a.elapsed_time(b)
+        pending.clear()
+
+    def check(name, config, kw, before, got, want, status=None):
+        diff = plane_diff(config, kw["snapshots"], got, want)
+        if status is not None:
+            diff["status"] = int((status[0].long()
+                                  - status[1].long()).abs().max())
+        r = rec[name]
+        r["err"] = max(r["err"], check_diff(f"ablate {name}", diff))
+        r["checked"] += 1
+        # bytes: every carried plane read and written, the traces read
+        r["bytes"] += 2 * plane_bytes(before) + kw["tr_bytes"]
+
+    def stream_run(config, state, tr, tr_len, **kw):
+        before = {f: v.clone() for f, v in state.items()}
+        status = wrapped["stream_run"](config, state, tr, tr_len, **kw)
+        settle()
+        (want, want_status), plain = elapsed_ms(
+            lambda: stream_run_plain(config, before, tr, tr_len, **kw))
+        rec["stream_run_ablate"]["plain_ms"] += plain
+        check("stream_run_ablate", config,
+              dict(kw, tr_bytes=plane_bytes({"tr": tr, "l": tr_len})),
+              before, state, want, (status, want_status))
+        return status
+
+    def call_run(config, state, tr, tr_len, *, seg, **kw):
+        before = {f: v.clone() for f, v in state.items()}
+        wrapped["call_run"](config, state, tr, tr_len, seg=seg, **kw)
+        settle()
+        want, plain = elapsed_ms(lambda: call_plain(
+            config, before, tr, tr_len, seg=seg, **kw))
+        rec["call_run_ablate"]["plain_ms"] += plain
+        check("call_run_ablate", config,
+              dict(kw, tr_bytes=plane_bytes({"tr": tr, "l": tr_len})),
+              before, state, want)
+
+    for kern in kernels.LIBRARIES:
+        kern.launches = 0
+    for kern in libs.values():
+        kern.launch = timed(kern)
+    kernels.stream_run, kernels.call_run = stream_run, call_run
+    try:
+        for what, bound, names, n, b, t, block in ABLATE_CASES:
+            cfg = SystemConfig(num_procs=n, msg_buffer_size=16,
+                               semantics=robust)
+            assert kernels.node_bound(cfg) == bound
+            arrays = gen_uniform_random_arrays(cfg, b, t, seed=bound)
+            eng = CudaEngine(cfg, *arrays, block=block,
+                             cycles_per_call=ABLATE_K, snapshots=False,
+                             trace_window=t // 2, stream=what == "stream",
+                             _ablate=frozenset(names))
+            t0 = time.perf_counter()
+            try:
+                eng.run(max_cycles=ABLATE_CYCLES)
+            except StallError:
+                pass
+            else:
+                raise AssertionError(f"ablated {names} run quiesced")
+            cycles = int(eng.state["scalars"][0].max())
+            if cycles != ABLATE_CYCLES:
+                raise AssertionError(
+                    f"ablated {names} ran {cycles} cycles, not "
+                    f"{ABLATE_CYCLES}")
+            lib = libs[what]
+            rec[lib.name]["cases"].append(
+                f"{'+'.join(names)} at bound {bound}")
+            print(f"[ablate] {lib.name} node bound {bound} ({n} nodes), "
+                  f"{'+'.join(names)}: {b} systems x {t} instrs, block "
+                  f"{block}, k {ABLATE_K}, windows of {t // 2}: stalled at "
+                  f"{cycles} cycles as it must, {lib.launches} launches so "
+                  f"far, each held against the plain version, max_abs_err="
+                  f"{rec[lib.name]['err']} "
+                  f"({time.perf_counter() - t0:.1f} s)")
+    finally:
+        kernels.stream_run = wrapped["stream_run"]
+        kernels.call_run = wrapped["call_run"]
+        for kern in libs.values():
+            del kern.launch
+    launches = {kern.name: kern.launches for kern in kernels.LIBRARIES}
+    for kern in libs.values():
+        if launches[kern.name] == 0 or \
+                rec[kern.name]["checked"] != launches[kern.name]:
+            raise AssertionError(
+                f"[ablate] {kern.name}: {launches[kern.name]} launches, "
+                f"{rec[kern.name]['checked']} checked")
+    if any(launches[kern.name] for kern in kernels.KERNELS):
+        raise AssertionError(
+            f"[ablate] an ablated run launched a default kernel: {launches}")
+    out = []
+    for what, kern in libs.items():
+        r = rec[kern.name]
+        bound_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        print(f"[ablate] {kern.name}: {launches[kern.name]} launches, "
+              f"{r['ms']:.3f} ms on the card, plain {r['plain_ms']:.1f} ms, "
+              f"bound {bound_ms:.6f} ms (bytes), max_abs_err={r['err']}")
+        out.append({
+            "name": kern.name, "route": "cuda", "source": kern.source,
+            "replaces": kern.replaces,
+            "variants": ["ablation stubs phase_a, phase_b, deliver (a "
+                         "runtime mask); int32 planes at node bounds 8, 21 "
+                         "and 64; a deliberately wrong cycle, timing only"],
+            "launches": launches[kern.name], "max_abs_err": r["err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None,
+            "by_path": {"ablate": {"cases": r["cases"],
+                                   "checked_launches": r["checked"]}},
+        })
+    return out
+
+
+def host_cpu() -> str:
+    """The host's CPU as ``/proc/cpuinfo`` gives it for its first
+    processor: model name, vendor, family and model, clock and cache
+    (a virtualised host may report the model name as "unknown"; the
+    family, model and clock still tell machines apart),
+    and the core count."""
+    import platform
+
+    info = {}
+    with contextlib.suppress(OSError):
+        for line in pathlib.Path("/proc/cpuinfo").read_text().splitlines():
+            if not line.strip():
+                break
+            key, _, val = line.partition(":")
+            info[key.strip()] = val.strip()
+    if not info:
+        return f"{platform.machine() or 'unknown'}, {os.cpu_count()} cores"
+    return (f"{info.get('model name', 'unknown')} ({info.get('vendor_id', '?')}"
+            f" family {info.get('cpu family', '?')} model "
+            f"{info.get('model', '?')}, {info.get('cpu MHz', '?')} MHz, "
+            f"cache {info.get('cache size', '?')}), {os.cpu_count()} cores")
+
+
 def phase_analysis(budget_rows):
     """``[analysis]``: ``python -m hpa2_tpu_torch.analysis``'s checks on
     the card.  ``equiv`` on the semantics sets ``check`` uses: the
@@ -3171,7 +3395,8 @@ def phase_analysis(budget_rows):
 #: the phases ``--only`` may name (a debugging aid: those phases alone,
 #: after the build, and no kernels line); with no arguments every phase
 #: runs
-ONLY = ("general-scheduled", "serve-jax", "recovery", "entry", "analysis")
+ONLY = ("general-scheduled", "serve-jax", "recovery", "entry", "analysis",
+        "ablate")
 
 
 def main(argv=None) -> int:
@@ -3252,17 +3477,21 @@ def main(argv=None) -> int:
                             ("recovery", phase_recovery),
                             ("entry", phase_entry),
                             ("analysis", lambda card: phase_analysis(
-                                budget_rows))):
+                                budget_rows)),
+                            ("ablate", lambda card: phase_ablate())):
             if name in only:
                 t0 = time.perf_counter()
                 phase(card)
                 wall[name] = time.perf_counter() - t0
-        print("[wall] " + ", ".join(f"{k} {v:.1f} s"
-                                    for k, v in wall.items()))
+        print(f"[wall] host {host_cpu()}: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in wall.items()))
         return 0
     t0 = time.perf_counter()
     micro = phase_micro()
     wall["micro-kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ablated = phase_ablate()
+    wall["ablate"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     err = phase_compare()
     err = max(err, phase_wide_compare())
@@ -3322,7 +3551,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     analysis = phase_analysis(budget_rows)
     wall["analysis"] = time.perf_counter() - t0
-    print("[wall] " + ", ".join(f"{k} {v:.1f} s" for k, v in wall.items()))
+    print(f"[wall] host {host_cpu()}: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in wall.items()))
 
     keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by")
 
@@ -3404,7 +3634,8 @@ def main(argv=None) -> int:
             + [p.get("max_abs_err", 0)
                for p in kern_entry["by_path"].values()])
     print(json.dumps({"kernels": [stream_entry, call_entry,
-                                  micro_entry(kernels.MICRO, micro)]}))
+                                  micro_entry(kernels.MICRO, micro)]
+                      + ablated}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -162,6 +162,27 @@ constexpr int kAddrMask = (1 << 21) - 1;
 // and whether the last cycle of this launch left it deferred slots
 constexpr int kRingMask = (1 << 14) - 1;
 constexpr int kKnown = 1 << 14, kDeferred = 1 << 15;
+
+// The ablation variant (pallas_engine.py:build_cycle(ablate=), l.545-547
+// and :577-580): a deliberately WRONG cycle with named stages stubbed
+// out, to attribute a cycle's time to its stages on the card (ncu does
+// not run where the card is).  Never use it outside timing runs.
+//   kAblatePhaseA (:688): every mailbox head is still popped and
+//     decoded, but its type reads as "no message" (JAX forces mt), so
+//     no handler acts on it;
+//   kAblatePhaseB (:1123): no node issues (such a run never quiesces);
+//   kAblateDeliver (:1281, :1649): no candidate is delivered, and sends
+//     vanish without deferral (outbox cleared, no node blocked).
+// JAX folds the stubs away when it traces the kernel, one program per
+// subset.  Here the stubs are `if constexpr (ABL)` code: the default
+// instantiations (ABL false) compile them out, and the ablatable ones
+// (built apart, with -DHPA2_ABLATE, into their own libraries) read a
+// runtime mask (Args::ablate) and skip a stage's instructions by a
+// branch that is uniform across the card.  One instantiation a node
+// bound serves all seven subsets (7 x 3 x 2 would be 42 of them), and
+// its register allocation stays close to the default's, so occupancy
+// does not change under the measurement.
+enum { kAblatePhaseA = 1, kAblatePhaseB = 2, kAblateDeliver = 4 };
 // the outbox slots with one receiver each (phase A: 0, 1; phase B: 3, 4)
 HPA2_HD int one_slot(int q) { return q < 2 ? q : q + 1; }
 
@@ -193,6 +214,11 @@ struct Args {
   int32_t packed, cmeta_u16, dmeta_u16;  // meta planes u16 (else u8)
   int32_t f_word[kNFields], f_off[kNFields], f_width[kNFields];
   int32_t count_mask, off_wait, off_pw, off_pc, pc_mask;
+  // the stages an ablated instantiation stubs out (kAblate* bits); read
+  // only where ABL is set, so the default kernels never see it (the
+  // field fills what was padding before `live`: sizeof(Args) is as it
+  // was)
+  int32_t ablate;
   WordPlanes live, snap;         // snap: when snapshots
   int32_t* mb[kMaxW];            // [N, cap, B]
   int32_t* nsw;                  // [N, B]
@@ -647,7 +673,7 @@ HPA2_HD void put(Slot<KW>& s, int recv, const int32_t* w) {
 // ===== phase AB: every node of lane x.l that thread x.t owns ==========
 // handles its mailbox head (A), issues one instruction (B), stages its
 // fresh sends in its outbox slots and publishes them.
-template <int MAXN, bool PACKED>
+template <int MAXN, bool PACKED, bool ABL = false>
 HPA2_HD void phase_ab(const Args& a, const Lane<MAXN>& x, const int seg) {
   constexpr int KW = Bound<MAXN>::W, KSW = Bound<MAXN>::SW;
   constexpr bool SPLIT = Bound<MAXN>::SPLIT;
@@ -714,7 +740,10 @@ HPA2_HD void phase_ab(const Args& a, const Lane<MAXN>& x, const int seg) {
       int32_t head[KW];
       HPA2_UNROLL for (int w = 0; w < KW; ++w)
         head[w] = w < W ? HPA2_AT(a.mb[w], i * cap + h) : 0;
-      const int mt = fget<KW>(a, head, F_TYPE);
+      // the phase_a stub (ABL only): the head is popped as above, but its
+      // type reads as "no message", so no handler acts on it
+      const int mt =
+          ABL && (a.ablate & kAblatePhaseA) ? -1 : fget<KW>(a, head, F_TYPE);
       const int snd = fget<KW>(a, head, F_SENDER);
       const int sr = fget<KW>(a, head, F_SECOND) - 1;
       const int ad = fget<KW>(a, head, F_ADDR);
@@ -984,7 +1013,8 @@ HPA2_HD void phase_ab(const Args& a, const Lane<MAXN>& x, const int seg) {
     const int count2 = mbc - (has_msg ? 1 : 0);
 
     // ===== phase B: instruction issue ================================
-    const bool elig = count2 == 0 && wt == 0 && !blocked && pc < tl;
+    const bool elig = !(ABL && (a.ablate & kAblatePhaseB)) && count2 == 0 &&
+                      wt == 0 && !blocked && pc < tl;
     int pending = pw;
     bool ev_issue = false;
     if (elig) {
@@ -1097,7 +1127,7 @@ HPA2_HD int next_sender(const Lane<MAXN>& x, int pass, int s0) {
 // sender's slots 0, 1 and INV are receiver-disjoint and deliver as one
 // candidate, the word a per-receiver select), then slots 3 and 4 of
 // senders 0..n-1.  It accepts while its queue has room.
-template <int MAXN>
+template <int MAXN, bool ABL = false>
 HPA2_HD void phase_c(const Args& a, const Lane<MAXN>& x) {
   constexpr int KW = Bound<MAXN>::W, KSW = Bound<MAXN>::SW;
   const int l = x.l, n = a.n, cap = a.cap, W = a.W, t = x.t;
@@ -1129,8 +1159,11 @@ HPA2_HD void phase_c(const Args& a, const Lane<MAXN>& x) {
     return true;
   };
 
+  // the deliver stub walks no candidate
+  const bool walk = !(ABL && (a.ablate & kAblateDeliver));
   // senders in increasing order, those with a candidate only
-  for (int s = next_sender(x, 0, 0); s >= 0; s = next_sender(x, 0, s + 1)) {
+  for (int s = walk ? next_sender(x, 0, 0) : -1; s >= 0;
+       s = next_sender(x, 0, s + 1)) {
     NodeRec& rs = x.rec(s);
     const int r0 = rs.rcv[0], r1 = rs.rcv[1];
     int32_t iv[KSW];
@@ -1158,7 +1191,8 @@ HPA2_HD void phase_c(const Args& a, const Lane<MAXN>& x) {
         sh_or(&x.inv_acc(s, r / kSplitBpw), (int32_t)(1u << (r % kSplitBpw)));
     }
   }
-  for (int s = next_sender(x, 1, 0); s >= 0; s = next_sender(x, 1, s + 1)) {
+  for (int s = walk ? next_sender(x, 1, 0) : -1; s >= 0;
+       s = next_sender(x, 1, s + 1)) {
     NodeRec& rs = x.rec(s);
     HPA2_UNROLL for (int q = 2; q < 4; ++q) {
       const int r = rs.rcv[q];
@@ -1175,7 +1209,7 @@ HPA2_HD void phase_c(const Args& a, const Lane<MAXN>& x) {
 // clears its delivered slots, keeps the rest for the next cycle (and is
 // then blocked), writes nsw, counts its deliveries by type and takes
 // the phase-D snapshot.
-template <int MAXN, bool PACKED>
+template <int MAXN, bool PACKED, bool ABL = false>
 HPA2_HD void phase_c2(const Args& a, const Lane<MAXN>& x, const int seg) {
   constexpr int KW = Bound<MAXN>::W, KSW = Bound<MAXN>::SW;
   constexpr bool SPLIT = Bound<MAXN>::SPLIT;
@@ -1195,6 +1229,14 @@ HPA2_HD void phase_c2(const Args& a, const Lane<MAXN>& x, const int seg) {
       const int r = rs.rcv[q];
       if (r < 0) continue;
       const int row = s * kNSlots + one_slot(q);
+      if constexpr (ABL) {
+        if (a.ablate & kAblateDeliver) {  // the send vanishes, not deferred
+          HPA2_UNROLL for (int w = 0; w < KW; ++w)
+            if (w < W) HPA2_AT(a.ob[w], row) = 0;
+          if (!a.recv_packed) HPA2_AT(a.ob_recv, row) = -1;
+          continue;
+        }
+      }
       if (rs.got[q]) {
         const int t = (HPA2_AT(a.ob[type_w], row) >> type_off) & type_mask;
         sh_add(&x.cnt(SC_MSGS), 1);
@@ -1220,6 +1262,10 @@ HPA2_HD void phase_c2(const Args& a, const Lane<MAXN>& x, const int seg) {
     if (dinv) {
       sh_add(&x.cnt(SC_MSGS), dinv);
       sh_add(&x.cnt(kNScalar + INV), dinv);
+    }
+    if constexpr (ABL) {
+      // the INV remainder vanishes too: the slot is cleared below
+      if (a.ablate & kAblateDeliver) rem_any = 0;
     }
     if (rem_any || rs.dv2) {
       int32_t w2[KW];
@@ -1262,12 +1308,12 @@ HPA2_HD void phase_c2(const Args& a, const Lane<MAXN>& x, const int seg) {
 // thread reads what another wrote; phase C2 writes only its own
 // nodes' planes and records, so the next phase AB follows it at once.
 
-template <int MAXN, bool PACKED, class Team>
+template <int MAXN, bool PACKED, bool ABL = false, class Team>
 HPA2_HD void cycle(const Args& a, Team& tm, const int seg) {
   for (int r = 0; r < a.rounds; ++r) {
-    tm.each(r, [&](const Lane<MAXN>& x) { phase_ab<MAXN, PACKED>(a, x, seg); });
-    tm.each(r, [&](const Lane<MAXN>& x) { phase_c<MAXN>(a, x); });
-    tm.each(r, [&](const Lane<MAXN>& x) { phase_c2<MAXN, PACKED>(a, x, seg); },
+    tm.each(r, [&](const Lane<MAXN>& x) { phase_ab<MAXN, PACKED, ABL>(a, x, seg); });
+    tm.each(r, [&](const Lane<MAXN>& x) { phase_c<MAXN, ABL>(a, x); });
+    tm.each(r, [&](const Lane<MAXN>& x) { phase_c2<MAXN, PACKED, ABL>(a, x, seg); },
             false);
     // the next cycle-round's phase AB may run beside this phase C2, so
     // it marks its senders in the other parity's masks
@@ -1349,15 +1395,15 @@ HPA2_HD bool block_work(const Args& a, Team& tm, const int seg) {
 }
 
 // One cycle of a lane block (the host tests' single-cycle entry).
-template <int MAXN, bool PACKED, class Team>
+template <int MAXN, bool PACKED, bool ABL = false, class Team>
 HPA2_HD void cycle_block(const Args& a, Team& tm, const int seg) {
-  cycle<MAXN, PACKED>(a, tm, seg);
+  cycle<MAXN, PACKED, ABL>(a, tm, seg);
   write_back<MAXN>(a, tm);
 }
 
 // The streamed run of one lane block.  Decisions are the block's, so
 // every thread of its cluster follows the same control flow.
-template <int MAXN, bool PACKED, class Team>
+template <int MAXN, bool PACKED, bool ABL = false, class Team>
 HPA2_HD void stream_block(const Args& a, Team& tm) {
   // a call is ceil(k/8) gated bursts of 8 cycles, or one burst of k
   // cycles without the gate
@@ -1379,7 +1425,7 @@ HPA2_HD void stream_block(const Args& a, Team& tm) {
         // gate 0 opens: the loop test just found work; a closed gate
         // stays closed
         if (g > 0 && !block_work<MAXN>(a, tm, seg)) break;
-        for (int j = 0; j < burst_len; ++j) cycle<MAXN, PACKED>(a, tm, seg);
+        for (int j = 0; j < burst_len; ++j) cycle<MAXN, PACKED, ABL>(a, tm, seg);
       }
       ++calls;
     }
@@ -1400,17 +1446,17 @@ HPA2_HD void stream_block(const Args& a, Team& tm) {
 // it, k cycles run straight.  The host loop (ops/call_run.py:
 // run_windows) clears pc at window bases and decides, from the whole
 // ensemble, whether another call is needed.
-template <int MAXN, bool PACKED, class Team>
+template <int MAXN, bool PACKED, bool ABL = false, class Team>
 HPA2_HD void call_block(const Args& a, Team& tm) {
   const int seg = a.seg;
   if (!a.gate) {
-    for (int j = 0; j < a.k; ++j) cycle<MAXN, PACKED>(a, tm, seg);
+    for (int j = 0; j < a.k; ++j) cycle<MAXN, PACKED, ABL>(a, tm, seg);
   } else {
     const int bursts = (a.k + kGate - 1) / kGate;
     for (int g = 0; g < bursts; ++g) {
       // a quiescent block stays quiescent
       if (!block_work<MAXN>(a, tm, seg)) break;
-      for (int j = 0; j < kGate; ++j) cycle<MAXN, PACKED>(a, tm, seg);
+      for (int j = 0; j < kGate; ++j) cycle<MAXN, PACKED, ABL>(a, tm, seg);
     }
   }
   write_back<MAXN>(a, tm);

@@ -50,11 +50,13 @@ def window_planes(tr: torch.Tensor, tr_len: torch.Tensor, seg: int,
 def call_plain(config: SystemConfig, state: Dict[str, torch.Tensor],
                tr: torch.Tensor, tr_len: torch.Tensor, *, seg: int,
                block: int, k: int, window: int, gate: bool,
-               snapshots: bool, packed: bool = False):
+               snapshots: bool, packed: bool = False,
+               ablate: frozenset = frozenset()):
     """One call in trace window ``seg``.  Returns the new carried
-    planes (``state`` is not changed)."""
+    planes (``state`` is not changed).  ``ablate`` stubs out cycle
+    stages (``ops/cycle.py:ABLATE_STAGES``)."""
     fields = fields_of(config, snapshots, packed)
-    cycle = build_cycle(config, snapshots, packed)
+    cycle = build_cycle(config, snapshots, packed, ablate)
     slsc = _scalar_layout(config, window)
     trw, tl = window_planes(tr, tr_len, seg, window)
     st = {f: state[f] for f in fields}
@@ -75,13 +77,13 @@ def run_windows(config: SystemConfig, state: Dict[str, torch.Tensor],
                 tr: torch.Tensor, tr_len: torch.Tensor, *, block: int,
                 k: int, window: int, n_seg: int, max_calls: int,
                 gate: bool, snapshots: bool, packed: bool = False,
-                call=None) -> torch.Tensor:
+                call=None, ablate: frozenset = frozenset()) -> torch.Tensor:
     """Run every system through all ``n_seg`` windows of ``tr`` by
     calls of ``call`` (default ``kernels.call_run``: the kernel on CUDA
     tensors, the plain version on CPU tensors), updating ``state`` in
     place.  Returns the status word as an int32 scalar on the planes'
     device, not read: bit 0 a window ended with work left, bit 1 a
-    mailbox overflowed."""
+    mailbox overflowed.  ``ablate`` is passed on to every call."""
     # kernels imports this module for call_plain
     from hpa2_tpu_torch.ops import kernels
 
@@ -89,7 +91,7 @@ def run_windows(config: SystemConfig, state: Dict[str, torch.Tensor],
     slsc = _scalar_layout(config, window)
     pc_clear = ~(slsc["pc_mask"] << slsc["off_pc"])
     kw = dict(block=block, k=k, window=window, gate=gate,
-              snapshots=snapshots, packed=packed)
+              snapshots=snapshots, packed=packed, ablate=ablate)
     calls, stalled = 0, False
     for seg in range(n_seg):
         # window base: every lane is quiescent (or the run has already

@@ -32,6 +32,7 @@ from hpa2_tpu_torch.convert import state_from_numpy
 from hpa2_tpu_torch.models.protocol import MsgType
 from hpa2_tpu_torch.ops import kernels
 from hpa2_tpu_torch.ops.call_run import run_windows
+from hpa2_tpu_torch.ops.cycle import ablate_set
 from hpa2_tpu_torch.ops.layout import (
     _SC_CYCLE, _SC_EV, _SC_INSTR, _SC_INV, _SC_MSGS, _SC_OVERFLOW, _SC_RH,
     _SC_RM, _SC_WH, _SC_WM, TORCH_DTYPES, StallError, _check_geometry,
@@ -97,15 +98,17 @@ def run_program(config: SystemConfig, state: Dict[str, torch.Tensor],
                 tr: torch.Tensor, tr_len: torch.Tensor, *, stream: bool,
                 block: int, k: int, window: int, n_seg: int, max_calls: int,
                 gate: bool, snapshots: bool,
-                packed: bool = False) -> torch.Tensor:
+                packed: bool = False,
+                ablate: frozenset = frozenset()) -> torch.Tensor:
     """Run every system of ``state`` through the ``n_seg`` windows of
     ``tr``: the streamed kernel (``stream=True``) or the per-call
     kernel's host loop.  Updates ``state`` in place and returns the
     status word (bit 0 stall, bit 1 overflow) as an int32 scalar on the
-    planes' device, not read."""
+    planes' device, not read.  ``ablate`` stubs out cycle stages (the
+    ablation kernels; timing only)."""
     kw = dict(block=block, k=k, window=window, n_seg=n_seg,
               max_calls=max_calls, gate=gate, snapshots=snapshots,
-              packed=packed)
+              packed=packed, ablate=ablate)
     if not stream:
         return run_windows(config, state, tr, tr_len, **kw)
     stall = kernels.stream_run(config, state, tr, tr_len, **kw)
@@ -188,7 +191,15 @@ class CudaEngine:
 
     ``device="cpu"`` runs the kernels' plain PyTorch versions (the
     tests); the default ``"cuda"`` launches the kernels and raises when
-    there is no GPU."""
+    there is no GPU.
+
+    ``_ablate`` (timing only, ``scripts/perf_sweep.py --ablate``) names
+    cycle stages to stub out (``ops/cycle.py:ABLATE_STAGES``), on every
+    path: the run is then deliberately wrong and never quiesces unless
+    its traces are empty, so bound it with ``max_cycles``.  On the card
+    it runs the ablation kernels, which take int32 planes only (a packed
+    ablated run raises when it launches); an unknown stage name raises
+    here."""
 
     def __init__(
         self,
@@ -206,8 +217,10 @@ class CudaEngine:
         schedule=None,
         packed: bool = False,
         device="cuda",
+        _ablate: frozenset = frozenset(),
     ):
         b, _, t = tr_op.shape
+        self._ablate = ablate_set(_ablate)
         self.config = config
         self.b = b
         self.schedule = schedule
@@ -289,7 +302,7 @@ class CudaEngine:
             self.config, state, tr, tr_len, stream=self._stream,
             block=self.block, k=self.cycles_per_call, window=self._window,
             n_seg=n_seg, max_calls=max_calls, gate=self._gate,
-            snapshots=snapshots, packed=self._packed)
+            snapshots=snapshots, packed=self._packed, ablate=self._ablate)
 
     def run(self, max_cycles: int = 1_000_000) -> "CudaEngine":
         # the run loop resets pc at every window base, so a run is not

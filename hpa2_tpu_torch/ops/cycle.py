@@ -22,6 +22,12 @@ Per cycle:
   until it is delivered;
 * phase D: dump-at-local-completion snapshots;
 * counters.
+
+``ablate`` (timing only, ``scripts/perf_sweep.py --ablate``) stubs out
+named stages as ``build_cycle(ablate=)`` does in the JAX package
+(``pallas_engine.py:545-547``): the cycle is then deliberately wrong,
+and serves to attribute a cycle's time to its stages on the card
+(:data:`ABLATE_STAGES`).
 """
 
 from __future__ import annotations
@@ -42,6 +48,31 @@ from hpa2_tpu_torch.ops.layout import (
 )
 
 I32 = torch.int32
+
+#: the cycle stages an ablated cycle may stub out, and their bits in the
+#: kernels' ``Args::ablate`` mask (``kAblate*`` in csrc/cycle.cuh):
+#: ``phase_a`` pops every mailbox head but handles none
+#: (pallas_engine.py:688), ``phase_b`` lets no node issue (:1123), and
+#: ``deliver`` delivers no candidate, the sends vanishing without
+#: deferral (:1281, :1649)
+ABLATE_STAGES = {"phase_a": 1, "phase_b": 2, "deliver": 4}
+
+
+def ablate_set(names) -> frozenset:
+    """``names`` as a frozenset of :data:`ABLATE_STAGES`; an unknown name
+    raises ``ValueError`` (the JAX package ignores one silently)."""
+    names = frozenset(names)
+    unknown = sorted(names - set(ABLATE_STAGES))
+    if unknown:
+        raise ValueError(
+            f"unknown ablation stage(s) {unknown}: the stages are "
+            f"{', '.join(ABLATE_STAGES)}")
+    return names
+
+
+def ablate_mask(names) -> int:
+    """The ``Args::ablate`` bits of the stages ``names``."""
+    return sum(ABLATE_STAGES[x] for x in ablate_set(names))
 
 
 def _popcount(x: torch.Tensor) -> torch.Tensor:
@@ -101,10 +132,12 @@ def _narrow_dir(dirw, meta_dtype):
 
 
 def build_cycle(config: SystemConfig, snapshots: bool = True,
-                packed: bool = False):
+                packed: bool = False, ablate: frozenset = frozenset()):
     """The cycle function ``state dict -> state dict`` for ``config``.
     The dict holds the carried planes plus ``tr`` [N, T, B] (the trace
-    window) and ``tr_len`` [N, B]."""
+    window) and ``tr_len`` [N, B].  ``ablate`` names stubbed stages
+    (:data:`ABLATE_STAGES`); an ablated cycle is wrong by design."""
+    ablate = ablate_set(ablate)
     _check_geometry(config)
     _check_semantics(config)
     n, c, m = config.num_procs, config.cache_size, config.mem_size
@@ -153,6 +186,8 @@ def build_cycle(config: SystemConfig, snapshots: bool = True,
         has_msg = (mb_count_in > 0) & ~blocked
         heads = [s[f"mb{w}"][:, 0, :] for w in range(W)]
         mt = where(has_msg, dec(heads, "type"), torch.full_like(zero, _NO_MSG))
+        if "phase_a" in ablate:  # the head is popped, no handler acts
+            mt = torch.full_like(zero, _NO_MSG)
         snd = dec(heads, "sender")
         sr = dec(heads, "second") - 1
         a = dec(heads, "addr")
@@ -511,6 +546,8 @@ def build_cycle(config: SystemConfig, snapshots: bool = True,
         elig = (
             (count2 == 0) & (waiting == 0) & ~blocked & (pc_in < tr_len)
         )
+        if "phase_b" in ablate:  # no node issues
+            elig = false
         t_dim = s["tr"].shape[1]
         wi = read(s["tr"], pc_in.clamp(max=t_dim - 1))
         op = wi & 1
@@ -593,7 +630,9 @@ def build_cycle(config: SystemConfig, snapshots: bool = True,
 
         mbs = qdata
         acc = zero                       # running enqueue offset
-        acc_masks = [[None] * n for _ in range(_NSLOTS)]
+        acc_masks = [[zero] * n for _ in range(_NSLOTS)]
+        # the deliver stub walks no candidate: nothing is accepted
+        senders = range(0 if "deliver" in ablate else n)
 
         def enqueue(mbs, acc, valid, words_r):
             pos = count2 + acc
@@ -611,7 +650,7 @@ def build_cycle(config: SystemConfig, snapshots: bool = True,
 
         # a sender's three phase-A slots are receiver-disjoint, so they
         # deliver as one candidate (the word a per-receiver select)
-        for sender in range(n):
+        for sender in senders:
             vA0 = iota_n == sA0["recv"][sender][None, :]
             vA1 = iota_n == sA1["recv"][sender][None, :]
             vInv = sv_test([x[sender][None, :].expand(n, bb) for x in inv_shw],
@@ -626,7 +665,7 @@ def build_cycle(config: SystemConfig, snapshots: bool = True,
             acc_masks[0][sender] = (vA0 & accepted).to(I32)
             acc_masks[1][sender] = (vA1 & accepted).to(I32)
             acc_masks[2][sender] = (vInv & accepted).to(I32)
-        for sender in range(n):
+        for sender in senders:
             for k in (3, 4):
                 valid = iota_n == slots5[k]["recv"][sender][None, :]
                 words_r = [words5[k][w][sender][None, :] for w in range(W)]
@@ -685,6 +724,12 @@ def build_cycle(config: SystemConfig, snapshots: bool = True,
                 ]
             ws = [where(defer5[k] != 0, wk, zero) for k, wk in enumerate(ws)]
             ob_new.append(torch.stack(ws, 1))
+        if "deliver" in ablate:
+            # sends vanish without deferral: the outbox is cleared and
+            # no node is blocked
+            z5 = torch.zeros((n, _NSLOTS, bb), dtype=I32, device=dev)
+            ob_new = [z5] * W
+            defer5 = [zero] * _NSLOTS
         blocked_next = (
             defer5[0] + defer5[1] + defer5[2] + defer5[3] + defer5[4]
         ) > 0

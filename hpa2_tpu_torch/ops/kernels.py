@@ -11,6 +11,12 @@ Two kernels share the cycle in ``csrc/cycle.cuh``:
 
 A third library, ``csrc/micro_kernels.cu`` (:data:`MICRO`), holds the
 five op-pattern micro-kernels that ``scripts/micro_kernels.py`` drives.
+Two more (:data:`ABLATE_KERNELS`) are the two fast-path sources built
+again with ``-DHPA2_ABLATE``: K1's ablation variant inside each, a
+deliberately wrong cycle with named stages stubbed out at run time
+(``ops/cycle.py:ABLATE_STAGES``), for timing only
+(``scripts/perf_sweep.py --ablate``).  They are not on the main path,
+so they stay out of :data:`KERNELS`.
 
 Each is compiled by ``nvcc`` for ``sm_90a`` into a shared library with a
 plain C interface under ``hpa2_tpu_torch/build/`` at first use (the
@@ -54,6 +60,7 @@ from hpa2_tpu_torch.ops.layout import (
     fields_of, packed_plane_dtypes, state_dtypes, state_shapes,
 )
 from hpa2_tpu_torch.ops.call_run import call_plain
+from hpa2_tpu_torch.ops.cycle import ablate_mask
 from hpa2_tpu_torch.ops.stream_run import stream_run_plain
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -122,7 +129,8 @@ class Args(ctypes.Structure):
            ("f_off", ctypes.c_int32 * len(_FIELDS)),
            ("f_width", ctypes.c_int32 * len(_FIELDS))]
         + [(f, ctypes.c_int32) for f in (
-            "count_mask", "off_wait", "off_pw", "off_pc", "pc_mask")]
+            "count_mask", "off_wait", "off_pw", "off_pc", "pc_mask",
+            "ablate")]
         + [("live", WordPlanes), ("snap", WordPlanes),
            ("mb", ctypes.c_void_p * MAX_WORDS), ("nsw", ctypes.c_void_p),
            ("ob", ctypes.c_void_p * MAX_WORDS)]
@@ -147,8 +155,9 @@ def find_nvcc() -> str:
         "kernel of hpa2_tpu_torch is built from source at first use")
 
 
-def _source_hash(sources: Tuple[str, ...]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _source_hash(sources: Tuple[str, ...],
+                 defines: Tuple[str, ...] = ()) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + defines).encode())
     for name in sources:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
@@ -163,12 +172,13 @@ class CudaKernel:
     library's ``hpa2_args_size()`` must equal that structure's size.
     ``launches`` counts kernel launches and nothing else; the plain
     version never touches it.  ``loads`` counts loads of the library
-    (one a process)."""
+    (one a process).  ``defines`` are extra ``-D`` flags of its build."""
 
     def __init__(self, name: str, source: str, entry: str, replaces: str,
                  *, headers: Tuple[str, ...] = SHARED_SOURCES,
                  params: Tuple = (ctypes.POINTER(Args),),
-                 mirror: Optional[type] = Args) -> None:
+                 mirror: Optional[type] = Args,
+                 defines: Tuple[str, ...] = ()) -> None:
         self.name = name
         self.source = f"hpa2_tpu_torch/csrc/{source}"
         self.replaces = replaces
@@ -179,12 +189,13 @@ class CudaKernel:
         self._sources = (source,) + headers
         self._params = params
         self._mirror = mirror
+        self._defines = tuple(f"-D{d}" for d in defines)
         self._lib: Optional[ctypes.CDLL] = None
         self._path: Optional[Path] = None
         self._proc: Optional[subprocess.Popen] = None
 
     def library_path(self) -> Path:
-        digest = _source_hash(self._sources)
+        digest = _source_hash(self._sources, self._defines)
         return BUILD_DIR / f"libhpa2_{self.name}_{digest}.so"
 
     def _tmp_path(self) -> Path:
@@ -197,7 +208,8 @@ class CudaKernel:
                 or self.library_path().exists():
             return
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(self._tmp_path()),
+        cmd = [find_nvcc(), *NVCC_FLAGS, *self._defines, "-o",
+               str(self._tmp_path()),
                str(CSRC_DIR / self._sources[0])]
         self._proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -302,6 +314,18 @@ CALL_RUN = CudaKernel("call_run", "call_run.cu", "hpa2_call_run",
 #: every kernel of the fast path
 KERNELS = (STREAM_RUN, CALL_RUN)
 
+#: K1's ablation variant inside K2 and K3 (``pallas_engine.py:545-547``,
+#: stubs at :688, :1123, :1281, :1649): the same sources built with
+#: ``-DHPA2_ABLATE``, int32 planes at node bounds 8, 21 and 64, the
+#: stubbed stages a runtime mask (``Args.ablate``).  Timing tools only.
+STREAM_RUN_ABLATE = CudaKernel(
+    "stream_run_ablate", "stream_run.cu", "hpa2_stream_run_ablate",
+    "hpa2_tpu/ops/pallas_engine.py:545", defines=("HPA2_ABLATE",))
+CALL_RUN_ABLATE = CudaKernel(
+    "call_run_ablate", "call_run.cu", "hpa2_call_run_ablate",
+    "hpa2_tpu/ops/pallas_engine.py:545", defines=("HPA2_ABLATE",))
+ABLATE_KERNELS = (STREAM_RUN_ABLATE, CALL_RUN_ABLATE)
+
 #: the op-pattern micro-kernels (``scripts/micro_kernels.py:micro_run``):
 #: pattern index, the mb/mem/rows/cnt planes, lanes, iterations, block
 MICRO = CudaKernel(
@@ -311,7 +335,7 @@ MICRO = CudaKernel(
     mirror=None)
 
 #: every library, in the order :func:`build_all` builds them
-LIBRARIES = KERNELS + (MICRO,)
+LIBRARIES = KERNELS + ABLATE_KERNELS + (MICRO,)
 
 HOST_SYNCS = HostSyncs()
 CALLS = WrapperCalls()
@@ -481,6 +505,20 @@ def _kernel_args(config: SystemConfig, state, tr, tr_len, status, *,
     return a
 
 
+def _ablation_kernel(kern: CudaKernel, ablate: frozenset,
+                     packed: bool) -> CudaKernel:
+    """The library a launch on the card takes: ``kern``, or with
+    ``ablate`` its ablation variant, which has int32 planes only."""
+    if not ablate:
+        return kern
+    if packed:
+        raise ValueError(
+            "the ablation kernels take int32 planes only (packed planes: "
+            "ROADMAP queue 2 (a)); ablate with packed=False, or run the "
+            "plain version with device='cpu'")
+    return STREAM_RUN_ABLATE if kern is STREAM_RUN else CALL_RUN_ABLATE
+
+
 def _check_launch(config, state, tr, tr_len, *, block, window, n_seg,
                   snapshots, packed) -> None:
     b = tr_len.shape[-1]
@@ -500,14 +538,18 @@ def _check_launch(config, state, tr, tr_len, *, block, window, n_seg,
 def stream_run(config: SystemConfig, state: Dict[str, torch.Tensor],
                tr: torch.Tensor, tr_len: torch.Tensor, *, block: int,
                k: int, window: int, n_seg: int, max_calls: int, gate: bool,
-               snapshots: bool, packed: bool = False) -> torch.Tensor:
+               snapshots: bool, packed: bool = False,
+               ablate: frozenset = frozenset()) -> torch.Tensor:
     """Run every system of ``state`` through all ``n_seg`` windows of
     ``tr`` [N, n_seg*window, B], updating the carried planes in place.
     Returns the [1, B] int32 per-lane stall plane (its block's flag).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel,
     which takes at most ``MAX_NODES`` nodes and lane blocks of at most
-    ``MAX_LANE_BLOCK`` systems."""
+    ``MAX_LANE_BLOCK`` systems.  A non-empty ``ablate`` (a set of
+    ``ops/cycle.py:ABLATE_STAGES``) runs the deliberately wrong ablated
+    cycle: on the card the ablation kernel (int32 planes only), on the
+    CPU the plain version with the same stubs."""
     _check_launch(config, state, tr, tr_len, block=block, window=window,
                   n_seg=n_seg, snapshots=snapshots, packed=packed)
     kw = dict(block=block, k=k, window=window, n_seg=n_seg,
@@ -516,28 +558,31 @@ def stream_run(config: SystemConfig, state: Dict[str, torch.Tensor],
     CALLS.stream_run += 1
     dev = tr.device
     if dev.type == "cpu":
-        new, status = stream_run_plain(config, state, tr, tr_len, **kw)
+        new, status = stream_run_plain(config, state, tr, tr_len,
+                                       ablate=ablate, **kw)
         for f in fields_of(config, snapshots, packed):
             state[f].copy_(new[f])
         return status
+    kern = _ablation_kernel(STREAM_RUN, ablate, packed)
     b = tr_len.shape[-1]
     status = torch.empty((1, b), dtype=torch.int32, device=dev)
     args = _kernel_args(config, state, tr, tr_len, status, **kw)
-    STREAM_RUN.launch(ctypes.byref(args), device=dev)
+    args.ablate = ablate_mask(ablate)
+    kern.launch(ctypes.byref(args), device=dev)
     return status
 
 
 def call_run(config: SystemConfig, state: Dict[str, torch.Tensor],
              tr: torch.Tensor, tr_len: torch.Tensor, *, seg: int,
              block: int, k: int, window: int, gate: bool, snapshots: bool,
-             packed: bool = False) -> None:
+             packed: bool = False, ablate: frozenset = frozenset()) -> None:
     """One call of up to ``k`` cycles of every lane block in trace window
     ``seg`` of ``tr`` [N, n_seg*window, B], updating the carried planes
     in place.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
     (asynchronously, on the current stream), which takes at most
-    ``MAX_NODES`` nodes."""
+    ``MAX_NODES`` nodes.  ``ablate`` as in :func:`stream_run`."""
     if window < 1 or tr.shape[1] % window:
         raise ValueError(
             f"the trace plane's {tr.shape[1]} rows are not whole windows "
@@ -551,10 +596,13 @@ def call_run(config: SystemConfig, state: Dict[str, torch.Tensor],
               snapshots=snapshots, packed=packed)
     CALLS.call_run += 1
     if tr.device.type == "cpu":
-        new = call_plain(config, state, tr, tr_len, seg=seg, **kw)
+        new = call_plain(config, state, tr, tr_len, seg=seg, ablate=ablate,
+                         **kw)
         for f in fields_of(config, snapshots, packed):
             state[f].copy_(new[f])
         return
+    kern = _ablation_kernel(CALL_RUN, ablate, packed)
     args = _kernel_args(config, state, tr, tr_len, None, n_seg=n_seg,
                         max_calls=0, seg=seg, **kw)
-    CALL_RUN.launch(ctypes.byref(args), device=tr.device)
+    args.ablate = ablate_mask(ablate)
+    kern.launch(ctypes.byref(args), device=tr.device)

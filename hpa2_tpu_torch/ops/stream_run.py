@@ -88,11 +88,12 @@ def stream_run_plain(config: SystemConfig, state: Dict[str, torch.Tensor],
                      tr: torch.Tensor, tr_len: torch.Tensor, *,
                      block: int, k: int, window: int, n_seg: int,
                      max_calls: int, gate: bool, snapshots: bool,
-                     packed: bool = False):
+                     packed: bool = False, ablate: frozenset = frozenset()):
     """Run every system to the end of its trace.  Returns the new
-    carried planes and the [1, B] per-lane stall plane."""
+    carried planes and the [1, B] per-lane stall plane.  ``ablate``
+    stubs out cycle stages (``ops/cycle.py:ABLATE_STAGES``)."""
     fields = fields_of(config, snapshots, packed)
-    cycle = build_cycle(config, snapshots, packed)
+    cycle = build_cycle(config, snapshots, packed, ablate)
     slsc = _scalar_layout(config, window)
     b = tr_len.shape[1]
     nb = b // block

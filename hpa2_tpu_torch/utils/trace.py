@@ -1,6 +1,6 @@
 """Trace loading, replay orders, the spec engine's delivery ring and
-the synthetic uniform, heterogeneous, producer/consumer and node-local
-workloads.
+the synthetic uniform, heterogeneous, producer/consumer, node-local
+and eviction ping-pong workloads.
 
 ``core_<n>.txt`` holds one instruction per line, ``RD <hexaddr>`` or
 ``WR <hexaddr> <decvalue>``; values wrap mod 256, blank lines are
@@ -10,7 +10,8 @@ pins the issue interleaving of a run; it must be exactly an
 interleaving of the traces.  For the
 same seed the generators give the same arrays as their namesakes in
 ``hpa2_tpu.utils.trace`` (``gen_producer_consumer`` l.231,
-``gen_local_only`` l.257, ``gen_producer_consumer_arrays`` l.504: the
+``gen_local_only`` l.257, ``gen_eviction_pingpong`` l.332 and its
+``_arrays`` l.394, ``gen_producer_consumer_arrays`` l.504: the
 same numpy ``default_rng`` draws in the same order).  ``TraceRing``
 (l.34) is the spec engine's flight recorder.
 """
@@ -271,6 +272,85 @@ def gen_hot_hit_zipf(
             ]
         )
     return traces
+
+
+def gen_eviction_pingpong(
+    config: SystemConfig,
+    instrs_per_core: int,
+    seed: int = 0,
+    hot_homes: int = 2,
+    write_frac: float = 0.1,
+) -> List[List[Instr]]:
+    """Adversarial liveness workload biased toward the reference's hang
+    class (SURVEY.md §6.3); the same traces as
+    ``hpa2_tpu.utils.trace.gen_eviction_pingpong`` (l.332).
+
+    Every generated address collides at cache index 0 (the test_4
+    pattern: 0x00/0x20/0x30/0x3C all map to index 0).  A few of them are
+    "hot" lines that every node, their own home included, reads again
+    and again, so homes become sharers of their own blocks; touching any
+    other address evicts the hot line from the direct-mapped slot and
+    sends EVICT_SHARED to its home.  The eviction ping-pong and the
+    last-sharer upgrade-notify interleavings that follow are the class
+    that livelocks the reference at HEAD and that the NACK /
+    UPGRADE_NOTIFY protocol must survive."""
+    if config.cache_size > config.mem_size:
+        raise ValueError(
+            "gen_eviction_pingpong needs cache_size <= mem_size "
+            "(index-0 collisions must exist in every home's slice)"
+        )
+    rng = np.random.default_rng(seed)
+    n, c, m = config.num_procs, config.cache_size, config.mem_size
+
+    def index0_block(home: int) -> int:
+        # smallest b with (home*m + b) % c == 0; b < c <= m
+        return (-home * m) % c
+
+    homes = rng.permutation(n)[: max(1, min(hot_homes, n))]
+    hot = [config.make_addr(int(h), index0_block(int(h))) for h in homes]
+    colliders = [
+        config.make_addr(h, b)
+        for h in range(n)
+        for b in range(index0_block(h), m, c)
+        if config.make_addr(h, b) not in hot
+    ]
+    if not colliders:  # degenerate geometry (m == c, every home hot)
+        colliders = hot
+    traces = []
+    for _ in range(n):
+        tr = []
+        for _ in range(instrs_per_core):
+            r = rng.random()
+            if r < write_frac:
+                tr.append(
+                    Instr("W", int(rng.choice(hot)),
+                          int(rng.integers(0, 256)))
+                )
+            elif r < 0.65:
+                tr.append(Instr("R", int(rng.choice(hot))))
+            else:
+                tr.append(Instr("R", int(rng.choice(colliders))))
+        traces.append(tr)
+    return traces
+
+
+def gen_eviction_pingpong_arrays(
+    config: SystemConfig,
+    batch: int,
+    instrs_per_core: int,
+    seed: int = 0,
+    **kw,
+):
+    """Batched :func:`gen_eviction_pingpong` as ``[B, N, T]`` arrays
+    (system ``b`` drawn from seed ``seed + b``)."""
+    return traces_to_arrays(
+        config,
+        [
+            gen_eviction_pingpong(config, instrs_per_core,
+                                  seed=seed + b, **kw)
+            for b in range(batch)
+        ],
+    )
 
 
 def gen_uniform_random_arrays(
