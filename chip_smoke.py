@@ -2,10 +2,11 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only general-scheduled,serve-jax,recovery,entry,analysis,ablate
+    python3 chip_smoke.py --only general-scheduled,serve-jax,recovery,entry,analysis,ablate,scale
 
 (the second form, a debugging aid, runs the build and the named phases
-alone and prints no kernels line).  Builds the five CUDA libraries from ``hpa2_tpu_torch/csrc`` with nvcc,
+alone and prints no kernels line).  Builds the five CUDA libraries from
+``hpa2_tpu_torch/csrc`` with nvcc,
 the compilers at once (the streamed run ``stream_run.cu`` and the
 per-call kernel ``call_run.cu``, each for node bounds 8, 21 and 64,
 each again with ``-DHPA2_ABLATE`` as K1's ablation variant, and the
@@ -97,9 +98,17 @@ bound), and drives through ``CudaEngine``:
 * K1's ablation variant (``[ablate]``, :func:`phase_ablate`): an
   ablated ``CudaEngine`` run (a deliberately wrong cycle, stalled at its
   budget) on every ablation instantiation, K2 and K3 at node bounds 8,
-  21 and 64, every stage alone and all three, in lane blocks of one CTA
-  and in the clusters of ``perf_sweep``'s attribution (block 512), each
-  launch held against the plain ablated version,
+  21 and 64, int32 and packed planes, every stage alone and all three,
+  in lane blocks of one CTA and in the clusters of ``perf_sweep``'s
+  attribution (block 512), each launch held against the plain ablated
+  version,
+* BASELINE.json's scaled configurations (``[scale]``,
+  :func:`phase_scale`, through ``hpa2_tpu_torch.scripts.scale_runs``):
+  configuration 5 at full size (1,024 systems x 8 nodes x 10,000
+  instructions on K2, trace windows of 32), 16 of its systems held
+  against the spec engine on the same windows, and configuration 4 at
+  full width (256 nodes, the general engine) and 128 instructions a core
+  against ``TorchEngine`` on the CPU,
 
 and prints:
 
@@ -122,9 +131,10 @@ and prints:
   micro-kernels' runner; the ablation libraries' ``[ablate]`` runs, whose
   bound is by bytes alone; the pipelined serving run, K2's cross-checks
   beside the general engine and its served rows, the recovery
-  supervisor's primary, and K3 as the analysis suite's table prober,
-  under ``by_path``; a path held against already-checked planes
-  instead of a plain run names them under ``held_to``), its
+  supervisor's primary, K3 as the analysis suite's table prober, and
+  K2's ``[scale]`` configuration 5, under ``by_path``; a path held
+  against already-checked planes instead of a plain run names them under
+  ``held_to``), its
   largest disagreement with the plain version, its time and the plain version's at that shape, and its
   bound: the larger of the bytes over 3.35 TB/s and the integer
   operations the run's own counters say it needed (``cycle_ops``) over
@@ -3034,9 +3044,10 @@ def micro_entry(kern, micro):
 
 
 #: the ``[ablate]`` cases: (kernel, node bound, stage set, num_procs,
-#: systems, instructions a core, lane block); every ablation
-#: instantiation (K2 and K3 at node bounds 8, 21 and 64) once, every stage
-#: alone and the three together at least once.  The small lane blocks
+#: systems, instructions a core, lane block, packed); every ablation
+#: instantiation (K2 and K3 at node bounds 8, 21 and 64, int32 and packed
+#: planes) at least once, every stage alone and the three together at
+#: least once for each layout.  The small lane blocks
 #: fit one CTA; those of 512 give the clusters that
 #: ``scripts/perf_sweep.py``'s attribution times (``launch_geometry``: 2
 #: CTAs at 8 nodes, 8 at 21, 16 at 64), so the ablated cross-CTA code
@@ -3046,23 +3057,41 @@ def micro_entry(kern, micro):
 #: (delivery kept) and ``deliver`` with K3.
 ABL_ALL = ("phase_a", "phase_b", "deliver")
 ABLATE_CASES = (
-    ("stream", 8, ("phase_a",), 8, 64, 16, 32),
-    ("stream", 21, ("phase_b",), 12, 32, 12, 16),
-    ("stream", 64, ("deliver",), 64, 16, 8, 16),
-    ("call", 8, ABL_ALL, 8, 64, 16, 32),
-    ("call", 21, ("deliver",), 12, 32, 12, 16),
-    ("call", 64, ABL_ALL, 64, 16, 8, 16),
+    ("stream", 8, ("phase_a",), 8, 64, 16, 32, False),
+    ("stream", 21, ("phase_b",), 12, 32, 12, 16, False),
+    ("stream", 64, ("deliver",), 64, 16, 8, 16, False),
+    ("call", 8, ABL_ALL, 8, 64, 16, 32, False),
+    ("call", 21, ("deliver",), 12, 32, 12, 16, False),
+    ("call", 64, ABL_ALL, 64, 16, 8, 16, False),
 ) + tuple(
-    ("stream", bound, names, n, 1024, t, 512)
+    ("stream", bound, names, n, 1024, t, 512, False)
     for bound, n, t in ((8, 8, 16), (64, 64, 8))
     for names in (("phase_a",), ("phase_b",), ("deliver",), ABL_ALL)
 ) + tuple(
-    ("call", bound, names, n, b, t, 512)
+    ("call", bound, names, n, b, t, 512, False)
     for bound, n, b, t in ((8, 8, 1024, 16), (64, 64, 1024, 8))
     for names in (("phase_a",), ("deliver",))
 ) + (
-    ("stream", 21, ("phase_a",), 12, 512, 12, 512),
-    ("call", 21, ("phase_a",), 12, 512, 12, 512),
+    ("stream", 21, ("phase_a",), 12, 512, 12, 512, False),
+    ("call", 21, ("phase_a",), 12, 512, 12, 512, False),
+) + (
+    # the packed instantiations (u8/u16 planes): every bound and kernel in
+    # a lane block of one CTA and in the attribution's clusters, every
+    # stage set among each kernel's; at 64 nodes only the sets whose
+    # traffic stops (a kept phase A or B makes the 64-node plain version
+    # run ~3.5 s a case)
+    ("stream", 8, ("phase_b",), 8, 64, 16, 32, True),
+    ("stream", 21, ("phase_a",), 12, 32, 12, 16, True),
+    ("stream", 64, ABL_ALL, 64, 16, 8, 16, True),
+    ("call", 8, ("phase_a",), 8, 64, 16, 32, True),
+    ("call", 21, ("phase_b",), 12, 32, 12, 16, True),
+    ("call", 64, ("deliver",), 64, 16, 8, 16, True),
+    ("stream", 8, ("phase_a",), 8, 1024, 16, 512, True),
+    ("stream", 21, ("phase_b",), 12, 512, 12, 512, True),
+    ("stream", 64, ("deliver",), 64, 1024, 8, 512, True),
+    ("call", 8, ("deliver",), 8, 1024, 16, 512, True),
+    ("call", 21, ABL_ALL, 12, 512, 12, 512, True),
+    ("call", 64, ABL_ALL, 64, 1024, 8, 512, True),
 )
 #: the ablated runs' budget: four calls of 8 cycles
 ABLATE_K, ABLATE_CYCLES = 8, 32
@@ -3119,7 +3148,7 @@ def phase_ablate():
         pending.clear()
 
     def check(name, config, kw, before, got, want, status=None):
-        diff = plane_diff(config, kw["snapshots"], got, want)
+        diff = plane_diff(config, kw["snapshots"], got, want, kw["packed"])
         if status is not None:
             diff["status"] = int((status[0].long()
                                   - status[1].long()).abs().max())
@@ -3158,7 +3187,7 @@ def phase_ablate():
         kern.launch = timed(kern)
     kernels.stream_run, kernels.call_run = stream_run, call_run
     try:
-        for what, bound, names, n, b, t, block in ABLATE_CASES:
+        for what, bound, names, n, b, t, block, packed in ABLATE_CASES:
             cfg = SystemConfig(num_procs=n, msg_buffer_size=16,
                                semantics=robust)
             assert kernels.node_bound(cfg) == bound
@@ -3166,7 +3195,7 @@ def phase_ablate():
             eng = CudaEngine(cfg, *arrays, block=block,
                              cycles_per_call=ABLATE_K, snapshots=False,
                              trace_window=t // 2, stream=what == "stream",
-                             _ablate=frozenset(names))
+                             packed=packed, _ablate=frozenset(names))
             t0 = time.perf_counter()
             try:
                 eng.run(max_cycles=ABLATE_CYCLES)
@@ -3180,9 +3209,11 @@ def phase_ablate():
                     f"ablated {names} ran {cycles} cycles, not "
                     f"{ABLATE_CYCLES}")
             lib = libs[what]
+            layout = "packed" if packed else "int32"
             rec[lib.name]["cases"].append(
-                f"{'+'.join(names)} at bound {bound}")
+                f"{'+'.join(names)} at bound {bound}, {layout}")
             print(f"[ablate] {lib.name} node bound {bound} ({n} nodes), "
+                  f"{layout} planes, "
                   f"{'+'.join(names)}: {b} systems x {t} instrs, block "
                   f"{block}, k {ABLATE_K}, windows of {t // 2}: stalled at "
                   f"{cycles} cycles as it must, {lib.launches} launches so "
@@ -3215,8 +3246,9 @@ def phase_ablate():
             "name": kern.name, "route": "cuda", "source": kern.source,
             "replaces": kern.replaces,
             "variants": ["ablation stubs phase_a, phase_b, deliver (a "
-                         "runtime mask); int32 planes at node bounds 8, 21 "
-                         "and 64; a deliberately wrong cycle, timing only"],
+                         "runtime mask); int32 and packed u8/u16 planes at "
+                         "node bounds 8, 21 and 64; a deliberately wrong "
+                         "cycle, timing only"],
             "launches": launches[kern.name], "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": "bytes", "library_ms": None,
@@ -3224,6 +3256,185 @@ def phase_ablate():
                                    "checked_launches": r["checked"]}},
         })
     return out
+
+
+#: ``[scale]``: BASELINE.json's configuration 5 (1,024 systems x 8 nodes
+#: x 10,000 instructions, ``scripts/scale_runs.py``) at full size, this
+#: many of its systems (a fixed spread of indices) held against the spec
+#: engine; configuration 4 (256 nodes) at full width and this depth (the
+#: full run has 4,096 instructions a core)
+SCALE5_CHECKED = 16
+SCALE5_WINDOW = 32
+SCALE4_INSTRS = 128
+#: the general engine's per-system fields a single-system ``TorchEngine``
+#: holds otherwise than the batch loop on ``init_state_batched``: its
+#: key is ``PRNGKey(seed)`` where the batch's row 0 has ``fold_in(key,
+#: 0)``, and its Instr lists carry no value for a read
+SCALE4_SKIP = ("rng_key", "tr_val")
+
+
+def scale5_spec_reference(job):
+    """One worker's share of ``[scale]``'s config5 check: the port's spec
+    engine on the fast path's window schedule (each window of
+    ``window`` instructions a core run to quiescence, as ``CudaEngine``
+    runs it) for each system's arrays; per system its final dumps,
+    instructions and messages."""
+    sys.path.insert(0, str(ROOT))
+    from hpa2_tpu_torch.models.spec_engine import SpecEngine
+    from hpa2_tpu_torch.scripts.scale_runs import config5_config
+
+    arrays, window = job
+    config = config5_config()
+    out = []
+    for traces in arrays_to_traces(arrays):
+        t = max(len(tr) for tr in traces)
+        spec = SpecEngine(config, [tr[:window] for tr in traces])
+        spec.run()
+        for s in range(window, t, window):
+            spec.continue_with([tr[s:s + window] for tr in traces])
+            spec.run()
+        out.append(([d.__dict__ for d in spec.final_dumps()],
+                    spec.instructions, spec.messages))
+    return out
+
+
+def scale4_cpu_reference(instrs):
+    """``[scale]``'s config4 reference: ``TorchEngine(device="cpu")`` on
+    config4's traces at ``instrs`` a core; its state as numpy arrays."""
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(1)
+    from hpa2_tpu_torch.convert import sim_state_to_numpy
+    from hpa2_tpu_torch.ops.engine import TorchEngine
+    from hpa2_tpu_torch.scripts.scale_runs import config4_config
+    from hpa2_tpu_torch.utils.trace import gen_producer_consumer_arrays
+
+    config = config4_config()
+    arrays = gen_producer_consumer_arrays(config, 1, instrs)
+    t0 = time.perf_counter()
+    eng = TorchEngine(config, arrays_to_traces(arrays)[0], device="cpu")
+    eng.run()
+    out = sim_state_to_numpy(eng.state)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_scale(card):
+    """``[scale]``: BASELINE.json's scaled configurations through
+    ``hpa2_tpu_torch.scripts.scale_runs``.  Configuration 5 at full size
+    (1,024 x 8 x 10,000, K2 in trace windows of 32, a warm run then a
+    timed one), :data:`SCALE5_CHECKED` of its systems held against the
+    spec engine on the same window schedule (final dumps, instructions
+    and messages, tolerance zero; the spec engine runs in worker
+    processes while the card works).  The native lockstep engine cannot
+    be that oracle: it has no window schedule, and a system's
+    interleaving, so its dumps, depends on the windows.  Configuration 4
+    at full width (256 nodes, the general engine) and
+    :data:`SCALE4_INSTRS` instructions a core, held field by field
+    against ``TorchEngine(device="cpu")`` on the same traces.  K2's
+    launch count is zeroed before configuration 5 and read after.
+    Returns K2's ``by_path`` record."""
+    import concurrent.futures
+    import multiprocessing
+
+    from hpa2_tpu_torch.convert import sim_state_to_numpy
+    from hpa2_tpu_torch.ops import kernels
+    from hpa2_tpu_torch.ops.layout import _SC_CYCLE, _SC_INSTR, _SC_MSGS
+    from hpa2_tpu_torch.scripts import scale_runs
+
+    # the CPU references start first: config4's, and the spec engine on
+    # config5's checked systems (the arrays drawn here, as config5 draws
+    # them), while the card runs config5
+    t0 = time.perf_counter()
+    arrays = scale_runs.config5_arrays()
+    batch = arrays[0].shape[0]
+    idx = np.linspace(0, batch - 1, SCALE5_CHECKED).astype(int)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=5, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        ref4 = pool.submit(scale4_cpu_reference, SCALE4_INSTRS)
+        jobs = [pool.submit(scale5_spec_reference, (
+            [a[part] for a in arrays], SCALE5_WINDOW))
+            for part in np.array_split(idx, 4)]
+        for kern in kernels.LIBRARIES:
+            kern.launches = 0
+        rec5, eng, _ = scale_runs.config5_run(arrays=arrays)
+        wall5 = time.perf_counter() - t0
+        launches = kernels.STREAM_RUN.launches
+        if launches == 0 or any(k.launches for k in kernels.LIBRARIES
+                                if k is not kernels.STREAM_RUN):
+            raise AssertionError(
+                f"[scale] config5: launches "
+                f"{ {k.name: k.launches for k in kernels.LIBRARIES} }")
+        if eng._window != SCALE5_WINDOW:
+            raise AssertionError(f"[scale] config5 ran windows of "
+                                 f"{eng._window}")
+        sc = eng.state["scalars"].cpu().numpy()
+        want = [r for job in jobs for r in job.result()]
+        err = 0
+        for b, (dumps, instrs, msgs) in zip(idx, want):
+            if [d.__dict__ for d in eng.system_final_dumps(int(b))] != dumps:
+                raise AssertionError(
+                    f"[scale] config5 system {b}: dumps differ from the "
+                    "spec engine's")
+            err = max(err, abs(int(sc[_SC_INSTR, b]) - instrs),
+                      abs(int(sc[_SC_MSGS, b]) - msgs))
+        if err:
+            raise AssertionError(f"[scale] config5: counts differ by {err}")
+        # the bound: every carried plane read and written, the traces and
+        # their lengths read once; the operations config5's own counters
+        # say it needed
+        moved = 2 * sum(v.numel() * v.element_size()
+                        for v in eng.state.values()) + (
+            eng._tr_full.numel() + eng._tr_len_full.numel()) * 4
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops = cycle_ops(rec5["nodes"], int(sc[_SC_CYCLE].sum()),
+                        int(sc[_SC_MSGS].sum()), rec5["instructions"])
+        ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        print(f"[scale] config5: {rec5['batch']} systems x {rec5['nodes']} "
+              f"nodes x {rec5['instrs_per_core']} instrs, block "
+              f"{rec5['block']}, windows of {eng._window}: "
+              f"{rec5['instructions']} RD/WR in {rec5['cycles']} cycles, "
+              f"{rec5['seconds'] * 1e3:.3f} ms by CUDA events "
+              f"({rec5['us_per_cycle']} us a cycle, {rec5['ops_per_sec']:.4e}"
+              f" RD/WR ops/s), {launches} K2 launches (warm and timed); "
+              f"systems {idx.tolist()} equal to the spec engine on the same "
+              f"windows (dumps, instructions, messages), max_abs_err={err}; "
+              f"bound: bytes {moved} B / 3.35 TB/s = {bytes_ms:.4f} ms, "
+              f"operations {ops} = {ops_ms:.4f} ms, run / bound "
+              f"{rec5['seconds'] * 1e3 / bound_ms:.0f}; "
+              f"{wall5:.1f} s with the trace generation, {card}")
+
+        t0 = time.perf_counter()
+        rec4, out4, _ = scale_runs.config4_run(SCALE4_INSTRS)
+        got = sim_state_to_numpy(out4)
+        want4 = ref4.result()
+        err4 = state_err("[scale] config4 against TorchEngine on the CPU",
+                         got, want4,
+                         [f for f in want4
+                          if f not in SCALE4_SKIP + ("seconds",)])
+        print(f"[scale] config4: {rec4['nodes']} nodes ({rec4['sharer_words']}"
+              f" sharer words) x {SCALE4_INSTRS} producer-consumer instrs a "
+              f"core (the full run: 4,096): {rec4['instructions']} RD/WR in "
+              f"{rec4['cycles']} cycles ({rec4['steps']} steps), "
+              f"{rec4['seconds'] * 1e3:.3f} ms by CUDA events, "
+              f"{rec4['us_per_cycle'] / 1e3:.4f} ms a cycle, "
+              f"{rec4['host_syncs']} host syncs; every field but "
+              f"{SCALE4_SKIP} equal to TorchEngine(device='cpu') "
+              f"({want4['seconds']:.1f} s there), max_abs_err={err4} "
+              f"({time.perf_counter() - t0:.1f} s)")
+    finally:
+        pool.shutdown(cancel_futures=True)
+    return {"launches": launches, "ms": rec5["seconds"] * 1e3,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "us_per_cycle": rec5["us_per_cycle"],
+            "ops_per_sec": rec5["ops_per_sec"], "cycles": rec5["cycles"],
+            "checked_systems": idx.tolist(), "max_abs_err": max(err, err4),
+            "held_to": "the spec engine on the same windows",
+            "config4": {k: rec4[k] for k in (
+                "nodes", "instrs_per_core", "instructions", "cycles",
+                "seconds", "us_per_cycle")}}
 
 
 def host_cpu() -> str:
@@ -3396,7 +3607,7 @@ def phase_analysis(budget_rows):
 #: after the build, and no kernels line); with no arguments every phase
 #: runs
 ONLY = ("general-scheduled", "serve-jax", "recovery", "entry", "analysis",
-        "ablate")
+        "ablate", "scale")
 
 
 def main(argv=None) -> int:
@@ -3478,7 +3689,8 @@ def main(argv=None) -> int:
                             ("entry", phase_entry),
                             ("analysis", lambda card: phase_analysis(
                                 budget_rows)),
-                            ("ablate", lambda card: phase_ablate())):
+                            ("ablate", lambda card: phase_ablate()),
+                            ("scale", phase_scale)):
             if name in only:
                 t0 = time.perf_counter()
                 phase(card)
@@ -3492,6 +3704,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ablated = phase_ablate()
     wall["ablate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scale = phase_scale(card)
+    wall["scale"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     err = phase_compare()
     err = max(err, phase_wide_compare())
@@ -3628,6 +3843,8 @@ def main(argv=None) -> int:
     # the analysis suite's table prober: one cycle of K3, every probeable
     # row a lane
     call_entry["by_path"]["analysis prober"] = analysis
+    # BASELINE.json's configuration 5 at full size (scale_runs.py)
+    stream_entry["by_path"]["scale config5"] = scale
     for kern_entry in (stream_entry, call_entry):
         kern_entry["max_abs_err"] = max(
             [kern_entry["max_abs_err"]]

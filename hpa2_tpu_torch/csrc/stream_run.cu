@@ -25,8 +25,8 @@
 // Built again with -DHPA2_ABLATE, the same source gives the
 // streamed run's ablation variant (pallas_engine.py:build_cycle(ablate=),
 // K1's stubs; cycle.cuh, kAblate*): a library and an entry of its own
-// (hpa2_stream_run_ablate), int32 planes at node bounds 8, 21 and 64, the
-// stubbed stages picked at run time by Args::ablate.  An ablated run is
+// (hpa2_stream_run_ablate), int32 and packed planes at node bounds 8, 21 and
+// 64, the stubbed stages picked at run time by Args::ablate.  An ablated run is
 // wrong by design and serves timing only
 // (hpa2_tpu_torch/scripts/perf_sweep.py).
 #include <cuda_runtime.h>
@@ -34,12 +34,6 @@
 #include "cycle.cuh"
 
 namespace {
-
-#ifdef HPA2_ABLATE
-constexpr bool kTakesPacked = false;
-#else
-constexpr bool kTakesPacked = true;
-#endif
 
 #ifndef HPA2_ABLATE
 template <int MAXN, bool PACKED>
@@ -50,42 +44,32 @@ __global__ void __launch_bounds__(hpa2::kMaxCta)
   hpa2::stream_block<MAXN, PACKED>(a, tm);
   tm.finish();
 }
+#define HPA2_KERNEL stream_run_kernel
+#else
+// The ablatable instantiations (cycle.cuh, kAblate*): int32 or packed
+// planes, the stubs picked at run time by Args::ablate.
+template <int MAXN, bool PACKED>
+__global__ void __launch_bounds__(hpa2::kMaxCta)
+    stream_run_ablate_kernel(const __grid_constant__ hpa2::Args a) {
+  extern __shared__ int4 smem[];
+  hpa2::DeviceTeam<MAXN> tm(a, smem);
+  hpa2::stream_block<MAXN, PACKED, true>(a, tm);
+  tm.finish();
+}
+#define HPA2_KERNEL stream_run_ablate_kernel
+#endif
 
 template <int MAXN>
 cudaError_t launch(const hpa2::Args& a, cudaStream_t s) {
   return hpa2::launch_team<MAXN>(
-      a.packed ? stream_run_kernel<MAXN, true> : stream_run_kernel<MAXN, false>,
-      a, s);
+      a.packed ? HPA2_KERNEL<MAXN, true> : HPA2_KERNEL<MAXN, false>, a, s);
 }
 
 template <int MAXN>
 cudaError_t occupancy(const hpa2::Args& a, int* out) {
   return hpa2::occupancy_team<MAXN>(
-      a.packed ? stream_run_kernel<MAXN, true> : stream_run_kernel<MAXN, false>,
-      a, out);
+      a.packed ? HPA2_KERNEL<MAXN, true> : HPA2_KERNEL<MAXN, false>, a, out);
 }
-#else
-// The ablatable instantiations (cycle.cuh, kAblate*): int32 planes only,
-// the stubs picked at run time by Args::ablate.
-template <int MAXN>
-__global__ void __launch_bounds__(hpa2::kMaxCta)
-    stream_run_ablate_kernel(const __grid_constant__ hpa2::Args a) {
-  extern __shared__ int4 smem[];
-  hpa2::DeviceTeam<MAXN> tm(a, smem);
-  hpa2::stream_block<MAXN, false, true>(a, tm);
-  tm.finish();
-}
-
-template <int MAXN>
-cudaError_t launch(const hpa2::Args& a, cudaStream_t s) {
-  return hpa2::launch_team<MAXN>(stream_run_ablate_kernel<MAXN>, a, s);
-}
-
-template <int MAXN>
-cudaError_t occupancy(const hpa2::Args& a, int* out) {
-  return hpa2::occupancy_team<MAXN>(stream_run_ablate_kernel<MAXN>, a, out);
-}
-#endif
 
 }  // namespace
 
@@ -102,7 +86,7 @@ extern "C" int HPA2_ENTRY(const hpa2::Args* args, int device,
                                void* stream) {
   const hpa2::Args& a = *args;
   const int bound = hpa2::node_bound(a);
-  if (bound == 0 || (a.packed && !kTakesPacked)) return (int)cudaErrorInvalidValue;
+  if (bound == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
@@ -115,7 +99,7 @@ extern "C" int HPA2_ENTRY(const hpa2::Args* args, int device,
 extern "C" int hpa2_occupancy(const hpa2::Args* args, int device, int* out) {
   const hpa2::Args& a = *args;
   const int bound = hpa2::node_bound(a);
-  if (bound == 0 || (a.packed && !kTakesPacked)) return (int)cudaErrorInvalidValue;
+  if (bound == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (bound == 8) return (int)occupancy<8>(a, out);

@@ -14,7 +14,10 @@ with ``g++ -std=c++17 -O2 -fopenmp -fPIC -shared`` into
 ``hpa2_tpu_torch/build/native/libhpa2sim_<digest>.so``, named by a hash
 of the sources and flags.  A worker compiles into a file of its own and
 renames it into place, so parallel first uses do not race either.  A
-failed build raises ``NativeError``.
+failed build raises ``NativeError``.  :func:`ensure_sanitized` builds the
+engine's command-line program (``native/src/main.cpp``) the same way
+with AddressSanitizer and UndefinedBehaviorSanitizer, for
+``hpa2_tpu_torch/scripts/run_static.sh``.
 """
 
 from __future__ import annotations
@@ -34,6 +37,11 @@ BUILD_DIR = Path(__file__).resolve().parent / "build" / "native"
 SOURCES = ("sim.cpp", "io.cpp", "capi.cpp")
 HEADERS = ("sim.hpp",)
 CXX_FLAGS = ("-std=c++17", "-O2", "-fopenmp", "-fPIC", "-shared")
+#: the ASan+UBSan build of the CLI (``native/Makefile``'s ``asan``)
+SAN_SOURCES = ("sim.cpp", "io.cpp", "main.cpp")
+SAN_FLAGS = ("-std=c++17", "-O1", "-g", "-fno-omit-frame-pointer",
+             "-fopenmp", "-fsanitize=address,undefined",
+             "-fno-sanitize-recover=undefined")
 
 
 class Hpa2Result(ctypes.Structure):
@@ -51,26 +59,33 @@ class NativeError(RuntimeError):
     pass
 
 
+def _digest(flags, sources) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name in sources + HEADERS:
+        h.update(name.encode())
+        h.update((NATIVE_SRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
 def library_path() -> Path:
     """Where this checkout's sources build to (a digest of the sources
     and the flags names the file, so a stale build is never loaded)."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    for name in SOURCES + HEADERS:
-        h.update(name.encode())
-        h.update((NATIVE_SRC / name).read_bytes())
-    return BUILD_DIR / f"libhpa2sim_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libhpa2sim_{_digest(CXX_FLAGS, SOURCES)}.so"
 
 
-def ensure_built(force: bool = False) -> str:
-    """Compile the library unless this source's build exists (or
-    ``force``); returns its path.  Raises ``NativeError`` if g++
-    fails."""
-    path = library_path()
+def sanitized_path() -> Path:
+    """Where the ASan+UBSan build of the engine's CLI goes."""
+    return BUILD_DIR / f"hpa2sim_asan_{_digest(SAN_FLAGS, SAN_SOURCES)}"
+
+
+def _compile(path: Path, flags, sources, force: bool) -> str:
+    """``g++ flags sources -o path`` unless ``path`` exists (or
+    ``force``), into a file of this process renamed into place."""
     if path.exists() and not force:
         return str(path)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ["g++", *CXX_FLAGS, *(str(NATIVE_SRC / s) for s in SOURCES),
+    cmd = ["g++", *flags, *(str(NATIVE_SRC / s) for s in sources),
            "-o", str(tmp)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -82,6 +97,22 @@ def ensure_built(force: bool = False) -> str:
             f"{proc.stderr[-4000:]}")
     os.replace(tmp, path)
     return str(path)
+
+
+def ensure_built(force: bool = False) -> str:
+    """Compile the library unless this source's build exists (or
+    ``force``); returns its path.  Raises ``NativeError`` if g++
+    fails."""
+    return _compile(library_path(), CXX_FLAGS, SOURCES, force)
+
+
+def ensure_sanitized(force: bool = False) -> str:
+    """Compile the engine's command-line program with AddressSanitizer
+    and UndefinedBehaviorSanitizer (``make -C native asan``'s flags) into
+    this package's build folder; returns its path.  Raises
+    ``NativeError`` if g++ fails, as it does where the sanitizers'
+    runtime is missing."""
+    return _compile(sanitized_path(), SAN_FLAGS, SAN_SOURCES, force)
 
 
 _lib = None

@@ -197,9 +197,8 @@ class CudaEngine:
     cycle stages to stub out (``ops/cycle.py:ABLATE_STAGES``), on every
     path: the run is then deliberately wrong and never quiesces unless
     its traces are empty, so bound it with ``max_cycles``.  On the card
-    it runs the ablation kernels, which take int32 planes only (a packed
-    ablated run raises when it launches); an unknown stage name raises
-    here."""
+    it runs the ablation kernels (int32 or packed planes); an unknown
+    stage name raises here."""
 
     def __init__(
         self,

@@ -316,8 +316,9 @@ KERNELS = (STREAM_RUN, CALL_RUN)
 
 #: K1's ablation variant inside K2 and K3 (``pallas_engine.py:545-547``,
 #: stubs at :688, :1123, :1281, :1649): the same sources built with
-#: ``-DHPA2_ABLATE``, int32 planes at node bounds 8, 21 and 64, the
-#: stubbed stages a runtime mask (``Args.ablate``).  Timing tools only.
+#: ``-DHPA2_ABLATE``, int32 and packed planes at node bounds 8, 21 and
+#: 64, the stubbed stages a runtime mask (``Args.ablate``).  Timing
+#: tools only.
 STREAM_RUN_ABLATE = CudaKernel(
     "stream_run_ablate", "stream_run.cu", "hpa2_stream_run_ablate",
     "hpa2_tpu/ops/pallas_engine.py:545", defines=("HPA2_ABLATE",))
@@ -505,17 +506,11 @@ def _kernel_args(config: SystemConfig, state, tr, tr_len, status, *,
     return a
 
 
-def _ablation_kernel(kern: CudaKernel, ablate: frozenset,
-                     packed: bool) -> CudaKernel:
+def _ablation_kernel(kern: CudaKernel, ablate: frozenset) -> CudaKernel:
     """The library a launch on the card takes: ``kern``, or with
-    ``ablate`` its ablation variant, which has int32 planes only."""
+    ``ablate`` its ablation variant."""
     if not ablate:
         return kern
-    if packed:
-        raise ValueError(
-            "the ablation kernels take int32 planes only (packed planes: "
-            "ROADMAP queue 2 (a)); ablate with packed=False, or run the "
-            "plain version with device='cpu'")
     return STREAM_RUN_ABLATE if kern is STREAM_RUN else CALL_RUN_ABLATE
 
 
@@ -548,8 +543,8 @@ def stream_run(config: SystemConfig, state: Dict[str, torch.Tensor],
     which takes at most ``MAX_NODES`` nodes and lane blocks of at most
     ``MAX_LANE_BLOCK`` systems.  A non-empty ``ablate`` (a set of
     ``ops/cycle.py:ABLATE_STAGES``) runs the deliberately wrong ablated
-    cycle: on the card the ablation kernel (int32 planes only), on the
-    CPU the plain version with the same stubs."""
+    cycle: on the card the ablation kernel, on the CPU the plain version
+    with the same stubs."""
     _check_launch(config, state, tr, tr_len, block=block, window=window,
                   n_seg=n_seg, snapshots=snapshots, packed=packed)
     kw = dict(block=block, k=k, window=window, n_seg=n_seg,
@@ -563,7 +558,7 @@ def stream_run(config: SystemConfig, state: Dict[str, torch.Tensor],
         for f in fields_of(config, snapshots, packed):
             state[f].copy_(new[f])
         return status
-    kern = _ablation_kernel(STREAM_RUN, ablate, packed)
+    kern = _ablation_kernel(STREAM_RUN, ablate)
     b = tr_len.shape[-1]
     status = torch.empty((1, b), dtype=torch.int32, device=dev)
     args = _kernel_args(config, state, tr, tr_len, status, **kw)
@@ -601,7 +596,7 @@ def call_run(config: SystemConfig, state: Dict[str, torch.Tensor],
         for f in fields_of(config, snapshots, packed):
             state[f].copy_(new[f])
         return
-    kern = _ablation_kernel(CALL_RUN, ablate, packed)
+    kern = _ablation_kernel(CALL_RUN, ablate)
     args = _kernel_args(config, state, tr, tr_len, None, n_seg=n_seg,
                         max_calls=0, seg=seg, **kw)
     args.ablate = ablate_mask(ablate)

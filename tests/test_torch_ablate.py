@@ -11,10 +11,12 @@ wrong by design, never quiesces, and ends at its call budget with
   the interpreted ``PallasEngine(_ablate=...)`` in every carried plane
   after both raise, streamed and per-call, for each single stage and
   for all three, at 4 nodes, and for one set at 22 nodes (split planes);
+  so does ``packed=True`` (u8/u16 cache and directory planes) at 8 and
+  22 nodes;
 * the host build of ``csrc/cycle.cuh``'s ablatable path (``ABL`` true,
   the stubs picked by ``Args::ablate``) equals the plain ablated version
   at node bounds 8, 21 and 64 for every single stage, streamed and per
-  call;
+  call, with int32 and with packed planes;
 * an unknown stage raises, and the default instantiations are not the
   ablation libraries."""
 
@@ -90,6 +92,39 @@ def test_ablated_plain_equals_interpreted_pallas_split():
     assert int(ce.state["scalars"][2].sum()) > 0  # messages were sent
 
 
+@pytest.mark.parametrize("stream", [True, False], ids=["stream", "call"])
+@pytest.mark.parametrize("ablate", SETS, ids=_ids)
+def test_packed_ablated_plain_equals_interpreted_pallas(ablate, stream):
+    """Packed planes, 8 nodes x 8 systems x 12 instructions,
+    ``max_cycles=24``: the packed ablated cycle (widen, the stubbed
+    int32 cycle, narrow) equals the interpreted packed JAX kernel's in
+    every carried plane, and stalls alike."""
+    jcfg, tcfg = config_pair(True, num_procs=8, msg_buffer_size=16)
+    arrays = jgen(jcfg, 8, 12, seed=13)
+    _, ce, stall = run_both(jcfg, tcfg, arrays, max_cycles=24,
+                            stream=stream, block=8, cycles_per_call=8,
+                            snapshots=False, packed=True, _ablate=ablate)
+    assert stall is not None
+    assert "cvalw" in ce.state and "cachew" not in ce.state
+    assert (int(ce.state["scalars"][1].sum()) == 0) == ("phase_b" in ablate)
+
+
+@pytest.mark.parametrize("stream", [True, False], ids=["stream", "call"])
+def test_packed_ablated_plain_equals_interpreted_pallas_split(stream):
+    """Packed planes at 22 nodes (split sharer planes): delivery
+    stubbed, so every send vanishes."""
+    jcfg, tcfg = config_pair(True, num_procs=22, cache_size=2, mem_size=4,
+                             msg_buffer_size=16)
+    arrays = jgen(jcfg, 4, 8, seed=6)
+    _, ce, stall = run_both(jcfg, tcfg, arrays, max_cycles=16,
+                            stream=stream, block=4, cycles_per_call=8,
+                            snapshots=False, packed=True,
+                            _ablate=frozenset({"deliver"}))
+    assert stall is not None
+    assert "dirs0" in ce.state and "dmemw" in ce.state
+    assert int(ce.state["scalars"][2].sum()) == 0
+
+
 def test_ablated_run_is_deterministic():
     """Two ablated runs give the same planes, and the ablated planes
     differ from the default run's."""
@@ -132,27 +167,30 @@ def test_ablation_libraries_stay_off_the_main_path():
         assert kern.library_path() != base.library_path()
         assert kern.entry == base.entry + "_ablate"
         assert kern._defines == ("-DHPA2_ABLATE",)
-        assert kernels._ablation_kernel(base, frozenset({"deliver"}),
-                                        False) is kern
-        assert kernels._ablation_kernel(base, frozenset(), True) is base
-        with pytest.raises(ValueError, match="ROADMAP queue 2"):
-            kernels._ablation_kernel(base, frozenset({"phase_b"}), True)
+        assert kernels._ablation_kernel(base, frozenset({"deliver"})) \
+            is kern
+        assert kernels._ablation_kernel(base, frozenset()) is base
 
 
 # the ablatable instantiations of csrc/stream_run.cu and call_run.cu
-# (ABL true), run on host teams as the card runs a lane block
+# (ABL true, int32 or packed planes), run on host teams as the card runs a
+# lane block
 SHIM = r"""
 #include "cycle.cuh"
-template <int MAXN> void run_as(const hpa2::Args* a, int what) {
+template <int MAXN, bool PACKED> void run_as(const hpa2::Args* a, int what) {
   for (int blk = 0; blk < a->b / a->bb; ++blk) {
     hpa2::HostTeam<MAXN> tm(*a, blk);
-    if (what == 1) hpa2::stream_block<MAXN, false, true>(*a, tm);
-    else hpa2::call_block<MAXN, false, true>(*a, tm);
+    if (what == 1) hpa2::stream_block<MAXN, PACKED, true>(*a, tm);
+    else hpa2::call_block<MAXN, PACKED, true>(*a, tm);
   }
+}
+template <int MAXN> void run_as(const hpa2::Args* a, int what) {
+  if (a->packed) run_as<MAXN, true>(a, what);
+  else run_as<MAXN, false>(a, what);
 }
 int dispatch(const hpa2::Args* a, int what) {
   const int bound = hpa2::node_bound(*a);
-  if (bound == 0 || a->packed) return 1;
+  if (bound == 0) return 1;
   if (bound == 8) run_as<8>(a, what);
   else if (bound == 21) run_as<21>(a, what);
   else run_as<64>(a, what);
@@ -197,10 +235,7 @@ def ablate_lib():
 BOUNDS = {8: (8, 4, 16), 21: (12, 4, 8), 64: (33, 4, 8)}
 
 
-@pytest.mark.parametrize("what", ["stream", "call"])
-@pytest.mark.parametrize("stage", list(ABLATE_STAGES))
-@pytest.mark.parametrize("bound", list(BOUNDS))
-def test_host_ablate_matches_plain(ablate_lib, bound, stage, what):
+def host_vs_plain(lib, bound, stage, what, packed):
     """A lane block over two CTAs (``max_group``), two windows, a budget
     of two calls: the host-built ablatable kernel and the plain ablated
     version give the same planes (and, streamed, the same stall plane,
@@ -214,26 +249,27 @@ def test_host_ablate_matches_plain(ablate_lib, bound, stage, what):
     n_seg = t // window
     tr = torch.from_numpy(_pack_traces(cfg, op, addr, val, length))
     tr_len = torch.from_numpy(np.ascontiguousarray(length.T))
-    state = state_from_numpy(_init_state(cfg, b, False), "cpu")
-    fields = fields_of(cfg, False)
+    state = state_from_numpy(_init_state(cfg, b, False, packed), "cpu")
+    fields = fields_of(cfg, False, packed)
     ablate = frozenset({stage})
     if stage == "phase_a":  # a few default cycles fill the mailboxes
         state = dict(stream_run_plain(
             cfg, state, tr, tr_len, block=block, k=4, window=window,
-            n_seg=1, max_calls=1, gate=False, snapshots=False)[0])
+            n_seg=1, max_calls=1, gate=False, snapshots=False,
+            packed=packed)[0])
         assert int((state["nsw"] & 0xFF).sum()) > 0
     host = {f: v.clone() for f, v in state.items()}
     max_group = 1
     if what == "stream":
         kw = dict(block=block, k=k, window=window, n_seg=n_seg,
-                  max_calls=2, gate=True, snapshots=False)
+                  max_calls=2, gate=True, snapshots=False, packed=packed)
         want, want_status = stream_run_plain(cfg, state, tr, tr_len,
                                              ablate=ablate, **kw)
         status = torch.full((1, b), -1, dtype=torch.int32)
         args = kernels._kernel_args(cfg, host, tr, tr_len, status,
                                     max_group=max_group, **kw)
         args.ablate = ablate_mask(ablate)
-        assert ablate_lib.hpa2_host_stream_run_ablate(ctypes.byref(args)) == 0
+        assert lib.hpa2_host_stream_run_ablate(ctypes.byref(args)) == 0
         assert torch.equal(status, want_status)
         assert bool(status.all())
     else:
@@ -241,7 +277,7 @@ def test_host_ablate_matches_plain(ablate_lib, bound, stage, what):
         pc_clear = ~(slsc["pc_mask"] << slsc["off_pc"])
         want = {f: v.clone() for f, v in state.items()}
         kw = dict(block=block, k=k, window=window, gate=True,
-                  snapshots=False)
+                  snapshots=False, packed=packed)
         for seg in range(n_seg):
             host["nsw"].bitwise_and_(pc_clear)
             want["nsw"].bitwise_and_(pc_clear)
@@ -251,14 +287,34 @@ def test_host_ablate_matches_plain(ablate_lib, bound, stage, what):
                                         n_seg=n_seg, max_calls=0, seg=seg,
                                         max_group=max_group, **kw)
             args.ablate = ablate_mask(ablate)
-            assert ablate_lib.hpa2_host_call_run_ablate(
-                ctypes.byref(args)) == 0
+            assert lib.hpa2_host_call_run_ablate(ctypes.byref(args)) == 0
     for f in fields:
         assert torch.equal(host[f], want[f]), f"plane {f!r}"
     assert int(host["scalars"][0].sum()) > 0  # cycles ran
 
 
+@pytest.mark.parametrize("what", ["stream", "call"])
+@pytest.mark.parametrize("stage", list(ABLATE_STAGES))
+@pytest.mark.parametrize("bound", list(BOUNDS))
+def test_host_ablate_matches_plain(ablate_lib, bound, stage, what):
+    """int32 planes (:func:`host_vs_plain`)."""
+    host_vs_plain(ablate_lib, bound, stage, what, packed=False)
+
+
+@pytest.mark.parametrize("what", ["stream", "call"])
+@pytest.mark.parametrize("stage", list(ABLATE_STAGES))
+@pytest.mark.parametrize("bound", list(BOUNDS))
+def test_host_ablate_packed_matches_plain(ablate_lib, bound, stage, what):
+    """Packed planes (u8 values, u8/u16 metadata; split sharer words at
+    bound 64): the ``PACKED`` ablatable instantiations
+    (:func:`host_vs_plain`)."""
+    host_vs_plain(ablate_lib, bound, stage, what, packed=True)
+
+
 def test_host_ablate_refuses_packed(ablate_lib):
+    """The ablatable entries refuse a packed launch the kernel cannot
+    take, as the default ones do: a lane block that does not divide the
+    lanes."""
     _, cfg = config_pair(True, num_procs=4, msg_buffer_size=16)
     op, addr, val, length = gen_uniform_random_arrays(cfg, 2, 4, seed=1)
     tr = torch.from_numpy(_pack_traces(cfg, op, addr, val, length))
@@ -269,4 +325,6 @@ def test_host_ablate_refuses_packed(ablate_lib):
         block=2, k=8, window=4, n_seg=1, max_calls=1, gate=True,
         snapshots=False, packed=True)
     args.ablate = ablate_mask({"deliver"})
+    args.bb = 3
     assert ablate_lib.hpa2_host_stream_run_ablate(ctypes.byref(args)) == 1
+    assert ablate_lib.hpa2_host_call_run_ablate(ctypes.byref(args)) == 1

@@ -550,3 +550,27 @@ def test_contract_census_on_card(card):
     assert sorted(r.status for r in results) == ["ok"] * 8 + ["skip"] * 4
     assert c["calls.stream_run"] == c["launches.stream_run"] > 0
     assert c["calls.call_run"] == c["launches.call_run"]
+
+
+@pytest.mark.parametrize("stream", [True, False], ids=["stream", "call"])
+@pytest.mark.parametrize("n,stage", [(8, "phase_a"), (12, "deliver"),
+                                     (40, "phase_b")])
+def test_packed_ablated_engine_on_card_matches_cpu(card, stream, n, stage):
+    """The packed ablation instantiations (K1's stubs in K2 and K3 on
+    u8/u16 planes) against the plain ablated version, a lane block over
+    two CTAs; both stall at the budget."""
+    from hpa2_tpu_torch.ops.layout import StallError
+
+    cfg = SystemConfig(num_procs=n, msg_buffer_size=16,
+                       semantics=Semantics().robust())
+    arrays = gen_uniform_random_arrays(cfg, 64, 16, seed=n)
+    kw = dict(block=64, cycles_per_call=8, snapshots=False, trace_window=8,
+              stream=stream, packed=True, _ablate=frozenset({stage}))
+    engines = []
+    for dev in ("cuda", "cpu"):
+        eng = CudaEngine(cfg, *arrays, device=dev, **kw)
+        with pytest.raises(StallError):
+            eng.run(max_cycles=32)
+        engines.append(eng)
+    for f, v in engines[1].state.items():
+        assert _same(engines[0].state[f], v), f
