@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only general-scheduled,serve-jax,recovery,entry,analysis,ablate,scale
+    python3 chip_smoke.py --only general-scheduled,serve-jax,recovery,entry,analysis,ablate,scale,shard
 
 (the second form, a debugging aid, runs the build and the named phases
 alone and prints no kernels line).  Builds the five CUDA libraries from
@@ -102,6 +102,15 @@ bound), and drives through ``CudaEngine``:
   in lane blocks of one CTA and in the clusters of ``perf_sweep``'s
   attribution (block 512), each launch held against the plain ablated
   version,
+* several GPUs (``[shard]``, :func:`phase_shard`,
+  ``hpa2_tpu_torch.parallel``): the headline ensemble through
+  ``DataShardedCudaEngine`` over every card (two shards on one card)
+  equal to the one-card run with one status read, a checked pass whose
+  every K2 and K3 launch is held against the plain version, a fused
+  scheduled zipf run equal to the unsharded one, and the general
+  engine's node axis over NCCL (``NodeShardedEngine`` at 8 and 16 nodes,
+  a2a and pairwise, equal to ``TorchEngine``, a cycle's collectives
+  equal to the plan's plus one SUM and one MAX; one rank on one card),
 * BASELINE.json's scaled configurations (``[scale]``,
   :func:`phase_scale`, through ``hpa2_tpu_torch.scripts.scale_runs``):
   configuration 5 at full size (1,024 systems x 8 nodes x 10,000
@@ -3437,6 +3446,205 @@ def phase_scale(card):
                 "seconds", "us_per_cycle")}}
 
 
+#: ``[shard]``'s checked pass and fused scheduled run
+SHARD_CHECKED = (1024, 32)
+SHARD_ZIPF = (4096, 2048)
+#: ``[shard]``'s node axis: (nodes, instructions a core) of each run
+SHARD_NODE = ((8, 16), (16, 8))
+
+
+def _node_jobs(cfg_of, node_shards, device):
+    """NodeShardedEngine runs of ``SHARD_NODE`` in the a2a and pairwise
+    schedules over ``node_shards`` ranks (one spawn), each against
+    ``TorchEngine`` on the card: (engines, references)."""
+    import dataclasses
+
+    from hpa2_tpu_torch.ops.engine import TorchEngine
+    from hpa2_tpu_torch.parallel import NodeShardedEngine, make_mesh
+    from hpa2_tpu_torch.parallel.sharding import run_node_sharded
+    from hpa2_tpu_torch.utils.trace import gen_uniform_random
+
+    engs, refs = [], []
+    for n, t in SHARD_NODE:
+        cfg = cfg_of(n)
+        traces = gen_uniform_random(cfg, t, seed=n)
+        ref = TorchEngine(cfg, traces, device=device).run()
+        for mode in (("a2a", "pairwise") if node_shards > 1 else ("a2a",)):
+            engs.append(NodeShardedEngine(
+                dataclasses.replace(cfg, exchange_mode=mode), traces,
+                mesh=make_mesh(node_shards=node_shards, data_shards=1,
+                               device=device)))
+            refs.append(ref)
+    run_node_sharded(engs)
+    return engs, refs
+
+
+def phase_shard(headline_state=None):
+    """``[shard]``: the multi-GPU slice (``hpa2_tpu_torch.parallel``).
+
+    The data axis over every card (two shards on ``cuda:0`` when there
+    is one card): the headline ensemble through
+    ``DataShardedCudaEngine`` equal plane for plane to one
+    ``CudaEngine``'s run (``headline_state``, the checked headline
+    planes) with one status read; a checked pass at 1,024 x 8 x 32
+    whose every K2 and K3 launch is held against the plain version; a
+    fused scheduled zipf run of 4,096 systems through 2,048 lanes equal
+    to the unsharded one.  The node axis of the general engine over
+    NCCL with ``min(4, cards)`` ranks (and 2 when there are four):
+    ``NodeShardedEngine`` at 8 and 16 nodes in the a2a and pairwise
+    schedules, each equal to ``TorchEngine`` on the card, and a cycle's
+    collectives equal to ``plan_collectives`` plus one SUM and one MAX.
+    With one card, a one-rank NCCL run through ``parallel/launch.py``.
+    Returns the ``by_path`` records of K2 and K3."""
+    from hpa2_tpu_torch.config import Semantics, SystemConfig
+    from hpa2_tpu_torch.ops import exchange, kernels
+    from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
+    from hpa2_tpu_torch.ops.schedule import Schedule
+    from hpa2_tpu_torch.parallel import DataShardedCudaEngine, make_data_mesh
+    from hpa2_tpu_torch.utils.trace import (
+        gen_heterogeneous_random_arrays, gen_uniform_random_arrays,
+    )
+
+    cards = torch.cuda.device_count()
+    mesh = (make_data_mesh() if cards > 1
+            else make_data_mesh(2, devices=["cuda:0", "cuda:0"]))
+    shards = len(mesh.devices)
+    where = ", ".join(str(d) for d in mesh.devices)
+    cfg = SystemConfig(semantics=Semantics().robust(), **HEADLINE)
+    run = dict(block=HEADLINE_RUN["block"], cycles_per_call=HEADLINE_RUN["k"],
+               snapshots=False, trace_window=HEADLINE_RUN["window"],
+               gate=HEADLINE_RUN["gate"])
+    k2, k3 = {}, {}
+
+    # the headline ensemble over the data mesh
+    arrays = gen_uniform_random_arrays(cfg, 32768, 128, seed=0)
+    if headline_state is None:
+        ref = CudaEngine(cfg, *arrays, **run)
+        ref.run()
+        headline_state = ref.state
+    DataShardedCudaEngine(cfg, *arrays, mesh=mesh, **run).run()  # warm-up
+    eng = DataShardedCudaEngine(cfg, *arrays, mesh=mesh, **run)
+    for d in mesh.devices:
+        torch.cuda.synchronize(d)
+    _zero_launches()
+    syncs = kernels.HOST_SYNCS.count
+    t0 = time.perf_counter()
+    eng.run()
+    wall = (time.perf_counter() - t0) * 1e3
+    syncs = kernels.HOST_SYNCS.count - syncs
+    launches = _k2_launches("shard headline")
+    got = eng.state
+    err = check_diff("shard headline", plane_diff(
+        cfg, False, {f: v.cuda() for f, v in got.items()}, headline_state))
+    if launches != shards or syncs != 1:
+        raise AssertionError(f"shard headline: {launches} K2 launches, "
+                             f"{syncs} host syncs over {shards} shards")
+    k2["shard headline"] = dict(
+        launches=launches, host_syncs=syncs, max_abs_err=err,
+        wall_ms=round(wall, 3), devices=where,
+        held_to="the checked headline run's planes (one card)")
+    print(f"[shard] data: 32768 x 8 x 128 over {shards} shards ({where}): "
+          f"{launches} K2 launches (one a shard), {syncs} host sync, "
+          f"{eng.instructions} RD/WR retired, run {wall:.3f} ms wall; "
+          f"planes equal to one CudaEngine's: max_abs_err={err}")
+
+    # a checked pass: every K2 and K3 launch against the plain version
+    b, t = SHARD_CHECKED
+    arrays = gen_uniform_random_arrays(cfg, b, t, seed=1)
+    for stream, rec in ((True, k2), (False, k3)):
+        name = "stream_run" if stream else "call_run"
+        ref = CudaEngine(cfg, *arrays, stream=stream, **run)
+        ref.run()
+        _zero_launches()
+        with checked_kernels(f"shard checked {name}") as chk:
+            eng = DataShardedCudaEngine(cfg, *arrays, mesh=mesh,
+                                        stream=stream, **run)
+            eng.run()
+        n = getattr(kernels, name.upper()).launches
+        if n == 0 or chk[name] != n:
+            raise AssertionError(f"shard checked {name}: {chk}, {n}")
+        err = max(chk["err"], check_diff(
+            f"shard checked {name}", plane_diff(
+                cfg, False, {f: v.cuda() for f, v in eng.state.items()},
+                ref.state)))
+        rec["shard checked"] = dict(launches=n, checked_launches=chk[name],
+                                    max_abs_err=err)
+        print(f"[shard] data checked: {b} x 8 x {t} over {shards} shards, "
+              f"{'streamed (K2)' if stream else 'per call (K3)'}: {n} "
+              f"launches, each held against the plain version "
+              f"(plain {chk['seconds']:.1f} s): max_abs_err={chk['err']}; "
+              "planes equal to one card's run")
+
+    # a fused scheduled zipf run
+    b, resident = SHARD_ZIPF
+    arrays = gen_heterogeneous_random_arrays(cfg, b, 128, dist="zipf",
+                                             spread=8.0, seed=0)
+    kw = dict(run, schedule=Schedule(resident=resident))
+    ref = CudaEngine(cfg, *arrays, **kw)
+    ref.run()
+    _zero_launches()
+    eng = DataShardedCudaEngine(cfg, *arrays, mesh=mesh, **kw)
+    syncs = kernels.HOST_SYNCS.count
+    eng.run()
+    syncs = kernels.HOST_SYNCS.count - syncs
+    launches = _k2_launches("shard fused zipf")
+    err = check_diff("shard fused zipf", plane_diff(
+        cfg, False, {f: v.cuda() for f, v in eng.state.items()}, ref.state))
+    k2["shard fused zipf"] = dict(
+        launches=launches, host_syncs=syncs, max_abs_err=err,
+        held_to="the unsharded fused scheduled run's planes")
+    print(f"[shard] data fused scheduled: {b} zipf systems through "
+          f"{resident} lanes over {shards} shards (one scheduling group a "
+          f"shard): {launches} K2 launches, {syncs} host sync, "
+          f"{eng.occupancy.intervals} intervals; planes equal to the "
+          f"unsharded run: max_abs_err={err}")
+
+    # the node axis of the general engine over NCCL
+    def cfg_of(n):
+        return SystemConfig(num_procs=n, msg_buffer_size=16,
+                            semantics=Semantics().robust())
+
+    ladder = [2, 4] if cards >= 4 else ([min(4, cards)] if cards >= 2
+                                        else [1])
+    for node in ladder:
+        t0 = time.perf_counter()
+        engs, refs = _node_jobs(cfg_of, node, "cuda")
+        secs = time.perf_counter() - t0
+        for e, ref in zip(engs, refs):
+            same = (e.cycle == ref.cycle
+                    and e.snapshots() == ref.snapshots()
+                    and e.final_dumps() == ref.final_dumps()
+                    and e.stats()["instructions"] == ref.instructions
+                    and e.messages == ref.messages)
+            plan = exchange.make_plan(node, e.config.exchange_mode)
+            want = dict(exchange.plan_collectives(plan),
+                        sum=1, max=1 if node > 1 else 0, min=0)
+            coll = e.step_collectives
+            if not same or coll != want:
+                raise AssertionError(
+                    f"shard node {node} {e.config.exchange_mode} "
+                    f"{e.config.num_procs} nodes: equal {same}, "
+                    f"collectives {coll} != {want}")
+            st = e.rank_stats
+            ms_step = max(r["seconds"] for r in st) * 1e3 / max(
+                st[0]["steps"], 1)
+            print(f"[shard] node: {e.config.num_procs} nodes over {node} "
+                  f"NCCL rank(s) (one card each), {e.config.exchange_mode}:"
+                  f" {e.cycle} cycles, equal to TorchEngine on the card "
+                  f"(cycle, snapshots, dumps, counters); collectives a "
+                  f"cycle {coll} (plan {exchange.plan_collectives(plan)} + "
+                  f"SUM + MAX), {ms_step:.3f} ms a step uncaptured")
+        print(f"[shard] node: {len(engs)} runs over {node} rank(s) in "
+              f"{secs:.1f} s with the ranks' start")
+    if cards < 2:
+        print("[shard] node: one card: the run above is one NCCL rank "
+              "through parallel/launch.py; the multi-rank exchange needs "
+              "two cards (NCCL takes one rank a card); the four-card run "
+              "of this phase is recorded in PERF.md section 6 (the "
+              "multi-GPU slice's findings)")
+    return k2, k3
+
+
 def host_cpu() -> str:
     """The host's CPU as ``/proc/cpuinfo`` gives it for its first
     processor: model name, vendor, family and model, clock and cache
@@ -3468,9 +3676,11 @@ def phase_analysis(budget_rows):
     copy of its planes; ``spec``, ``jax`` (the general engine's step on
     the card) and ``native`` at MESI and ``jax`` at MOESI and MESIF, with
     the multi-message diffs; every table diff 0.  Then ``contracts`` on
-    the card (the 8 unsharded points clean, the wrappers' calls equal to
-    the libraries' launches, the 4 sharded points skipped naming ROADMAP
-    queue 1 item 4), ``elision``'s verify against ``TorchEngine`` on the
+    the card (the 8 unsharded points and ``data-sharded-pallas`` clean,
+    the wrappers' calls equal to the libraries' launches, the fast
+    path's node-sharded point skipped naming ROADMAP queue 1 item 4b, the
+    general engine's two node-sharded points clean on four cards and
+    skipped on fewer), ``elision``'s verify against ``TorchEngine`` on the
     card, ``lint`` and ``mutation-test``.  ``budget_rows`` is the count
     of ``[build]`` rows whose shared memory the Hopper budget model
     matched.  Returns K3's ``by_path`` record."""
@@ -3568,14 +3778,21 @@ def phase_analysis(budget_rows):
     status = {r.contract: r.status for r in results}
     clean = [c for c, v in status.items() if v == "ok"]
     skipped = [r for r in results if r.status == "skip"]
-    if len(clean) != 8 or len(skipped) != 4 or any(
-            "item 4" not in r.note for r in skipped):
+    # the node-sharded general engine's points spawn four NCCL ranks:
+    # four cards, else skipped
+    four = torch.cuda.device_count() >= 4
+    if len(clean) != (11 if four else 9) \
+            or len(skipped) != (1 if four else 3) or any(
+                "item 4b" not in r.note and "needs 4 cards" not in r.note
+                for r in skipped):
         raise AssertionError(f"analysis contracts: {status}")
     for name in ("stream_run", "call_run"):
         if census[f"calls.{name}"] != census[f"launches.{name}"]:
             raise AssertionError(f"analysis contracts: {census}")
-    print(f"[analysis] contracts: 8 clean on the card, 4 sharded skipped "
-          f"(item 4); wrapper calls = launches: stream_run "
+    print(f"[analysis] contracts: {len(clean)} clean on the card, "
+          f"{len(skipped)} skipped (" + "; ".join(
+              f"{r.contract}: {r.note}" for r in skipped) + "); wrapper "
+          f"calls = launches: stream_run "
           f"{census['launches.stream_run']}, call_run "
           f"{census['launches.call_run']}; {census['host_syncs']} host syncs")
     print(f"[analysis] Hopper budget: the model's shared memory, threads "
@@ -3607,7 +3824,7 @@ def phase_analysis(budget_rows):
 #: after the build, and no kernels line); with no arguments every phase
 #: runs
 ONLY = ("general-scheduled", "serve-jax", "recovery", "entry", "analysis",
-        "ablate", "scale")
+        "ablate", "scale", "shard")
 
 
 def main(argv=None) -> int:
@@ -3690,7 +3907,8 @@ def main(argv=None) -> int:
                             ("analysis", lambda card: phase_analysis(
                                 budget_rows)),
                             ("ablate", lambda card: phase_ablate()),
-                            ("scale", phase_scale)):
+                            ("scale", phase_scale),
+                            ("shard", lambda card: phase_shard())):
             if name in only:
                 t0 = time.perf_counter()
                 phase(card)
@@ -3736,6 +3954,9 @@ def main(argv=None) -> int:
             paths["wide"]["state"], plain=False),
     }
     wall["per-call paths"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shard_k2, shard_k3 = phase_shard(paths["headline"]["state"])
+    wall["shard"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     scheduled = phase_scheduled()
     wall["scheduled"] = time.perf_counter() - t0
@@ -3845,6 +4066,9 @@ def main(argv=None) -> int:
     call_entry["by_path"]["analysis prober"] = analysis
     # BASELINE.json's configuration 5 at full size (scale_runs.py)
     stream_entry["by_path"]["scale config5"] = scale
+    # the data axis over the cards: one launch a shard
+    stream_entry["by_path"].update(shard_k2)
+    call_entry["by_path"].update(shard_k3)
     for kern_entry in (stream_entry, call_entry):
         kern_entry["max_abs_err"] = max(
             [kern_entry["max_abs_err"]]

@@ -203,9 +203,9 @@ def cmd_vmem(args: argparse.Namespace) -> int:
         return 2
     if args.node_shards > 1:
         print(
-            f"--node-shards {args.node_shards}: the node-sharded engine "
-            "runs on several GPUs, which the port does not do yet "
-            "(ROADMAP queue 1 item 4)", file=sys.stderr)
+            f"--node-shards {args.node_shards}: the fast path's "
+            "node-sharded engine is not ported yet "
+            "(ROADMAP queue 1 item 4b)", file=sys.stderr)
         return 2
     blocks = tuple(int(b) for b in args.blocks.split(","))
     kw = dict(snapshots=args.snapshots, gate=args.gate, packed=args.packed)
@@ -391,7 +391,7 @@ def main(argv=None) -> int:
                     help="model the packed uint8/uint16 state planes")
     vp.add_argument("--node-shards", type=int, default=1,
                     help="model one shard of the node-sharded engine "
-                         "(ROADMAP queue 1 item 4: only 1 is ported)")
+                         "(ROADMAP queue 1 item 4b: only 1 is ported)")
     op = sub.add_parser("occupancy", help="occupancy scheduler model")
     op.add_argument("--batch", type=int, default=64)
     op.add_argument("--instrs", type=int, default=96,

@@ -29,9 +29,13 @@ contract, key, expected vs found, where in the op sequence the
 offending op fell, and the rule's rationale.
 
 CLI: ``python -m hpa2_tpu_torch.analysis contracts [--check|--repin|
---list] [--engine TAG] [--device cpu]``.  The four sharded points need
-the multi-GPU engines, which the port does not have yet (ROADMAP queue
-1 item 4): they are registered, and skipped with that note.
+--list] [--engine TAG] [--device cpu]``.  Three sharded points run:
+``data-sharded-pallas`` (four data shards, logical on the CPU or one card
+named four times) and the general engine's node axis at D=4 in the a2a
+and pairwise schedules (four gloo ranks on the CPU; on the card four
+cards, else skipped), counted through ``parallel/comm.py``'s wrapper.
+``node-sharded-pallas-a2a`` needs the fast path's node axis (ROADMAP
+queue 1 item 4b): it is registered, and skipped with that note.
 """
 
 from __future__ import annotations
@@ -53,9 +57,9 @@ _OPS = {
     ">=": lambda got, want: got >= want,
 }
 
-#: why the sharded points skip
-SHARDED_NOTE = ("the sharded engines are ROADMAP queue 1 item 4 "
-                "(multi-GPU), not ported yet")
+#: why the fast path's node-sharded point skips
+SHARDED_NOTE = ("the fast path's node-sharded engine is ROADMAP queue 1 "
+                "item 4b, not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,6 +229,8 @@ def run_contracts(engine: Optional[str] = None,
     filtered by engine tag or name) and check -- or, with ``repin``,
     refresh -- its pins.  Prints drift diffs through ``out``; returns
     per-contract results."""
+    import torch
+
     from hpa2_tpu_torch.ops.cuda_engine import resolve_device
 
     dev = resolve_device(device)
@@ -238,6 +244,13 @@ def run_contracts(engine: Optional[str] = None,
             results.append(CheckResult(c.name, c.engine, "skip",
                                        note=SHARDED_NOTE))
             out(f"SKIP  {c.name} [{c.engine}] — {SHARDED_NOTE}")
+            continue
+        if dev.type == "cuda" and torch.cuda.device_count() < c.needs_devices:
+            note = (f"needs {c.needs_devices} cards (NCCL takes one rank "
+                    f"a card), have {torch.cuda.device_count()}")
+            results.append(CheckResult(c.name, c.engine, "skip",
+                                       note=note))
+            out(f"SKIP  {c.name} [{c.engine}] — {note}")
             continue
         obs = c.measure(dev.type)
         if repin:
@@ -577,6 +590,67 @@ def measure_recovery_resume(device: str = "cpu") -> Observation:
 # -- registry ---------------------------------------------------------
 
 
+def measure_data_sharded(device: str = "cpu") -> Observation:
+    """A data-sharded streamed ``run()`` over four shards (logical on the
+    CPU, one card named four times on the card): one streamed launch a
+    shard, no collective, and one host sync, the ORed status read."""
+    from hpa2_tpu_torch.parallel.comm import COLLECTIVES
+    from hpa2_tpu_torch.parallel.sharding import (
+        DataShardedCudaEngine, make_data_mesh,
+    )
+    from hpa2_tpu_torch.utils import trace as trace_mod
+
+    cfg = _base_cfg(8, msg_buffer_size=16)
+    arrays = trace_mod.gen_uniform_random_arrays(cfg, 16, 16, seed=1)
+    dev = "cuda:0" if device == "cuda" else "cpu"
+    mesh = make_data_mesh(4, devices=[dev] * 4)
+    eng = DataShardedCudaEngine(cfg, *arrays, mesh=mesh, block=4,
+                                snapshots=False, trace_window=8)
+    before = COLLECTIVES.snapshot()
+    with ir.launch_census() as c:
+        eng.run()
+    after = COLLECTIVES.snapshot()
+    values = {k: c[k] for k in ("calls.stream_run", "calls.call_run",
+                                "host_syncs")}
+    values["collectives"] = sum(after.values()) - sum(before.values())
+    if device == "cuda":
+        values["launches.stream_run"] = c["launches.stream_run"]
+    return Observation(values, {}, device)
+
+
+#: the node-sharded general engine's observations, by device: both
+#: schedules run in one group of ranks (a rank costs seconds to start)
+_NODE_OBS: Dict[str, Dict[str, Observation]] = {}
+
+
+def measure_node_sharded_jax(mode: str, device: str = "cpu") -> Observation:
+    """The collectives of one lockstep cycle of the node-sharded general
+    engine at D=4 (8 nodes, rank 0's count through ``parallel/comm.py``'s
+    wrapper), and of one test of its loop."""
+    if device not in _NODE_OBS:
+        import dataclasses as dc
+
+        from hpa2_tpu_torch.parallel.sharding import (
+            NodeShardedEngine, make_mesh, run_node_sharded,
+        )
+        from hpa2_tpu_torch.utils import trace as trace_mod
+
+        cfg = _base_cfg(8, msg_buffer_size=16, elide=False)
+        traces = trace_mod.gen_uniform_random(cfg, 4, seed=1)
+        engs = {m: NodeShardedEngine(
+            dc.replace(cfg, exchange_mode=m), traces,
+            mesh=make_mesh(node_shards=4, data_shards=1, device=device))
+            for m in ("a2a", "pairwise")}
+        run_node_sharded(list(engs.values()))
+        _NODE_OBS[device] = {}
+        for m, e in engs.items():
+            values = dict(e.step_collectives)
+            values.update({f"loop.{k}": v for k, v in
+                           e.rank_stats[0]["loop_collectives"].items()})
+            _NODE_OBS[device][m] = Observation(values, {}, device)
+    return _NODE_OBS[device][mode]
+
+
 def registry() -> List[Contract]:
     """Every contract point, in check order.  Literal expectations are
     invariants; ``None`` expectations are pinned in contracts/*.json."""
@@ -759,13 +833,22 @@ def registry() -> List[Contract]:
         ),
         Contract(
             "data-sharded-pallas", "sharded",
-            "data-sharded per-shard program collective-free",
-            None,
+            "data-sharded streamed run: collective-free, one status read",
+            measure_data_sharded,
             (
-                Rule("shard_body.collectives", "==", 0,
+                Rule("collectives", "==", 0,
                      "each shard's whole run is independent"),
+                Rule("calls.stream_run", "==", 4,
+                     "one streamed launch a shard (four shards)"),
+                Rule("calls.call_run", "==", 0,
+                     "a streamed run never calls the per-call kernel"),
+                Rule("host_syncs", "==", 1,
+                     "the shards' status words OR on one device and are "
+                     "read once"),
+                Rule("launches.stream_run", "==", 4,
+                     "one K2 launch a shard", card=True),
             ),
-            needs_devices=8,
+            needs_devices=1,
         ),
         Contract(
             "node-sharded-pallas-a2a", "sharded",
@@ -774,34 +857,34 @@ def registry() -> List[Contract]:
             (
                 Rule("ppermute", "==", 0, coll_why),
                 Rule("all_to_all", "==", 2, coll_why),
-                Rule("gather", "==", 0, coll_why),
             ),
             needs_devices=4,
         ),
+    ] + [
         Contract(
-            "node-sharded-jax-a2a", "sharded",
-            "node-sharded general-engine collectives (a2a schedule, D=4)",
-            None,
+            f"node-sharded-jax-{mode}", "sharded",
+            f"node-sharded general-engine collectives ({mode}, D=4)",
+            (lambda device, mode=mode: measure_node_sharded_jax(mode,
+                                                                device)),
             (
-                Rule("ppermute", "==", 0, coll_why),
-                Rule("all_to_all", "==", 2, coll_why),
-                Rule("gather", "==", 0, coll_why),
-            ),
-            needs_devices=4,
-        ),
-        Contract(
-            "node-sharded-jax-pairwise", "sharded",
-            "node-sharded general-engine collectives (pairwise, D=4)",
-            None,
-            (
-                Rule("ppermute", "==", 6,
-                     "the pairwise schedule ships 2*(D-1) serial "
+                Rule("ppermute", "==", ppermute, coll_why if mode == "a2a"
+                     else "the pairwise schedule ships 2*(D-1) serial "
                      "ppermutes at D=4"),
-                Rule("all_to_all", "==", 0, coll_why),
-                Rule("gather", "==", 0, coll_why),
+                Rule("all_to_all", "==", a2a, coll_why),
+                Rule("sum", "==", 1,
+                     "one stacked SUM a cycle replicates every counter"),
+                Rule("max", "==", 1,
+                     "one MAX a cycle: the exchange's slot high-water "
+                     "mark"),
+                Rule("min", "==", 0, "the step reduces no minimum"),
+                Rule("loop.min", "==", 2,
+                     "one loop test: quiescence over the node group and "
+                     "the batch-global terms over every rank"),
+                Rule("loop.sum", "==", 0, "the loop test sums nothing"),
             ),
             needs_devices=4,
-        ),
+        )
+        for mode, ppermute, a2a in (("a2a", 0, 2), ("pairwise", 6, 0))
     ]
 
 

@@ -11,7 +11,8 @@ counterparts:
   ``.item()`` or ``.tolist()`` on a device tensor, outside
   ``kernels.HOST_SYNCS.read``, in the code that runs between a run's
   launch and its status read (:data:`HOST_SYNC_SCOPE`: the fast path's
-  run paths in ``ops/cuda_engine.py``, ``ops/call_run.py:run_windows``,
+  run paths in ``ops/cuda_engine.py``, ``ops/call_run.py:run_windows``
+  and ``run_windows_multi``,
   the general engine's ``Run``/``ChunkRun``/``BoundChunk`` card paths in
   ``ops/step.py``, and ``ops/session.py``).  On the card each such read
   waits for the device, so a read that does not go through
@@ -77,9 +78,11 @@ INTERCONNECT_DIR = os.path.join("hpa2_tpu_torch", "interconnect")
 #: run's launch and its status read on the card
 HOST_SYNC_SCOPE = {
     os.path.join(OPS_DIR, "cuda_engine.py"): (
-        "run_program", "barrier_", "CudaEngine.run", "CudaEngine._program",
+        "run_program", "run_programs", "read_status", "barrier_",
+        "CudaEngine.run", "CudaEngine._programs",
         "CudaEngine._run_scheduled_fused", "CudaEngine._run_scheduled"),
-    os.path.join(OPS_DIR, "call_run.py"): ("run_windows",),
+    os.path.join(OPS_DIR, "call_run.py"): ("run_windows",
+                                           "run_windows_multi"),
     os.path.join(OPS_DIR, "step.py"): (
         "Run.__call__", "Run.gated", "Run.advance_chunk", "Run._capture",
         "Run._run_graphed", "ChunkRun.gated", "ChunkRun.advance_chunk",

@@ -25,8 +25,8 @@ The module name and the shape of its API (:class:`VmemBudget`,
 are the JAX module's.  :func:`max_fitting_block` reproduces
 ``kernels.MAX_LANE_BLOCK``, which ``scripts/block_limits.py`` measured
 on the card, and :func:`measured_vmem_bytes` reads the card's own
-figure (``CudaKernel.occupancy``).  Node sharding is ROADMAP queue 1
-item 4 and raises here.
+figure (``CudaKernel.occupancy``).  A shard of the fast path's node
+axis (``node_shards > 1``) is ROADMAP queue 1 item 4b and raises here.
 """
 
 from __future__ import annotations
@@ -170,9 +170,9 @@ def state_plane_bytes(config: SystemConfig, *,
 def _no_shards(node_shards: int) -> None:
     if node_shards != 1:
         raise ValueError(
-            "node_shards > 1 models one shard of the node-sharded "
-            "engine, which the port does not have yet (ROADMAP queue 1 "
-            "item 4)")
+            "node_shards > 1 models one shard of the fast path's "
+            "node-sharded engine, which the port does not have yet "
+            "(ROADMAP queue 1 item 4b)")
 
 
 def vmem_budget(

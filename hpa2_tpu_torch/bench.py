@@ -38,8 +38,12 @@ Each prints one JSON line (``bench.py:197-1268``).
 and its power limit (``nvidia-smi``).  There is no fallback: a failed
 fast path, a failed baseline or a missing card ends the run with a
 nonzero exit and no JSON line, and no earlier record is read or
-written.  ``--data-shards``, ``--node-shards`` and ``--exchange-mode``
-are refused (several GPUs: ROADMAP queue 1 item 4).
+written.  ``--data-shards N`` (``HPA2_BENCH_DATA_SHARDS``) splits the
+headline's ensemble over N cards (``DataShardedCudaEngine``; the batch
+is rounded up to a multiple of N) and serves ``--serve`` on
+``pallas-sharded``; ``--node-shards`` and ``--exchange-mode`` shard the
+fast path's node axis in ``bench.py``, which is ROADMAP queue 1 item 4b
+and refused.
 """
 
 from __future__ import annotations
@@ -74,6 +78,11 @@ def _env_int(name: str, default: int) -> int:
         return int(os.environ.get(name, str(default)))
     except ValueError:
         return default
+
+
+def _data_shards() -> int:
+    """``--data-shards``: the headline's and serving's cards."""
+    return max(1, _env_int("HPA2_BENCH_DATA_SHARDS", 1))
 
 
 def _no_elide() -> bool:
@@ -141,11 +150,12 @@ def _sync(dev: torch.device) -> None:
 
 def bench_pallas(config, batch, instrs_per_core, seed=0, dist=None,
                  spread=8.0, packed=False, schedule_resident=0, fused=True,
-                 device="cuda"):
+                 device="cuda", data_shards=1):
     """The fast path on ``batch`` systems (``bench.py:197-318``):
     warm-up, then a timed run split into host staging (building the
     engine: packing and uploading the planes), device execution and the
-    counter readback.  -> (instructions, seconds, occupancy, phases)."""
+    counter readback; ``data_shards > 1`` over that many cards.
+    -> (instructions, seconds, occupancy, phases)."""
     from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
     from hpa2_tpu_torch.ops.schedule import Schedule
     from hpa2_tpu_torch.utils.trace import (
@@ -171,25 +181,38 @@ def bench_pallas(config, batch, instrs_per_core, seed=0, dist=None,
         lens = heterogeneous_lengths(batch, instrs_per_core, dist=dist,
                                      spread=spread, seed=seed)
         occupancy = predicted_stats(
-            lens, _WINDOW, choose_block(batch, _BLOCK)).as_dict()
+            lens, _WINDOW, choose_block(batch // data_shards, _BLOCK),
+            groups=data_shards).as_dict()
     else:
         arrays = gen_uniform_random_arrays(config, batch, instrs_per_core,
                                            seed=seed)
 
     def build():
-        return CudaEngine(config, *arrays, block=_BLOCK, cycles_per_call=_K,
-                          snapshots=False, trace_window=_WINDOW, gate=_GATE,
-                          packed=packed, schedule=schedule, device=dev)
+        kw = dict(block=_BLOCK, cycles_per_call=_K, snapshots=False,
+                  trace_window=_WINDOW, gate=_GATE, packed=packed,
+                  schedule=schedule)
+        if data_shards > 1:
+            from hpa2_tpu_torch.parallel import DataShardedCudaEngine
+
+            return DataShardedCudaEngine(config, *arrays,
+                                         data_shards=data_shards,
+                                         device=dev, **kw)
+        return CudaEngine(config, *arrays, device=dev, **kw)
+
+    def sync_all():
+        if dev.type == "cuda":
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
 
     build().run()  # builds the kernel, warms the caches
-    _sync(dev)
+    sync_all()
     t0 = time.perf_counter()
     eng = build()
-    _sync(dev)
+    sync_all()
     stage_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     eng.run()
-    _sync(dev)
+    sync_all()
     dt = time.perf_counter() - t0
     t0 = time.perf_counter()
     instrs = eng.instructions
@@ -280,12 +303,16 @@ def headline_main(device: str = "cuda") -> dict:
     on_card = dev.type == "cuda"
     batch, instrs_per_core = ((_CARD_BATCH, _CARD_INSTRS) if on_card
                               else (_CPU_BATCH, _CPU_INSTRS))
+    shards = _data_shards()
+    if batch % shards:  # the ensemble splits into equal lane groups
+        batch = -(-batch // shards) * shards
     dist, spread = _trace_len_dist()
     packed = _packed()
     resident, fused = _schedule_knobs()
     instrs, dt, occupancy, phases = bench_pallas(
         config, batch, instrs_per_core, dist=dist, spread=spread,
-        packed=packed, schedule_resident=resident, fused=fused, device=dev)
+        packed=packed, schedule_resident=resident, fused=fused, device=dev,
+        data_shards=shards)
     ops = instrs / dt
     result = {
         "metric": "sim_ops_per_sec_jax",
@@ -311,6 +338,9 @@ def headline_main(device: str = "cuda") -> dict:
     if occupancy is not None:
         result["occupancy"] = occupancy
     result["phases"] = phases
+    if shards != 1:
+        result["data_shards"] = shards
+        result["n_devices"] = torch.cuda.device_count() if on_card else 0
     result["kernel_shape"] = {"block": _BLOCK, "window": _WINDOW, "k": _K,
                               "gate": _GATE}
     if on_card:
@@ -351,6 +381,8 @@ def _serve_knobs(on_card: bool):
     block = _env_int("HPA2_SERVE_BLOCK", _BLOCK if on_card else 8)
     policy = os.environ.get("HPA2_SERVE_POLICY", "fcfs")
     backend = os.environ.get("HPA2_SERVE_BACKEND", "pallas")
+    if backend == "pallas" and _data_shards() > 1:
+        backend = "pallas-sharded"
     return resident, jobs_n, instrs, window, block, policy, backend
 
 
@@ -373,7 +405,7 @@ def serve_main(device: str = "cuda") -> dict:
             config, ListJobSource(jobs, timed=timed), backend=backend,
             resident=resident, window=window, block=block,
             policy=policy, overlap=overlap, max_trace_len=instrs,
-            decode_dumps=False, device=dev,
+            decode_dumps=False, device=dev, data_shards=_data_shards(),
         )
 
     jobs = synthetic_jobs(config, jobs_n, instrs, seed=0, dist="zipf",
@@ -419,7 +451,7 @@ def serve_main(device: str = "cuda") -> dict:
         config, ListJobSource(mt_jobs), backend=backend,
         resident=resident, window=window, block=block, policy="fair-drr",
         overlap=True, max_trace_len=instrs, decode_dumps=False,
-        tenant_weights=weights, device=dev,
+        tenant_weights=weights, device=dev, data_shards=_data_shards(),
     )
     per_tenant = {}
     for name in names:
@@ -445,7 +477,7 @@ def serve_main(device: str = "cuda") -> dict:
         "block": block,
         "policy": pipelined.policy,
         "elide": config.elide,
-        "data_shards": 1,
+        "data_shards": _data_shards(),
         "overlap": overlap_cmp,
         "capacity_pipelined": pipelined.as_dict(),
         "capacity_serial": serial.as_dict(),
@@ -743,7 +775,8 @@ _USAGE = (
     "usage: python -m hpa2_tpu_torch.bench [--device cuda|cpu] "
     "[--serve|--failover|--topology|--protocol] "
     "[--trace-len-dist uniform|zipf] [--trace-len-spread R] "
-    "[--schedule-resident N] [--host-barriers] [--packed] [--no-elide]"
+    "[--schedule-resident N] [--host-barriers] [--packed] [--no-elide] "
+    "[--data-shards N]"
 )
 
 
@@ -758,11 +791,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     """Parse ``bench.py``'s flags into its environment knobs, run the
     study asked for and print its JSON line."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    for flag in ("--data-shards", "--node-shards", "--exchange-mode"):
+    for flag in ("--node-shards", "--exchange-mode"):
         if flag in argv:
             raise SystemExit(
-                f"{flag} runs on several GPUs, which the port does not do "
-                "yet (ROADMAP queue 1 item 4)")
+                f"{flag} shards the fast path's node axis, which the port "
+                "does not do yet (ROADMAP queue 1 item 4b)")
+    if "--data-shards" in argv:
+        try:
+            os.environ["HPA2_BENCH_DATA_SHARDS"] = str(int(_flag_value(
+                argv, "--data-shards")))
+        except ValueError:
+            raise SystemExit(_USAGE)
     device = _flag_value(argv, "--device") if "--device" in argv else "cuda"
     if device not in ("cuda", "cpu"):
         raise SystemExit(f"--device takes cuda or cpu\n{_USAGE}")

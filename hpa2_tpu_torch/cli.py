@@ -58,8 +58,12 @@ job's dumps as it retires and prints the serving stats as its last
 line, as ``python -m hpa2_tpu.cli serve`` does; ``--failure-plan`` or
 ``--checkpoint-dir`` put the recovery supervisor around it.  ``jax``
 and ``pallas`` run on the GPU unless ``--device cpu`` is given;
-``spec`` and ``omp`` run on the host.  ``--data-shards`` and
-``--node-shards`` above 1 are refused (ROADMAP queue 1 item 4).
+``spec`` and ``omp`` run on the host.  ``--data-shards`` splits an
+ensemble over the cards (``bench`` and ``serve``; ``parallel/``), and
+``--node-shards`` splits the general engine's nodes over ranks of one
+card each (``run``/``bench --backend jax``, ``--exchange-mode``); the
+fast path's node axis (``--backend pallas --node-shards``) is ROADMAP
+queue 1 item 4b.
 """
 
 from __future__ import annotations
@@ -164,6 +168,11 @@ def _build_config(args) -> SystemConfig:
             "jax backends (the pallas kernel and the native engine "
             "deliver every message next cycle)"
         )
+    if interconnect.enabled and getattr(args, "node_shards", 1) != 1:
+        raise SystemExit(
+            "non-ideal topologies run single-shard only; "
+            "--node-shards composes with --topology ideal"
+        )
     protocol = getattr(args, "protocol", "mesi")
     directory_format = getattr(args, "directory_format", "full")
     if (protocol != "mesi" or directory_format != "full") \
@@ -172,6 +181,12 @@ def _build_config(args) -> SystemConfig:
             "protocol/directory-format variants are implemented by "
             "the spec and jax backends (the pallas kernel and the "
             "native engine are specialized to MESI/full-bitvector)"
+        )
+    if (protocol != "mesi" or directory_format != "full") \
+            and getattr(args, "node_shards", 1) != 1:
+        raise SystemExit(
+            "--node-shards runs the MESI/full-bitvector build only; "
+            "protocol variants compose with single-shard jax/spec"
         )
     try:
         return SystemConfig(
@@ -185,17 +200,33 @@ def _build_config(args) -> SystemConfig:
             interconnect=interconnect,
             protocol=protocol,
             directory_format=directory_format,
+            exchange_mode=getattr(args, "exchange_mode", "a2a"),
+            exchange_inner=getattr(args, "exchange_inner", 0),
         )
     except ValueError as e:
         raise SystemExit(str(e))
 
 
-def _refuse_shards(args) -> None:
-    """The sharding flags name the multi-GPU slice the port lacks."""
-    if args.data_shards > 1 or args.node_shards > 1:
+def _check_shard_args(args) -> None:
+    """The JAX CLI's shard checks (``hpa2_tpu/cli.py:162-176``), and the
+    fast path's node axis, which is ROADMAP queue 1 item 4b."""
+    if (args.node_shards > 1 or args.data_shards > 1) \
+            and args.backend not in ("jax", "pallas"):
         raise SystemExit(
-            "--data-shards/--node-shards > 1 run on several GPUs, which "
-            "the port does not do yet (ROADMAP queue 1 item 4)")
+            "--node-shards/--data-shards are jax/pallas-backend "
+            "features (device-mesh sharding; the omp/spec backends "
+            "are single-host)"
+        )
+    if args.node_shards > 1 and args.nodes % args.node_shards != 0:
+        raise SystemExit(
+            f"--node-shards {args.node_shards} must divide --nodes "
+            f"{args.nodes} (shards own contiguous equal node blocks)"
+        )
+    if args.node_shards > 1 and args.backend == "pallas":
+        raise SystemExit(
+            "--backend pallas --node-shards (the fast path's node axis) "
+            "is not ported yet (ROADMAP queue 1 item 4b); --backend jax "
+            "shards the general engine's nodes")
 
 
 def _write_dumps(dumps, config, out_dir: str) -> None:
@@ -217,11 +248,16 @@ def cmd_run(args) -> int:
     )
 
     config = _build_config(args)
-    _refuse_shards(args)
+    _check_shard_args(args)
     if (args.crash_at or args.resume) and args.backend != "spec":
         raise SystemExit(
             "--crash-at/--resume checkpoint the spec engine's Python "
             "state (the jax bench path has its own --checkpoint-every)"
+        )
+    if args.data_shards > 1:
+        raise SystemExit(
+            "--data-shards applies to bench (--batch > 1 ensembles); "
+            "run simulates one system"
         )
     out_dir = args.out or os.getcwd()
     os.makedirs(out_dir, exist_ok=True)
@@ -316,6 +352,23 @@ def cmd_run(args) -> int:
                              snapshots=not args.final_dump,
                              device=args.device)
             eng.run(args.max_cycles)
+        elif args.node_shards > 1:
+            # the node axis over ranks (one card each), bit-identical
+            # to the single-device engine
+            from hpa2_tpu_torch.parallel import NodeShardedEngine, make_mesh
+
+            if replay is not None:
+                raise SystemExit(
+                    "--replay is single-shard only (fixture replays "
+                    "are tiny 4-node systems)"
+                )
+            eng = NodeShardedEngine(
+                config, traces,
+                mesh=make_mesh(node_shards=args.node_shards, data_shards=1,
+                               device=args.device),
+                max_cycles=args.max_cycles,
+                watchdog_cycles=args.watchdog_cycles)
+            eng.run()
         else:
             from hpa2_tpu_torch.ops.engine import TorchEngine
 
@@ -433,6 +486,8 @@ def _bench_jax(args, config) -> int:
                 f"{flag} is a fast-path flag: it runs with --backend "
                 "pallas (the general engine's bench, as the JAX CLI's, "
                 "has no scheduled mode)")
+    if args.node_shards > 1 or args.data_shards > 1:
+        return _bench_sharded(args, config)
     resumed_instrs = 0  # nonzero only when a checkpointed run resumes
     if args.batch > 1 and args.checkpoint_every:
         dev, out, dt, resumed_instrs = _bench_chunked(args, config)
@@ -472,6 +527,39 @@ def _bench_jax(args, config) -> int:
         dev = eng.device
     return _bench_line(args, config, instrs, dt, resumed_instrs,
                        device=dev.type)
+
+
+def _bench_sharded(args, config) -> int:
+    """``bench --backend jax`` over a ``(data, node)`` mesh (JAX
+    ``cli.py:448-470``): ``GridEngine`` for ``--batch > 1``, else
+    ``NodeShardedEngine``.  The ranks run a warm-up, then the timed
+    run; the seconds are the slowest rank's timed loop (starting the
+    ranks is not timed)."""
+    from hpa2_tpu_torch.parallel import (
+        GridEngine, NodeShardedEngine, make_mesh,
+    )
+
+    if args.checkpoint_every:
+        raise SystemExit(
+            "--checkpoint-every chunks the single-device batch loop; it "
+            "does not compose with --node-shards/--data-shards")
+    mesh = make_mesh(node_shards=args.node_shards,
+                     data_shards=args.data_shards, device=args.device)
+    gen = _generator(args.workload)
+    if args.batch > 1:
+        eng = GridEngine(
+            config, [gen(config, args.instrs, seed=args.seed + b)
+                     for b in range(args.batch)],
+            mesh=mesh, max_cycles=args.max_cycles)
+    else:
+        eng = NodeShardedEngine(
+            config, gen(config, args.instrs, seed=args.seed), mesh=mesh,
+            max_cycles=args.max_cycles)
+    eng.run(warmup=True)
+    dt = max(r["seconds"] for r in eng.rank_stats)
+    return _bench_line(args, config, eng.instructions, dt,
+                       device=mesh.device,
+                       collectives_per_cycle=eng.step_collectives)
 
 
 def _bench_chunked(args, config):
@@ -565,7 +653,12 @@ def cmd_bench(args) -> int:
     from hpa2_tpu_torch.utils.trace import gen_heterogeneous_random_arrays
 
     config = _build_config(args)
-    _refuse_shards(args)
+    _check_shard_args(args)
+    if args.data_shards > 1 and args.batch <= 1:
+        raise SystemExit(
+            "--data-shards > 1 needs --batch > 1 (an ensemble to "
+            "shard); a single system would only be replicated"
+        )
     if args.backend in ("spec", "omp"):
         return _bench_host(args, config)
     if args.backend == "jax":
@@ -587,10 +680,15 @@ def cmd_bench(args) -> int:
                             fused=not args.host_barriers)
 
     def build():
-        return CudaEngine(config, *arrays, block=args.block,
-                          cycles_per_call=args.cycles_per_call,
-                          snapshots=False, trace_window=args.trace_window,
-                          schedule=schedule, device=args.device)
+        kw = dict(block=args.block, cycles_per_call=args.cycles_per_call,
+                  snapshots=False, trace_window=args.trace_window,
+                  schedule=schedule, device=args.device)
+        if args.data_shards > 1:
+            from hpa2_tpu_torch.parallel import DataShardedCudaEngine
+
+            return DataShardedCudaEngine(config, *arrays,
+                                         data_shards=args.data_shards, **kw)
+        return CudaEngine(config, *arrays, **kw)
 
     build().run(args.max_cycles)  # warm-up (builds the kernel)
     eng = build()
@@ -607,8 +705,9 @@ def cmd_bench(args) -> int:
 
 def _migration_targets(spec: str) -> List[dict]:
     """``--migrate-to``'s ``backend[:data_shards[:node_shards]]``
-    entries (``hpa2_tpu/cli.py:688-708``); shards above 1 are refused
-    (ROADMAP queue 1 item 4)."""
+    entries (``hpa2_tpu/cli.py:688-708``); a pallas target with data
+    shards serves on ``pallas-sharded``, node shards above 1 (the fast
+    path's node axis) are refused (ROADMAP queue 1 item 4b)."""
     targets = []
     for part in spec.split(","):
         fields = part.strip().split(":")
@@ -624,17 +723,27 @@ def _migration_targets(spec: str) -> List[dict]:
                 t["node_shards"] = int(fields[2])
         except ValueError:
             raise SystemExit(f"--migrate-to: bad shard count in {part!r}")
-        if t.get("data_shards", 1) > 1 or t.get("node_shards", 1) > 1:
+        if t.get("node_shards", 1) > 1:
             raise SystemExit(
-                f"--migrate-to {part!r} serves on several GPUs, which the "
-                "port does not do yet (ROADMAP queue 1 item 4)")
+                f"--migrate-to {part!r} serves on the fast path's node "
+                "axis, which the port does not do yet (ROADMAP queue 1 "
+                "item 4b)")
+        if t["backend"] == "pallas" and t.get("data_shards", 1) > 1:
+            t["backend"] = "pallas-sharded"
         targets.append(t)
     return targets
 
 
 def cmd_serve(args) -> int:
     config = _build_config(args)
-    _refuse_shards(args)
+    if args.node_shards > 1:
+        raise SystemExit(
+            "--node-shards serving runs the fast path's node axis "
+            "(pallas-node-sharded), which the port does not do yet "
+            "(ROADMAP queue 1 item 4b)")
+    backend = args.backend
+    if backend == "pallas" and args.data_shards > 1:
+        backend = "pallas-sharded"
     if (args.jobs is None) == (args.listen is None):
         raise SystemExit(
             "serve needs exactly one job feed: a JOBS.jsonl path or "
@@ -734,7 +843,8 @@ def cmd_serve(args) -> int:
     try:
         _, stats = serve_fn(
             config, source,
-            backend=args.backend,
+            backend=backend,
+            data_shards=args.data_shards,
             resident=args.resident,
             window=args.window,
             block=args.block,
@@ -759,9 +869,17 @@ def cmd_serve(args) -> int:
 
 def _add_shards(p: argparse.ArgumentParser) -> None:
     p.add_argument("--data-shards", type=int, default=1,
-                   help="refused above 1 (no multi-GPU runs yet)")
+                   help="split the ensemble over this many cards "
+                   "(bench --batch > 1, serve)")
     p.add_argument("--node-shards", type=int, default=1,
-                   help="refused above 1 (no multi-GPU runs yet)")
+                   help="split the general engine's nodes over this "
+                   "many ranks, one card each (--backend jax)")
+    p.add_argument("--exchange-mode", default="a2a",
+                   choices=("pairwise", "a2a", "butterfly", "hier"),
+                   help="cross-shard exchange schedule under "
+                   "--node-shards (ops/exchange.py)")
+    p.add_argument("--exchange-inner", type=int, default=0,
+                   help="hier exchange: inner-tier size (0 = auto)")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:

@@ -25,7 +25,7 @@ that loop on the device, here each read is a host sync, counted by
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -84,6 +84,24 @@ def run_windows(config: SystemConfig, state: Dict[str, torch.Tensor],
     place.  Returns the status word as an int32 scalar on the planes'
     device, not read: bit 0 a window ended with work left, bit 1 a
     mailbox overflowed.  ``ablate`` is passed on to every call."""
+    return run_windows_multi(
+        config, [(state, tr, tr_len)], block=block, k=k, window=window,
+        n_seg=n_seg, max_calls=max_calls, gate=gate, snapshots=snapshots,
+        packed=packed, call=call, ablate=ablate)[0]
+
+
+def run_windows_multi(config: SystemConfig, parts: Sequence[Tuple], *,
+                      block: int, k: int, window: int, n_seg: int,
+                      max_calls: int, gate: bool, snapshots: bool,
+                      packed: bool = False, call=None,
+                      ablate: frozenset = frozenset()) -> List[torch.Tensor]:
+    """:func:`run_windows` over several independent ``(state, tr,
+    tr_len)`` parts at once (the data shards of an ensemble, each on its
+    own device): each part keeps its own call counter and stops calling
+    when its own lanes are quiescent, exactly as if it ran alone, but
+    the parts' calls of a round are enqueued before the round's one
+    host read of every open part's quiescence, so the devices work at
+    the same time.  Returns each part's status word, not read."""
     # kernels imports this module for call_plain
     from hpa2_tpu_torch.ops import kernels
 
@@ -92,22 +110,40 @@ def run_windows(config: SystemConfig, state: Dict[str, torch.Tensor],
     pc_clear = ~(slsc["pc_mask"] << slsc["off_pc"])
     kw = dict(block=block, k=k, window=window, gate=gate,
               snapshots=snapshots, packed=packed, ablate=ablate)
-    calls, stalled = 0, False
+    home = parts[0][1].device
+    calls = [0] * len(parts)
+    stalled = [False] * len(parts)
     for seg in range(n_seg):
         # window base: every lane is quiescent (or the run has already
         # stalled), so the pc restart is a field clear
-        state["nsw"].bitwise_and_(pc_clear)
-        tl = window_planes(tr, tr_len, seg, window)[1]
+        tls = []
+        for state, tr, tr_len in parts:
+            state["nsw"].bitwise_and_(pc_clear)
+            tls.append(window_planes(tr, tr_len, seg, window)[1])
 
-        def quiescent() -> bool:
-            busy = (active_count(config, state, tl, slsc) != 0).any()
-            return not kernels.HOST_SYNCS.read(busy)
+        def busy(idx: List[int]) -> List[int]:
+            """The parts of ``idx`` with work left (one host read)."""
+            flags = torch.stack([
+                (active_count(config, parts[p][0], tls[p], slsc) != 0)
+                .any().to(home) for p in idx])
+            got = kernels.HOST_SYNCS.read(flags)
+            return [p for p, b in zip(idx, got) if b]
 
-        done = quiescent()
-        while not done and calls < max_calls:
-            call(config, state, tr, tr_len, seg=seg, **kw)
-            calls += 1
-            done = quiescent()
-        stalled = stalled or not done
-    overflow = (state["scalars"][_SC_OVERFLOW] > 0).any()
-    return (overflow.to(torch.int32) << 1) | int(stalled)
+        open_ = busy(list(range(len(parts))))
+        while True:
+            run = [p for p in open_ if calls[p] < max_calls]
+            if not run:
+                break
+            for p in run:
+                state, tr, tr_len = parts[p]
+                call(config, state, tr, tr_len, seg=seg, **kw)
+                calls[p] += 1
+            still = set(busy(run))
+            open_ = [p for p in open_ if p not in run or p in still]
+        for p in open_:
+            stalled[p] = True
+    out = []
+    for (state, _, _), st in zip(parts, stalled):
+        overflow = (state["scalars"][_SC_OVERFLOW] > 0).any()
+        out.append((overflow.to(torch.int32) << 1) | int(st))
+    return out

@@ -31,7 +31,7 @@ from hpa2_tpu_torch.config import SystemConfig
 from hpa2_tpu_torch.convert import state_from_numpy
 from hpa2_tpu_torch.models.protocol import MsgType
 from hpa2_tpu_torch.ops import kernels
-from hpa2_tpu_torch.ops.call_run import run_windows
+from hpa2_tpu_torch.ops.call_run import run_windows, run_windows_multi
 from hpa2_tpu_torch.ops.cycle import ablate_set
 from hpa2_tpu_torch.ops.layout import (
     _SC_CYCLE, _SC_EV, _SC_INSTR, _SC_INV, _SC_MSGS, _SC_OVERFLOW, _SC_RH,
@@ -117,6 +117,36 @@ def run_program(config: SystemConfig, state: Dict[str, torch.Tensor],
         overflow.to(torch.int32) << 1)
 
 
+def run_programs(config: SystemConfig, parts, *, stream: bool, block: int,
+                 k: int, window: int, n_seg: int, max_calls: int,
+                 gate: bool, snapshots: bool, packed: bool = False,
+                 ablate: frozenset = frozenset()) -> List[torch.Tensor]:
+    """:func:`run_program` over several ``(state, tr, tr_len)`` parts
+    (one, or one a data shard, each on its own device); returns each
+    part's status word, not read.  Streamed, every part's launch is
+    enqueued before any status is read; per call, ``run_windows_multi``
+    enqueues a call of every open part before each host read."""
+    kw = dict(block=block, k=k, window=window, n_seg=n_seg,
+              max_calls=max_calls, gate=gate, snapshots=snapshots,
+              packed=packed, ablate=ablate)
+    if not stream:
+        return run_windows_multi(config, parts, **kw)
+    return [run_program(config, st, tr, tl, stream=True, **kw)
+            for st, tr, tl in parts]
+
+
+def read_status(statuses: List[torch.Tensor]) -> int:
+    """The status words of a run's parts ORed on the first part's device
+    and read once (one host sync, ``kernels.HOST_SYNCS``): the counterpart
+    of the single OR-reduce in ``hpa2_tpu/parallel/sharding.py:520-532``.
+    A shard's word crosses to that device behind the work that wrote it."""
+    home = statuses[0].device
+    word = statuses[0]
+    for x in statuses[1:]:
+        word = word | x.to(home)
+    return int(kernels.HOST_SYNCS.read(word))
+
+
 def _signed(x: torch.Tensor) -> torch.Tensor:
     """``x``, a u16 plane seen as int16 (the same bits): CUDA has no
     gather or ``where`` for u16."""
@@ -158,10 +188,11 @@ def interval_windows(tr_np: np.ndarray, tl_np: np.ndarray,
     return tr_int, tl_int
 
 
-def _schedule_kw(schedule, resident: int, block: int) -> dict:
+def _schedule_kw(schedule, resident: int, block: int,
+                 groups: int = 1) -> dict:
     """The ``LaneScheduler``/``build_plan`` arguments a ``Schedule``
-    asks for (one scheduling group)."""
-    return dict(resident=resident, block=block, groups=1,
+    asks for (``groups`` scheduling groups)."""
+    return dict(resident=resident, block=block, groups=groups,
                 threshold=schedule.threshold, policy=schedule.policy,
                 deadline=schedule.deadlines, tenant=schedule.tenants,
                 tenant_weights=schedule.tenant_weights)
@@ -294,14 +325,14 @@ class CudaEngine:
                 "max_cycles for long windowed workloads)"
             )
 
-    def _program(self, state, tr, tr_len, *, n_seg: int,
-                 snapshots: bool, max_cycles: int) -> torch.Tensor:
+    def _programs(self, parts, *, n_seg: int, snapshots: bool,
+                  max_cycles: int) -> List[torch.Tensor]:
         max_calls = max(1, -(-max_cycles // self.cycles_per_call))
-        return run_program(
-            self.config, state, tr, tr_len, stream=self._stream,
-            block=self.block, k=self.cycles_per_call, window=self._window,
-            n_seg=n_seg, max_calls=max_calls, gate=self._gate,
-            snapshots=snapshots, packed=self._packed, ablate=self._ablate)
+        return run_programs(
+            self.config, parts, stream=self._stream, block=self.block,
+            k=self.cycles_per_call, window=self._window, n_seg=n_seg,
+            max_calls=max_calls, gate=self._gate, snapshots=snapshots,
+            packed=self._packed, ablate=self._ablate)
 
     def run(self, max_cycles: int = 1_000_000) -> "CudaEngine":
         # the run loop resets pc at every window base, so a run is not
@@ -318,29 +349,52 @@ class CudaEngine:
             if self.schedule.fused:
                 return self._run_scheduled_fused(max_cycles)
             return self._run_scheduled(max_cycles)
-        status = self._program(
-            self.state, self._tr_full, self._tr_len_full,
-            n_seg=self._n_seg, snapshots=self._snapshots,
+        statuses = self._programs(
+            self._parts(), n_seg=self._n_seg, snapshots=self._snapshots,
             max_cycles=max_cycles)
-        self._check_status(kernels.HOST_SYNCS.read(status), max_cycles)
+        self._check_status(read_status(statuses), max_cycles)
         self._completed = True
         return self
 
+    # -- lane groups ----------------------------------------------------
+    #
+    # The scheduler splits the resident lanes and the systems into
+    # ``_sched_groups`` contiguous groups that never exchange work.  One
+    # here; one a data shard, each on its own device, in
+    # ``parallel/sharding.py:DataShardedCudaEngine``.
+
+    _sched_groups = 1
+
+    def _parts(self):
+        """The ``(planes, traces, lengths)`` of each data shard."""
+        return [(self.state, self._tr_full, self._tr_len_full)]
+
+    def _group_device(self, g: int) -> torch.device:
+        return self.device
+
+    def _group_traces(self, g: int):
+        """Group ``g``'s systems' trace plane and lengths."""
+        return self._tr_full, self._tr_len_full
+
+    def _join_groups(self, states):
+        """The ensemble's planes from each group's, in system order."""
+        return states[0]
+
     # -- occupancy scheduling (ops/schedule.py) -----------------------
 
-    def _lane_planes(self):
-        """Fresh initial planes of the ``resident`` lanes on the card."""
+    def _lane_planes(self, lanes: int, device):
+        """Fresh initial planes of ``lanes`` lanes on ``device``."""
         return state_from_numpy(
-            _init_state(self.config, self._resident, snapshots=False,
-                        packed=self._packed), self.device)
+            _init_state(self.config, lanes, snapshots=False,
+                        packed=self._packed), device)
 
-    def _empty_store(self, lanes: int):
+    def _empty_store(self, lanes: int, device):
         shapes = state_shapes(self.config, False, self._packed)
         dtypes = state_dtypes(self.config, False, self._packed)
         return {f: torch.zeros(tuple(shapes[f]) + (lanes,),
                                dtype=TORCH_DTYPES[dtypes[f]],
-                               device=self.device)
-                for f in self.state}
+                               device=device)
+                for f in shapes}
 
     def _run_scheduled_fused(self, max_cycles: int) -> "CudaEngine":
         """The fused scheduled run: the plan from ``build_plan``, every
@@ -351,44 +405,73 @@ class CudaEngine:
         live lanes are scattered to their systems' columns of a store
         with one extra trash column, which idle lanes write and which
         is dropped; a system's state changes only while it is resident,
-        so the last scatter holds its final state."""
+        so the last scatter holds its final state.  Each group runs its
+        slice of the plan, rebased to its own lanes and systems (the
+        permutations are block-diagonal over the groups), on its own
+        device; the groups' intervals are enqueued in turn."""
+        groups = self._sched_groups
         plan = build_plan(self._nseg, **_schedule_kw(
-            self.schedule, self._resident, self.block))
-        n, w, bsys = self.config.num_procs, self._window, self.b
+            self.schedule, self._resident, self.block, groups))
+        n, w = self.config.num_procs, self._window
+        gl, gs = self._resident // groups, self.b // groups
         nseg_max = self._n_seg
-        dev = self.device
-        # all host-to-device copies come before the first launch
-        rows = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                for k, v in (("sys", plan.sys), ("seg", plan.seg),
-                             ("perm", plan.perm.astype(np.int64)),
-                             ("reset", plan.reset != 0))}
-        ident = np.arange(self._resident)
-        state, init = self._lane_planes(), self._lane_planes()
-        store = self._empty_store(bsys + 1)
-        # [n, nseg_max*w, bsys] -> [nseg_max*bsys, n, w]: one gather row
-        # per (window, system)
-        trf = self._tr_full.view(n, nseg_max, w, bsys).permute(
-            1, 3, 0, 2).reshape(nseg_max * bsys, n, w)
-        status = torch.zeros((), dtype=torch.int32, device=dev)
+        ident = np.arange(gl)
+        runs = []
+        for g in range(groups):
+            dev = self._group_device(g)
+            cols = slice(g * gl, (g + 1) * gl)
+            sys_g = plan.sys[:, cols]
+            sys_g = np.where(sys_g >= 0, sys_g - g * gs, -1)
+            perm_g = plan.perm[:, cols].astype(np.int64) - g * gl
+            reset_g = plan.reset[:, cols] != 0
+            # all host-to-device copies come before the first launch
+            rows = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                    for k, v in (("sys", sys_g), ("seg", plan.seg[:, cols]),
+                                 ("perm", perm_g), ("reset", reset_g))}
+            tr_full, tl_full = self._group_traces(g)
+            # [n, nseg_max*w, gs] -> [nseg_max*gs, n, w]: one gather row
+            # per (window, system)
+            trf = tr_full.view(n, nseg_max, w, gs).permute(
+                1, 3, 0, 2).reshape(nseg_max * gs, n, w)
+            runs.append(dict(
+                rows=rows, trf=trf, tl_full=tl_full,
+                state=self._lane_planes(gl, dev),
+                init=self._lane_planes(gl, dev),
+                store=self._empty_store(gs + 1, dev),
+                status=torch.zeros((), dtype=torch.int32, device=dev),
+                barrier=reset_g.any(axis=1) | (perm_g != ident).any(axis=1)))
         for i in range(plan.n_intervals):
-            if plan.reset[i].any() or (plan.perm[i] != ident).any():
-                barrier_(state, init, rows["perm"][i], rows["reset"][i])
-            sys_i, seg_i = rows["sys"][i], rows["seg"][i]
-            sysc = sys_i.clamp(0, bsys - 1)
-            gidx = seg_i.clamp(0, nseg_max - 1) * bsys + sysc
-            tr_i = trf.index_select(0, gidx).permute(1, 2, 0).contiguous()
-            tl_i = torch.where(
-                sys_i >= 0,
-                (self._tr_len_full.index_select(1, sysc)
-                 - seg_i[None, :] * w).clamp(0, w),
-                0).to(torch.int32)
-            status |= self._program(state, tr_i, tl_i, n_seg=1,
-                                    snapshots=False, max_cycles=max_cycles)
-            tgt = torch.where(sys_i >= 0, sys_i, bsys).to(torch.int64)
-            for f, v in state.items():
-                _signed(store[f]).index_copy_(-1, tgt, _signed(v))
-        self.state = {f: v[..., :bsys].contiguous() for f, v in store.items()}
-        self._check_status(kernels.HOST_SYNCS.read(status), max_cycles)
+            parts = []
+            for run in runs:
+                rows, state = run["rows"], run["state"]
+                if run["barrier"][i]:
+                    barrier_(state, run["init"], rows["perm"][i],
+                             rows["reset"][i])
+                sys_i, seg_i = rows["sys"][i], rows["seg"][i]
+                sysc = sys_i.clamp(0, gs - 1)
+                gidx = seg_i.clamp(0, nseg_max - 1) * gs + sysc
+                tr_i = run["trf"].index_select(0, gidx).permute(
+                    1, 2, 0).contiguous()
+                tl_i = torch.where(
+                    sys_i >= 0,
+                    (run["tl_full"].index_select(1, sysc)
+                     - seg_i[None, :] * w).clamp(0, w),
+                    0).to(torch.int32)
+                parts.append((state, tr_i, tl_i))
+            statuses = self._programs(parts, n_seg=1, snapshots=False,
+                                      max_cycles=max_cycles)
+            for run, st in zip(runs, statuses):
+                run["status"] |= st
+                sys_i = run["rows"]["sys"][i]
+                tgt = torch.where(sys_i >= 0, sys_i, gs).to(torch.int64)
+                for f, v in run["state"].items():
+                    _signed(run["store"][f]).index_copy_(-1, tgt,
+                                                         _signed(v))
+        self.state = self._join_groups(
+            [{f: v[..., :gs].contiguous() for f, v in run["store"].items()}
+             for run in runs])
+        self._check_status(read_status([r["status"] for r in runs]),
+                           max_cycles)
         self.occupancy = plan.stats
         self._completed = True
         return self
@@ -397,41 +480,55 @@ class CudaEngine:
         """The host-barrier scheduled run: per interval, the host
         assembles the resident lanes' trace windows, runs them, reads
         the status (one host barrier an interval), harvests finished
-        lanes into a store in system order and applies the barrier."""
+        lanes into a store in system order and applies the barrier.
+        Each group's lanes, systems and barrier live on its device."""
+        groups = self._sched_groups
         sched = LaneScheduler(self._nseg, **_schedule_kw(
-            self.schedule, self._resident, self.block))
-        dev, r = self.device, self._resident
-        state, init = self._lane_planes(), self._lane_planes()
-        store = self._empty_store(self.b)
+            self.schedule, self._resident, self.block, groups))
+        r = self._resident
+        gl, gs = r // groups, self.b // groups
+        devs = [self._group_device(g) for g in range(groups)]
+        states = [self._lane_planes(gl, d) for d in devs]
+        inits = [self._lane_planes(gl, d) for d in devs]
+        stores = [self._empty_store(gs, d) for d in devs]
         while not sched.done():
             live = sched.begin_interval()
             tr_int, tl_int = interval_windows(
                 self._tr_np, self._tr_len_np, sched.lane_sys,
                 sched.lane_seg, live, self._window)
-            status = self._program(
-                state, torch.from_numpy(tr_int).to(dev),
-                torch.from_numpy(tl_int).to(dev), n_seg=1,
-                snapshots=False, max_cycles=max_cycles)
-            self._check_status(kernels.HOST_SYNCS.read(status), max_cycles)
+            parts = [
+                (states[g], *(torch.from_numpy(np.ascontiguousarray(
+                    a[..., g * gl:(g + 1) * gl])).to(d)
+                    for a in (tr_int, tl_int)))
+                for g, d in enumerate(devs)]
+            statuses = self._programs(parts, n_seg=1, snapshots=False,
+                                      max_cycles=max_cycles)
+            self._check_status(read_status(statuses), max_cycles)
             plan = sched.end_interval()
-            if plan.finished:
-                lanes, systems = (torch.tensor(x, dtype=torch.int64,
-                                               device=dev)
-                                  for x in zip(*plan.finished))
-                for f, v in state.items():
-                    _signed(store[f]).index_copy_(
-                        -1, systems, _signed(v).index_select(-1, lanes))
+            for g, d in enumerate(devs):
+                done = [(lane - g * gl, s - g * gs)
+                        for lane, s in plan.finished if lane // gl == g]
+                if done:
+                    lanes, systems = (torch.tensor(x, dtype=torch.int64,
+                                                   device=d)
+                                      for x in zip(*done))
+                    for f, v in states[g].items():
+                        _signed(stores[g][f]).index_copy_(
+                            -1, systems, _signed(v).index_select(-1, lanes))
             if not plan.trivial:
                 perm = (plan.perm if plan.perm is not None
                         else np.arange(r, dtype=np.int64))
                 reset = np.zeros(r, bool)
                 for lane, _ in plan.admitted:
                     reset[lane] = True
-                barrier_(state, init, torch.from_numpy(perm).to(dev),
-                         torch.from_numpy(reset).to(dev))
+                for g, d in enumerate(devs):
+                    lanes = slice(g * gl, (g + 1) * gl)
+                    barrier_(states[g], inits[g],
+                             torch.from_numpy(perm[lanes] - g * gl).to(d),
+                             torch.from_numpy(reset[lanes]).to(d))
         # the full-ensemble planes in system order, so every readback
         # accessor works unchanged
-        self.state = store
+        self.state = self._join_groups(stores)
         self.occupancy = sched.stats.set_mode(fused=False)
         self._completed = True
         return self

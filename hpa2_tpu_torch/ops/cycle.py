@@ -132,11 +132,21 @@ def _narrow_dir(dirw, meta_dtype):
 
 
 def build_cycle(config: SystemConfig, snapshots: bool = True,
-                packed: bool = False, ablate: frozenset = frozenset()):
+                packed: bool = False, ablate: frozenset = frozenset(),
+                axis_name=None, shards: int = 1):
     """The cycle function ``state dict -> state dict`` for ``config``.
     The dict holds the carried planes plus ``tr`` [N, T, B] (the trace
     window) and ``tr_len`` [N, B].  ``ablate`` names stubbed stages
-    (:data:`ABLATE_STAGES`); an ablated cycle is wrong by design."""
+    (:data:`ABLATE_STAGES`); an ablated cycle is wrong by design.
+    ``axis_name``/``shards`` (K1's node-sharded variant, JAX
+    ``pallas_engine.py:559-575``) raise: that is ROADMAP queue 1 item
+    4b."""
+    if axis_name is not None or shards != 1:
+        raise ValueError(
+            "K1's node-sharded variant (the fast path's cycle with the "
+            "phase-C exchange) is not ported yet (ROADMAP queue 1 item "
+            "4b); the general engine shards nodes: "
+            "parallel.NodeShardedEngine")
     ablate = ablate_set(ablate)
     _check_geometry(config)
     _check_semantics(config)

@@ -13,7 +13,11 @@ batch-global loop, and with ``schedule=`` streamed through ``resident``
 rows, fused (``build_fused_batched_run``, l.522) or as the host chunk
 loop (``ops/step.py:ChunkRun``, l.462-519).  ``BatchLaneSession``
 (l.970-1161) holds resident rows for the serving loop.
-``data_shards > 1`` is ROADMAP queue 1 item 4 and raises ``ValueError``.
+``data_shards > 1`` splits the batch over several devices
+(``parallel/sharding.py:DataShardedRun``: one loop whose condition and
+elision jump are global over the shards, as ``BatchJaxEngine``'s
+``shard_map(vmap(step))`` loop, so every field equals the unsharded
+run's; the scheduler's groups are the shards).
 
 Where trouble lies, and what the code does about it:
 
@@ -423,7 +427,7 @@ def build_batched_run(config: SystemConfig, max_cycles: int = 1_000_000,
 
 def build_fused_batched_run(config: SystemConfig,
                             max_cycles: int = 1_000_000,
-                            watchdog_cycles: int = 0):
+                            watchdog_cycles: int = 0, run=None):
     """The fused scheduled run
     (``hpa2_tpu/ops/engine.py:build_fused_batched_run``, l.522):
     ``fused(waves, sys_src)`` runs each wave of ``resident`` rows to
@@ -431,8 +435,9 @@ def build_fused_batched_run(config: SystemConfig,
     wave after another, then gathers every system's row out of the
     waves' results (``sys_src[b]`` indexes wave * r + row).  The JAX
     program scans the waves inside one jitted program; here the scan
-    is a host loop over the same loop, so the bits are the same."""
-    run = build_batched_run(config, max_cycles, watchdog_cycles)
+    is a host loop over the same loop, so the bits are the same.  ``run``
+    replaces the wave's loop (the data-sharded one)."""
+    run = run or build_batched_run(config, max_cycles, watchdog_cycles)
 
     def fused(waves: Sequence[SimState], sys_src) -> SimState:
         flat = stack_states([run(w) for w in waves])
@@ -440,6 +445,40 @@ def build_fused_batched_run(config: SystemConfig,
             np.asarray(sys_src, np.int64), device=flat.pc.device))
 
     return fused
+
+
+def _data_devices(config: SystemConfig, rows: int, data_shards: int,
+                  device) -> List[torch.device]:
+    """The devices of ``data_shards`` row groups of ``rows`` rows (JAX
+    ``BatchJaxEngine``: a ``(data_shards, 1)`` mesh, whose step is built
+    with the node axis, so it takes the ideal MESI/full build only)."""
+    if data_shards == 1:
+        return [resolve_device(device)]
+    if rows % data_shards != 0:
+        raise ValueError(
+            f"batch {rows} not divisible by data_shards={data_shards}")
+    if config.interconnect.enabled:
+        raise ValueError(
+            "non-ideal interconnect topologies run single-shard only; "
+            "data sharding composes with topology='ideal'")
+    if config.protocol != "mesi" or config.directory_format != "full":
+        raise ValueError(
+            "data sharding runs the MESI/full-bitvector build only; "
+            "protocol and directory-format variants are single-shard")
+    from hpa2_tpu_torch.parallel.sharding import make_data_mesh
+
+    return list(make_data_mesh(data_shards, device=device).devices)
+
+
+def bind_chunk(config: SystemConfig, interval: int, st: SimState,
+               devices: Sequence[torch.device]):
+    """The chunk program over ``st``'s own tensors: ``ChunkRun.bind``, or
+    over the data shards ``parallel/sharding.py:ShardedChunk``."""
+    if len(devices) == 1:
+        return build_batched_run_chunk(config, interval).bind(st)
+    from hpa2_tpu_torch.parallel.sharding import ShardedChunk
+
+    return ShardedChunk(config, interval, st, devices)
 
 
 def _overflow_error() -> StallError:
@@ -476,18 +515,15 @@ class BatchTorchEngine:
         schedule=None,
         device="cuda",
     ):
-        if data_shards != 1:
-            raise ValueError(
-                "data_shards > 1 runs on several GPUs, which the port does "
-                "not do yet (ROADMAP queue 1 item 4)")
         self.config = config
         self.b = len(batch_traces)
+        self._devices = _data_devices(config, self.b, data_shards, device)
         self.max_cycles = max_cycles
         self.watchdog_cycles = watchdog_cycles
         self.data_shards = data_shards
         self.schedule = schedule
         self.occupancy = None
-        self.device = resolve_device(device)
+        self.device = self._devices[0]
         # every system padded to the longest trace, as BatchJaxEngine
         # stacks init_state(..., max_trace_len=max_t); one empty system
         # after the last, which a row index of -1 picks
@@ -504,6 +540,10 @@ class BatchTorchEngine:
                 raise ValueError(
                     f"schedule.resident={schedule.resident} outside "
                     f"1..{self.b}")
+            if self._resident % data_shards:
+                raise ValueError(
+                    f"schedule.resident={self._resident} and batch "
+                    f"{self.b} must divide data_shards={data_shards}")
             # the resident rows are built in the scheduled runs; the
             # ensemble's state exists only after the run, in system
             # order
@@ -511,8 +551,22 @@ class BatchTorchEngine:
             self._run = None
             return
         self.state = self._fresh(np.arange(self.b))
-        self._run = build_batched_run(
-            config, max_cycles=max_cycles, watchdog_cycles=watchdog_cycles)
+        self._run = self._loop()
+
+    def _loop(self):
+        """The run to quiescence of a batch: the unsharded loop, or over
+        the data shards (split, one global loop, joined back on the
+        first shard's device)."""
+        if self.data_shards == 1:
+            return build_batched_run(self.config, self.max_cycles,
+                                     self.watchdog_cycles)
+        from hpa2_tpu_torch.parallel.sharding import (
+            DataShardedRun, join_rows, split_rows,
+        )
+
+        run = DataShardedRun(self.config, self.max_cycles,
+                             self.watchdog_cycles)
+        return lambda st: join_rows(run(split_rows(st, self._devices)))
 
     def _fresh(self, systems: np.ndarray) -> SimState:
         """Initial rows of ``systems`` (-1: the empty system)."""
@@ -577,23 +631,29 @@ class BatchTorchEngine:
         from hpa2_tpu_torch.ops.schedule import simulate
 
         r, b = self._resident, self.b
-        n_waves = -(-b // r)
-        order = self._group_order(self._tr_len(), 0, b)
+        groups = self.data_shards
+        gl, gs = r // groups, b // groups
+        n_waves = -(-gs // gl)
+        # group g's rows sweep its system slice gl at a time in policy
+        # order (one group a data shard)
+        tr_len = self._tr_len()
         wave_sys = np.full((n_waves, r), -1, dtype=np.int64)
-        for k in range(n_waves):
-            chunk_s = order[k * r:(k + 1) * r]
-            wave_sys[k, :len(chunk_s)] = chunk_s
+        for g in range(groups):
+            order = g * gs + self._group_order(tr_len, g, gs)
+            for k in range(n_waves):
+                chunk_s = order[k * gl:(k + 1) * gl]
+                wave_sys[k, g * gl:g * gl + len(chunk_s)] = chunk_s
         sys_src = np.empty(b, dtype=np.int64)
         for k in range(n_waves):
             live = wave_sys[k] >= 0
             sys_src[wave_sys[k][live]] = k * r + np.nonzero(live)[0]
         fused = build_fused_batched_run(self.config, self.max_cycles,
-                                        self.watchdog_cycles)
+                                        self.watchdog_cycles, self._loop())
         self.state = fused([self._fresh(w) for w in wave_sys], sys_src)
         self._check_run()
         sc = self.schedule
         self.occupancy = simulate(
-            np.ones(b, dtype=np.int64), resident=r, block=1, groups=1,
+            np.ones(b, dtype=np.int64), resident=r, block=1, groups=groups,
             threshold=sc.threshold, fused=True, policy=sc.policy,
             deadline=sc.deadlines, tenant=sc.tenants,
             tenant_weights=sc.tenant_weights,
@@ -610,11 +670,18 @@ class BatchTorchEngine:
 
         cfg, r = self.config, self._resident
         chunk = max(1, self.schedule.interval)
-        order = self._group_order(self._tr_len(), 0, self.b)
-        row_sys = order[:r].astype(np.int64)
-        queue = deque(int(s) for s in order[r:])
+        # one group (admission queue and rows) a data shard
+        groups = self.data_shards
+        gl, gs = r // groups, self.b // groups
+        tr_len = self._tr_len()
+        row_sys = np.full(r, -1, dtype=np.int64)
+        queues = []
+        for g in range(groups):
+            order = g * gs + self._group_order(tr_len, g, gs)
+            row_sys[g * gl:(g + 1) * gl] = order[:gl]
+            queues.append(deque(int(s) for s in order[gl:]))
         st = self._fresh(row_sys)
-        bound = build_batched_run_chunk(cfg, chunk).bind(st)
+        bound = bind_chunk(cfg, chunk, st, self._devices)
         done_sys: List[np.ndarray] = []
         done_rows: List[SimState] = []
         stats = OccupancyStats()
@@ -646,14 +713,15 @@ class BatchTorchEngine:
                     "scheduled run)",
                     b=row)
             repl = []
-            for row in range(r):
-                if not queue:
-                    break
-                if row_sys[row] < 0:
-                    s = queue.popleft()
-                    row_sys[row] = s
-                    row_age[row] = 0
-                    repl.append((row, s))
+            for g, queue in enumerate(queues):
+                for row in range(g * gl, (g + 1) * gl):
+                    if not queue:
+                        break
+                    if row_sys[row] < 0:
+                        s = queue.popleft()
+                        row_sys[row] = s
+                        row_age[row] = 0
+                        repl.append((row, s))
             if repl:
                 stats.admissions += len(repl)
                 idx = torch.as_tensor([row for row, _ in repl],
@@ -762,16 +830,14 @@ class BatchLaneSession:
         window: Optional[int] = None,
         device="cuda",
     ):
-        if data_shards != 1:
-            raise ValueError(
-                "data_shards > 1 serves on several GPUs, which the port "
-                "does not do yet (ROADMAP queue 1 item 4)")
         self.config = config
         self.r = int(resident)
+        devices = _data_devices(config, self.r, data_shards, device)
+        self._sharded = data_shards != 1
         self._max_t = int(max_trace_len)
         self.interval = max(1, int(interval))
         self.max_cycles = max_cycles
-        self.device = resolve_device(device)
+        self.device = devices[0]
         self.window = None if window is None else max(1, int(window))
         self._full_len = np.zeros((self.r, config.num_procs), np.int32)
         self._seg = np.ones(self.r, np.int64)
@@ -782,8 +848,7 @@ class BatchLaneSession:
         self._st = stack_states([init_state(
             config, empty, max_trace_len=self._max_t, device=self.device)
         ] * self.r)
-        self._bound = build_batched_run_chunk(config, self.interval).bind(
-            self._st)
+        self._bound = bind_chunk(config, self.interval, self._st, devices)
         # writes waiting for the next chunk: whole rows, and trace
         # lengths of resident rows (window barriers)
         self._rows: Dict[int, SimState] = {}
@@ -916,7 +981,8 @@ class BatchLaneSession:
         """For each program, the shapes it has taken: the chunk graph's
         captures on the card (one shape on the CPU), the row shapes
         admitted, and the gathers' and reads' shapes."""
+        # the data-sharded chunk loop is not captured: one program shape
         out = {"runner": self._bound.graphs if self.device.type == "cuda"
-               else 1}
+               and not self._sharded else 1}
         out.update({k: len(v) for k, v in self._signatures.items()})
         return out

@@ -256,8 +256,12 @@ class CudaKernel:
         entry's ``params``); raises if the launch is refused."""
         self.build()
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(self._lib, self.entry)(
-            *args, device.index or 0, stream)
+        # the entry makes ``device`` current (cudaSetDevice); the guard
+        # gives PyTorch's current device back afterwards, so a launch on
+        # another card of a data mesh leaves the caller's device as it was
+        with torch.cuda.device(device):
+            err = getattr(self._lib, self.entry)(
+                *args, device.index or 0, stream)
         if err != 0:
             raise RuntimeError(
                 f"{self.name} kernel launch failed: CUDA error {err}")
@@ -273,7 +277,8 @@ class CudaKernel:
         fn.argtypes = [ctypes.POINTER(Args), ctypes.c_int,
                        ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
-        err = fn(ctypes.byref(args), device.index or 0, out)
+        with torch.cuda.device(device):
+            err = fn(ctypes.byref(args), device.index or 0, out)
         if err != 0:
             raise RuntimeError(
                 f"{self.name} occupancy query failed: CUDA error {err}")

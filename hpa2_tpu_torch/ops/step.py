@@ -62,7 +62,7 @@ import torch
 
 from hpa2_tpu_torch.config import SystemConfig
 from hpa2_tpu_torch.models.protocol import MsgType
-from hpa2_tpu_torch.ops import bits, prng
+from hpa2_tpu_torch.ops import bits, exchange, prng
 from hpa2_tpu_torch.ops.state import (
     MB_ADDR,
     MB_SECOND,
@@ -206,18 +206,22 @@ def _word0(flag, w: int, like: torch.Tensor) -> torch.Tensor:
 def build_step(
     config: SystemConfig,
     replay: bool = False,
-    axis_name: Optional[str] = None,
+    axis_name=None,
     shards: int = 1,
     planes: Optional[ProtocolPlanes] = None,
 ):
     """Build the batched step ``step(st: SimState) -> SimState``.
 
-    Node sharding (``axis_name``, ``shards > 1``) is ROADMAP queue 1
-    item 4 and raises here."""
-    if axis_name is not None or shards != 1:
-        raise ValueError(
-            "node sharding is not ported yet (ROADMAP queue 1 item 4); "
-            "build the single-shard step")
+    With ``axis_name`` (this rank's ``parallel/comm.py:NodeComm``) and
+    ``shards`` the step is one rank's part of the node-sharded step
+    (JAX ``build_step(axis_name=, shards=)``, l.173-300): every
+    node-leading field it sees is the local block of ``num_procs //
+    shards`` nodes (block ``axis_name.rank``), phase C moves only the
+    candidates that cross shards through the targeted exchange
+    (``ops/exchange.py``) on ``config.exchange_mode``'s schedule
+    (``exchange.plan_collectives``), and the counters are replicated
+    with one stacked SUM, plus one MAX of the exchange's slot
+    high-water mark when ``shards > 1``."""
     n = config.num_procs
     c = config.cache_size
     m = config.mem_size
@@ -246,15 +250,50 @@ def build_step(
             "the general engine drains one message per node per cycle; "
             "messages_per_cycle > 1 runs on the JAX package's spec engine"
         )
+    if axis_name is not None:
+        if not hasattr(axis_name, "all_reduce"):
+            raise ValueError(
+                f"axis_name={axis_name!r}: the port's node axis is a "
+                "parallel/comm.py NodeComm (this rank's node group), not "
+                "a mesh axis name")
+        if replay:
+            raise ValueError(
+                "replay mode is single-shard only (fixture replays are "
+                "tiny 4-node systems; shard the batch axis instead)"
+            )
+        if shards < 1 or n % shards != 0:
+            raise ValueError(
+                f"num_procs={n} not divisible by shards={shards}"
+            )
+        if axis_name.size != shards:
+            raise ValueError(
+                f"the node group has {axis_name.size} ranks, not "
+                f"shards={shards}")
+        if config.protocol != "mesi" or dir_kind != "full":
+            raise ValueError(
+                "node sharding runs the MESI/full-bitvector build "
+                "only; protocol and directory-format variants are "
+                "single-shard (shard the batch axis instead)"
+            )
     nack = sem.intervention_miss_policy == "nack"
     fault = config.fault
     fault_on = fault.enabled  # static: fault-free builds add zero ops
     drop_p = float(fault.drop)
-    j0 = 5 * n
+    n_local = n // shards
+    me = 0 if axis_name is None else axis_name.rank
+    sharded = axis_name is not None and shards > 1
+    xplan = (exchange.make_plan(shards, config.exchange_mode,
+                                config.exchange_inner) if sharded else None)
+    j0 = 5 * n_local
 
     ic = config.interconnect
     topo_on = ic.enabled
     if topo_on:
+        if axis_name is not None:
+            raise ValueError(
+                "non-ideal interconnect topologies run single-shard "
+                "only; node sharding composes with topology='ideal'"
+            )
         if replay:
             raise ValueError(
                 "replay mode supports the ideal topology only"
@@ -278,17 +317,22 @@ def build_step(
     elif dir_kind == "coarse":
         gm_np = group_mask_words(dir_param, n, w, 32)
 
-    # static per-candidate tables of the flat grid: A grid (3 slots a
-    # node, node-major) then B grid (2 slots a node)
+    # static per-candidate tables of the flat grid of this rank's nodes
+    # (their global ids): A grid (3 slots a node, node-major) then B
+    # grid (2 slots a node)
+    ids_np = me * n_local + np.arange(n_local)
     sender_np = np.concatenate(
-        [np.repeat(np.arange(n), 3), np.repeat(np.arange(n), 2)]
+        [np.repeat(ids_np, 3), np.repeat(ids_np, 2)]
     ).astype(np.int32)
     is_inv_np = np.concatenate(
-        [np.tile([False, False, True], n), np.zeros(2 * n, bool)]
+        [np.tile([False, False, True], n_local), np.zeros(2 * n_local, bool)]
     )
-    # candidate j precedes k on one sender's edge (the grid id is the
-    # flat index on one shard)
-    gid = np.arange(j0)
+    # the global grid ids: the delivery and per-edge FIFO order key
+    # (the flat index on one shard)
+    gid = np.concatenate([
+        (3 * ids_np[:, None] + np.arange(3)[None, :]).reshape(-1),
+        3 * n + (2 * ids_np[:, None] + np.arange(2)[None, :]).reshape(-1),
+    ]).astype(np.int32)
     same_sender_np = (sender_np[:, None] == sender_np[None, :]) & (
         gid[:, None] > gid[None, :]
     )
@@ -298,15 +342,22 @@ def build_step(
         d = torch.device(device)
         t = lambda a, dt=I32: torch.as_tensor(a).to(dtype=dt, device=d)
         out = dict(
-            node_ids=torch.arange(n, dtype=I32, device=d),
+            node_ids=t(ids_np),
             sender=t(sender_np),
             is_inv=t(is_inv_np, torch.bool),
             slot_c=torch.arange(c, dtype=I32, device=d),
             slot_m=torch.arange(m, dtype=I32, device=d),
-            node_bits=bits.bit_mask(torch.arange(n, device=d), w),
+            node_bits=bits.bit_mask(t(ids_np), w),
             slot_is_inv=t([False, False, True, False, False], torch.bool),
         )
-        if fault_on:
+        if sharded:
+            out["gid"] = t(gid)
+            out["isa"] = t(np.arange(j0) < 3 * n_local)
+            out["rmask"] = [
+                exchange.range_mask_words(p * n_local, (p + 1) * n_local,
+                                          w, 32).to(d)
+                for p in range(shards)]
+        if fault_on and not sharded:
             app = np.ones((n, j0), bool)
             if fault.edge_sender != -1:
                 app &= (sender_np == fault.edge_sender)[None, :]
@@ -314,6 +365,7 @@ def build_step(
                 app &= (np.arange(n) == fault.edge_receiver)[:, None]
             out["applies"] = t(app, torch.bool)
             out["same_sender_t"] = t(same_sender_np.T, torch.float32)
+        if fault_on:
             if 0.0 < drop_p < 1.0:
                 out["thresholds"] = failure_thresholds(
                     drop_p, fault.max_retries).to(d)
@@ -330,6 +382,467 @@ def build_step(
         elif dir_kind == "coarse":
             out["gm"] = t(gm_np)
         return out
+
+    def deliver(st: SimState, K, node_ids, sA0, sA1, sB0, sB1, inv_valid,
+                inv_sharers, inv_addr, mb_count2, qdata) -> dict:
+        """Phase C on one device: every candidate of the grid offered to
+        every receiver in the global order, mailbox placement, and the
+        acceptance feedback (the unsharded half of ``step.py:875-1413``
+        in the JAX package)."""
+        bsz = st.pc.shape[0]
+        W = torch.where
+        # the candidate grid as [B, N, 5] fields (slots A0, A1, AINV,
+        # B0, B1) and as the flat [B, J] order: phase A (sender-major,
+        # 3 slots) then phase B (2 slots)
+        slots5 = (sA0, sA1, None, sB0, sB1)
+
+        def grid(name, inv_val):
+            return torch.stack(
+                [inv_val if s is None else getattr(s, name) for s in slots5],
+                dim=2)
+
+        def flat(g):
+            lead = g.shape[:2]
+            rest = g.shape[3:]
+            return torch.cat(
+                [g[:, :, :3].reshape((lead[0], 3 * lead[1]) + rest),
+                 g[:, :, 3:].reshape((lead[0], 2 * lead[1]) + rest)], dim=1)
+
+        zero_n = torch.zeros_like(st.pc)
+        g_valid = grid("valid", inv_valid)
+        g_recv = grid("recv", torch.full_like(st.pc, -1))
+        g_type = grid("type", torch.full_like(st.pc, _INV))
+        g_addr = grid("addr", inv_addr)
+        g_value = grid("value", zero_n)
+        g_second = grid("second", zero_n)
+        g_sharers = grid("sharers", torch.zeros_like(inv_sharers))
+        f_valid = flat(g_valid)
+        f_recv = flat(g_recv)
+        f_type = flat(g_type)
+        f_addr = flat(g_addr)
+        f_value = flat(g_value)
+        f_second = flat(g_second)
+        f_sharers = flat(g_sharers)            # [B, J, W]
+        is_inv = K["is_inv"]                   # [J]
+        sender = K["sender"]                   # [J]
+        j = j0
+        # INV fan masks ride the A grid's slot 2 (zero elsewhere)
+        zw = torch.zeros_like(inv_sharers)
+        mask_loc = flat(torch.stack(
+            [zw, zw, inv_sharers, zw, zw], dim=2))
+        pv_loc = f_valid & ~is_inv
+        comb = mask_loc | f_sharers
+
+        point_valid = f_valid & ~is_inv                      # [B, J]
+        inv_mask_j = W(is_inv[:, None], comb, 0)             # [B, J, W]
+        r_word = (node_ids // 32).to(torch.int64)
+        r_bit = (node_ids % 32).to(torch.int64)
+        inv_hit = ((bits.u32(inv_mask_j[:, :, r_word]) >> r_bit) & 1
+                   ).bool().transpose(1, 2)                  # [B, N, J]
+        valid_rj = (
+            point_valid[:, None, :]
+            & (f_recv[:, None, :] == node_ids[None, :, None])
+        ) | inv_hit
+
+        # -- link-layer fault injection (static no-op when fault-free) -
+        if fault_on:
+            keys = prng.split(st.rng_key, 5)                 # [B, 5, 2]
+            k_drop, k_dup, k_reo, k_del = (keys[:, i] for i in range(4))
+            rng_key = keys[:, 4]
+            applies = K["applies"]                           # [N, J]
+            if drop_p <= 0.0:
+                failures = torch.zeros_like(valid_rj, dtype=I32)
+            elif drop_p >= 1.0:
+                failures = torch.full_like(valid_rj, fault.max_retries,
+                                           dtype=I32)
+            else:
+                u = prng.uniform(k_drop, (n, j), minval=1e-37, maxval=1.0)
+                thr = K["thresholds"]
+                failures = (thr.shape[0] - torch.searchsorted(
+                    thr, u.contiguous(), side="left")).to(I32)
+            failures = W(applies & valid_rj, failures, 0)
+            wire_fail = failures >= fault.max_retries
+            # a candidate stalls behind a failed earlier one of its
+            # sender (float 0/1 product: CUDA has no integer matmul)
+            behind = torch.matmul(wire_fail.to(torch.float32),
+                                  K["same_sender_t"])
+            wire_stall = wire_fail | (behind > 0)
+            valid_ok = valid_rj & ~wire_stall
+        else:
+            rng_key = st.rng_key
+            valid_ok = valid_rj
+
+        # capacity backpressure: accept valid candidates in global order
+        # until the receiver's mailbox is full; the rest defer
+        vok = valid_ok.to(I32)
+        offs = torch.cumsum(vok, dim=2, dtype=I32) - vok
+        avail = (cap - mb_count2).clamp(min=0)
+        accept_rj = valid_ok & (offs < avail[..., None])
+        delivered = accept_rj.sum(dim=2, dtype=I32)
+
+        # -- interconnect delays (static no-op for the ideal topology) -
+        zero_b = torch.zeros_like(st.cycle)
+        if topo_on:
+            paths_c = K["paths"]                             # [J, N, L]
+            base_c = K["base"]                               # [J, N]
+            acc_jr = accept_rj.transpose(1, 2)               # [B, J, N]
+            use = acc_jr[..., None] & paths_c                # [B, J, N, L]
+            contrib = use
+            mc_saved_inc = comb_inc = zero_b
+            if ic.multicast:
+                u_i = use.to(I32)
+                prior_r = torch.cumsum(u_i, dim=2, dtype=I32) - u_i
+                saved = use & is_inv[:, None, None] & (prior_r > 0)
+                contrib = contrib & ~saved
+                mc_saved_inc = _count(saved)
+            if ic.combining:
+                jidx = torch.arange(j, dtype=torch.int64,
+                                    device=st.pc.device)
+                acc_any = acc_jr.any(dim=2)
+                is_read = acc_any & (f_type == int(MsgType.READ_REQUEST))
+                aidx = W(is_read, f_addr, 0).to(torch.int64)
+                tbl = torch.full((bsz, n * m), j, dtype=torch.int64,
+                                 device=st.pc.device).scatter_reduce(
+                    1, aidx, W(is_read, jidx, j), reduce="amin")
+                merged_rd = is_read & (tbl.gather(1, aidx) != jidx)
+                contrib = contrib & ~merged_rd[..., None, None]
+                comb_inc = _count(merged_rd)
+            c_flat = contrib.reshape(bsz, j * n, n_links).to(I32)
+            prefix = torch.cumsum(c_flat, dim=1, dtype=I32) - c_flat
+            pen_flat = (
+                (prefix // ic.link_bandwidth)
+                * use.reshape(bsz, j * n, n_links).to(I32)
+            ).sum(dim=2, dtype=I32)
+            penalty = pen_flat.reshape(bsz, j, n)            # [B, J, N]
+            deliver_rj = (st.cycle[:, None, None] + base_c + penalty
+                          ).transpose(1, 2)                  # [B, N, J]
+            load_l = c_flat.sum(dim=1, dtype=I32)            # [B, L]
+            link_traversals = st.link_traversals + load_l
+            link_max_load = torch.maximum(st.link_max_load, load_l)
+            topo_delay_inc = W(acc_jr, base_c - 1 + penalty, 0).reshape(
+                bsz, -1).sum(dim=1, dtype=I32)
+        else:
+            link_traversals = st.link_traversals
+            link_max_load = st.link_max_load
+            topo_delay_inc = mc_saved_inc = comb_inc = zero_b
+
+        # place every accepted candidate at its slot count2 + offs (at
+        # most one a slot); the rest go to a trash slot past the end
+        fmat = torch.cat(
+            [f_type[..., None], sender.expand(bsz, j)[..., None],
+             f_addr[..., None], f_value[..., None], f_second[..., None],
+             f_sharers], dim=2)                              # [B, J, F]
+        nf = fmat.shape[2] + (1 if topo_on else 0)
+        src = fmat[:, None].expand(bsz, n, j, fmat.shape[2])
+        if topo_on:
+            src = torch.cat([src, deliver_rj[..., None]], dim=3)
+        pos = mb_count2[..., None] + offs                    # [B, N, J]
+        slot = W(accept_rj, pos, cap).to(torch.int64)
+        ext = torch.cat(
+            [qdata, torch.zeros_like(qdata[:, :, :1])], dim=2)
+        ext = ext.scatter(2, slot[..., None].expand(bsz, n, j, nf),
+                          src.contiguous())
+        mb_data = ext[:, :, :cap]
+        mb_count3 = mb_count2 + delivered
+        ov_now = (mb_count3 > cap).any(dim=1)
+
+        # -- acceptance feedback to the senders -----------------------
+        acc_j = accept_rj.sum(dim=1, dtype=I32)              # [B, J]
+        # INV candidates read their accepted receivers' bits back: the
+        # disjoint one-hot words summed are an exact OR
+        acc_inv = accept_rj[:, :, 2:3 * n:3]                 # [B, Nr, Ns]
+        delivered_inv = bits.i32(W(
+            acc_inv[..., None], K["node_bits"].to(torch.int64)[:, None, :],
+            0).sum(dim=1))                                   # [B, Ns, W]
+        rejected_pt = pv_loc & (acc_j == 0)
+        rejA = rejected_pt[:, :3 * n].reshape(bsz, n, 3)
+        rejB = rejected_pt[:, 3 * n:].reshape(bsz, n, 2)
+        rem_inv = inv_sharers & ~delivered_inv
+        ob_valid = torch.stack(
+            [rejA[..., 0], rejA[..., 1], (rem_inv != 0).any(dim=2),
+             rejB[..., 0], rejB[..., 1]], dim=2)
+        ob_sharers = W(K["slot_is_inv"][:, None], rem_inv[:, :, None, :],
+                       g_sharers)
+        # sends by transaction type: the fan-out count of each candidate
+        # bucketed by its type (rejected candidates count 0)
+        mc_inc = torch.zeros((bsz, _N_TYPES), dtype=I32,
+                             device=st.pc.device).scatter_add(
+            1, f_type.clamp(min=0).to(torch.int64), acc_j)
+        # fault-layer counters (stay exactly zero when fault-free)
+        retrans_inc = dup_inc = reo_inc = del_inc = wstall_inc = zero_b
+        if fault_on:
+            retrans_inc = W(accept_rj, failures, 0).reshape(
+                bsz, -1).sum(dim=1, dtype=I32)
+            wstall_inc = _count(valid_rj & wire_stall)
+
+            def _event_cnt(key, p, name):
+                if p <= 0.0:
+                    return zero_b
+                uu = prng.uniform(key, (n, j))
+                return _count(accept_rj & applies & (uu < K[name]))
+
+            dup_inc = _event_cnt(k_dup, float(fault.duplicate), "p_dup")
+            reo_inc = _event_cnt(k_reo, float(fault.reorder), "p_reo")
+            del_inc = _event_cnt(k_del, float(fault.delay), "p_del")
+        return dict(
+            mb_data=mb_data,
+            mb_count3=mb_count3,
+            ov_now=ov_now,
+            delivered=delivered,
+            ob_valid=ob_valid,
+            ob_sharers=ob_sharers,
+            g_recv=g_recv,
+            g_type=g_type,
+            g_addr=g_addr,
+            g_value=g_value,
+            g_second=g_second,
+            rng_key=rng_key,
+            link_traversals=link_traversals,
+            link_max_load=link_max_load,
+            topo_delay_inc=topo_delay_inc,
+            mc_saved_inc=mc_saved_inc,
+            comb_inc=comb_inc,
+            mc_inc=mc_inc,
+            retrans_inc=retrans_inc,
+            dup_inc=dup_inc,
+            reo_inc=reo_inc,
+            del_inc=del_inc,
+            wstall_inc=wstall_inc,
+        )
+
+    def deliver_sharded(st: SimState, K, node_ids, sA0, sA1, sB0, sB1,
+                        inv_valid, inv_sharers, inv_addr, mb_count2,
+                        qdata) -> dict:
+        """Phase C of one rank under node sharding (JAX ``step.py``,
+        l.954-1413): the local candidates go out through the targeted
+        exchange, every entry this rank receives is offered to its local
+        receivers in the global candidate order (``ordered_rank``), and
+        the acceptance rows return to their senders.  Exchange payloads
+        are ``[R, J, B]``: the batch is the trailing axis."""
+        bsz = st.pc.shape[0]
+        W = torch.where
+        slots5 = (sA0, sA1, None, sB0, sB1)
+
+        def grid(name, inv_val):
+            return torch.stack(
+                [inv_val if s is None else getattr(s, name) for s in slots5],
+                dim=2)
+
+        def flat(g):
+            lead = g.shape[:2]
+            rest = g.shape[3:]
+            return torch.cat(
+                [g[:, :, :3].reshape((lead[0], 3 * lead[1]) + rest),
+                 g[:, :, 3:].reshape((lead[0], 2 * lead[1]) + rest)], dim=1)
+
+        zero_n = torch.zeros_like(st.pc)
+        g_valid = grid("valid", inv_valid)
+        g_recv = grid("recv", torch.full_like(st.pc, -1))
+        g_type = grid("type", torch.full_like(st.pc, _INV))
+        g_addr = grid("addr", inv_addr)
+        g_value = grid("value", zero_n)
+        g_second = grid("second", zero_n)
+        g_sharers = grid("sharers", torch.zeros_like(inv_sharers))
+        f_valid = flat(g_valid)
+        f_type = flat(g_type)
+        f_addr = flat(g_addr)
+        zw = torch.zeros_like(inv_sharers)
+        mask_loc = flat(torch.stack([zw, zw, inv_sharers, zw, zw], dim=2))
+        is_inv = K["is_inv"]                                 # [J0]
+        pv_loc = f_valid & ~is_inv                           # [B, J0]
+        comb_loc = mask_loc | flat(g_sharers)                # [B, J0, W]
+        rows = [f_type, K["sender"].expand(bsz, j0), f_addr,
+                flat(g_value), flat(g_second), flat(g_recv),
+                K["gid"].expand(bsz, j0), is_inv.to(I32).expand(bsz, j0),
+                K["isa"].expand(bsz, j0), pv_loc.to(I32)]
+        rows += [comb_loc[..., wi] for wi in range(w)]
+        # tier-boundary combining key: addr+1 for READ requests, 0 = not
+        # combinable (only hier reads it)
+        rows.append(W(pv_loc & (f_type == int(MsgType.READ_REQUEST)),
+                      f_addr + 1, 0))
+        payload = torch.stack([r.to(I32).T for r in rows])  # [R, J0, B]
+
+        def words(blk):
+            return torch.stack([blk[10 + wi] for wi in range(w)], dim=-1)
+
+        def dest_fn(blk, peer):
+            pt = (blk[9] != 0) & (
+                torch.div(blk[5], n_local, rounding_mode="floor") == peer)
+            inv = (blk[7] != 0) & ((words(blk) & K["rmask"][peer]) != 0
+                                   ).any(dim=-1)
+            return pt | inv
+
+        def fan_fn(blk, peer):
+            # receivers of an entry within shard ``peer``: the INV fan
+            # mask's bits in the peer's node range, 1 for point sends
+            pop = bits.popcount(words(blk) & K["rmask"][peer])
+            return W(blk[7] != 0, pop, 1)
+
+        bufs, origins, xctx, xstats = exchange.forward(
+            xplan, axis_name, me, payload, dest_fn, j0, fan_fn=fan_fn,
+            ckey_row=10 + w, nkeys=n * m)
+        nb = len(bufs)
+        ent = torch.cat([payload] + bufs, dim=1).permute(2, 0, 1)  # [B, R, J]
+        j = ent.shape[2]
+        e_type, e_sender, e_addr, e_value, e_second, e_recv = (
+            ent[:, i] for i in range(6))
+        e_gid, e_isa = ent[:, 6], ent[:, 8]
+        e_inv = ent[:, 7] != 0
+        e_valid = (ent[:, 9] != 0) | e_inv
+        comb = ent[:, 10:10 + w].transpose(1, 2)             # [B, J, W]
+        e_sharers = W(e_inv[..., None], 0, comb)
+        bounds = [0, j0] + [j0 + (i + 1) * j0 for i in range(nb)]
+
+        point_valid = e_valid & ~e_inv                       # [B, J]
+        inv_mask_j = W(e_inv[..., None], comb, 0)            # [B, J, W]
+        r_word = torch.div(node_ids, 32, rounding_mode="floor").to(
+            torch.int64)
+        r_bit = (node_ids % 32).to(torch.int64)
+        inv_hit = ((bits.u32(inv_mask_j[:, :, r_word]) >> r_bit) & 1
+                   ).bool().transpose(1, 2)                  # [B, Nl, J]
+        valid_rj = (
+            point_valid[:, None, :]
+            & (e_recv[:, None, :] == node_ids[None, :, None])
+        ) | inv_hit
+
+        # -- link-layer fault injection: each node shard draws its own
+        # link-layer stream (the carried key stays replicated)
+        if fault_on:
+            keys = prng.split(st.rng_key, 5)                 # [B, 5, 2]
+            k_drop, k_dup, k_reo, k_del = (
+                prng.fold_in(keys[:, i], me) for i in range(4))
+            rng_key = keys[:, 4]
+            applies = torch.ones_like(valid_rj)
+            if fault.edge_sender != -1:
+                applies = applies & (e_sender == fault.edge_sender)[:, None]
+            if fault.edge_receiver != -1:
+                applies = applies & (
+                    node_ids == fault.edge_receiver)[None, :, None]
+            if drop_p <= 0.0:
+                failures = torch.zeros_like(valid_rj, dtype=I32)
+            elif drop_p >= 1.0:
+                failures = torch.full_like(valid_rj, fault.max_retries,
+                                           dtype=I32)
+            else:
+                u = prng.uniform(k_drop, (n_local, j), minval=1e-37,
+                                 maxval=1.0)
+                thr = K["thresholds"]
+                failures = (thr.shape[0] - torch.searchsorted(
+                    thr, u.contiguous(), side="left")).to(I32)
+            failures = W(applies & valid_rj, failures, 0)
+            wire_fail = failures >= fault.max_retries
+            # same_sender[k, j'] = entry j' precedes k on k's edge (the
+            # global grid id; empty buffer slots are masked out above)
+            same_sender = (e_sender[:, :, None] == e_sender[:, None, :]) & (
+                e_gid[:, :, None] > e_gid[:, None, :])       # [B, J, J]
+            behind = torch.matmul(wire_fail.to(torch.float32),
+                                  same_sender.to(torch.float32
+                                                 ).transpose(1, 2))
+            wire_stall = wire_fail | (behind > 0)
+            valid_ok = valid_rj & ~wire_stall
+        else:
+            rng_key = st.rng_key
+            valid_ok = valid_rj
+
+        # capacity backpressure in the global (phase, origin, slot)
+        # order: the received blocks sit in arrival order, which is the
+        # plan's, so every entry is ranked from its origin tag
+        isa_r = (e_isa != 0)[:, None, :]
+        offs = exchange.ordered_rank(valid_ok & isa_r, valid_ok & ~isa_r,
+                                     bounds, origins, axis=2)
+        avail = (cap - mb_count2).clamp(min=0)
+        accept_rj = valid_ok & (offs < avail[..., None])
+        delivered = accept_rj.sum(dim=2, dtype=I32)
+
+        # place every accepted entry at its slot count2 + offs; the rest
+        # go to a trash slot past the end
+        fmat = torch.cat(
+            [e_type[..., None], e_sender[..., None], e_addr[..., None],
+             e_value[..., None], e_second[..., None], e_sharers],
+            dim=2)                                           # [B, J, F]
+        nf = fmat.shape[2]
+        src = fmat[:, None].expand(bsz, n_local, j, nf)
+        pos = mb_count2[..., None] + offs                    # [B, Nl, J]
+        slot = W(accept_rj, pos, cap).to(torch.int64)
+        ext = torch.cat([qdata, torch.zeros_like(qdata[:, :, :1])], dim=2)
+        ext = ext.scatter(2, slot[..., None].expand(bsz, n_local, j, nf),
+                          src.contiguous())
+        mb_data = ext[:, :, :cap]
+        mb_count3 = mb_count2 + delivered
+        ov_now = (mb_count3 > cap).any(dim=1)
+
+        # -- acceptance feedback: per entry the accepted count and the
+        # accepted receivers' bit words, returned to the origin shard
+        # along the reverse schedule (bits of different shards never
+        # collide, so the int32 sums are exact ORs)
+        acc_e = accept_rj.sum(dim=1, dtype=I32)              # [B, J]
+        shifted = accept_rj.to(torch.int64) << r_bit[None, :, None]
+        word_sel = r_word[None, :] == torch.arange(
+            w, dtype=torch.int64, device=st.pc.device)[:, None]  # [W, Nl]
+        done_bits = bits.i32(W(word_sel[None, :, :, None],
+                               shifted[:, None], 0).sum(dim=2))  # [B, W, J]
+        fbrows = torch.cat([acc_e[:, None], done_bits], dim=1).permute(
+            1, 2, 0)                                         # [1+W, J, B]
+        acc_tot = fbrows[:, :j0]
+        if nb:
+            acc_tot = acc_tot + exchange.feedback(
+                xplan, axis_name,
+                [fbrows[:, bounds[i + 1]:bounds[i + 2]] for i in range(nb)],
+                xctx)
+        acc_j = acc_tot[0].T                                 # [B, J0]
+        # a point candidate has one receiver, so accepted is acc_j > 0;
+        # an INV reads its accepted receivers' bits back
+        delivered_inv = acc_tot[1:, 2:3 * n_local:3].permute(2, 1, 0)
+        rejected_pt = pv_loc & (acc_j == 0)
+        rejA = rejected_pt[:, :3 * n_local].reshape(bsz, n_local, 3)
+        rejB = rejected_pt[:, 3 * n_local:].reshape(bsz, n_local, 2)
+        rem_inv = inv_sharers & ~delivered_inv
+        ob_valid = torch.stack(
+            [rejA[..., 0], rejA[..., 1], (rem_inv != 0).any(dim=2),
+             rejB[..., 0], rejB[..., 1]], dim=2)
+        ob_sharers = W(K["slot_is_inv"][:, None], rem_inv[:, :, None, :],
+                       g_sharers)
+        # sends by transaction type: the global fan-out count of each
+        # local candidate (the feedback total), bucketed by its type
+        mc_inc = torch.zeros((bsz, _N_TYPES), dtype=I32,
+                             device=st.pc.device).scatter_add(
+            1, f_type.clamp(min=0).to(torch.int64), acc_j)
+
+        zero_b = torch.zeros_like(st.cycle)
+        retrans_inc = dup_inc = reo_inc = del_inc = wstall_inc = zero_b
+        if fault_on:
+            retrans_inc = W(accept_rj, failures, 0).reshape(
+                bsz, -1).sum(dim=1, dtype=I32)
+            wstall_inc = _count(valid_rj & wire_stall)
+
+            def _event_cnt(key, p, name):
+                if p <= 0.0:
+                    return zero_b
+                uu = prng.uniform(key, (n_local, j))
+                return _count(accept_rj & applies & (uu < K[name]))
+
+            dup_inc = _event_cnt(k_dup, float(fault.duplicate), "p_dup")
+            reo_inc = _event_cnt(k_reo, float(fault.reorder), "p_reo")
+            del_inc = _event_cnt(k_del, float(fault.delay), "p_del")
+        return dict(
+            mb_data=mb_data, mb_count3=mb_count3, ov_now=ov_now,
+            delivered=delivered, ob_valid=ob_valid, ob_sharers=ob_sharers,
+            g_recv=g_recv, g_type=g_type, g_addr=g_addr, g_value=g_value,
+            g_second=g_second, rng_key=rng_key,
+            link_traversals=st.link_traversals,
+            link_max_load=st.link_max_load, topo_delay_inc=zero_b,
+            mc_saved_inc=zero_b, comb_inc=zero_b, mc_inc=mc_inc,
+            retrans_inc=retrans_inc, dup_inc=dup_inc, reo_inc=reo_inc,
+            del_inc=del_inc, wstall_inc=wstall_inc,
+            xsent=xstats["sent"], xmc=xstats["mc_saved"],
+            xcomb=xstats["combined"], xhwm=xstats["hwm"])
+
+    DELIVERED = (
+        "mb_data", "mb_count3", "ov_now", "delivered", "ob_valid",
+        "ob_sharers", "g_recv", "g_type", "g_addr", "g_value", "g_second",
+        "rng_key", "link_traversals", "link_max_load", "topo_delay_inc",
+        "mc_saved_inc", "comb_inc", "mc_inc", "retrans_inc", "dup_inc",
+        "reo_inc", "del_inc", "wstall_inc")
 
     def step(st: SimState) -> SimState:
         K = consts(st.pc.device)
@@ -825,178 +1338,14 @@ def build_step(
         _merge_pending(sB1, 4)
 
         # ============== phase C: deterministic delivery ===============
-        # the candidate grid as [B, N, 5] fields (slots A0, A1, AINV,
-        # B0, B1) and as the flat [B, J] order: phase A (sender-major,
-        # 3 slots) then phase B (2 slots)
-        slots5 = (sA0, sA1, None, sB0, sB1)
-
-        def grid(name, inv_val):
-            return torch.stack(
-                [inv_val if s is None else getattr(s, name) for s in slots5],
-                dim=2)
-
-        def flat(g):
-            lead = g.shape[:2]
-            rest = g.shape[3:]
-            return torch.cat(
-                [g[:, :, :3].reshape((lead[0], 3 * lead[1]) + rest),
-                 g[:, :, 3:].reshape((lead[0], 2 * lead[1]) + rest)], dim=1)
-
-        zero_n = torch.zeros_like(st.pc)
-        g_valid = grid("valid", inv_valid)
-        g_recv = grid("recv", torch.full_like(st.pc, -1))
-        g_type = grid("type", torch.full_like(st.pc, _INV))
-        g_addr = grid("addr", inv_addr)
-        g_value = grid("value", zero_n)
-        g_second = grid("second", zero_n)
-        g_sharers = grid("sharers", torch.zeros_like(inv_sharers))
-        f_valid = flat(g_valid)
-        f_recv = flat(g_recv)
-        f_type = flat(g_type)
-        f_addr = flat(g_addr)
-        f_value = flat(g_value)
-        f_second = flat(g_second)
-        f_sharers = flat(g_sharers)            # [B, J, W]
-        is_inv = K["is_inv"]                   # [J]
-        sender = K["sender"]                   # [J]
-        j = j0
-        # INV fan masks ride the A grid's slot 2 (zero elsewhere)
-        zw = torch.zeros_like(inv_sharers)
-        mask_loc = flat(torch.stack(
-            [zw, zw, inv_sharers, zw, zw], dim=2))
-        pv_loc = f_valid & ~is_inv
-        comb = mask_loc | f_sharers
-
-        point_valid = f_valid & ~is_inv                      # [B, J]
-        inv_mask_j = W(is_inv[:, None], comb, 0)             # [B, J, W]
-        r_word = (node_ids // 32).to(torch.int64)
-        r_bit = (node_ids % 32).to(torch.int64)
-        inv_hit = ((bits.u32(inv_mask_j[:, :, r_word]) >> r_bit) & 1
-                   ).bool().transpose(1, 2)                  # [B, N, J]
-        valid_rj = (
-            point_valid[:, None, :]
-            & (f_recv[:, None, :] == node_ids[None, :, None])
-        ) | inv_hit
-
-        # -- link-layer fault injection (static no-op when fault-free) -
-        if fault_on:
-            keys = prng.split(st.rng_key, 5)                 # [B, 5, 2]
-            k_drop, k_dup, k_reo, k_del = (keys[:, i] for i in range(4))
-            rng_key = keys[:, 4]
-            applies = K["applies"]                           # [N, J]
-            if drop_p <= 0.0:
-                failures = torch.zeros_like(valid_rj, dtype=I32)
-            elif drop_p >= 1.0:
-                failures = torch.full_like(valid_rj, fault.max_retries,
-                                           dtype=I32)
-            else:
-                u = prng.uniform(k_drop, (n, j), minval=1e-37, maxval=1.0)
-                thr = K["thresholds"]
-                failures = (thr.shape[0] - torch.searchsorted(
-                    thr, u.contiguous(), side="left")).to(I32)
-            failures = W(applies & valid_rj, failures, 0)
-            wire_fail = failures >= fault.max_retries
-            # a candidate stalls behind a failed earlier one of its
-            # sender (float 0/1 product: CUDA has no integer matmul)
-            behind = torch.matmul(wire_fail.to(torch.float32),
-                                  K["same_sender_t"])
-            wire_stall = wire_fail | (behind > 0)
-            valid_ok = valid_rj & ~wire_stall
-        else:
-            rng_key = st.rng_key
-            valid_ok = valid_rj
-
-        # capacity backpressure: accept valid candidates in global order
-        # until the receiver's mailbox is full; the rest defer
-        vok = valid_ok.to(I32)
-        offs = torch.cumsum(vok, dim=2, dtype=I32) - vok
-        avail = (cap - mb_count2).clamp(min=0)
-        accept_rj = valid_ok & (offs < avail[..., None])
-        delivered = accept_rj.sum(dim=2, dtype=I32)
-
-        # -- interconnect delays (static no-op for the ideal topology) -
-        zero_b = torch.zeros_like(st.cycle)
-        if topo_on:
-            paths_c = K["paths"]                             # [J, N, L]
-            base_c = K["base"]                               # [J, N]
-            acc_jr = accept_rj.transpose(1, 2)               # [B, J, N]
-            use = acc_jr[..., None] & paths_c                # [B, J, N, L]
-            contrib = use
-            mc_saved_inc = comb_inc = zero_b
-            if ic.multicast:
-                u_i = use.to(I32)
-                prior_r = torch.cumsum(u_i, dim=2, dtype=I32) - u_i
-                saved = use & is_inv[:, None, None] & (prior_r > 0)
-                contrib = contrib & ~saved
-                mc_saved_inc = _count(saved)
-            if ic.combining:
-                jidx = torch.arange(j, dtype=torch.int64,
-                                    device=st.pc.device)
-                acc_any = acc_jr.any(dim=2)
-                is_read = acc_any & (f_type == int(MsgType.READ_REQUEST))
-                aidx = W(is_read, f_addr, 0).to(torch.int64)
-                tbl = torch.full((bsz, n * m), j, dtype=torch.int64,
-                                 device=st.pc.device).scatter_reduce(
-                    1, aidx, W(is_read, jidx, j), reduce="amin")
-                merged_rd = is_read & (tbl.gather(1, aidx) != jidx)
-                contrib = contrib & ~merged_rd[..., None, None]
-                comb_inc = _count(merged_rd)
-            c_flat = contrib.reshape(bsz, j * n, n_links).to(I32)
-            prefix = torch.cumsum(c_flat, dim=1, dtype=I32) - c_flat
-            pen_flat = (
-                (prefix // ic.link_bandwidth)
-                * use.reshape(bsz, j * n, n_links).to(I32)
-            ).sum(dim=2, dtype=I32)
-            penalty = pen_flat.reshape(bsz, j, n)            # [B, J, N]
-            deliver_rj = (st.cycle[:, None, None] + base_c + penalty
-                          ).transpose(1, 2)                  # [B, N, J]
-            load_l = c_flat.sum(dim=1, dtype=I32)            # [B, L]
-            link_traversals = st.link_traversals + load_l
-            link_max_load = torch.maximum(st.link_max_load, load_l)
-            topo_delay_inc = W(acc_jr, base_c - 1 + penalty, 0).reshape(
-                bsz, -1).sum(dim=1, dtype=I32)
-        else:
-            link_traversals = st.link_traversals
-            link_max_load = st.link_max_load
-            topo_delay_inc = mc_saved_inc = comb_inc = zero_b
-
-        # place every accepted candidate at its slot count2 + offs (at
-        # most one a slot); the rest go to a trash slot past the end
-        fmat = torch.cat(
-            [f_type[..., None], sender.expand(bsz, j)[..., None],
-             f_addr[..., None], f_value[..., None], f_second[..., None],
-             f_sharers], dim=2)                              # [B, J, F]
-        nf = fmat.shape[2] + (1 if topo_on else 0)
-        src = fmat[:, None].expand(bsz, n, j, fmat.shape[2])
-        if topo_on:
-            src = torch.cat([src, deliver_rj[..., None]], dim=3)
-        pos = mb_count2[..., None] + offs                    # [B, N, J]
-        slot = W(accept_rj, pos, cap).to(torch.int64)
-        ext = torch.cat(
-            [qdata, torch.zeros_like(qdata[:, :, :1])], dim=2)
-        ext = ext.scatter(2, slot[..., None].expand(bsz, n, j, nf),
-                          src.contiguous())
-        mb_data = ext[:, :, :cap]
-        mb_count3 = mb_count2 + delivered
-        ov_now = (mb_count3 > cap).any(dim=1)
-
-        # -- acceptance feedback to the senders -----------------------
-        acc_j = accept_rj.sum(dim=1, dtype=I32)              # [B, J]
-        # INV candidates read their accepted receivers' bits back: the
-        # disjoint one-hot words summed are an exact OR
-        acc_inv = accept_rj[:, :, 2:3 * n:3]                 # [B, Nr, Ns]
-        delivered_inv = bits.i32(W(
-            acc_inv[..., None], K["node_bits"].to(torch.int64)[:, None, :],
-            0).sum(dim=1))                                   # [B, Ns, W]
-        rejected_pt = pv_loc & (acc_j == 0)
-        rejA = rejected_pt[:, :3 * n].reshape(bsz, n, 3)
-        rejB = rejected_pt[:, 3 * n:].reshape(bsz, n, 2)
-        rem_inv = inv_sharers & ~delivered_inv
-        ob_valid = torch.stack(
-            [rejA[..., 0], rejA[..., 1], (rem_inv != 0).any(dim=2),
-             rejB[..., 0], rejB[..., 1]], dim=2)
-        ob_sharers = W(K["slot_is_inv"][:, None], rem_inv[:, :, None, :],
-                       g_sharers)
+        C = (deliver_sharded if sharded else deliver)(
+            st, K, node_ids, sA0, sA1, sB0, sB1, inv_valid, inv_sharers,
+            inv_addr, mb_count2, qdata)
+        (mb_data, mb_count3, ov_now, delivered, ob_valid, ob_sharers,
+         g_recv, g_type, g_addr, g_value, g_second, rng_key,
+         link_traversals, link_max_load, topo_delay_inc, mc_saved_inc,
+         comb_inc, mc_inc, retrans_inc, dup_inc, reo_inc, del_inc,
+         wstall_inc) = (C[k] for k in DELIVERED)
         blocked_next = ob_valid.any(dim=2)
         instr_inc = _count(elig)
         msgs_inc = _count(delivered)
@@ -1006,29 +1355,44 @@ def build_step(
         wr_miss_inc = _count(wm)
         ev_inc = _count(ev_replyrd | ev_flush | ev_issue)
         inv_inc = _count(inv_applied)
-        # sends by transaction type: the fan-out count of each candidate
-        # bucketed by its type (rejected candidates count 0)
-        mc_inc = torch.zeros((bsz, _N_TYPES), dtype=I32,
-                             device=st.pc.device).scatter_add(
-            1, f_type.clamp(min=0).to(torch.int64), acc_j)
         handled_cnt = _count(has_msg)
 
-        # fault-layer counters (stay exactly zero when fault-free)
-        retrans_inc = dup_inc = reo_inc = del_inc = wstall_inc = zero_b
-        if fault_on:
-            retrans_inc = W(accept_rj, failures, 0).reshape(
-                bsz, -1).sum(dim=1, dtype=I32)
-            wstall_inc = _count(valid_rj & wire_stall)
+        # cross-shard exchange telemetry (untouched off the sharded path)
+        if sharded:
+            xsent_inc, xmc_inc, xcomb_inc, xhwm = (
+                C[k] for k in ("xsent", "xmc", "xcomb", "xhwm"))
+        if axis_name is not None:
+            # replicate every global counter with ONE stacked SUM (and
+            # one MAX of the slot high-water mark when sharded): the
+            # collective-count guards pin a cycle to these plus the
+            # exchange's
+            parts = [ov_now.to(I32), instr_inc, msgs_inc, rd_hit_inc,
+                     rd_miss_inc, wr_hit_inc, wr_miss_inc, ev_inc, inv_inc,
+                     handled_cnt]
+            parts = [torch.stack(parts, dim=1), mc_inc]
+            if fault_on:
+                parts.append(torch.stack(
+                    [retrans_inc, wstall_inc, dup_inc, reo_inc, del_inc],
+                    dim=1))
+            if sharded:
+                parts.append(torch.stack([xsent_inc, xmc_inc, xcomb_inc],
+                                         dim=1))
+            vec = axis_name.all_reduce(torch.cat(parts, dim=1), "sum")
+            nt = _N_TYPES
+            ov_now = vec[:, 0] > 0
+            (instr_inc, msgs_inc, rd_hit_inc, rd_miss_inc, wr_hit_inc,
+             wr_miss_inc, ev_inc, inv_inc, handled_cnt) = (
+                vec[:, i] for i in range(1, 10))
+            mc_inc = vec[:, 10:10 + nt]
+            if fault_on:
+                (retrans_inc, wstall_inc, dup_inc, reo_inc, del_inc) = (
+                    vec[:, 10 + nt + i] for i in range(5))
+            if sharded:
+                base = 10 + nt + (5 if fault_on else 0)
+                xsent_inc, xmc_inc, xcomb_inc = (
+                    vec[:, base + i] for i in range(3))
+                xhwm = axis_name.all_reduce(xhwm, "max")
 
-            def _event_cnt(key, p, name):
-                if p <= 0.0:
-                    return zero_b
-                uu = prng.uniform(key, (n, j))
-                return _count(accept_rj & applies & (uu < K[name]))
-
-            dup_inc = _event_cnt(k_dup, float(fault.duplicate), "p_dup")
-            reo_inc = _event_cnt(k_reo, float(fault.reorder), "p_reo")
-            del_inc = _event_cnt(k_del, float(fault.delay), "p_del")
         overflow = st.overflow | ov_now
 
         # watchdog progress: an instruction retired or a mailbox drained
@@ -1119,10 +1483,15 @@ def build_step(
                 st.n_dir_overflow if over_inc is None
                 else st.n_dir_overflow + over_inc
             ),
-            n_exch_sent=st.n_exch_sent,
-            n_exch_hwm=st.n_exch_hwm,
-            n_exch_mc_saved=st.n_exch_mc_saved,
-            n_exch_combined=st.n_exch_combined,
+            # the exchange telemetry moves only under node sharding
+            n_exch_sent=(st.n_exch_sent + xsent_inc if sharded
+                         else st.n_exch_sent),
+            n_exch_hwm=(torch.maximum(st.n_exch_hwm, xhwm) if sharded
+                        else st.n_exch_hwm),
+            n_exch_mc_saved=(st.n_exch_mc_saved + xmc_inc if sharded
+                             else st.n_exch_mc_saved),
+            n_exch_combined=(st.n_exch_combined + xcomb_inc if sharded
+                             else st.n_exch_combined),
         )
 
     return step
@@ -1252,14 +1621,22 @@ def replay_splits(key: torch.Tensor, j, bound: Optional[int] = None):
     return key
 
 
-def build_fast_forward(config: SystemConfig, key_bound: Optional[int] = None):
+def build_fast_forward(config: SystemConfig, key_bound: Optional[int] = None,
+                       axis_name=None):
     """Build ``fast_forward(st, j) -> SimState``: advance ``j >= 1``
     provably silent cycles (``j <= min(propose(st))``) in one device
     step (``hpa2_tpu/ops/step.py:build_fast_forward``, l.1757).  Issuers
     retire exactly j silent hits each, everyone else idles; write hits
     apply last-write-wins per cache slot; under faults the key replays
     the j per-cycle splits (``replay_splits``; ``key_bound`` as
-    there).  ``j`` is one jump shared by the whole batch."""
+    there).  ``j`` is one jump shared by the whole batch.
+
+    With ``axis_name`` (a ``parallel/comm.py:NodeComm``) it is one
+    rank's part of the node-sharded fast-forward: the retired counters
+    are replicated with one stacked SUM, and the watchdog's progress
+    trail keys on the global retire count (an issuer retires at least
+    one hit when ``j >= 1``, so ``retired > 0`` is any issuer on any
+    rank)."""
     fault_on = config.fault.enabled
     c = config.cache_size
     P = planes_for(config.protocol, config.semantics)
@@ -1290,7 +1667,13 @@ def build_fast_forward(config: SystemConfig, key_bound: Optional[int] = None):
         retired = _count(in_run)
         rd_inc = _count(in_run & (op == 0))
         wr_inc = _count(is_w)
-        any_issuer = issuer.any(dim=1)
+        if axis_name is not None:
+            g = axis_name.all_reduce(
+                torch.stack([retired, rd_inc, wr_inc], dim=1), "sum")
+            retired, rd_inc, wr_inc = g[:, 0], g[:, 1], g[:, 2]
+            any_issuer = retired > 0
+        else:
+            any_issuer = issuer.any(dim=1)
         pc = st.pc + issuer.to(I32) * j
         cycle = st.cycle + j
         last_progress = torch.where(any_issuer, cycle - 1,

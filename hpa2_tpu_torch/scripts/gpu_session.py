@@ -35,6 +35,8 @@ Steps, in the JAX session's order (``--skip`` takes step names, and
   tuning             the best of this session's headline-shape points,
                      recorded in the JSONL only
   scale4, scale5     ``python -m hpa2_tpu_torch.scripts.scale_runs 4|5``
+  sweep512_dp        the headline shape with the ensemble split over every
+                     card (``--measure-dp``; ``DataShardedCudaEngine``)
   occupancy512       ``--measure-occupancy`` at the headline shape, zipf
   fused_occupancy512 ``--measure-fused-occupancy``, packed planes
   serve512, serve_mt512, failover512
@@ -47,11 +49,16 @@ Steps, in the JAX session's order (``--skip`` takes step names, and
   topo512            ``python -m hpa2_tpu_torch.bench --topology`` at 16
                      nodes and 24 rounds
 
+  multichip          ``python -m hpa2_tpu_torch.scripts.scale_runs
+                     multichip``: the data-parallel ladder over 1, 2 and
+                     4 cards, weak and strong, each rung held against one
+                     card's planes
+
 Left out of the JAX session:
 
-* ``sweep512_dp``, ``multichip``, ``nodeshard`` (with its ladder, A/B and
-  4,096-node rungs), ``nodeshard_x2x4`` and ``elided_nodeshard`` split the
-  work over several devices: ROADMAP queue 1 item 4 (multi-GPU);
+* ``nodeshard`` (with its ladder, A/B and 4,096-node rungs),
+  ``nodeshard_x2x4`` and ``elided_nodeshard`` shard the fast path's node
+  axis: ROADMAP queue 1 item 4b;
 * the ``tuning`` step's file.  The JAX step writes ``BENCH_TUNING.json``,
   from which the JAX bench takes its kernel shape without a word (and on
   a bad file falls back without one).  The port's bench keeps its fixed
@@ -214,6 +221,18 @@ def _seconds(fn, dev):
 
     out, ms, wall = _timed(fn, dev)
     return out, (ms / 1e3 if ms is not None else wall)
+
+
+def measure_dp_child(params, device="cuda") -> int:
+    """``--measure-dp batch instrs block k cap window gate shards``: the
+    ``--measure`` run over ``shards`` cards (0: every card); nonzero
+    unless it retired every instruction."""
+    from hpa2_tpu_torch.scripts.perf_sweep import measure
+
+    batch, instrs, block, k, cap, window, gate, shards = params[:8]
+    rec = measure(batch, instrs, block, k, cap, window, gate,
+                  device=device, data_shards=shards)
+    return 0 if rec["instructions"] == batch * 8 * instrs else 1
 
 
 def measure_child(params, device="cuda") -> int:
@@ -388,6 +407,7 @@ def measure_elision_child(params, device="cuda") -> int:
 
 CHILDREN = {
     "--measure": (measure_child, 7),
+    "--measure-dp": (measure_dp_child, 8),
     "--measure-occupancy": (measure_occupancy_child, 8),
     "--measure-fused-occupancy": (measure_fused_occupancy_child, 9),
     "--measure-elision": (measure_elision_child, 4),
@@ -436,6 +456,9 @@ def steps():
     for which in ("4", "5"):
         out.append((f"scale{which}", _module("scripts.scale_runs", which),
                     1800, None, None))
+    out.append(("sweep512_dp", _measure_argv(
+        "--measure-dp", batch, instrs, 512, 128, 16, 32, 1, 0), 900, None,
+        None))
     out.append(("occupancy512", _measure_argv(
         "--measure-occupancy", batch, instrs, 512, 128, 16, 32, 1, 8),
         1800, None, None))
@@ -453,6 +476,8 @@ def steps():
         "--measure-elision", batch, instrs, 8, 0), 1800, None, None))
     out.append(("topo512", _module("bench", "--topology"), 1800, None,
                 {"HPA2_TOPO_NODES": "16", "HPA2_TOPO_ROUNDS": "24"}))
+    out.append(("multichip", _module("scripts.scale_runs", "multichip"),
+                1800, None, None))
     return out
 
 

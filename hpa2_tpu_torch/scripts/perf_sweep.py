@@ -58,7 +58,7 @@ def _device(device: str):
 
 
 def _engine(num_procs, batch, instrs, block, k, cap, window, gate, seed,
-            ablate, device):
+            ablate, device, data_shards=1):
     from hpa2_tpu_torch.config import Semantics, SystemConfig
     from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
     from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
@@ -66,10 +66,16 @@ def _engine(num_procs, batch, instrs, block, k, cap, window, gate, seed,
     config = SystemConfig(num_procs=num_procs, msg_buffer_size=cap,
                           semantics=Semantics().robust())
     arrays = gen_uniform_random_arrays(config, batch, instrs, seed=seed)
-    return CudaEngine(config, *arrays, block=block, cycles_per_call=k,
-                      snapshots=False, trace_window=window,
-                      gate=bool(gate), _ablate=frozenset(ablate),
-                      device=device)
+    kw = dict(block=block, cycles_per_call=k, snapshots=False,
+              trace_window=window, gate=bool(gate),
+              _ablate=frozenset(ablate), device=device)
+    if data_shards != 1:
+        from hpa2_tpu_torch.parallel import DataShardedCudaEngine
+
+        # 0: every card
+        return DataShardedCudaEngine(config, *arrays,
+                                     data_shards=data_shards or None, **kw)
+    return CudaEngine(config, *arrays, **kw)
 
 
 def _timed_run(eng, max_cycles=None, stall_ok=False):
@@ -80,8 +86,13 @@ def _timed_run(eng, max_cycles=None, stall_ok=False):
     from hpa2_tpu_torch.ops.layout import StallError
 
     cuda = eng.device.type == "cuda"
+    # a data-sharded engine runs on every card of its mesh: the wall
+    # clock waits for them all, and the events are the first card's
+    cards = list(dict.fromkeys(getattr(getattr(eng, "mesh", None),
+                                       "devices", [eng.device])))
     if cuda:
-        torch.cuda.synchronize(eng.device)
+        for d in cards:
+            torch.cuda.synchronize(d)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -95,8 +106,11 @@ def _timed_run(eng, max_cycles=None, stall_ok=False):
         stalled = True
     if cuda:
         end.record()
-        torch.cuda.synchronize(eng.device)
+        for d in cards:
+            torch.cuda.synchronize(d)
     wall = time.perf_counter() - t0
+    if len(cards) > 1:  # the first card's events miss the others
+        return None, wall, stalled
     return (start.elapsed_time(end) if cuda else None), wall, stalled
 
 
@@ -117,12 +131,15 @@ def _where(dev) -> dict:
 
 
 def measure(batch, instrs, block, k, cap=16, window=32, gate=1, seed=0,
-            ablate=frozenset(), *, num_procs=8, device="cuda") -> dict:
+            ablate=frozenset(), *, num_procs=8, device="cuda",
+            data_shards=1) -> dict:
     """One warm run, then one timed run of a fresh engine to quiescence;
-    prints and returns the JSON record."""
+    prints and returns the JSON record.  ``data_shards`` other than 1
+    splits the ensemble over that many cards (0: every card; the time
+    is then the wall clock)."""
     dev = _device(device)
     kw = (num_procs, batch, instrs, block, k, cap, window, gate, seed,
-          ablate, dev)
+          ablate, dev, data_shards)
     _, warm, _ = _timed_run(_engine(*kw))
     eng = _engine(*kw)
     ms, dt, _ = _timed_run(eng)
@@ -139,6 +156,8 @@ def measure(batch, instrs, block, k, cap=16, window=32, gate=1, seed=0,
         "us_per_cycle": round(secs / max(cycles, 1) * 1e6, 3),
         "num_procs": num_procs, **_where(dev),
     }
+    if data_shards != 1:
+        rec["data_shards"] = eng.data_shards
     print(json.dumps(rec), flush=True)
     return rec
 
@@ -151,7 +170,7 @@ def measure_ablate(batch, instrs, block, k, cap, window, names, *,
     events on the card, the wall clock on the CPU)."""
     dev = _device(device)
     kw = (num_procs, batch, instrs, block, k, cap, window, True, seed,
-          names, dev)
+          names, dev, 1)
     budget = 4 * k  # four calls, which the whole run shares
     _timed_run(_engine(*kw), budget, stall_ok=True)
     eng = _engine(*kw)

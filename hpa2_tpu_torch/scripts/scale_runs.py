@@ -1,6 +1,9 @@
-"""BASELINE.json's scaled configurations 4 and 5 on one NVIDIA GPU.
+"""BASELINE.json's scaled configurations 4 and 5, and the data-parallel
+ladder, on NVIDIA GPUs.
 
-    python -m hpa2_tpu_torch.scripts.scale_runs [4|5|both] [--device cpu]
+    python -m hpa2_tpu_torch.scripts.scale_runs [4|5|both] [--data-shards N] [--device cpu]
+    python -m hpa2_tpu_torch.scripts.scale_runs multichip [--device cpu]
+    python -m hpa2_tpu_torch.scripts.scale_runs nodeshard_general [--device cpu]
 
 The port of ``scripts/scale_runs.py`` (l.46-147, l.522-543), with its
 positional argument, defaults and JSON keys:
@@ -21,12 +24,22 @@ limit added, and returns the record.  :func:`config4_run` and
 :func:`config5_run` return the final state or engine too, for callers
 that check it (``chip_smoke.py``'s ``[scale]`` phase, the tests).
 
-The JAX script's other modes (``multichip``, ``nodeshard``,
-``nodeshard_ab``) and ``--data-shards N`` with N > 1 split the work over
-several devices: the script exits 2 naming ROADMAP queue 1 item 4
-(multi-GPU), and ``config5(data_shards=N)`` raises.
-Without a card the script raises; ``--device cpu`` runs the plain
-versions (tests, small sizes)."""
+``--data-shards N`` runs configuration 5 over N cards
+(``DataShardedCudaEngine``).  ``multichip`` (JAX l.150-213) is the
+data-parallel ladder at the headline shape (8 nodes x 128 instructions,
+block 512, window 32) over D = 1, 2, 4 cards (those present): weak
+scaling (32,768 systems a card) and strong scaling (32,768 in all), each
+run's planes held against one card's run of the same arrays; a row
+holds the RD/WR rate, the wall time and each card's K2 time (CUDA events
+on each card around the run).  ``nodeshard_general`` times the general
+engine's node axis (``NodeShardedEngine``, 16 nodes) over 2 and 4 ranks
+(as many cards) in the four exchange modes: ms a step and the
+collectives of a cycle, each run held against ``TorchEngine``.  The JAX
+script's ``nodeshard``/``nodeshard_ab`` shard the fast path's node axis:
+the script exits 2 naming ROADMAP queue 1 item 4b.  Without a card the
+script raises; ``--device cpu`` runs the plain versions (tests, small
+sizes; the CPU's shards are logical and its times not a scaling
+result)."""
 
 from __future__ import annotations
 
@@ -36,36 +49,50 @@ import time
 
 from hpa2_tpu_torch.config import Semantics, SystemConfig
 
-#: the JAX script's modes that split a run over several devices
-MULTI_DEVICE_MODES = ("multichip", "nodeshard", "nodeshard_ab")
+#: the JAX script's modes on the fast path's node axis
+NODE_AXIS_MODES = ("nodeshard", "nodeshard_ab")
 #: what they raise
-MULTI_DEVICE = ("{what} splits the run over several devices, which the "
-                "port does not do yet (ROADMAP queue 1 item 4, multi-GPU)")
+NODE_AXIS = ("{what} shards the fast path's node axis, which the port "
+             "does not do yet (ROADMAP queue 1 item 4b)")
 
 
-def _timed(fn, dev):
+def _timed(fn, dev, devices=None):
     """``fn()``: (its result, device ms by CUDA events or None on the
-    CPU, wall seconds)."""
+    CPU, wall seconds).  With ``devices`` (a data mesh's cards) the ms
+    are a list, one a card: events on each card's current stream around
+    the run, and the wall clock waits for every card."""
     import torch
 
     cuda = dev.type == "cuda"
+    cards = list(dict.fromkeys(devices or [dev]))
     if cuda:
-        torch.cuda.synchronize(dev)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+        ev = []
+        for d in cards:
+            torch.cuda.synchronize(d)
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            pair[0].record(torch.cuda.current_stream(d))
+            ev.append(pair)
     t0 = time.perf_counter()
     out = fn()
     if cuda:
-        end.record()
-        torch.cuda.synchronize(dev)
+        for d, pair in zip(cards, ev):
+            pair[1].record(torch.cuda.current_stream(d))
+        for d in cards:
+            torch.cuda.synchronize(d)
     wall = time.perf_counter() - t0
-    return out, (start.elapsed_time(end) if cuda else None), wall
+    if not cuda:
+        return out, None, wall
+    ms = [a.elapsed_time(b) for a, b in ev]
+    return out, (ms if devices is not None else ms[0]), wall
 
 
 def _emit(rec: dict, dev, ms, wall) -> dict:
     from hpa2_tpu_torch.scripts.perf_sweep import _where
 
+    if isinstance(ms, list):  # one a card: the run is the wall clock
+        rec["k2_ms_per_card"] = [round(x, 3) for x in ms]
+        ms = None
     secs = ms / 1e3 if ms is not None else wall
     rec.update(seconds=round(secs, 6), wall_seconds=round(wall, 6),
                ops_per_sec=round(rec["instructions"] / secs, 1),
@@ -159,10 +186,8 @@ def config5_run(batch: int = 1024, instrs_per_core: int = 10_000,
     from hpa2_tpu_torch.ops.cuda_engine import CudaEngine, resolve_device
     from hpa2_tpu_torch.ops.layout import _SC_CYCLE
     from hpa2_tpu_torch.ops.schedule import Schedule
+    from hpa2_tpu_torch.parallel import DataShardedCudaEngine
 
-    if data_shards != 1:
-        raise ValueError(MULTI_DEVICE.format(
-            what=f"data_shards={data_shards}"))
     dev = resolve_device(device)
     config = config5_config()
     if arrays is None:
@@ -171,13 +196,18 @@ def config5_run(batch: int = 1024, instrs_per_core: int = 10_000,
               trace_window=32, device=dev)
 
     def build():
-        return CudaEngine(config, *arrays,
-                          schedule=Schedule() if schedule else None, **kw)
+        sched = Schedule() if schedule else None
+        if data_shards != 1:
+            return DataShardedCudaEngine(config, *arrays, schedule=sched,
+                                         data_shards=data_shards, **kw)
+        return CudaEngine(config, *arrays, schedule=sched, **kw)
 
     build().run(max_cycles=5_000_000)  # build the kernels + warm
     eng = build()
     launches = kernels.CALLS.stream_run
-    _, ms, wall = _timed(lambda: eng.run(max_cycles=5_000_000), dev)
+    _, ms, wall = _timed(lambda: eng.run(max_cycles=5_000_000), dev,
+                         getattr(getattr(eng, "mesh", None), "devices",
+                                 None))
     rec = {
         "config": "5: 1024-system x 10K-instr ensemble (fast path, K2)",
         "nodes": config.num_procs, "batch": batch,
@@ -190,6 +220,8 @@ def config5_run(batch: int = 1024, instrs_per_core: int = 10_000,
         rec["trace_len_dist"] = {"dist": dist, "spread": spread}
     if schedule:
         rec["occupancy"] = eng.occupancy.as_dict()
+    if data_shards != 1:
+        rec["data_shards"] = data_shards
     return _emit(rec, dev, ms, wall), eng, arrays
 
 
@@ -199,6 +231,147 @@ def config5(batch: int = 1024, instrs_per_core: int = 10_000,
     """Configuration 5's JSON record (printed and returned)."""
     return config5_run(batch, instrs_per_core, data_shards, dist, spread,
                        schedule, device)[0]
+
+
+#: the data ladder's headline shape (bench.py's): systems a card, node
+#: count, instructions a core, and CudaEngine's keywords
+LADDER_SYSTEMS = 32768
+LADDER_RUN = dict(block=512, cycles_per_call=128, snapshots=False,
+                  trace_window=32)
+
+
+def multichip(per_card: int = LADDER_SYSTEMS, instrs_per_core: int = 128,
+              device="cuda", shards=(1, 2, 4)) -> dict:
+    """The data-parallel ladder (JAX ``multichip``): prints one JSON line
+    a rung and the record, and returns the record."""
+    import torch
+
+    from hpa2_tpu_torch.ops import kernels
+    from hpa2_tpu_torch.ops.cuda_engine import CudaEngine, resolve_device
+    from hpa2_tpu_torch.parallel import DataShardedCudaEngine
+    from hpa2_tpu_torch.scripts.perf_sweep import _where
+    from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
+
+    dev = resolve_device(device)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else max(shards)
+    config = config5_config()
+    rows, exact = [], True
+    for scaling in ("weak", "strong"):
+        for d in (s for s in shards if s <= cards):
+            batch = per_card * d if scaling == "weak" else per_card
+            arrays = gen_uniform_random_arrays(config, batch,
+                                               instrs_per_core)
+            one = CudaEngine(config, *arrays, device=dev, **LADDER_RUN)
+            one.run(max_cycles=5_000_000)
+            want = {f: v.cpu() for f, v in one.state.items()}
+            del one
+
+            def build():
+                return DataShardedCudaEngine(config, *arrays,
+                                             data_shards=d, device=dev,
+                                             **LADDER_RUN)
+
+            build().run(max_cycles=5_000_000)  # warm every card
+            eng = build()
+            launches = kernels.CALLS.stream_run
+            syncs = kernels.HOST_SYNCS.count
+            _, ms, wall = _timed(lambda: eng.run(max_cycles=5_000_000), dev,
+                                 list(eng.mesh.devices))
+            got = eng.state
+            same = all(torch.equal(got[f], want[f]) for f in want)
+            exact = exact and same
+            row = {"scaling": scaling, "data_shards": d, "batch": batch,
+                   "instructions": eng.instructions,
+                   "seconds": round(wall, 6),
+                   "ops_per_sec": round(eng.instructions / wall, 1),
+                   "k2_ms_per_card": ([round(x, 3) for x in ms]
+                                      if ms is not None else None),
+                   "k2_launches": kernels.CALLS.stream_run - launches,
+                   "host_syncs": kernels.HOST_SYNCS.count - syncs,
+                   "bit_exact_vs_one_card": same}
+            rows.append(row)
+            print(json.dumps({"multichip_step": row}), flush=True)
+    record = {
+        "metric": "cuda_data_parallel_scaling", "unit": "RD/WR ops/sec",
+        "cards": cards if dev.type == "cuda" else 0, "per_card": per_card,
+        "instrs_per_core": instrs_per_core, "nodes": config.num_procs,
+        # the CPU's shards share its cores: structure, not a scaling
+        "indicative": dev.type == "cuda",
+        "bit_exact_vs_one_card": bool(exact), "rows": rows,
+        **_where(dev)}
+    for scaling in ("weak", "strong"):
+        mine = [r for r in rows if r["scaling"] == scaling]
+        if len(mine) > 1:
+            record[f"{scaling}_speedup_at_max_shards"] = round(
+                mine[-1]["ops_per_sec"] / mine[0]["ops_per_sec"], 3)
+    print(json.dumps(record), flush=True)
+    if not exact:
+        raise RuntimeError("a data-sharded run diverged from one card's")
+    return record
+
+
+def nodeshard_general(nodes: int = 16, instrs_per_core: int = 32,
+                      ranks=(2, 4), device="cuda") -> dict:
+    """The general engine's node axis: ``NodeShardedEngine`` at
+    ``nodes`` nodes over each rank count of ``ranks`` (one card each on
+    the card) in the four exchange modes, each against ``TorchEngine``
+    on the same traces; ms a step is the slowest rank's timed loop over
+    its steps."""
+    import dataclasses
+
+    import torch
+
+    from hpa2_tpu_torch.ops.cuda_engine import resolve_device
+    from hpa2_tpu_torch.ops.engine import TorchEngine
+    from hpa2_tpu_torch.ops.exchange import make_plan, plan_collectives
+    from hpa2_tpu_torch.parallel import NodeShardedEngine, make_mesh
+    from hpa2_tpu_torch.parallel.sharding import run_node_sharded
+    from hpa2_tpu_torch.scripts.perf_sweep import _where
+    from hpa2_tpu_torch.utils.trace import gen_uniform_random
+
+    dev = resolve_device(device)
+    config = SystemConfig(num_procs=nodes, msg_buffer_size=16,
+                          semantics=Semantics().robust())
+    traces = gen_uniform_random(config, instrs_per_core, seed=1)
+    ref = TorchEngine(config, traces, device=dev).run()
+    cards = torch.cuda.device_count() if dev.type == "cuda" else max(ranks)
+    rows, exact = [], True
+    for d in (r for r in ranks if r <= cards):
+        engs = []
+        for mode in ("pairwise", "a2a", "butterfly", "hier"):
+            cfg = dataclasses.replace(config, exchange_mode=mode)
+            engs.append(NodeShardedEngine(
+                cfg, traces, mesh=make_mesh(node_shards=d, data_shards=1,
+                                            device=dev.type)))
+        run_node_sharded(engs, warmup=True)
+        for e in engs:
+            same = (e.cycle == ref.cycle
+                    and e.final_dumps() == ref.final_dumps()
+                    and e.snapshots() == ref.snapshots()
+                    and e.stats()["instructions"] == ref.instructions)
+            exact = exact and same
+            secs = max(r["seconds"] for r in e.rank_stats)
+            steps = e.rank_stats[0]["steps"]
+            plan = make_plan(d, e.config.exchange_mode,
+                             e.config.exchange_inner)
+            row = {"node_shards": d, "exchange_mode": e.config.exchange_mode,
+                   "cycles": e.cycle, "steps": steps,
+                   "ms_per_step": round(secs * 1e3 / max(steps, 1), 4),
+                   "seconds": round(secs, 6),
+                   "collectives_per_cycle": e.step_collectives,
+                   "plan_collectives": plan_collectives(plan),
+                   "loop_collectives": e.rank_stats[0]["loop_collectives"],
+                   "exchange_sent": e.stats().get("exchange_sent", 0),
+                   "equal_to_torch_engine": same}
+            rows.append(row)
+            print(json.dumps({"nodeshard_step": row}), flush=True)
+    record = {"metric": "general_engine_node_sharding", "nodes": nodes,
+              "instrs_per_core": instrs_per_core, "uncaptured": True,
+              "equal_to_torch_engine": exact, "rows": rows, **_where(dev)}
+    print(json.dumps(record), flush=True)
+    if not exact:
+        raise RuntimeError("a node-sharded run diverged from TorchEngine")
+    return record
 
 
 def _arg(argv, name, default):
@@ -212,19 +385,27 @@ def main(argv=None) -> int:
     which = argv[0] if argv and not argv[0].startswith("--") else "both"
     device = _arg(argv, "--device", "cuda")
     try:
-        if which in MULTI_DEVICE_MODES:
-            raise ValueError(MULTI_DEVICE.format(what=which))
+        if which in NODE_AXIS_MODES:
+            raise ValueError(NODE_AXIS.format(what=which))
+        # the CPU's runs are the plain versions: small sizes
+        cpu = device == "cpu"
+        if which == "multichip":
+            multichip(**(dict(per_card=8, instrs_per_core=8) if cpu
+                         else {}), device=device)
+            return 0
+        if which == "nodeshard_general":
+            nodeshard_general(**(dict(nodes=8, instrs_per_core=8,
+                                      ranks=(2,)) if cpu else {}),
+                              device=device)
+            return 0
         if which not in ("4", "5", "both"):
-            raise ValueError(f"unknown configuration {which!r} (4, 5 or "
-                             "both)")
+            raise ValueError(f"unknown configuration {which!r} (4, 5, "
+                             "both, multichip or nodeshard_general)")
         shards = int(_arg(argv, "--data-shards", 1))
-        if shards != 1:
-            raise ValueError(MULTI_DEVICE.format(
-                what=f"--data-shards {shards}"))
         if which in ("4", "both"):
             config4(device=device)
         if which in ("5", "both"):
-            config5(device=device)
+            config5(data_shards=shards, device=device)
     except ValueError as e:
         print(f"scale_runs: {e}", file=sys.stderr)
         return 2

@@ -39,8 +39,10 @@ migrated from the fast path keep byte-identical dumps: ``_harvest``
 extends a row at a window barrier instead of retiring it, and resets
 its watchdog age.
 
-``pallas-sharded`` and ``pallas-node-sharded`` come with the multi-GPU
-slice (ROADMAP queue 1 item 4); :func:`build_serving` refuses them.
+``pallas-sharded`` serves on a data mesh
+(``parallel/sharding.py:DataShardedLaneSession``: one group of lanes a
+card, never crossing); ``pallas-node-sharded`` (the fast path's node
+axis) is ROADMAP queue 1 item 4b and :func:`build_serving` refuses it.
 """
 
 from __future__ import annotations
@@ -727,9 +729,9 @@ BatchLaneSession` rows (``hpa2_tpu/serving/loop.py:BatchServingSession``,
         return self.results, st
 
 
-#: the serving backends of the JAX package that run on several GPUs,
-#: which the port does not do yet (ROADMAP queue 1 item 4)
-_MULTI_GPU = ("pallas-sharded", "pallas-node-sharded")
+#: the serving backend of the JAX package that is not ported yet (the
+#: fast path's node axis, ROADMAP queue 1 item 4b)
+_NOT_PORTED = ("pallas-node-sharded",)
 
 
 def build_serving(
@@ -773,11 +775,11 @@ def build_serving(
         raise ValueError(
             "the port has no Pallas interpreter; run the plain versions "
             "with device='cpu'")
-    if backend in _MULTI_GPU:
+    if backend in _NOT_PORTED:
         raise ValueError(
-            f"serving backend {backend!r} runs on several GPUs, which the "
-            "port does not do yet (ROADMAP queue 1 item 4); the port "
-            "serves on 'pallas' and 'jax'")
+            f"serving backend {backend!r} (the fast path's node axis) is "
+            "not ported yet (ROADMAP queue 1 item 4b); the port serves on "
+            "'pallas', 'pallas-sharded' and 'jax'")
     if backend == "pallas":
         from hpa2_tpu_torch.ops.session import CudaLaneSession
 
@@ -788,6 +790,20 @@ def build_serving(
         return ServingSession(
             sess, source, policy=policy, threshold=threshold,
             overlap=overlap, decode_dumps=decode_dumps, emit=emit,
+            compile_guard=compile_guard, backend=backend,
+            tenant_weights=tenant_weights, interval_hook=interval_hook,
+        )
+    if backend == "pallas-sharded":
+        from hpa2_tpu_torch.parallel.sharding import DataShardedLaneSession
+
+        sess = DataShardedLaneSession(
+            config, resident, window, data_shards=data_shards,
+            block=block or 1024, max_cycles=max_cycles, device=device,
+        )
+        return ServingSession(
+            sess, source, policy=policy, groups=sess.data_shards,
+            threshold=threshold, overlap=overlap,
+            decode_dumps=decode_dumps, emit=emit,
             compile_guard=compile_guard, backend=backend,
             tenant_weights=tenant_weights, interval_hook=interval_hook,
         )

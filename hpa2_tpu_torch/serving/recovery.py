@@ -29,9 +29,10 @@ the port's own copy of ``hpa2_tpu/serving/recovery.py``.
 
 The primary's window schedule travels with a migration: a fast-path
 primary windows its traces, so its ``jax`` target runs with
-``jax_window`` (``BatchLaneSession``'s window emulation).  Targets on
-several GPUs (``data_shards`` or ``node_shards`` above 1, the sharded
-backends) are ROADMAP queue 1 item 4 and raise ``ValueError``.
+``jax_window`` (``BatchLaneSession``'s window emulation).  Targets may
+shard data (``pallas-sharded``, ``jax`` with ``data_shards``); the fast
+path's node axis (``pallas-node-sharded``, ``node_shards`` above 1) is
+ROADMAP queue 1 item 4b and raises ``ValueError``.
 
 Determinism: the failure plan is config data; the supervisor adds no
 RNG and keys every decision off interval barriers and admission
@@ -133,15 +134,14 @@ class _ReplaySource(JobSource):
         return int(getattr(self.inner, "shed_jobs", 0) or 0)
 
 
-def _check_single_gpu(spec: Dict) -> None:
-    """Refuse a spec that runs on several GPUs (ROADMAP queue 1 item
-    4)."""
-    if (spec.get("backend") not in ("pallas", "jax")
-            or spec.get("data_shards", 1) != 1
+def _check_ported(spec: Dict) -> None:
+    """Refuse a spec on the fast path's node axis (ROADMAP queue 1 item
+    4b); data shards (``pallas-sharded``, ``jax``) are ported."""
+    if (spec.get("backend") not in ("pallas", "pallas-sharded", "jax")
             or spec.get("node_shards", 1) != 1):
         raise ValueError(
-            f"serving spec {spec} runs on several GPUs, which the port "
-            "does not do yet (ROADMAP queue 1 item 4)")
+            f"serving spec {spec} runs the fast path's node axis, which "
+            "the port does not do yet (ROADMAP queue 1 item 4b)")
 
 
 def _write_json(path: str, doc: dict) -> None:
@@ -210,7 +210,7 @@ class ServeSupervisor:
         self._last_ck: Optional[Tuple[int, str, Dict, Dict]] = None
         self._tix = 0
         for spec in [self.primary] + self.targets:
-            _check_single_gpu(spec)
+            _check_ported(spec)
 
     # -- plumbing ------------------------------------------------------
 

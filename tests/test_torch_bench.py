@@ -105,6 +105,21 @@ def test_scheduled_headline_records_its_occupancy(monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag", ["--data-shards", "--node-shards",
                                   "--exchange-mode"])
-def test_multi_gpu_flags_are_refused(flag):
-    with pytest.raises(SystemExit, match="item 4"):
-        bench.main([flag, "2", "--device", "cpu"])
+def test_multi_gpu_flags_are_refused(flag, monkeypatch, capsys):
+    """The fast path's node axis stays refused (ROADMAP queue 1 item
+    4b); ``--data-shards`` is ported: the headline runs over two shards
+    (the baselines' contexts stubbed: they do not shard) and says so."""
+    if flag != "--data-shards":
+        with pytest.raises(SystemExit, match="item 4b"):
+            bench.main([flag, "2", "--device", "cpu"])
+        return
+    monkeypatch.setenv("HPA2_BENCH_DATA_SHARDS", "1")  # restored after
+    for k in ("TRACE_DIST", "SCHEDULE_RESIDENT", "HOST_BARRIERS", "PACKED"):
+        monkeypatch.delenv(f"HPA2_BENCH_{k}", raising=False)
+    monkeypatch.setattr(bench, "bench_omp", lambda *a, **k: (1, 1.0))
+    monkeypatch.setattr(bench, "bench_jax", lambda *a, **k: (1, 1.0, {}))
+    monkeypatch.setattr(bench, "fault_counters", lambda *a, **k: {})
+    assert bench.main([flag, "2", "--device", "cpu"]) == 0
+    rec = _line(capsys)
+    assert rec["data_shards"] == 2 and rec["batch"] == 8
+    assert rec["jax_instrs"] == 8 * 8 * 16

@@ -10,9 +10,12 @@ mesh under MOESI), and its severed-edge stall; its scheduled runs, its
 serving backend and a checkpoint of its rows; the streamed run under
 the HEAD value quirks, and the bench harness
 (``python -m hpa2_tpu_torch.bench``) on the card; the analysis suite's
-K3 table prober and its contract census on the card.  These need an
-NVIDIA GPU with nvcc (sm_90a) and skip elsewhere; on the card run them
-with
+K3 table prober and its contract census on the card; several GPUs
+(``hpa2_tpu_torch.parallel``): the data-sharded fast path over every
+card against one card's run, and the general engine's node axis over
+NCCL ranks against ``TorchEngine``.  These need an NVIDIA GPU with nvcc
+(sm_90a) and skip elsewhere (the multi-card cases below two cards); on
+the card run them with
 
     python -m pytest tests/test_torch_card.py -m cuda
 """
@@ -539,15 +542,21 @@ def test_k3_table_prober_on_card(card, robust):
 
 
 def test_contract_census_on_card(card):
-    """``contracts`` on the card: the 8 unsharded points clean with
-    their card rules, the 4 sharded ones skipped, and the wrappers'
-    calls equal to the libraries' launches."""
+    """``contracts`` on the card: the 8 unsharded points and the
+    data-sharded one clean with their card rules, the fast path's
+    node-sharded point skipped (and the general engine's two on fewer
+    than four cards), and the wrappers' calls equal to the libraries'
+    launches."""
     from hpa2_tpu_torch.analysis import contracts, ir
 
     with ir.launch_census() as c:
         results = contracts.run_contracts(device="cuda",
                                           out=lambda line: None)
-    assert sorted(r.status for r in results) == ["ok"] * 8 + ["skip"] * 4
+    # data-sharded-pallas runs on one card named four times; the general
+    # engine's node-sharded points need four cards (one NCCL rank each)
+    four = torch.cuda.device_count() >= 4
+    assert sorted(r.status for r in results) == (
+        ["ok"] * (11 if four else 9) + ["skip"] * (1 if four else 3))
     assert c["calls.stream_run"] == c["launches.stream_run"] > 0
     assert c["calls.call_run"] == c["launches.call_run"]
 
@@ -574,3 +583,76 @@ def test_packed_ablated_engine_on_card_matches_cpu(card, stream, n, stage):
         engines.append(eng)
     for f, v in engines[1].state.items():
         assert _same(engines[0].state[f], v), f
+
+
+@pytest.fixture
+def two_cards(card):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs (one data shard or one NCCL "
+                    "rank a card)")
+    return torch.cuda.device_count()
+
+
+@pytest.mark.parametrize("stream,scheduled", [(True, False), (False, False),
+                                              (True, True)])
+def test_data_sharded_engine_over_cards_matches_one_card(two_cards, stream,
+                                                         scheduled):
+    """``DataShardedCudaEngine`` over every card equals ``CudaEngine`` on
+    one card plane for plane, with one launch a shard (streamed) and one
+    status read."""
+    from hpa2_tpu_torch.parallel import DataShardedCudaEngine
+
+    cfg = SystemConfig(num_procs=8, msg_buffer_size=16,
+                       semantics=Semantics().robust())
+    b = 256 * two_cards
+    arrays = gen_heterogeneous_random_arrays(cfg, b, 32, dist="zipf",
+                                             spread=4.0, seed=3)
+    kw = dict(block=64, cycles_per_call=32, snapshots=False,
+              trace_window=8, stream=stream,
+              schedule=Schedule(resident=b // 2) if scheduled else None)
+    ref = CudaEngine(cfg, *arrays, device="cuda", **kw).run()
+    eng = DataShardedCudaEngine(cfg, *arrays, device="cuda", **kw)
+    assert [d.index for d in eng.mesh.devices] == list(range(two_cards))
+    kernels.STREAM_RUN.launches = 0
+    syncs = kernels.HOST_SYNCS.count
+    eng.run()
+    if stream and not scheduled:
+        assert kernels.STREAM_RUN.launches == two_cards
+        assert kernels.HOST_SYNCS.count - syncs == 1
+    got = eng.state
+    for f, v in ref.state.items():
+        assert _same(got[f], v), f
+
+
+@pytest.mark.parametrize("mode", ["a2a", "pairwise", "butterfly", "hier"])
+def test_node_sharded_engine_over_nccl_matches_torch_engine(two_cards,
+                                                           mode):
+    """``NodeShardedEngine`` over two NCCL ranks (and four on four cards)
+    equals ``TorchEngine`` on the card; a cycle's collectives are the
+    plan's plus one SUM and one MAX."""
+    from hpa2_tpu_torch.ops.engine import TorchEngine
+    from hpa2_tpu_torch.ops.exchange import make_plan, plan_collectives
+    from hpa2_tpu_torch.parallel import NodeShardedEngine, make_mesh
+    from hpa2_tpu_torch.parallel.sharding import run_node_sharded
+    from hpa2_tpu_torch.utils.trace import gen_uniform_random
+
+    cfg = SystemConfig(num_procs=16, msg_buffer_size=16,
+                       semantics=Semantics().robust(), exchange_mode=mode)
+    traces = gen_uniform_random(cfg, 12, seed=5)
+    ref = TorchEngine(cfg, traces, device="cuda").run()
+    for node in (2, 4) if two_cards >= 4 else (2,):
+        eng = NodeShardedEngine(cfg, traces, mesh=make_mesh(
+            node_shards=node, data_shards=1, device="cuda"))
+        run_node_sharded([eng])
+        assert eng.cycle == ref.cycle
+        assert eng.snapshots() == ref.snapshots()
+        assert eng.final_dumps() == ref.final_dumps()
+        # the elision counters may differ: a rank's watchdog proposal
+        # keys on its own issuers (JAX build_node_sharded_run)
+        skip = ("exchange", "elided", "multi_hit")
+        assert {k: v for k, v in eng.stats().items()
+                if not k.startswith(skip)} == {
+            k: v for k, v in ref.stats().items() if not k.startswith(skip)}
+        want = dict(plan_collectives(make_plan(node, mode)), sum=1, max=1,
+                    min=0)
+        assert eng.step_collectives == want

@@ -275,10 +275,15 @@ def test_serve_matches_jax_serve_dump_files(tmp_path, capsys):
     assert sorted(r["id"] for r in records) == sorted(ids)
 
 
+# the data axis is ported (serve --data-shards, --migrate-to jax:2); the
+# cases keep their ids and pin what stays refused: the fast path's node
+# axis, ROADMAP queue 1 item 4b
 @pytest.mark.parametrize("extra,match", [
-    (["--data-shards", "2"], "item 4"),
-    (["--node-shards", "2"], "item 4"),
-    (["--failure-plan", "kill@1", "--migrate-to", "jax:2"], "item 4"),
+    pytest.param(["--data-shards", "2", "--node-shards", "2"], "item 4b",
+                 id="extra0-item 4"),
+    pytest.param(["--node-shards", "2"], "item 4b", id="extra1-item 4"),
+    pytest.param(["--failure-plan", "kill@1", "--migrate-to", "pallas:1:2"],
+                 "item 4b", id="extra2-item 4"),
     (["--failure-plan", "kill@1", "--migrate-to", "tpu"],
      "backend jax|pallas"),
     (["--failure-plan", "frob@1"], "--failure-plan"),

@@ -2,8 +2,9 @@
 contracts.py`` over ``analysis/ir.py``) on the CPU, mirroring
 ``tests/test_contracts.py``:
 
-* the registry holds the JAX package's 12 points, the four sharded ones
-  skipped with a note naming ROADMAP queue 1 item 4;
+* the registry holds the JAX package's 12 points; of the four sharded
+  ones the fast path's node-sharded point is skipped with a note naming
+  ROADMAP queue 1 item 4b, the other three run;
 * the pin files are present and digest-fresh;
 * the CPU census is clean (the card rules, which read what only the
   card has, are skipped and say so);
@@ -43,8 +44,9 @@ def test_registry_has_the_jax_packages_points():
     assert len(cs) == 12
     assert [c.engine for c in cs] == [c.engine for c in jx_registry()]
     sharded = [c for c in cs if c.engine == "sharded"]
-    assert len(sharded) == 4 and all(c.measure is None for c in sharded)
-    assert all(c.measure is not None for c in cs if c.engine != "sharded")
+    assert len(sharded) == 4
+    assert [c.name for c in cs if c.measure is None] == [
+        "node-sharded-pallas-a2a"]
 
 
 def test_rules_carry_the_ports_claims():
@@ -78,10 +80,14 @@ def test_cpu_census_is_clean_and_sharded_points_skip():
     lines = []
     results = contracts.run_contracts(device="cpu", out=lines.append)
     status = {r.contract: r.status for r in results}
-    assert sorted(s for s in status.values()) == ["ok"] * 8 + ["skip"] * 4
+    # the data-sharded point and the general engine's node-sharded
+    # points (four gloo ranks) run on the CPU; the fast path's node axis
+    # is what stays skipped
+    assert sorted(s for s in status.values()) == ["ok"] * 11 + ["skip"]
     for r in results:
         if r.status == "skip":
-            assert "ROADMAP queue 1 item 4" in r.note
+            assert r.contract == "node-sharded-pallas-a2a"
+            assert "ROADMAP queue 1 item 4b" in r.note
     assert any("card rule(s) skipped on cpu" in ln for ln in lines)
 
 
@@ -219,4 +225,4 @@ def test_cli_contracts_on_the_cpu():
         [sys.executable, "-m", "hpa2_tpu_torch.analysis", "contracts",
          "--device", "cpu"], capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "8 contract(s) clean, 0 drifted, 4 skipped" in proc.stdout
+    assert "11 contract(s) clean, 0 drifted, 1 skipped" in proc.stdout

@@ -206,22 +206,25 @@ def test_engines_default_to_the_card():
 
 
 @pytest.mark.parametrize("what,match", [
-    ("node-shards", "item 4"),
+    # the ids are the ones these cases had when they pinned the item-4
+    # refusals; item 4b is what stays refused
+    pytest.param("node-shards", "item 4b", id="node-shards-item 4"),
     ("messages-per-cycle", "messages_per_cycle"),
     ("overloaded-notify", "fixture semantics"),
     ("schedule", "outside"),
-    ("data-shards", "item 4"),
+    pytest.param("data-shards", "divisible", id="data-shards-item 4"),
 ])
 def test_engine_refuses_what_is_not_ported(what, match):
     from hpa2_tpu_torch.config import Semantics
     from hpa2_tpu_torch.config import SystemConfig as TSystemConfig
+    from hpa2_tpu_torch.ops.cycle import build_cycle
     from hpa2_tpu_torch.ops.step import build_step
 
     cfg = TSystemConfig(num_procs=4, semantics=Semantics().robust())
     traces = port_traces(gen_uniform_random(cfg, 4, seed=0))
     with pytest.raises(ValueError, match=match):
         if what == "node-shards":
-            build_step(cfg, axis_name="nodes", shards=2)
+            build_cycle(cfg, axis_name="nodes", shards=2)
         elif what == "messages-per-cycle":
             build_step(dataclasses.replace(cfg, messages_per_cycle=2))
         elif what == "overloaded-notify":
@@ -231,5 +234,5 @@ def test_engine_refuses_what_is_not_ported(what, match):
             BatchTorchEngine(cfg, [traces], schedule=Schedule(resident=2),
                              device="cpu")
         else:
-            BatchTorchEngine(cfg, [traces, traces], data_shards=2,
+            BatchTorchEngine(cfg, [traces] * 3, data_shards=2,
                              device="cpu")

@@ -181,14 +181,16 @@ def test_host_loop_stall_matches_jax():
 
 def test_schedule_refusals_name_their_items():
     tb = [port_traces(t) for t in _zipf_batch(CFG)[:2]]
-    with pytest.raises(ValueError, match="item 4"):
+    # data shards are ported: what stays refused is a resident count
+    # the shards do not divide
+    with pytest.raises(ValueError, match="must divide data_shards=2"):
         BatchTorchEngine(port_config(CFG), tb, data_shards=2,
-                         schedule=Schedule(), device="cpu")
+                         schedule=Schedule(resident=1), device="cpu")
     with pytest.raises(ValueError, match="outside"):
         BatchTorchEngine(port_config(CFG), tb, device="cpu",
                          schedule=Schedule(resident=3))
-    with pytest.raises(ValueError, match="item 4"):
-        BatchLaneSession(port_config(CFG), 2, 8, data_shards=2,
+    with pytest.raises(ValueError, match="not divisible by data_shards=2"):
+        BatchLaneSession(port_config(CFG), 3, 8, data_shards=2,
                          device="cpu")
 
 

@@ -29,10 +29,10 @@ JAX_STEPS = [
     "nodeshard4096", "nodeshard_x2", "nodeshard_x4",
     "nodeshard_x4_butterfly", "elided_nodeshard",
 ]
-#: the steps that split the work over several devices (ROADMAP queue 1
-#: item 4)
+#: the steps on the fast path's node axis (ROADMAP queue 1 item 4b); the
+#: data-parallel ones (sweep512_dp, multichip) are ported
 MULTI_DEVICE = {
-    "sweep512_dp", "multichip", "nodeshard", "nodeshard_ladder",
+    "nodeshard", "nodeshard_ladder",
     "nodeshard_ab", "nodeshard4096", "nodeshard_x2", "nodeshard_x4",
     "nodeshard_x4_butterfly", "elided_nodeshard",
 }
@@ -156,7 +156,7 @@ def test_step_list_is_the_jax_sessions_minus_multi_device():
             assert "-m" in argv and all("hpa2_tpu." not in a for a in argv)
     doc = gpu_session.__doc__
     for name in ("sweep512_dp", "multichip", "nodeshard", "elided_nodeshard",
-                 "BENCH_TUNING.json", "item 4"):
+                 "BENCH_TUNING.json", "item 4b"):
         assert name in doc
 
 

@@ -156,9 +156,24 @@ def test_kernel_error_propagates_instead_of_migrating(jobs, tmp_path,
     dict(backend="pallas-sharded", data_shards=2),
 ], ids=["data-shards", "node-shards", "sharded-primary"])
 def test_multi_gpu_targets_refused(jobs, kw):
-    with pytest.raises(ValueError, match="item 4"):
-        supervised_serve(TCFG, ListJobSource(jobs[1]), device="cpu",
-                         plan=FailurePlan.parse("kill@1"), **kw)
+    """The fast path's node axis stays refused (ROADMAP queue 1 item
+    4b); data shards are ported: a kill migrates to (or from) them and
+    every job's dumps equal the unfailed run's."""
+    if kw.get("targets", [{}])[0].get("node_shards", 1) > 1:
+        with pytest.raises(ValueError, match="item 4b"):
+            supervised_serve(TCFG, ListJobSource(jobs[1]), device="cpu",
+                             plan=FailurePlan.parse("kill@1"), **kw)
+        return
+    geometry = dict(resident=4, window=8, block=2, max_trace_len=64,
+                    interval=8)
+    tres, tst = supervised_serve(TCFG, ListJobSource(jobs[1]), device="cpu",
+                                 plan=FailurePlan.parse("kill@1"),
+                                 **geometry, **kw)
+    base, _ = serve(TCFG, ListJobSource(jobs[1]), device="cpu",
+                    **dict(PALLAS_KW, block=2))
+    assert _dump_map(tres) == _dump_map(base)
+    assert tst.jobs_completed == len(jobs[1])
+    assert _recovery(tst)["migrations"] >= 1
 
 
 # -- the serve command ------------------------------------------------------

@@ -9,8 +9,13 @@ small sizes, on the CPU.  Tolerance zero: all state is integer.
   interpreted ``PallasEngine`` at the script's shape in every carried
   plane, and with the zipf workload under the occupancy scheduler in the
   scalars plane, instructions, cycle and occupancy counters;
-* the multi-device modes raise naming ROADMAP queue 1 item 4, and the
-  card's entry points raise without a card."""
+* ``multichip`` (the data-parallel ladder) runs on the CPU's logical
+  shards bit-exact with one device, configuration 5 over two shards
+  equals one device's run, the fast path's node-axis modes raise naming
+  ROADMAP queue 1 item 4b, and the card's entry points raise without a
+  card."""
+
+import json
 
 import jax
 import numpy as np
@@ -107,19 +112,34 @@ def test_config5_zipf_scheduled_equals_interpreted_pallas():
 
 @pytest.mark.parametrize("mode", ["multichip", "nodeshard", "nodeshard_ab"])
 def test_multi_device_modes_raise(mode, capsys):
+    if mode == "multichip":
+        # the data axis is ported: the ladder runs, every rung bit-exact
+        # with one device's run of the same arrays
+        assert scale_runs.main([mode, "--device", "cpu"]) == 0
+        rec = json.loads(capsys.readouterr().out.splitlines()[-1])
+        assert rec["bit_exact_vs_one_card"] and not rec["indicative"]
+        assert [(r["scaling"], r["data_shards"]) for r in rec["rows"]] == [
+            (s, d) for s in ("weak", "strong") for d in (1, 2, 4)]
+        assert all(r["host_syncs"] == 1 for r in rec["rows"])
+        return
     assert scale_runs.main([mode]) == 2
     err = capsys.readouterr().err
-    assert f"scale_runs: {mode} splits" in err
-    assert "ROADMAP queue 1 item 4" in err
+    assert f"scale_runs: {mode} shards the fast path's node axis" in err
+    assert "ROADMAP queue 1 item 4b" in err
 
 
 def test_data_shards_raise(capsys):
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 4"):
-        scale_runs.config5(batch=8, instrs_per_core=8, data_shards=2,
-                           device="cpu")
-    assert scale_runs.main(["5", "--data-shards", "2", "--device",
-                            "cpu"]) == 2
-    assert "--data-shards 2" in capsys.readouterr().err
+    """``config5`` over two data shards equals one device's run (the
+    data axis is ported); an unknown configuration still exits 2."""
+    one, eng1, _ = scale_runs.config5_run(batch=8, instrs_per_core=8,
+                                          device="cpu")
+    two, eng2, _ = scale_runs.config5_run(batch=8, instrs_per_core=8,
+                                          data_shards=2, device="cpu")
+    assert two["data_shards"] == 2
+    assert (two["instructions"], two["cycles"]) == (
+        one["instructions"], one["cycles"])
+    for f, v in eng1.state.items():
+        assert torch.equal(eng2.state[f], v), f
     assert scale_runs.main(["6", "--device", "cpu"]) == 2
 
 

@@ -176,12 +176,18 @@ def test_admission_policies(cfgs, jobs, one_shot):
         _assert_compiled_once(stats)
 
 
-def test_unported_backends_raise(cfgs, jobs):
+def test_unported_backends_raise(cfgs, jobs, one_shot):
     tcfg = cfgs[1]
-    for backend in ("pallas-sharded", "pallas-node-sharded"):
-        with pytest.raises(ValueError, match="item 4"):
-            serve(tcfg, ListJobSource(jobs[1]), backend=backend,
-                  device="cpu", **SERVE_KW)
+    # the fast path's node axis stays refused (ROADMAP queue 1 item 4b);
+    # pallas-sharded is ported and serves the one-shot run's dumps
+    with pytest.raises(ValueError, match="item 4b"):
+        serve(tcfg, ListJobSource(jobs[1]), backend="pallas-node-sharded",
+              device="cpu", **SERVE_KW)
+    res, _ = serve(tcfg, ListJobSource(jobs[1]), backend="pallas-sharded",
+                   data_shards=2, device="cpu",
+                   **dict(SERVE_KW, block=2))
+    assert {r.job_id: dicts(r.dumps) for r in res} == {
+        k: dicts(v) for k, v in one_shot.items()}
     with pytest.raises(ValueError, match="unknown serving backend"):
         serve(tcfg, ListJobSource(jobs[1]), backend="tpu", device="cpu")
     with pytest.raises(ValueError, match="device='cpu'"):
