@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only general-scheduled,serve-jax,recovery,entry,analysis,ablate,scale,shard
+    python3 chip_smoke.py --only general-scheduled,serve-jax,recovery,entry,analysis,ablate,scale,shard,nodeshard
 
 (the second form, a debugging aid, runs the build and the named phases
 alone and prints no kernels line).  Builds the five CUDA libraries from
@@ -111,6 +111,13 @@ bound), and drives through ``CudaEngine``:
   engine's node axis over NCCL (``NodeShardedEngine`` at 8 and 16 nodes,
   a2a and pairwise, equal to ``TorchEngine``, a cycle's collectives
   equal to the plan's plus one SUM and one MAX; one rank on one card),
+* the fast path's node axis (``[nodeshard]``, :func:`phase_nodeshard`):
+  on two cards or more, ``NodeShardedCudaEngine`` at 64 nodes x 1,024
+  systems x 8 instructions over 4 NCCL ranks and a 2 x 2 grid (2 ranks
+  on two or three cards),
+  each equal to K2 on ``cuda:0``, the CUDA kernels a cycle by
+  ``torch.profiler``, a fused packed zipf run and a served feed through
+  ``NodeShardedLaneSession``; on one card one line saying it needs two,
 * BASELINE.json's scaled configurations (``[scale]``,
   :func:`phase_scale`, through ``hpa2_tpu_torch.scripts.scale_runs``):
   configuration 5 at full size (1,024 systems x 8 nodes x 10,000
@@ -3645,6 +3652,265 @@ def phase_shard(headline_state=None):
     return k2, k3
 
 
+#: ``[nodeshard]``'s runs: the 64-node shape of ``scale_runs.py
+#: nodeshard`` at a cut depth (8 instructions a core where the ladder
+#: has 64), a fused packed zipf run at 12 nodes (packed planes hold at
+#: most 14: the directory meta word is 2 + num_procs bits of 16) and a
+#: served feed at 16 nodes
+NODESHARD = dict(num_procs=64, msg_buffer_size=16, max_instr_num=0)
+NODESHARD_RUN = dict(block=512, cycles_per_call=64, snapshots=False,
+                     trace_window=16)
+NODESHARD_INSTRS = 8
+NODESHARD_ZIPF = (12, 512, 256)      # nodes, systems, resident lanes
+NODESHARD_SERVE = (16, 256, 128)     # nodes, jobs, resident lanes
+#: cycles of the profiled call (the profiler's own processing grows
+#: with the events it records)
+NODESHARD_PROFILE_K = 4
+
+
+def _nodeshard_profile_rank(job):
+    """Rank side of the profile: one warm k-cycle call on this rank's
+    block, then one profiled, counting the CUDA kernels a cycle (the
+    window's seed and gates included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hpa2_tpu_torch.ops.cycle import TRANSIENTS
+    from hpa2_tpu_torch.ops.layout import _init_state
+    from hpa2_tpu_torch.parallel.comm import world_comm
+    from hpa2_tpu_torch.parallel.sharding import NodeInterval, _node_local
+
+    cfg, k = job["config"], job["k"]
+    comm, _ = world_comm(job["mesh"].node)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    eng = job["engine"]
+    nl = cfg.num_procs // comm.size
+    node = slice(comm.rank * nl, (comm.rank + 1) * nl)
+    tr = eng._tr_full[node][:, :eng._window].contiguous().to(dev)
+    tl = eng._tr_len_full[node].clamp(max=eng._window).contiguous().to(dev)
+    planes = _node_local(_init_state(cfg, tr.shape[-1], False), comm.rank,
+                         nl, slice(None), dev)
+    trans = {f: torch.zeros((1, tr.shape[-1]), dtype=torch.int32,
+                            device=dev) for f in TRANSIENTS}
+    prog = NodeInterval(cfg, comm, False, eng._window, k, 1)
+    prog(planes, trans, tr, tl)                       # warm: one call
+    prog = NodeInterval(cfg, comm, False, eng._window, k, 1)
+    fresh = _node_local(_init_state(cfg, tr.shape[-1], False), comm.rank,
+                        nl, slice(None), dev)
+    trans = {f: torch.zeros_like(v) for f, v in trans.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prog(fresh, trans, tr, tl)
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels_run = [e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+    nccl = sum(1 for e in kernels_run if "nccl" in e.name.lower())
+    # the launch calls the host made, should CUPTI record no kernel
+    launch_calls = sum(1 for e in events if e.name in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+        "cuLaunchKernelEx"))
+    return dict(planes={}, status=0, cycles=prog.cycles,
+                launches=len(kernels_run), nccl=nccl,
+                launch_calls=launch_calls)
+
+
+class _NodeshardProfile:
+    """A job for ``run_node_sharded``'s spawn: the CUDA kernels a cycle
+    of the node-sharded fast path, by ``torch.profiler`` on each rank."""
+
+    def __init__(self, engine, mesh):
+        self.engine, self.mesh = engine, mesh
+        self.rows = []
+
+    def _job(self):
+        return dict(rank_fn=_nodeshard_profile_rank, engine=self.engine,
+                    mesh=self.mesh, config=self.engine.config,
+                    k=NODESHARD_PROFILE_K)
+
+    def _gather(self, blocks):
+        self.rows = blocks
+
+    def _check(self):
+        pass
+
+
+def phase_nodeshard():
+    """``[nodeshard]``: the fast path's node axis
+    (``NodeShardedCudaEngine``, ``NodeShardedLaneSession``) over NCCL
+    ranks, one a card.  With one card it prints that the path needs two
+    and runs nothing (NCCL takes one rank a card).  With two or more:
+    64 nodes x 1,024 systems x 8 instructions (block 512, window 16, k
+    64, snapshots off) over 4 ranks (a2a and pairwise) and a 2 x 2
+    data x node grid on four cards, over 2 ranks (a2a) on two or three,
+    all in the served feed's group of ranks, each run's gathered
+    planes (cycle and counters among them) equal to K2's run of the
+    same arrays on ``cuda:0`` (max_abs_err 0); the CUDA kernels a cycle
+    by ``torch.profiler``; a fused scheduled zipf run (12 nodes, 512
+    systems through 256 lanes, packed) equal to ``CudaEngine``'s; and a
+    served feed through ``NodeShardedLaneSession`` (16 nodes, 256 jobs
+    through 128 lanes) whose every job's dumps equal
+    ``CudaLaneSession``'s.  Returns its record."""
+    import dataclasses
+
+    from hpa2_tpu_torch.config import Semantics, SystemConfig
+    from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
+    from hpa2_tpu_torch.ops.schedule import Schedule
+    from hpa2_tpu_torch.parallel import (
+        NodeShardedCudaEngine, NodeShardedLaneSession, make_mesh,
+    )
+    from hpa2_tpu_torch.parallel.sharding import run_node_sharded
+    from hpa2_tpu_torch.serving import ListJobSource, serve, synthetic_jobs
+    from hpa2_tpu_torch.serving.loop import ServingSession
+    from hpa2_tpu_torch.utils.trace import (
+        gen_heterogeneous_random_arrays, gen_uniform_random_arrays,
+    )
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print("[nodeshard] one card: the fast path's node axis needs two "
+              "cards or more (NCCL takes one rank a card), so nothing runs "
+              "here; its four-card run is recorded in PERF.md section 6")
+        return {"cards": cards}
+    t_phase = time.perf_counter()
+    robust = Semantics().robust()
+    cfg = SystemConfig(semantics=robust, **NODESHARD)
+    arrays = gen_uniform_random_arrays(cfg, 1024, NODESHARD_INSTRS, seed=0)
+    ref = CudaEngine(cfg, *arrays, **NODESHARD_RUN)
+    ref.run()
+    _, k2_ms = elapsed_ms(lambda: CudaEngine(cfg, *arrays,
+                                             **NODESHARD_RUN).run())
+    want = ref.state
+    rec = {"cards": cards, "k2_ms": round(k2_ms, 3), "runs": {}}
+    print(f"[nodeshard] K2 on cuda:0: 64 nodes x 1024 x "
+          f"{NODESHARD_INSTRS} (cut from 64 instructions a core), "
+          f"{ref.cycle} cycles, {k2_ms:.3f} ms engine run")
+
+    def mesh(node, data=1):
+        return make_mesh(node_shards=node, data_shards=data, device="cuda")
+
+    # one group of ranks for every run: four on four cards (the 2 x 2
+    # grid's node groups are the two-rank exchange), else two
+    top = 4 if cards >= 4 else 2
+    if top == 4:
+        engs = {
+            "4 ranks a2a": NodeShardedCudaEngine(
+                cfg, *arrays, mesh=mesh(4), **NODESHARD_RUN),
+            "4 ranks pairwise": NodeShardedCudaEngine(
+                dataclasses.replace(cfg, exchange_mode="pairwise"),
+                *arrays, mesh=mesh(4), **NODESHARD_RUN),
+            "2 x 2 grid": NodeShardedCudaEngine(
+                cfg, *arrays, mesh=mesh(2, 2), **NODESHARD_RUN)}
+    else:
+        engs = {"2 ranks a2a": NodeShardedCudaEngine(
+            cfg, *arrays, mesh=mesh(2), **NODESHARD_RUN)}
+    zn, zb, zr = NODESHARD_ZIPF
+    zcfg = SystemConfig(num_procs=zn, msg_buffer_size=16, semantics=robust)
+    zarrays = gen_heterogeneous_random_arrays(zcfg, zb, 32, dist="zipf",
+                                              spread=4.0, seed=3)
+    zkw = dict(NODESHARD_RUN, block=128, cycles_per_call=16,
+               schedule=Schedule(resident=zr), packed=True)
+    zref = CudaEngine(zcfg, *zarrays, **zkw).run()
+    engs["fused zipf packed"] = NodeShardedCudaEngine(
+        zcfg, *zarrays, mesh=mesh(top), **zkw)
+    prof = _NodeshardProfile(engs[f"{top} ranks a2a"], mesh(top))
+    # a small run first on the same mesh and schedule pays each rank's
+    # one-time costs (the first NCCL calls of its groups) outside the
+    # timed runs
+    warm_arrays = gen_uniform_random_arrays(cfg, 2, 2, seed=1)
+    shapes = {(e.mesh, e.config.exchange_mode): None for e in engs.values()}
+    warm = [NodeShardedCudaEngine(
+        dataclasses.replace(cfg, exchange_mode=m), *warm_arrays,
+        mesh=msh, **dict(NODESHARD_RUN, block=2, cycles_per_call=8))
+        for msh, m in shapes]
+
+    # the served feed's one-card reference
+    sn, sj, sr = NODESHARD_SERVE
+    scfg = SystemConfig(num_procs=sn, msg_buffer_size=16, semantics=robust)
+    jobs = synthetic_jobs(scfg, sj, 32, seed=7, dist="zipf", spread=4.0)
+    want_res, _ = serve(scfg, ListJobSource(jobs), resident=sr, window=16,
+                        block=128, device="cuda")
+
+    # the session's ranks run the engines too: one start for the phase
+    t0 = time.perf_counter()
+    sess = NodeShardedLaneSession(scfg, sr, 16, node_shards=top, block=128,
+                                  cycles_per_call=16, device="cuda")
+    with sess:
+        start_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_node_sharded(warm + list(engs.values()) + [prof],
+                         pool=sess.pool)
+        secs = time.perf_counter() - t0
+        for name, e in engs.items():
+            other = zref.state if name.startswith("fused") else want
+            err = check_diff(f"nodeshard {name}", plane_diff(
+                e.config, False, {f: v.cuda() for f, v in e.state.items()},
+                other, packed=e._packed))
+            if name.startswith("fused") and (
+                    e.occupancy.as_dict() != zref.occupancy.as_dict()):
+                raise AssertionError("nodeshard fused: occupancy differs")
+            slow = max(e.rank_stats, key=lambda r: r["seconds"])
+            st = e.rank_stats[0]
+            ms_cycle = slow["seconds"] * 1e3 / max(slow["cycles"], 1)
+            stats = e.stats()
+            row = dict(
+                cycles=e.cycle, cycles_run=st["cycles"], calls=st["calls"],
+                ms_per_cycle=round(ms_cycle, 3),
+                rank_seconds=round(slow["seconds"], 3),
+                collectives_per_cycle=st["census"]["cycle"],
+                host_syncs=st["host_syncs"],
+                cross_shard_msgs=e.cross_shard_msgs,
+                exchange_bytes_per_cycle=stats.get(
+                    "exchange_bytes_per_cycle", 0),
+                max_abs_err=err)
+            rec["runs"][name] = row
+            held = ("CudaEngine's fused run" if name.startswith("fused")
+                    else "K2's run on cuda:0")
+            print(f"[nodeshard] {name} ({e.config.num_procs} nodes, "
+                  f"{e.config.exchange_mode}): {e.cycle} cycles "
+                  f"({st['cycles']} run in {st['calls']} calls), "
+                  f"{ms_cycle:.3f} ms a cycle (slowest rank), collectives "
+                  f"a cycle {st['census']['cycle']}, {st['host_syncs']} "
+                  f"host syncs, {e.cross_shard_msgs} cross-shard msgs, "
+                  f"{row['exchange_bytes_per_cycle']} exchange B a cycle; "
+                  f"planes equal to {held}: max_abs_err={err}")
+        print(f"[nodeshard] {len(engs)} run(s) over {top} ranks in "
+              f"{secs:.1f} s, after the ranks' start in {start_s:.1f} s")
+        launches = [r["launches"] / max(r["cycles"], 1) for r in prof.rows]
+        rec["cuda_launches_per_cycle"] = round(max(launches), 1)
+        rec["nccl_per_cycle"] = round(max(r["nccl"] / max(r["cycles"], 1)
+                                          for r in prof.rows), 2)
+        rec["launch_calls_per_cycle"] = round(max(
+            r["launch_calls"] / max(r["cycles"], 1) for r in prof.rows), 1)
+        print(f"[nodeshard] torch.profiler over one k-cycle call on each "
+              f"of {top} ranks: {rec['cuda_launches_per_cycle']} CUDA "
+              f"kernels a cycle (most on a rank), {rec['nccl_per_cycle']} "
+              f"of them NCCL; {rec['launch_calls_per_cycle']} kernel launch "
+              "calls a cycle on the host")
+
+        # a served feed: every job's dumps equal the one-card session's
+        t0 = time.perf_counter()
+        got_res, st = ServingSession(sess, ListJobSource(jobs)).run()
+        secs = time.perf_counter() - t0
+    wanted = {r.job_id: _dump_dicts(r.dumps) for r in want_res}
+    got = {r.job_id: _dump_dicts(r.dumps) for r in got_res}
+    if got != wanted:
+        raise AssertionError("nodeshard serve: dumps differ from "
+                             "CudaLaneSession's")
+    xmsgs = sum(r.counters["cross_shard_msgs"] for r in got_res)
+    rec["serve"] = dict(jobs=sj, seconds=round(secs, 3),
+                        cross_shard_msgs=xmsgs,
+                        compile_counts=st.compile_counts)
+    print(f"[nodeshard] serve: {sj} zipf jobs x {sn} nodes through {sr} "
+          f"lanes over {top} ranks (the same ranks) in {secs:.1f} s, "
+          f"{xmsgs} cross-shard msgs; every job's dumps equal to "
+          f"CudaLaneSession's; compile counts {st.compile_counts}")
+    rec["seconds"] = round(time.perf_counter() - t_phase, 1)
+    print(f"[nodeshard] phase {rec['seconds']} s (budget 90 s on four "
+          "cards)")
+    return rec
+
+
 def host_cpu() -> str:
     """The host's CPU as ``/proc/cpuinfo`` gives it for its first
     processor: model name, vendor, family and model, clock and cache
@@ -3677,10 +3943,9 @@ def phase_analysis(budget_rows):
     the card) and ``native`` at MESI and ``jax`` at MOESI and MESIF, with
     the multi-message diffs; every table diff 0.  Then ``contracts`` on
     the card (the 8 unsharded points and ``data-sharded-pallas`` clean,
-    the wrappers' calls equal to the libraries' launches, the fast
-    path's node-sharded point skipped naming ROADMAP queue 1 item 4b, the
-    general engine's two node-sharded points clean on four cards and
-    skipped on fewer), ``elision``'s verify against ``TorchEngine`` on the
+    the wrappers' calls equal to the libraries' launches, the three
+    node-sharded points, the fast path's and the general engine's two,
+    clean on four cards and skipped on fewer), ``elision``'s verify against ``TorchEngine`` on the
     card, ``lint`` and ``mutation-test``.  ``budget_rows`` is the count
     of ``[build]`` rows whose shared memory the Hopper budget model
     matched.  Returns K3's ``by_path`` record."""
@@ -3778,13 +4043,12 @@ def phase_analysis(budget_rows):
     status = {r.contract: r.status for r in results}
     clean = [c for c, v in status.items() if v == "ok"]
     skipped = [r for r in results if r.status == "skip"]
-    # the node-sharded general engine's points spawn four NCCL ranks:
-    # four cards, else skipped
+    # the three node-sharded points spawn four NCCL ranks: four cards,
+    # else skipped
     four = torch.cuda.device_count() >= 4
-    if len(clean) != (11 if four else 9) \
-            or len(skipped) != (1 if four else 3) or any(
-                "item 4b" not in r.note and "needs 4 cards" not in r.note
-                for r in skipped):
+    if len(clean) != (12 if four else 9) \
+            or len(skipped) != (0 if four else 3) or any(
+                "needs 4 cards" not in r.note for r in skipped):
         raise AssertionError(f"analysis contracts: {status}")
     for name in ("stream_run", "call_run"):
         if census[f"calls.{name}"] != census[f"launches.{name}"]:
@@ -3824,7 +4088,7 @@ def phase_analysis(budget_rows):
 #: after the build, and no kernels line); with no arguments every phase
 #: runs
 ONLY = ("general-scheduled", "serve-jax", "recovery", "entry", "analysis",
-        "ablate", "scale", "shard")
+        "ablate", "scale", "shard", "nodeshard")
 
 
 def main(argv=None) -> int:
@@ -3908,7 +4172,8 @@ def main(argv=None) -> int:
                                 budget_rows)),
                             ("ablate", lambda card: phase_ablate()),
                             ("scale", phase_scale),
-                            ("shard", lambda card: phase_shard())):
+                            ("shard", lambda card: phase_shard()),
+                            ("nodeshard", lambda card: phase_nodeshard())):
             if name in only:
                 t0 = time.perf_counter()
                 phase(card)
@@ -3957,6 +4222,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     shard_k2, shard_k3 = phase_shard(paths["headline"]["state"])
     wall["shard"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_nodeshard()
+    wall["nodeshard"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     scheduled = phase_scheduled()
     wall["scheduled"] = time.perf_counter() - t0

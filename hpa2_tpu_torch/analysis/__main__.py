@@ -201,13 +201,14 @@ def cmd_vmem(args: argparse.Namespace) -> int:
             file=sys.stderr,
         )
         return 2
-    if args.node_shards > 1:
-        print(
-            f"--node-shards {args.node_shards}: the fast path's "
-            "node-sharded engine is not ported yet "
-            "(ROADMAP queue 1 item 4b)", file=sys.stderr)
-        return 2
     blocks = tuple(int(b) for b in args.blocks.split(","))
+    if args.node_shards > 1:
+        # one rank's plane bytes: the node-sharded cycle runs no CTA, so
+        # there is no shared memory to fit and no card figure to read
+        print(budget_table(cfg, blocks, args.window,
+                           snapshots=args.snapshots, gate=args.gate,
+                           packed=args.packed, node_shards=args.node_shards))
+        return 0
     kw = dict(snapshots=args.snapshots, gate=args.gate, packed=args.packed)
     measured = None
     if args.device != "cpu":
@@ -390,8 +391,8 @@ def main(argv=None) -> int:
     vp.add_argument("--packed", action="store_true",
                     help="model the packed uint8/uint16 state planes")
     vp.add_argument("--node-shards", type=int, default=1,
-                    help="model one shard of the node-sharded engine "
-                         "(ROADMAP queue 1 item 4b: only 1 is ported)")
+                    help="model one rank of the node-sharded fast path "
+                         "(its plane bytes; no CTA runs there)")
     op = sub.add_parser("occupancy", help="occupancy scheduler model")
     op.add_argument("--batch", type=int, default=64)
     op.add_argument("--instrs", type=int, default=96,

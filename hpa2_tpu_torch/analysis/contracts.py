@@ -29,13 +29,14 @@ contract, key, expected vs found, where in the op sequence the
 offending op fell, and the rule's rationale.
 
 CLI: ``python -m hpa2_tpu_torch.analysis contracts [--check|--repin|
---list] [--engine TAG] [--device cpu]``.  Three sharded points run:
+--list] [--engine TAG] [--device cpu]``.  Four sharded points run:
 ``data-sharded-pallas`` (four data shards, logical on the CPU or one card
-named four times) and the general engine's node axis at D=4 in the a2a
-and pairwise schedules (four gloo ranks on the CPU; on the card four
-cards, else skipped), counted through ``parallel/comm.py``'s wrapper.
-``node-sharded-pallas-a2a`` needs the fast path's node axis (ROADMAP
-queue 1 item 4b): it is registered, and skipped with that note.
+named four times), the fast path's node axis at D=4 in the a2a schedule
+(``node-sharded-pallas-a2a``) and the general engine's in the a2a and
+pairwise schedules (four gloo ranks on the CPU, all three points in one
+group; on the card four cards, else skipped), counted through
+``parallel/comm.py``'s wrapper.  The JAX package counts a traced
+program, the port what runs: a cycle, a window's seed, a later gate.
 """
 
 from __future__ import annotations
@@ -56,11 +57,6 @@ _OPS = {
     "<=": lambda got, want: got <= want,
     ">=": lambda got, want: got >= want,
 }
-
-#: why the fast path's node-sharded point skips
-SHARDED_NOTE = ("the fast path's node-sharded engine is ROADMAP queue 1 "
-                "item 4b, not ported yet")
-
 
 @dataclasses.dataclass(frozen=True)
 class Rule:
@@ -239,11 +235,6 @@ def run_contracts(engine: Optional[str] = None,
         if engine and c.engine != engine and c.name != engine:
             continue
         if names and c.name not in names:
-            continue
-        if c.measure is None:
-            results.append(CheckResult(c.name, c.engine, "skip",
-                                       note=SHARDED_NOTE))
-            out(f"SKIP  {c.name} [{c.engine}] — {SHARDED_NOTE}")
             continue
         if dev.type == "cuda" and torch.cuda.device_count() < c.needs_devices:
             note = (f"needs {c.needs_devices} cards (NCCL takes one rank "
@@ -618,37 +609,70 @@ def measure_data_sharded(device: str = "cpu") -> Observation:
     return Observation(values, {}, device)
 
 
-#: the node-sharded general engine's observations, by device: both
-#: schedules run in one group of ranks (a rank costs seconds to start)
+#: the node-sharded points' observations, by device: the fast path's
+#: and both general-engine schedules run in one group of ranks (a rank
+#: costs seconds to start)
 _NODE_OBS: Dict[str, Dict[str, Observation]] = {}
+
+
+def _measure_node_points(device: str) -> Dict[str, Observation]:
+    if device not in _NODE_OBS:
+        import dataclasses as dc
+
+        from hpa2_tpu_torch.parallel.sharding import (
+            NodeShardedCudaEngine, NodeShardedEngine, make_mesh,
+            run_node_sharded,
+        )
+        from hpa2_tpu_torch.utils import trace as trace_mod
+
+        def mesh():
+            return make_mesh(node_shards=4, data_shards=1, device=device)
+
+        cfg = _base_cfg(8, msg_buffer_size=16, elide=False)
+        traces = trace_mod.gen_uniform_random(cfg, 4, seed=1)
+        engs = {m: NodeShardedEngine(
+            dc.replace(cfg, exchange_mode=m), traces, mesh=mesh())
+            for m in ("a2a", "pairwise")}
+        pcfg = _base_cfg(8)
+        engs["pallas-a2a"] = NodeShardedCudaEngine(
+            pcfg, *trace_mod.gen_uniform_random_arrays(pcfg, 4, 12, seed=1),
+            mesh=mesh(), cycles_per_call=16)
+        run_node_sharded(list(engs.values()))
+        obs = {}
+        for m, e in engs.items():
+            if m == "pallas-a2a":
+                st = e.rank_stats[0]
+                values = dict(st["census"]["cycle"])
+                for part in ("seed", "gate"):
+                    values.update({f"{part}.{k}": v for k, v in
+                                   st["census"][part].items()})
+                values["cycle.total"] = sum(st["census"]["cycle"].values())
+                values["host_syncs.extra"] = st["host_syncs"] - st["calls"]
+                values["calls"] = st["calls"]
+            else:
+                values = dict(e.step_collectives)
+                values.update({f"loop.{k}": v for k, v in
+                               e.rank_stats[0]["loop_collectives"].items()})
+            obs[m] = Observation(values, {}, device)
+        _NODE_OBS[device] = obs
+    return _NODE_OBS[device]
 
 
 def measure_node_sharded_jax(mode: str, device: str = "cpu") -> Observation:
     """The collectives of one lockstep cycle of the node-sharded general
     engine at D=4 (8 nodes, rank 0's count through ``parallel/comm.py``'s
     wrapper), and of one test of its loop."""
-    if device not in _NODE_OBS:
-        import dataclasses as dc
+    return _measure_node_points(device)[mode]
 
-        from hpa2_tpu_torch.parallel.sharding import (
-            NodeShardedEngine, make_mesh, run_node_sharded,
-        )
-        from hpa2_tpu_torch.utils import trace as trace_mod
 
-        cfg = _base_cfg(8, msg_buffer_size=16, elide=False)
-        traces = trace_mod.gen_uniform_random(cfg, 4, seed=1)
-        engs = {m: NodeShardedEngine(
-            dc.replace(cfg, exchange_mode=m), traces,
-            mesh=make_mesh(node_shards=4, data_shards=1, device=device))
-            for m in ("a2a", "pairwise")}
-        run_node_sharded(list(engs.values()))
-        _NODE_OBS[device] = {}
-        for m, e in engs.items():
-            values = dict(e.step_collectives)
-            values.update({f"loop.{k}": v for k, v in
-                           e.rank_stats[0]["loop_collectives"].items()})
-            _NODE_OBS[device][m] = Observation(values, {}, device)
-    return _NODE_OBS[device][mode]
+def measure_node_sharded_pallas(device: str = "cpu") -> Observation:
+    """What the node-sharded fast path issues at D=4 in the a2a schedule
+    (8 nodes, 4 systems x 12 instructions, k 16; rank 0's count through
+    ``parallel/comm.py``'s wrapper), keyed so that the map to JAX's
+    traced census is plain: a cycle (``all_to_all``, ``sum``, ``max``),
+    a window's seed with its first gate (``seed.*``), a later k-cycle
+    call's gate (``gate.*``), and the host reads beyond one a call."""
+    return _measure_node_points(device)["pallas-a2a"]
 
 
 def registry() -> List[Contract]:
@@ -853,10 +877,35 @@ def registry() -> List[Contract]:
         Contract(
             "node-sharded-pallas-a2a", "sharded",
             "node-sharded fast path collectives (a2a schedule, D=4)",
-            None,
+            measure_node_sharded_pallas,
             (
                 Rule("ppermute", "==", 0, coll_why),
                 Rule("all_to_all", "==", 2, coll_why),
+                Rule("sum", "==", 1,
+                     "one stacked SUM a cycle carries every counter and "
+                     "the end-of-cycle activity"),
+                Rule("max", "==", 1,
+                     "one stacked MAX a cycle: the exchange telemetry"),
+                Rule("min", "==", 0, "a cycle reduces no minimum"),
+                Rule("cycle.total", "==", 4,
+                     "nothing else crosses ranks in a cycle: the wrapper "
+                     "has no gather, so gather-the-world delivery cannot "
+                     "hide here"),
+                Rule("seed.sum", "==", 1,
+                     "a window's activity is seeded by one SUM outside "
+                     "the cycle loop"),
+                Rule("seed.max", "==", 1,
+                     "the window's first gate: one MAX over every rank"),
+                Rule("gate.max", "==", 1,
+                     "a later k-cycle call's gate: one MAX over every "
+                     "rank"),
+                Rule("gate.sum", "==", 0, "a gate sums nothing"),
+                Rule("host_syncs.extra", "==", 2,
+                     "one host read a k-cycle call, plus the window's "
+                     "first gate and the final status"),
+                Rule("calls", "==", None,
+                     "the k-cycle calls this point takes to quiesce: "
+                     "more means the gate missed quiescence"),
             ),
             needs_devices=4,
         ),

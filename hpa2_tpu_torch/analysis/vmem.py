@@ -25,8 +25,12 @@ The module name and the shape of its API (:class:`VmemBudget`,
 are the JAX module's.  :func:`max_fitting_block` reproduces
 ``kernels.MAX_LANE_BLOCK``, which ``scripts/block_limits.py`` measured
 on the card, and :func:`measured_vmem_bytes` reads the card's own
-figure (``CudaKernel.occupancy``).  A shard of the fast path's node
-axis (``node_shards > 1``) is ROADMAP queue 1 item 4b and raises here.
+figure (``CudaKernel.occupancy``).  ``node_shards > 1`` models one
+rank of the fast path's node axis (JAX ``vmem.py:144-175``): every
+node-leading plane and the trace window carry the shard's ``num_procs /
+node_shards`` rows, ``scalars`` and ``msg_counts`` stay whole.  No CTA
+runs there (the node-sharded cycle is PyTorch tensor code), so such a
+budget reports one card's plane bytes and no kernel geometry.
 """
 
 from __future__ import annotations
@@ -127,7 +131,7 @@ class VmemBudget:
     def ctas_per_sm(self) -> int:
         """CTAs an SM holds by threads and shared memory (registers not
         modelled: the card may hold fewer)."""
-        if not self.fits:
+        if not self.fits or not self.group:
             return 0
         return min(CTAS_PER_SM, THREADS_PER_SM // self.cta_threads,
                    SMEM_PER_SM // (self.smem_bytes + SMEM_RESERVED_PER_CTA))
@@ -138,22 +142,31 @@ class VmemBudget:
         return self.total_lane_bytes * self.block
 
 
+#: the planes every node rank holds whole
+_REPLICATED_PLANES = ("scalars", "msg_counts")
+
+
 def _plane_rows(config: SystemConfig, snapshots: bool,
-                packed: bool = False) -> Dict[str, int]:
+                packed: bool = False,
+                node_shards: int = 1) -> Dict[str, int]:
     from hpa2_tpu_torch.ops.layout import state_shapes
 
-    return {name: int(np.prod(prefix, dtype=np.int64))
-            for name, prefix in state_shapes(config, snapshots,
-                                             packed).items()}
+    rows = {}
+    for name, prefix in state_shapes(config, snapshots, packed).items():
+        if node_shards > 1 and name not in _REPLICATED_PLANES:
+            prefix = (prefix[0] // node_shards,) + tuple(prefix[1:])
+        rows[name] = int(np.prod(prefix, dtype=np.int64))
+    return rows
 
 
 def _plane_lane_bytes(config: SystemConfig, snapshots: bool,
-                      packed: bool = False) -> Dict[str, int]:
+                      packed: bool = False,
+                      node_shards: int = 1) -> Dict[str, int]:
     """Per-plane BYTES per lane: rows times the carried dtype width (4
     for the int32 layout; the packed cache/dir planes 1-2)."""
     from hpa2_tpu_torch.ops.layout import state_dtypes
 
-    rows = _plane_rows(config, snapshots, packed)
+    rows = _plane_rows(config, snapshots, packed, node_shards)
     dtypes = state_dtypes(config, snapshots, packed)
     return {f: r * np.dtype(dtypes[f]).itemsize for f, r in rows.items()}
 
@@ -167,12 +180,19 @@ def state_plane_bytes(config: SystemConfig, *,
                if f in _WORD_PLANES or f.startswith("dirs"))
 
 
+def _check_shards(config: SystemConfig, node_shards: int) -> None:
+    if node_shards < 1 or config.num_procs % node_shards:
+        raise ValueError(
+            f"node_shards={node_shards} must divide "
+            f"num_procs={config.num_procs}")
+
+
 def _no_shards(node_shards: int) -> None:
     if node_shards != 1:
         raise ValueError(
-            "node_shards > 1 models one shard of the fast path's "
-            "node-sharded engine, which the port does not have yet "
-            "(ROADMAP queue 1 item 4b)")
+            "node_shards > 1 is the node-sharded fast path, whose cycle "
+            "is PyTorch tensor code: no CTA runs there, so no lane block "
+            "has to fit")
 
 
 def vmem_budget(
@@ -193,8 +213,27 @@ def vmem_budget(
     (``stream=False``), with or without the gate, snapshots or packed
     planes: it holds per-system records, not planes.  ``window`` and
     ``snapshots`` size the device planes; ``max_group`` caps the systems
-    a round (``kernels.launch_geometry``)."""
-    _no_shards(node_shards)
+    a round (``kernels.launch_geometry``).  ``node_shards > 1``: one
+    rank's planes, no kernel geometry (see the module docstring)."""
+    _check_shards(config, node_shards)
+    if node_shards > 1:
+        nl = config.num_procs // node_shards
+        rows = _plane_rows(config, snapshots, packed, node_shards)
+        lane_bytes = _plane_lane_bytes(config, snapshots, packed,
+                                       node_shards)
+        trace_rows = nl * window + nl
+        return VmemBudget(
+            config=config, block=block, window=window, snapshots=snapshots,
+            gate=gate, stream=stream, packed=packed,
+            node_shards=node_shards, bound=0, threads=0, cl=0, per_cta=0,
+            rounds=0, group=0, smem_bytes=0, rows=rows,
+            lane_bytes=lane_bytes,
+            carried_rows=sum(r for f, r in rows.items()
+                             if not f.startswith("snap_")),
+            snap_rows=sum(r for f, r in rows.items()
+                          if f.startswith("snap_")),
+            trace_rows=trace_rows,
+            total_lane_bytes=sum(lane_bytes.values()) + trace_rows * 4)
     kernels.check_kernel_bound(config)
     bound = kernels.node_bound(config)
     threads = kernels.threads_per_system(config)
@@ -238,8 +277,24 @@ def budget_table(
     CTA's shared memory against the 232,448 B cap, the CTAs an SM
     holds and the planes' device MiB, unpacked and packed.
     ``measured`` maps a block to the card's figure for the same
-    launch (``measured_vmem_bytes``), printed beside the model."""
-    _no_shards(node_shards)
+    launch (``measured_vmem_bytes``), printed beside the model.
+    ``node_shards > 1``: one rank's plane bytes a block, no CTA."""
+    if node_shards > 1:
+        _check_shards(config, node_shards)
+        lines = [
+            f"node-sharded fast path, one rank of {node_shards}  "
+            f"(n={config.num_procs}, {config.num_procs // node_shards} "
+            f"nodes a rank, cap={config.msg_buffer_size} window={window} "
+            f"snapshots={snapshots} packed={packed}; tensor code, no CTA)",
+            f"{'block':>6} {'B/lane':>8} {'planes MiB':>10}",
+        ]
+        for block in blocks:
+            bud = vmem_budget(config, block, window, snapshots=snapshots,
+                              gate=gate, packed=packed,
+                              node_shards=node_shards)
+            lines.append(f"{block:>6} {bud.total_lane_bytes:>8} "
+                         f"{_fmt_mb(bud.plane_bytes):>10}")
+        return "\n".join(lines)
     lines = [
         f"Hopper CTA budget  (n={config.num_procs} cap="
         f"{config.msg_buffer_size} window={window} snapshots={snapshots}"

@@ -41,9 +41,11 @@ nonzero exit and no JSON line, and no earlier record is read or
 written.  ``--data-shards N`` (``HPA2_BENCH_DATA_SHARDS``) splits the
 headline's ensemble over N cards (``DataShardedCudaEngine``; the batch
 is rounded up to a multiple of N) and serves ``--serve`` on
-``pallas-sharded``; ``--node-shards`` and ``--exchange-mode`` shard the
-fast path's node axis in ``bench.py``, which is ROADMAP queue 1 item 4b
-and refused.
+``pallas-sharded``; ``--node-shards N`` (``HPA2_BENCH_NODE_SHARDS``)
+splits each system's nodes over N ranks (``NodeShardedCudaEngine``, a
+``data x node`` grid with ``--data-shards``; the record gains the
+``exchange`` block) and ``--exchange-mode`` picks the exchange's
+schedule (``HPA2_BENCH_EXCHANGE_MODE``, ``a2a`` by default).
 """
 
 from __future__ import annotations
@@ -85,6 +87,18 @@ def _data_shards() -> int:
     return max(1, _env_int("HPA2_BENCH_DATA_SHARDS", 1))
 
 
+def _node_shards() -> int:
+    """``--node-shards``: the ranks each system's nodes split over
+    (composes with ``--data-shards`` into a ``data x node`` grid)."""
+    return max(1, _env_int("HPA2_BENCH_NODE_SHARDS", 1))
+
+
+def _exchange_mode() -> str:
+    """``--exchange-mode``: the cross-shard schedule (``ops/exchange.py``),
+    observable only under ``--node-shards`` > 1."""
+    return os.environ.get("HPA2_BENCH_EXCHANGE_MODE", "").strip() or "a2a"
+
+
 def _no_elide() -> bool:
     """``--no-elide``: the general engine's runs as pure lockstep."""
     return os.environ.get("HPA2_BENCH_NO_ELIDE", "") == "1"
@@ -122,6 +136,7 @@ def _bench_config():
         num_procs=8, msg_buffer_size=_CAP,
         semantics=Semantics().robust(),
         elide=not _no_elide(),
+        exchange_mode=_exchange_mode(),
     )
 
 
@@ -150,12 +165,16 @@ def _sync(dev: torch.device) -> None:
 
 def bench_pallas(config, batch, instrs_per_core, seed=0, dist=None,
                  spread=8.0, packed=False, schedule_resident=0, fused=True,
-                 device="cuda", data_shards=1):
+                 device="cuda", data_shards=1, node_shards=1):
     """The fast path on ``batch`` systems (``bench.py:197-318``):
     warm-up, then a timed run split into host staging (building the
     engine: packing and uploading the planes), device execution and the
-    counter readback; ``data_shards > 1`` over that many cards.
-    -> (instructions, seconds, occupancy, phases)."""
+    counter readback; ``data_shards > 1`` over that many cards,
+    ``node_shards > 1`` each system's nodes over that many ranks (device
+    execution is then the slowest rank's run, timed on the rank after an
+    untimed run in the same ranks).
+    -> (instructions, seconds, occupancy, exchange, phases), ``exchange``
+    None unless node-sharded."""
     from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
     from hpa2_tpu_torch.ops.schedule import Schedule
     from hpa2_tpu_torch.utils.trace import (
@@ -191,6 +210,12 @@ def bench_pallas(config, batch, instrs_per_core, seed=0, dist=None,
         kw = dict(block=_BLOCK, cycles_per_call=_K, snapshots=False,
                   trace_window=_WINDOW, gate=_GATE, packed=packed,
                   schedule=schedule)
+        if node_shards > 1:
+            from hpa2_tpu_torch.parallel import NodeShardedCudaEngine
+
+            return NodeShardedCudaEngine(
+                config, *arrays, node_shards=node_shards,
+                data_shards=data_shards, device=dev, **kw)
         if data_shards > 1:
             from hpa2_tpu_torch.parallel import DataShardedCudaEngine
 
@@ -204,16 +229,24 @@ def bench_pallas(config, batch, instrs_per_core, seed=0, dist=None,
             for i in range(torch.cuda.device_count()):
                 torch.cuda.synchronize(i)
 
-    build().run()  # builds the kernel, warms the caches
+    if node_shards == 1:
+        build().run()  # builds the kernel, warms the caches
     sync_all()
     t0 = time.perf_counter()
     eng = build()
     sync_all()
     stage_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    eng.run()
-    sync_all()
-    dt = time.perf_counter() - t0
+    if node_shards > 1:
+        # the slowest rank's timed run, after an untimed one in the same
+        # ranks: the spawn, the CUDA contexts and the NCCL communicators'
+        # creation are not counted
+        eng.run(warmup=True)
+        dt = max(r["seconds"] for r in eng.rank_stats)
+    else:
+        t0 = time.perf_counter()
+        eng.run()
+        sync_all()
+        dt = time.perf_counter() - t0
     t0 = time.perf_counter()
     instrs = eng.instructions
     read_s = time.perf_counter() - t0
@@ -222,9 +255,33 @@ def bench_pallas(config, batch, instrs_per_core, seed=0, dist=None,
         "device_execute_s": round(dt, 4),
         "readback_s": round(read_s, 4),
     }
+    exchange = None
+    if node_shards > 1:
+        from hpa2_tpu_torch.ops import exchange as xops
+
+        xmsgs = eng.cross_shard_msgs
+        cycles = max(eng.cycle, 1)
+        plan = xops.make_plan(node_shards, config.exchange_mode,
+                              config.exchange_inner)
+        stats = eng.stats()
+        exchange = {
+            "node_shards": node_shards,
+            "exchange_mode": config.exchange_mode,
+            "collectives_per_cycle": xops.plan_collectives(plan),
+            "exchange_slots": 5 * (config.num_procs // node_shards),
+            "cross_shard_msgs": xmsgs,
+            "cross_shard_msgs_per_cycle": round(xmsgs / cycles, 2),
+            "exchange_slot_hwm": stats.get("exchange_slot_hwm", 0),
+            "exchange_bytes_per_cycle": stats.get(
+                "exchange_bytes_per_cycle", 0),
+            "exchange_multicast_saved": stats.get(
+                "exchange_multicast_saved", 0),
+            "exchange_combined": stats.get("exchange_combined", 0),
+            "msgs_total": eng.messages,
+        }
     if schedule is not None:
         occupancy = eng.occupancy.as_dict()
-    return instrs, dt, occupancy, phases
+    return instrs, dt, occupancy, exchange, phases
 
 
 def bench_jax(config, batch, instrs_per_core, seed=0, device="cuda"):
@@ -309,10 +366,11 @@ def headline_main(device: str = "cuda") -> dict:
     dist, spread = _trace_len_dist()
     packed = _packed()
     resident, fused = _schedule_knobs()
-    instrs, dt, occupancy, phases = bench_pallas(
+    node_shards = _node_shards()
+    instrs, dt, occupancy, exchange, phases = bench_pallas(
         config, batch, instrs_per_core, dist=dist, spread=spread,
         packed=packed, schedule_resident=resident, fused=fused, device=dev,
-        data_shards=shards)
+        data_shards=shards, node_shards=node_shards)
     ops = instrs / dt
     result = {
         "metric": "sim_ops_per_sec_jax",
@@ -341,6 +399,15 @@ def headline_main(device: str = "cuda") -> dict:
     if shards != 1:
         result["data_shards"] = shards
         result["n_devices"] = torch.cuda.device_count() if on_card else 0
+    if node_shards != 1:
+        result["node_shards"] = node_shards
+        result["n_devices"] = torch.cuda.device_count() if on_card else 0
+        result["cross_shard_msgs_per_cycle"] = exchange[
+            "cross_shard_msgs_per_cycle"]
+        result["exchange"] = exchange
+        print(f"[pallas] cross-shard msgs: {exchange['cross_shard_msgs']} "
+              f"({exchange['cross_shard_msgs_per_cycle']}/cycle)",
+              file=sys.stderr)
     result["kernel_shape"] = {"block": _BLOCK, "window": _WINDOW, "k": _K,
                               "gate": _GATE}
     if on_card:
@@ -776,7 +843,8 @@ _USAGE = (
     "[--serve|--failover|--topology|--protocol] "
     "[--trace-len-dist uniform|zipf] [--trace-len-spread R] "
     "[--schedule-resident N] [--host-barriers] [--packed] [--no-elide] "
-    "[--data-shards N]"
+    "[--data-shards N] [--node-shards N] "
+    "[--exchange-mode pairwise|a2a|butterfly|hier]"
 )
 
 
@@ -791,17 +859,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     """Parse ``bench.py``'s flags into its environment knobs, run the
     study asked for and print its JSON line."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    for flag in ("--node-shards", "--exchange-mode"):
+    for flag, env in (("--data-shards", "HPA2_BENCH_DATA_SHARDS"),
+                      ("--node-shards", "HPA2_BENCH_NODE_SHARDS")):
         if flag in argv:
-            raise SystemExit(
-                f"{flag} shards the fast path's node axis, which the port "
-                "does not do yet (ROADMAP queue 1 item 4b)")
-    if "--data-shards" in argv:
-        try:
-            os.environ["HPA2_BENCH_DATA_SHARDS"] = str(int(_flag_value(
-                argv, "--data-shards")))
-        except ValueError:
+            try:
+                os.environ[env] = str(int(_flag_value(argv, flag)))
+            except ValueError:
+                raise SystemExit(_USAGE)
+    if "--exchange-mode" in argv:
+        mode = _flag_value(argv, "--exchange-mode")
+        if mode not in ("pairwise", "a2a", "butterfly", "hier"):
             raise SystemExit(_USAGE)
+        os.environ["HPA2_BENCH_EXCHANGE_MODE"] = mode
     device = _flag_value(argv, "--device") if "--device" in argv else "cuda"
     if device not in ("cuda", "cpu"):
         raise SystemExit(f"--device takes cuda or cpu\n{_USAGE}")

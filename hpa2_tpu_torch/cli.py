@@ -60,10 +60,9 @@ line, as ``python -m hpa2_tpu.cli serve`` does; ``--failure-plan`` or
 and ``pallas`` run on the GPU unless ``--device cpu`` is given;
 ``spec`` and ``omp`` run on the host.  ``--data-shards`` splits an
 ensemble over the cards (``bench`` and ``serve``; ``parallel/``), and
-``--node-shards`` splits the general engine's nodes over ranks of one
-card each (``run``/``bench --backend jax``, ``--exchange-mode``); the
-fast path's node axis (``--backend pallas --node-shards``) is ROADMAP
-queue 1 item 4b.
+``--node-shards`` splits a system's nodes over ranks of one card each
+(``run``/``bench`` with ``--backend jax`` or ``pallas``, ``serve``;
+``--exchange-mode``).
 """
 
 from __future__ import annotations
@@ -208,8 +207,7 @@ def _build_config(args) -> SystemConfig:
 
 
 def _check_shard_args(args) -> None:
-    """The JAX CLI's shard checks (``hpa2_tpu/cli.py:162-176``), and the
-    fast path's node axis, which is ROADMAP queue 1 item 4b."""
+    """The JAX CLI's shard checks (``hpa2_tpu/cli.py:162-176``)."""
     if (args.node_shards > 1 or args.data_shards > 1) \
             and args.backend not in ("jax", "pallas"):
         raise SystemExit(
@@ -222,11 +220,6 @@ def _check_shard_args(args) -> None:
             f"--node-shards {args.node_shards} must divide --nodes "
             f"{args.nodes} (shards own contiguous equal node blocks)"
         )
-    if args.node_shards > 1 and args.backend == "pallas":
-        raise SystemExit(
-            "--backend pallas --node-shards (the fast path's node axis) "
-            "is not ported yet (ROADMAP queue 1 item 4b); --backend jax "
-            "shards the general engine's nodes")
 
 
 def _write_dumps(dumps, config, out_dir: str) -> None:
@@ -348,9 +341,21 @@ def cmd_run(args) -> int:
                     "--replay runs on the spec/jax/omp lockstep "
                     "engines (the pallas kernel has no replay mode)"
                 )
-            eng = CudaEngine(config, *traces_to_arrays(config, [traces]),
-                             snapshots=not args.final_dump,
-                             device=args.device)
+            if args.node_shards > 1:
+                # one system's node axis over ranks; delivery is the
+                # targeted cross-shard exchange, bit-identical to the
+                # one-card kernel
+                from hpa2_tpu_torch.parallel import NodeShardedCudaEngine
+
+                eng = NodeShardedCudaEngine(
+                    config, *traces_to_arrays(config, [traces]),
+                    node_shards=args.node_shards,
+                    snapshots=not args.final_dump, device=args.device)
+            else:
+                eng = CudaEngine(config,
+                                 *traces_to_arrays(config, [traces]),
+                                 snapshots=not args.final_dump,
+                                 device=args.device)
             eng.run(args.max_cycles)
         elif args.node_shards > 1:
             # the node axis over ranks (one card each), bit-identical
@@ -683,6 +688,12 @@ def cmd_bench(args) -> int:
         kw = dict(block=args.block, cycles_per_call=args.cycles_per_call,
                   snapshots=False, trace_window=args.trace_window,
                   schedule=schedule, device=args.device)
+        if args.node_shards > 1:
+            from hpa2_tpu_torch.parallel import NodeShardedCudaEngine
+
+            return NodeShardedCudaEngine(
+                config, *arrays, node_shards=args.node_shards,
+                data_shards=args.data_shards, **kw)
         if args.data_shards > 1:
             from hpa2_tpu_torch.parallel import DataShardedCudaEngine
 
@@ -695,6 +706,10 @@ def cmd_bench(args) -> int:
     t0 = time.perf_counter()
     eng.run(args.max_cycles)  # ends in the status readback
     dt = time.perf_counter() - t0
+    if args.node_shards > 1 and eng.cycle:
+        print(f"[pallas] cross-shard msgs: {eng.cross_shard_msgs} "
+              f"({eng.cross_shard_msgs / eng.cycle:.2f}/cycle)",
+              file=sys.stderr)
     extra = {"device": eng.device.type}
     if args.trace_len_dist:  # the workload is named by its lengths
         extra["workload"] = args.trace_len_dist
@@ -705,9 +720,9 @@ def cmd_bench(args) -> int:
 
 def _migration_targets(spec: str) -> List[dict]:
     """``--migrate-to``'s ``backend[:data_shards[:node_shards]]``
-    entries (``hpa2_tpu/cli.py:688-708``); a pallas target with data
-    shards serves on ``pallas-sharded``, node shards above 1 (the fast
-    path's node axis) are refused (ROADMAP queue 1 item 4b)."""
+    entries (``hpa2_tpu/cli.py:688-708``); a target with node shards
+    above 1 serves on ``pallas-node-sharded``, a pallas target with data
+    shards only on ``pallas-sharded``."""
     targets = []
     for part in spec.split(","):
         fields = part.strip().split(":")
@@ -724,11 +739,8 @@ def _migration_targets(spec: str) -> List[dict]:
         except ValueError:
             raise SystemExit(f"--migrate-to: bad shard count in {part!r}")
         if t.get("node_shards", 1) > 1:
-            raise SystemExit(
-                f"--migrate-to {part!r} serves on the fast path's node "
-                "axis, which the port does not do yet (ROADMAP queue 1 "
-                "item 4b)")
-        if t["backend"] == "pallas" and t.get("data_shards", 1) > 1:
+            t["backend"] = "pallas-node-sharded"
+        elif t["backend"] == "pallas" and t.get("data_shards", 1) > 1:
             t["backend"] = "pallas-sharded"
         targets.append(t)
     return targets
@@ -736,13 +748,20 @@ def _migration_targets(spec: str) -> List[dict]:
 
 def cmd_serve(args) -> int:
     config = _build_config(args)
-    if args.node_shards > 1:
-        raise SystemExit(
-            "--node-shards serving runs the fast path's node axis "
-            "(pallas-node-sharded), which the port does not do yet "
-            "(ROADMAP queue 1 item 4b)")
     backend = args.backend
-    if backend == "pallas" and args.data_shards > 1:
+    if args.node_shards > 1:
+        if backend != "pallas":
+            raise SystemExit(
+                "--node-shards serving runs on the pallas backend "
+                "(the resident NodeShardedLaneSession; the jax rows "
+                "are single-shard)")
+        if args.nodes % args.node_shards != 0:
+            raise SystemExit(
+                f"--node-shards {args.node_shards} must divide "
+                f"--nodes {args.nodes} (shards own contiguous equal "
+                "node blocks)")
+        backend = "pallas-node-sharded"
+    elif backend == "pallas" and args.data_shards > 1:
         backend = "pallas-sharded"
     if (args.jobs is None) == (args.listen is None):
         raise SystemExit(
@@ -845,6 +864,7 @@ def cmd_serve(args) -> int:
             config, source,
             backend=backend,
             data_shards=args.data_shards,
+            node_shards=args.node_shards,
             resident=args.resident,
             window=args.window,
             block=args.block,
@@ -872,8 +892,8 @@ def _add_shards(p: argparse.ArgumentParser) -> None:
                    help="split the ensemble over this many cards "
                    "(bench --batch > 1, serve)")
     p.add_argument("--node-shards", type=int, default=1,
-                   help="split the general engine's nodes over this "
-                   "many ranks, one card each (--backend jax)")
+                   help="split a system's nodes over this many ranks, "
+                   "one card each (--backend jax or pallas)")
     p.add_argument("--exchange-mode", default="a2a",
                    choices=("pairwise", "a2a", "butterfly", "hier"),
                    help="cross-shard exchange schedule under "

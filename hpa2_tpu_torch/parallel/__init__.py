@@ -1,6 +1,7 @@
 """Several GPUs: the data axis (an ensemble split over cards, one
-process) and the node axis of the general engine (SPMD ranks on
-``torch.distributed``), the port of ``hpa2_tpu/parallel/``."""
+process) and the node axis of the general engine and of the fast path
+(SPMD ranks on ``torch.distributed``), the port of
+``hpa2_tpu/parallel/``."""
 
 from hpa2_tpu_torch.parallel.sharding import (
     DataMesh,
@@ -8,7 +9,9 @@ from hpa2_tpu_torch.parallel.sharding import (
     DataShardedLaneSession,
     GridEngine,
     Mesh,
+    NodeShardedCudaEngine,
     NodeShardedEngine,
+    NodeShardedLaneSession,
     build_node_sharded_run,
     make_data_mesh,
     make_mesh,
@@ -21,7 +24,9 @@ __all__ = [
     "DataShardedLaneSession",
     "GridEngine",
     "Mesh",
+    "NodeShardedCudaEngine",
     "NodeShardedEngine",
+    "NodeShardedLaneSession",
     "build_node_sharded_run",
     "make_data_mesh",
     "make_mesh",

@@ -108,11 +108,16 @@ def backend_for(device: torch.device) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
+#: each ``data x node`` shape's groups, made once a process: a new
+#: group is a new set of NCCL communicators, whose first calls are slow
+_ROW_GROUPS: Dict[Tuple[int, int], list] = {}
+
+
 def world_comm(node: int, data: int = 1) -> Tuple[NodeComm, int]:
     """This rank's node group in an initialized ``data x node`` world
     (rank ``d * node + i`` holds node block ``i`` of data row ``d``), and
     its data row.  Every rank creates every row's group, as
-    ``dist.new_group`` requires."""
+    ``dist.new_group`` requires, once a process for a shape."""
     world = dist.get_world_size()
     if world != node * data:
         raise ValueError(
@@ -122,10 +127,9 @@ def world_comm(node: int, data: int = 1) -> Tuple[NodeComm, int]:
     row = rank // node
     if data == 1:
         return NodeComm(range(node)), row
-    mine: Optional[object] = None
-    for d in range(data):
-        ranks = list(range(d * node, (d + 1) * node))
-        g = dist.new_group(ranks)
-        if d == row:
-            mine = NodeComm(ranks, group=g)
-    return mine, row
+    if (node, data) not in _ROW_GROUPS:
+        _ROW_GROUPS[(node, data)] = [
+            dist.new_group(list(range(d * node, (d + 1) * node)))
+            for d in range(data)]
+    ranks = list(range(row * node, (row + 1) * node))
+    return NodeComm(ranks, group=_ROW_GROUPS[(node, data)][row]), row

@@ -2,13 +2,15 @@
 axis (the JAX package's ``shard_map`` over a mesh becomes one process a
 rank on ``torch.distributed``).
 
-:func:`spawn` starts ``world`` ranks with ``torch.multiprocessing``
+:class:`RankPool` starts ``world`` ranks with ``torch.multiprocessing``
 ("spawn"), rank ``r`` on ``cuda:r`` (NCCL) or on the CPU (gloo).  They
 meet at a ``FileStore`` in a fresh temporary directory, with no TCP
 port, so runs side by side (pytest-xdist workers) never collide.  Each
-rank runs one PyTorch intra-op thread, calls ``fn(*args)`` and hands
-its return value back to the caller through a pickle in that directory;
-a rank that raises fails the call with the rank's traceback.
+rank runs one PyTorch intra-op thread and a command loop on its end of
+a pipe; the caller, which holds no card state, sends every rank the
+same command and collects the replies, so ranks that outlive one call
+(the node-sharded serving session) and a one-shot run (:func:`spawn`,
+one call on a fresh pool) are the same machinery.
 
 :func:`join_torchrun` joins a group that ``torchrun`` already started
 (its ``RANK``/``WORLD_SIZE``/``MASTER_ADDR`` environment), so the
@@ -18,15 +20,17 @@ engines run in place on every rank instead of spawning.
 from __future__ import annotations
 
 import os
-import pickle
 import shutil
 import tempfile
+import threading
+import time
 import traceback
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from multiprocessing.connection import wait
 
 from hpa2_tpu_torch.parallel.comm import backend_for
 
@@ -46,48 +50,22 @@ def join_torchrun(device="cuda") -> bool:
     return True
 
 
-def _rank_main(rank: int, world: int, tmp: str, device: str,
-               fn: Callable, args: Sequence) -> None:
-    torch.set_num_threads(1)
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(rank)
-    out = os.path.join(tmp, f"rank{rank}.pkl")
-    try:
-        store = dist.FileStore(os.path.join(tmp, "store"), world)
-        dist.init_process_group(backend_for(dev), store=store, rank=rank,
-                                world_size=world)
-        try:
-            result = ("ok", fn(*args))
-        finally:
-            dist.destroy_process_group()
-    except BaseException:  # the caller re-raises it with the rank's name
-        result = ("error", traceback.format_exc())
-    with open(out + ".tmp", "wb") as f:
-        pickle.dump(result, f)
-    os.replace(out + ".tmp", out)
+def _exit_with_parent() -> None:
+    """End this rank when the process that started it goes away (a
+    killed caller, a timed-out step), even in the middle of a run or a
+    collective: no rank outlives its caller."""
+    parent = os.getppid()
+
+    def watch():
+        while True:
+            time.sleep(0.5)
+            if os.getppid() != parent:
+                os._exit(1)
+
+    threading.Thread(target=watch, daemon=True).start()
 
 
-def _failed(tmp: str, procs) -> bool:
-    """Has a rank failed: an error result, or an exit without one?"""
-    for r, p in enumerate(procs):
-        path = os.path.join(tmp, f"rank{r}.pkl")
-        if os.path.exists(path):
-            with open(path, "rb") as f:
-                if pickle.load(f)[0] != "ok":
-                    return True
-        elif not p.is_alive() and p.exitcode is not None:
-            return True
-    return False
-
-
-def spawn(fn: Callable, world: int, args: Sequence = (),
-          device="cuda") -> List:
-    """Run ``fn(*args)`` on ``world`` ranks of a fresh process group and
-    return each rank's result, in rank order.  ``fn`` and ``args`` must
-    pickle (``fn`` a module-level function).  On the card it needs
-    ``world`` cards: NCCL takes one rank a card."""
-    dev = torch.device(device)
+def _check_world(world: int, dev: torch.device) -> None:
     if world < 1:
         raise ValueError(f"world={world} ranks")
     if dev.type == "cuda":
@@ -99,37 +77,166 @@ def spawn(fn: Callable, world: int, args: Sequence = (),
             raise ValueError(
                 f"{world} ranks need {world} cards (NCCL takes one rank a "
                 f"card), have {torch.cuda.device_count()}")
-    tmp = tempfile.mkdtemp(prefix="hpa2_ranks_")
+
+
+def _apply(env: dict, fn: Callable, args: Sequence):
+    return fn(*args)
+
+
+def spawn(fn: Callable, world: int, args: Sequence = (),
+          device="cuda") -> List:
+    """Run ``fn(*args)`` on ``world`` ranks of a fresh process group and
+    return each rank's result, in rank order: one :meth:`RankPool.call`
+    on a pool that is closed after it.  ``fn`` and ``args`` must pickle
+    (``fn`` a module-level function).  On the card it needs ``world``
+    cards: NCCL takes one rank a card."""
+    with RankPool(world, device) as pool:
+        return pool.run(fn, args)
+
+
+def _pool_main(rank: int, world: int, tmp: str, device: str, conn) -> None:
+    """A pool rank: join the group, then run each command ``(fn, args)``
+    as ``fn(env, *args)`` (``env`` a dict that lives as long as the rank)
+    and send back ``("ok", value)`` or ``("error", traceback)``, until
+    the caller sends ``None`` or goes away."""
+    _exit_with_parent()
+    torch.set_num_threads(1)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(rank)
+    store = dist.FileStore(os.path.join(tmp, "store"), world)
+    dist.init_process_group(backend_for(dev), store=store, rank=rank,
+                            world_size=world)
+    env = {}
     try:
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_rank_main,
-                             args=(r, world, tmp, dev.type, fn, args))
-                 for r in range(world)]
-        for p in procs:
-            p.start()
-        # a rank that fails leaves the others waiting in a collective:
-        # stop them all once one has failed
-        while any(p.is_alive() for p in procs):
-            for p in procs:
-                p.join(0.05)
-            if _failed(tmp, procs):
-                for p in procs:
-                    if p.is_alive():
-                        p.terminate()
-                for p in procs:
-                    p.join()
-        results = []
-        for r, p in enumerate(procs):
-            path = os.path.join(tmp, f"rank{r}.pkl")
-            if not os.path.exists(path):
-                raise RuntimeError(
-                    f"rank {r} of {world} exited with code {p.exitcode} "
-                    "and no result")
-            with open(path, "rb") as f:
-                status, value = pickle.load(f)
-            if status != "ok":
-                raise RuntimeError(f"rank {r} of {world} failed:\n{value}")
-            results.append(value)
-        return results
+        while True:
+            try:
+                msg = conn.recv()
+            except EOFError:
+                break
+            if msg is None:
+                break
+            fn, args = msg
+            try:
+                reply = ("ok", fn(env, *args))
+            except BaseException:  # the caller re-raises it
+                reply = ("error", traceback.format_exc())
+            conn.send(reply)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        dist.destroy_process_group()
+
+
+class RankPool:
+    """``world`` ranks of one process group that outlive a call: rank
+    ``r`` on ``cuda:r`` (NCCL) or on the CPU (gloo), meeting at a
+    ``FileStore`` as :func:`spawn`'s do.  :meth:`call` sends every rank a
+    command and returns the replies in rank order.
+
+    A rank's exception raises in the caller with the rank's traceback; a
+    rank that dies raises too (its process sentinel wakes the caller),
+    and never hangs the caller.  Either way the pool is closed first,
+    since the other ranks may be waiting in a collective.  :meth:`close`
+    (and leaving the ``with`` block) ends every rank."""
+
+    def __init__(self, world: int, device="cuda"):
+        dev = torch.device(device)
+        _check_world(world, dev)
+        self.world = world
+        self.device = dev
+        self.closed = False
+        self._tmp = tempfile.mkdtemp(prefix="hpa2_pool_")
+        ctx = mp.get_context("spawn")
+        self._conns, self._procs = [], []
+        for r in range(world):
+            parent, child = ctx.Pipe()
+            p = ctx.Process(target=_pool_main,
+                            args=(r, world, self._tmp, dev.type, child),
+                            daemon=True)
+            p.start()
+            child.close()
+            self._conns.append(parent)
+            self._procs.append(p)
+
+    def __enter__(self) -> "RankPool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __del__(self) -> None:
+        self.close()
+
+    def call(self, fn: Callable, args: Sequence = (),
+             per_rank: Optional[Sequence[Sequence]] = None) -> List:
+        """Run ``fn(env, *args)`` on every rank (``fn`` module-level, so
+        that it pickles), or ``fn(env, *per_rank[r])`` on rank ``r``, and
+        return the replies in rank order."""
+        if self.closed:
+            raise RuntimeError("the rank pool is closed")
+        for r, conn in enumerate(self._conns):
+            conn.send((fn, tuple(per_rank[r] if per_rank is not None
+                                 else args)))
+        replies: List = [None] * self.world
+        waiting = set(range(self.world))
+        by_conn = {self._conns[r]: r for r in range(self.world)}
+        by_proc = {self._procs[r].sentinel: r for r in range(self.world)}
+        while waiting:
+            ready = wait([self._conns[r] for r in waiting]
+                         + [self._procs[r].sentinel for r in waiting])
+            for x in ready:
+                if x in by_conn and by_conn[x] in waiting:
+                    r = by_conn[x]
+                    try:
+                        status, value = x.recv()
+                    except EOFError:
+                        status, value = "dead", None
+                    if status != "ok":
+                        self._fail(r, status, value)
+                    replies[r] = value
+                    waiting.discard(r)
+            for x in ready:
+                r = by_proc.get(x)
+                if r is not None and r in waiting and \
+                        not self._conns[r].poll():
+                    self._fail(r, "dead", None)
+        return replies
+
+    def run(self, fn: Callable, args: Sequence = ()) -> List:
+        """Run ``fn(*args)`` on every rank (no ``env``) and return the
+        replies in rank order."""
+        return self.call(_apply, (fn, args))
+
+    def _fail(self, r: int, status: str, value) -> None:
+        code = self._procs[r].exitcode
+        self.close()
+        if status == "error":
+            raise RuntimeError(f"rank {r} of {self.world} failed:\n{value}")
+        raise RuntimeError(
+            f"rank {r} of {self.world} exited (code {code}) without "
+            "answering")
+
+    def close(self) -> None:
+        """End every rank: ask them to leave, then stop the ones that do
+        not (a rank waiting in a collective cannot read the request)."""
+        if getattr(self, "closed", True):
+            return
+        self.closed = True
+        for conn in self._conns:
+            try:
+                conn.send(None)
+            except (OSError, ValueError):
+                pass
+        deadline = time.monotonic() + 5.0
+        for p in self._procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        for p in self._procs:
+            if p.is_alive():
+                p.terminate()
+        for p in self._procs:
+            p.join(5.0)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        for conn in self._conns:
+            conn.close()
+        shutil.rmtree(self._tmp, ignore_errors=True)

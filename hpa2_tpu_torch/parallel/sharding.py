@@ -1,5 +1,5 @@
 """Several GPUs: meshes, the data-sharded fast path and general engine,
-and the node-sharded general engine; the port of
+and the node-sharded general engine and fast path; the port of
 ``hpa2_tpu/parallel/sharding.py``.
 
 The reference scales by OpenMP threads in one address space; the JAX
@@ -43,9 +43,19 @@ Where the port departs from the JAX code, and why:
   elision jump are global over the shards; :class:`DataShardedRun`
   keeps that (so every field, ``cycle`` included, equals the unsharded
   run) with one host read a cycle of every shard's condition terms.
-* What stays refused names ROADMAP queue 1 item 4b: the fast path's
-  node axis (K1's node-sharded variant, ``NodeShardedPallasEngine``,
-  ``NodeShardedLaneSession``).
+* **The fast path's node axis is tensor code on the card too.**  JAX
+  runs K1's node-sharded variant as XLA under ``shard_map`` (no Pallas
+  kernel can hold a collective), so the port's
+  :class:`NodeShardedCudaEngine` and :class:`NodeShardedLaneSession` run
+  ``ops/cycle.py:build_cycle(axis_name=)`` with PyTorch ops on each
+  rank, the k-cycle loop on the rank's host (:class:`NodeInterval`, one
+  host read a call).  Splitting that cycle into hand-written kernels,
+  with the k cycles and their NCCL calls captured, is ROADMAP queue 2
+  item 9.
+* **The serving session's ranks live in a pool.**  JAX's single
+  controller drives a mesh; here the controller process holds no card
+  state and sends each command of the serving protocol to the ranks of
+  a ``parallel/launch.py:RankPool``.
 """
 
 from __future__ import annotations
@@ -63,12 +73,19 @@ from hpa2_tpu_torch.models.protocol import Instr
 from hpa2_tpu_torch.models.spec_engine import StallError
 from hpa2_tpu_torch.ops import kernels
 from hpa2_tpu_torch.ops.cuda_engine import (
-    CudaEngine, resolve_device, run_programs,
+    CudaEngine, _schedule_kw, _signed, barrier_, resolve_device,
+    run_programs,
 )
+from hpa2_tpu_torch.ops.cycle import TRANSIENTS, build_cycle
 from hpa2_tpu_torch.ops.engine import (
     _dumps, _live_arrays, _snap_arrays, engine_stats,
 )
-from hpa2_tpu_torch.ops.layout import choose_block
+from hpa2_tpu_torch.ops.layout import (
+    _SC_CYCLE, _SC_INSTR, _SC_MSGS, _SC_OVERFLOW, _init_state,
+    _join_word_planes_np, _mb_layout, _scalar_layout, _sharer_words,
+    _split_sw, choose_block, decode_dumps, deferred_valid,
+)
+from hpa2_tpu_torch.ops.schedule import build_plan
 from hpa2_tpu_torch.ops.session import CudaLaneSession, _Pending, _record
 from hpa2_tpu_torch.ops.state import SimState, init_state, stack_states
 from hpa2_tpu_torch.ops.step import (
@@ -696,50 +713,58 @@ def _rank_device(mesh: Mesh) -> torch.device:
 
 
 def _rank_run(jobs: Sequence[dict]) -> List[dict]:
-    """One rank's share of node-sharded runs (each job an engine's
-    spec): its block of each initial state, the SPMD loop, and its
-    block back as numpy with the run's counts."""
+    """One rank's share of node-sharded runs, each job an engine's spec
+    with the module-level function that runs it on a rank."""
+    return [job["rank_fn"](job) for job in jobs]
+
+
+def _rank_general(job: dict) -> dict:
+    """A general engine's job on this rank: its block of the initial
+    state, the SPMD loop, and its block back as numpy with the run's
+    counts."""
     from hpa2_tpu_torch.convert import sim_state_to_numpy
     from hpa2_tpu_torch.parallel.comm import world_comm
 
-    out = []
-    for job in jobs:
-        mesh = job["mesh"]
-        comm, row = world_comm(mesh.node, mesh.data)
-        dev = _rank_device(mesh)
-        full = job["state"]
-        per = full.pc.shape[0] // mesh.data
-        rows = SimState(*(x[row * per:(row + 1) * per] for x in full))
-        st = SimState(*(x.to(dev) for x in
-                        node_block(rows, comm.rank, mesh.node)))
-        run = build_node_sharded_run(job["config"], comm, job["max_cycles"],
-                                     job["watchdog_cycles"])
-        if job["warmup"]:
-            run(SimState(*(x.clone() for x in st)))
-        syncs0 = kernels.HOST_SYNCS.count
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st = run(st)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        out.append(dict(
-            state=sim_state_to_numpy(st), steps=run.steps, jumps=run.jumps,
-            step_collectives=run.step_collectives,
-            loop_collectives=run.loop_collectives, seconds=secs,
-            host_syncs=kernels.HOST_SYNCS.count - syncs0))
-    return out
+    mesh = job["mesh"]
+    comm, row = world_comm(mesh.node, mesh.data)
+    dev = _rank_device(mesh)
+    full = job["state"]
+    per = full.pc.shape[0] // mesh.data
+    rows = SimState(*(x[row * per:(row + 1) * per] for x in full))
+    st = SimState(*(x.to(dev) for x in
+                    node_block(rows, comm.rank, mesh.node)))
+    run = build_node_sharded_run(job["config"], comm, job["max_cycles"],
+                                 job["watchdog_cycles"])
+    if job["warmup"]:
+        run(SimState(*(x.clone() for x in st)))
+    syncs0 = kernels.HOST_SYNCS.count
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = run(st)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return dict(
+        state=sim_state_to_numpy(st), steps=run.steps, jumps=run.jumps,
+        step_collectives=run.step_collectives,
+        loop_collectives=run.loop_collectives, seconds=secs,
+        host_syncs=kernels.HOST_SYNCS.count - syncs0)
 
 
-def run_node_sharded(engines: Sequence["_NodeShardedBase"],
-                     warmup: bool = False) -> None:
+def run_node_sharded(engines: Sequence, warmup: bool = False,
+                     pool=None) -> None:
     """Run several node-sharded engines of one mesh size in one group of
-    ranks (one spawn: a rank costs seconds to start), or in place when
-    this process is a rank of a ``torchrun`` group already.  With
-    ``warmup`` each rank runs each loop once untimed first (``seconds``
-    is then the second run's).  Raises the first engine's stall."""
-    from hpa2_tpu_torch.convert import sim_state_from_numpy
+    ranks (one spawn: a rank costs seconds to start), in ``pool`` (a
+    ``parallel/launch.py:RankPool`` of that size that the caller keeps,
+    such as a serving session's), or in place when this process is a
+    rank of a ``torchrun`` group already: the general engine's
+    (:class:`NodeShardedEngine`, :class:`GridEngine`) and the fast
+    path's (:class:`NodeShardedCudaEngine`).  With ``warmup`` each rank
+    runs each loop once untimed first, so that ``seconds`` (the second
+    run's) leaves out the rank's one-time costs: its CUDA context, the
+    NCCL communicators made at their first collective.  Raises the first
+    engine's stall."""
     from hpa2_tpu_torch.parallel.launch import join_torchrun, spawn
 
     sizes = {e.mesh.size for e in engines}
@@ -747,20 +772,21 @@ def run_node_sharded(engines: Sequence["_NodeShardedBase"],
     if len(sizes) != 1 or len(devs) != 1:
         raise ValueError("run_node_sharded runs engines of one mesh size "
                          "and device type together")
+    size, device = sizes.pop(), devs.pop()
     jobs = [dict(e._job(), warmup=warmup) for e in engines]
-    if join_torchrun(devs.pop()):
+    if pool is not None:
+        if pool.world != size or pool.device.type != device:
+            raise ValueError(
+                f"a pool of {pool.world} {pool.device.type} ranks cannot "
+                f"run meshes of {size} {device} ranks")
+        every = pool.run(_rank_run, (jobs,))
+    elif join_torchrun(device):
         every = [None] * dist.get_world_size()
         dist.all_gather_object(every, _rank_run(jobs))
     else:
-        every = spawn(_rank_run, sizes.pop(), args=(jobs,),
-                      device=engines[0].mesh.device)
+        every = spawn(_rank_run, size, args=(jobs,), device=device)
     for i, e in enumerate(engines):
-        blocks = [rank[i] for rank in every]
-        e.state = sim_state_from_numpy(
-            join_blocks([b["state"] for b in blocks], e.mesh.node),
-            device="cpu")
-        e.rank_stats = [{k: v for k, v in b.items() if k != "state"}
-                        for b in blocks]
+        e._gather([rank[i] for rank in every])
     for e in engines:
         e._check()
 
@@ -776,9 +802,21 @@ class _NodeShardedBase:
     _init: SimState
 
     def _job(self) -> dict:
-        return dict(config=self.config, mesh=self.mesh, state=self._init,
+        return dict(rank_fn=_rank_general, config=self.config,
+                    mesh=self.mesh, state=self._init,
                     max_cycles=self.max_cycles,
                     watchdog_cycles=self.watchdog_cycles)
+
+    def _gather(self, blocks: Sequence[dict]) -> None:
+        """Every rank's block of the state (rank order) as the caller's
+        state, and the ranks' counts."""
+        from hpa2_tpu_torch.convert import sim_state_from_numpy
+
+        self.state = sim_state_from_numpy(
+            join_blocks([b["state"] for b in blocks], self.mesh.node),
+            device="cpu")
+        self.rank_stats = [{k: v for k, v in b.items() if k != "state"}
+                           for b in blocks]
 
     @property
     def step_collectives(self) -> Dict[str, int]:
@@ -933,10 +971,806 @@ class GridEngine(_NodeShardedBase):
         return int(self.state.n_instr.sum())
 
 
+# ---------------------------------------------------------------------------
+# the node axis of the fast path: SPMD ranks around K1's node-sharded
+# variant (JAX l.791-1522)
+
+def _pallas_exchange_stats(config: SystemConfig, state) -> dict:
+    """The exchange telemetry from the transient rows (JAX l.819-848):
+    keys only when nonzero.  Every shipped entry is one ``[W + SW +
+    3]``-row int32 column (the candidate words, the INV fan-mask words,
+    recv/isa/ckey)."""
+    def a(f):
+        return np.asarray(state[f])
+
+    out = {}
+    sent = int(a("xmsgs").astype(np.int64).sum())
+    if sent:
+        out["exchange_sent"] = sent
+        rows = _mb_layout(config)[1] + _sharer_words(config) + 3
+        cyc = int(a("scalars")[_SC_CYCLE].max())
+        out["exchange_bytes_per_cycle"] = round(
+            sent * rows * 4 / max(cyc, 1), 2)
+    hwm = int(a("exchhw").max())
+    if hwm:
+        out["exchange_slot_hwm"] = hwm
+    mc = int(a("exchmc").astype(np.int64).sum())
+    if mc:
+        out["exchange_multicast_saved"] = mc
+    cb = int(a("exchcb").astype(np.int64).sum())
+    if cb:
+        out["exchange_combined"] = cb
+    return out
+
+
+def _exchange_overflow_error(dg: int, dc: int, exchange_slots) -> StallError:
+    """The maxima of the worst-overflow words as a message naming the
+    cycle, the shard pair and the demand against the slots (JAX
+    l.851-870; both words lead with the demand, so the two maxima
+    describe one event)."""
+    detail = ""
+    if dg > 0:
+        demand = dg >> 16
+        more = "+" if demand >= 0xFFFF else ""
+        detail = (
+            f" — worst cycle {dc & 0xFFFF}: shard "
+            f"{(dg >> 8) & 0xFF} -> {dg & 0xFF} demanded "
+            f"{demand}{more} slots")
+    return StallError(
+        "cross-shard exchange overflow: a cycle had more out-bound "
+        "candidates for one peer shard than "
+        f"exchange_slots={exchange_slots}; raise it (the "
+        f"capacity-exact default never overflows){detail}")
+
+
+def _node_leading(key: str) -> bool:
+    """Does a fast-path plane split its leading (node) axis over the
+    node ranks (JAX ``_node_plane_spec``, l.873-880)?  ``scalars``,
+    ``msg_counts`` and the transient rows are whole on every rank."""
+    return key not in ("scalars", "msg_counts") and \
+        key not in TRANSIENTS
+
+
+def _node_local(planes, i: int, nl: int, lanes: slice, device) -> dict:
+    """Node block ``i`` (``nl`` rows) of ``planes``' lanes ``lanes``, on
+    ``device``."""
+    out = {}
+    for f, v in planes.items():
+        v = torch.as_tensor(v)
+        if _node_leading(f):
+            v = v[i * nl:(i + 1) * nl]
+        out[f] = v[..., lanes].contiguous().to(device)
+    return out
+
+
+def _join_node_planes(blocks: Sequence[Dict[str, np.ndarray]],
+                      node: int) -> Dict[str, np.ndarray]:
+    """A ``data x node`` grid of ranks' planes (rank order) as the
+    ensemble's: node blocks joined on the leading axis, data rows on the
+    lane axis, the whole planes from each row's first rank."""
+    rows = []
+    for d in range(len(blocks) // node):
+        row = blocks[d * node:(d + 1) * node]
+        rows.append({f: (np.concatenate([b[f] for b in row], axis=0)
+                         if _node_leading(f) else row[0][f])
+                     for f in row[0]})
+    return {f: np.concatenate([r[f] for r in rows], axis=-1)
+            for f in rows[0]}
+
+
+class NodeInterval:
+    """One rank's run program (JAX ``_make_node_pallas_interval``,
+    l.883-990, and ``build_node_sharded_pallas_run``, l.994): ``(planes,
+    transients, tr_full, tr_len_full, n_seg) -> status`` around K1's
+    node-sharded variant, with its loop on this rank's host.
+
+    For each of ``n_seg`` trace windows: the pc field is reset, ``activeg``
+    is seeded with one SUM of the local activity over the node group,
+    and the gate (one MAX over every rank of ``any(activeg > 0)``, read
+    on the host) opens; while it is open and fewer than ``max_calls``
+    calls have run over the whole run, ``k`` cycles run and the gate is
+    taken again.  So a k-cycle call costs one host read
+    (``kernels.HOST_SYNCS``), and a cycle issues its plan's exchange
+    collectives, one SUM and one MAX and nothing else.  Cycles past
+    quiescence change no value (``_SC_CYCLE`` accrues the previous
+    cycle's ``min(activeg, 1)``), so taking the gate once every ``k``
+    cycles stays bit-exact.  The status word is bit 0 stall, bit 1
+    mailbox overflow, bit 2 exchange overflow.
+
+    ``census`` holds the collectives of the last cycle, of a window's
+    seed (with its first gate) and of a later gate; ``cycles`` and
+    ``seconds`` the cycles run and their host time."""
+
+    def __init__(self, config: SystemConfig, comm, snapshots: bool,
+                 window: int, k: int, max_calls: int,
+                 exchange_slots: Optional[int] = None,
+                 packed: bool = False):
+        self.config = config
+        self.comm = comm
+        self.window = window
+        self.k = k
+        self.max_calls = max_calls
+        self.cycle = build_cycle(config, snapshots, packed, axis_name=comm,
+                                 shards=comm.size,
+                                 exchange_slots=exchange_slots)
+        self.slsc = _scalar_layout(config, window)
+        self.census: Dict[str, Dict[str, int]] = {}
+        self.cycles = 0
+        self.calls = 0
+
+    def _activity(self, st, tl) -> torch.Tensor:
+        sl = self.slsc
+        nsw = st["nsw"]
+        pc = (nsw >> sl["off_pc"]) & sl["pc_mask"]
+        waiting = (nsw >> sl["off_wait"]) & 1
+        cnt = nsw & sl["count_mask"]
+        dv = deferred_valid(self.config, st)
+        return ((tl - pc).clamp(min=0).sum(0, dtype=I32)
+                + waiting.sum(0, dtype=I32) + cnt.sum(0, dtype=I32)
+                + dv.sum((0, 1), dtype=I32))[None]
+
+    def _gate(self, st) -> bool:
+        live = (st["activeg"] > 0).any().to(I32)[None]
+        return bool(kernels.HOST_SYNCS.read(
+            self.comm.all_reduce(live, "max", world=True))[0])
+
+    def __call__(self, planes: Dict[str, torch.Tensor],
+                 trans: Dict[str, torch.Tensor], tr_full: torch.Tensor,
+                 tr_len_full: torch.Tensor, n_seg: int = 1) -> int:
+        """Run ``planes`` (updated in place in the dict, with ``trans``)
+        through the ``n_seg`` windows; returns the status word."""
+        from hpa2_tpu_torch.parallel.comm import COLLECTIVES
+
+        def counted(before):
+            after = COLLECTIVES.snapshot()
+            return {f: after[f] - before[f] for f in after}
+
+        sl, w, comm = self.slsc, self.window, self.comm
+        st = {**planes, **trans}
+        stalled = False
+        calls = 0
+        for si in range(n_seg):
+            tr_seg = tr_full[:, si * w:(si + 1) * w]
+            tl_seg = (tr_len_full - si * w).clamp(0, w)
+            st["nsw"] = st["nsw"] & ~(sl["pc_mask"] << sl["off_pc"])
+            before = COLLECTIVES.snapshot()
+            st["activeg"] = comm.all_reduce(self._activity(st, tl_seg),
+                                            "sum")
+            go = self._gate(st)
+            self.census["seed"] = counted(before)
+            while go and calls < self.max_calls:
+                full = {**st, "tr": tr_seg, "tr_len": tl_seg}
+                for _ in range(self.k):
+                    before = COLLECTIVES.snapshot()
+                    full = self.cycle(full)
+                    self.census["cycle"] = counted(before)
+                st = {f: full[f] for f in st}
+                calls += 1
+                self.cycles += self.k
+                before = COLLECTIVES.snapshot()
+                go = self._gate(st)
+                self.census["gate"] = counted(before)
+            stalled = stalled or go
+        self.calls += calls
+        for d in (planes, trans):
+            for f in d:
+                d[f] = st[f]
+        flags = kernels.HOST_SYNCS.read(torch.stack([
+            (st["scalars"][_SC_OVERFLOW] > 0).any(),
+            (st["exchov"] > 0).any()]).to(I32))
+        return int(stalled) | (int(flags[0]) << 1) | (int(flags[1]) << 2)
+
+
+def build_node_fused_pallas_run(config: SystemConfig, comm, plan, *,
+                                r_shard: int, bsys_shard: int, k: int,
+                                window: int, nseg_max: int, max_calls: int,
+                                exchange_slots: Optional[int] = None,
+                                packed: bool = False):
+    """This rank's fused scheduled run (JAX ``build_node_fused_pallas_run``,
+    l.1053-1177): ``(init, tr_full, tr_len_full) -> (store, transients,
+    status)`` over the plan rows of this rank's data shard (``plan`` a
+    dict of ``sys``/``seg``/``perm``/``reset`` ``[intervals, r_shard]``
+    tensors, rebased to the shard).  The admission-reset init is the
+    initial state operand (a node block's memory plane differs by row);
+    the transient rows ride the loop untouched by the barrier
+    (``activeg`` is reseeded every interval, the rest accumulate over
+    the run, whatever lane a job sat on); each interval's lanes are
+    scattered to their systems' columns of a store with one trash
+    column, as ``CudaEngine``'s fused run does."""
+    program = NodeInterval(config, comm, False, window, k, max_calls,
+                           exchange_slots, packed)
+    ident = torch.arange(r_shard)
+
+    def run(init, tr_full, tr_len_full):
+        dev = tr_full.device
+        nl = tr_full.shape[0]
+        st = {f: v.clone() for f, v in init.items()}
+        trans = {f: torch.zeros((1, r_shard), dtype=I32, device=dev)
+                 for f in TRANSIENTS}
+        trf = tr_full.view(nl, nseg_max, window, bsys_shard).permute(
+            1, 3, 0, 2).reshape(nseg_max * bsys_shard, nl, window)
+        store = {f: torch.zeros(tuple(v.shape[:-1]) + (bsys_shard + 1,),
+                                dtype=v.dtype, device=dev)
+                 for f, v in init.items()}
+        rows = {f: v.to(dev) for f, v in plan.items()}
+        trivial = ((~plan["reset"].any(1))
+                   & (plan["perm"] == ident).all(1)).tolist()
+        status = 0
+        for i in range(len(trivial)):
+            if not trivial[i]:
+                barrier_(st, init, rows["perm"][i], rows["reset"][i])
+            sys_i, seg_i = rows["sys"][i], rows["seg"][i]
+            sysc = sys_i.clamp(0, bsys_shard - 1)
+            gidx = seg_i.clamp(0, nseg_max - 1) * bsys_shard + sysc
+            tr_i = trf.index_select(0, gidx).permute(1, 2, 0).contiguous()
+            tl_i = torch.where(
+                sys_i >= 0,
+                (tr_len_full.index_select(1, sysc)
+                 - seg_i[None, :] * window).clamp(0, window),
+                0).to(I32)
+            status |= program(st, trans, tr_i, tl_i, n_seg=1)
+            tgt = torch.where(sys_i >= 0, sys_i, bsys_shard).long()
+            for f, v in st.items():
+                _signed(store[f]).index_copy_(-1, tgt, _signed(v))
+        return ({f: v[..., :bsys_shard] for f, v in store.items()}, trans,
+                status)
+
+    run.program = program
+    return run
+
+
+def _rank_fast(job: dict) -> dict:
+    """A :class:`NodeShardedCudaEngine`'s job on this rank."""
+    from hpa2_tpu_torch.parallel.comm import world_comm
+
+    eng = job["engine"]
+    comm, row = world_comm(eng.mesh.node, eng.mesh.data)
+    return eng._rank_run(comm, row, _rank_device(eng.mesh), job["warmup"])
+
+
+class NodeShardedCudaEngine(CudaEngine):
+    """The fast path with the NODE axis sharded over ranks (JAX
+    ``NodeShardedPallasEngine``, l.1180-1364): one system bigger than a
+    card, or an ensemble of them over a ``(data, node)`` mesh, each
+    system's node planes split into contiguous blocks, one a rank.
+
+    Phase C crosses ranks through the targeted exchange of
+    ``ops/exchange.py``, at a cost that grows with the candidates that
+    cross (bounded by ``exchange_slots``).  The cycle is K1's
+    node-sharded variant (``ops/cycle.py:build_cycle(axis_name=)``),
+    PyTorch tensor code on the card as on the CPU, since JAX runs it as
+    XLA outside any Pallas kernel; its loop is :class:`NodeInterval` on
+    each rank's host.  ``run()`` starts the ranks through
+    ``parallel/launch.py`` (one spawn a run, or in place under
+    ``torchrun``) and gathers every rank's block back, so ``state``,
+    ``cycle``, ``instructions``, ``messages``, ``stats()`` (with the
+    ``exchange_*`` keys) and the dumps are ``CudaEngine``'s and equal
+    the one-card run's, under the fused scheduler and packed planes
+    too.  ``cross_shard_msgs`` counts the entries shipped;
+    ``rank_stats`` holds each rank's cycles, seconds, host reads and
+    collectives.
+
+    ``exchange_slots`` caps a peer's buffer (default the capacity-exact
+    ``5 * n_local``); a tighter cap fails the whole run loudly with a
+    ``StallError`` that names the worst cycle, shard pair and demand.
+    ``stream``, ``gate`` and the block do not apply to this path (the
+    block is still chosen and checked, as JAX does).  On the card each
+    rank takes a card (NCCL): ``node_shards x data_shards`` cards."""
+
+    def __init__(self, config: SystemConfig, tr_op: np.ndarray,
+                 tr_addr: np.ndarray, tr_val: np.ndarray,
+                 tr_len: np.ndarray, node_shards: Optional[int] = None,
+                 data_shards: int = 1, mesh: Optional[Mesh] = None,
+                 exchange_slots: Optional[int] = None, block: int = 1024,
+                 device="cuda", **kwargs):
+        if mesh is None:
+            if node_shards is None:
+                raise ValueError("pass node_shards or an explicit mesh")
+            mesh = make_mesh(node_shards=node_shards,
+                             data_shards=data_shards, device=device)
+        if not isinstance(mesh, Mesh):
+            raise ValueError(
+                "need a ('data', 'node') mesh, got "
+                f"{getattr(mesh, 'axis_names', type(mesh).__name__)}")
+        node_shards, data_shards = mesh.node, mesh.data
+        if node_shards < 2:
+            raise ValueError(
+                "node_shards=1 is the unsharded fast path — use "
+                "CudaEngine / DataShardedCudaEngine")
+        if config.num_procs % node_shards != 0:
+            raise ValueError(
+                f"num_procs={config.num_procs} not divisible by node "
+                f"shards={node_shards}")
+        b = tr_op.shape[0]
+        if b % data_shards != 0:
+            raise ValueError(
+                f"batch {b} not divisible by data_shards={data_shards}")
+        if kwargs.get("_ablate"):
+            raise ValueError("--ablate is single-node-shard only")
+        sched = kwargs.get("schedule")
+        if sched is not None:
+            if not sched.fused:
+                raise NotImplementedError(
+                    "node-sharded fast path supports the fused occupancy "
+                    "scheduler only (Schedule(fused=True)); the "
+                    "host-barrier loop would round-trip the sharded "
+                    "planes every interval")
+            resident = sched.resident or b
+            if resident % data_shards:
+                raise ValueError(
+                    f"schedule.resident={resident} not divisible by "
+                    f"data_shards={data_shards}")
+            block = choose_block(resident // data_shards, block)
+        else:
+            block = choose_block(b // data_shards, block)
+        # the caller keeps the planes on its CPU; each rank takes its
+        # block to its own device
+        super().__init__(config, tr_op, tr_addr, tr_val, tr_len,
+                         block=block, device="cpu", **kwargs)
+        self.mesh = mesh
+        # the ranks' device type (the gathered planes stay on the CPU)
+        self.device = torch.device(mesh.device)
+        self.node_shards = node_shards
+        self.data_shards = data_shards
+        self._shard_b = b // data_shards
+        self._exchange_slots = exchange_slots
+        self._sched_groups = data_shards
+        self.max_cycles = 1_000_000
+        for f in TRANSIENTS:
+            self.state[f] = torch.zeros((1, b), dtype=I32)
+        self.rank_stats: List[dict] = []
+        self._status = 0
+
+    @property
+    def cross_shard_msgs(self) -> int:
+        """Exchange entries shipped across node shards over the run,
+        summed over lanes (an entry bound for several peers counts once
+        a peer)."""
+        return int(self.state["xmsgs"].to(torch.int64).sum())
+
+    def _job(self) -> dict:
+        return dict(rank_fn=_rank_fast, engine=self)
+
+    def __getstate__(self) -> dict:
+        # a rank builds its block of the initial planes itself: only the
+        # traces travel to it
+        out = dict(self.__dict__)
+        out.pop("state", None)
+        return out
+
+    def run(self, max_cycles: int = 1_000_000,
+            warmup: bool = False) -> "NodeShardedCudaEngine":
+        """Run to quiescence on the ranks (``warmup``: an untimed run
+        first in the same ranks, for :attr:`rank_stats`' seconds)."""
+        if self._completed:
+            return self
+        if self._poisoned:
+            raise StallError(
+                "engine state is mid-flight after a failed run; "
+                "rebuild the engine to retry")
+        self.max_cycles = max_cycles
+        run_node_sharded([self], warmup=warmup)
+        return self
+
+    def _fused_plan_arrays(self, plan) -> Dict[str, torch.Tensor]:
+        """The plan rows of every data shard, rebased to the shard's own
+        lanes and systems (JAX l.1311-1330); rows replicate over
+        node."""
+        shards = self.data_shards
+        gl = self._resident // shards
+        gs = self.b // shards
+        g = np.arange(self._resident, dtype=np.int64) // gl
+        return dict(
+            sys=torch.from_numpy(np.where(
+                plan.sys >= 0, plan.sys - g[None, :] * gs, -1
+            ).astype(np.int32)),
+            seg=torch.from_numpy(np.asarray(plan.seg, np.int32)),
+            perm=torch.from_numpy(
+                (plan.perm - g[None, :] * gl).astype(np.int64)),
+            reset=torch.from_numpy(np.asarray(plan.reset) != 0))
+
+    def _rank_run(self, comm, row: int, dev: torch.device,
+                  warmup: bool) -> dict:
+        """This rank's share of the run: its node block of its data
+        row's lanes, the run program, and its block back as numpy with
+        the status word and the rank's counts."""
+        from hpa2_tpu_torch.parallel.comm import COLLECTIVES
+
+        nl = self.config.num_procs // self.node_shards
+        node = slice(comm.rank * nl, (comm.rank + 1) * nl)
+        lanes = slice(row * self._shard_b, (row + 1) * self._shard_b)
+        tr = self._tr_full[node][..., lanes].contiguous().to(dev)
+        tl = self._tr_len_full[node][..., lanes].contiguous().to(dev)
+        max_calls = max(1, -(-self.max_cycles // self.cycles_per_call))
+        kw = dict(k=self.cycles_per_call, window=self._window,
+                  max_calls=max_calls, exchange_slots=self._exchange_slots,
+                  packed=self._packed)
+        if self.schedule is not None:
+            groups = self.data_shards
+            plan = build_plan(self._nseg, **_schedule_kw(
+                self.schedule, self._resident, self.block, groups))
+            gl = self._resident // groups
+            cols = slice(row * gl, (row + 1) * gl)
+            rows = {f: v[:, cols] for f, v in
+                    self._fused_plan_arrays(plan).items()}
+            init = _node_local(
+                _init_state(self.config, gl, False, self._packed),
+                comm.rank, nl, slice(None), dev)
+            program = build_node_fused_pallas_run(
+                self.config, comm, rows, r_shard=gl,
+                bsys_shard=self._shard_b, nseg_max=self._n_seg, **kw)
+
+            def once():
+                return program(init, tr, tl)
+            counted = program.program
+        else:
+            start = _node_local(
+                _init_state(self.config, self._shard_b, self._snapshots,
+                            self._packed),
+                comm.rank, nl, slice(None), dev)
+            program = NodeInterval(self.config, comm,
+                                   snapshots=self._snapshots, **kw)
+
+            def once():
+                planes = {f: v.clone() for f, v in start.items()}
+                trans = {f: torch.zeros((1, self._shard_b), dtype=I32,
+                                        device=dev)
+                         for f in TRANSIENTS}
+                status = program(planes, trans, tr, tl, n_seg=self._n_seg)
+                return planes, trans, status
+            counted = program
+        if warmup:
+            once()
+        counted.cycles = counted.calls = 0
+        syncs0 = kernels.HOST_SYNCS.count
+        coll0 = COLLECTIVES.snapshot()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        planes, trans, status = once()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        coll1 = COLLECTIVES.snapshot()
+        planes.update(trans)
+        return dict(
+            planes={f: v.cpu().numpy() for f, v in planes.items()},
+            status=status, cycles=counted.cycles, calls=counted.calls,
+            seconds=secs, host_syncs=kernels.HOST_SYNCS.count - syncs0,
+            collectives={f: coll1[f] - coll0[f] for f in coll1},
+            census=dict(counted.census))
+
+    def _gather(self, blocks: Sequence[dict]) -> None:
+        joined = _join_node_planes([b["planes"] for b in blocks],
+                                   self.node_shards)
+        self.state = {f: torch.from_numpy(np.ascontiguousarray(v))
+                      for f, v in joined.items()}
+        self._status = 0
+        for b in blocks:
+            self._status |= b["status"]
+        self.rank_stats = [{k: v for k, v in b.items() if k != "planes"}
+                           for b in blocks]
+
+    def _check(self) -> None:
+        self._check_status(self._status, self.max_cycles)
+        if self.schedule is not None:
+            plan = build_plan(self._nseg, **_schedule_kw(
+                self.schedule, self._resident, self.block,
+                self.data_shards))
+            self.occupancy = plan.stats
+        self._completed = True
+
+    def _check_status(self, status: int, max_cycles: int) -> None:
+        if status & 4:
+            self._poisoned = True
+            st = self.state
+            raise _exchange_overflow_error(
+                int(st["exchdg"].max()), int(st["exchdc"].max()),
+                self._exchange_slots)
+        super()._check_status(status, max_cycles)
+
+    @property
+    def step_collectives(self) -> Dict[str, int]:
+        """The collectives of one cycle (rank 0's count)."""
+        return self.rank_stats[0]["census"].get("cycle", {})
+
+    def stats(self) -> dict:
+        out = super().stats()
+        out.update(_pallas_exchange_stats(self.config, self.state))
+        return out
+
+
+class _SessionRank:
+    """One rank's side of a :class:`NodeShardedLaneSession`: its node
+    block of its data row's resident lanes, the transient rows among the
+    carried planes (so an admission resets a lane's), and the interval
+    program."""
+
+    def __init__(self, spec: dict):
+        from hpa2_tpu_torch.parallel.comm import world_comm
+
+        mesh = spec["mesh"]
+        config = spec["config"]
+        self.comm, self.row = world_comm(mesh.node, mesh.data)
+        self.device = _rank_device(mesh)
+        nl = config.num_procs // mesh.node
+        rs = spec["lanes"]
+        init = _node_local(_init_state(config, rs, False, spec["packed"]),
+                           self.comm.rank, nl, slice(None), self.device)
+        for f in TRANSIENTS:
+            init[f] = torch.zeros((1, rs), dtype=I32, device=self.device)
+        self.init = init
+        self.state = {f: v.clone() for f, v in init.items()}
+        self.program = NodeInterval(
+            config, self.comm, False, spec["window"], spec["k"],
+            spec["max_calls"], spec["exchange_slots"], spec["packed"])
+        self.staged = None
+
+    def stage(self, tr, tl) -> None:
+        self.staged = (torch.from_numpy(tr).to(self.device),
+                       torch.from_numpy(tl).to(self.device))
+
+    def advance(self) -> int:
+        return self.program(self.state, {}, *self.staged, n_seg=1)
+
+    def harvest(self, lanes) -> Dict[str, np.ndarray]:
+        idx = torch.as_tensor(lanes, dtype=torch.int64, device=self.device)
+        return {f: _signed(v).index_select(-1, idx).view(v.dtype).cpu()
+                .numpy() for f, v in self.state.items()}
+
+    def barrier(self, perm, reset) -> None:
+        barrier_(self.state, self.init,
+                 torch.from_numpy(perm).to(self.device),
+                 torch.from_numpy(reset).to(self.device))
+
+    def check(self):
+        return (int(self.state["exchdg"].max()),
+                int(self.state["exchdc"].max()))
+
+
+def _sess_open(env: dict, spec: dict) -> None:
+    env["session"] = _SessionRank(spec)
+
+
+def _sess_call(env: dict, method: str, *args):
+    return getattr(env["session"], method)(*args)
+
+
+class NodeShardedLaneSession:
+    """The resident-lane serving session with each lane's NODE axis
+    split over ranks (JAX ``NodeShardedLaneSession``, l.1367-1522): one
+    always-on service for jobs bigger than a card, composing with data
+    shards on a ``(data, node)`` mesh.
+
+    The ranks outlive one interval, so they live in a
+    ``parallel/launch.py:RankPool`` started once; this object is the
+    single controller, holds no card state, and sends every rank the
+    serving protocol's ``stage``, ``advance``, ``harvest``, ``barrier``
+    and ``check``.  Each rank holds its node block of its data row's
+    lanes with the transient rows among the carried planes, so a lane's
+    transients reset on admission (JAX l.1426-1438); an interval is
+    :class:`NodeInterval` over one window.  Served dumps equal a
+    one-shot :class:`NodeShardedCudaEngine` run's and the one-card
+    session's.  :meth:`close` (or the ``with`` block) ends the ranks;
+    on the card the mesh needs ``node_shards x data_shards`` cards."""
+
+    def __init__(self, config: SystemConfig, resident: int, window: int, *,
+                 node_shards: Optional[int] = None, data_shards: int = 1,
+                 mesh: Optional[Mesh] = None,
+                 exchange_slots: Optional[int] = None, block: int = 1024,
+                 cycles_per_call: int = 128, packed: bool = False,
+                 max_cycles: int = 1_000_000, device="cuda"):
+        from hpa2_tpu_torch.ops.cuda_engine import fast_path_setup
+        from hpa2_tpu_torch.parallel.launch import RankPool
+
+        if mesh is None:
+            if node_shards is None:
+                raise ValueError("pass node_shards or an explicit mesh")
+            mesh = make_mesh(node_shards=node_shards,
+                             data_shards=data_shards, device=device)
+        if not isinstance(mesh, Mesh):
+            raise ValueError(
+                "need a ('data', 'node') mesh, got "
+                f"{getattr(mesh, 'axis_names', type(mesh).__name__)}")
+        if mesh.node < 2:
+            raise ValueError(
+                "node_shards=1 is the unsharded serving path — use "
+                "CudaLaneSession / DataShardedLaneSession")
+        if config.num_procs % mesh.node != 0:
+            raise ValueError(
+                f"num_procs={config.num_procs} not divisible by node "
+                f"shards={mesh.node}")
+        if resident % mesh.data:
+            raise ValueError(
+                f"resident={resident} not divisible by "
+                f"data_shards={mesh.data}")
+        self.config = config
+        self.mesh = mesh
+        self.node_shards = mesh.node
+        self.data_shards = mesh.data
+        self.r = int(resident)
+        self.window = int(window)
+        self.max_cycles = max_cycles
+        self.cycles_per_call = cycles_per_call
+        self._exchange_slots = exchange_slots
+        self._packed = packed
+        self._rs = self.r // mesh.data
+        self._nl = config.num_procs // mesh.node
+        _, self.block = fast_path_setup(config, lanes=self._rs, block=block,
+                                        packed=packed, device="cpu")
+        self.fields = list(_init_state(config, 1, False, packed)) + list(
+            TRANSIENTS)
+        self._harvests: Optional[_Pending] = None
+        self._counts = {"runner": set(), "barrier": set(),
+                        "take_lane": set()}
+        self.pool = RankPool(mesh.size, device=mesh.device)
+        self.pool.call(_sess_open, (dict(
+            config=config, mesh=mesh, lanes=self._rs, window=self.window,
+            k=cycles_per_call, packed=packed, exchange_slots=exchange_slots,
+            max_calls=max(1, -(-max_cycles // cycles_per_call))),))
+
+    def __enter__(self) -> "NodeShardedLaneSession":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        """End the ranks (the recovery supervisor calls it before a new
+        session takes the cards)."""
+        self.pool.close()
+
+    def _ranks(self):
+        """(rank, data row, node block) of every rank, in rank order."""
+        return [(d * self.node_shards + i, d, i)
+                for d in range(self.data_shards)
+                for i in range(self.node_shards)]
+
+    # -- serving protocol ----------------------------------------------
+
+    def stage(self, tr_int: np.ndarray, tl_int: np.ndarray):
+        """Ship each rank its node block of its row's window lanes."""
+        tr_int = np.asarray(tr_int, np.int32)
+        tl_int = np.asarray(tl_int, np.int32)
+        nl, rs = self._nl, self._rs
+        self.pool.call(_sess_call, per_rank=[
+            ("stage",
+             np.ascontiguousarray(tr_int[i * nl:(i + 1) * nl, :,
+                                         d * rs:(d + 1) * rs]),
+             np.ascontiguousarray(tl_int[i * nl:(i + 1) * nl,
+                                         d * rs:(d + 1) * rs]))
+            for _, d, i in self._ranks()])
+        return tr_int.shape, tl_int.shape
+
+    def advance(self, tr, tl) -> _Pending:
+        """Every resident lane one window on the ranks; returns the ORed
+        status word (already on the host: the ranks answered)."""
+        self._gather_harvests()
+        self._counts["runner"].add((tuple(tr), tuple(tl)))
+        status = 0
+        for s in self.pool.call(_sess_call, ("advance",)):
+            status |= s
+        return _Pending(status)
+
+    def harvest(self, lane: int):
+        """Take one lane's columns; the lanes harvested between two other
+        calls are gathered together from the ranks."""
+        self._counts["take_lane"].add(())
+        if self._harvests is None:
+            self._harvests = _Pending()
+        self._harvests.lanes.append(int(lane))
+        return self._harvests, len(self._harvests.lanes) - 1
+
+    def _gather_harvests(self) -> None:
+        batch, self._harvests = self._harvests, None
+        if batch is None:
+            return
+        lanes = np.asarray(batch.lanes, np.int64)
+        rows = lanes // self._rs
+        got = self.pool.call(_sess_call, per_rank=[
+            ("harvest", lanes[rows == d] - d * self._rs)
+            for _, d, _ in self._ranks()])
+        node = self.node_shards
+        per_row = []
+        for d in range(self.data_shards):
+            blocks = got[d * node:(d + 1) * node]
+            per_row.append({f: (np.concatenate([b[f] for b in blocks], 0)
+                                if _node_leading(f) else blocks[0][f])
+                            for f in blocks[0]})
+        # each lane's column from its row, in harvest order
+        pos = np.zeros(len(lanes), np.int64)
+        for d in range(self.data_shards):
+            sel = np.nonzero(rows == d)[0]
+            pos[sel] = np.arange(len(sel))
+        batch.host = {
+            f: np.stack([per_row[rows[j]][f][..., pos[j]]
+                         for j in range(len(lanes))], -1)
+            for f in per_row[0]}
+
+    def barrier(self, perm: np.ndarray, reset: np.ndarray) -> None:
+        """The barrier transform on every rank; ``perm`` must be
+        block-diagonal over the data shards (the scheduler's groups)."""
+        self._gather_harvests()
+        perm = np.asarray(perm, np.int64)
+        reset = np.asarray(reset, bool)
+        rs = self._rs
+        parts = []
+        for d in range(self.data_shards):
+            pg = perm[d * rs:(d + 1) * rs] - d * rs
+            if pg.min(initial=0) < 0 or pg.max(initial=0) >= rs:
+                raise ValueError(
+                    "barrier permutation moves lanes across data shards")
+            parts.append((np.ascontiguousarray(pg),
+                          np.ascontiguousarray(reset[d * rs:(d + 1) * rs])))
+        self._counts["barrier"].add(())
+        self.pool.call(_sess_call, per_rank=[
+            ("barrier",) + parts[d] for _, d, _ in self._ranks()])
+
+    def check(self, status: _Pending) -> None:
+        """Raise on stall, mailbox overflow or exchange overflow, as the
+        one-card session does (the exchange overflow names its worst
+        event, read from the ranks)."""
+        status = int(status.wait())
+        if status & 4:
+            words = self.pool.call(_sess_call, ("check",))
+            raise _exchange_overflow_error(
+                max(w[0] for w in words), max(w[1] for w in words),
+                self._exchange_slots)
+        if status & 2:
+            raise StallError(
+                "internal invariant violated: mailbox overflow despite "
+                "backpressure")
+        if status & 1:
+            raise StallError(
+                f"no quiescence within ~{self.max_cycles} cycles in one "
+                "serving interval (livelock? use Semantics.robust())")
+
+    def compile_counts(self) -> dict:
+        """Distinct argument signatures each program has seen (1 each
+        after the first interval of a well-formed session)."""
+        return {k: len(v) for k, v in self._counts.items()}
+
+    # -- readback ------------------------------------------------------
+
+    def columns_of(self, cols) -> Dict[str, np.ndarray]:
+        batch, i = cols
+        if batch is self._harvests:
+            self._gather_harvests()
+        return {f: h[..., i:i + 1] for f, h in batch.wait().items()}
+
+    def dumps_of(self, cols) -> List[NodeDump]:
+        npc = self.columns_of(cols)
+        if self._packed:
+            cachew, dirw = _join_word_planes_np(
+                npc["cvalw"], npc["cmetaw"], npc["dmemw"], npc["dmetaw"])
+        else:
+            cachew, dirw = npc["cachew"], npc["dirw"]
+        dirs = [npc[f"dirs{w}"] for w in range(_split_sw(self.config))]
+        return decode_dumps(self.config, cachew, dirw, 0, dirs=dirs or None)
+
+    def counters_of(self, cols) -> dict:
+        """The retiring job's counters, with its exchange telemetry (JAX
+        l.1511-1522)."""
+        c = self.columns_of(cols)
+        sc = c["scalars"][:, 0]
+        return {
+            "instructions": int(sc[_SC_INSTR]),
+            "cycles": int(sc[_SC_CYCLE]),
+            "messages": int(sc[_SC_MSGS]),
+            "cross_shard_msgs": int(c["xmsgs"].astype(np.int64).sum()),
+            "exchange_slot_hwm": int(c["exchhw"].max()),
+            "exchange_multicast_saved": int(
+                c["exchmc"].astype(np.int64).sum()),
+            "exchange_combined": int(c["exchcb"].astype(np.int64).sum()),
+        }
+
+
 __all__ = [
     "DataMesh", "DataShardedCudaEngine", "DataShardedLaneSession",
-    "DataShardedRun", "GridEngine", "Mesh", "NodeShardedEngine",
-    "NodeShardedRun", "build_node_sharded_run",
+    "DataShardedRun", "GridEngine", "Mesh", "NodeInterval",
+    "NodeShardedCudaEngine", "NodeShardedEngine", "NodeShardedLaneSession",
+    "NodeShardedRun", "build_node_fused_pallas_run",
+    "build_node_sharded_run",
     "join_blocks", "join_rows", "make_data_mesh", "make_mesh",
     "node_block", "run_node_sharded", "split_rows", "state_specs",
 ]

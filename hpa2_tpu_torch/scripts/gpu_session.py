@@ -53,25 +53,42 @@ Steps, in the JAX session's order (``--skip`` takes step names, and
                      multichip``: the data-parallel ladder over 1, 2 and
                      4 cards, weak and strong, each rung held against one
                      card's planes
+  nodeshard          ``--measure-nodeshard`` at 64 nodes x 1,024 systems x
+                     64 instructions over 4 ranks, held against K2 on one
+                     card
+  nodeshard_ladder, nodeshard_ab
+                     ``scale_runs nodeshard`` and ``nodeshard_ab``
+  nodeshard4096      ``--measure-nodeshard`` at 4,096 nodes x 8 systems x
+                     32 instructions over 4 ranks, with no one-card
+                     reference (no card's kernel holds 4,096 nodes)
+  nodeshard_x2, nodeshard_x4, nodeshard_x4_butterfly
+                     the 64-node geometry at 2 and 4 ranks in the a2a
+                     schedule and at 4 in the butterfly one, each held
+                     against K2
+  elided_nodeshard   ``--measure-nodeshard-elision``: the general engine's
+                     node axis (``NodeShardedEngine``, 64 nodes, 4 ranks)
+                     with elision on and off on a hot-set workload
 
-Left out of the JAX session:
+(the ``nodeshard*`` and ``elided_nodeshard`` steps need as many cards as
+ranks; ``--skip nodeshard_x2x4`` skips the three ``nodeshard_x*`` steps).
 
-* ``nodeshard`` (with its ladder, A/B and 4,096-node rungs),
-  ``nodeshard_x2x4`` and ``elided_nodeshard`` shard the fast path's node
-  axis: ROADMAP queue 1 item 4b;
-* the ``tuning`` step's file.  The JAX step writes ``BENCH_TUNING.json``,
+Left out of the JAX session: the ``tuning`` step's file.  The JAX step writes ``BENCH_TUNING.json``,
   from which the JAX bench takes its kernel shape without a word (and on
   a bad file falls back without one).  The port's bench keeps its fixed
   shape, so that every run of it measures the same path; the step
   records the best point in the JSONL only.
 
 The measure children (``--measure``, ``--measure-occupancy``,
-``--measure-fused-occupancy``, ``--measure-elision``; each with
+``--measure-fused-occupancy``, ``--measure-elision``,
+``--measure-nodeshard``, ``--measure-nodeshard-elision``; each with
 ``--device cpu`` for tests) print one JSON line and exit nonzero when
 their gate fails: every instruction retired (``--measure``), the
 scheduled runs' per-system scalars plane equal to the unscheduled run's
 (the occupancy children), every state field but the two elision
-counters equal with elision on and off (``--measure-elision``)."""
+counters equal with elision on and off (``--measure-elision``, and
+with elision skipping cycles, ``--measure-nodeshard-elision``), the
+node-sharded run's planes equal to K2's (``--measure-nodeshard`` with
+``compare`` 1)."""
 
 from __future__ import annotations
 
@@ -405,12 +422,146 @@ def measure_elision_child(params, device="cuda") -> int:
     return 0 if exact else 1
 
 
+def measure_nodeshard_child(params, device="cuda") -> int:
+    """``--measure-nodeshard procs batch instrs block k cap window gate
+    shards compare [mode_idx]``: one system's nodes over ``shards`` ranks
+    (``NodeShardedCudaEngine``), timed on each rank after an untimed
+    run in the same ranks (``sharded_s``, the slowest rank's; the wall
+    around both runs, the spawn included, is ``sharded_wall_s``), with
+    the cross-shard traffic; with ``compare`` 1 the same arrays on K2 on one card, and
+    nonzero unless every plane is equal (``compare`` 0 for geometries no
+    card's kernel holds).  ``mode_idx`` indexes ``EXCHANGE_MODES`` (-1:
+    a2a)."""
+    import dataclasses
+
+    import torch
+
+    from hpa2_tpu_torch.config import Semantics, SystemConfig
+    from hpa2_tpu_torch.ops import exchange as xops
+    from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
+    from hpa2_tpu_torch.parallel import NodeShardedCudaEngine
+    from hpa2_tpu_torch.scripts.perf_sweep import _where
+    from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
+
+    (procs, batch, instrs, block, k, cap, window, gate, shards,
+     compare) = params[:10]
+    mode_idx = params[10] if len(params) > 10 else -1
+    dev = _dev(device)
+    config = SystemConfig(num_procs=procs, msg_buffer_size=cap,
+                          max_instr_num=0, semantics=Semantics().robust())
+    if mode_idx >= 0:
+        config = dataclasses.replace(
+            config, exchange_mode=xops.EXCHANGE_MODES[mode_idx])
+    arrays = gen_uniform_random_arrays(config, batch, instrs, seed=0)
+    kw = dict(block=block, cycles_per_call=k, snapshots=False,
+              trace_window=window, gate=bool(gate))
+
+    def sharded():
+        return NodeShardedCudaEngine(config, *arrays, node_shards=shards,
+                                     device=dev.type, **kw)
+
+    shd = sharded()
+    t0 = time.perf_counter()
+    shd.run(max_cycles=5_000_000, warmup=True)  # timed in the warm ranks
+    wall = time.perf_counter() - t0
+    slow = max(shd.rank_stats, key=lambda r: r["seconds"])
+    st = shd.rank_stats[0]
+    stats = shd.stats()
+    xmsgs = shd.cross_shard_msgs
+    rec = {
+        "procs": procs, "batch": batch, "instrs": instrs, "block": block,
+        "k": k, "cap": cap, "window": window, "gate": gate,
+        "node_shards": shards, "instructions": shd.instructions,
+        "cycles": shd.cycle, "cycles_run": st["cycles"],
+        "sharded_s": round(slow["seconds"], 6),
+        "sharded_wall_s": round(wall, 6),
+        "ms_per_cycle": round(slow["seconds"] * 1e3
+                              / max(slow["cycles"], 1), 4),
+        "ops_per_sec": round(shd.instructions / slow["seconds"], 1),
+        "host_syncs": st["host_syncs"], "calls": st["calls"],
+        "cross_shard_msgs": xmsgs,
+        "cross_shard_msgs_per_cycle": round(xmsgs / max(shd.cycle, 1), 2),
+        "exchange_mode": config.exchange_mode,
+        "collectives_per_cycle": st["census"]["cycle"],
+        "plan_collectives": xops.plan_collectives(xops.make_plan(
+            shards, config.exchange_mode, config.exchange_inner)),
+        "exchange_slot_hwm": stats.get("exchange_slot_hwm", 0),
+        "exchange_bytes_per_cycle": stats.get("exchange_bytes_per_cycle", 0),
+        "exchange_multicast_saved": stats.get("exchange_multicast_saved", 0),
+        "exchange_combined": stats.get("exchange_combined", 0),
+    }
+    exact = True
+    if compare:
+        def single():
+            return CudaEngine(config, *arrays, device=dev, **kw)
+
+        single().run(max_cycles=5_000_000)
+        ref = single()
+        _, ref_dt = _seconds(lambda: ref.run(max_cycles=5_000_000), dev)
+        exact = all(torch.equal(v.cpu(), shd.state[f])
+                    for f, v in ref.state.items())
+        rec.update(single_card_s=round(ref_dt, 6),
+                   sharded_over_single=round(ref_dt / slow["seconds"], 4),
+                   bit_exact=exact)
+    rec.update(_where(dev))
+    print(json.dumps(rec), flush=True)
+    return 0 if exact else 1
+
+
+def measure_nodeshard_elision_child(params, device="cuda") -> int:
+    """``--measure-nodeshard-elision procs instrs shards``: the general
+    engine's node axis (``NodeShardedEngine`` over ``shards`` ranks) on a
+    hot-set zipf workload with elision on and off, each warmed; nonzero
+    unless every state field but the two elision counters is equal and
+    elision skipped cycles."""
+    import dataclasses
+
+    import numpy as np
+
+    from hpa2_tpu_torch.config import Semantics, SystemConfig
+    from hpa2_tpu_torch.convert import sim_state_to_numpy
+    from hpa2_tpu_torch.parallel import NodeShardedEngine, make_mesh
+    from hpa2_tpu_torch.parallel.sharding import run_node_sharded
+    from hpa2_tpu_torch.scripts.perf_sweep import _where
+    from hpa2_tpu_torch.utils.trace import gen_hot_hit_zipf
+
+    procs, instrs, shards = params[:3]
+    dev = _dev(device)
+    config = SystemConfig(num_procs=procs, semantics=Semantics().robust())
+    traces = gen_hot_hit_zipf(config, instrs, seed=0)
+    engs = [NodeShardedEngine(cfg, traces, mesh=make_mesh(
+        node_shards=shards, data_shards=1, device=dev.type))
+        for cfg in (config, dataclasses.replace(config, elide=False))]
+    run_node_sharded(engs, warmup=True)
+    on, off = engs
+    on_np, off_np = sim_state_to_numpy(on.state), sim_state_to_numpy(
+        off.state)
+    exact = all(np.array_equal(on_np[f], off_np[f])
+                for f in on_np if f not in ("n_elided", "n_multi_hit"))
+    on_dt = max(r["seconds"] for r in on.rank_stats)
+    off_dt = max(r["seconds"] for r in off.rank_stats)
+    cycles = int(on_np["cycle"].sum())
+    elided = int(on_np["n_elided"].sum())
+    print(json.dumps({
+        "procs": procs, "instrs": instrs, "node_shards": shards,
+        "elide_s": round(on_dt, 6), "no_elide_s": round(off_dt, 6),
+        "wall_speedup": round(off_dt / on_dt, 3) if on_dt else None,
+        "simulated_cycles": cycles, "elided_cycles": elided,
+        "step_reduction":
+            round(cycles / (cycles - elided), 3) if cycles > elided
+            else None,
+        "bit_exact": exact, **_where(dev)}), flush=True)
+    return 0 if exact and elided > 0 else 1
+
+
 CHILDREN = {
     "--measure": (measure_child, 7),
     "--measure-dp": (measure_dp_child, 8),
     "--measure-occupancy": (measure_occupancy_child, 8),
     "--measure-fused-occupancy": (measure_fused_occupancy_child, 9),
     "--measure-elision": (measure_elision_child, 4),
+    "--measure-nodeshard": (measure_nodeshard_child, 11),
+    "--measure-nodeshard-elision": (measure_nodeshard_elision_child, 3),
 }
 
 
@@ -478,6 +629,29 @@ def steps():
                 {"HPA2_TOPO_NODES": "16", "HPA2_TOPO_ROUNDS": "24"}))
     out.append(("multichip", _module("scripts.scale_runs", "multichip"),
                 1800, None, None))
+    # one system bigger than a card: 64 nodes over 4 ranks against K2,
+    # the ladder, the schedules' A/B, and 4,096 nodes that no card's
+    # kernel holds (compare 0)
+    node64 = (64, 1024, 64, 512, 64, 16, 16, 0)
+    out.append(("nodeshard", _measure_argv(
+        "--measure-nodeshard", *node64, 4, 1), 1800, "nodeshard", None))
+    out.append(("nodeshard_ladder", _module("scripts.scale_runs",
+                                            "nodeshard"),
+                1800, "nodeshard", None))
+    out.append(("nodeshard_ab", _module("scripts.scale_runs",
+                                        "nodeshard_ab"),
+                2400, "nodeshard", None))
+    out.append(("nodeshard4096", _measure_argv(
+        "--measure-nodeshard", 4096, 8, 32, 8, 64, 16, 16, 0, 4, 0),
+        2400, "nodeshard", None))
+    for name, shards, mode_idx in (("nodeshard_x2", 2, 1),
+                                   ("nodeshard_x4", 4, 1),
+                                   ("nodeshard_x4_butterfly", 4, 2)):
+        out.append((name, _measure_argv(
+            "--measure-nodeshard", *node64, shards, 1, mode_idx), 1800,
+            "nodeshard_x2x4", None))
+    out.append(("elided_nodeshard", _measure_argv(
+        "--measure-nodeshard-elision", 64, 256, 4), 1800, None, None))
     return out
 
 

@@ -4,6 +4,7 @@ ladder, on NVIDIA GPUs.
     python -m hpa2_tpu_torch.scripts.scale_runs [4|5|both] [--data-shards N] [--device cpu]
     python -m hpa2_tpu_torch.scripts.scale_runs multichip [--device cpu]
     python -m hpa2_tpu_torch.scripts.scale_runs nodeshard_general [--device cpu]
+    python -m hpa2_tpu_torch.scripts.scale_runs nodeshard|nodeshard_ab [--device cpu]
 
 The port of ``scripts/scale_runs.py`` (l.46-147, l.522-543), with its
 positional argument, defaults and JSON keys:
@@ -34,12 +35,17 @@ holds the RD/WR rate, the wall time and each card's K2 time (CUDA events
 on each card around the run).  ``nodeshard_general`` times the general
 engine's node axis (``NodeShardedEngine``, 16 nodes) over 2 and 4 ranks
 (as many cards) in the four exchange modes: ms a step and the
-collectives of a cycle, each run held against ``TorchEngine``.  The JAX
-script's ``nodeshard``/``nodeshard_ab`` shard the fast path's node axis:
-the script exits 2 naming ROADMAP queue 1 item 4b.  Without a card the
-script raises; ``--device cpu`` runs the plain versions (tests, small
-sizes; the CPU's shards are logical and its times not a scaling
-result)."""
+collectives of a cycle, each run held against ``TorchEngine``.
+``nodeshard`` (JAX l.240-348) is the fast path's node-shard ladder: one
+workload (on the card 64 nodes x 1,024 systems x 64 instructions, block
+512, k 64, window 16) on one card (K2, ``CudaEngine``) and over 2 and 4
+ranks (``NodeShardedCudaEngine``, one card each), every rung's planes
+held against rung 1's, with ms a cycle, the collectives of a cycle and
+the cross-shard traffic; ``nodeshard_ab`` (l.351-519) runs each rung in
+the pairwise, a2a and butterfly schedules, interleaved best of
+``reps``.  Without a card the script raises; ``--device cpu`` runs the
+plain versions (tests, small sizes; the CPU's shards are logical and its
+times not a scaling result)."""
 
 from __future__ import annotations
 
@@ -49,11 +55,9 @@ import time
 
 from hpa2_tpu_torch.config import Semantics, SystemConfig
 
-#: the JAX script's modes on the fast path's node axis
-NODE_AXIS_MODES = ("nodeshard", "nodeshard_ab")
-#: what they raise
-NODE_AXIS = ("{what} shards the fast path's node axis, which the port "
-             "does not do yet (ROADMAP queue 1 item 4b)")
+#: the fast path's node-shard ladder on the card (JAX l.264-277)
+NODESHARD_RUN = dict(block=512, cycles_per_call=64, snapshots=False,
+                     trace_window=16)
 
 
 def _timed(fn, dev, devices=None):
@@ -374,6 +378,178 @@ def nodeshard_general(nodes: int = 16, instrs_per_core: int = 32,
     return record
 
 
+def _nodeshard_build(config, arrays, shards, dev):
+    """Rung ``shards`` of the ladder: K2 on one card, else the
+    node-sharded fast path over ``shards`` ranks."""
+    from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
+    from hpa2_tpu_torch.parallel import NodeShardedCudaEngine
+
+    if shards == 1:
+        return CudaEngine(config, *arrays, device=dev, **NODESHARD_RUN)
+    return NodeShardedCudaEngine(config, *arrays, node_shards=shards,
+                                 device=dev.type, **NODESHARD_RUN)
+
+
+def _nodeshard_run(eng, dev, max_cycles=5_000_000):
+    """Run one rung: (seconds, ms a cycle of the slowest rank or None on
+    one card).  K2's seconds are CUDA events around its run (the wall
+    clock on the CPU); a sharded rung's the slowest rank's timed loop
+    after an untimed run in the same ranks (the spawn, the CUDA context
+    and the NCCL communicators' creation are not counted).  K2 is warmed
+    by the caller (its kernel's build)."""
+    if not hasattr(eng, "cross_shard_msgs"):
+        _, ms, wall = _timed(lambda: eng.run(max_cycles=max_cycles), dev)
+        return (ms / 1e3 if ms is not None else wall), None
+    eng.run(max_cycles=max_cycles, warmup=True)
+    slow = max(eng.rank_stats, key=lambda r: r["seconds"])
+    return slow["seconds"], slow["seconds"] * 1e3 / max(slow["cycles"], 1)
+
+
+def _same_planes(eng, want) -> bool:
+    import torch
+
+    return all(torch.equal(eng.state[f].cpu(), v) for f, v in want.items())
+
+
+def nodeshard(nodes: int = 64, batch: int = 1024, instrs_per_core: int = 64,
+              ranks=(2, 4), device="cuda") -> dict:
+    """The node-shard ladder (JAX ``nodeshard``): prints one JSON line a
+    rung and the record, and returns the record; raises when a rung's
+    planes differ from one card's."""
+    import torch
+
+    from hpa2_tpu_torch.ops import exchange as xops
+    from hpa2_tpu_torch.ops.cuda_engine import resolve_device
+    from hpa2_tpu_torch.scripts.perf_sweep import _where
+    from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
+
+    dev = resolve_device(device)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else max(ranks)
+    config = SystemConfig(num_procs=nodes, msg_buffer_size=16,
+                          max_instr_num=0, semantics=Semantics().robust())
+    arrays = gen_uniform_random_arrays(config, batch, instrs_per_core)
+    rows, want, exact = [], None, True
+    for shards in (1,) + tuple(r for r in ranks if r <= cards):
+        if shards == 1:  # warm: the kernel's build
+            _nodeshard_build(config, arrays, 1, dev).run(
+                max_cycles=5_000_000)
+        eng = _nodeshard_build(config, arrays, shards, dev)
+        secs, ms_cycle = _nodeshard_run(eng, dev)
+        if want is None:
+            want = {f: v.cpu() for f, v in eng.state.items()}
+            same = True
+        else:
+            same = _same_planes(eng, want)
+        exact = exact and same
+        row = {"node_shards": shards, "instructions": eng.instructions,
+               "cycles": eng.cycle, "seconds": round(secs, 6),
+               "ops_per_sec": round(eng.instructions / secs, 1),
+               "bit_exact_vs_one_card": same}
+        if shards > 1:
+            st = eng.rank_stats[0]
+            xmsgs = eng.cross_shard_msgs
+            row.update(
+                ms_per_cycle=round(ms_cycle, 4),
+                cycles_run=st["cycles"], calls=st["calls"],
+                host_syncs=st["host_syncs"],
+                cross_shard_msgs=xmsgs,
+                cross_shard_msgs_per_cycle=round(
+                    xmsgs / max(eng.cycle, 1), 2),
+                exchange_bytes_per_cycle=eng.stats().get(
+                    "exchange_bytes_per_cycle", 0),
+                exchange_mode=config.exchange_mode,
+                collectives_per_cycle=st["census"]["cycle"],
+                plan_collectives=xops.plan_collectives(xops.make_plan(
+                    shards, config.exchange_mode, config.exchange_inner)))
+        rows.append(row)
+        print(json.dumps({"nodeshard_step": row}), flush=True)
+    record = {
+        "metric": "cuda_node_shard_scaling", "unit": "RD/WR ops/sec",
+        "cards": cards if dev.type == "cuda" else 0,
+        "indicative": dev.type == "cuda", "nodes": nodes, "batch": batch,
+        "instrs_per_core": instrs_per_core,
+        "bit_exact_vs_one_card": bool(exact), "shards": rows,
+        **_where(dev)}
+    print(json.dumps(record), flush=True)
+    if not exact:
+        raise RuntimeError("a node-sharded rung diverged from one card's")
+    return record
+
+
+def nodeshard_ab(nodes: int = 64, batch: int = 1024,
+                 instrs_per_core: int = 64, ranks=(2, 4), reps: int = 3,
+                 device="cuda") -> dict:
+    """The exchange schedules' A/B ladder (JAX ``nodeshard_ab``): at each
+    rung the pairwise, a2a and butterfly schedules, interleaved best of
+    ``reps`` (a spawn a run, timed after an untimed run in its
+    ranks), every arm's planes held against one
+    card's run."""
+    import dataclasses
+
+    import torch
+
+    from hpa2_tpu_torch.ops import exchange as xops
+    from hpa2_tpu_torch.ops.cuda_engine import resolve_device
+    from hpa2_tpu_torch.scripts.perf_sweep import _where
+    from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
+
+    dev = resolve_device(device)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else max(ranks)
+    base = SystemConfig(num_procs=nodes, msg_buffer_size=16,
+                        max_instr_num=0, semantics=Semantics().robust())
+    arrays = gen_uniform_random_arrays(base, batch, instrs_per_core)
+    _nodeshard_build(base, arrays, 1, dev).run(max_cycles=5_000_000)
+    ref = _nodeshard_build(base, arrays, 1, dev)
+    ref_dt, _ = _nodeshard_run(ref, dev)
+    want = {f: v.cpu() for f, v in ref.state.items()}
+    single = {"instructions": ref.instructions, "seconds": round(ref_dt, 6),
+              "ops_per_sec": round(ref.instructions / ref_dt, 1)}
+    print(json.dumps({"nodeshard_ab_single": single}), flush=True)
+    arms = (("old_pairwise", "pairwise"), ("new_a2a", "a2a"),
+            ("new_butterfly", "butterfly"))
+    rows, exact = [], True
+    for shards in (r for r in ranks if r <= cards):
+        row = {"node_shards": shards}
+        best = {}
+        for _ in range(reps):
+            for label, mode in arms:
+                cfg = dataclasses.replace(base, exchange_mode=mode)
+                eng = _nodeshard_build(cfg, arrays, shards, dev)
+                secs, ms_cycle = _nodeshard_run(eng, dev)
+                if secs < best.get(label, (float("inf"),))[0]:
+                    best[label] = (secs, ms_cycle, eng)
+        for label, mode in arms:
+            secs, ms_cycle, eng = best[label]
+            same = _same_planes(eng, want)
+            exact = exact and same
+            row[label] = {
+                "exchange_mode": mode,
+                "collectives_per_cycle": eng.rank_stats[0]["census"]["cycle"],
+                "plan_collectives": xops.plan_collectives(
+                    xops.make_plan(shards, mode, 0)),
+                "seconds": round(secs, 6), "ms_per_cycle": round(ms_cycle, 4),
+                "ops_per_sec": round(eng.instructions / secs, 1),
+                "cross_shard_msgs": eng.cross_shard_msgs,
+                "bit_exact": same}
+        old = max(row["old_pairwise"]["ops_per_sec"], 1e-9)
+        for label in ("a2a", "butterfly"):
+            row[f"{label}_speedup_vs_pairwise"] = round(
+                row[f"new_{label}"]["ops_per_sec"] / old, 3)
+        rows.append(row)
+        print(json.dumps({"nodeshard_ab_step": row}), flush=True)
+    record = {
+        "metric": "cuda_node_shard_exchange_ab", "unit": "RD/WR ops/sec",
+        "cards": cards if dev.type == "cuda" else 0,
+        "indicative": dev.type == "cuda", "nodes": nodes, "batch": batch,
+        "instrs_per_core": instrs_per_core, "reps": reps,
+        "single_card": single, "bit_exact_vs_one_card": bool(exact),
+        "shards": rows, **_where(dev)}
+    print(json.dumps(record), flush=True)
+    if not exact:
+        raise RuntimeError("an A/B arm diverged from one card's run")
+    return record
+
+
 def _arg(argv, name, default):
     if name in argv:
         return argv[argv.index(name) + 1]
@@ -385,10 +561,16 @@ def main(argv=None) -> int:
     which = argv[0] if argv and not argv[0].startswith("--") else "both"
     device = _arg(argv, "--device", "cuda")
     try:
-        if which in NODE_AXIS_MODES:
-            raise ValueError(NODE_AXIS.format(what=which))
         # the CPU's runs are the plain versions: small sizes
         cpu = device == "cpu"
+        small = dict(nodes=8, batch=4, instrs_per_core=8, ranks=(2,))
+        if which == "nodeshard":
+            nodeshard(**(small if cpu else {}), device=device)
+            return 0
+        if which == "nodeshard_ab":
+            nodeshard_ab(**(dict(small, reps=1) if cpu else {}),
+                         device=device)
+            return 0
         if which == "multichip":
             multichip(**(dict(per_card=8, instrs_per_core=8) if cpu
                          else {}), device=device)
@@ -400,7 +582,8 @@ def main(argv=None) -> int:
             return 0
         if which not in ("4", "5", "both"):
             raise ValueError(f"unknown configuration {which!r} (4, 5, "
-                             "both, multichip or nodeshard_general)")
+                             "both, multichip, nodeshard_general, "
+                             "nodeshard or nodeshard_ab)")
         shards = int(_arg(argv, "--data-shards", 1))
         if which in ("4", "both"):
             config4(device=device)

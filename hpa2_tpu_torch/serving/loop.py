@@ -41,8 +41,10 @@ its watchdog age.
 
 ``pallas-sharded`` serves on a data mesh
 (``parallel/sharding.py:DataShardedLaneSession``: one group of lanes a
-card, never crossing); ``pallas-node-sharded`` (the fast path's node
-axis) is ROADMAP queue 1 item 4b and :func:`build_serving` refuses it.
+card, never crossing); ``pallas-node-sharded`` on a ``(data, node)``
+mesh of ranks (``parallel/sharding.py:NodeShardedLaneSession``: each
+lane's nodes split over ranks that live as long as the session, which
+:func:`serve` closes at the end).
 """
 
 from __future__ import annotations
@@ -729,11 +731,6 @@ BatchLaneSession` rows (``hpa2_tpu/serving/loop.py:BatchServingSession``,
         return self.results, st
 
 
-#: the serving backend of the JAX package that is not ported yet (the
-#: fast path's node axis, ROADMAP queue 1 item 4b)
-_NOT_PORTED = ("pallas-node-sharded",)
-
-
 def build_serving(
     config: SystemConfig,
     source: JobSource,
@@ -770,16 +767,13 @@ def build_serving(
     ``pallas`` is the fast path (``window``, ``block``); ``jax`` the
     general engine (``interval``, ``max_trace_len``, and ``jax_window``,
     which opts it into the fast path's window schedule so a migrated
-    job's dumps stay byte-identical)."""
+    job's dumps stay byte-identical).  ``pallas-node-sharded`` starts
+    ``node_shards x data_shards`` ranks that the caller ends with
+    ``session.session.close()``."""
     if interpret:
         raise ValueError(
             "the port has no Pallas interpreter; run the plain versions "
             "with device='cpu'")
-    if backend in _NOT_PORTED:
-        raise ValueError(
-            f"serving backend {backend!r} (the fast path's node axis) is "
-            "not ported yet (ROADMAP queue 1 item 4b); the port serves on "
-            "'pallas', 'pallas-sharded' and 'jax'")
     if backend == "pallas":
         from hpa2_tpu_torch.ops.session import CudaLaneSession
 
@@ -799,6 +793,21 @@ def build_serving(
         sess = DataShardedLaneSession(
             config, resident, window, data_shards=data_shards,
             block=block or 1024, max_cycles=max_cycles, device=device,
+        )
+        return ServingSession(
+            sess, source, policy=policy, groups=sess.data_shards,
+            threshold=threshold, overlap=overlap,
+            decode_dumps=decode_dumps, emit=emit,
+            compile_guard=compile_guard, backend=backend,
+            tenant_weights=tenant_weights, interval_hook=interval_hook,
+        )
+    if backend == "pallas-node-sharded":
+        from hpa2_tpu_torch.parallel.sharding import NodeShardedLaneSession
+
+        sess = NodeShardedLaneSession(
+            config, resident, window, node_shards=node_shards,
+            data_shards=data_shards, block=block or 1024,
+            max_cycles=max_cycles, device=device,
         )
         return ServingSession(
             sess, source, policy=policy, groups=sess.data_shards,
@@ -830,6 +839,14 @@ def build_serving(
 def serve(config: SystemConfig, source: JobSource,
           **kwargs) -> Tuple[List[JobResult], ServingStats]:
     """Build the resident session for ``backend`` and drive the source
-    to exhaustion: ``pallas`` (the fast path) or ``jax`` (the general
-    engine).  Accepts every :func:`build_serving` keyword."""
-    return build_serving(config, source, **kwargs).run()
+    to exhaustion: ``pallas`` (the fast path), ``pallas-sharded``,
+    ``pallas-node-sharded`` or ``jax`` (the general engine).  Accepts
+    every :func:`build_serving` keyword; a session with ranks is closed
+    at the end."""
+    drv = build_serving(config, source, **kwargs)
+    try:
+        return drv.run()
+    finally:
+        close = getattr(drv.session, "close", None)
+        if close is not None:
+            close()

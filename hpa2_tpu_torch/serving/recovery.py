@@ -30,9 +30,12 @@ the port's own copy of ``hpa2_tpu/serving/recovery.py``.
 The primary's window schedule travels with a migration: a fast-path
 primary windows its traces, so its ``jax`` target runs with
 ``jax_window`` (``BatchLaneSession``'s window emulation).  Targets may
-shard data (``pallas-sharded``, ``jax`` with ``data_shards``); the fast
-path's node axis (``pallas-node-sharded``, ``node_shards`` above 1) is
-ROADMAP queue 1 item 4b and raises ``ValueError``.
+shard data (``pallas-sharded``, ``jax`` with ``data_shards``) and the
+fast path's nodes (``pallas-node-sharded`` with ``node_shards``; the
+CLI's ``--migrate-to pallas:D:N`` names it).  A session
+that holds ranks is closed whenever its attempt ends, before the next
+session takes the cards: after a kill, a hang or a poison as after a
+clean finish.
 
 Determinism: the failure plan is config data; the supervisor adds no
 RNG and keys every decision off interval barriers and admission
@@ -134,14 +137,6 @@ class _ReplaySource(JobSource):
         return int(getattr(self.inner, "shed_jobs", 0) or 0)
 
 
-def _check_ported(spec: Dict) -> None:
-    """Refuse a spec on the fast path's node axis (ROADMAP queue 1 item
-    4b); data shards (``pallas-sharded``, ``jax``) are ported."""
-    if (spec.get("backend") not in ("pallas", "pallas-sharded", "jax")
-            or spec.get("node_shards", 1) != 1):
-        raise ValueError(
-            f"serving spec {spec} runs the fast path's node axis, which "
-            "the port does not do yet (ROADMAP queue 1 item 4b)")
 
 
 def _write_json(path: str, doc: dict) -> None:
@@ -209,8 +204,6 @@ class ServeSupervisor:
         self._results: Dict[str, JobResult] = {}
         self._last_ck: Optional[Tuple[int, str, Dict, Dict]] = None
         self._tix = 0
-        for spec in [self.primary] + self.targets:
-            _check_ported(spec)
 
     # -- plumbing ------------------------------------------------------
 
@@ -421,6 +414,12 @@ class ServeSupervisor:
                 if attempt > self.max_recoveries:
                     raise
                 spec, replay = self._recover(exc, cur)
+            finally:
+                # the failed (or finished) session's ranks end before
+                # the next session takes the cards
+                close = getattr(drv.session, "close", None)
+                if close is not None:
+                    close()
         # supervisor-wide totals over the last attempt's stats shell
         results = list(self._results.values())
         stats.jobs_submitted = len(self.recorder.seen)

@@ -106,20 +106,35 @@ def test_scheduled_headline_records_its_occupancy(monkeypatch, capsys):
 @pytest.mark.parametrize("flag", ["--data-shards", "--node-shards",
                                   "--exchange-mode"])
 def test_multi_gpu_flags_are_refused(flag, monkeypatch, capsys):
-    """The fast path's node axis stays refused (ROADMAP queue 1 item
-    4b); ``--data-shards`` is ported: the headline runs over two shards
-    (the baselines' contexts stubbed: they do not shard) and says so."""
-    if flag != "--data-shards":
-        with pytest.raises(SystemExit, match="item 4b"):
-            bench.main([flag, "2", "--device", "cpu"])
-        return
-    monkeypatch.setenv("HPA2_BENCH_DATA_SHARDS", "1")  # restored after
+    """The sharding flags are ported (the baselines' contexts stubbed:
+    they do not shard): ``--data-shards`` runs the headline over two
+    shards, ``--node-shards`` each system's nodes over two gloo ranks
+    (``bench.py:236-310``: the ``exchange`` block), ``--exchange-mode``
+    picks its schedule; each says so in its record."""
+    # restored after
+    monkeypatch.setenv("HPA2_BENCH_DATA_SHARDS", "1")
+    monkeypatch.setenv("HPA2_BENCH_NODE_SHARDS", "1")
+    monkeypatch.setenv("HPA2_BENCH_EXCHANGE_MODE", "")
     for k in ("TRACE_DIST", "SCHEDULE_RESIDENT", "HOST_BARRIERS", "PACKED"):
         monkeypatch.delenv(f"HPA2_BENCH_{k}", raising=False)
     monkeypatch.setattr(bench, "bench_omp", lambda *a, **k: (1, 1.0))
     monkeypatch.setattr(bench, "bench_jax", lambda *a, **k: (1, 1.0, {}))
     monkeypatch.setattr(bench, "fault_counters", lambda *a, **k: {})
-    assert bench.main([flag, "2", "--device", "cpu"]) == 0
+    args = [flag, "2"] if flag != "--exchange-mode" else [
+        flag, "pairwise", "--node-shards", "2"]
+    assert bench.main(args + ["--device", "cpu"]) == 0
     rec = _line(capsys)
-    assert rec["data_shards"] == 2 and rec["batch"] == 8
     assert rec["jax_instrs"] == 8 * 8 * 16
+    if flag != "--data-shards":
+        assert rec["node_shards"] == 2 and rec["batch"] == 8
+        x = rec["exchange"]
+        mode = "pairwise" if flag == "--exchange-mode" else "a2a"
+        assert x["exchange_mode"] == mode
+        assert x["collectives_per_cycle"] == (
+            {"ppermute": 2, "all_to_all": 0} if mode == "pairwise"
+            else {"ppermute": 0, "all_to_all": 2})
+        assert x["cross_shard_msgs"] > 0
+        assert rec["cross_shard_msgs_per_cycle"] == x[
+            "cross_shard_msgs_per_cycle"]
+        return
+    assert rec["data_shards"] == 2 and rec["batch"] == 8

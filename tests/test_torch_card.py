@@ -543,20 +543,20 @@ def test_k3_table_prober_on_card(card, robust):
 
 def test_contract_census_on_card(card):
     """``contracts`` on the card: the 8 unsharded points and the
-    data-sharded one clean with their card rules, the fast path's
-    node-sharded point skipped (and the general engine's two on fewer
-    than four cards), and the wrappers' calls equal to the libraries'
-    launches."""
+    data-sharded one clean with their card rules, the three node-sharded
+    points (the fast path's and the general engine's two) clean on four
+    cards and skipped on fewer, and the wrappers' calls equal to the
+    libraries' launches."""
     from hpa2_tpu_torch.analysis import contracts, ir
 
     with ir.launch_census() as c:
         results = contracts.run_contracts(device="cuda",
                                           out=lambda line: None)
-    # data-sharded-pallas runs on one card named four times; the general
-    # engine's node-sharded points need four cards (one NCCL rank each)
+    # data-sharded-pallas runs on one card named four times; the
+    # node-sharded points need four cards (one NCCL rank each)
     four = torch.cuda.device_count() >= 4
     assert sorted(r.status for r in results) == (
-        ["ok"] * (11 if four else 9) + ["skip"] * (1 if four else 3))
+        ["ok"] * (12 if four else 9) + ["skip"] * (0 if four else 3))
     assert c["calls.stream_run"] == c["launches.stream_run"] > 0
     assert c["calls.call_run"] == c["launches.call_run"]
 
@@ -656,3 +656,43 @@ def test_node_sharded_engine_over_nccl_matches_torch_engine(two_cards,
         want = dict(plan_collectives(make_plan(node, mode)), sum=1, max=1,
                     min=0)
         assert eng.step_collectives == want
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["i32", "packed"])
+def test_node_sharded_fast_path_over_nccl_matches_k2(two_cards, packed):
+    """``NodeShardedCudaEngine`` over two NCCL ranks (and four, and a
+    2 x 2 grid, on four cards) equals K2's run on one card plane for
+    plane; a cycle's collectives are the plan's plus one SUM and one
+    MAX."""
+    from hpa2_tpu_torch.ops.exchange import make_plan, plan_collectives
+    from hpa2_tpu_torch.parallel import NodeShardedCudaEngine, make_mesh
+    from hpa2_tpu_torch.parallel.sharding import run_node_sharded
+
+    cfg = SystemConfig(num_procs=32, msg_buffer_size=16,
+                       semantics=Semantics().robust())
+    arrays = gen_uniform_random_arrays(cfg, 64, 12, seed=9)
+    kw = dict(block=32, cycles_per_call=16, snapshots=not packed,
+              packed=packed)
+    ref = CudaEngine(cfg, *arrays, device="cuda", **kw).run()
+    meshes = [(2, 1)] + ([(4, 1), (2, 2)] if two_cards >= 4 else [])
+    for node, data in meshes:
+        eng = NodeShardedCudaEngine(cfg, *arrays, mesh=make_mesh(
+            node_shards=node, data_shards=data, device="cuda"), **kw)
+        run_node_sharded([eng])
+        for f, v in ref.state.items():
+            assert _same(eng.state[f].cuda(), v), (node, data, f)
+        assert eng.cross_shard_msgs > 0
+        want = dict(plan_collectives(make_plan(node, "a2a")), sum=1, max=1,
+                    min=0)
+        assert eng.step_collectives == want
+
+
+def test_node_sharded_contract_on_four_cards(card):
+    """``node-sharded-pallas-a2a`` over four NCCL ranks: clean."""
+    from hpa2_tpu_torch.analysis import contracts
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs (one NCCL rank a card)")
+    results = contracts.run_contracts(names=["node-sharded-pallas-a2a"],
+                                      device="cuda", out=lambda line: None)
+    assert [r.status for r in results] == ["ok"], results

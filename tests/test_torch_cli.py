@@ -275,15 +275,16 @@ def test_serve_matches_jax_serve_dump_files(tmp_path, capsys):
     assert sorted(r["id"] for r in records) == sorted(ids)
 
 
-# the data axis is ported (serve --data-shards, --migrate-to jax:2); the
-# cases keep their ids and pin what stays refused: the fast path's node
-# axis, ROADMAP queue 1 item 4b
+# the data axis and the fast path's node axis are ported (serve
+# --data-shards/--node-shards, --migrate-to jax:2 and pallas:1:2): the
+# three cases that pinned the node axis's refusal keep their ids and now
+# serve, each job's dumps equal to the unsharded serve's
 @pytest.mark.parametrize("extra,match", [
-    pytest.param(["--data-shards", "2", "--node-shards", "2"], "item 4b",
-                 id="extra0-item 4"),
-    pytest.param(["--node-shards", "2"], "item 4b", id="extra1-item 4"),
+    pytest.param(["--data-shards", "2", "--node-shards", "2",
+                  "--resident", "2"], None, id="extra0-item 4"),
+    pytest.param(["--node-shards", "2"], None, id="extra1-item 4"),
     pytest.param(["--failure-plan", "kill@1", "--migrate-to", "pallas:1:2"],
-                 "item 4b", id="extra2-item 4"),
+                 None, id="extra2-item 4"),
     (["--failure-plan", "kill@1", "--migrate-to", "tpu"],
      "backend jax|pallas"),
     (["--failure-plan", "frob@1"], "--failure-plan"),
@@ -292,5 +293,12 @@ def test_serve_matches_jax_serve_dump_files(tmp_path, capsys):
 def test_serve_refuses_what_the_port_lacks(tmp_path, extra, match):
     feed = tmp_path / "jobs.jsonl"
     _serve_feed(feed, 1)
+    if match is None:
+        base, got = tmp_path / "base", tmp_path / "got"
+        run = ["serve", str(feed), "--robust", "--device", "cpu", "--out"]
+        assert cli.main(run + [str(base)]) == 0
+        assert cli.main(run + [str(got)] + extra) == 0
+        assert _tree(got) == _tree(base) and len(_tree(base)) == 4
+        return
     with pytest.raises(SystemExit, match=match):
         cli.main(["serve", str(feed), "--device", "cpu"] + extra)

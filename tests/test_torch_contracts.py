@@ -2,9 +2,9 @@
 contracts.py`` over ``analysis/ir.py``) on the CPU, mirroring
 ``tests/test_contracts.py``:
 
-* the registry holds the JAX package's 12 points; of the four sharded
-  ones the fast path's node-sharded point is skipped with a note naming
-  ROADMAP queue 1 item 4b, the other three run;
+* the registry holds the JAX package's 12 points, and all four sharded
+  ones run (the three node-sharded points in one group of four gloo
+  ranks);
 * the pin files are present and digest-fresh;
 * the CPU census is clean (the card rules, which read what only the
   card has, are skipped and say so);
@@ -45,8 +45,9 @@ def test_registry_has_the_jax_packages_points():
     assert [c.engine for c in cs] == [c.engine for c in jx_registry()]
     sharded = [c for c in cs if c.engine == "sharded"]
     assert len(sharded) == 4
-    assert [c.name for c in cs if c.measure is None] == [
-        "node-sharded-pallas-a2a"]
+    # every point has its measure (the fast path's node point since its
+    # node axis is ported)
+    assert [c.name for c in cs if c.measure is None] == []
 
 
 def test_rules_carry_the_ports_claims():
@@ -80,14 +81,15 @@ def test_cpu_census_is_clean_and_sharded_points_skip():
     lines = []
     results = contracts.run_contracts(device="cpu", out=lines.append)
     status = {r.contract: r.status for r in results}
-    # the data-sharded point and the general engine's node-sharded
-    # points (four gloo ranks) run on the CPU; the fast path's node axis
-    # is what stays skipped
-    assert sorted(s for s in status.values()) == ["ok"] * 11 + ["skip"]
-    for r in results:
-        if r.status == "skip":
-            assert r.contract == "node-sharded-pallas-a2a"
-            assert "ROADMAP queue 1 item 4b" in r.note
+    # the data-sharded point and the three node-sharded points (four
+    # gloo ranks) run on the CPU: nothing is skipped
+    assert sorted(s for s in status.values()) == ["ok"] * 12
+    assert status["node-sharded-pallas-a2a"] == "ok"
+    obs = contracts.measure_node_sharded_pallas("cpu").values
+    # JAX's traced census (all_to_all 2, psum 2, pmax 3) as what runs:
+    # a cycle, a window's seed with its first gate, a later gate
+    assert (obs["all_to_all"], obs["sum"], obs["max"]) == (2, 1, 1)
+    assert (obs["seed.sum"], obs["seed.max"], obs["gate.max"]) == (1, 1, 1)
     assert any("card rule(s) skipped on cpu" in ln for ln in lines)
 
 
@@ -225,4 +227,4 @@ def test_cli_contracts_on_the_cpu():
         [sys.executable, "-m", "hpa2_tpu_torch.analysis", "contracts",
          "--device", "cpu"], capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "11 contract(s) clean, 0 drifted, 1 skipped" in proc.stdout
+    assert "12 contract(s) clean, 0 drifted, 0 skipped" in proc.stdout

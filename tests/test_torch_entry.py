@@ -262,16 +262,30 @@ def test_refusals_carry_the_jax_cli_message(tmp_path, args):
     assert got.value.code == want.value.code
 
 
-# the data axis and the general engine's node axis are ported: what
-# stays refused is the fast path's node axis (ROADMAP queue 1 item 4b)
+# the data axis and both engines' node axes are ported: the fast path's
+# node axis equals the JAX CLI's (NodeShardedPallasEngine on the virtual
+# devices), the dumps file for file and the bench line key for key
 @pytest.mark.parametrize("args", [
     ["run", "TRACES", "--backend", "pallas", "--node-shards", "2"],
     ["bench", "--backend", "pallas", "--node-shards", "2", "--data-shards",
-     "2", "--batch", "4"],
-    ["bench", "--backend", "pallas", "--node-shards", "2", "--batch", "4"],
+     "2", "--batch", "4", "--nodes", "4", "--instrs", "8"],
+    ["bench", "--backend", "pallas", "--node-shards", "2", "--batch", "4",
+     "--nodes", "4", "--instrs", "8"],
 ])
-def test_sharding_flags_name_the_multi_gpu_item(tmp_path, args):
-    traces = write_traces(tmp_path / "traces", seed=1)
-    args = [str(traces) if a == "TRACES" else a for a in args]
-    with pytest.raises(SystemExit, match="item 4b"):
-        cli.main(args + ["--device", "cpu"])
+def test_sharding_flags_name_the_multi_gpu_item(tmp_path, args, capsys):
+    if args[0] == "run":
+        traces = write_traces(tmp_path / "traces", seed=1)
+        flags = ["--robust", "--backend", "pallas", "--node-shards", "2"]
+        assert jcli.main(["run", str(traces), "--out", str(tmp_path / "want"),
+                          *flags]) == 0
+        assert cli.main(["run", str(traces), "--out", str(tmp_path / "got"),
+                         *flags, "--device", "cpu"]) == 0
+        got = tree(tmp_path / "got")
+        assert got == tree(tmp_path / "want") and len(got) == 4
+        return
+    want = _bench_line(jcli.main, args[1:] + ["--robust"], capsys)
+    got = _bench_line(cli.main, args[1:] + ["--robust", "--device", "cpu"],
+                      capsys)
+    assert set(got) - {"device"} == set(want)
+    for k in set(want) - {"seconds", "ops_per_sec"}:
+        assert got[k] == want[k], k

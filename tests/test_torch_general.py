@@ -207,8 +207,9 @@ def test_engines_default_to_the_card():
 
 @pytest.mark.parametrize("what,match", [
     # the ids are the ones these cases had when they pinned the item-4
-    # refusals; item 4b is what stays refused
-    pytest.param("node-shards", "item 4b", id="node-shards-item 4"),
+    # refusals; the fast path's node axis takes a NodeComm, not the JAX
+    # package's mesh axis name
+    pytest.param("node-shards", "NodeComm", id="node-shards-item 4"),
     ("messages-per-cycle", "messages_per_cycle"),
     ("overloaded-notify", "fixture semantics"),
     ("schedule", "outside"),

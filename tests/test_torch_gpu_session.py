@@ -29,10 +29,10 @@ JAX_STEPS = [
     "nodeshard4096", "nodeshard_x2", "nodeshard_x4",
     "nodeshard_x4_butterfly", "elided_nodeshard",
 ]
-#: the steps on the fast path's node axis (ROADMAP queue 1 item 4b); the
-#: data-parallel ones (sweep512_dp, multichip) are ported
+#: the steps on several cards: the data-parallel ones and the node axis's
+#: (the fast path's and, in elided_nodeshard, the general engine's)
 MULTI_DEVICE = {
-    "nodeshard", "nodeshard_ladder",
+    "sweep512_dp", "multichip", "nodeshard", "nodeshard_ladder",
     "nodeshard_ab", "nodeshard4096", "nodeshard_x2", "nodeshard_x4",
     "nodeshard_x4_butterfly", "elided_nodeshard",
 }
@@ -148,16 +148,17 @@ def test_step_list_is_the_jax_sessions_minus_multi_device():
         assert f'"{name}"' in src or f'"{stem}' in src \
             or f'f"{stem}' in src, name
     ours = ["probe"] + [name for name, *_ in gpu_session.steps()]
-    want = [n.replace("vmemprobe", "smemprobe") for n in JAX_STEPS
-            if n not in MULTI_DEVICE]
+    want = [n.replace("vmemprobe", "smemprobe") for n in JAX_STEPS]
     assert ours == want
+    assert MULTI_DEVICE <= set(ours)
     for name, argv, *_ in gpu_session.steps():
         if argv is not None:
             assert "-m" in argv and all("hpa2_tpu." not in a for a in argv)
     doc = gpu_session.__doc__
     for name in ("sweep512_dp", "multichip", "nodeshard", "elided_nodeshard",
-                 "BENCH_TUNING.json", "item 4b"):
+                 "nodeshard4096", "BENCH_TUNING.json"):
         assert name in doc
+    assert "item 4b" not in doc
 
 
 def _json_out(capsys):

@@ -119,8 +119,13 @@ def test_migration_targets_take_data_shards():
     assert cli._migration_targets("pallas:2,jax:2,pallas") == [
         {"backend": "pallas-sharded", "data_shards": 2},
         {"backend": "jax", "data_shards": 2}, {"backend": "pallas"}]
-    with pytest.raises(SystemExit, match="item 4b"):
-        cli._migration_targets("jax:1:2")
+    # node shards serve on the fast path's node axis, whatever the
+    # backend named (hpa2_tpu/cli.py:696-698)
+    assert cli._migration_targets("jax:1:2,pallas:2:2") == [
+        {"backend": "pallas-node-sharded", "data_shards": 1,
+         "node_shards": 2},
+        {"backend": "pallas-node-sharded", "data_shards": 2,
+         "node_shards": 2}]
 
 
 def test_measure_dp_child(capsys):

@@ -156,14 +156,10 @@ def test_kernel_error_propagates_instead_of_migrating(jobs, tmp_path,
     dict(backend="pallas-sharded", data_shards=2),
 ], ids=["data-shards", "node-shards", "sharded-primary"])
 def test_multi_gpu_targets_refused(jobs, kw):
-    """The fast path's node axis stays refused (ROADMAP queue 1 item
-    4b); data shards are ported: a kill migrates to (or from) them and
-    every job's dumps equal the unfailed run's."""
-    if kw.get("targets", [{}])[0].get("node_shards", 1) > 1:
-        with pytest.raises(ValueError, match="item 4b"):
-            supervised_serve(TCFG, ListJobSource(jobs[1]), device="cpu",
-                             plan=FailurePlan.parse("kill@1"), **kw)
-        return
+    """Data shards and the fast path's node axis are ported: a kill
+    migrates to (or from) them (``pallas-node-sharded`` over two gloo
+    ranks, whose pool the supervisor closes) and every job's dumps equal
+    the unfailed run's."""
     geometry = dict(resident=4, window=8, block=2, max_trace_len=64,
                     interval=8)
     tres, tst = supervised_serve(TCFG, ListJobSource(jobs[1]), device="cpu",

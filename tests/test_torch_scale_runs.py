@@ -11,9 +11,10 @@ small sizes, on the CPU.  Tolerance zero: all state is integer.
   scalars plane, instructions, cycle and occupancy counters;
 * ``multichip`` (the data-parallel ladder) runs on the CPU's logical
   shards bit-exact with one device, configuration 5 over two shards
-  equals one device's run, the fast path's node-axis modes raise naming
-  ROADMAP queue 1 item 4b, and the card's entry points raise without a
-  card."""
+  equals one device's run, the fast path's node-shard ladder and its
+  exchange A/B (``nodeshard``, ``nodeshard_ab``) run over two gloo ranks
+  bit-exact with one device's K2 plain version, and the card's entry
+  points raise without a card."""
 
 import json
 
@@ -122,10 +123,28 @@ def test_multi_device_modes_raise(mode, capsys):
             (s, d) for s in ("weak", "strong") for d in (1, 2, 4)]
         assert all(r["host_syncs"] == 1 for r in rec["rows"])
         return
-    assert scale_runs.main([mode]) == 2
-    err = capsys.readouterr().err
-    assert f"scale_runs: {mode} shards the fast path's node axis" in err
-    assert "ROADMAP queue 1 item 4b" in err
+    if mode == "nodeshard":
+        # the fast path's node axis is ported: one device, then two
+        # ranks, each rung's planes equal to the first's
+        assert scale_runs.main([mode, "--device", "cpu"]) == 0
+        rec = json.loads(capsys.readouterr().out.splitlines()[-1])
+        assert rec["bit_exact_vs_one_card"] and not rec["indicative"]
+        assert [r["node_shards"] for r in rec["shards"]] == [1, 2]
+        two = rec["shards"][1]
+        assert two["collectives_per_cycle"] == dict(
+            two["plan_collectives"], sum=1, max=1, min=0)
+        # one read a k-cycle call, the window's first gate, the status
+        assert two["host_syncs"] == two["calls"] + 2
+        assert two["cross_shard_msgs"] > 0
+        return
+    rec = scale_runs.nodeshard_ab(nodes=8, batch=2, instrs_per_core=4,
+                                  ranks=(2,), reps=1, device="cpu")
+    assert rec["bit_exact_vs_one_card"]
+    row = rec["shards"][0]
+    assert [row[k]["exchange_mode"] for k in (
+        "old_pairwise", "new_a2a", "new_butterfly")] == [
+        "pairwise", "a2a", "butterfly"]
+    assert row["old_pairwise"]["collectives_per_cycle"]["ppermute"] == 2
 
 
 def test_data_shards_raise(capsys):

@@ -178,11 +178,19 @@ def test_admission_policies(cfgs, jobs, one_shot):
 
 def test_unported_backends_raise(cfgs, jobs, one_shot):
     tcfg = cfgs[1]
-    # the fast path's node axis stays refused (ROADMAP queue 1 item 4b);
-    # pallas-sharded is ported and serves the one-shot run's dumps
-    with pytest.raises(ValueError, match="item 4b"):
+    # the fast path's node axis and pallas-sharded are ported and serve
+    # the one-shot run's dumps (node shards: two gloo ranks, one shard is
+    # the unsharded path)
+    with pytest.raises(ValueError, match="unsharded serving path"):
         serve(tcfg, ListJobSource(jobs[1]), backend="pallas-node-sharded",
               device="cpu", **SERVE_KW)
+    res, st = serve(tcfg, ListJobSource(jobs[1]),
+                    backend="pallas-node-sharded", node_shards=2,
+                    device="cpu", **SERVE_KW)
+    assert {r.job_id: dicts(r.dumps) for r in res} == {
+        k: dicts(v) for k, v in one_shot.items()}
+    assert all(r.counters["cross_shard_msgs"] > 0 for r in res)
+    assert set(st.compile_counts.values()) == {1}
     res, _ = serve(tcfg, ListJobSource(jobs[1]), backend="pallas-sharded",
                    data_shards=2, device="cpu",
                    **dict(SERVE_KW, block=2))

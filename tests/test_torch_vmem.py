@@ -94,12 +94,33 @@ def test_plane_bytes_equal_the_jax_models(n):
 
 
 def test_node_shards_name_item_4():
-    with pytest.raises(ValueError, match="queue 1 item 4"):
-        vmem.vmem_budget(_cfg(8), 512, 32, node_shards=2)
+    """One rank of the node-sharded fast path (ported in ROADMAP queue 1
+    item 4b): the per-shard rows of JAX ``vmem.py:144-175`` (node-leading
+    planes split, ``scalars``/``msg_counts`` whole), one card's plane
+    bytes, and no CTA (the cycle there is tensor code); ``analysis vmem
+    --node-shards`` prints the rank's table."""
+    from hpa2_tpu.analysis import vmem as jvmem
+    from hpa2_tpu.config import SystemConfig as JSystemConfig
+
+    for n, d in ((8, 2), (64, 4), (22, 2)):
+        bud = vmem.vmem_budget(_cfg(n), 512, 32, node_shards=d)
+        jb = jvmem.vmem_budget(JSystemConfig(
+            num_procs=n, msg_buffer_size=16, max_instr_num=0), 512, 32,
+            node_shards=d)
+        assert bud.rows == jb.rows and bud.lane_bytes == jb.lane_bytes
+        assert (bud.carried_rows, bud.snap_rows, bud.trace_rows) == (
+            jb.carried_rows, jb.snap_rows, jb.trace_rows)
+        assert bud.smem_bytes == bud.group == bud.ctas_per_sm == 0
+        assert bud.plane_bytes == bud.total_lane_bytes * 512
+    with pytest.raises(ValueError, match="must divide"):
+        vmem.vmem_budget(_cfg(8), 512, 32, node_shards=3)
+    with pytest.raises(ValueError, match="no CTA"):
+        vmem.max_fitting_block(_cfg(8), node_shards=2)
     proc = subprocess.run(
         [sys.executable, "-m", "hpa2_tpu_torch.analysis", "vmem",
          "--node-shards", "2"], capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 2 and "item 4" in proc.stderr
+    assert proc.returncode == 0, proc.stderr
+    assert "one rank of 2" in proc.stdout and "4 nodes a rank" in proc.stdout
 
 
 def test_vmem_cli_on_the_cpu():
