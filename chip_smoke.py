@@ -2,40 +2,46 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only general-scheduled,serve-jax,recovery,entry,analysis,ablate,scale,shard,nodeshard
+    python3 chip_smoke.py --only compare,serve,general-scheduled,serve-jax,recovery,entry,analysis,ablate,scale,shard,nodeshard,nodekern
 
 (the second form, a debugging aid, runs the build and the named phases
-alone and prints no kernels line).  Builds the five CUDA libraries from
+alone and prints no kernels line).  Builds the six CUDA libraries from
 ``hpa2_tpu_torch/csrc`` with nvcc,
 the compilers at once (the streamed run ``stream_run.cu`` and the
 per-call kernel ``call_run.cu``, each for node bounds 8, 21 and 64,
-each again with ``-DHPA2_ABLATE`` as K1's ablation variant, and the
-op-pattern micro-kernels ``micro_kernels.cu``), runs the
+each again with ``-DHPA2_ABLATE`` as K1's ablation variant, the
+op-pattern micro-kernels ``micro_kernels.cu``, and K1's node-sharded
+cycle ``node_cycle.cu``: N1-N4), runs the
 micro-kernels' runner (``hpa2_tpu_torch.scripts.micro_kernels``: its
 ``main()`` at 8,192 lanes and its ``bench`` at 32,768) and holds each
 pattern's kernel bit for bit against its plain version at both sizes,
 holds the fast path's kernels bit for bit against their plain PyTorch
-versions on the card (streamed run: cases a-e at up to 8 nodes, f:
+versions (streamed run: cases a-e at up to 8 nodes, f:
 split sharer planes at 22, 33 and 64 nodes, g: packed planes; per-call
 kernel under its host loop: case h at 4, 8, 22 and 33 nodes, ragged
 windows, gate on and off, packed, and a stall; both kernels: case i, a
 lane block over several CTAs with one CTA idle from the start and
 snapshots on, and case j, a stalled block over two CTAs; case k, lane
 blocks above 1,024 lanes, up to the card's largest at the 8-node
-bound), and drives through ``CudaEngine``:
+bound; every case's plain version but the largest lane block's runs in
+a pool of host worker processes, one core each, while the card works
+through the micro-kernels, the ablation and the scaled configurations,
+as do those of the checked launches of at most 2,048 lanes in later
+phases), and drives through ``CudaEngine``:
 
 * the streamed fast path at the repo's headline width (32,768 systems
   x 8 nodes x 128 instructions per core) and at its 64-node
-  single-chip width (1,024 systems x 64 nodes x 64 instructions,
-  unpacked and packed; ``scripts/scale_runs.py``'s single-device
-  rung); the packed run is held against the unpacked kernel's planes,
+  single-chip width (1,024 systems x 64 nodes, unpacked and packed;
+  ``scripts/scale_runs.py``'s single-device rung, cut from 64
+  instructions a core to 32); the packed run is held against the unpacked kernel's planes,
   which are held against the plain version, so it runs no plain
   version of its own;
 * the per-call path (``stream=False``) at the same two widths, held
   against the streamed run's planes (at 64 nodes against those alone,
   for the same reason);
 * the occupancy scheduler on ``bench.py --trace-len-dist zipf``'s
-  workload at the headline shape: unscheduled, fused, fused with 8,192
+  workload at the headline shape (up to 64 instructions a core where
+  bench.py has 128): unscheduled, fused, fused with 8,192
   resident lanes, the same with host barriers, and with the per-call
   kernel inside; the unscheduled and resident fused runs first in a
   run whose every launch is held against the plain version on its own
@@ -45,15 +51,16 @@ bound), and drives through ``CudaEngine``:
   run;
 * always-on serving (``hpa2_tpu_torch.serving.serve``) at
   ``bench.py``'s accelerator geometry (4,096 resident lanes, window 32,
-  block 512; 8,192 zipf jobs where bench.py's feed has 16,384): a
+  block 512; 8,192 zipf jobs of up to 64 instructions a core where
+  bench.py's feed has 16,384 of up to 128): a
   checked pass whose every launch is held against the plain version,
   then the
   pipelined run, the serial run, a Poisson-arrival run, a framed-wire
   run with two clients and the ``serve`` command, every served job's
   dumps equal to the one-shot scheduled run's;
 * the general engine (``hpa2_tpu_torch.ops.engine``, ``[general]``), at
-  ``bench.py``'s headline configuration: 4,096 systems x 8 nodes x 128
-  instructions, elision on and off, held against K2 on the same arrays
+  ``bench.py``'s headline configuration at 64 instructions a core (where
+  it has 128): 4,096 systems x 8 nodes, elision on and off, held against K2 on the same arrays
   (dumps, snapshots, counters, cycle) and against the CPU on 64
   systems; MOESI, MESIF, ``limited:2``, ``coarse:4``, ``mesh2d`` with
   multicast, ``torus2d`` with combining, ``hierarchical`` and
@@ -112,12 +119,22 @@ bound), and drives through ``CudaEngine``:
   a2a and pairwise, equal to ``TorchEngine``, a cycle's collectives
   equal to the plan's plus one SUM and one MAX; one rank on one card),
 * the fast path's node axis (``[nodeshard]``, :func:`phase_nodeshard`):
-  on two cards or more, ``NodeShardedCudaEngine`` at 64 nodes x 1,024
-  systems x 8 instructions over 4 NCCL ranks and a 2 x 2 grid (2 ranks
-  on two or three cards),
-  each equal to K2 on ``cuda:0``, the CUDA kernels a cycle by
-  ``torch.profiler``, a fused packed zipf run and a served feed through
-  ``NodeShardedLaneSession``; on one card one line saying it needs two,
+  on two cards or more, ``NodeShardedCudaEngine`` (its cycle the node
+  kernels N1-N4) at 64 nodes x 1,024 systems x 8 instructions over 4
+  NCCL ranks and a 2 x 2 grid (2 ranks on two or three cards),
+  each equal to K2 on ``cuda:0``, the first run's first k-cycle call
+  held launch by launch against the tensor cycle, the CUDA kernels a
+  cycle by ``torch.profiler``, a fused packed zipf run and a served feed
+  through ``NodeShardedLaneSession``; on one card one line saying it
+  needs two,
+* K1's node-sharded cycle as its kernels on ONE card (``[nodekern]``,
+  :func:`phase_nodekern`): the node ranks logical (threads of this
+  process meeting through ``parallel/comm.py:LocalComm``), 64 nodes x
+  1,024 systems x 8 instructions over 2 and 4 ranks (a2a, pairwise,
+  butterfly at 4), 12 nodes packed and 22 split over 2, each equal to
+  K2, every N1-N4 launch of each run's first k-cycle call held against
+  its plain version; the CUDA kernels a cycle; each kernel's and plain
+  version's time on a real cycle's inputs,
 * BASELINE.json's scaled configurations (``[scale]``,
   :func:`phase_scale`, through ``hpa2_tpu_torch.scripts.scale_runs``):
   configuration 5 at full size (1,024 systems x 8 nodes x 10,000
@@ -145,7 +162,10 @@ and prints:
 * one ``{"kernels": [...]}`` line: per kernel its launches on its main
   path (the 64-node streamed run; the headline per-call run; the
   micro-kernels' runner; the ablation libraries' ``[ablate]`` runs, whose
-  bound is by bytes alone; the pipelined serving run, K2's cross-checks
+  bound is by bytes alone; N1-N4's ``[nodekern]`` runs, their checked
+  launches, and their bound by the bytes each must move on a kept
+  cycle's inputs: what its body reads for that cycle's data, the plane
+  words it changes and its outputs; the pipelined serving run, K2's cross-checks
   beside the general engine and its served rows, the recovery
   supervisor's primary, K3 as the analysis suite's table prober, and
   K2's ``[scale]`` configuration 5, under ``by_path``; a path held
@@ -214,8 +234,20 @@ MICRO_GRIDS = (32, 128)
 HEADLINE = dict(num_procs=8, msg_buffer_size=16)   # bench.py:50-51, 74-82
 HEADLINE_RUN = dict(block=512, k=128, window=32, gate=True)
 # scripts/scale_runs.py:265-276, the single-device rung of `nodeshard`
+# (its depth cut from 64 instructions a core to 32 for the time limit)
 WIDE = dict(num_procs=64, msg_buffer_size=16, max_instr_num=0)
 WIDE_RUN = dict(block=512, k=64, window=16, gate=True)
+WIDE_INSTRS = 32
+#: worker processes (one thread each) that run plain versions on the
+#: host while the card works (:func:`host_pool`): the compare cases',
+#: and those of checked and kept launches on at most HOST_CHECK_LANES
+#: lanes; a bigger launch runs its plain version on the card, where it
+#: is faster than on one host core
+HOST_WORKERS = 5
+HOST_CHECK_LANES = 2048
+#: the pool, once started; the compare cases whose plain versions are
+#: still running there (:func:`settle_compare`)
+HOST_POOL, PENDING = [], []
 
 
 def card_line() -> str:
@@ -227,8 +259,8 @@ def card_line() -> str:
 
 
 def planes_for(cfg, b, t, seed, snapshots, window, packed=False, idle=0,
-               block=1):
-    """Initial planes and packed traces on the card, from a seed; the
+               block=1, device="cuda"):
+    """Initial planes and packed traces on ``device``, from a seed; the
     first ``idle`` lanes of each ``block`` get empty traces."""
     from hpa2_tpu_torch.convert import state_from_numpy
     from hpa2_tpu_torch.ops.layout import _init_state, _pack_traces
@@ -239,9 +271,77 @@ def planes_for(cfg, b, t, seed, snapshots, window, packed=False, idle=0,
     n_seg = -(-t // window)
     tr = _pack_traces(cfg, op, addr, val, length)
     tr = np.pad(tr, ((0, 0), (0, n_seg * window - t), (0, 0)))
-    state = state_from_numpy(_init_state(cfg, b, snapshots, packed), "cuda")
-    return (state, torch.from_numpy(tr).cuda(),
-            torch.from_numpy(np.ascontiguousarray(length.T)).cuda(), n_seg)
+    state = state_from_numpy(_init_state(cfg, b, snapshots, packed), device)
+    return (state, torch.from_numpy(tr).to(device),
+            torch.from_numpy(np.ascontiguousarray(length.T)).to(device), n_seg)
+
+
+def host_pool():
+    """The script's host workers (spawned at first use; :func:`main`
+    shuts them down)."""
+    if not HOST_POOL:
+        import concurrent.futures
+        import multiprocessing
+
+        HOST_POOL.append(concurrent.futures.ProcessPoolExecutor(
+            max_workers=HOST_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")))
+    return HOST_POOL[0]
+
+
+def host_plain(job):
+    """A plain version on the host, in a worker process.  ``job`` is
+    (kind, config, inputs, kw): ``kind`` "stream" runs
+    ``stream_run_plain``, "call" one ``call_plain``, "windows" the
+    per-call host loop over ``call_plain``; ``inputs`` is ("arrays",
+    planes, tr, tr_len) as numpy arrays, or ("seed", the arguments of
+    :func:`planes_for` after the config) to draw them here.  Returns
+    (planes as numpy arrays, status as a numpy array, an int or None,
+    seconds)."""
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(1)
+    from hpa2_tpu_torch.ops.call_run import call_plain, run_windows
+    from hpa2_tpu_torch.ops.stream_run import stream_run_plain
+
+    kind, config, inputs, kw = job
+    if inputs[0] == "seed":
+        state, tr, tr_len, _ = planes_for(config, *inputs[1:], device="cpu")
+    else:
+        state, tr, tr_len = (
+            {f: torch.from_numpy(v) for f, v in inputs[1].items()},
+            torch.from_numpy(inputs[2]), torch.from_numpy(inputs[3]))
+    t0 = time.perf_counter()
+    if kind == "stream":
+        want, status = stream_run_plain(config, state, tr, tr_len, **kw)
+        status = status.numpy()
+    elif kind == "call":
+        want, status = call_plain(config, state, tr, tr_len, **kw), None
+    else:
+        want = {f: v.clone() for f, v in state.items()}
+        status = int(run_windows(config, want, tr, tr_len, call=plain_call,
+                                 **kw))
+    return ({f: v.numpy() for f, v in want.items()}, status,
+            time.perf_counter() - t0)
+
+
+def submit_plain(kind, config, state, tr, tr_len, kw):
+    """:func:`host_plain` on copies of card tensors, in the pool."""
+    return host_pool().submit(host_plain, (
+        kind, config, ("arrays", {f: host_copy(v).numpy()
+                                  for f, v in state.items()},
+                       host_copy(tr).numpy(), host_copy(tr_len).numpy()),
+        kw))
+
+
+def host_copy(t):
+    """A copy of ``t`` in host memory (a copy even of a host tensor)."""
+    return t.to("cpu", copy=True)
+
+
+def on_device(planes, like):
+    """Numpy planes from a worker as tensors on ``like``'s device."""
+    dev = next(iter(like.values())).device
+    return {f: torch.from_numpy(v).to(dev) for f, v in planes.items()}
 
 
 def cycle_ops(n, system_cycles, messages, instructions):
@@ -318,13 +418,17 @@ def check_diff(label, diff):
 
 
 def kernel_vs_plain(label, cfg, b, t, seed, *, snapshots, block, k, window,
-                    gate, max_calls, stall, reps=1, packed=False, idle=0):
+                    gate, max_calls, stall, reps=1, packed=False, idle=0,
+                    host=False):
     """``reps`` kernel launches and one plain run from the same planes
     (the first ``idle`` lanes of each block without work); every carried
     plane and the stall plane must agree bit for bit, and the stall must
     be as ``stall`` says (True, False, or None for either).  Returns
     (max abs difference, mean kernel ms, plain ms, kernel planes, stall
-    plane)."""
+    plane).  ``host``: the plain version runs in the host pool on the
+    same planes, drawn there from the seed, and :func:`settle_compare`
+    holds the kernel to it later (the difference and plain ms returned
+    here are then 0 and None)."""
     from hpa2_tpu_torch.ops.stream_run import stream_run_plain
 
     state, tr, tr_len, n_seg = planes_for(cfg, b, t, seed, snapshots, window,
@@ -332,25 +436,61 @@ def kernel_vs_plain(label, cfg, b, t, seed, *, snapshots, block, k, window,
     kw = dict(block=block, k=k, window=window, n_seg=n_seg,
               max_calls=max_calls, gate=gate, snapshots=snapshots,
               packed=packed)
+    if host:
+        job = host_pool().submit(host_plain, (
+            "stream", cfg, ("seed", b, t, seed, snapshots, window, packed,
+                            idle, block), kw))
     times, got, status = time_kernel(cfg, state, tr, tr_len, kw, reps)
     ms = sum(times) / reps
     if stall is not None and bool(status.any()) != stall:
         raise AssertionError(
             f"{label}: the kernel {'did not stall' if stall else 'stalled'}")
+    line = (f"[compare] {label}: {b} systems x {cfg.num_procs} nodes x {t} "
+            f"instrs, cache {cfg.cache_size}, mem {cfg.mem_size}, cap "
+            f"{cfg.msg_buffer_size}, block {block}, window {window}, gate "
+            f"{gate}, snapshots {snapshots}, packed {packed}: stalled="
+            f"{int(status.any())} max_abs_err={{err}} kernel {ms:.3f} ms "
+            f"({', '.join(f'{x:.3f}' for x in times)}), plain {{plain}}")
+    if host:
+        PENDING.append(dict(label=label, cfg=cfg, snapshots=snapshots,
+                            packed=packed, got=got, status=status, job=job,
+                            line=line))
+        return 0, ms, None, got, status
     (want, want_status), plain_ms = elapsed_ms(
         lambda: stream_run_plain(cfg, state, tr, tr_len, **kw))
     diff = plane_diff(cfg, snapshots, got, want, packed)
     diff["status"] = int((status.long() - want_status.long()).abs().max())
     err = max(diff.values())
-    stalled = int(status.any())
-    print(f"[compare] {label}: {b} systems x {cfg.num_procs} nodes x {t} "
-          f"instrs, cache {cfg.cache_size}, mem {cfg.mem_size}, cap "
-          f"{cfg.msg_buffer_size}, block {block}, window {window}, gate "
-          f"{gate}, snapshots {snapshots}, packed {packed}: stalled="
-          f"{stalled} max_abs_err={err} kernel {ms:.3f} ms "
-          f"({', '.join(f'{x:.3f}' for x in times)}), plain {plain_ms:.1f} ms")
+    print(line.format(err=err, plain=f"{plain_ms:.1f} ms"))
     check_diff(label, diff)
     return err, ms, plain_ms, got, status
+
+
+def settle_compare():
+    """Hold each pending compare case's kernel run to its plain version
+    from the host pool (waiting for those still running): every carried
+    plane and the stall plane or status word bit for bit.  Returns the
+    largest difference of each kernel's cases."""
+    t0, err = time.perf_counter(), {"stream_run": 0, "call_run": 0}
+    while PENDING:
+        case = PENDING.pop(0)
+        want, want_status, secs = case["job"].result()
+        got, status = case["got"], case["status"]
+        diff = plane_diff(case["cfg"], case["snapshots"], got,
+                          on_device(want, got), case["packed"])
+        if isinstance(status, int):
+            diff["status"] = abs(status - want_status)
+        else:
+            diff["status"] = int((status.long().cpu() - torch.from_numpy(
+                want_status).long()).abs().max())
+        e = max(diff.values())
+        print(case["line"].format(
+            err=e, plain=f"{secs * 1e3:.1f} ms on one host core"))
+        kern = "call_run" if isinstance(status, int) else "stream_run"
+        err[kern] = max(err[kern], check_diff(case["label"], diff))
+    print(f"[compare] the host's plain versions: "
+          f"{time.perf_counter() - t0:.1f} s waited for")
+    return err
 
 
 @contextlib.contextmanager
@@ -360,19 +500,25 @@ def checked_kernels(label):
     each keeps a copy of the planes it is given, launches the kernel as
     usual, runs the plain version on the copy with the same trace
     planes and arguments, and compares every carried plane (and the
-    streamed run's stall plane) bit for bit.  The launches are the
-    code's own, so the launch counts are unchanged; the time is not.
-    Yields the record: checks per kernel, lanes checked with an empty
-    window (idle lanes, ``tr_len`` 0 on every node) and with a window
-    that ends early on some node, and the largest difference."""
+    streamed run's stall plane) bit for bit.  A launch on at most
+    ``HOST_CHECK_LANES`` lanes keeps a host copy of its inputs and of
+    the planes it left, its plain version runs in the host pool, and
+    the comparison waits for the end of the block.  The launches are
+    the code's own, so the launch counts are unchanged; the time is
+    not.  Yields the record: checks per kernel, lanes checked with an
+    empty window (idle lanes, ``tr_len`` 0 on every node) and with a
+    window that ends early on some node, the checks whose plain
+    version ran on the host, the plain versions' seconds, and the
+    largest difference."""
     from hpa2_tpu_torch.ops import kernels
     from hpa2_tpu_torch.ops.call_run import call_plain, window_planes
     from hpa2_tpu_torch.ops.stream_run import stream_run_plain
 
     rec = {"stream_run": 0, "call_run": 0, "idle_lanes": 0,
-           "ragged_lanes": 0, "err": 0, "seconds": 0.0}
+           "ragged_lanes": 0, "host": 0, "err": 0, "seconds": 0.0}
     launch = {"stream_run": kernels.stream_run,
               "call_run": kernels.call_run}
+    pending = []
 
     def coverage(tl, window):
         rec["idle_lanes"] += int((tl == 0).all(0).sum())
@@ -385,14 +531,27 @@ def checked_kernels(label):
         rec["err"] = max(rec["err"], check_diff(f"{label} {name}", diff))
         rec[name] += 1
 
+    def on_host(name, config, before, state, tr, tr_len, kw, status=None):
+        if tr_len.shape[-1] > HOST_CHECK_LANES:
+            return False
+        pending.append((name, config, kw,
+                        {f: host_copy(v) for f, v in state.items()},
+                        None if status is None else host_copy(status),
+                        submit_plain("stream" if name == "stream_run"
+                                     else "call", config, before, tr,
+                                     tr_len, kw)))
+        return True
+
     def stream_run(config, state, tr, tr_len, **kw):
         before = {f: v.clone() for f, v in state.items()}
         status = launch["stream_run"](config, state, tr, tr_len, **kw)
         t0 = time.perf_counter()
-        want, want_status = stream_run_plain(config, before, tr, tr_len,
-                                             **kw)
-        stall = int((status.long() - want_status.long()).abs().max())
-        compare("stream_run", config, kw, state, want, {"stall": stall})
+        if not on_host("stream_run", config, before, state, tr, tr_len, kw,
+                       status):
+            want, want_status = stream_run_plain(config, before, tr, tr_len,
+                                                 **kw)
+            stall = int((status.long() - want_status.long()).abs().max())
+            compare("stream_run", config, kw, state, want, {"stall": stall})
         coverage(tr_len, kw["window"])
         rec["seconds"] += time.perf_counter() - t0
         return status
@@ -401,8 +560,10 @@ def checked_kernels(label):
         before = {f: v.clone() for f, v in state.items()}
         launch["call_run"](config, state, tr, tr_len, seg=seg, **kw)
         t0 = time.perf_counter()
-        want = call_plain(config, before, tr, tr_len, seg=seg, **kw)
-        compare("call_run", config, kw, state, want)
+        if not on_host("call_run", config, before, state, tr, tr_len,
+                       dict(kw, seg=seg)):
+            want = call_plain(config, before, tr, tr_len, seg=seg, **kw)
+            compare("call_run", config, kw, state, want)
         coverage(window_planes(tr, tr_len, seg, kw["window"])[1],
                  kw["window"])
         rec["seconds"] += time.perf_counter() - t0
@@ -413,6 +574,15 @@ def checked_kernels(label):
     finally:
         kernels.stream_run = launch["stream_run"]
         kernels.call_run = launch["call_run"]
+    for name, config, kw, got, status, job in pending:
+        want, want_status, secs = job.result()
+        extra = None
+        if status is not None:
+            extra = {"stall": int((status.long() - torch.from_numpy(
+                want_status).long()).abs().max())}
+        compare(name, config, kw, got, on_device(want, got), extra)
+        rec["host"] += 1
+        rec["seconds"] += secs
 
 
 @contextlib.contextmanager
@@ -465,39 +635,40 @@ def phase_compare():
     cfg = SystemConfig(semantics=robust, **HEADLINE)
     errs.append(kernel_vs_plain("a headline", cfg, 2048, 64, 1,
                                 snapshots=False, max_calls=10_000,
-                                stall=False, **HEADLINE_RUN)[0])
+                                stall=False, host=True,
+                                **HEADLINE_RUN)[0])
     # (b) the `run` command's geometry (4 nodes, cap 256), snapshots on
     cfg = SystemConfig(semantics=robust)
     errs.append(kernel_vs_plain("b run-default", cfg, 256, 32, 2,
                                 snapshots=True, block=256, k=128,
                                 window=32, gate=True, max_calls=10_000,
-                                stall=False)[0])
+                                stall=False, host=True)[0])
     # (c) fixture ("drop") semantics: random traffic livelocks, so the
     # stall bit must agree
     cfg = SystemConfig(msg_buffer_size=16)
     errs.append(kernel_vs_plain("c drop", cfg, 256, 24, 3, snapshots=True,
                                 block=64, k=32, window=24, gate=True,
-                                max_calls=8, stall=True)[0])
+                                max_calls=8, stall=True, host=True)[0])
     # (d) tiny mailboxes: deferred sends and backpressure.  At 8 nodes
     # and 4 slots some random systems deadlock on full mailboxes, so the
     # call budget is short and those blocks report the stall.
     cfg = SystemConfig(num_procs=8, msg_buffer_size=4, semantics=robust)
     errs.append(kernel_vs_plain("d cap4", cfg, 256, 32, 4, snapshots=False,
                                 block=32, k=128, window=32, gate=True,
-                                max_calls=4, stall=None)[0])
+                                max_calls=4, stall=None, host=True)[0])
     # (e) no quiescence gate
     cfg = SystemConfig(semantics=robust, **HEADLINE)
     errs.append(kernel_vs_plain("e gate-off", cfg, 1024, 40, 5,
                                 snapshots=False, block=256, k=128,
                                 window=32, gate=False, max_calls=10_000,
-                                stall=False)[0])
+                                stall=False, host=True)[0])
     # (k) lane blocks above 1,024 at the headline geometry: 2,048 (a
     # cluster of 8 CTAs, the first idle from the start) and the card's
     # largest at the 8-node bound (16 CTAs of 5 rounds)
     errs.append(kernel_vs_plain("k block 2048", cfg, 6144, 32, 6,
                                 snapshots=False, block=2048, k=128,
                                 window=32, gate=True, max_calls=10_000,
-                                stall=False, idle=256)[0])
+                                stall=False, idle=256, host=True)[0])
     most = kernels.MAX_LANE_BLOCK[8]
     errs.append(kernel_vs_plain(f"k block {most}", cfg, most, 8, 7,
                                 snapshots=False, block=most, k=128,
@@ -520,16 +691,19 @@ def phase_wide_compare():
                          msg_buffer_size=16, semantics=robust)
     errs.append(kernel_vs_plain("f 22 nodes", cfg22, 256, 12, 11,
                                 snapshots=True, block=64, k=32, window=12,
-                                gate=True, max_calls=10_000, stall=False)[0])
+                                gate=True, max_calls=10_000, stall=False,
+                                host=True)[0])
     cfg33 = SystemConfig(num_procs=33, cache_size=4, mem_size=8,
                          msg_buffer_size=32, semantics=robust)
     errs.append(kernel_vs_plain("f 33 nodes", cfg33, 256, 20, 12,
                                 snapshots=False, block=128, k=64, window=10,
-                                gate=True, max_calls=10_000, stall=False)[0])
+                                gate=True, max_calls=10_000, stall=False,
+                                host=True)[0])
     cfg64 = SystemConfig(semantics=robust, **WIDE)
     errs.append(kernel_vs_plain("f 64 nodes", cfg64, 512, 8, 13,
                                 snapshots=False, block=256, k=64, window=8,
-                                gate=True, max_calls=10_000, stall=False)[0])
+                                gate=True, max_calls=10_000, stall=False,
+                                host=True)[0])
 
     def packed_vs_unpacked(label, cfg, b, t, seed, snapshots, kw, packed_got):
         state, tr, tr_len, n_seg = planes_for(cfg, b, t, seed, snapshots,
@@ -556,7 +730,7 @@ def phase_wide_compare():
     kw22 = dict(block=64, k=32, window=12, gate=True)
     err, _, _, got, _ = kernel_vs_plain(
         "g packed 22 nodes", cfg22, 256, 12, 14, snapshots=True,
-        max_calls=10_000, stall=False, packed=True, **kw22)
+        max_calls=10_000, stall=False, packed=True, host=True, **kw22)
     errs.append(err)
     errs.append(packed_vs_unpacked("g packed 22 nodes", cfg22, 256, 12, 14,
                                    True, kw22, got))
@@ -723,13 +897,15 @@ def per_call_kernel(cfg, state, tr, tr_len, kw):
 
 def per_call_vs_plain(label, cfg, b, t, seed, *, snapshots, block, k,
                       window, gate, max_calls, stall, packed=False, idle=0,
-                      plain=True):
+                      plain=True, host=False):
     """The per-call kernel under its host loop and the same loop over the
     plain version, from the same planes (the first ``idle`` lanes of
     each block without work); every carried plane and the status word
     must agree, and the stall must be as ``stall`` says (True, False, or
     None for either).  ``plain=False`` runs the kernel alone (its
-    caller holds the planes against planes already checked)."""
+    caller holds the planes against planes already checked); ``host``
+    runs the plain loop in the host pool, as :func:`kernel_vs_plain`
+    does."""
     from hpa2_tpu_torch.ops.call_run import run_windows
 
     state, tr, tr_len, n_seg = planes_for(cfg, b, t, seed, snapshots, window,
@@ -737,6 +913,10 @@ def per_call_vs_plain(label, cfg, b, t, seed, *, snapshots, block, k,
     kw = dict(block=block, k=k, window=window, n_seg=n_seg,
               max_calls=max_calls, gate=gate, snapshots=snapshots,
               packed=packed)
+    if host and plain:
+        job = host_pool().submit(host_plain, (
+            "windows", cfg, ("seed", b, t, seed, snapshots, window, packed,
+                             idle, block), kw))
     times, got, status, reads = per_call_kernel(cfg, state, tr, tr_len, kw)
     if stall is not None and bool(status & 1) != stall:
         raise AssertionError(
@@ -750,22 +930,30 @@ def per_call_vs_plain(label, cfg, b, t, seed, *, snapshots, block, k,
         return dict(err=0, ms=sum(times), plain_ms=None,
                     launches=len(times), state=got, status=status,
                     reads=reads)
+    line = (f"[compare] {label}: {b} systems x {cfg.num_procs} nodes x {t} "
+            f"instrs, cache {cfg.cache_size}, mem {cfg.mem_size}, cap "
+            f"{cfg.msg_buffer_size}, block {block}, window {window}, k {k}, "
+            f"gate {gate}, snapshots {snapshots}, packed {packed}: status "
+            f"{status}, {len(times)} launches, {reads} host reads, "
+            f"max_abs_err={{err}} kernel {sum(times):.3f} ms summed over "
+            "launches, plain {plain}")
+    out = dict(err=0, ms=sum(times), plain_ms=None, launches=len(times),
+               state=got, status=status, reads=reads)
+    if host:
+        PENDING.append(dict(label=label, cfg=cfg, snapshots=snapshots,
+                            packed=packed, got=got, status=status, job=job,
+                            line=line))
+        return out
     want = {f: v.clone() for f, v in state.items()}
     want_status, plain_ms = elapsed_ms(lambda: int(run_windows(
         cfg, want, tr, tr_len, call=plain_call, **kw)))
     diff = plane_diff(cfg, snapshots, got, want, packed)
     diff["status"] = abs(status - want_status)
     err = max(diff.values())
-    print(f"[compare] {label}: {b} systems x {cfg.num_procs} nodes x {t} "
-          f"instrs, cache {cfg.cache_size}, mem {cfg.mem_size}, cap "
-          f"{cfg.msg_buffer_size}, block {block}, window {window}, k {k}, "
-          f"gate {gate}, snapshots {snapshots}, packed {packed}: status "
-          f"{status}, {len(times)} launches, {reads} host reads, "
-          f"max_abs_err={err} kernel {sum(times):.3f} ms summed over "
-          f"launches, plain {plain_ms:.1f} ms")
+    print(line.format(err=err, plain=f"{plain_ms:.1f} ms"))
     check_diff(label, diff)
-    return dict(err=err, ms=sum(times), plain_ms=plain_ms,
-                launches=len(times), state=got, status=status, reads=reads)
+    out.update(err=err, plain_ms=plain_ms)
+    return out
 
 
 def phase_call_compare():
@@ -779,36 +967,39 @@ def phase_call_compare():
         errs.append(per_call_vs_plain(
             f"h 4 nodes gate {gate}", cfg4, 256, 32, 21, snapshots=True,
             block=64, k=32, window=32, gate=gate, max_calls=10_000,
-            stall=False)["err"])
+            stall=False, host=True)["err"])
     cfg8 = SystemConfig(semantics=robust, **HEADLINE)
     for w, t, gate in ((7, 20, False), (8, 40, True), (1, 6, True)):
         errs.append(per_call_vs_plain(
             f"h 8 nodes window {w}/{t}", cfg8, 1024, t, 22 + w,
             snapshots=False, block=256, k=32, window=w, gate=gate,
-            max_calls=10_000, stall=False)["err"])
+            max_calls=10_000, stall=False, host=True)["err"])
     cfg22 = SystemConfig(num_procs=22, cache_size=2, mem_size=4,
                          msg_buffer_size=16, semantics=robust)
     errs.append(per_call_vs_plain(
         "h 22 nodes", cfg22, 256, 12, 23, snapshots=True, block=64, k=32,
-        window=12, gate=True, max_calls=10_000, stall=False)["err"])
+        window=12, gate=True, max_calls=10_000, stall=False,
+        host=True)["err"])
     cfg33 = SystemConfig(num_procs=33, cache_size=4, mem_size=8,
                          msg_buffer_size=32, semantics=robust)
     errs.append(per_call_vs_plain(
         "h 33 nodes", cfg33, 256, 12, 24, snapshots=False, block=128, k=64,
-        window=6, gate=False, max_calls=10_000, stall=False)["err"])
+        window=6, gate=False, max_calls=10_000, stall=False,
+        host=True)["err"])
     errs.append(per_call_vs_plain(
         "h packed 8 nodes", cfg8, 2048, 40, 25, snapshots=False,
-        max_calls=10_000, stall=False, packed=True, **HEADLINE_RUN)["err"])
+        max_calls=10_000, stall=False, packed=True, host=True,
+        **HEADLINE_RUN)["err"])
     errs.append(per_call_vs_plain(
         "h packed 22 nodes", cfg22, 256, 12, 26, snapshots=True, block=64,
         k=32, window=12, gate=True, max_calls=10_000, stall=False,
-        packed=True)["err"])
+        packed=True, host=True)["err"])
     # 8 nodes, 4 mailbox slots: some systems deadlock, so the budget is
     # short and the stall status must agree
     cfg_cap4 = SystemConfig(num_procs=8, msg_buffer_size=4, semantics=robust)
     errs.append(per_call_vs_plain(
         "h cap4", cfg_cap4, 256, 32, 4, snapshots=False, block=32, k=128,
-        window=32, gate=True, max_calls=4, stall=None)["err"])
+        window=32, gate=True, max_calls=4, stall=None, host=True)["err"])
     return max(errs)
 
 
@@ -840,7 +1031,7 @@ def phase_team_compare():
         err, _, _, got, _ = kernel_vs_plain(
             f"{label} ({cl} CTAs a block)", cfg, 2048, 20, 31,
             snapshots=True, block=block, k=32, window=12, gate=True,
-            max_calls=10_000, stall=False, idle=per_cta)
+            max_calls=10_000, stall=False, idle=per_cta, host=True)
         idle = got["snap_taken"].reshape(cfg.num_procs, -1, block)
         if not bool(idle[:, :, :per_cta].all()):
             raise AssertionError(f"{label}: idle systems took no snapshot")
@@ -849,16 +1040,17 @@ def phase_team_compare():
     errs.append(per_call_vs_plain(
         f"i idle CTA per-call 8 nodes ({cl} CTAs a block)", cfg8, 2048, 30,
         32, snapshots=True, block=512, k=32, window=12, gate=True,
-        max_calls=10_000, stall=False, idle=per_cta)["err"])
+        max_calls=10_000, stall=False, idle=per_cta,
+        host=True)["err"])
     cl, per_cta = geometry(cap4, 512)
     errs.append(kernel_vs_plain(
         f"j stalled {cl} CTAs a block", cap4, 1024, 32, 33, snapshots=False,
         block=512, k=16, window=32, gate=True, max_calls=2, stall=True,
-        idle=per_cta)[0])
+        idle=per_cta, host=True)[0])
     errs.append(per_call_vs_plain(
         f"j stalled per-call {cl} CTAs a block", cap4, 1024, 32, 34,
         snapshots=True, block=512, k=16, window=32, gate=True, max_calls=2,
-        stall=True, idle=per_cta)["err"])
+        stall=True, idle=per_cta, host=True)["err"])
     return max(errs)
 
 
@@ -954,7 +1146,9 @@ def drive_per_call_path(label, cfg, b, t, run, ref, packed=False,
 
 
 #: bench.py --trace-len-dist zipf at its defaults, at the headline shape
-ZIPF_BATCH, ZIPF_INSTRS, ZIPF_SPREAD, ZIPF_RESIDENT = 32768, 128, 8.0, 8192
+#: but up to 64 instructions a core where it has 128 (a cut of depth, for
+#: time)
+ZIPF_BATCH, ZIPF_INSTRS, ZIPF_SPREAD, ZIPF_RESIDENT = 32768, 64, 8.0, 8192
 #: the scheduled runs whose launches are each held against the plain
 #: version: the unscheduled reference, and the resident runs with the
 #: streamed and the per-call kernel inside (the other two must equal
@@ -1231,11 +1425,12 @@ def phase_session():
 #: the serving geometry ``bench.py`` uses on an accelerator
 #: (``_serve_knobs`` at bench.py:538-556, ``serve_child_main`` at
 #: :559-690, on ``_bench_config()``): zipf-length jobs (spread 4, seed 0)
-#: of up to 128 instructions a core through 4,096 resident lanes; 8,192
-#: jobs where bench.py's feed has 16,384 (a cut of depth, for time)
+#: through 4,096 resident lanes; cut in depth for time: 8,192 jobs where
+#: bench.py's feed has 16,384, and of up to 64 instructions a core where
+#: it has 128
 SERVE = dict(resident=4096, window=32, block=512, policy="fcfs",
              backend="pallas")
-SERVE_JOBS, SERVE_INSTRS = 8192, 128
+SERVE_JOBS, SERVE_INSTRS = 8192, 64
 
 
 def serve_line(label, st, card, extra=""):
@@ -1286,7 +1481,7 @@ def phase_serve(card):
 
     # 1. the checked pass, at the main path's geometry (SERVE) on twice
     # the resident lanes' worth of jobs; spread 5 makes lengths multiples
-    # of 26, so windows of 32 end early, and the feed's tail leaves lanes
+    # of 13, so windows of 32 end early, and the feed's tail leaves lanes
     # idle
     checked_jobs = 2 * SERVE["resident"]
     with checked_kernels("serve") as chk:
@@ -1508,6 +1703,10 @@ def phase_serve(card):
 #: core, seed 0
 GENERAL = dict(num_procs=8, msg_buffer_size=16)
 GENERAL_INSTRS = 128
+#: the depth of ``[general]``'s runs: 64 instructions a core where
+#: bench.py has 128 (a cut for time; the scheduled, serving and
+#: recovery phases keep GENERAL_INSTRS)
+GENERAL_RUN_INSTRS = 64
 GENERAL_SYSTEMS = 4096
 #: part (b): each variant at 1,024 systems, 32 of them also on the CPU
 VARIANT_SYSTEMS, VARIANT_CPU = 1024, 32
@@ -1760,7 +1959,7 @@ def phase_general(card):
     import concurrent.futures
     import multiprocessing
 
-    t_full = GENERAL_INSTRS
+    t_full = GENERAL_RUN_INSTRS
     jobs = {}
     pool = concurrent.futures.ProcessPoolExecutor(
         max_workers=4, mp_context=multiprocessing.get_context("spawn"))
@@ -1797,7 +1996,7 @@ def _phase_general_card(card, jobs):
         label = f"headline elision {'on' if elide else 'off'}"
         cfg = general_config(elide=elide)
         arrays = gen_uniform_random_arrays(cfg, GENERAL_SYSTEMS,
-                                           GENERAL_INSTRS, seed=0)
+                                           GENERAL_RUN_INSTRS, seed=0)
         got, rec = run_general(label, cfg, arrays, card)
         heads[elide] = (got, rec)
         e, k2_ms, n = k2_cross_check(label, cfg, arrays, got, block=512)
@@ -1840,7 +2039,7 @@ def _phase_general_card(card, jobs):
     for v in GENERAL_VARIANTS:
         cfg = general_config(v)
         arrays = gen_uniform_random_arrays(cfg, VARIANT_SYSTEMS,
-                                           GENERAL_INSTRS, seed=0)
+                                           GENERAL_RUN_INSTRS, seed=0)
         got, rec = run_general(v, cfg, arrays, card)
         sub = [a[:VARIANT_CPU] for a in arrays]
         mine, _ = run_general(f"{v}, first {VARIANT_CPU}", cfg, sub, card)
@@ -1926,12 +2125,13 @@ def _phase_general_card(card, jobs):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["bench", "--backend", "jax", "--batch",
-                       str(VARIANT_SYSTEMS), "--instrs", str(GENERAL_INSTRS),
+                       str(VARIANT_SYSTEMS), "--instrs",
+                       str(GENERAL_RUN_INSTRS),
                        "--nodes", "8", "--msg-buffer-size", "16", "--robust",
                        "--device", "cuda"])
     rec = json.loads(buf.getvalue().strip().splitlines()[-1])
     if rc != 0 or rec["backend"] != "jax" or rec["device"] != "cuda" \
-            or rec["instrs"] != VARIANT_SYSTEMS * 8 * GENERAL_INSTRS:
+            or rec["instrs"] != VARIANT_SYSTEMS * 8 * GENERAL_RUN_INSTRS:
         raise AssertionError(f"bench --backend jax on the card: {rec}")
     print(f"[run] --backend jax {' '.join(flags)}: 4 dumps byte-identical "
           f"between the card and the CPU; [bench] --backend jax --batch "
@@ -1952,8 +2152,8 @@ def gated_step_kernels(cfg, head):
     from hpa2_tpu_torch.ops.state import init_state_batched
     from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
 
-    arrays = gen_uniform_random_arrays(cfg, GENERAL_SYSTEMS, GENERAL_INSTRS,
-                                       seed=0)
+    arrays = gen_uniform_random_arrays(cfg, GENERAL_SYSTEMS,
+                                       GENERAL_RUN_INSTRS, seed=0)
     st = init_state_batched(cfg, *arrays, device="cuda")
     run = head["run"]
     run.advance_chunk(st, 1)
@@ -2297,7 +2497,52 @@ def phase_recovery(card):
     --checkpoint-every`` must finish, clear its directory and resume a
     mid checkpoint to the straight run's counts; and the ``serve``
     commands with ``--backend jax`` and with ``--failure-plan
-    kill@3 --checkpoint-dir`` must write the reference's dump files."""
+    kill@3 --checkpoint-dir`` (run in processes of their own while this
+    one works) must write the reference's dump files."""
+    from hpa2_tpu_torch.serving import job_to_record, synthetic_jobs
+
+    cfg = general_config()
+    jobs = synthetic_jobs(cfg, SERVE_JAX_JOBS, GENERAL_INSTRS, seed=0,
+                          dist="zipf", spread=4.0)[:RECOVERY_JOBS]
+    work = ROOT / "hpa2_tpu_torch" / "build" / "smoke_recovery"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    # the serve commands on 64 of the jobs run in processes of their
+    # own while this one works; their dumps are checked at the end
+    feed = work / "jobs.jsonl"
+    feed.write_text("".join(json.dumps(job_to_record(j)) + "\n"
+                            for j in jobs[:64]))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+    common = ["--nodes", "8", "--msg-buffer-size", "16", "--robust",
+              "--resident", "64", "--max-instr", str(GENERAL_INSTRS),
+              "--immediate", "--device", "cuda"]
+    commands = {}
+    try:
+        for name, flags in (
+                ("jax", ["--backend", "jax", "--interval", "256"]),
+                ("kill", ["--failure-plan", "kill@3", "--checkpoint-dir",
+                          str(work / "cli_ck"), "--window", "32",
+                          "--block", "64"])):
+            logs = [open(work / f"cli_{name}.{x}", "w+")
+                    for x in ("out", "err")]
+            commands[name] = (flags, logs, subprocess.Popen(
+                [sys.executable, "-m", "hpa2_tpu_torch", "serve", str(feed)]
+                + common + flags + ["--out", str(work / f"cli_{name}")],
+                stdout=logs[0], stderr=logs[1], text=True, env=env,
+                cwd=str(work)))
+        return _phase_recovery(card, cfg, jobs, work, commands)
+    finally:
+        for _, logs, proc in commands.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for f in logs:
+                f.close()
+
+
+def _phase_recovery(card, cfg, jobs, work, commands):
     import tempfile
 
     from hpa2_tpu_torch import cli
@@ -2306,20 +2551,11 @@ def phase_recovery(card):
     from hpa2_tpu_torch.ops.engine import BatchLaneSession
     from hpa2_tpu_torch.ops.state import init_state_batched
     from hpa2_tpu_torch.ops.step import build_batched_run_chunk
-    from hpa2_tpu_torch.serving import (
-        ListJobSource, job_to_record, serve, supervised_serve,
-        synthetic_jobs,
-    )
+    from hpa2_tpu_torch.serving import ListJobSource, serve, supervised_serve
     from hpa2_tpu_torch.utils.checkpoint import load_state, save_state
     from hpa2_tpu_torch.utils.dump import format_processor_state
     from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
 
-    cfg = general_config()
-    jobs = synthetic_jobs(cfg, SERVE_JAX_JOBS, GENERAL_INSTRS, seed=0,
-                          dist="zipf", spread=4.0)[:RECOVERY_JOBS]
-    work = ROOT / "hpa2_tpu_torch" / "build" / "smoke_recovery"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
     base, bst = serve(cfg, ListJobSource(jobs), **RECOVERY_PALLAS)
     want = served_map(base, cycles=False)
     stats_line("recovery", "unfailed fast path", bst, card)
@@ -2439,31 +2675,18 @@ def phase_recovery(card):
           f"retired + {resumed['instrs']} = the straight run's "
           f"{straight['instrs']}")
 
-    # the serve commands on 64 of the jobs
-    feed = work / "jobs.jsonl"
-    feed.write_text("".join(json.dumps(job_to_record(j)) + "\n"
-                            for j in jobs[:64]))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
-    common = ["--nodes", "8", "--msg-buffer-size", "16", "--robust",
-              "--resident", "64", "--max-instr", str(GENERAL_INSTRS),
-              "--immediate", "--device", "cuda"]
-    for name, flags, ref in (
-            ("jax", ["--backend", "jax", "--interval", "256"], jwant),
-            ("kill", ["--failure-plan", "kill@3", "--checkpoint-dir",
-                      str(work / "cli_ck"), "--window", "32", "--block",
-                      "64"], want)):
+    # the serve commands on 64 of the jobs, started with the phase
+    for name, ref in (("jax", jwant), ("kill", want)):
+        flags, logs, proc = commands[name]
         out = work / f"cli_{name}"
-        proc = subprocess.run(
-            [sys.executable, "-m", "hpa2_tpu_torch", "serve", str(feed)]
-            + common + flags + ["--out", str(out)],
-            capture_output=True, text=True, env=env, timeout=600,
-            cwd=str(work))
+        proc.wait(timeout=600)
+        for f in logs:
+            f.seek(0)
+        stdout, stderr = (f.read() for f in logs)
         if proc.returncode != 0:
             raise AssertionError(f"serve command ({name}) exited "
-                                 f"{proc.returncode}:\n{proc.stderr[-3000:]}")
-        stats = json.loads(proc.stdout.strip().splitlines()[-1])
+                                 f"{proc.returncode}:\n{stderr[-3000:]}")
+        stats = json.loads(stdout.strip().splitlines()[-1])
         if name == "kill" and stats["occupancy"].get("recovery", {}).get(
                 "failures_detected") != 1:
             raise AssertionError(f"serve command ({name}): the kill did not "
@@ -2621,30 +2844,57 @@ def check_kept(label, kept, checked=None):
     for bit (a harness's warm-up and timed runs share one plain run).
     ``checked`` (the planes of a launch already held against the plain
     version on the same inputs) stands in for the plain run: the planes
-    must be digest-equal to it, and the run must not have stalled.
-    Returns (launches, plain runs, max abs difference, plain ms)."""
+    must be digest-equal to it, and the run must not have stalled.  A
+    plain run on at most ``HOST_CHECK_LANES`` lanes goes to the host
+    pool, with host copies of the planes each launch left.  Returns a
+    function that waits for those and returns (launches, plain runs,
+    max abs difference, plain ms)."""
     from hpa2_tpu_torch.ops.stream_run import stream_run_plain
 
-    refs, err, plain_ms = [], 0, 0.0
+    refs, plain_ms = [], 0.0
     for rec in kept:
         ref = next((r for r in refs if _same_inputs(r[0], rec)), None)
         if ref is None and checked is not None:
-            ref = (rec, checked, torch.zeros_like(rec["status"]))
+            ref = [rec, checked, torch.zeros_like(rec["status"])]
         if ref is None:
-            before = {f: v.clone() for f, v in rec["before"].items()}
-            (want, want_status), ms = elapsed_ms(lambda: stream_run_plain(
-                rec["config"], before, rec["tr"], rec["tr_len"],
-                **rec["kw"]))
-            plain_ms += ms
-            ref = (rec, want, want_status)
+            if rec["tr_len"].shape[-1] <= HOST_CHECK_LANES:
+                ref = [rec, submit_plain("stream", rec["config"],
+                                         rec["before"], rec["tr"],
+                                         rec["tr_len"], rec["kw"]), None]
+            else:
+                before = {f: v.clone() for f, v in rec["before"].items()}
+                (want, want_status), ms = elapsed_ms(
+                    lambda: stream_run_plain(rec["config"], before,
+                                             rec["tr"], rec["tr_len"],
+                                             **rec["kw"]))
+                plain_ms += ms
+                ref = [rec, want, want_status]
             refs.append(ref)
-        diff = plane_diff(rec["config"], rec["kw"]["snapshots"],
-                          rec["after"], ref[1],
-                          rec["kw"].get("packed", False))
-        diff["stall"] = int((rec["status"].long()
-                             - ref[2].long()).abs().max())
-        err = max(err, check_diff(label, diff))
-    return len(kept), len(refs), err, plain_ms
+        rec["ref"] = ref
+        if ref[2] is None:  # compared on the host, after the plain run
+            rec["after"] = {f: host_copy(v)
+                            for f, v in rec["after"].items()}
+            rec["status"] = host_copy(rec["status"])
+
+    def finish():
+        nonlocal plain_ms
+        for ref in refs:
+            if ref[2] is None:
+                want, status, secs = ref[1].result()
+                plain_ms += secs * 1e3
+                ref[1:] = [{f: torch.from_numpy(v) for f, v in want.items()},
+                           torch.from_numpy(status)]
+        err = 0
+        for rec in kept:
+            ref = rec.pop("ref")
+            diff = plane_diff(rec["config"], rec["kw"]["snapshots"],
+                              rec["after"], ref[1],
+                              rec["kw"].get("packed", False))
+            diff["stall"] = int((rec["status"].long()
+                                 - ref[2].long()).abs().max())
+            err = max(err, check_diff(label, diff))
+        return len(kept), len(refs), err, plain_ms
+    return finish
 
 
 def _zero_launches():
@@ -2668,20 +2918,33 @@ def _k2_launches(label):
 
 
 def _entry_path(paths, name, launches, kept, checked=None, **extra):
-    n, plain_runs, err, plain_ms = check_kept(f"entry {name}", kept,
-                                              checked)
-    if n != launches:
+    """Record an entry point's path in ``paths`` and start holding its
+    kept launches against the plain version; :func:`_settle_entry`
+    finishes the check."""
+    if len(kept) != launches:
         raise AssertionError(
-            f"entry {name}: {n} launches kept of {launches}")
-    paths[name] = dict(launches=launches, checked_launches=n,
-                       plain_runs=plain_runs, max_abs_err=err,
-                       plain_ms=plain_ms, **extra)
-    how = (f"{plain_runs} plain runs, {plain_ms:.1f} ms" if plain_runs
-           else "digest-equal to [headline]'s checked launch on the same "
-           "arrays")
-    print(f"[entry] {name}: {launches} K2 launches, each held against the "
-          f"plain version ({how}): max_abs_err={err}")
+            f"entry {name}: {len(kept)} launches kept of {launches}")
+    paths[name] = dict(launches=launches, **extra)
+    ENTRY_CHECKS.append((name, check_kept(f"entry {name}", kept, checked)))
     return paths[name]
+
+
+def _settle_entry(paths):
+    """Finish the checks :func:`_entry_path` started, in their order."""
+    while ENTRY_CHECKS:
+        name, finish = ENTRY_CHECKS.pop(0)
+        n, plain_runs, err, plain_ms = finish()
+        paths[name].update(checked_launches=n, plain_runs=plain_runs,
+                           max_abs_err=err, plain_ms=plain_ms)
+        how = (f"{plain_runs} plain runs, {plain_ms:.1f} ms" if plain_runs
+               else "digest-equal to [headline]'s checked launch on the "
+               "same arrays")
+        print(f"[entry] {name}: {paths[name]['launches']} K2 launches, each "
+              f"held against the plain version ({how}): max_abs_err={err}")
+
+
+#: the entry points' checks still running (:func:`_settle_entry`)
+ENTRY_CHECKS = []
 
 
 def _quiet(fn, *args):
@@ -2718,9 +2981,10 @@ def phase_entry(card, headline=None):
     4. ``run --backend spec`` and ``omp`` equal to ``pallas`` on the
        card, and a ``--crash-at`` / ``--resume`` pair equal to the
        straight run;
-    5. ``--topology`` and ``--protocol`` at the JAX bench's sizes
-       (``spec_jax_agree_all``), ``--serve`` and ``--failover`` at
-       2,048 jobs through 1,024 lanes.
+    5. ``--topology`` at the JAX bench's sizes and ``--protocol`` on 2
+       systems a row where they have 4 (``spec_jax_agree_all``),
+       ``--serve`` and ``--failover`` at 2,048 jobs through 1,024
+       lanes.
     Returns the per-path records for K2's ``by_path``."""
     import dataclasses
 
@@ -2880,11 +3144,18 @@ def phase_entry(card, headline=None):
           "dumps); spec --crash-at 20 then --resume equal to the straight "
           "run")
 
-    # 5. the model and serving studies
-    for name, fn in (("topology", bench.topo_main),
-                     ("protocol", bench.protocol_main)):
+    # 5. the model and serving studies (--protocol on 2 systems a row
+    # where the harness has 4: a cut for time)
+    for name, fn, env in (("topology", bench.topo_main, {}),
+                          ("protocol", bench.protocol_main,
+                           {"HPA2_PROTO_BATCH": "2"})):
         t0 = time.perf_counter()
-        srec = fn("cuda")
+        os.environ.update(env)
+        try:
+            srec = fn("cuda")
+        finally:
+            for k in env:
+                del os.environ[k]
         if not srec["spec_jax_agree_all"] or srec["platform"] != "gpu":
             raise AssertionError(f"bench --{name}: {srec}")
         print(f"[entry] bench --{name}: {srec['metric']} {srec['value']} "
@@ -2910,6 +3181,7 @@ def phase_entry(card, headline=None):
                   + json.dumps(srec))
     finally:
         del os.environ["HPA2_SERVE_JOBS"], os.environ["HPA2_SERVE_RESIDENT"]
+    _settle_entry(paths)
     return paths
 
 
@@ -3668,73 +3940,6 @@ NODESHARD_SERVE = (16, 256, 128)     # nodes, jobs, resident lanes
 NODESHARD_PROFILE_K = 4
 
 
-def _nodeshard_profile_rank(job):
-    """Rank side of the profile: one warm k-cycle call on this rank's
-    block, then one profiled, counting the CUDA kernels a cycle (the
-    window's seed and gates included)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from hpa2_tpu_torch.ops.cycle import TRANSIENTS
-    from hpa2_tpu_torch.ops.layout import _init_state
-    from hpa2_tpu_torch.parallel.comm import world_comm
-    from hpa2_tpu_torch.parallel.sharding import NodeInterval, _node_local
-
-    cfg, k = job["config"], job["k"]
-    comm, _ = world_comm(job["mesh"].node)
-    dev = torch.device("cuda", torch.cuda.current_device())
-    eng = job["engine"]
-    nl = cfg.num_procs // comm.size
-    node = slice(comm.rank * nl, (comm.rank + 1) * nl)
-    tr = eng._tr_full[node][:, :eng._window].contiguous().to(dev)
-    tl = eng._tr_len_full[node].clamp(max=eng._window).contiguous().to(dev)
-    planes = _node_local(_init_state(cfg, tr.shape[-1], False), comm.rank,
-                         nl, slice(None), dev)
-    trans = {f: torch.zeros((1, tr.shape[-1]), dtype=torch.int32,
-                            device=dev) for f in TRANSIENTS}
-    prog = NodeInterval(cfg, comm, False, eng._window, k, 1)
-    prog(planes, trans, tr, tl)                       # warm: one call
-    prog = NodeInterval(cfg, comm, False, eng._window, k, 1)
-    fresh = _node_local(_init_state(cfg, tr.shape[-1], False), comm.rank,
-                        nl, slice(None), dev)
-    trans = {f: torch.zeros_like(v) for f, v in trans.items()}
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        prog(fresh, trans, tr, tl)
-        torch.cuda.synchronize()
-    events = prof.events()
-    kernels_run = [e for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-    nccl = sum(1 for e in kernels_run if "nccl" in e.name.lower())
-    # the launch calls the host made, should CUPTI record no kernel
-    launch_calls = sum(1 for e in events if e.name in (
-        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-        "cuLaunchKernelEx"))
-    return dict(planes={}, status=0, cycles=prog.cycles,
-                launches=len(kernels_run), nccl=nccl,
-                launch_calls=launch_calls)
-
-
-class _NodeshardProfile:
-    """A job for ``run_node_sharded``'s spawn: the CUDA kernels a cycle
-    of the node-sharded fast path, by ``torch.profiler`` on each rank."""
-
-    def __init__(self, engine, mesh):
-        self.engine, self.mesh = engine, mesh
-        self.rows = []
-
-    def _job(self):
-        return dict(rank_fn=_nodeshard_profile_rank, engine=self.engine,
-                    mesh=self.mesh, config=self.engine.config,
-                    k=NODESHARD_PROFILE_K)
-
-    def _gather(self, blocks):
-        self.rows = blocks
-
-    def _check(self):
-        pass
-
-
 def phase_nodeshard():
     """``[nodeshard]``: the fast path's node axis
     (``NodeShardedCudaEngine``, ``NodeShardedLaneSession``) over NCCL
@@ -3743,9 +3948,12 @@ def phase_nodeshard():
     64 nodes x 1,024 systems x 8 instructions (block 512, window 16, k
     64, snapshots off) over 4 ranks (a2a and pairwise) and a 2 x 2
     data x node grid on four cards, over 2 ranks (a2a) on two or three,
-    all in the served feed's group of ranks, each run's gathered
-    planes (cycle and counters among them) equal to K2's run of the
-    same arrays on ``cuda:0`` (max_abs_err 0); the CUDA kernels a cycle
+    all in the served feed's group of ranks, each run twice there (an
+    untimed run, whose first k-cycle call in the first engine holds
+    every N1-N4 launch against its plain version, then the timed run),
+    each run's gathered planes (cycle and counters among them) equal
+    to K2's run of the same arrays on ``cuda:0`` (max_abs_err 0); the
+    CUDA kernels a cycle
     by ``torch.profiler``; a fused scheduled zipf run (12 nodes, 512
     systems through 256 lanes, packed) equal to ``CudaEngine``'s; and a
     served feed through ``NodeShardedLaneSession`` (16 nodes, 256 jobs
@@ -3759,7 +3967,7 @@ def phase_nodeshard():
     from hpa2_tpu_torch.parallel import (
         NodeShardedCudaEngine, NodeShardedLaneSession, make_mesh,
     )
-    from hpa2_tpu_torch.parallel.sharding import run_node_sharded
+    from hpa2_tpu_torch.parallel.sharding import NodeProfile, run_node_sharded
     from hpa2_tpu_torch.serving import ListJobSource, serve, synthetic_jobs
     from hpa2_tpu_torch.serving.loop import ServingSession
     from hpa2_tpu_torch.utils.trace import (
@@ -3792,10 +4000,13 @@ def phase_nodeshard():
     # one group of ranks for every run: four on four cards (the 2 x 2
     # grid's node groups are the two-rank exchange), else two
     top = 4 if cards >= 4 else 2
+    # the first run's first k-cycle call holds every node-kernel launch
+    # against its plain version (the tensor cycle) on the same inputs
     if top == 4:
         engs = {
             "4 ranks a2a": NodeShardedCudaEngine(
-                cfg, *arrays, mesh=mesh(4), **NODESHARD_RUN),
+                cfg, *arrays, mesh=mesh(4), _check_calls=1,
+                **NODESHARD_RUN),
             "4 ranks pairwise": NodeShardedCudaEngine(
                 dataclasses.replace(cfg, exchange_mode="pairwise"),
                 *arrays, mesh=mesh(4), **NODESHARD_RUN),
@@ -3803,7 +4014,7 @@ def phase_nodeshard():
                 cfg, *arrays, mesh=mesh(2, 2), **NODESHARD_RUN)}
     else:
         engs = {"2 ranks a2a": NodeShardedCudaEngine(
-            cfg, *arrays, mesh=mesh(2), **NODESHARD_RUN)}
+            cfg, *arrays, mesh=mesh(2), _check_calls=1, **NODESHARD_RUN)}
     zn, zb, zr = NODESHARD_ZIPF
     zcfg = SystemConfig(num_procs=zn, msg_buffer_size=16, semantics=robust)
     zarrays = gen_heterogeneous_random_arrays(zcfg, zb, 32, dist="zipf",
@@ -3813,16 +4024,7 @@ def phase_nodeshard():
     zref = CudaEngine(zcfg, *zarrays, **zkw).run()
     engs["fused zipf packed"] = NodeShardedCudaEngine(
         zcfg, *zarrays, mesh=mesh(top), **zkw)
-    prof = _NodeshardProfile(engs[f"{top} ranks a2a"], mesh(top))
-    # a small run first on the same mesh and schedule pays each rank's
-    # one-time costs (the first NCCL calls of its groups) outside the
-    # timed runs
-    warm_arrays = gen_uniform_random_arrays(cfg, 2, 2, seed=1)
-    shapes = {(e.mesh, e.config.exchange_mode): None for e in engs.values()}
-    warm = [NodeShardedCudaEngine(
-        dataclasses.replace(cfg, exchange_mode=m), *warm_arrays,
-        mesh=msh, **dict(NODESHARD_RUN, block=2, cycles_per_call=8))
-        for msh, m in shapes]
+    prof = NodeProfile(engs[f"{top} ranks a2a"], k=NODESHARD_PROFILE_K)
 
     # the served feed's one-card reference
     sn, sj, sr = NODESHARD_SERVE
@@ -3838,8 +4040,11 @@ def phase_nodeshard():
     with sess:
         start_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        run_node_sharded(warm + list(engs.values()) + [prof],
-                         pool=sess.pool)
+        # each engine runs twice in the ranks: the first run pays the
+        # ranks' one-time costs (the first NCCL calls of its groups) and
+        # holds the checked call, the second is timed
+        run_node_sharded(list(engs.values()) + [prof], pool=sess.pool,
+                         warmup=True)
         secs = time.perf_counter() - t0
         for name, e in engs.items():
             other = zref.state if name.startswith("fused") else want
@@ -3876,17 +4081,34 @@ def phase_nodeshard():
                   f"planes equal to {held}: max_abs_err={err}")
         print(f"[nodeshard] {len(engs)} run(s) over {top} ranks in "
               f"{secs:.1f} s, after the ranks' start in {start_s:.1f} s")
-        launches = [r["launches"] / max(r["cycles"], 1) for r in prof.rows]
-        rec["cuda_launches_per_cycle"] = round(max(launches), 1)
-        rec["nccl_per_cycle"] = round(max(r["nccl"] / max(r["cycles"], 1)
-                                          for r in prof.rows), 2)
-        rec["launch_calls_per_cycle"] = round(max(
-            r["launch_calls"] / max(r["cycles"], 1) for r in prof.rows), 1)
+        launches = {k: 0 for k in engs[f"{top} ranks a2a"].rank_stats[0][
+            "launches"]}
+        checked = {k: [0, 0] for k in launches}
+        for e in engs.values():
+            for st in e.rank_stats:
+                for k in launches:
+                    launches[k] += st["launches"][k]
+                    checked[k][0] += st["checked"][k][0]
+                    checked[k][1] = max(checked[k][1], st["checked"][k][1])
+        if not all(launches.values()) or not all(
+                c for c, _ in checked.values()) or any(
+                x for _, x in checked.values()):
+            raise AssertionError(
+                f"nodeshard: node kernels {launches}, checked {checked}")
+        rec["node_launches"], rec["checked"] = launches, checked
+        print(f"[nodeshard] node kernel launches (every rank, timed runs): "
+              f"{launches}; the first run's first k-cycle call (untimed) "
+              f"held against the tensor cycle launch by launch: {checked} "
+              "(launches checked, max_abs_err)")
+        rec["cuda_launches_per_cycle"] = prof.per_cycle["kernels"]
+        rec["nccl_per_cycle"] = prof.per_cycle["nccl"]
+        rec["launch_calls_per_cycle"] = prof.per_cycle["launch_calls"]
         print(f"[nodeshard] torch.profiler over one k-cycle call on each "
               f"of {top} ranks: {rec['cuda_launches_per_cycle']} CUDA "
-              f"kernels a cycle (most on a rank), {rec['nccl_per_cycle']} "
-              f"of them NCCL; {rec['launch_calls_per_cycle']} kernel launch "
-              "calls a cycle on the host")
+              f"kernels a cycle (most on a rank; the tensor cycle's: "
+              f"1,738.5, PERF.md), {rec['nccl_per_cycle']} of them NCCL; "
+              f"{rec['launch_calls_per_cycle']} kernel launch calls a cycle "
+              "on the host")
 
         # a served feed: every job's dumps equal the one-card session's
         t0 = time.perf_counter()
@@ -4084,15 +4306,264 @@ def phase_analysis(budget_rows):
                 rows=sum(rows.values()))
 
 
+#: ``[nodekern]``'s runs, one card, the ranks logical (threads of this
+#: process on ``cuda:0``, ``make_mesh(..., local=True)``): name, nodes,
+#: systems, instructions a core, ranks, exchange schedule, packed.  The
+#: 64-node runs are ``[nodeshard]``'s shape; packed planes hold at most
+#: 14 nodes, so the packed run is at 12; 22 nodes split the sharer planes
+NODEKERN_RUNS = (
+    ("64 nodes 2 ranks a2a", 64, 1024, NODESHARD_INSTRS, 2, "a2a", False),
+    ("64 nodes 2 ranks pairwise", 64, 1024, NODESHARD_INSTRS, 2,
+     "pairwise", False),
+    ("12 nodes packed 2 ranks", 12, 1024, 16, 2, "a2a", True),
+    ("22 nodes split 2 ranks", 22, 1024, 16, 2, "a2a", False),
+    ("64 nodes 4 ranks a2a", 64, 1024, NODESHARD_INSTRS, 4, "a2a", False),
+    ("64 nodes 4 ranks pairwise", 64, 1024, NODESHARD_INSTRS, 4,
+     "pairwise", False),
+    ("64 nodes 4 ranks butterfly", 64, 1024, NODESHARD_INSTRS, 4,
+     "butterfly", False),
+)
+#: the cycle of the timed call whose stage inputs time each kernel
+NODEKERN_KEEP_AT = 8
+
+
+def _node_rank_setup(job):
+    """This logical or NCCL rank's node block of an engine's initial
+    planes and first trace window, on its device."""
+    from hpa2_tpu_torch.ops.cycle import TRANSIENTS
+    from hpa2_tpu_torch.ops.layout import _init_state
+    from hpa2_tpu_torch.parallel.comm import world_comm
+    from hpa2_tpu_torch.parallel.sharding import _node_local, _rank_device
+
+    eng = job["engine"]
+    cfg = eng.config
+    comm, _ = world_comm(job["mesh"].node)
+    dev = _rank_device(job["mesh"])
+    nl = cfg.num_procs // comm.size
+    node = slice(comm.rank * nl, (comm.rank + 1) * nl)
+    tr = eng._tr_full[node][:, :eng._window].contiguous().to(dev)
+    tl = eng._tr_len_full[node].clamp(max=eng._window).contiguous().to(dev)
+
+    def planes():
+        st = _node_local(_init_state(cfg, tr.shape[-1], False, eng._packed),
+                         comm.rank, nl, slice(None), dev)
+        trans = {f: torch.zeros((1, tr.shape[-1]), dtype=torch.int32,
+                                device=dev) for f in TRANSIENTS}
+        return st, trans
+    return comm, tr, tl, planes
+
+
+def _nodekern_time_rank(job):
+    """One k-cycle call on every logical rank, the inputs of each node
+    kernel at cycle ``NODEKERN_KEEP_AT`` kept; then rank 0 times each
+    kernel and its plain version on them while the others wait."""
+    from hpa2_tpu_torch.parallel.sharding import NodeInterval
+
+    comm, tr, tl, planes = _node_rank_setup(job)
+    eng = job["engine"]
+    prog = NodeInterval(eng.config, comm, False, eng._window,
+                        eng.cycles_per_call, 1, packed=eng._packed)
+    prog.cycle.keep_at = NODEKERN_KEEP_AT
+    prog(*planes(), tr, tl)
+    comm.barrier()
+    out = prog.cycle.time_kept(reps=10) if comm.rank == 0 else None
+    comm.barrier()
+    return dict(planes={}, status=0, times=out)
+
+
+class _NodeJob:
+    """A job for ``run_node_sharded``: ``fn`` on every rank of an
+    engine's mesh; ``rows`` the ranks' answers."""
+
+    def __init__(self, fn, engine, **extra):
+        self.fn, self.engine, self.mesh = fn, engine, engine.mesh
+        self.extra = extra
+        self.rows = []
+
+    def _job(self):
+        return dict(rank_fn=self.fn, engine=self.engine, mesh=self.mesh,
+                    config=self.engine.config, **self.extra)
+
+    def _gather(self, blocks):
+        self.rows = blocks
+
+    def _check(self):
+        pass
+
+
+def phase_nodekern():
+    """``[nodekern]``: K1's node-sharded cycle as its four kernels (N1
+    ``node_ab``, N2 ``node_bucket``, N3 ``node_deliver``, N4
+    ``node_settle``, ``ops/node_cycle.py``) on ONE card, the node ranks
+    logical (``make_mesh(..., local=True)``: threads of this process on
+    ``cuda:0`` meeting through ``parallel/comm.py:LocalComm``).  The
+    runs of :data:`NODEKERN_RUNS` (64 nodes x 1,024 systems x 8
+    instructions, window 16, k 64, over 2 and 4 ranks, a2a and pairwise,
+    butterfly at 4; 12 nodes packed and 22 split over 2), each run twice
+    in its ranks: a first run whose first k-cycle call holds every N1-N4
+    launch against its plain version on the same inputs (max_abs_err
+    0), then the timed run; each run's gathered planes equal to K2's run
+    of the same arrays (max_abs_err 0).  Then the CUDA kernels a cycle
+    (``torch.profiler``) of one 4-cycle call at 64 nodes over 2 and 4
+    ranks, and each kernel's and plain version's time on the inputs of
+    cycle 8 of a 64-node call over 2 ranks.  Returns its record."""
+    import dataclasses
+
+    from hpa2_tpu_torch.config import Semantics, SystemConfig
+    from hpa2_tpu_torch.ops import node_cycle
+    from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
+    from hpa2_tpu_torch.parallel import NodeShardedCudaEngine, make_mesh
+    from hpa2_tpu_torch.parallel.sharding import NodeProfile, run_node_sharded
+    from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
+
+    t_phase = time.perf_counter()
+    robust = Semantics().robust()
+    refs, engs = {}, {}
+    for name, n, b, t, d, mode, packed in NODEKERN_RUNS:
+        cfg = SystemConfig(num_procs=n, msg_buffer_size=16, semantics=robust,
+                           max_instr_num=0, exchange_mode=mode)
+        arrays = gen_uniform_random_arrays(cfg, b, t, seed=n)
+        kw = dict(NODESHARD_RUN, packed=packed)
+        key = (n, b, t, packed)
+        if key not in refs:
+            refs[key] = CudaEngine(dataclasses.replace(
+                cfg, exchange_mode="a2a"), *arrays, **kw).run()
+        engs[name] = (NodeShardedCudaEngine(
+            cfg, *arrays, mesh=make_mesh(node_shards=d, device="cuda",
+                                         local=True),
+            _check_calls=1, **kw), refs[key])
+    for e in node_cycle.NODE_KERNELS:
+        e.launches = 0
+    t0 = time.perf_counter()
+    for name, (e, _) in engs.items():
+        t1 = time.perf_counter()
+        run_node_sharded([e], warmup=True)
+        print(f"[nodekern] {name}: ran twice in its ranks in "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+    secs = time.perf_counter() - t0
+    launches = {e.name: e.launches for e in node_cycle.NODE_KERNELS}
+    if not all(launches.values()):
+        raise AssertionError(f"nodekern: a node kernel never ran: {launches}")
+    rec = {"runs": {}, "launches": launches, "seconds_runs": round(secs, 1)}
+    checked = {e.name: [0, 0] for e in node_cycle.NODE_KERNELS}
+    err_all = 0
+    for name, (e, ref) in engs.items():
+        err = check_diff(f"nodekern {name}", plane_diff(
+            e.config, False, {f: v.cuda() for f, v in e.state.items()},
+            ref.state, packed=e._packed))
+        err_all = max(err_all, err)
+        for st in e.rank_stats:
+            for k, (c, x) in st["checked"].items():
+                checked[k][0] += c
+                checked[k][1] = max(checked[k][1], x)
+        slow = max(e.rank_stats, key=lambda r: r["seconds"])
+        ms = slow["seconds"] * 1e3 / max(slow["cycles"], 1)
+        per = {k: v for k, v in e.rank_stats[0]["launches"].items()}
+        rec["runs"][name] = dict(cycles=e.cycle, cycles_run=slow["cycles"],
+                                 ms_per_cycle=round(ms, 3), max_abs_err=err,
+                                 node_launches_rank0=per)
+        print(f"[nodekern] {name} ({e.config.num_procs} nodes x "
+              f"{e.b} x {e.config.exchange_mode}, {e.mesh.node} logical "
+              f"ranks on cuda:0): {e.cycle} cycles ({slow['cycles']} run), "
+              f"{ms:.3f} ms a cycle (timed run, slowest rank), rank 0's "
+              f"launches {per}; planes equal to K2's run: max_abs_err="
+              f"{err}")
+    for k, (c, x) in checked.items():
+        if c == 0 or x:
+            raise AssertionError(f"nodekern: {k} checked {c}, err {x}")
+    rec["checked"] = checked
+    rec["max_abs_err"] = err_all
+    print(f"[nodekern] every launch of each run's first k-cycle call held "
+          f"against its plain version on the same inputs: {checked} "
+          "(launches checked, max_abs_err)")
+
+    # the CUDA kernels a cycle: one 4-cycle call (the window's seed and
+    # gates included) at 64 nodes over 2 and 4 logical ranks
+    rec["profile"] = {}
+    for d in (2, 4):
+        prof = NodeProfile(engs[f"64 nodes {d} ranks a2a"][0],
+                           k=NODESHARD_PROFILE_K)
+        run_node_sharded([prof])
+        rec["profile"][d] = prof.per_cycle
+        print(f"[nodekern] torch.profiler over one {NODESHARD_PROFILE_K}-"
+              f"cycle call at 64 nodes over {d} logical ranks: "
+              f"{prof.per_cycle['kernels']} CUDA kernels a cycle a rank "
+              f"(the tensor cycle's: 1,738.5 a rank over NCCL, PERF.md), "
+              f"{prof.per_cycle['launch_calls']} kernel launch calls a "
+              "cycle a rank")
+
+    # each kernel and its plain version on cycle 8's inputs
+    e = engs["64 nodes 2 ranks a2a"][0]
+    job = _NodeJob(_nodekern_time_rank, e)
+    run_node_sharded([job])
+    times = next(r["times"] for r in job.rows if r["times"])
+    rec["times"] = {}
+    for k, tm in times.items():
+        bound = tm["bytes"] / HBM_BYTES_PER_S * 1e3
+        rec["times"][k] = dict(ms=round(tm["ms"], 4),
+                               plain_ms=round(tm["plain_ms"], 4),
+                               bound_ms=round(bound, 6), bytes=tm["bytes"])
+        print(f"[nodekern] {k}: {tm['ms']:.4f} ms a launch (CUDA events, "
+              f"median of 10, 64 nodes x 1,024 over 2 ranks, cycle "
+              f"{NODEKERN_KEEP_AT}'s inputs), plain version "
+              f"{tm['plain_ms']:.4f} ms, bound {bound:.6f} ms "
+              f"({tm['bytes']} B over 3.35 TB/s)")
+    rec["seconds"] = round(time.perf_counter() - t_phase, 1)
+    print(f"[nodekern] phase {rec['seconds']} s (budget 60 s)")
+    return rec
+
+
+def node_entries(nodekern, nodeshard):
+    """The kernels line's entries of N1-N4: launches, checked launches
+    and max_abs_err on ``[nodekern]``'s runs (the main path: logical
+    ranks on one card), its timings and bounds, and ``[nodeshard]``'s
+    NCCL runs under ``by_path`` where they ran."""
+    from hpa2_tpu_torch.ops import node_cycle
+
+    out = []
+    for kern in node_cycle.NODE_KERNELS:
+        t = nodekern["times"][kern.name]
+        c, x = nodekern["checked"][kern.name]
+        by_path = {"nodekern logical ranks": {
+            "launches": nodekern["launches"][kern.name],
+            "checked_launches": c, "max_abs_err": x,
+            "planes_max_abs_err": nodekern["max_abs_err"]}}
+        if "node_launches" in nodeshard:
+            nc, nx = nodeshard["checked"][kern.name]
+            by_path["nodeshard nccl ranks"] = {
+                "launches": nodeshard["node_launches"][kern.name],
+                "checked_launches": nc, "max_abs_err": nx}
+        out.append({
+            "name": kern.name, "route": "cuda", "source": kern.source,
+            "replaces": kern.replaces,
+            "launches": nodekern["launches"][kern.name],
+            "checked_launches": c,
+            "max_abs_err": max([x, nodekern["max_abs_err"]] + [
+                p["max_abs_err"] for p in by_path.values()]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "by_path": by_path})
+    return out
+
+
 #: the phases ``--only`` may name (a debugging aid: those phases alone,
 #: after the build, and no kernels line); with no arguments every phase
 #: runs
-ONLY = ("general-scheduled", "serve-jax", "recovery", "entry", "analysis",
-        "ablate", "scale", "shard", "nodeshard")
+ONLY = ("compare", "serve", "general-scheduled", "serve-jax", "recovery",
+        "entry", "analysis", "ablate", "scale", "shard", "nodeshard",
+        "nodekern")
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
+    try:
+        return smoke(sys.argv[1:] if argv is None else argv)
+    finally:
+        for pool in HOST_POOL:
+            pool.shutdown(cancel_futures=True)
+
+
+def smoke(argv) -> int:
+    """The build, then every phase (or those ``--only`` names)."""
     only = None
     if argv:
         if len(argv) != 2 or argv[0] != "--only" or not set(
@@ -4164,7 +4635,14 @@ def main(argv=None) -> int:
     robust = Semantics().robust()
     wall = {}
     if only:
-        for name, phase in (("general-scheduled", phase_general_scheduled),
+        def compare(card):
+            for phase in (phase_compare, phase_wide_compare,
+                          phase_call_compare, phase_team_compare,
+                          settle_compare):
+                phase()
+
+        for name, phase in (("compare", compare), ("serve", phase_serve),
+                            ("general-scheduled", phase_general_scheduled),
                             ("serve-jax", phase_serve_jax),
                             ("recovery", phase_recovery),
                             ("entry", phase_entry),
@@ -4173,7 +4651,8 @@ def main(argv=None) -> int:
                             ("ablate", lambda card: phase_ablate()),
                             ("scale", phase_scale),
                             ("shard", lambda card: phase_shard()),
-                            ("nodeshard", lambda card: phase_nodeshard())):
+                            ("nodeshard", lambda card: phase_nodeshard()),
+                            ("nodekern", lambda card: phase_nodekern())):
             if name in only:
                 t0 = time.perf_counter()
                 phase(card)
@@ -4181,6 +4660,14 @@ def main(argv=None) -> int:
         print(f"[wall] host {host_cpu()}: " + ", ".join(
             f"{k} {v:.1f} s" for k, v in wall.items()))
         return 0
+    # the compare cases' kernel runs first: their plain versions then
+    # run in the host pool while the card works through the next phases
+    t0 = time.perf_counter()
+    err = phase_compare()
+    err = max(err, phase_wide_compare())
+    call_err = phase_call_compare()
+    err = max(err, phase_team_compare())
+    wall["compare a-j, kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     micro = phase_micro()
     wall["micro-kernels"] = time.perf_counter() - t0
@@ -4191,22 +4678,21 @@ def main(argv=None) -> int:
     scale = phase_scale(card)
     wall["scale"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    err = phase_compare()
-    err = max(err, phase_wide_compare())
-    call_err = phase_call_compare()
-    err = max(err, phase_team_compare())
-    wall["compare a-j"] = time.perf_counter() - t0
+    settled = settle_compare()
+    err = max(err, settled["stream_run"])
+    call_err = max(call_err, settled["call_run"])
+    wall["compare a-j, plain versions"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     headline_cfg = SystemConfig(semantics=robust, **HEADLINE)
     wide_cfg = SystemConfig(semantics=robust, **WIDE)
     paths = {
         "headline": drive_path("headline", headline_cfg, 32768, 128,
                                HEADLINE_RUN, probe=(128, 256, 1024)),
-        "wide": drive_path("wide", wide_cfg, 1024, 64, WIDE_RUN,
+        "wide": drive_path("wide", wide_cfg, 1024, WIDE_INSTRS, WIDE_RUN,
                            probe=(64, 128, 256)),
     }
     paths["wide packed"] = drive_path(
-        "wide packed", wide_cfg, 1024, 64, WIDE_RUN, packed=True,
+        "wide packed", wide_cfg, 1024, WIDE_INSTRS, WIDE_RUN, packed=True,
         ref=paths["wide"]["state"])
     wall["streamed paths"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -4215,7 +4701,7 @@ def main(argv=None) -> int:
             "per-call headline", headline_cfg, 32768, 128, HEADLINE_RUN,
             paths["headline"]["state"]),
         "wide": drive_per_call_path(
-            "per-call wide", wide_cfg, 1024, 64, WIDE_RUN,
+            "per-call wide", wide_cfg, 1024, WIDE_INSTRS, WIDE_RUN,
             paths["wide"]["state"], plain=False),
     }
     wall["per-call paths"] = time.perf_counter() - t0
@@ -4223,8 +4709,11 @@ def main(argv=None) -> int:
     shard_k2, shard_k3 = phase_shard(paths["headline"]["state"])
     wall["shard"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    phase_nodeshard()
+    nodeshard = phase_nodeshard()
     wall["nodeshard"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nodekern = phase_nodekern()
+    wall["nodekern"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     scheduled = phase_scheduled()
     wall["scheduled"] = time.perf_counter() - t0
@@ -4344,7 +4833,7 @@ def main(argv=None) -> int:
                for p in kern_entry["by_path"].values()])
     print(json.dumps({"kernels": [stream_entry, call_entry,
                                   micro_entry(kernels.MICRO, micro)]
-                      + ablated}))
+                      + ablated + node_entries(nodekern, nodeshard)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,18 +6,13 @@ on.  It translates ``hpa2_tpu/ops/pallas_engine.py:build_cycle``: every
 op works on whole ``[N, ..., B]`` planes, one system per lane, and the
 result is bit for bit the JAX cycle's.
 
-With ``axis_name`` (a ``parallel/comm.py:NodeComm``) and ``shards`` it
-is K1's node-sharded variant (JAX ``pallas_engine.py:559-575``): each
-rank holds ``num_procs // shards`` node rows, and phase C delivers
-through the targeted cross-shard exchange (``ops/exchange.py``) plus one
-stacked SUM and one stacked MAX a cycle.  JAX runs that variant as XLA
-under ``shard_map``, outside any Pallas kernel (collectives cannot run
-inside one), so there is no TPU kernel to translate: on this path the
-tensor code below IS the implementation, on the card as on the CPU, not
-a plain version beside a kernel.  Sharer sets are lists of SW word tensors (one
-word in the directory word up to 21 nodes, split ``dirs{w}`` planes
-beyond); packed planes are widened to the int32 words at cycle entry
-and narrowed at exit.
+With ``axis_name`` (a ``parallel/comm.py`` node group) and ``shards``
+:func:`build_cycle` returns K1's node-sharded variant instead
+(``ops/node_cycle.py``), whose phases A and B are :func:`build_phase_ab`
+over the rank's node rows.  Sharer sets are lists of SW word tensors
+(one word in the directory word up to 21 nodes, split ``dirs{w}``
+planes beyond); packed planes are widened to the int32 words at cycle
+entry and narrowed at exit.
 
 Per cycle:
 
@@ -47,11 +42,10 @@ import torch
 
 from hpa2_tpu_torch.config import SystemConfig
 from hpa2_tpu_torch.models.protocol import INVALID_ADDR, MsgType
-from hpa2_tpu_torch.ops import exchange
 from hpa2_tpu_torch.ops.layout import (
     _CW_ADDR_SHIFT, _CW_VAL_SHIFT, _DS, _DU, _DW_SH_SHIFT,
     _DW_STATE_SHIFT, _E, _EM, _I, _M, _NO_MSG, _NSCALAR, _NSLOTS,
-    _NTYPES, _PACKED_CACHE, _PACKED_DIR, _S, _SC_CYCLE, _SC_OVERFLOW,
+    _NTYPES, _PACKED_CACHE, _PACKED_DIR, _S, _SC_OVERFLOW,
     _SPLIT_BPW,
     _TR_ADDR_SHIFT, _ADDR_MASK, TORCH_DTYPES, _check_geometry,
     _check_semantics, _mb_layout, _scalar_layout, _sharer_words,
@@ -152,52 +146,19 @@ def _narrow_dir(dirw, meta_dtype):
              | ((dirw >> _DW_SH_SHIFT) << 2)).to(meta_dtype))
 
 
-def build_cycle(config: SystemConfig, snapshots: bool = True,
-                packed: bool = False, ablate: frozenset = frozenset(),
-                axis_name=None, shards: int = 1,
-                exchange_slots: Optional[int] = None):
-    """The cycle function ``state dict -> state dict`` for ``config``.
-    The dict holds the carried planes plus ``tr`` [N, T, B] (the trace
-    window) and ``tr_len`` [N, B].  ``ablate`` names stubbed stages
-    (:data:`ABLATE_STAGES`); an ablated cycle is wrong by design.
-
-    ``axis_name`` (this rank's ``parallel/comm.py:NodeComm``) with
-    ``shards > 1`` builds K1's node-sharded variant (JAX
-    ``pallas_engine.py:545-620``): the dict holds this rank's block of
-    ``num_procs // shards`` node rows, phase C runs the targeted
-    exchange on ``config.exchange_mode``'s schedule, and the dict also
-    carries the [1, B] rows of :data:`TRANSIENTS`.  ``exchange_slots``
-    caps a peer's exchange buffer (default the capacity-exact
-    ``5 * n_local``, which cannot overflow)."""
+def build_phase_ab(config: SystemConfig, ablate: frozenset = frozenset()):
+    """Phases A and B of the cycle for ``config`` as a function ``(s,
+    gids) -> dict``: every node row of the state dict ``s`` (int32
+    planes, ``tr``/``tr_len`` the trace window) handles its mailbox head
+    and issues one instruction; ``gids`` [rows, B] are the rows' node
+    ids (a node shard's rows start at its first node's id).  Returns
+    the cache and directory planes after both phases, the mailbox with
+    the heads popped (``qdata``), the node words' parts, the counters'
+    masks, and the five candidate slots (``slots5``: receiver and wire
+    words without the sender field; ``words5``: with it) with the INV
+    slot's receiver set and address, deferred slots merged back in."""
     ablate = ablate_set(ablate)
-    _check_geometry(config)
-    _check_semantics(config)
     n, c, m = config.num_procs, config.cache_size, config.mem_size
-    sharded = axis_name is not None and shards > 1
-    if axis_name is not None and not hasattr(axis_name, "all_reduce"):
-        raise ValueError(
-            f"axis_name={axis_name!r}: the port's node axis is a "
-            "parallel/comm.py NodeComm (this rank's node group), not a "
-            "mesh axis name")
-    if sharded:
-        if n % shards != 0:
-            raise ValueError(
-                f"num_procs={n} not divisible by node shards={shards}")
-        if ablate:
-            raise ValueError("--ablate is single-node-shard only")
-        if axis_name.size != shards:
-            raise ValueError(
-                f"the node group has {axis_name.size} ranks, not "
-                f"shards={shards}")
-    nl = n // shards if sharded else n
-    k_slots = 5 * nl if exchange_slots is None else int(exchange_slots)
-    if sharded and not (1 <= k_slots <= 5 * nl):
-        raise ValueError(
-            f"exchange_slots={exchange_slots} out of range [1, {5 * nl}]")
-    xplan = (exchange.make_plan(shards, config.exchange_mode,
-                                config.exchange_inner) if sharded else None)
-    me = axis_name.rank if sharded else 0
-    cap = config.msg_buffer_size
     sem = config.semantics
     nack = sem.intervention_miss_policy == "nack"
     layout, W = _mb_layout(config)
@@ -205,161 +166,16 @@ def build_cycle(config: SystemConfig, snapshots: bool = True,
     split = _split_mode(config)
     SW = _sharer_words(config)
     sh_mask = (1 << min(n, _SPLIT_BPW)) - 1
-    if sharded:
-        # each peer's node range as fan-mask words
-        rmask_np = [exchange.range_mask_words(p * nl, (p + 1) * nl, SW,
-                                              _SPLIT_BPW)
-                    for p in range(shards)]
 
     def dec(words, name):
         return field(layout, words, name)
 
-    def exchange_phase(s, words5, slots5, inv_shw, qdata, count2, gids,
-                       dev, bb):
-        """Phase C of one rank under node sharding (JAX
-        ``pallas_engine.py:1355-1590``).  The local candidates, in the
-        global candidate order (A grid sender-major [A0, A1, INV], then
-        B grid [B0, B1]), go out through the exchange as ``[W + SW + 3,
-        5 * nl, B]`` columns: the wire words, the INV fan-mask words,
-        the receiver shipped +1 (an empty slot's 0 matches no node), the
-        phase-A flag and the combining key.  Every entry this rank holds
-        is offered to its receivers in the global order, ranked from its
-        origin tag (the received blocks sit in round order), and the
-        acceptance rows return to the senders."""
-        bpw = _SPLIT_BPW
-        j0 = 5 * nl
-        rmask = [r.to(dev) for r in rmask_np]
-
-        def cand(rows5):  # 5 x [nl, B] -> [5 * nl, B], candidate order
-            return torch.cat([torch.stack(rows5[:3], 1).reshape(-1, bb),
-                              torch.stack(rows5[3:], 1).reshape(-1, bb)], 0)
-
-        zero = torch.zeros((nl, bb), dtype=I32, device=dev)
-        cand_words = [cand([words5[k][w] for k in range(_NSLOTS)])
-                      for w in range(W)]
-        mask_words = [cand([zero, zero, inv_shw[sw], zero, zero])
-                      for sw in range(SW)]
-        recv_p1 = cand([sl["recv"] + 1 for sl in slots5])
-        isa_col = (torch.arange(j0, device=dev) < 3 * nl).to(I32)[
-            :, None].expand(j0, bb)
-        # the combining key (hier relays only): addr+1 for READ
-        # requests, 0 = not combinable
-        ckey_col = cand([
-            torch.where((sl["recv"] >= 0)
-                        & (field(layout, w5, "type")
-                           == int(MsgType.READ_REQUEST)),
-                        field(layout, w5, "addr") + 1, 0)
-            for sl, w5 in zip(slots5, words5)])
-        payload = torch.stack(
-            cand_words + mask_words + [recv_p1, isa_col, ckey_col], 0)
-
-        def dest_fn(blk, peer):
-            lo = peer * nl
-            recv = blk[W + SW]
-            pt = (recv >= lo + 1) & (recv < lo + nl + 1)
-            mhit = ((blk[W:W + SW] & rmask[peer][:, None, None]) != 0
-                    ).any(0)
-            return pt | mhit
-
-        def fan_fn(blk, peer):
-            # receivers within shard ``peer``: the fan-mask popcount of
-            # an INV entry (>= 1 whenever shipped), 1 for a point send
-            pop = _isum(_popcount(blk[W:W + SW]
-                                  & rmask[peer][:, None, None]), 0)
-            return pop.clamp(min=1)
-
-        bufs, origins, xctx, xfs = exchange.forward(
-            xplan, axis_name, me, payload, dest_fn, k_slots,
-            fan_fn=fan_fn, ckey_row=W + SW + 2, nkeys=n * m)
-        nb = len(bufs)
-        ent = torch.cat([payload] + bufs, 1)                 # [R, J, B]
-        bounds = [0, j0] + [j0 + (i + 1) * k_slots for i in range(nb)]
-        # validity per (receiver row, entry): a point match on the
-        # shifted recv, or the receiver's bit in the fan mask; a
-        # receiver's bit lies in one word, so one word a row is read
-        gid_row = gids[:, 0].to(torch.int64)                 # [nl]
-        pv_rj = gids[:, None, :] + 1 == ent[W + SW][None]    # [nl, J, B]
-        word_r = ent[W:W + SW].index_select(0, gid_row // bpw)
-        inv_rj = ((word_r >> (gid_row % bpw).to(I32)[:, None, None]) & 1
-                  ) != 0
-        del word_r
-        valid_rj = pv_rj | inv_rj
-        del pv_rj, inv_rj
-        isa = ent[W + SW + 1][None] != 0
-        offs = exchange.ordered_rank(valid_rj & isa, valid_rj & ~isa,
-                                     bounds, origins, axis=1)
-        pos = count2[:, None, :] + offs
-        del offs
-        accept = valid_rj & (pos < cap)
-        del valid_rj
-        acc = _isum(accept, 1)                       # delivered a row
-        # each mailbox slot's entry: an accepted entry's index scattered
-        # to its slot count2 + rank (distinct for one receiver), the
-        # rest to a trash slot past the end; then every wire word of the
-        # filled slots in one gather
-        j_all = ent.shape[1]
-        slot = torch.where(accept, pos, cap).long()
-        del pos
-        which = torch.full((nl, cap + 1, bb), j_all, dtype=torch.int64,
-                           device=dev)
-        which.scatter_(1, slot, torch.arange(
-            j_all, device=dev)[None, :, None].expand(nl, j_all, bb))
-        del slot
-        which = which[:, :cap]                               # [nl, cap, B]
-        words = ent[:W].gather(1, which.clamp(max=j_all - 1).reshape(
-            1, nl * cap, bb).expand(W, -1, -1)).reshape(W, nl, cap, bb)
-        mbs = list(torch.where((which < j_all)[None], words,
-                               torch.stack(qdata, 0)).unbind(0))
-        # acceptance feedback: an entry's accepted count and its
-        # accepted receivers' bits, word by word (only the words that
-        # hold this rank's nodes get any), back along the reverse
-        # schedule
-        acc_i3 = accept.to(I32)
-        del accept
-        acc_e = _isum(acc_i3, 0)                             # [J, B]
-        zero_j = torch.zeros_like(acc_e)
-        fb_bits = []
-        for sw in range(SW):
-            r0 = max(sw * bpw - me * nl, 0)
-            r1 = min((sw + 1) * bpw - me * nl, nl)
-            if r0 >= r1:
-                fb_bits.append(zero_j)
-                continue
-            bit = (gids[r0:r1, :1] - sw * bpw)[:, :, None]   # [r, 1, 1]
-            fb_bits.append(_isum(acc_i3[r0:r1] << bit, 0))
-        fbrows = torch.stack([acc_e] + fb_bits, 0)           # [1+SW, J, B]
-        fb_blocks = [fbrows[:, bounds[i + 1]:bounds[i + 2]]
-                     for i in range(nb)]
-        acc_tot = fbrows[:, :j0] + exchange.feedback(
-            xplan, axis_name, fb_blocks, xctx)
-        acc_j = acc_tot[0]                                   # [J0, B]
-        dcount = torch.cat([acc_j[:3 * nl].reshape(nl, 3, bb),
-                            acc_j[3 * nl:].reshape(nl, 2, bb)], 1)
-        remaining = [inv_shw[sw] & ~acc_tot[1 + sw, 2:3 * nl:3]
-                     for sw in range(SW)]
-        # the overflow words: the worst (demand, shard pair) and, keyed
-        # by the same demand, the lane's cycle, so one MAX keeps a
-        # consistent pair
-        dg = xfs["ovf_diag"]
-        dc = torch.where(dg > 0, (dg & ~0xFFFF)
-                         | (s["scalars"][_SC_CYCLE] & 0xFFFF), 0)
-        return dict(mbs=mbs, acc=acc, dcount=dcount, remaining=remaining,
-                    sent=xfs["sent"], over=xfs["overflow"].clamp(max=1),
-                    hwm=xfs["hwm"], mc=xfs["mc_saved"],
-                    comb=xfs["combined"], dg=dg, dc=dc)
-
-    def cycle(s: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def ab(s: Dict[str, torch.Tensor], gids: torch.Tensor) -> dict:
         dev = s["nsw"].device
-        bb = s["nsw"].shape[1]
+        nl, bb = s["nsw"].shape
         zero = torch.zeros((nl, bb), dtype=I32, device=dev)
         neg1 = torch.full((nl, bb), -1, dtype=I32, device=dev)
         false = torch.zeros((nl, bb), dtype=torch.bool, device=dev)
-        iota_n = torch.arange(nl, dtype=I32, device=dev)[:, None].expand(
-            nl, bb)
-        # global node ids of the local rows: the home and second-party
-        # tests, the REPLY_ID fan's own bit and the sender field use
-        # them (a local id is right only at one shard)
-        gids = iota_n + me * nl if sharded else iota_n
 
         def read(arr, idx):  # [N, X, B] at [N, B] -> [N, B]
             return torch.gather(arr, 1, idx.long()[:, None, :]).squeeze(1)
@@ -828,73 +644,149 @@ def build_cycle(config: SystemConfig, snapshots: bool = True,
             for sl in slots5
         ]
 
-        if not sharded:
-            mbs = qdata
-            acc = zero                       # running enqueue offset
-            acc_masks = [[zero] * n for _ in range(_NSLOTS)]
-            # the deliver stub walks no candidate: nothing is accepted
-            senders = range(0 if "deliver" in ablate else n)
+        return dict(
+            cachew=cachew, dirw=dirw, dirsp=dirsp, qdata=qdata,
+            count2=count2, waiting=waiting, waiting_in=waiting_in,
+            pending_write=pending_write, pc=pc, pc_in=pc_in, elig=elig,
+            mb_count_in=mb_count_in, tr_len=tr_len, dv=dv,
+            rh=is_rd & hit, rm=rm, wh=is_wr & hit, wm=wm,
+            ev=ev_replyrd | ev_flush | ev_issue, inv_applied=inv_applied,
+            slots5=slots5, words5=words5, inv_shw=inv_shw,
+            inv_addr=inv_addr, sv_test=sv_test)
 
-            def enqueue(mbs, acc, valid, words_r):
-                pos = count2 + acc
-                accepted = valid & (pos < cap)
-                ix = pos.clamp(max=cap - 1).long()[:, None, :]
-                mbs = [
-                    mbs[w].scatter(1, ix, where(
-                        accepted, words_r[w].expand(n, bb),
-                        torch.gather(mbs[w], 1, ix).squeeze(1))[:, None, :])
-                    for w in range(W)
-                ]
-                return mbs, acc + accepted.to(I32), accepted
+    return ab
 
-            # a sender's three phase-A slots are receiver-disjoint, so
-            # they deliver as one candidate (the word a per-receiver
-            # select)
-            for sender in senders:
-                vA0 = iota_n == sA0["recv"][sender][None, :]
-                vA1 = iota_n == sA1["recv"][sender][None, :]
-                vInv = sv_test(
-                    [x[sender][None, :].expand(n, bb) for x in inv_shw],
-                    iota_n)
-                wsel = [
-                    where(vA1, words5[1][w][sender][None, :],
-                          where(vInv, words5[2][w][sender][None, :],
-                                words5[0][w][sender][None, :]))
-                    for w in range(W)
-                ]
-                mbs, acc, accepted = enqueue(mbs, acc, vA0 | vA1 | vInv,
-                                             wsel)
-                acc_masks[0][sender] = (vA0 & accepted).to(I32)
-                acc_masks[1][sender] = (vA1 & accepted).to(I32)
-                acc_masks[2][sender] = (vInv & accepted).to(I32)
-            for sender in senders:
-                for k in (3, 4):
-                    valid = iota_n == slots5[k]["recv"][sender][None, :]
-                    words_r = [words5[k][w][sender][None, :]
-                               for w in range(W)]
-                    mbs, acc, accepted = enqueue(mbs, acc, valid, words_r)
-                    acc_masks[k][sender] = accepted.to(I32)
 
-            # [S(sender), 5, R(receiver), B]
-            accs = torch.stack(
-                [torch.stack(acc_masks[k], 0) for k in range(_NSLOTS)], 1
-            )
-            dcount = _isum(accs, 2)                        # [S, 5, B]
-            # the INV remainder: the fan-out mask minus accepted
-            # receivers
-            remaining = []
-            for w in range(SW):
-                lo = w * _SPLIT_BPW
-                hi = min(n, lo + _SPLIT_BPW)
-                rbit = torch.arange(hi - lo, dtype=I32,
-                                    device=dev)[None, :, None]
-                remaining.append(
-                    inv_shw[w] & ~_isum(accs[:, 2, lo:hi] << rbit, 1))
-        else:
-            xc = exchange_phase(s, words5, slots5, inv_shw, qdata, count2,
-                                gids, dev, bb)
-            mbs, acc, dcount, remaining = (xc["mbs"], xc["acc"],
-                                           xc["dcount"], xc["remaining"])
+def build_cycle(config: SystemConfig, snapshots: bool = True,
+                packed: bool = False, ablate: frozenset = frozenset(),
+                axis_name=None, shards: int = 1,
+                exchange_slots: Optional[int] = None,
+                cycle: str = "kernel"):
+    """The cycle function ``state dict -> state dict`` for ``config``.
+    The dict holds the carried planes plus ``tr`` [N, T, B] (the trace
+    window) and ``tr_len`` [N, B].  ``ablate`` names stubbed stages
+    (:data:`ABLATE_STAGES`); an ablated cycle is wrong by design.
+
+    ``axis_name`` (this rank's ``parallel/comm.py`` node group) with
+    ``shards > 1`` builds K1's node-sharded variant (JAX
+    ``pallas_engine.py:545-620``) instead: ``ops/node_cycle.py:
+    NodeCycle``, four kernels on the card (``cycle="tensor"``: their
+    plain versions there too) around the targeted exchange, called as
+    ``cycle(s, seg)`` on this rank's block of the planes with the whole
+    trace plane; ``exchange_slots`` caps a peer's exchange buffer
+    (default the capacity-exact ``5 * n_local``, which cannot
+    overflow)."""
+    ablate = ablate_set(ablate)
+    _check_geometry(config)
+    _check_semantics(config)
+    if axis_name is not None and not hasattr(axis_name, "all_reduce"):
+        raise ValueError(
+            f"axis_name={axis_name!r}: the port's node axis is a "
+            "parallel/comm.py NodeComm (this rank's node group), not a "
+            "mesh axis name")
+    if axis_name is not None and shards > 1:
+        if ablate:
+            raise ValueError("--ablate is single-node-shard only")
+        from hpa2_tpu_torch.ops.node_cycle import NodeCycle
+
+        return NodeCycle(config, snapshots, packed, axis_name, shards,
+                         exchange_slots, cycle)
+    n, cap = config.num_procs, config.msg_buffer_size
+    layout, W = _mb_layout(config)
+    recv_packed = "recv" in layout
+    split = _split_mode(config)
+    SW = _sharer_words(config)
+    phase_ab = build_phase_ab(config, ablate)
+
+    def dec(words, name):
+        return field(layout, words, name)
+
+    def cycle(s: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        dev = s["nsw"].device
+        bb = s["nsw"].shape[1]
+        zero = torch.zeros((n, bb), dtype=I32, device=dev)
+        neg1 = torch.full((n, bb), -1, dtype=I32, device=dev)
+        iota_n = torch.arange(n, dtype=I32, device=dev)[:, None].expand(
+            n, bb)
+
+        def where(mask, a, b):
+            return torch.where(mask, a, b)
+
+        v = phase_ab(s, iota_n)
+        cachew, dirw, dirsp, qdata = (v["cachew"], v["dirw"], v["dirsp"],
+                                      v["qdata"])
+        count2, waiting, pending_write, pc = (
+            v["count2"], v["waiting"], v["pending_write"], v["pc"])
+        waiting_in, pc_in, mb_count_in, tr_len, dv = (
+            v["waiting_in"], v["pc_in"], v["mb_count_in"], v["tr_len"],
+            v["dv"])
+        slots5, words5, inv_shw, sv_test = (
+            v["slots5"], v["words5"], v["inv_shw"], v["sv_test"])
+        sA0, sA1 = slots5[0], slots5[1]
+        elig = v["elig"]
+        slsc = _scalar_layout(config, s["tr"].shape[1])
+
+        mbs = qdata
+        acc = zero                       # running enqueue offset
+        acc_masks = [[zero] * n for _ in range(_NSLOTS)]
+        # the deliver stub walks no candidate: nothing is accepted
+        senders = range(0 if "deliver" in ablate else n)
+
+        def enqueue(mbs, acc, valid, words_r):
+            pos = count2 + acc
+            accepted = valid & (pos < cap)
+            ix = pos.clamp(max=cap - 1).long()[:, None, :]
+            mbs = [
+                mbs[w].scatter(1, ix, where(
+                    accepted, words_r[w].expand(n, bb),
+                    torch.gather(mbs[w], 1, ix).squeeze(1))[:, None, :])
+                for w in range(W)
+            ]
+            return mbs, acc + accepted.to(I32), accepted
+
+        # a sender's three phase-A slots are receiver-disjoint, so
+        # they deliver as one candidate (the word a per-receiver
+        # select)
+        for sender in senders:
+            vA0 = iota_n == sA0["recv"][sender][None, :]
+            vA1 = iota_n == sA1["recv"][sender][None, :]
+            vInv = sv_test(
+                [x[sender][None, :].expand(n, bb) for x in inv_shw],
+                iota_n)
+            wsel = [
+                where(vA1, words5[1][w][sender][None, :],
+                      where(vInv, words5[2][w][sender][None, :],
+                            words5[0][w][sender][None, :]))
+                for w in range(W)
+            ]
+            mbs, acc, accepted = enqueue(mbs, acc, vA0 | vA1 | vInv,
+                                         wsel)
+            acc_masks[0][sender] = (vA0 & accepted).to(I32)
+            acc_masks[1][sender] = (vA1 & accepted).to(I32)
+            acc_masks[2][sender] = (vInv & accepted).to(I32)
+        for sender in senders:
+            for k in (3, 4):
+                valid = iota_n == slots5[k]["recv"][sender][None, :]
+                words_r = [words5[k][w][sender][None, :]
+                           for w in range(W)]
+                mbs, acc, accepted = enqueue(mbs, acc, valid, words_r)
+                acc_masks[k][sender] = accepted.to(I32)
+
+        # [S(sender), 5, R(receiver), B]
+        accs = torch.stack(
+            [torch.stack(acc_masks[k], 0) for k in range(_NSLOTS)], 1
+        )
+        dcount = _isum(accs, 2)                        # [S, 5, B]
+        # the INV remainder: the fan-out mask minus accepted
+        # receivers
+        remaining = []
+        for w in range(SW):
+            lo = w * _SPLIT_BPW
+            hi = min(n, lo + _SPLIT_BPW)
+            rbit = torch.arange(hi - lo, dtype=I32,
+                                device=dev)[None, :, None]
+            remaining.append(
+                inv_shw[w] & ~_isum(accs[:, 2, lo:hi] << rbit, 1))
 
         rem_any = remaining[0]
         for w in range(1, SW):
@@ -989,58 +881,24 @@ def build_cycle(config: SystemConfig, snapshots: bool = True,
             return _isum(x, 0)
 
         sc = s["scalars"]
-        if not sharded:
-            # a lane accrues a cycle only while it has outstanding work
-            # at cycle start, so the count does not depend on the gate
-            lane_active = (
-                _isum((s["tr_len"] - pc_in).clamp(min=0), 0)
-                + _isum(waiting_in, 0)
-                + _isum(mb_count_in, 0)
-                + _isum(dv, (0, 1))
-            )
-            inc = torch.stack([
-                lane_active.clamp(max=1), row(elig), md, ov_inc,
-                row(is_rd & hit), row(rm), row(is_wr & hit), row(wm),
-                row(ev_replyrd | ev_flush | ev_issue), row(inv_applied),
-            ], 0)
-            mc_g = mc
-        else:
-            # ONE stacked SUM over the node group carries every summed
-            # reduction of the cycle (the end-of-cycle activity, which
-            # is the next cycle's start activity, the cross-shard
-            # entries, the exchange and mailbox overflow, the counters
-            # and the savings) and ONE stacked MAX the max-telemetry
-            end_active = (
-                row((tr_len - pc).clamp(min=0)) + row(waiting)
-                + row(mb_count3) + sum(row(d5) for d5 in defer5)
-            )
-            g = axis_name.all_reduce(torch.stack(
-                [end_active, xc["sent"], xc["over"], ov_inc, row(elig),
-                 md, row(is_rd & hit), row(rm), row(is_wr & hit), row(wm),
-                 row(ev_replyrd | ev_flush | ev_issue), row(inv_applied)]
-                + list(mc) + [xc["mc"], xc["comb"]], 0), "sum")
-            pm = axis_name.all_reduce(
-                torch.stack([xc["hwm"], xc["dg"], xc["dc"]], 0), "max")
-            # the previous cycle's summed end activity is this cycle's
-            # start activity (the runner seeds ``activeg`` once a window)
-            inc = torch.stack([
-                s["activeg"][0].clamp(max=1), g[4], g[5],
-                g[3].clamp(max=1), g[6], g[7], g[8], g[9], g[10], g[11],
-            ], 0)
-            mc_g = g[12:12 + _NTYPES]
-            out["activeg"] = g[0:1]
-            out["xmsgs"] = s["xmsgs"] + g[1:2]
-            out["exchov"] = torch.maximum(s["exchov"], g[2:3])
-            out["exchmc"] = s["exchmc"] + g[12 + _NTYPES:13 + _NTYPES]
-            out["exchcb"] = s["exchcb"] + g[13 + _NTYPES:14 + _NTYPES]
-            out["exchhw"] = torch.maximum(s["exchhw"], pm[0:1])
-            out["exchdg"] = torch.maximum(s["exchdg"], pm[1:2])
-            out["exchdc"] = torch.maximum(s["exchdc"], pm[2:3])
+        # a lane accrues a cycle only while it has outstanding work
+        # at cycle start, so the count does not depend on the gate
+        lane_active = (
+            _isum((s["tr_len"] - pc_in).clamp(min=0), 0)
+            + _isum(waiting_in, 0)
+            + _isum(mb_count_in, 0)
+            + _isum(dv, (0, 1))
+        )
+        inc = torch.stack([
+            lane_active.clamp(max=1), row(elig), md, ov_inc,
+            row(v["rh"]), row(v["rm"]), row(v["wh"]), row(v["wm"]),
+            row(v["ev"]), row(v["inv_applied"]),
+        ], 0)
         row_sc = torch.arange(_NSCALAR, device=dev)[:, None]
         # the overflow row is sticky (max), every other row accumulates
         out["scalars"] = where(row_sc == _SC_OVERFLOW,
                                torch.maximum(sc, inc), sc + inc)
-        out["msg_counts"] = s["msg_counts"] + mc_g
+        out["msg_counts"] = s["msg_counts"] + mc
         return out
 
     if not packed:

@@ -248,29 +248,23 @@ def plan_collectives(plan: Plan) -> dict:
     return {"ppermute": 2 * (plan.di + plan.do - 2), "all_to_all": 0}
 
 
-def _trail_zeros(payload: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(payload.shape[2:], dtype=I32, device=payload.device)
+#: the telemetry rows of :func:`forward`, in the order of the node
+#: kernels' ``[6, ...]`` stats block (``csrc/node_cycle.cuh``, ``FS_*``)
+FSTATS = ("sent", "hwm", "mc_saved", "combined", "overflow", "ovf_diag")
 
 
-def _source_stats(d: int, me: int, payload, dest_fn, fan_fn):
-    """Source-side telemetry over the D-1 peer buckets: entries
-    shipped, the per-bucket demand high-water mark, and the unicast
-    slots a mask-less INV fan-out would have cost (``fan - 1`` per
-    shipped multicast entry)."""
-    sent = _trail_zeros(payload)
-    hwm = _trail_zeros(payload)
-    mc = _trail_zeros(payload)
-    for rnd in range(1, d):
-        peer = (me + rnd) % d
-        mask = dest_fn(payload, peer)
-        dcount = mask.sum(dim=0, dtype=I32)
-        sent = sent + dcount
-        hwm = torch.maximum(hwm, dcount)
-        if fan_fn is not None:
-            fan = fan_fn(payload, peer)
-            mc = mc + torch.where(mask, (fan - 1).clamp(min=0), 0).sum(
-                dim=0, dtype=I32)
-    return sent, hwm, mc
+class Dest(NamedTuple):
+    """One destination of a bucketing step: entries of block ``block``
+    bound for any shard of ``shards`` (empty: none); ``compact`` puts
+    them in a k-slot buffer, ``stat`` counts them in the source
+    telemetry (``sent``, ``hwm``, ``mc_saved``); ``dst`` names the
+    destination in the overflow word."""
+
+    block: int
+    shards: Tuple[int, ...]
+    compact: bool
+    stat: bool
+    dst: int
 
 
 def _ovf_note(fs: dict, ovf, demand, src: int, dst: int) -> None:
@@ -282,20 +276,88 @@ def _ovf_note(fs: dict, ovf, demand, src: int, dst: int) -> None:
                                    torch.where(ovf > 0, word, 0))
 
 
-def _compact_to(fs: dict, mask, block, k: int, src: int, dst: int):
-    """compact + overflow bookkeeping (none when ``k`` can hold every
-    entry of the block)."""
-    buf, sel, ovf = compact(mask, block, k)
-    if k < int(block.shape[1]):
-        demand = mask.sum(dim=0, dtype=I32)
-        fs["hwm"] = torch.maximum(fs["hwm"], demand)
-        _ovf_note(fs, ovf, demand, src, dst)
-    return buf, sel
+def bucket(fs: dict, blocks: Sequence[torch.Tensor], dests: Sequence[Dest],
+           k: int, src: int, dest_of: Callable, fan_of: Optional[Callable],
+           ckey_row: Optional[int] = None, nkeys: int = 0):
+    """One bucketing step, as plain tensor code: every destination of
+    ``dests`` over its block (``dest_of(block, shards)`` -> bool [J,
+    ...]), the stat ones counted (entries, high-water, and the unicast
+    slots a mask-less INV fan-out would have cost, ``fan - 1`` a shipped
+    entry with ``fan_of(block, peer)``), the compacting ones compacted
+    in candidate order (:func:`compact`, with the overflow bookkeeping
+    when ``k`` cannot hold the block), and with ``ckey_row`` the
+    combining count over the compacting ones (what an in-network
+    combiner would have merged: ``hier``'s outer links).  Updates
+    ``fs``; returns the buffers ``[P, R, k, ...]`` and placements of the
+    P compacting destinations, in order."""
+    bufs, sels, cnt = [], [], None
+    for dest in dests:
+        blk = blocks[dest.block]
+        mask = dest_of(blk, dest.shards)
+        if dest.stat:
+            dcount = mask.sum(dim=0, dtype=I32)
+            fs["sent"] = fs["sent"] + dcount
+            fs["hwm"] = torch.maximum(fs["hwm"], dcount)
+            if fan_of is not None:
+                fan = fan_of(blk, dest.shards[0])
+                fs["mc_saved"] = fs["mc_saved"] + torch.where(
+                    mask, (fan - 1).clamp(min=0), 0).sum(dim=0, dtype=I32)
+        if not dest.compact:
+            continue
+        buf, sel, ovf = compact(mask, blk, k)
+        if k < int(blk.shape[1]):
+            demand = mask.sum(dim=0, dtype=I32)
+            fs["hwm"] = torch.maximum(fs["hwm"], demand)
+            _ovf_note(fs, ovf, demand, src, dest.dst)
+        bufs.append(buf)
+        sels.append(sel)
+        if ckey_row is not None and nkeys > 0:
+            # tier-boundary combining, modeled: the duplicates still
+            # ship, the counter reports what an in-network combiner
+            # would have merged on the outer links
+            key = blk[ckey_row]
+            kk = torch.arange(1, nkeys + 1, dtype=I32,
+                              device=key.device).reshape(
+                (nkeys,) + (1,) * key.dim())
+            c = ((key[None] == kk) & mask[None]).sum(dim=1, dtype=I32)
+            cnt = c if cnt is None else cnt + c
+    if cnt is not None:
+        fs["combined"] = fs["combined"] + (cnt - 1).clamp(min=0).sum(
+            dim=0, dtype=I32)
+    return torch.stack(bufs), sels
+
+
+class FnBucketer:
+    """The bucketing of :func:`forward` from a ``dest_fn(block, peer)``
+    and a ``fan_fn(block, peer)``, as plain tensor code (the general
+    engine's exchange and the tests'); a shard set's mask is the OR of
+    its shards'."""
+
+    def __init__(self, dest_fn: Callable, fan_fn: Optional[Callable],
+                 ckey_row: Optional[int] = None, nkeys: int = 0):
+        self.dest_fn, self.fan_fn = dest_fn, fan_fn
+        self.ckey_row, self.nkeys = ckey_row, nkeys
+
+    def stats_init(self, payload: torch.Tensor) -> dict:
+        z = torch.zeros(payload.shape[2:], dtype=I32, device=payload.device)
+        return dict.fromkeys(FSTATS, z)
+
+    def dest_of(self, blk, shards):
+        m = torch.zeros(blk.shape[1:], dtype=torch.bool, device=blk.device)
+        for p in shards:
+            m = m | self.dest_fn(blk, p)
+        return m
+
+    def __call__(self, fs, blocks, dests, k, src, combine=False):
+        return bucket(fs, blocks, dests, k, src, self.dest_of, self.fan_fn,
+                      self.ckey_row if combine else None, self.nkeys)
 
 
 def forward(plan: Plan, comm, me: int, payload: torch.Tensor,
-            dest_fn: Callable, k: int, fan_fn: Optional[Callable] = None,
-            ckey_row: Optional[int] = None, nkeys: int = 0):
+            dest_fn: Optional[Callable], k: int,
+            fan_fn: Optional[Callable] = None,
+            ckey_row: Optional[int] = None, nkeys: int = 0,
+            bucketer=None):
     """Run the plan's forward exchange over ``comm`` (a ``NodeComm``).
 
     ``payload``: [R, J0, ...] candidate rows; ``dest_fn(block, peer)``
@@ -304,6 +366,12 @@ def forward(plan: Plan, comm, me: int, payload: torch.Tensor,
     entry within ``peer`` (the multicast-savings counter);
     ``ckey_row``/``nkeys``: the payload row holding the combining key
     (0 = not combinable, else key+1) and the key space (``hier`` only).
+    ``bucketer`` replaces the three: a callable ``(fs, blocks, dests, k,
+    src, combine) -> (bufs [P, R, k, ...], sels)`` with a
+    ``stats_init(payload)`` (the node cycle's, which launches the N2
+    kernel on the card); each schedule makes one bucketing step a
+    compaction round (one for all peers under ``a2a`` and
+    ``butterfly``), the source telemetry in its first.
 
     Returns ``(bufs, origins, ctx, fstats)``: the received [R, k, ...]
     blocks, one origin shard id per block with the local block's ``me``
@@ -311,21 +379,23 @@ def forward(plan: Plan, comm, me: int, payload: torch.Tensor,
     the telemetry (``sent``, ``hwm``, ``mc_saved``, ``combined``,
     ``overflow``, ``ovf_diag``, int32 of the payload's trailing shape)."""
     d = plan.d
-    z = _trail_zeros(payload)
-    fs = {"sent": z, "hwm": z, "mc_saved": z, "combined": z,
-          "overflow": z, "ovf_diag": z}
+    if bucketer is None:
+        bucketer = FnBucketer(dest_fn, fan_fn, ckey_row, nkeys)
+    fs = bucketer.stats_init(payload)
     if d <= 1:
         return [], [me], (plan.mode, []), fs
-    fs["sent"], fs["hwm"], fs["mc_saved"] = _source_stats(
-        d, me, payload, dest_fn, fan_fn)
+    combine = ckey_row is not None and nkeys > 0
+    # the source telemetry over the D-1 peer buckets
+    stats = [Dest(0, ((me + r) % d,), False, True, (me + r) % d)
+             for r in range(1, d)]
     if plan.mode == "pairwise":
         bufs, sels, origins = [], [], [me]
         for rnd in range(1, d):
             peer = (me + rnd) % d
-            buf, sel = _compact_to(fs, dest_fn(payload, peer), payload, k,
-                                   me, peer)
-            bufs.append(comm.ppermute(buf, fwd_perm(d, rnd)))
-            sels.append(sel)
+            out, sel = bucketer(fs, [payload],
+                                [Dest(0, (peer,), True, True, peer)], k, me)
+            bufs.append(comm.ppermute(out[0], fwd_perm(d, rnd)))
+            sels.append(sel[0])
             origins.append(origin_of_round(me, d, rnd))
         return bufs, origins, ("pairwise", sels), fs
 
@@ -334,13 +404,10 @@ def forward(plan: Plan, comm, me: int, payload: torch.Tensor,
         # block b arrives from shard b.  The self block is empty;
         # rolling the stack by -(me+1) parks it last, so the receiver
         # processes d-1 real blocks, as in pairwise
-        outs, sels = [], []
-        for p in range(d):
-            mask = dest_fn(payload, p) & (me != p)
-            buf, sel = _compact_to(fs, mask, payload, k, me, p)
-            outs.append(buf)
-            sels.append(sel)
-        recv = comm.all_to_all(torch.stack(outs, dim=0))
+        out, sels = bucketer(fs, [payload], [
+            Dest(0, (p,) if p != me else (), True, p != me, p)
+            for p in range(d)], k, me)
+        recv = comm.all_to_all(out)
         recv = torch.roll(recv, -(me + 1), dims=0)
         bufs = [recv[b] for b in range(d - 1)]
         origins = [me] + [(me + 1 + b) % d for b in range(d - 1)]
@@ -356,12 +423,10 @@ def forward(plan: Plan, comm, me: int, payload: torch.Tensor,
         zero_block = torch.zeros(
             (payload.shape[0], k) + tuple(payload.shape[2:]),
             dtype=payload.dtype, device=payload.device)
-        blocks, sels = [zero_block], [None]
-        for rel in range(1, d):
-            buf, sel = _compact_to(fs, dest_fn(payload, me ^ rel), payload,
-                                   k, me, me ^ rel)
-            blocks.append(buf)
-            sels.append(sel)
+        out, sel = bucketer(fs, [payload], [
+            Dest(0, (me ^ rel,), True, True, me ^ rel)
+            for rel in range(1, d)], k, me)
+        blocks, sels = [zero_block] + list(out), [None] + list(sel)
         cells = [[b] for b in blocks]
         for s in range(stages):
             perm = [(i, i ^ (1 << s)) for i in range(d)]
@@ -379,56 +444,35 @@ def forward(plan: Plan, comm, me: int, payload: torch.Tensor,
     # ships everything bound for inner index (me_i + r); the relay pool
     # (local payload + the Di-1 inner arrivals) is then re-bucketed per
     # outer round, so the outer links carry each entry once per
-    # destination group
+    # destination group.  The first step carries the source telemetry
     di, do = plan.di, plan.do
     me_i = me % di
     me_o = me // di
 
-    def union_inner(block, ti):
-        m = None
-        for o in range(do):
-            mo = dest_fn(block, o * di + ti)
-            m = mo if m is None else (m | mo)
-        return m
-
     inner_sels, bufs, origins = [], [], [me]
     for r in range(1, di):
         ti = (me_i + r) % di
-        buf, sel = _compact_to(fs, union_inner(payload, ti), payload, k, me,
-                               me_o * di + ti)
+        out, sel = bucketer(fs, [payload], [
+            Dest(0, tuple(o * di + ti for o in range(do)), True, False,
+                 me_o * di + ti)] + stats, k, me)
+        stats = []
         perm = [(o * di + i, o * di + (i + r) % di)
                 for o in range(do) for i in range(di)]
-        bufs.append(comm.ppermute(buf, perm))
-        inner_sels.append(sel)
+        bufs.append(comm.ppermute(out[0], perm))
+        inner_sels.append(sel[0])
         origins.append(me_o * di + (me_i - r) % di)
     pool = [payload] + list(bufs)  # entries bound for inner index me_i
 
     outer_sels = []
     for r in range(1, do):
         tgt = ((me_o + r) % do) * di + me_i
-        subs, sels_r = [], []
-        cnt = None
-        for blk in pool:
-            mq = dest_fn(blk, tgt)
-            sub, sq = _compact_to(fs, mq, blk, k, me, tgt)
-            subs.append(sub)
-            sels_r.append(sq)
-            if ckey_row is not None and nkeys > 0:
-                # tier-boundary combining, modeled: the duplicates still
-                # ship, the counter reports what an in-network combiner
-                # would have merged on the outer links
-                key = blk[ckey_row]
-                kk = torch.arange(1, nkeys + 1, dtype=I32,
-                                  device=key.device).reshape(
-                    (nkeys,) + (1,) * key.dim())
-                c = ((key[None] == kk) & mq[None]).sum(dim=1, dtype=I32)
-                cnt = c if cnt is None else cnt + c
-        if cnt is not None:
-            fs["combined"] = fs["combined"] + (cnt - 1).clamp(min=0).sum(
-                dim=0, dtype=I32)
+        out, sels_r = bucketer(fs, pool, [
+            Dest(b, (tgt,), True, False, tgt) for b in range(len(pool))]
+            + stats, k, me, combine=combine)
+        stats = []
         perm = [(o * di + i, ((o + r) % do) * di + i)
                 for o in range(do) for i in range(di)]
-        got = comm.ppermute(torch.stack(subs), perm)
+        got = comm.ppermute(out, perm)
         og = (me_o - r) % do
         for q in range(di):
             bufs.append(got[q])

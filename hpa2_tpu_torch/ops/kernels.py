@@ -11,6 +11,9 @@ Two kernels share the cycle in ``csrc/cycle.cuh``:
 
 A third library, ``csrc/micro_kernels.cu`` (:data:`MICRO`), holds the
 five op-pattern micro-kernels that ``scripts/micro_kernels.py`` drives.
+A fourth, ``csrc/node_cycle.cu`` (:data:`NODE_CYCLE`), holds the four
+kernels of K1's node-sharded cycle; its entries, each with its own
+launch count (:class:`KernelEntry`), are ``ops/node_cycle.py``'s.
 Two more (:data:`ABLATE_KERNELS`) are the two fast-path sources built
 again with ``-DHPA2_ABLATE``: K1's ablation variant inside each, a
 deliberately wrong cycle with named stages stubbed out at run time
@@ -49,6 +52,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -69,6 +73,9 @@ BUILD_DIR = PACKAGE_DIR / "build"
 
 #: the header every kernel source includes
 SHARED_SOURCES = ("cycle.cuh",)
+#: builds and launch counts are shared by the threads of logical ranks
+#: (``parallel/comm.py:LocalComm``)
+_LOCK = threading.RLock()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -220,6 +227,12 @@ class CudaKernel:
         it.  Returns the library's path."""
         if self._lib is not None:  # hashing the sources costs ~0.1 ms
             return self._path
+        with _LOCK:
+            return self._build()
+
+    def _build(self) -> Path:
+        if self._lib is not None:
+            return self._path
         path = self.library_path()
         self.start_build()
         log = BUILD_DIR / (path.stem + ".log")
@@ -235,9 +248,10 @@ class CudaKernel:
         else:
             self.build_log = log.read_text() if log.exists() else ""
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, self.entry)
-        fn.argtypes = [*self._params, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        if self.entry is not None:
+            fn = getattr(lib, self.entry)
+            fn.argtypes = [*self._params, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         if self._mirror is not None:
             lib.hpa2_args_size.argtypes = []
             lib.hpa2_args_size.restype = ctypes.c_int
@@ -255,17 +269,7 @@ class CudaKernel:
         """Launch on ``device``'s current stream with ``args`` (as the
         entry's ``params``); raises if the launch is refused."""
         self.build()
-        stream = torch.cuda.current_stream(device).cuda_stream
-        # the entry makes ``device`` current (cudaSetDevice); the guard
-        # gives PyTorch's current device back afterwards, so a launch on
-        # another card of a data mesh leaves the caller's device as it was
-        with torch.cuda.device(device):
-            err = getattr(self._lib, self.entry)(
-                *args, device.index or 0, stream)
-        if err != 0:
-            raise RuntimeError(
-                f"{self.name} kernel launch failed: CUDA error {err}")
-        self.launches += 1
+        _launch(self, getattr(self._lib, self.entry), args, device)
 
     def occupancy(self, args: Args, *, device: torch.device) -> Dict[str, int]:
         """What the card makes of a launch with ``args`` (a fast-path
@@ -286,6 +290,52 @@ class CudaKernel:
                     threads=out[3], cl=args.cl)
 
 
+class KernelEntry:
+    """One kernel of a library that holds several (:data:`NODE_CYCLE`):
+    its entry, its ``params`` (ctypes types; the device index and the
+    stream follow) and its own launch count, which counts launches and
+    nothing else."""
+
+    def __init__(self, lib: CudaKernel, name: str, entry: str,
+                 replaces: str, params: Tuple) -> None:
+        self.lib = lib
+        self.name = name
+        self.entry = entry
+        self.replaces = replaces
+        self.source = lib.source
+        self.launches = 0
+        self._params = params
+        self._fn = None
+
+    def launch(self, *args, device: torch.device) -> None:
+        """Launch on ``device``'s current stream; raises if the launch is
+        refused."""
+        if self._fn is None:
+            self.lib.build()
+            fn = getattr(self.lib._lib, self.entry)
+            fn.argtypes = [*self._params, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        _launch(self, self._fn, args, device)
+
+
+def _launch(kern, fn, args, device: torch.device) -> None:
+    """``fn(*args, device index, stream)`` on ``device``'s current
+    stream; raises if the launch is refused, else counts it on
+    ``kern``."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    # the entry makes ``device`` current (cudaSetDevice); the guard
+    # gives PyTorch's current device back afterwards, so a launch on
+    # another card of a data mesh leaves the caller's device as it was
+    with torch.cuda.device(device):
+        err = fn(*args, device.index or 0, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{kern.name} kernel launch failed: CUDA error {err}")
+    with _LOCK:
+        kern.launches += 1
+
+
 class WrapperCalls:
     """Calls of :func:`stream_run` and :func:`call_run`, counted at the
     wrapper, so that the plain versions on the CPU and the kernels on
@@ -299,15 +349,24 @@ class WrapperCalls:
 
 class HostSyncs:
     """Count of the device values the engines read back to the host
-    (each is a host sync on the card)."""
+    (each is a host sync on the card): ``count`` over the process,
+    :attr:`mine` this thread's (a logical rank's, under
+    ``parallel/comm.py:LocalComm``)."""
 
     def __init__(self) -> None:
         self.count = 0
+        self._tls = threading.local()
+
+    @property
+    def mine(self) -> int:
+        return getattr(self._tls, "count", 0)
 
     def read(self, x: torch.Tensor):
         """``x`` on the host, counted: ``x.item()`` for a scalar tensor,
         else a numpy copy."""
-        self.count += 1
+        with _LOCK:
+            self.count += 1
+        self._tls.count = self.mine + 1
         return x.item() if x.dim() == 0 else x.cpu().numpy()
 
 
@@ -340,8 +399,15 @@ MICRO = CudaKernel(
     params=(ctypes.c_int,) + (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3,
     mirror=None)
 
+#: K1's node-sharded cycle (``ops/node_cycle.py``): four entries, N1-N4,
+#: each instantiated for node bounds 8, 21 and 64 (int32 and packed
+#: planes where it touches them)
+NODE_CYCLE = CudaKernel(
+    "node_cycle", "node_cycle.cu", None, "hpa2_tpu/ops/pallas_engine.py:559",
+    headers=("node_cycle.cuh",) + SHARED_SOURCES, params=())
+
 #: every library, in the order :func:`build_all` builds them
-LIBRARIES = KERNELS + ABLATE_KERNELS + (MICRO,)
+LIBRARIES = KERNELS + ABLATE_KERNELS + (MICRO, NODE_CYCLE)
 
 HOST_SYNCS = HostSyncs()
 CALLS = WrapperCalls()

@@ -19,26 +19,43 @@ Every call goes through :data:`COLLECTIVES`, so tests and the
 ``contracts`` analysis count the collectives of a cycle.  On the card
 the backend is NCCL (each rank on its own card; NCCL refuses two ranks
 on one), on the CPU gloo.
+
+:class:`LocalComm` is the same interface for logical ranks that are
+threads of one process on one device (``make_mesh(..., local=True)``):
+each collective is a copy in memory behind a barrier, counted as
+:class:`NodeComm` counts.  It is the port's counterpart of the
+host-platform devices on which the JAX package runs ``shard_map`` in one
+process, and lets a node-sharded run use one card.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 
 class Collectives:
-    """Count of the collectives this process has issued, by kind."""
+    """Count of the collectives this rank has issued, by kind: this
+    thread's count (a rank is a process, or under :class:`LocalComm` a
+    thread)."""
 
     KINDS = ("ppermute", "all_to_all", "sum", "max", "min")
 
     def __init__(self) -> None:
-        self.counts: Dict[str, int] = dict.fromkeys(self.KINDS, 0)
+        self._tls = threading.local()
+
+    @property
+    def counts(self) -> Dict[str, int]:
+        c = getattr(self._tls, "counts", None)
+        if c is None:
+            c = self._tls.counts = dict.fromkeys(self.KINDS, 0)
+        return c
 
     def reset(self) -> None:
-        self.counts = dict.fromkeys(self.KINDS, 0)
+        self._tls.counts = dict.fromkeys(self.KINDS, 0)
 
     def snapshot(self) -> Dict[str, int]:
         return dict(self.counts)
@@ -102,6 +119,119 @@ class NodeComm:
         COLLECTIVES.counts[op] += 1
         return y
 
+    def barrier(self) -> None:
+        """Wait for every rank of the node group (not counted: no
+        collective of the simulation)."""
+        dist.barrier(group=self.group)
+
+
+class LocalGroup:
+    """The meeting point of a group of logical ranks: one slot a rank and
+    a barrier.  ``abort`` breaks the barrier, so a failed rank never
+    leaves the others waiting.
+
+    ``turn`` (a lock shared by every group of the ranks) makes the ranks
+    take turns on the host: a rank holds it while it runs and gives it
+    up only to wait in a collective, so one thread at a time runs Python
+    and the others sleep, instead of all of them handing the
+    interpreter's lock back and forth at every call into PyTorch."""
+
+    def __init__(self, ranks: Sequence[int],
+                 turn: Optional[threading.Lock] = None):
+        self.ranks = list(ranks)
+        self.slots: Dict[int, torch.Tensor] = {}
+        self.barrier = threading.Barrier(len(self.ranks))
+        self.turn = turn
+
+    def _wait(self) -> None:
+        if self.turn is not None:
+            self.turn.release()
+        try:
+            self.barrier.wait()
+        finally:
+            if self.turn is not None:
+                self.turn.acquire()
+
+    def gather(self, rank: int, x: torch.Tensor) -> List[torch.Tensor]:
+        """Every rank's ``x`` (group order); the caller copies what it
+        keeps, then calls :meth:`done`."""
+        self.slots[rank] = x
+        self._wait()
+        return [self.slots[r] for r in self.ranks]
+
+    def done(self) -> None:
+        """Every rank has copied what it keeps: a rank may change the
+        tensor it offered."""
+        self._wait()
+
+    def abort(self) -> None:
+        self.barrier.abort()
+
+
+class LocalComm:
+    """A node group of logical ranks, threads of one process on one
+    device: ``rank`` this thread's rank in the group (``ranks``, global
+    ranks in node order), ``group`` and ``world`` the
+    :class:`LocalGroup` of the node group and of every rank.  The
+    collectives are :class:`NodeComm`'s, done in memory: each rank
+    offers its tensor, waits for the others, copies what it receives
+    and waits again.  On the card every rank enqueues on the device's
+    default stream, so a copy is ordered after the kernels that wrote
+    what it copies and before those that write it next."""
+
+    def __init__(self, grank: int, group: LocalGroup, world: LocalGroup):
+        self.grank = grank
+        self.group = group
+        self.world = world
+        self.ranks = group.ranks
+        self.rank = self.ranks.index(grank)
+        self.size = len(self.ranks)
+
+    def ppermute(self, x: torch.Tensor,
+                 perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        src = [s for s, d in perm if d == self.rank]
+        got = self.group.gather(self.grank, x)
+        out = got[src[0]].clone() if src else torch.zeros_like(x)
+        self.group.done()
+        COLLECTIVES.counts["ppermute"] += 1
+        return out
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        got = self.group.gather(self.grank, x)
+        out = torch.stack([g[self.rank] for g in got])
+        self.group.done()
+        COLLECTIVES.counts["all_to_all"] += 1
+        return out
+
+    def all_reduce(self, x: torch.Tensor, op: str,
+                   world: bool = False) -> torch.Tensor:
+        grp = self.world if world else self.group
+        st = torch.stack(grp.gather(self.grank, x))
+        if op == "sum":
+            y = st.sum(0, dtype=x.dtype)
+        elif op == "max":
+            y = st.amax(0)
+        else:
+            y = st.amin(0)
+        grp.done()
+        COLLECTIVES.counts[op] += 1
+        return y
+
+    def barrier(self) -> None:
+        """Wait for every rank of the node group (not counted)."""
+        self.group._wait()
+
+
+#: this thread's logical rank: (global rank, its node group's
+#: ``LocalComm``, its data row) while a ``LocalPool`` runs it
+_LOCAL = threading.local()
+
+
+def set_local_rank(rank: Optional[Tuple[int, LocalComm, int]]) -> None:
+    """Make this thread a logical rank (``parallel/launch.py:LocalPool``),
+    or none (``None``)."""
+    _LOCAL.rank = rank
+
 
 def backend_for(device: torch.device) -> str:
     """NCCL on the card, gloo on the CPU."""
@@ -117,7 +247,17 @@ def world_comm(node: int, data: int = 1) -> Tuple[NodeComm, int]:
     """This rank's node group in an initialized ``data x node`` world
     (rank ``d * node + i`` holds node block ``i`` of data row ``d``), and
     its data row.  Every rank creates every row's group, as
-    ``dist.new_group`` requires, once a process for a shape."""
+    ``dist.new_group`` requires, once a process for a shape.  In a
+    logical rank's thread, its :class:`LocalComm`."""
+    local = getattr(_LOCAL, "rank", None)
+    if local is not None:
+        _, comm, row = local
+        if comm.world.barrier.parties != node * data or comm.size != node:
+            raise ValueError(
+                f"this logical rank's group is {comm.size} of "
+                f"{comm.world.barrier.parties}; a {data}x{node} mesh needs "
+                f"{node} of {node * data}")
+        return comm, row
     world = dist.get_world_size()
     if world != node * data:
         raise ValueError(

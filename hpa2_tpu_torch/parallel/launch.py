@@ -12,6 +12,11 @@ same command and collects the replies, so ranks that outlive one call
 (the node-sharded serving session) and a one-shot run (:func:`spawn`,
 one call on a fresh pool) are the same machinery.
 
+:class:`LocalPool` is the same for logical ranks: threads of this
+process on one device, meeting through ``parallel/comm.py:LocalComm``
+(``make_mesh(..., local=True)``); :func:`pool_for` picks the pool of a
+mesh.
+
 :func:`join_torchrun` joins a group that ``torchrun`` already started
 (its ``RANK``/``WORLD_SIZE``/``MASTER_ADDR`` environment), so the
 engines run in place on every rank instead of spawning.
@@ -32,7 +37,9 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 from multiprocessing.connection import wait
 
-from hpa2_tpu_torch.parallel.comm import backend_for
+from hpa2_tpu_torch.parallel.comm import (
+    LocalComm, LocalGroup, backend_for, set_local_rank,
+)
 
 
 def join_torchrun(device="cuda") -> bool:
@@ -240,3 +247,94 @@ class RankPool:
         for conn in self._conns:
             conn.close()
         shutil.rmtree(self._tmp, ignore_errors=True)
+
+
+class LocalPool:
+    """``data x node`` logical ranks, threads of this process on one
+    device (``cuda:0`` or the CPU), with :class:`RankPool`'s
+    :meth:`call`: every call runs ``fn(env, *args)`` on one thread a
+    rank, with the rank's ``parallel/comm.py:LocalComm`` its node group
+    (``world_comm`` returns it), ``env`` a dict that lives as long as
+    the pool.  A rank's exception breaks every barrier, so the others
+    stop too, and raises in the caller."""
+
+    local = True
+
+    def __init__(self, node: int, data: int = 1, device="cuda"):
+        dev = torch.device(device)
+        _check_world(1, dev)
+        self.world = node * data
+        self.device = dev
+        self.closed = False
+        self._turn = threading.Lock()
+        world = LocalGroup(range(self.world), self._turn)
+        rows = [LocalGroup(range(d * node, (d + 1) * node), self._turn)
+                for d in range(data)]
+        self._groups = [world] + rows
+        self._ranks = [(r, LocalComm(r, rows[r // node], world), r // node)
+                       for r in range(self.world)]
+        self._envs: List[dict] = [{} for _ in range(self.world)]
+
+    def __enter__(self) -> "LocalPool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def call(self, fn: Callable, args: Sequence = (),
+             per_rank: Optional[Sequence[Sequence]] = None) -> List:
+        if self.closed:
+            raise RuntimeError("the rank pool is closed")
+        replies: List = [None] * self.world
+        errors: List = [None] * self.world
+
+        def rank_main(r: int) -> None:
+            set_local_rank(self._ranks[r])
+            self._turn.acquire()
+            try:
+                if self.device.type == "cuda":
+                    torch.cuda.set_device(self.device.index or 0)
+                replies[r] = fn(self._envs[r], *(
+                    per_rank[r] if per_rank is not None else args))
+            except BaseException as e:  # the caller re-raises it
+                errors[r] = (e, traceback.format_exc())
+                for g in self._groups:
+                    g.abort()
+            finally:
+                self._turn.release()
+                set_local_rank(None)
+
+        threads = [threading.Thread(target=rank_main, args=(r,),
+                                    daemon=True)
+                   for r in range(self.world)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        failed = [(r, e) for r, e in enumerate(errors) if e is not None]
+        if failed:
+            # the first rank that failed for a reason of its own, not
+            # because another broke the barrier
+            first = next(((r, e) for r, e in failed
+                          if not isinstance(e[0], threading.BrokenBarrierError)),
+                         failed[0])
+            self.close()
+            raise RuntimeError(
+                f"logical rank {first[0]} of {self.world} failed:\n"
+                f"{first[1][1]}")
+        return replies
+
+    def run(self, fn: Callable, args: Sequence = ()) -> List:
+        return self.call(_apply, (fn, args))
+
+    def close(self) -> None:
+        self.closed = True
+
+
+def pool_for(mesh):
+    """The pool that runs ``mesh``'s ranks (a ``parallel/sharding.py:
+    Mesh``): a :class:`LocalPool` for a local mesh, else a
+    :class:`RankPool` of processes."""
+    if mesh.local:
+        return LocalPool(mesh.node, mesh.data, mesh.device)
+    return RankPool(mesh.size, mesh.device)

@@ -187,6 +187,7 @@ class Mesh:
     data: int
     node: int
     device: str = "cuda"
+    local: bool = False
 
     axis_names = ("data", "node")
 
@@ -200,12 +201,28 @@ class Mesh:
 
 
 def make_mesh(node_shards: int = 1, data_shards: Optional[int] = None,
-              device="cuda") -> Mesh:
+              device="cuda", local: bool = False) -> Mesh:
     """A ``(data, node)`` mesh over the cards (JAX ``make_mesh``,
     l.78-104): every card by default, and a grid larger than the cards
     raises (NCCL takes one rank a card).  On the CPU the ranks are gloo
-    processes and ``data_shards`` defaults to 1."""
+    processes and ``data_shards`` defaults to 1.
+
+    ``local=True`` makes the ranks threads of this process on one device
+    (``cuda:0``, or the CPU), whose collectives are copies in memory
+    behind a barrier (``parallel/comm.py:LocalComm``): the port's
+    counterpart of the host-platform devices on which the JAX package
+    runs ``shard_map`` in one process, so a node-sharded run needs one
+    card; ``data_shards`` defaults to 1."""
     dev = torch.device(device)
+    if local:
+        if dev.type == "cuda":
+            _cuda_devices()
+        data_shards = 1 if data_shards is None else data_shards
+        if node_shards < 1 or data_shards < 1:
+            raise ValueError(
+                f"empty mesh: data_shards={data_shards} x "
+                f"node_shards={node_shards}")
+        return Mesh(data_shards, node_shards, dev.type, local=True)
     count = len(_cuda_devices()) if dev.type == "cuda" else None
     if node_shards < 1 or (count is not None and node_shards > count):
         raise ValueError(
@@ -737,7 +754,7 @@ def _rank_general(job: dict) -> dict:
                                  job["watchdog_cycles"])
     if job["warmup"]:
         run(SimState(*(x.clone() for x in st)))
-    syncs0 = kernels.HOST_SYNCS.count
+    syncs0 = kernels.HOST_SYNCS.mine
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -749,11 +766,11 @@ def _rank_general(job: dict) -> dict:
         state=sim_state_to_numpy(st), steps=run.steps, jumps=run.jumps,
         step_collectives=run.step_collectives,
         loop_collectives=run.loop_collectives, seconds=secs,
-        host_syncs=kernels.HOST_SYNCS.count - syncs0)
+        host_syncs=kernels.HOST_SYNCS.mine - syncs0)
 
 
 def run_node_sharded(engines: Sequence, warmup: bool = False,
-                     pool=None) -> None:
+                     pool=None, cycle: Optional[str] = None) -> None:
     """Run several node-sharded engines of one mesh size in one group of
     ranks (one spawn: a rank costs seconds to start), in ``pool`` (a
     ``parallel/launch.py:RankPool`` of that size that the caller keeps,
@@ -763,28 +780,37 @@ def run_node_sharded(engines: Sequence, warmup: bool = False,
     path's (:class:`NodeShardedCudaEngine`).  With ``warmup`` each rank
     runs each loop once untimed first, so that ``seconds`` (the second
     run's) leaves out the rank's one-time costs: its CUDA context, the
-    NCCL communicators made at their first collective.  Raises the first
-    engine's stall."""
-    from hpa2_tpu_torch.parallel.launch import join_torchrun, spawn
+    NCCL communicators made at their first collective.  ``cycle``
+    ("kernel" or "tensor") overrides the fast-path engines' node cycle
+    for this run.  A mesh made with ``make_mesh(..., local=True)`` runs
+    its ranks as threads of this process (``parallel/comm.py:
+    LocalComm``) on one device.  Raises the first engine's stall."""
+    from hpa2_tpu_torch.parallel.launch import join_torchrun, pool_for
 
-    sizes = {e.mesh.size for e in engines}
+    sizes = {(e.mesh.size, e.mesh.local) for e in engines}
     devs = {e.mesh.device for e in engines}
     if len(sizes) != 1 or len(devs) != 1:
         raise ValueError("run_node_sharded runs engines of one mesh size "
                          "and device type together")
-    size, device = sizes.pop(), devs.pop()
+    (size, _), device = sizes.pop(), devs.pop()
+    if cycle is not None:
+        for e in engines:
+            if hasattr(e, "node_cycle"):
+                e.node_cycle = cycle
     jobs = [dict(e._job(), warmup=warmup) for e in engines]
     if pool is not None:
-        if pool.world != size or pool.device.type != device:
+        if pool.world != size or pool.device.type != device or (
+                getattr(pool, "local", False) != engines[0].mesh.local):
             raise ValueError(
                 f"a pool of {pool.world} {pool.device.type} ranks cannot "
                 f"run meshes of {size} {device} ranks")
         every = pool.run(_rank_run, (jobs,))
-    elif join_torchrun(device):
+    elif not engines[0].mesh.local and join_torchrun(device):
         every = [None] * dist.get_world_size()
         dist.all_gather_object(every, _rank_run(jobs))
     else:
-        every = spawn(_rank_run, size, args=(jobs,), device=device)
+        with pool_for(engines[0].mesh) as p:
+            every = p.run(_rank_run, (jobs,))
     for i, e in enumerate(engines):
         e._gather([rank[i] for rank in every])
     for e in engines:
@@ -1077,26 +1103,44 @@ class NodeInterval:
     cycles stays bit-exact.  The status word is bit 0 stall, bit 1
     mailbox overflow, bit 2 exchange overflow.
 
+    The cycle is ``ops/node_cycle.py:NodeCycle``: its four kernels on
+    the card, their plain versions on the CPU, and with ``cycle="tensor"``
+    the plain versions on the card too.  ``check_calls``: the launches of
+    the first that many k-cycle calls of the program's life are each
+    held against their plain version on the same inputs (``checked``).
+
     ``census`` holds the collectives of the last cycle, of a window's
     seed (with its first gate) and of a later gate; ``cycles`` and
-    ``seconds`` the cycles run and their host time."""
+    ``seconds`` the cycles run and their host time; ``launches`` the
+    kernel launches by kernel."""
 
     def __init__(self, config: SystemConfig, comm, snapshots: bool,
                  window: int, k: int, max_calls: int,
                  exchange_slots: Optional[int] = None,
-                 packed: bool = False):
+                 packed: bool = False, cycle: str = "kernel",
+                 check_calls: int = 0):
         self.config = config
         self.comm = comm
         self.window = window
         self.k = k
         self.max_calls = max_calls
+        self.check_calls = check_calls
+        self.checked_calls = 0
         self.cycle = build_cycle(config, snapshots, packed, axis_name=comm,
                                  shards=comm.size,
-                                 exchange_slots=exchange_slots)
+                                 exchange_slots=exchange_slots, cycle=cycle)
         self.slsc = _scalar_layout(config, window)
         self.census: Dict[str, Dict[str, int]] = {}
         self.cycles = 0
         self.calls = 0
+
+    @property
+    def launches(self) -> Dict[str, int]:
+        return dict(self.cycle.launches)
+
+    @property
+    def checked(self) -> Dict[str, list]:
+        return {f: list(v) for f, v in self.cycle.checked.items()}
 
     def _activity(self, st, tl) -> torch.Tensor:
         sl = self.slsc
@@ -1130,7 +1174,6 @@ class NodeInterval:
         stalled = False
         calls = 0
         for si in range(n_seg):
-            tr_seg = tr_full[:, si * w:(si + 1) * w]
             tl_seg = (tr_len_full - si * w).clamp(0, w)
             st["nsw"] = st["nsw"] & ~(sl["pc_mask"] << sl["off_pc"])
             before = COLLECTIVES.snapshot()
@@ -1139,10 +1182,12 @@ class NodeInterval:
             go = self._gate(st)
             self.census["seed"] = counted(before)
             while go and calls < self.max_calls:
-                full = {**st, "tr": tr_seg, "tr_len": tl_seg}
+                self.cycle.check = self.checked_calls < self.check_calls
+                self.checked_calls += self.cycle.check
+                full = {**st, "tr": tr_full, "tr_len": tr_len_full}
                 for _ in range(self.k):
                     before = COLLECTIVES.snapshot()
-                    full = self.cycle(full)
+                    full = self.cycle(full, si, w)
                     self.census["cycle"] = counted(before)
                 st = {f: full[f] for f in st}
                 calls += 1
@@ -1152,6 +1197,7 @@ class NodeInterval:
                 self.census["gate"] = counted(before)
             stalled = stalled or go
         self.calls += calls
+        self.cycle.check = False
         for d in (planes, trans):
             for f in d:
                 d[f] = st[f]
@@ -1165,7 +1211,8 @@ def build_node_fused_pallas_run(config: SystemConfig, comm, plan, *,
                                 r_shard: int, bsys_shard: int, k: int,
                                 window: int, nseg_max: int, max_calls: int,
                                 exchange_slots: Optional[int] = None,
-                                packed: bool = False):
+                                packed: bool = False, cycle: str = "kernel",
+                                check_calls: int = 0):
     """This rank's fused scheduled run (JAX ``build_node_fused_pallas_run``,
     l.1053-1177): ``(init, tr_full, tr_len_full) -> (store, transients,
     status)`` over the plan rows of this rank's data shard (``plan`` a
@@ -1178,7 +1225,7 @@ def build_node_fused_pallas_run(config: SystemConfig, comm, plan, *,
     scattered to their systems' columns of a store with one trash
     column, as ``CudaEngine``'s fused run does."""
     program = NodeInterval(config, comm, False, window, k, max_calls,
-                           exchange_slots, packed)
+                           exchange_slots, packed, cycle, check_calls)
     ident = torch.arange(r_shard)
 
     def run(init, tr_full, tr_len_full):
@@ -1219,6 +1266,13 @@ def build_node_fused_pallas_run(config: SystemConfig, comm, plan, *,
     return run
 
 
+def _check_cycle_name(cycle: str) -> None:
+    from hpa2_tpu_torch.ops.node_cycle import CYCLES
+
+    if cycle not in CYCLES:
+        raise ValueError(f"cycle={cycle!r}: one of {CYCLES}")
+
+
 def _rank_fast(job: dict) -> dict:
     """A :class:`NodeShardedCudaEngine`'s job on this rank."""
     from hpa2_tpu_torch.parallel.comm import world_comm
@@ -1237,10 +1291,11 @@ class NodeShardedCudaEngine(CudaEngine):
     Phase C crosses ranks through the targeted exchange of
     ``ops/exchange.py``, at a cost that grows with the candidates that
     cross (bounded by ``exchange_slots``).  The cycle is K1's
-    node-sharded variant (``ops/cycle.py:build_cycle(axis_name=)``),
-    PyTorch tensor code on the card as on the CPU, since JAX runs it as
-    XLA outside any Pallas kernel; its loop is :class:`NodeInterval` on
-    each rank's host.  ``run()`` starts the ranks through
+    node-sharded variant, ``ops/node_cycle.py:NodeCycle``: four kernels
+    on the card (N1-N4, at most 64 nodes and 16 node shards) and their
+    plain versions on the CPU; ``cycle="tensor"`` names the plain
+    versions on the card too (wider systems run only so).  Its loop is
+    :class:`NodeInterval` on each rank's host.  ``run()`` starts the ranks through
     ``parallel/launch.py`` (one spawn a run, or in place under
     ``torchrun``) and gathers every rank's block back, so ``state``,
     ``cycle``, ``instructions``, ``messages``, ``stats()`` (with the
@@ -1255,14 +1310,20 @@ class NodeShardedCudaEngine(CudaEngine):
     ``StallError`` that names the worst cycle, shard pair and demand.
     ``stream``, ``gate`` and the block do not apply to this path (the
     block is still chosen and checked, as JAX does).  On the card each
-    rank takes a card (NCCL): ``node_shards x data_shards`` cards."""
+    rank takes a card (NCCL): ``node_shards x data_shards`` cards, or
+    with ``make_mesh(..., local=True)`` every rank is a thread of this
+    process on one device (``parallel/comm.py:LocalComm``).
+    ``_check_calls``: the kernel launches of each rank's first that many
+    k-cycle calls are held against their plain versions
+    (``rank_stats[r]["checked"]``)."""
 
     def __init__(self, config: SystemConfig, tr_op: np.ndarray,
                  tr_addr: np.ndarray, tr_val: np.ndarray,
                  tr_len: np.ndarray, node_shards: Optional[int] = None,
                  data_shards: int = 1, mesh: Optional[Mesh] = None,
                  exchange_slots: Optional[int] = None, block: int = 1024,
-                 device="cuda", **kwargs):
+                 device="cuda", cycle: str = "kernel",
+                 _check_calls: int = 0, **kwargs):
         if mesh is None:
             if node_shards is None:
                 raise ValueError("pass node_shards or an explicit mesh")
@@ -1277,6 +1338,7 @@ class NodeShardedCudaEngine(CudaEngine):
             raise ValueError(
                 "node_shards=1 is the unsharded fast path — use "
                 "CudaEngine / DataShardedCudaEngine")
+        _check_cycle_name(cycle)
         if config.num_procs % node_shards != 0:
             raise ValueError(
                 f"num_procs={config.num_procs} not divisible by node "
@@ -1314,6 +1376,8 @@ class NodeShardedCudaEngine(CudaEngine):
         self.data_shards = data_shards
         self._shard_b = b // data_shards
         self._exchange_slots = exchange_slots
+        self.node_cycle = cycle
+        self._check_calls = _check_calls
         self._sched_groups = data_shards
         self.max_cycles = 1_000_000
         for f in TRANSIENTS:
@@ -1384,7 +1448,8 @@ class NodeShardedCudaEngine(CudaEngine):
         max_calls = max(1, -(-self.max_cycles // self.cycles_per_call))
         kw = dict(k=self.cycles_per_call, window=self._window,
                   max_calls=max_calls, exchange_slots=self._exchange_slots,
-                  packed=self._packed)
+                  packed=self._packed, cycle=self.node_cycle,
+                  check_calls=self._check_calls)
         if self.schedule is not None:
             groups = self.data_shards
             plan = build_plan(self._nseg, **_schedule_kw(
@@ -1422,7 +1487,8 @@ class NodeShardedCudaEngine(CudaEngine):
         if warmup:
             once()
         counted.cycles = counted.calls = 0
-        syncs0 = kernels.HOST_SYNCS.count
+        counted.cycle.launches = dict.fromkeys(counted.cycle.launches, 0)
+        syncs0 = kernels.HOST_SYNCS.mine
         coll0 = COLLECTIVES.snapshot()
         if dev.type == "cuda":
             torch.cuda.synchronize()
@@ -1436,9 +1502,10 @@ class NodeShardedCudaEngine(CudaEngine):
         return dict(
             planes={f: v.cpu().numpy() for f, v in planes.items()},
             status=status, cycles=counted.cycles, calls=counted.calls,
-            seconds=secs, host_syncs=kernels.HOST_SYNCS.count - syncs0,
+            seconds=secs, host_syncs=kernels.HOST_SYNCS.mine - syncs0,
             collectives={f: coll1[f] - coll0[f] for f in coll1},
-            census=dict(counted.census))
+            census=dict(counted.census), launches=counted.launches,
+            checked=counted.checked)
 
     def _gather(self, blocks: Sequence[dict]) -> None:
         joined = _join_node_planes([b["planes"] for b in blocks],
@@ -1480,6 +1547,95 @@ class NodeShardedCudaEngine(CudaEngine):
         return out
 
 
+def _rank_profile(job: dict) -> dict:
+    """A :class:`NodeProfile`'s job on this rank: a warm k-cycle call on
+    its node block of the engine's first window, then one on fresh
+    planes under ``torch.profiler``.  Logical ranks share a process, so
+    rank 0 alone profiles (CUDA activity is the process's: every rank's
+    kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hpa2_tpu_torch.parallel.comm import LocalComm, world_comm
+
+    eng = job["engine"]
+    cfg = eng.config
+    comm, row = world_comm(eng.mesh.node, eng.mesh.data)
+    dev = _rank_device(eng.mesh)
+    nl = cfg.num_procs // comm.size
+    node = slice(comm.rank * nl, (comm.rank + 1) * nl)
+    lanes = slice(row * eng._shard_b, (row + 1) * eng._shard_b)
+    tr = eng._tr_full[node][:, :eng._window][..., lanes].contiguous().to(dev)
+    tl = eng._tr_len_full[node][..., lanes].clamp(
+        max=eng._window).contiguous().to(dev)
+
+    def fresh():
+        st = _node_local(_init_state(cfg, eng._shard_b, False, eng._packed),
+                         comm.rank, nl, slice(None), dev)
+        trans = {f: torch.zeros((1, eng._shard_b), dtype=I32, device=dev)
+                 for f in TRANSIENTS}
+        return NodeInterval(cfg, comm, False, eng._window, job["k"], 1,
+                            packed=eng._packed, cycle=eng.node_cycle), \
+            st, trans
+
+    prog, st, trans = fresh()
+    prog(st, trans, tr, tl)
+    prog, st, trans = fresh()
+    on = not isinstance(comm, LocalComm) or comm.rank == 0
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    comm.barrier()
+    prof = profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) if on else None
+    if prof is not None:
+        prof.__enter__()
+    comm.barrier()
+    prog(st, trans, tr, tl)
+    sync()
+    comm.barrier()
+    out = dict(planes={}, status=0, cycles=prog.cycles, kernels=None)
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        events = prof.events()
+        ran = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        out.update(kernels=len(ran),
+                   nccl=sum(1 for e in ran if "nccl" in e.name.lower()),
+                   launch_calls=sum(1 for e in events if e.name in (
+                       "cudaLaunchKernel", "cudaLaunchKernelExC",
+                       "cuLaunchKernel", "cuLaunchKernelEx")))
+    comm.barrier()
+    return out
+
+
+class NodeProfile:
+    """The CUDA kernels a cycle of a node-sharded fast-path engine's
+    cycle, by ``torch.profiler``: a job for :func:`run_node_sharded` (in
+    the engine's ranks, after it or alone) that profiles one ``k``-cycle
+    call on each rank (the window's seed and gates included) after a
+    warm one.  :attr:`per_cycle` holds the rank maximum of the kernels,
+    NCCL's among them, and the host's kernel launch calls, each a cycle
+    and a rank (over logical ranks the process's count divided by the
+    ranks)."""
+
+    def __init__(self, engine: "NodeShardedCudaEngine", k: int = 4):
+        self.engine, self.mesh, self.k = engine, engine.mesh, k
+        self.per_cycle: Dict[str, float] = {}
+
+    def _job(self) -> dict:
+        return dict(rank_fn=_rank_profile, engine=self.engine, k=self.k)
+
+    def _gather(self, blocks: Sequence[dict]) -> None:
+        rows = [b for b in blocks if b["kernels"] is not None]
+        share = 1 if len(rows) == len(blocks) else self.mesh.node
+        self.per_cycle = {
+            f: round(max(r[f] / share / max(r["cycles"], 1) for r in rows),
+                     2)
+            for f in ("kernels", "nccl", "launch_calls")}
+
+    def _check(self) -> None:
+        pass
+
+
 class _SessionRank:
     """One rank's side of a :class:`NodeShardedLaneSession`: its node
     block of its data row's resident lanes, the transient rows among the
@@ -1503,7 +1659,8 @@ class _SessionRank:
         self.state = {f: v.clone() for f, v in init.items()}
         self.program = NodeInterval(
             config, self.comm, False, spec["window"], spec["k"],
-            spec["max_calls"], spec["exchange_slots"], spec["packed"])
+            spec["max_calls"], spec["exchange_slots"], spec["packed"],
+            spec["cycle"])
         self.staged = None
 
     def stage(self, tr, tl) -> None:
@@ -1552,16 +1709,19 @@ class NodeShardedLaneSession:
     :class:`NodeInterval` over one window.  Served dumps equal a
     one-shot :class:`NodeShardedCudaEngine` run's and the one-card
     session's.  :meth:`close` (or the ``with`` block) ends the ranks;
-    on the card the mesh needs ``node_shards x data_shards`` cards."""
+    on the card the mesh needs ``node_shards x data_shards`` cards
+    (``make_mesh(..., local=True)``: threads of this process on one
+    device).  ``cycle`` as :class:`NodeShardedCudaEngine`'s."""
 
     def __init__(self, config: SystemConfig, resident: int, window: int, *,
                  node_shards: Optional[int] = None, data_shards: int = 1,
                  mesh: Optional[Mesh] = None,
                  exchange_slots: Optional[int] = None, block: int = 1024,
                  cycles_per_call: int = 128, packed: bool = False,
-                 max_cycles: int = 1_000_000, device="cuda"):
+                 max_cycles: int = 1_000_000, device="cuda",
+                 cycle: str = "kernel"):
         from hpa2_tpu_torch.ops.cuda_engine import fast_path_setup
-        from hpa2_tpu_torch.parallel.launch import RankPool
+        from hpa2_tpu_torch.parallel.launch import pool_for
 
         if mesh is None:
             if node_shards is None:
@@ -1576,6 +1736,7 @@ class NodeShardedLaneSession:
             raise ValueError(
                 "node_shards=1 is the unsharded serving path — use "
                 "CudaLaneSession / DataShardedLaneSession")
+        _check_cycle_name(cycle)
         if config.num_procs % mesh.node != 0:
             raise ValueError(
                 f"num_procs={config.num_procs} not divisible by node "
@@ -1603,11 +1764,12 @@ class NodeShardedLaneSession:
         self._harvests: Optional[_Pending] = None
         self._counts = {"runner": set(), "barrier": set(),
                         "take_lane": set()}
-        self.pool = RankPool(mesh.size, device=mesh.device)
+        self.pool = pool_for(mesh)
         self.pool.call(_sess_open, (dict(
             config=config, mesh=mesh, lanes=self._rs, window=self.window,
             k=cycles_per_call, packed=packed, exchange_slots=exchange_slots,
-            max_calls=max(1, -(-max_cycles // cycles_per_call))),))
+            max_calls=max(1, -(-max_cycles // cycles_per_call)),
+            cycle=cycle),))
 
     def __enter__(self) -> "NodeShardedLaneSession":
         return self
@@ -1767,7 +1929,7 @@ class NodeShardedLaneSession:
 
 __all__ = [
     "DataMesh", "DataShardedCudaEngine", "DataShardedLaneSession",
-    "DataShardedRun", "GridEngine", "Mesh", "NodeInterval",
+    "DataShardedRun", "GridEngine", "Mesh", "NodeInterval", "NodeProfile",
     "NodeShardedCudaEngine", "NodeShardedEngine", "NodeShardedLaneSession",
     "NodeShardedRun", "build_node_fused_pallas_run",
     "build_node_sharded_run",

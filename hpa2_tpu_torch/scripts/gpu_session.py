@@ -60,7 +60,8 @@ Steps, in the JAX session's order (``--skip`` takes step names, and
                      ``scale_runs nodeshard`` and ``nodeshard_ab``
   nodeshard4096      ``--measure-nodeshard`` at 4,096 nodes x 8 systems x
                      32 instructions over 4 ranks, with no one-card
-                     reference (no card's kernel holds 4,096 nodes)
+                     reference and ``cycle="tensor"`` named (no card's
+                     kernel, K2's or the node cycle's, holds 4,096 nodes)
   nodeshard_x2, nodeshard_x4, nodeshard_x4_butterfly
                      the 64-node geometry at 2 and 4 ranks in the a2a
                      schedule and at 4 in the butterfly one, each held
@@ -424,14 +425,17 @@ def measure_elision_child(params, device="cuda") -> int:
 
 def measure_nodeshard_child(params, device="cuda") -> int:
     """``--measure-nodeshard procs batch instrs block k cap window gate
-    shards compare [mode_idx]``: one system's nodes over ``shards`` ranks
-    (``NodeShardedCudaEngine``), timed on each rank after an untimed
-    run in the same ranks (``sharded_s``, the slowest rank's; the wall
-    around both runs, the spawn included, is ``sharded_wall_s``), with
-    the cross-shard traffic; with ``compare`` 1 the same arrays on K2 on one card, and
-    nonzero unless every plane is equal (``compare`` 0 for geometries no
-    card's kernel holds).  ``mode_idx`` indexes ``EXCHANGE_MODES`` (-1:
-    a2a)."""
+    shards compare [mode_idx [tensor]]``: one system's nodes over
+    ``shards`` ranks (``NodeShardedCudaEngine``), timed on each rank after
+    an untimed run in the same ranks (``sharded_s``, the slowest rank's;
+    the wall around both runs, the spawn included, is
+    ``sharded_wall_s``), with the cross-shard traffic; with ``compare`` 1
+    the same arrays on K2 on one card, and nonzero unless every plane is
+    equal (``compare`` 0 for geometries no card's kernel holds).
+    ``mode_idx`` indexes ``EXCHANGE_MODES`` (-1: a2a); ``tensor`` 1 names
+    the node cycle's plain versions (``cycle="tensor"``, which systems
+    wider than the node kernels' 64 nodes need), else its kernels; the
+    line records which."""
     import dataclasses
 
     import torch
@@ -446,6 +450,7 @@ def measure_nodeshard_child(params, device="cuda") -> int:
     (procs, batch, instrs, block, k, cap, window, gate, shards,
      compare) = params[:10]
     mode_idx = params[10] if len(params) > 10 else -1
+    cycle = "tensor" if len(params) > 11 and params[11] else "kernel"
     dev = _dev(device)
     config = SystemConfig(num_procs=procs, msg_buffer_size=cap,
                           max_instr_num=0, semantics=Semantics().robust())
@@ -458,7 +463,7 @@ def measure_nodeshard_child(params, device="cuda") -> int:
 
     def sharded():
         return NodeShardedCudaEngine(config, *arrays, node_shards=shards,
-                                     device=dev.type, **kw)
+                                     device=dev.type, cycle=cycle, **kw)
 
     shd = sharded()
     t0 = time.perf_counter()
@@ -471,7 +476,8 @@ def measure_nodeshard_child(params, device="cuda") -> int:
     rec = {
         "procs": procs, "batch": batch, "instrs": instrs, "block": block,
         "k": k, "cap": cap, "window": window, "gate": gate,
-        "node_shards": shards, "instructions": shd.instructions,
+        "node_shards": shards, "cycle": cycle,
+        "instructions": shd.instructions,
         "cycles": shd.cycle, "cycles_run": st["cycles"],
         "sharded_s": round(slow["seconds"], 6),
         "sharded_wall_s": round(wall, 6),
@@ -560,7 +566,7 @@ CHILDREN = {
     "--measure-occupancy": (measure_occupancy_child, 8),
     "--measure-fused-occupancy": (measure_fused_occupancy_child, 9),
     "--measure-elision": (measure_elision_child, 4),
-    "--measure-nodeshard": (measure_nodeshard_child, 11),
+    "--measure-nodeshard": (measure_nodeshard_child, 12),
     "--measure-nodeshard-elision": (measure_nodeshard_elision_child, 3),
 }
 
@@ -634,21 +640,23 @@ def steps():
     # kernel holds (compare 0)
     node64 = (64, 1024, 64, 512, 64, 16, 16, 0)
     out.append(("nodeshard", _measure_argv(
-        "--measure-nodeshard", *node64, 4, 1), 1800, "nodeshard", None))
+        "--measure-nodeshard", *node64, 4, 1, -1, 0), 1800, "nodeshard",
+        None))
     out.append(("nodeshard_ladder", _module("scripts.scale_runs",
                                             "nodeshard"),
                 1800, "nodeshard", None))
     out.append(("nodeshard_ab", _module("scripts.scale_runs",
                                         "nodeshard_ab"),
                 2400, "nodeshard", None))
+    # no kernel holds 4,096 nodes: the step names the tensor cycle
     out.append(("nodeshard4096", _measure_argv(
-        "--measure-nodeshard", 4096, 8, 32, 8, 64, 16, 16, 0, 4, 0),
+        "--measure-nodeshard", 4096, 8, 32, 8, 64, 16, 16, 0, 4, 0, -1, 1),
         2400, "nodeshard", None))
     for name, shards, mode_idx in (("nodeshard_x2", 2, 1),
                                    ("nodeshard_x4", 4, 1),
                                    ("nodeshard_x4_butterfly", 4, 2)):
         out.append((name, _measure_argv(
-            "--measure-nodeshard", *node64, shards, 1, mode_idx), 1800,
+            "--measure-nodeshard", *node64, shards, 1, mode_idx, 0), 1800,
             "nodeshard_x2x4", None))
     out.append(("elided_nodeshard", _measure_argv(
         "--measure-nodeshard-elision", 64, 256, 4), 1800, None, None))

@@ -380,29 +380,51 @@ def nodeshard_general(nodes: int = 16, instrs_per_core: int = 32,
 
 def _nodeshard_build(config, arrays, shards, dev):
     """Rung ``shards`` of the ladder: K2 on one card, else the
-    node-sharded fast path over ``shards`` ranks."""
+    node-sharded fast path over ``shards`` ranks (on the card its node
+    cycle is the kernels N1-N4)."""
     from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
     from hpa2_tpu_torch.parallel import NodeShardedCudaEngine
 
     if shards == 1:
         return CudaEngine(config, *arrays, device=dev, **NODESHARD_RUN)
     return NodeShardedCudaEngine(config, *arrays, node_shards=shards,
-                                 device=dev.type, **NODESHARD_RUN)
+                                 device=dev.type,
+                                 **NODESHARD_RUN)
 
 
 def _nodeshard_run(eng, dev, max_cycles=5_000_000):
     """Run one rung: (seconds, ms a cycle of the slowest rank or None on
-    one card).  K2's seconds are CUDA events around its run (the wall
-    clock on the CPU); a sharded rung's the slowest rank's timed loop
-    after an untimed run in the same ranks (the spawn, the CUDA context
-    and the NCCL communicators' creation are not counted).  K2 is warmed
-    by the caller (its kernel's build)."""
+    one card, the rung's CUDA kernels a cycle or None).  K2's seconds
+    are CUDA events around its run (the wall clock on the CPU); a
+    sharded rung's the slowest rank's timed loop after an untimed run in
+    the same ranks (the spawn, the CUDA context and the NCCL
+    communicators' creation are not counted), then in the same ranks one
+    4-cycle call under ``torch.profiler`` (``NodeProfile``; on the card
+    only).  K2 is warmed by the caller (its kernel's build)."""
+    from hpa2_tpu_torch.parallel.sharding import NodeProfile, run_node_sharded
+
     if not hasattr(eng, "cross_shard_msgs"):
         _, ms, wall = _timed(lambda: eng.run(max_cycles=max_cycles), dev)
-        return (ms / 1e3 if ms is not None else wall), None
-    eng.run(max_cycles=max_cycles, warmup=True)
+        return (ms / 1e3 if ms is not None else wall), None, None
+    eng.max_cycles = max_cycles
+    prof = NodeProfile(eng) if dev.type == "cuda" else None
+    run_node_sharded([eng] + ([prof] if prof else []), warmup=True)
     slow = max(eng.rank_stats, key=lambda r: r["seconds"])
-    return slow["seconds"], slow["seconds"] * 1e3 / max(slow["cycles"], 1)
+    return (slow["seconds"], slow["seconds"] * 1e3 / max(slow["cycles"], 1),
+            prof.per_cycle if prof else None)
+
+
+def _kernels_row(eng, per_cycle) -> dict:
+    """What a sharded rung's JSON line says of its node cycle: which one
+    ran, its kernels' launches on rank 0, and the CUDA kernels a cycle
+    by ``torch.profiler`` (rank maximum)."""
+    row = {"cycle": eng.node_cycle,
+           "node_kernel_launches_rank0": eng.rank_stats[0]["launches"]}
+    if per_cycle is not None:
+        row.update(cuda_kernels_per_cycle=per_cycle["kernels"],
+                   nccl_per_cycle=per_cycle["nccl"],
+                   launch_calls_per_cycle=per_cycle["launch_calls"])
+    return row
 
 
 def _same_planes(eng, want) -> bool:
@@ -434,7 +456,7 @@ def nodeshard(nodes: int = 64, batch: int = 1024, instrs_per_core: int = 64,
             _nodeshard_build(config, arrays, 1, dev).run(
                 max_cycles=5_000_000)
         eng = _nodeshard_build(config, arrays, shards, dev)
-        secs, ms_cycle = _nodeshard_run(eng, dev)
+        secs, ms_cycle, per_cycle = _nodeshard_run(eng, dev)
         if want is None:
             want = {f: v.cpu() for f, v in eng.state.items()}
             same = True
@@ -460,7 +482,8 @@ def nodeshard(nodes: int = 64, batch: int = 1024, instrs_per_core: int = 64,
                 exchange_mode=config.exchange_mode,
                 collectives_per_cycle=st["census"]["cycle"],
                 plan_collectives=xops.plan_collectives(xops.make_plan(
-                    shards, config.exchange_mode, config.exchange_inner)))
+                    shards, config.exchange_mode, config.exchange_inner)),
+                **_kernels_row(eng, per_cycle))
         rows.append(row)
         print(json.dumps({"nodeshard_step": row}), flush=True)
     record = {
@@ -500,7 +523,7 @@ def nodeshard_ab(nodes: int = 64, batch: int = 1024,
     arrays = gen_uniform_random_arrays(base, batch, instrs_per_core)
     _nodeshard_build(base, arrays, 1, dev).run(max_cycles=5_000_000)
     ref = _nodeshard_build(base, arrays, 1, dev)
-    ref_dt, _ = _nodeshard_run(ref, dev)
+    ref_dt, _, _ = _nodeshard_run(ref, dev)
     want = {f: v.cpu() for f, v in ref.state.items()}
     single = {"instructions": ref.instructions, "seconds": round(ref_dt, 6),
               "ops_per_sec": round(ref.instructions / ref_dt, 1)}
@@ -515,11 +538,11 @@ def nodeshard_ab(nodes: int = 64, batch: int = 1024,
             for label, mode in arms:
                 cfg = dataclasses.replace(base, exchange_mode=mode)
                 eng = _nodeshard_build(cfg, arrays, shards, dev)
-                secs, ms_cycle = _nodeshard_run(eng, dev)
+                secs, ms_cycle, per_cycle = _nodeshard_run(eng, dev)
                 if secs < best.get(label, (float("inf"),))[0]:
-                    best[label] = (secs, ms_cycle, eng)
+                    best[label] = (secs, ms_cycle, eng, per_cycle)
         for label, mode in arms:
-            secs, ms_cycle, eng = best[label]
+            secs, ms_cycle, eng, per_cycle = best[label]
             same = _same_planes(eng, want)
             exact = exact and same
             row[label] = {
@@ -530,7 +553,7 @@ def nodeshard_ab(nodes: int = 64, batch: int = 1024,
                 "seconds": round(secs, 6), "ms_per_cycle": round(ms_cycle, 4),
                 "ops_per_sec": round(eng.instructions / secs, 1),
                 "cross_shard_msgs": eng.cross_shard_msgs,
-                "bit_exact": same}
+                "bit_exact": same, **_kernels_row(eng, per_cycle)}
         old = max(row["old_pairwise"]["ops_per_sec"], 1e-9)
         for label in ("a2a", "butterfly"):
             row[f"{label}_speedup_vs_pairwise"] = round(

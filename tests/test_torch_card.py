@@ -696,3 +696,71 @@ def test_node_sharded_contract_on_four_cards(card):
     results = contracts.run_contracts(names=["node-sharded-pallas-a2a"],
                                       device="cuda", out=lambda line: None)
     assert [r.status for r in results] == ["ok"], results
+
+
+@pytest.mark.parametrize("n,d,mode,packed", [
+    (8, 2, "a2a", False), (22, 2, "pairwise", False), (12, 2, "a2a", True),
+    (64, 4, "butterfly", False), (8, 4, "hier", False)])
+def test_node_kernels_over_logical_ranks_match_k2_on_card(card, n, d, mode,
+                                                         packed):
+    """K1's node-sharded cycle as its four kernels (N1-N4) over logical
+    ranks on one card: every launch held against its plain version on
+    the same inputs, and the gathered planes equal to K2's run."""
+    from hpa2_tpu_torch.ops import node_cycle
+    from hpa2_tpu_torch.parallel import NodeShardedCudaEngine, make_mesh
+
+    cfg = SystemConfig(num_procs=n, msg_buffer_size=16,
+                       semantics=Semantics().robust(), exchange_mode=mode)
+    arrays = gen_uniform_random_arrays(cfg, 128, 12, seed=n)
+    kw = dict(block=64, cycles_per_call=16, snapshots=not packed,
+              packed=packed)
+    ref = CudaEngine(cfg, *arrays, device="cuda", **kw).run()
+    for e in node_cycle.NODE_KERNELS:
+        e.launches = 0
+    eng = NodeShardedCudaEngine(cfg, *arrays, mesh=make_mesh(
+        node_shards=d, device="cuda", local=True), _check_calls=1_000,
+        **kw).run()
+    for f, v in ref.state.items():
+        assert _same(eng.state[f].cuda(), v), f
+    assert all(e.launches for e in node_cycle.NODE_KERNELS)
+    for st in eng.rank_stats:
+        for k, (c, x) in st["checked"].items():
+            assert c == st["launches"][k] > 0 and x == 0, k
+
+
+def test_node_kernels_refuse_wider_systems_on_card(card):
+    """Above the node kernels' 64 nodes the node-sharded path raises on
+    the card unless ``cycle="tensor"`` is named."""
+    from hpa2_tpu_torch.parallel import NodeShardedCudaEngine, make_mesh
+
+    cfg = SystemConfig(num_procs=128, msg_buffer_size=16,
+                       semantics=Semantics().robust())
+    arrays = gen_uniform_random_arrays(cfg, 2, 2, seed=1)
+    mesh = make_mesh(node_shards=2, device="cuda", local=True)
+    with pytest.raises(RuntimeError, match="cycle='tensor'"):
+        NodeShardedCudaEngine(cfg, *arrays, mesh=mesh, block=2).run()
+    eng = NodeShardedCudaEngine(cfg, *arrays, mesh=mesh, block=2,
+                                cycle="tensor").run()
+    assert eng.instructions == int(np.asarray(arrays[3]).sum())
+    assert set(eng.rank_stats[0]["launches"].values()) == {0}
+
+
+def test_node_kernels_over_nccl_held_against_plain(two_cards):
+    """Over NCCL ranks (two, one a card) the first k-cycle call's N1-N4
+    launches each equal their plain version on the same inputs."""
+    from hpa2_tpu_torch.parallel import NodeShardedCudaEngine, make_mesh
+
+    cfg = SystemConfig(num_procs=32, msg_buffer_size=16,
+                       semantics=Semantics().robust())
+    arrays = gen_uniform_random_arrays(cfg, 64, 12, seed=4)
+    kw = dict(block=32, cycles_per_call=16)
+    ref = CudaEngine(cfg, *arrays, device="cuda", **kw).run()
+    eng = NodeShardedCudaEngine(cfg, *arrays, mesh=make_mesh(
+        node_shards=2, data_shards=1, device="cuda"), _check_calls=1,
+        **kw).run()
+    for f, v in ref.state.items():
+        assert _same(eng.state[f].cuda(), v), f
+    for st in eng.rank_stats:
+        assert all(st["launches"].values())
+        for k, (c, x) in st["checked"].items():
+            assert c >= 16 and x == 0, k

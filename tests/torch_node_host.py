@@ -1,0 +1,151 @@
+"""The node kernels' bodies (``csrc/node_cycle.cuh``) built with g++ for
+the host, and a launcher that runs them on CPU tensors.
+
+Each entry loops over what the card runs in parallel: N1, N3 and N4 over
+every (lane, node row), N2 over every (destination, lane) and the
+combining thread of each lane.  Those threads share nothing but integer
+atomics that commute, so the loop order does not change the result.
+Set ``hpa2_tpu_torch.ops.node_cycle.HOST_LAUNCHER`` to :func:`launcher`'s
+result and a node-sharded run on the CPU goes through the kernels'
+bodies as a run on the card goes through the kernels."""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+from hpa2_tpu_torch.ops import kernels
+from hpa2_tpu_torch.ops import node_cycle as nc
+
+SHIM = r"""
+#include <vector>
+#include "node_cycle.cuh"
+using hpa2::NodeArgs;
+using hpa2::BucketArgs;
+template <int MAXN, bool PACKED> void ab(const NodeArgs& x) {
+  for (int l = 0; l < x.a.b; ++l) {
+    uint32_t red[hpa2::kABCount] = {0};
+    for (int t = 0; t < x.tpl; ++t)
+      for (int i = t; i < x.nl; i += x.tpl)
+        hpa2::n1_node<MAXN, PACKED>(x, l, i, red, 1);
+    for (int j = 0; j < hpa2::kABCount; ++j)
+      x.cnt[(size_t)j * x.a.b + l] = (int32_t)red[j];
+  }
+}
+template <int MAXN, bool PACKED> void settle(const NodeArgs& x) {
+  for (int l = 0; l < x.a.b; ++l) {
+    uint32_t red[hpa2::kSettleRed] = {0};
+    for (int s = 0; s < x.nl; ++s) hpa2::n4_node<MAXN, PACKED>(x, l, s, red, 1);
+    hpa2::n4_lane(x, l, red, 1);
+  }
+}
+template <int MAXN> void deliver(const NodeArgs& x) {
+  for (int l = 0; l < x.a.b; ++l)
+    for (int i = 0; i < x.nl; ++i) hpa2::n3_node<MAXN>(x, l, i);
+}
+template <int MAXN> int go(const NodeArgs& x, int what) {
+  if (what == 0) x.a.packed ? ab<MAXN, true>(x) : ab<MAXN, false>(x);
+  else if (what == 1) deliver<MAXN>(x);
+  else x.a.packed ? settle<MAXN, true>(x) : settle<MAXN, false>(x);
+  return 0;
+}
+int dispatch(const NodeArgs* x, int what) {
+  if (!hpa2::node_geometry_ok(*x)) return 1;
+  const int bound = hpa2::node_kernel_bound(x->a);
+  if (bound == 8) return go<8>(*x, what);
+  if (bound == 21) return go<21>(*x, what);
+  if (bound == 64) return go<64>(*x, what);
+  return 1;  // refused, as the launch would be
+}
+extern "C" int hpa2_node_args_size() { return (int)sizeof(NodeArgs); }
+extern "C" int hpa2_bucket_args_size() { return (int)sizeof(BucketArgs); }
+extern "C" int hpa2_host_node_ab(const NodeArgs* x) { return dispatch(x, 0); }
+extern "C" int hpa2_host_node_deliver(const NodeArgs* x) { return dispatch(x, 1); }
+extern "C" int hpa2_host_node_settle(const NodeArgs* x) { return dispatch(x, 2); }
+extern "C" int hpa2_host_node_bucket(const BucketArgs* x) {
+  if (x->ndest < 1 || x->ndest > hpa2::kMaxShards) return 1;
+  for (int p = 0; p < x->ndest; ++p)
+    for (int l = 0; l < x->b; ++l) hpa2::n2_dest(*x, p, l);
+  if (x->combine)
+    for (int l = 0; l < x->b; ++l) hpa2::n2_combine(*x, l);
+  return 0;
+}
+"""
+
+
+def build():
+    """The host library (built once a source digest, under the ignored
+    ``hpa2_tpu_torch/build/``), or None without g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return None
+    h = hashlib.sha256(SHIM.encode())
+    for name in ("node_cycle.cuh", "cycle.cuh"):
+        h.update((kernels.CSRC_DIR / name).read_bytes())
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = kernels.BUILD_DIR / f"node_host_{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        src = so.with_suffix(f".{os.getpid()}.cpp")
+        src.write_text(SHIM)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        subprocess.run(
+            [gxx, "-std=c++17", "-O1", "-shared", "-fPIC",
+             f"-I{kernels.CSRC_DIR}", "-o", str(tmp), str(src)],
+            check=True)
+        os.replace(tmp, so)
+        src.unlink()
+    lib = ctypes.CDLL(str(so))
+    for f in ("ab", "deliver", "settle"):
+        fn = getattr(lib, f"hpa2_host_node_{f}")
+        fn.argtypes = [ctypes.POINTER(nc.NodeArgs)]
+    lib.hpa2_host_node_bucket.argtypes = [ctypes.POINTER(nc.BucketArgs)]
+    return lib
+
+
+class HostLauncher:
+    """Runs a node kernel's host build on CPU tensors; counts launches
+    by kernel."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.launches = {e.name: 0 for e in nc.NODE_KERNELS}
+        self._lock = threading.Lock()
+
+    def launch(self, entry, args, device) -> None:
+        if getattr(self.lib, f"hpa2_host_{entry.name}")(
+                ctypes.byref(args)) != 0:
+            raise RuntimeError(f"{entry.name}: the host build refused")
+        with self._lock:
+            self.launches[entry.name] += 1
+
+
+def rank_fast_host(job: dict) -> dict:
+    """A ``NodeShardedCudaEngine``'s job on a gloo rank, its node kernels
+    run by their host build."""
+    from hpa2_tpu_torch.parallel.sharding import _rank_fast
+
+    nc.HOST_LAUNCHER = HostLauncher(build())
+    try:
+        return _rank_fast(job)
+    finally:
+        nc.HOST_LAUNCHER = None
+
+
+class HostRun:
+    """A node-sharded fast-path engine for ``run_node_sharded`` whose
+    ranks (gloo processes) run the node kernels' host build."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.mesh = engine.mesh
+
+    def _job(self) -> dict:
+        return dict(rank_fn=rank_fast_host, engine=self.engine)
+
+    def _gather(self, blocks) -> None:
+        self.engine._gather(blocks)
+
+    def _check(self) -> None:
+        self.engine._check()

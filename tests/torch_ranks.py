@@ -20,18 +20,19 @@ def exchange_fan(blk, peer):
     return blk[3]
 
 
-def exchange_rank(cases):
+def exchange_rank(cases, size=None):
     """Each case ``(mode, inner, k, payloads)`` through this rank's
     ``exchange.forward`` (payload ``payloads[rank]``, destinations and
     fan from rows 2 and 3, combining key row 4 over 8 keys) and
     ``feedback`` of rows 5-6 of what arrived: the received blocks, their
     origins, the feedback on the local candidates and the telemetry, as
-    numpy; and the collectives each case issued."""
+    numpy; and the collectives each case issued.  ``size``: the group's
+    ranks (default the process group's; logical ranks pass theirs)."""
     torch.set_num_threads(1)
     from hpa2_tpu_torch.ops import exchange
     from hpa2_tpu_torch.parallel.comm import COLLECTIVES, world_comm
 
-    comm, _ = world_comm(torch.distributed.get_world_size())
+    comm, _ = world_comm(size or torch.distributed.get_world_size())
     out = []
     for mode, inner, k, payloads in cases:
         before = COLLECTIVES.snapshot()
