@@ -131,10 +131,11 @@ phases), and drives through ``CudaEngine``:
   :func:`phase_nodekern`): the node ranks logical (threads of this
   process meeting through ``parallel/comm.py:LocalComm``), 64 nodes x
   1,024 systems x 8 instructions over 2 and 4 ranks (a2a, pairwise,
-  butterfly at 4), 12 nodes packed and 22 split over 2, each equal to
-  K2, every N1-N4 launch of each run's first k-cycle call held against
-  its plain version; the CUDA kernels a cycle; each kernel's and plain
-  version's time on a real cycle's inputs,
+  butterfly and hier at 4), 12 nodes packed and 22 split over 2, each
+  equal to K2, every N1-N4 launch of each run's first k-cycle call held
+  against its plain version (hier's combining count included); the CUDA
+  kernels a cycle; each kernel's and plain version's time on a real
+  cycle's inputs over 2 and over 4 ranks,
 * BASELINE.json's scaled configurations (``[scale]``,
   :func:`phase_scale`, through ``hpa2_tpu_torch.scripts.scale_runs``):
   configuration 5 at full size (1,024 systems x 8 nodes x 10,000
@@ -4322,9 +4323,15 @@ NODEKERN_RUNS = (
      "pairwise", False),
     ("64 nodes 4 ranks butterfly", 64, 1024, NODESHARD_INSTRS, 4,
      "butterfly", False),
+    ("64 nodes 4 ranks hier", 64, 1024, NODESHARD_INSTRS, 4, "hier",
+     False),
 )
 #: the cycle of the timed call whose stage inputs time each kernel
 NODEKERN_KEEP_AT = 8
+#: cycles a call of ``[nodekern]``'s runs (``[nodeshard]``'s 64 cut for
+#: time: the first call's launches are each held against their plain
+#: versions, ~27 ms a cycle a rank of plain work at 64 nodes)
+NODEKERN_K = 32
 
 
 def _node_rank_setup(job):
@@ -4398,7 +4405,8 @@ def phase_nodekern():
     logical (``make_mesh(..., local=True)``: threads of this process on
     ``cuda:0`` meeting through ``parallel/comm.py:LocalComm``).  The
     runs of :data:`NODEKERN_RUNS` (64 nodes x 1,024 systems x 8
-    instructions, window 16, k 64, over 2 and 4 ranks, a2a and pairwise,
+    instructions, window 16, k 32 (:data:`NODEKERN_K`), over 2 and 4
+    ranks, a2a and pairwise,
     butterfly at 4; 12 nodes packed and 22 split over 2), each run twice
     in its ranks: a first run whose first k-cycle call holds every N1-N4
     launch against its plain version on the same inputs (max_abs_err
@@ -4406,7 +4414,8 @@ def phase_nodekern():
     of the same arrays (max_abs_err 0).  Then the CUDA kernels a cycle
     (``torch.profiler``) of one 4-cycle call at 64 nodes over 2 and 4
     ranks, and each kernel's and plain version's time on the inputs of
-    cycle 8 of a 64-node call over 2 ranks.  Returns its record."""
+    cycle 8 of a 64-node a2a call over 2 ranks and over 4 (a rank's
+    entries and receivers differ).  Returns its record."""
     import dataclasses
 
     from hpa2_tpu_torch.config import Semantics, SystemConfig
@@ -4423,7 +4432,7 @@ def phase_nodekern():
         cfg = SystemConfig(num_procs=n, msg_buffer_size=16, semantics=robust,
                            max_instr_num=0, exchange_mode=mode)
         arrays = gen_uniform_random_arrays(cfg, b, t, seed=n)
-        kw = dict(NODESHARD_RUN, packed=packed)
+        kw = dict(NODESHARD_RUN, packed=packed, cycles_per_call=NODEKERN_K)
         key = (n, b, t, packed)
         if key not in refs:
             refs[key] = CudaEngine(dataclasses.replace(
@@ -4459,15 +4468,16 @@ def phase_nodekern():
         slow = max(e.rank_stats, key=lambda r: r["seconds"])
         ms = slow["seconds"] * 1e3 / max(slow["cycles"], 1)
         per = {k: v for k, v in e.rank_stats[0]["launches"].items()}
+        comb = e.stats().get("exchange_combined", 0)
         rec["runs"][name] = dict(cycles=e.cycle, cycles_run=slow["cycles"],
                                  ms_per_cycle=round(ms, 3), max_abs_err=err,
-                                 node_launches_rank0=per)
+                                 node_launches_rank0=per, combined=comb)
         print(f"[nodekern] {name} ({e.config.num_procs} nodes x "
               f"{e.b} x {e.config.exchange_mode}, {e.mesh.node} logical "
               f"ranks on cuda:0): {e.cycle} cycles ({slow['cycles']} run), "
               f"{ms:.3f} ms a cycle (timed run, slowest rank), rank 0's "
-              f"launches {per}; planes equal to K2's run: max_abs_err="
-              f"{err}")
+              f"launches {per}; combining count {comb}; planes equal to "
+              f"K2's run: max_abs_err={err}")
     for k, (c, x) in checked.items():
         if c == 0 or x:
             raise AssertionError(f"nodekern: {k} checked {c}, err {x}")
@@ -4490,24 +4500,30 @@ def phase_nodekern():
               f"{prof.per_cycle['kernels']} CUDA kernels a cycle a rank "
               f"(the tensor cycle's: 1,738.5 a rank over NCCL, PERF.md), "
               f"{prof.per_cycle['launch_calls']} kernel launch calls a "
-              "cycle a rank")
+              f"cycle a rank, {prof.per_cycle['device_us']} us of device "
+              "time a cycle a rank (every kernel but NCCL's)")
 
-    # each kernel and its plain version on cycle 8's inputs
-    e = engs["64 nodes 2 ranks a2a"][0]
-    job = _NodeJob(_nodekern_time_rank, e)
-    run_node_sharded([job])
-    times = next(r["times"] for r in job.rows if r["times"])
-    rec["times"] = {}
-    for k, tm in times.items():
-        bound = tm["bytes"] / HBM_BYTES_PER_S * 1e3
-        rec["times"][k] = dict(ms=round(tm["ms"], 4),
+    # each kernel and its plain version on cycle 8's inputs, over 2
+    # ranks (the kernels line's times) and over 4
+    for d in (2, 4):
+        job = _NodeJob(_nodekern_time_rank, engs[f"64 nodes {d} ranks a2a"][0])
+        run_node_sharded([job])
+        times = next(r["times"] for r in job.rows if r["times"])
+        key = "times" if d == 2 else "times_4_ranks"
+        rec[key] = {}
+        for k, tm in times.items():
+            bound = tm["bytes"] / HBM_BYTES_PER_S * 1e3
+            rec[key][k] = dict(ms=round(tm["ms"], 4),
+                               wrapper_ms=round(tm["wrapper_ms"], 4),
                                plain_ms=round(tm["plain_ms"], 4),
                                bound_ms=round(bound, 6), bytes=tm["bytes"])
-        print(f"[nodekern] {k}: {tm['ms']:.4f} ms a launch (CUDA events, "
-              f"median of 10, 64 nodes x 1,024 over 2 ranks, cycle "
-              f"{NODEKERN_KEEP_AT}'s inputs), plain version "
-              f"{tm['plain_ms']:.4f} ms, bound {bound:.6f} ms "
-              f"({tm['bytes']} B over 3.35 TB/s)")
+            print(f"[nodekern] {k}: {tm['ms']:.4f} ms a launch (CUDA "
+                  f"events around the launch alone, median of 10, 64 "
+                  f"nodes x 1,024 over {d} ranks, cycle "
+                  f"{NODEKERN_KEEP_AT}'s inputs; the whole wrapper "
+                  f"{tm['wrapper_ms']:.4f}), plain version "
+                  f"{tm['plain_ms']:.4f} ms, bound {bound:.6f} ms "
+                  f"({tm['bytes']} B over 3.35 TB/s)")
     rec["seconds"] = round(time.perf_counter() - t_phase, 1)
     print(f"[nodekern] phase {rec['seconds']} s (budget 60 s)")
     return rec
@@ -4542,7 +4558,11 @@ def node_entries(nodekern, nodeshard):
                 p["max_abs_err"] for p in by_path.values()]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
-            "library_ms": None, "by_path": by_path})
+            "library_ms": None, "by_path": by_path,
+            "wrapper_ms": t["wrapper_ms"],
+            "at_4_ranks": {f: nodekern["times_4_ranks"][kern.name][f]
+                           for f in ("ms", "wrapper_ms", "plain_ms",
+                                     "bound_ms")}})
     return out
 
 

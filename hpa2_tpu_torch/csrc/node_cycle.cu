@@ -14,9 +14,10 @@
 // entry allocates nothing and does not synchronise: it launches on the
 // caller's stream and returns the launch's error.  N1 and N4 are
 // instantiated for node bounds 8, 21 and 64 (split mode is the bound's),
-// each with int32 or packed planes; N3 for the three bounds; N2 takes any.
+// each with int32 or packed planes; N2 and N3 are one kernel each, their
+// geometry and shared tile sized at launch (bucket_plan, deliver_plan).
 // A wider system, more than kMaxShards shards or a geometry the kernels
-// do not take is refused.
+// do not take (a shared tile over kNodeSmem) is refused.
 #include <cuda_runtime.h>
 
 #include "node_cycle.cuh"
@@ -56,22 +57,29 @@ __global__ void __launch_bounds__(hpa2::kNodeCta)
       x.cnt[(size_t)j * x.a.b + th.l] = (int32_t)red[j * hpa2::kNodeCta + th.g];
 }
 
+// N2: its four phases over the CTA's shared tile
 __global__ void __launch_bounds__(hpa2::kNodeCta)
-    node_bucket_kernel(const __grid_constant__ BucketArgs x) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int p = (int)(idx / x.b), l = (int)(idx % x.b);
-  if (p < x.ndest)
-    hpa2::n2_dest(x, p, l);
-  else if (p == x.ndest && x.combine)
-    hpa2::n2_combine(x, l);
+    node_bucket_kernel(const __grid_constant__ BucketArgs x,
+                       const __grid_constant__ hpa2::BucketPlan pl) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* sh = reinterpret_cast<uint32_t*>(smem);
+#pragma unroll
+  for (int ph = 0; ph < hpa2::kN2Phases; ++ph) {
+    hpa2::n2_phase(x, pl, ph, blockIdx.x, threadIdx.x, sh);
+    __syncthreads();
+  }
 }
 
-template <int MAXN>
+// N3: its five phases over the CTA's shared tile
 __global__ void __launch_bounds__(hpa2::kNodeCta)
-    node_deliver_kernel(const __grid_constant__ NodeArgs x) {
-  const NodeThread th(x);
-  if (th.lane_ok(x))
-    for (int i = th.t; i < x.nl; i += x.tpl) hpa2::n3_node<MAXN>(x, th.l, i);
+    node_deliver_kernel(const __grid_constant__ NodeArgs x,
+                        const __grid_constant__ hpa2::DeliverPlan pl) {
+  extern __shared__ __align__(16) unsigned char smem[];
+#pragma unroll
+  for (int ph = 0; ph < hpa2::kN3Phases; ++ph) {
+    hpa2::n3_phase(x, pl, ph, blockIdx.x, threadIdx.x, smem);
+    __syncthreads();
+  }
 }
 
 template <int MAXN, bool PACKED>
@@ -122,10 +130,11 @@ cudaError_t launch_settle(const NodeArgs& x, cudaStream_t s) {
              : go(node_settle_kernel<MAXN, false>, node_grid(x), block, x, s);
 }
 
-template <int MAXN>
-cudaError_t launch_deliver(const NodeArgs& x, cudaStream_t s) {
-  return go(node_deliver_kernel<MAXN>, node_grid(x), dim3(x.tpl * x.group),
-            x, s);
+// a kernel's shared tile above the default 48 KB needs the opt-in
+template <class K>
+cudaError_t allow_smem(K kernel) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, hpa2::kNodeSmem);
 }
 
 #define HPA2_NODE_ENTRY(name, fn)                                        \
@@ -149,19 +158,36 @@ extern "C" int hpa2_node_args_size() { return (int)sizeof(NodeArgs); }
 extern "C" int hpa2_bucket_args_size() { return (int)sizeof(BucketArgs); }
 
 HPA2_NODE_ENTRY(hpa2_node_ab, launch_ab)
-HPA2_NODE_ENTRY(hpa2_node_deliver, launch_deliver)
 HPA2_NODE_ENTRY(hpa2_node_settle, launch_settle)
+
+extern "C" int hpa2_node_deliver(const NodeArgs* args, int device,
+                                 void* stream) {
+  const NodeArgs& x = *args;
+  hpa2::DeliverPlan pl;
+  if (bound_of(x) == 0 || !hpa2::deliver_plan(x, pl, hpa2::kNodeSmem))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = allow_smem(node_deliver_kernel);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((x.a.b + pl.G - 1) / pl.G));
+  node_deliver_kernel<<<grid, hpa2::kNodeCta, pl.smem,
+                        (cudaStream_t)stream>>>(x, pl);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int hpa2_node_bucket(const BucketArgs* args, int device,
                                 void* stream) {
   const BucketArgs& x = *args;
-  if (x.ndest < 1 || x.ndest > hpa2::kMaxShards || x.b < 1 || x.k < 1 ||
-      x.SW < 1 || x.SW > hpa2::kMaxSW || x.nl < 1)
+  hpa2::BucketPlan pl;
+  if (!hpa2::bucket_plan(x, pl, hpa2::kNodeSmem))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const long long threads = (long long)(x.ndest + (x.combine ? 1 : 0)) * x.b;
-  const dim3 grid((unsigned)((threads + hpa2::kNodeCta - 1) / hpa2::kNodeCta));
-  node_bucket_kernel<<<grid, hpa2::kNodeCta, 0, (cudaStream_t)stream>>>(x);
+  err = allow_smem(node_bucket_kernel);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((x.b + pl.G - 1) / pl.G));
+  node_bucket_kernel<<<grid, hpa2::kNodeCta, pl.smem,
+                       (cudaStream_t)stream>>>(x, pl);
   return (int)cudaGetLastError();
 }

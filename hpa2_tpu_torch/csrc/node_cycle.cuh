@@ -22,13 +22,15 @@
 //                   source telemetry (sent, high-water, multicast savings,
 //                   overflow, the worst-overflow word) and, under hier,
 //                   the combining count (shipped combinable entries minus
-//                   distinct keys, per lane);
-//   N3 node_deliver each receiver walks the entries it holds in the global
-//                   (phase, origin, index) order and enqueues while its
-//                   queue has room, as cycle.cuh:phase_c walks candidates;
-//                   the acceptance count and bits of every entry go to its
-//                   feedback rows [1 + SW, J, B] (integer atomics: the
-//                   bits of distinct receivers never collide);
+//                   distinct keys, per lane, from a key bitmap): hit
+//                   flags, an exclusive scan by words and popcounts, a
+//                   scatter, a CTA a tile of lanes and every destination;
+//   N3 node_deliver every receiver takes the entries it holds in the
+//                   global (phase, origin, index) order while its queue
+//                   has room: each entry's local receiver set once, a
+//                   receiver's ranks by words and popcounts, and the
+//                   accepted count and bits of every entry written once
+//                   into its feedback rows [1 + SW, J, B];
 //   N4 node_settle  the senders once the feedback is back: delivered slots
 //                   cleared, the rest deferred (the INV slot keeps the
 //                   receivers that did not accept), the phase-D snapshots,
@@ -37,17 +39,19 @@
 //
 // Planes are the rank's block, lane-last [nl, ..., B], int32 or packed
 // narrow, and updated in place.  None of the four needs a cluster or a
-// gate: a CTA holds `group` lanes x `tpl` threads a lane (tid = t * group
-// + g, so a warp reads neighbouring lanes of one node row), thread t owns
-// node rows t, t + tpl, ...; per-lane sums go through shared memory.
+// gate.  N1 and N4: a CTA holds `group` lanes x `tpl` threads a lane (tid
+// = t * group + g, so a warp reads neighbouring lanes of one node row),
+// thread t owns node rows t, t + tpl, ...; per-lane sums go through
+// shared memory.  N2 and N3: a CTA holds a tile of lanes and its threads
+// cover (entry, lane), lane fastest; each is a sequence of phase bodies
+// over a shared tile with a barrier between them (n2_phase, n3_phase),
+// which the host build runs phase by phase over every thread of a CTA.
 //
 // What bounds them on an H100: each is a pass over the rank's planes and
 // the exchange blocks, a few KB a lane, so bytes over 3.35 TB/s give a few
-// microseconds at 1,024 lanes; the dependent loads of a node's chain and
-// of a receiver's walk (J entries, 320 at 64 nodes over 2 ranks) bound
-// them in practice.  The design keeps every per-entry temporary in
-// registers: no [nl, J, B] plane is written, and a receiver stops at a
-// full queue.
+// microseconds at 1,024 lanes.  N1 and N4 are bound in practice by the
+// dependent loads of a node's chain; N2 and N3 read every entry's header
+// once, in parallel, and do their scans in shared memory.
 #pragma once
 
 #include "cycle.cuh"
@@ -621,12 +625,109 @@ HPA2_HD void n1_node(const NodeArgs& x, const int l, const int i,
     if (inc[j]) sh_add(&red[j * stride], 1);
 }
 
-// ===== N2: one destination of a bucketing launch, lane l ===============
-// entry j of block e (J entries) goes to the destination: its point
+// ===== helpers of N2 and N3 ============================================
+// A shared-memory OR of a 64-bit receiver set made by several threads,
+// and its popcount.
+HPA2_HD void sh_or64(uint64_t* p, uint64_t v) {
+#ifdef __CUDA_ARCH__
+  atomicOr(reinterpret_cast<unsigned long long*>(p), (unsigned long long)v);
+#else
+  *p |= v;
+#endif
+}
+
+HPA2_HD int popc64(uint64_t x) {
+#ifdef __CUDA_ARCH__
+  return __popcll((unsigned long long)x);
+#else
+  return __builtin_popcountll((unsigned long long)x);
+#endif
+}
+
+// dynamic shared memory a CTA may take (an H100's opt-in limit)
+constexpr int kNodeSmem = 227 * 1024;
+
+// ===== N2: order-preserving compaction, a CTA a tile of lanes ==========
+// A CTA owns G lanes (kBucketLanes, fewer when hier's key bitmap asks
+// for it) and every destination of the launch.  Its threads cover
+// (entry, lane) with the lane fastest, so a warp reads 4 entries x 8
+// neighbouring lanes of a row: whole 32-byte sectors.  Each destination's
+// entries are padded to a multiple of 32, one flag word a 32 of them.
+// Four phases, a barrier between them:
+//   0 zero the tile;
+//   1 flags: every (destination, entry, lane) tests bucket_hit and sets
+//     its bit in the lane's flag word; a stat destination's hit adds its
+//     multicast savings to the lane's sum; under hier a compacting
+//     destination's hit with a key sets the key's bit in the lane's
+//     bitmap (nkeys bits) and counts one;
+//   2 scan: a (destination, lane) walks its <= 5 flag words once, each
+//     word's popcount its part of the exclusive prefix (the scan within a
+//     word is a popcount of the bits below); the bitmap's popcounts are
+//     the lane's distinct keys;
+//   3 scatter: a hit whose slot is below k copies its R rows, every entry
+//     writes its sel, the slots past the last hit are zeroed, and thread
+//     g folds lane g's telemetry into fs once (the CTA owns the lane: no
+//     atomics in global memory).
+constexpr int kBucketLanes = 4;
+constexpr int kN2Phases = 4;
+
+// N2's launch geometry, from the arguments (bucket_plan)
+struct BucketPlan {
+  int32_t G;                      // lanes a CTA
+  int32_t nw;                     // flag words a lane, every destination
+  int32_t nkw;                    // key-bitmap words a lane (hier), else 0
+  int32_t smem;                   // bytes of the shared tile
+  int32_t woff[kMaxShards + 1];   // each destination's first flag word
+};
+
+// the plan of a launch, false when the kernel does not take it (the
+// bitmap of every G does not fit)
+HPA2_HD bool bucket_plan(const BucketArgs& x, BucketPlan& pl, int max_smem) {
+  if (x.ndest < 1 || x.ndest > kMaxShards || x.b < 1 || x.k < 1 ||
+      x.SW < 1 || x.SW > kMaxSW || x.nl < 1 || x.nkeys < 0)
+    return false;
+  int w = 0;
+  for (int p = 0; p < x.ndest; ++p) {
+    if (x.dblk[p] < 0 || x.dblk[p] >= kMaxShards) return false;
+    pl.woff[p] = w;
+    w += (x.blen[x.dblk[p]] + 31) / 32;
+  }
+  pl.woff[x.ndest] = w;
+  pl.nw = w;
+  pl.nkw = x.combine ? (x.nkeys + 31) / 32 : 0;
+  for (int G = kBucketLanes; G >= 1; G /= 2) {
+    const long long bytes =
+        4LL * G * (2LL * pl.nw + x.ndest + 3 + pl.nkw);
+    if (bytes <= max_smem) {
+      pl.G = G;
+      pl.smem = (int32_t)bytes;
+      return true;
+    }
+  }
+  return false;
+}
+
+// N2's shared tile: word arrays [rows][G]
+struct BucketTile {
+  uint32_t *bits, *base, *tot, *mc, *comb, *distinct, *keys;
+  HPA2_HD BucketTile(const BucketArgs& x, const BucketPlan& pl,
+                     uint32_t* sh) {
+    const int G = pl.G;
+    bits = sh;                       // [nw][G] hit flags
+    base = bits + pl.nw * G;         // [nw][G] hits before the word
+    tot = base + pl.nw * G;          // [ndest][G] hits
+    mc = tot + x.ndest * G;          // [G] multicast savings
+    comb = mc + G;                   // [G] shipped combinable entries
+    distinct = comb + G;             // [G] distinct keys among them
+    keys = distinct + G;             // [nkw][G] key bitmap
+  }
+};
+
+// entry j of block e (J entries) goes to destination p: its point
 // receiver lies in one of the set's shards, or its fan mask meets the
 // set's node range
-HPA2_HD bool bucket_hit(const BucketArgs& x, const int32_t* e, int J, int j,
-                        int l, int p) {
+HPA2_HD bool bucket_hit(const BucketArgs& x, const int32_t* __restrict__ e,
+                        int J, int j, int l, int p) {
   const int q = e[blk_at(x.W + x.SW, J, j, x.b, l)] - 1;
   if (q >= 0 && q < x.n && ((x.dset[p] >> (q / x.nl)) & 1)) return true;
   for (int w = 0; w < x.SW; ++w)
@@ -634,138 +735,333 @@ HPA2_HD bool bucket_hit(const BucketArgs& x, const int32_t* e, int J, int j,
   return false;
 }
 
-HPA2_HD void n2_dest(const BucketArgs& x, const int p, const int l) {
-  const int R = x.W + x.SW + 3, k = x.k, flags = x.dflags[p];
-  const int32_t* e = x.blk[x.dblk[p]];
-  const int J = x.blen[x.dblk[p]];
-  int32_t* buf = x.buf[p];
-  int64_t* sel = x.sel[p];
-  int pos = 0, mc = 0;
-  for (int j = 0; j < J; ++j) {
-    const bool hit = bucket_hit(x, e, J, j, l, p);
-    if (hit && (flags & kDestStat)) {
-      int pop = 0;
-      for (int w = 0; w < x.SW; ++w)
-        pop += popc(e[blk_at(x.W + w, J, j, x.b, l)] & x.dmask[p][w]);
-      mc += (pop < 1 ? 1 : pop) - 1;
+// the destination whose flag words hold word w
+HPA2_HD int bucket_dest_of(const BucketArgs& x, const BucketPlan& pl,
+                           int w) {
+  int p = 0;
+  while (p + 1 < x.ndest && w >= pl.woff[p + 1]) ++p;
+  return p;
+}
+
+// phase ph of thread tid (of kNodeCta) of CTA cta
+HPA2_HD void n2_phase(const BucketArgs& x, const BucketPlan& pl, int ph,
+                      int cta, int tid, uint32_t* sh) {
+  constexpr int T = kNodeCta;
+  const int G = pl.G, k = x.k, R = x.W + x.SW + 3;
+  const int l0 = cta * G;
+  const BucketTile s(x, pl, sh);
+  if (ph == 0) {
+    const int words = pl.smem / 4;
+    for (int i = tid; i < words; i += T) sh[i] = 0;
+    return;
+  }
+  if (ph == 1) {
+    const int krow = x.W + x.SW + 2;
+    for (int idx = tid; idx < pl.nw * 32 * G; idx += T) {
+      const int g = idx % G, e = idx / G, l = l0 + g;
+      const int p = bucket_dest_of(x, pl, e >> 5);
+      const int j = e - pl.woff[p] * 32, J = x.blen[x.dblk[p]];
+      if (l >= x.b || j >= J) continue;
+      const int32_t* __restrict__ blk = x.blk[x.dblk[p]];
+      if (!bucket_hit(x, blk, J, j, l, p)) continue;
+      sh_or(reinterpret_cast<int32_t*>(&s.bits[(e >> 5) * G + g]),
+            (int32_t)(1u << (e & 31)));
+      const int flags = x.dflags[p];
+      if (flags & kDestStat) {
+        int pop = 0;
+        for (int w = 0; w < x.SW; ++w)
+          pop += popc(blk[blk_at(x.W + w, J, j, x.b, l)] & x.dmask[p][w]);
+        if (pop > 1) sh_add(&s.mc[g], (uint32_t)(pop - 1));
+      }
+      if (x.combine && (flags & kDestCompact)) {
+        const int key = blk[blk_at(krow, J, j, x.b, l)];
+        if (key >= 1 && key <= x.nkeys) {
+          sh_add(&s.comb[g], 1);
+          sh_or(reinterpret_cast<int32_t*>(&s.keys[((key - 1) >> 5) * G + g]),
+                (int32_t)(1u << ((key - 1) & 31)));
+        }
+      }
     }
-    if (flags & kDestCompact) {
-      if (hit && pos < k) {
+    return;
+  }
+  if (ph == 2) {
+    for (int idx = tid; idx < x.ndest * G; idx += T) {
+      const int g = idx % G, p = idx / G;
+      uint32_t run = 0;
+      for (int w = pl.woff[p]; w < pl.woff[p + 1]; ++w) {
+        s.base[w * G + g] = run;
+        run += (uint32_t)popc((int32_t)s.bits[w * G + g]);
+      }
+      s.tot[p * G + g] = run;
+    }
+    for (int idx = tid; idx < pl.nkw * G; idx += T) {
+      const int c = popc((int32_t)s.keys[idx]);
+      if (c) sh_add(&s.distinct[idx % G], (uint32_t)c);
+    }
+    return;
+  }
+  // ph == 3: the scatter, the tails, the telemetry
+  for (int idx = tid; idx < pl.nw * 32 * G; idx += T) {
+    const int g = idx % G, e = idx / G, l = l0 + g;
+    const int p = bucket_dest_of(x, pl, e >> 5);
+    const int j = e - pl.woff[p] * 32, J = x.blen[x.dblk[p]];
+    if (l >= x.b || j >= J || !(x.dflags[p] & kDestCompact)) continue;
+    const int w = e >> 5, bit = e & 31;
+    const uint32_t word = s.bits[w * G + g];
+    int64_t slot = k;
+    if ((word >> bit) & 1) {
+      const int pos = (int)s.base[w * G + g] +
+                      popc((int32_t)(word & ((1u << bit) - 1u)));
+      if (pos < k) {
+        const int32_t* __restrict__ blk = x.blk[x.dblk[p]];
+        int32_t* __restrict__ buf = x.buf[p];
         for (int r = 0; r < R; ++r)
-          buf[blk_at(r, k, pos, x.b, l)] = e[blk_at(r, J, j, x.b, l)];
-        sel[(size_t)j * x.b + l] = pos;
-      } else {
-        sel[(size_t)j * x.b + l] = k;
+          buf[blk_at(r, k, pos, x.b, l)] = blk[blk_at(r, J, j, x.b, l)];
+        slot = pos;
       }
     }
-    pos += hit;
+    x.sel[p][(size_t)j * x.b + l] = slot;
   }
-  int32_t* fs = x.fs;
-  auto at = [&](int row) -> int32_t* { return &fs[(size_t)row * x.b + l]; };
-  if (flags & kDestCompact) {
-    for (int s = pos < k ? pos : k; s < k; ++s)
-      for (int r = 0; r < R; ++r) buf[blk_at(r, k, s, x.b, l)] = 0;
-    if (k < J) {
-      const int ovf = pos > k ? pos - k : 0;
-      const int32_t word =
-          (int32_t)(((uint32_t)(pos < 0xFFFF ? pos : 0xFFFF) << 16) |
-                    ((uint32_t)(x.me & 255) << 8) | (uint32_t)(x.ddst[p] & 255));
-#ifdef __CUDA_ARCH__
-      atomicMax(at(FS_HWM), pos);
-      if (ovf) {
-        atomicAdd(at(FS_OVF), ovf);
-        atomicMax(at(FS_DIAG), word);
+  for (int idx = tid; idx < x.ndest * k * G; idx += T) {
+    const int g = idx % G, slot = (idx / G) % k, p = idx / (G * k);
+    const int l = l0 + g;
+    if (l >= x.b || !(x.dflags[p] & kDestCompact) ||
+        slot < (int)s.tot[p * G + g])
+      continue;
+    int32_t* __restrict__ buf = x.buf[p];
+    for (int r = 0; r < R; ++r) buf[blk_at(r, k, slot, x.b, l)] = 0;
+  }
+  for (int g = tid; g < G; g += T) {
+    const int l = l0 + g;
+    if (l >= x.b) continue;
+    int32_t* fs = x.fs;
+    auto at = [&](int row) -> int32_t& { return fs[(size_t)row * x.b + l]; };
+    int32_t sent = at(FS_SENT), hwm = at(FS_HWM), ovf = at(FS_OVF),
+            diag = at(FS_DIAG);
+    for (int p = 0; p < x.ndest; ++p) {
+      const int32_t t = (int32_t)s.tot[p * G + g];
+      const int flags = x.dflags[p];
+      if ((flags & kDestCompact) && k < x.blen[x.dblk[p]]) {
+        hwm = t > hwm ? t : hwm;
+        if (t > k) {
+          ovf += t - k;
+          const int32_t word = (int32_t)(
+              ((uint32_t)(t < 0xFFFF ? t : 0xFFFF) << 16) |
+              ((uint32_t)(x.me & 255) << 8) | (uint32_t)(x.ddst[p] & 255));
+          diag = word > diag ? word : diag;
+        }
       }
-#else
-      if (pos > *at(FS_HWM)) *at(FS_HWM) = pos;
-      if (ovf) {
-        *at(FS_OVF) += ovf;
-        if (word > *at(FS_DIAG)) *at(FS_DIAG) = word;
+      if (flags & kDestStat) {
+        sent += t;
+        hwm = t > hwm ? t : hwm;
       }
-#endif
     }
-  }
-  if (flags & kDestStat) {
-#ifdef __CUDA_ARCH__
-    atomicAdd(at(FS_SENT), pos);
-    atomicMax(at(FS_HWM), pos);
-    atomicAdd(at(FS_MC), mc);
-#else
-    *at(FS_SENT) += pos;
-    if (pos > *at(FS_HWM)) *at(FS_HWM) = pos;
-    *at(FS_MC) += mc;
-#endif
+    at(FS_SENT) = sent;
+    at(FS_HWM) = hwm;
+    at(FS_OVF) = ovf;
+    at(FS_DIAG) = diag;
+    at(FS_MC) += (int32_t)s.mc[g];
+    if (x.combine) at(FS_COMB) += (int32_t)(s.comb[g] - s.distinct[g]);
   }
 }
 
-// the combining count of lane l over the launch's compacting
-// destinations: shipped combinable entries (key 1..nkeys) minus the
-// distinct keys among them
-HPA2_HD void n2_combine(const BucketArgs& x, const int l) {
-  const int krow = x.W + x.SW + 2;
-  int total = 0, distinct = 0;
-  for (int p = 0; p < x.ndest; ++p) {
-    if (!(x.dflags[p] & kDestCompact)) continue;
-    const int32_t* e = x.blk[x.dblk[p]];
-    const int J = x.blen[x.dblk[p]];
-    for (int j = 0; j < J; ++j) {
-      const int key = e[blk_at(krow, J, j, x.b, l)];
-      if (key < 1 || key > x.nkeys || !bucket_hit(x, e, J, j, l, p)) continue;
-      ++total;
-      bool seen = false;
-      for (int p2 = 0; p2 <= p && !seen; ++p2) {
-        if (!(x.dflags[p2] & kDestCompact)) continue;
-        const int32_t* e2 = x.blk[x.dblk[p2]];
-        const int J2 = x.blen[x.dblk[p2]];
-        const int end = p2 == p ? j : J2;
-        for (int j2 = 0; j2 < end && !seen; ++j2)
-          seen = e2[blk_at(krow, J2, j2, x.b, l)] == key &&
-                 bucket_hit(x, e2, J2, j2, l, p2);
-      }
-      distinct += !seen;
+// ===== N3: entry-parallel delivery, a CTA a tile of lanes ==============
+// A CTA owns G lanes (kDeliverLanes) and every entry the rank holds: J
+// entries, the blocks concatenated in origin order, so that within a
+// phase the concatenation is the global (origin, index) order.  An
+// entry's local receiver set is nl bits (nl <= 64): its point receiver,
+// or its fan mask's bits of this rank's nodes (the words, at most three,
+// that hold gids me * nl .. me * nl + nl - 1).  Five phases, a barrier
+// between them:
+//   0 zero the tile;
+//   1 sets: every (entry, lane) reads its recv + 1, phase flag and mask
+//     words once, and sets the entry's bit in the flag word of each of
+//     its receivers, the phase-A or the phase-B word of its 32 entries;
+//   2 scan: a (receiver, lane) walks its flag words once, the A words
+//     then the B words, each word's base its exclusive prefix in the
+//     global order, so a receiver's rank of an entry is the base plus
+//     the popcount of the bits below; it takes min(room, total)
+//     entries, and writes nsw once;
+//   3 accept: a (32 entries, receiver, lane) takes the first set bits of
+//     its words whose rank is below the room left, copies each one's W
+//     words into the mailbox slot count2 + rank, and ORs the receiver
+//     into the entry's accepted set;
+//   4 feedback: every (entry, lane) writes its 1 + SW feedback rows once:
+//     the popcount of its accepted set, and the set shifted into each
+//     split word (no atomics in global memory, no zeroed rows before).
+constexpr int kDeliverLanes = 4;
+constexpr int kN3Phases = 5;
+
+// N3's launch geometry, from the arguments (deliver_plan)
+struct DeliverPlan {
+  int32_t G;                      // lanes a CTA
+  int32_t J;                      // entries, every block
+  int32_t nch;                    // flag words of a receiver a phase
+  int32_t smem;                   // bytes of the shared tile
+  int32_t boff[kMaxShards + 1];   // each block's first entry
+};
+
+// the plan of a launch that node_geometry_ok took, false when the tile
+// of every G does not fit
+HPA2_HD bool deliver_plan(const NodeArgs& x, DeliverPlan& pl, int max_smem) {
+  int J = 0;
+  for (int b = 0; b < x.nblk; ++b) {
+    pl.boff[b] = J;
+    J += x.blen[b];
+  }
+  pl.boff[x.nblk] = J;
+  pl.J = J;
+  pl.nch = (J + 31) / 32;
+  for (int G = kDeliverLanes; G >= 1; G /= 2) {
+    const long long bytes =
+        8LL * J * G + 4LL * G * (4LL * pl.nch * x.nl + x.nl);
+    if (bytes <= max_smem) {
+      pl.G = G;
+      pl.smem = (int32_t)bytes;
+      return true;
     }
   }
-  x.fs[(size_t)FS_COMB * x.b + l] += total - distinct;
+  return false;
 }
 
-// ===== N3: receiver row i of lane l ====================================
-// walks every A entry of the blocks in origin order, then every B entry,
-// and enqueues the entries addressed to it while its queue has room
-template <int MAXN>
-HPA2_HD void n3_node(const NodeArgs& x, const int l, const int i) {
+// N3's shared tile: the accepted sets [J][G] (64-bit, first), then word
+// arrays [rows][G]
+struct DeliverTile {
+  uint64_t* acc;
+  uint32_t *wa, *wb, *ba, *bb, *c2;
+  HPA2_HD DeliverTile(const NodeArgs& x, const DeliverPlan& pl, void* sh) {
+    const int G = pl.G, rows = pl.nch * x.nl * G;
+    acc = static_cast<uint64_t*>(sh);  // [J][G] accepted receivers
+    wa = reinterpret_cast<uint32_t*>(acc + (size_t)pl.J * G);
+    wb = wa + rows;                    // [nch][nl][G] phase A / B flags
+    ba = wb + rows;
+    bb = ba + rows;                    // [nch][nl][G] exclusive ranks
+    c2 = bb + rows;                    // [nl][G] count2
+  }
+};
+
+// the block that holds entry e
+HPA2_HD int deliver_block_of(const NodeArgs& x, const DeliverPlan& pl,
+                             int e) {
+  int b = 0;
+  while (b + 1 < x.nblk && e >= pl.boff[b + 1]) ++b;
+  return b;
+}
+
+// phase ph of thread tid (of kNodeCta) of CTA cta
+HPA2_HD void n3_phase(const NodeArgs& x, const DeliverPlan& pl, int ph,
+                      int cta, int tid, void* sh) {
+  constexpr int T = kNodeCta;
   const Args& a = x.a;
-  const int W = a.W, SW = a.SW, cap = a.cap;
-  const int gid = x.me * x.nl + i;
-  const int wsel = gid / kSplitBpw, bsel = gid % kSplitBpw;
-  const int32_t nswv = HPA2_AT(a.nsw, i);
-  const int count2 = nswv & a.count_mask;
-  const int room = cap - count2;
-  int acc = 0;
-  for (int pass = 0; pass < 2 && acc < room; ++pass) {
-    for (int b = 0; b < x.nblk && acc < room; ++b) {
-      const int32_t* e = x.blk[b];
-      const int J = x.blen[b];
-      for (int j = 0; j < J && acc < room; ++j) {
-        if ((e[blk_at(W + SW + 1, J, j, a.b, l)] != 0) != (pass == 0)) continue;
-        const bool valid = e[blk_at(W + SW, J, j, a.b, l)] == gid + 1 ||
-                           ((e[blk_at(W + wsel, J, j, a.b, l)] >> bsel) & 1);
-        if (!valid) continue;
-        const int slot = count2 + acc;
-        HPA2_UNROLL for (int w = 0; w < Bound<MAXN>::W; ++w)
-          if (w < W) HPA2_AT(a.mb[w], i * cap + slot) = e[blk_at(w, J, j, a.b, l)];
-        int32_t* fb = x.fb[b];
-#ifdef __CUDA_ARCH__
-        atomicAdd(&fb[blk_at(0, J, j, a.b, l)], 1);
-        atomicOr(&fb[blk_at(1 + wsel, J, j, a.b, l)], (int32_t)(1u << bsel));
-#else
-        fb[blk_at(0, J, j, a.b, l)] += 1;
-        fb[blk_at(1 + wsel, J, j, a.b, l)] |= (int32_t)(1u << bsel);
-#endif
-        ++acc;
+  const int G = pl.G, nl = x.nl, W = a.W, SW = a.SW, cap = a.cap;
+  const int lo = x.me * nl, l0 = cta * G;
+  const DeliverTile s(x, pl, sh);
+  if (ph == 0) {
+    uint32_t* w = reinterpret_cast<uint32_t*>(sh);
+    const int words = pl.smem / 4;
+    for (int i = tid; i < words; i += T) w[i] = 0;
+    return;
+  }
+  if (ph == 1) {
+    const uint64_t nl_mask = nl < 64 ? (1ull << nl) - 1ull : ~0ull;
+    const int w_lo = lo / kSplitBpw, w_hi = (lo + nl - 1) / kSplitBpw;
+    for (int idx = tid; idx < pl.J * G; idx += T) {
+      const int g = idx % G, e = idx / G, l = l0 + g;
+      if (l >= a.b) continue;
+      const int b = deliver_block_of(x, pl, e);
+      const int j = e - pl.boff[b], J = x.blen[b];
+      const int32_t* __restrict__ blk = x.blk[b];
+      uint64_t set = 0;
+      const int q = blk[blk_at(W + SW, J, j, a.b, l)] - 1 - lo;
+      if (q >= 0 && q < nl) set = 1ull << q;
+      for (int w = w_lo; w <= w_hi && w < SW; ++w) {
+        const uint64_t m =
+            (uint32_t)blk[blk_at(W + w, J, j, a.b, l)] & 0x7FFFFFFFu;
+        const int off = w * kSplitBpw - lo;  // local row of the word's bit 0
+        set |= off >= 0 ? (off < 64 ? m << off : 0ull) : m >> -off;
+      }
+      set &= nl_mask;
+      if (!set) continue;
+      uint32_t* flag = blk[blk_at(W + SW + 1, J, j, a.b, l)] != 0 ? s.wa
+                                                                  : s.wb;
+      const int c = e >> 5;
+      const uint32_t bit = 1u << (e & 31);
+      while (set) {
+        const int i = popc64((set & (~set + 1ull)) - 1ull);
+        set &= set - 1ull;
+        sh_or(reinterpret_cast<int32_t*>(&flag[(c * nl + i) * G + g]),
+              (int32_t)bit);
       }
     }
+    return;
   }
-  if (acc) HPA2_AT(a.nsw, i) = nswv + acc;
+  if (ph == 2) {
+    for (int idx = tid; idx < nl * G; idx += T) {
+      const int g = idx % G, i = idx / G, l = l0 + g;
+      if (l >= a.b) continue;
+      const int32_t nswv = HPA2_AT(a.nsw, i);
+      const int count2 = nswv & a.count_mask;
+      s.c2[i * G + g] = (uint32_t)count2;
+      int run = 0;
+      for (int c = 0; c < pl.nch; ++c) {
+        const int at = (c * nl + i) * G + g;
+        s.ba[at] = (uint32_t)run;
+        run += popc((int32_t)s.wa[at]);
+      }
+      for (int c = 0; c < pl.nch; ++c) {
+        const int at = (c * nl + i) * G + g;
+        s.bb[at] = (uint32_t)run;
+        run += popc((int32_t)s.wb[at]);
+      }
+      const int room = cap - count2;
+      const int acc = room <= 0 ? 0 : (room < run ? room : run);
+      if (acc) HPA2_AT(a.nsw, i) = nswv + acc;
+    }
+    return;
+  }
+  if (ph == 3) {
+    for (int idx = tid; idx < pl.nch * nl * G; idx += T) {
+      const int g = idx % G, i = (idx / G) % nl, c = idx / (G * nl);
+      const int l = l0 + g;
+      if (l >= a.b) continue;
+      const int at = (c * nl + i) * G + g;
+      const int count2 = (int)s.c2[i * G + g];
+      for (int ph2 = 0; ph2 < 2; ++ph2) {
+        uint32_t word = ph2 == 0 ? s.wa[at] : s.wb[at];
+        int rank = (int)(ph2 == 0 ? s.ba[at] : s.bb[at]);
+        while (word && count2 + rank < cap) {
+          const int e = c * 32 + find_owner((int32_t)word);
+          word &= word - 1u;
+          const int b = deliver_block_of(x, pl, e);
+          const int j = e - pl.boff[b], J = x.blen[b];
+          const int32_t* __restrict__ blk = x.blk[b];
+          const int slot = count2 + rank;
+          HPA2_UNROLL for (int w = 0; w < kMaxW; ++w)
+            if (w < W) HPA2_AT(a.mb[w], i * cap + slot) =
+                blk[blk_at(w, J, j, a.b, l)];
+          sh_or64(&s.acc[(size_t)e * G + g], 1ull << i);
+          ++rank;
+        }
+      }
+    }
+    return;
+  }
+  // ph == 4: the feedback rows
+  for (int idx = tid; idx < pl.J * G; idx += T) {
+    const int g = idx % G, e = idx / G, l = l0 + g;
+    if (l >= a.b) continue;
+    const int b = deliver_block_of(x, pl, e);
+    const int j = e - pl.boff[b], J = x.blen[b];
+    int32_t* __restrict__ fb = x.fb[b];
+    const uint64_t set = s.acc[(size_t)e * G + g];
+    fb[blk_at(0, J, j, a.b, l)] = popc64(set);
+    for (int w = 0; w < SW; ++w) {
+      const int off = lo - w * kSplitBpw;  // bit of local row 0 in word w
+      const uint64_t v = off >= 0 ? (off < 64 ? set << off : 0ull)
+                                  : (-off < 64 ? set >> -off : 0ull);
+      fb[blk_at(1 + w, J, j, a.b, l)] = (int32_t)(v & 0x7FFFFFFFull);
+    }
+  }
 }
 
 // ===== N4: sender row s of lane l ======================================

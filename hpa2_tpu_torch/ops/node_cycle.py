@@ -134,6 +134,9 @@ NODE_KERNELS = (NODE_AB, NODE_BUCKET, NODE_DELIVER, NODE_SETTLE)
 
 _DEST_COMPACT, _DEST_STAT = 1, 2
 _SIZES_CHECKED = []
+#: clocks the stream sleeps before a launch timed alone (~0.5 ms):
+#: longer than the host's share of a launch
+SLEEP_CYCLES = 1_000_000
 
 
 class _CudaLauncher:
@@ -337,6 +340,9 @@ class NodeCycle:
         self.keep_at: Optional[int] = None
         self.kept: Dict[str, tuple] = {}
         self.cycles = 0
+        # a list while :meth:`time_kept` times launches alone: the CUDA
+        # events around each launch
+        self.timed: Optional[list] = None
 
     # -- dispatch --------------------------------------------------------
 
@@ -351,7 +357,17 @@ class NodeCycle:
         return HOST_LAUNCHER
 
     def launch(self, launcher, entry, args, dev) -> None:
-        launcher.launch(entry, args, dev)
+        if self.timed is None:
+            launcher.launch(entry, args, dev)
+        else:
+            # the stream sleeps while the host enqueues the start event
+            # and the launch, so the events time the kernel alone
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda._sleep(SLEEP_CYCLES)
+            ev[0].record()
+            launcher.launch(entry, args, dev)
+            ev[1].record()
+            self.timed.append(ev)
         self.launches[entry.name] += 1
 
     def keeping(self, name: str) -> bool:
@@ -420,7 +436,8 @@ class NodeCycle:
         bb = s["nsw"].shape[1]
         before = _copies(s) if self.check else None
         sizes = [(1 + self.SW) * b.shape[1] * bb for b in blocks]
-        flat = torch.zeros(sum(sizes), dtype=I32, device=dev)
+        # N3 writes every feedback word once
+        flat = torch.empty(sum(sizes), dtype=I32, device=dev)
         fbs, off = [], 0
         for b, size in zip(blocks, sizes):
             fbs.append(flat[off:off + size].view(1 + self.SW, b.shape[1], bb))
@@ -524,8 +541,11 @@ class NodeCycle:
     def time_kept(self, reps: int = 10) -> Dict[str, dict]:
         """Each kept stage, its kernel and its plain version, on fresh
         copies of the kept inputs, timed by CUDA events on the card (the
-        median of ``reps`` runs, ms, the wrapper's allocations
-        included), and the bytes it must move (:meth:`_stage_bytes`)."""
+        median of ``reps`` runs, ms): ``ms`` the launch alone (events
+        around it, the stream held busy while the host enqueues it),
+        ``wrapper_ms`` and ``plain_ms`` the whole call, the wrapper's
+        allocations and host work included; and the bytes it must move
+        (:meth:`_stage_bytes`)."""
         out = {}
         for name in [e.name for e in NODE_KERNELS if e.name in self.kept]:
             kept = self.kept[name]
@@ -537,38 +557,49 @@ class NodeCycle:
                 ms = sorted(_elapsed_ms(fn(), dev) for _ in range(reps))
                 return ms[len(ms) // 2]
 
+            def launch_ms(fn):
+                self.timed = []
+                try:
+                    for _ in range(reps):
+                        fn()()
+                    torch.cuda.synchronize(dev)
+                    ms = sorted(a.elapsed_time(b) for a, b in self.timed)
+                finally:
+                    self.timed = None
+                return ms[len(ms) // 2]
+
             if name == NODE_AB.name:
                 s0, seg, w = kept
-                kern = med(lambda: functools.partial(
+                kern_fn = (lambda: functools.partial(
                     self.node_ab, _copies(s0), seg, w))
                 plain = med(lambda: functools.partial(
                     ab_plain, self, _copies(s0), seg, w))
             elif name == NODE_BUCKET.name:
                 fsbuf, fs0, blocks, dests, k, src, combine = kept
 
-                def kern_args():
+                def kern_fn():
                     self.bucketer.fsbuf = fsbuf.clone()
                     fs = dict(zip(exchange.FSTATS,
                                   self.bucketer.fsbuf.unbind(0)))
                     return functools.partial(self.bucketer, fs, blocks,
                                              dests, k, src, combine)
-                kern = med(kern_args)
                 plain = med(lambda: functools.partial(
                     self.bucketer.plain, dict(fs0), blocks, dests, k, src,
                     combine))
             elif name == NODE_DELIVER.name:
                 s0, blocks, origins = kept
-                kern = med(lambda: functools.partial(
+                kern_fn = (lambda: functools.partial(
                     self.node_deliver, _copies(s0), blocks, origins))
                 plain = med(lambda: functools.partial(
                     deliver_plain, self, _copies(s0), blocks, origins))
             else:
                 s0, acc, cnt, fs, seg, w = kept
-                kern = med(lambda: functools.partial(
+                kern_fn = (lambda: functools.partial(
                     self.node_settle, _copies(s0), acc, cnt, fs, seg, w))
                 plain = med(lambda: functools.partial(
                     settle_plain, self, _copies(s0), acc, cnt, fs, seg, w))
-            out[name] = dict(ms=kern, plain_ms=plain,
+            out[name] = dict(ms=launch_ms(kern_fn), wrapper_ms=med(kern_fn),
+                             plain_ms=plain,
                              bytes=self._stage_bytes(name, kept))
         return out
 
@@ -629,13 +660,13 @@ class NodeCycle:
             mw = len({g // _SPLIT_BPW for g in range(self.me * nl,
                                                      (self.me + 1) * nl)})
             fb = torch.cat([f.reshape(1 + SW, -1) for f in fbs], 1)
-            # every entry's phase flag, recv and those mask words, nsw,
-            # the W words of the entries taken; written: the mailbox
-            # slots and nsw words that change, the feedback words set
+            # every entry's phase flag, recv and those mask words, once;
+            # nsw; the W words of the entries taken; written: the
+            # mailbox slots and nsw words that change, and every
+            # feedback word (the kernel writes them all)
             reads = (j * (2 + mw) * bb * 4 + node
                      + int((fb[0] != 0).sum()) * W * 4)
-            return (reads + _changed_bytes(s0, upd)
-                    + int((fb != 0).sum()) * 4)
+            return reads + _changed_bytes(s0, upd) + fb.numel() * 4
         acc, cnt, fs, seg, w = kept[1:]
         upd, gsum, gmax = settle_plain(self, _copies(s0), acc, cnt, fs,
                                        seg, w)

@@ -1600,6 +1600,8 @@ def _rank_profile(job: dict) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA]
         out.update(kernels=len(ran),
                    nccl=sum(1 for e in ran if "nccl" in e.name.lower()),
+                   device_us=sum(e.time_range.elapsed_us() for e in ran
+                                 if "nccl" not in e.name.lower()),
                    launch_calls=sum(1 for e in events if e.name in (
                        "cudaLaunchKernel", "cudaLaunchKernelExC",
                        "cuLaunchKernel", "cuLaunchKernelEx")))
@@ -1613,8 +1615,9 @@ class NodeProfile:
     the engine's ranks, after it or alone) that profiles one ``k``-cycle
     call on each rank (the window's seed and gates included) after a
     warm one.  :attr:`per_cycle` holds the rank maximum of the kernels,
-    NCCL's among them, and the host's kernel launch calls, each a cycle
-    and a rank (over logical ranks the process's count divided by the
+    NCCL's among them, the host's kernel launch calls and the device
+    time of the kernels but NCCL's (``device_us``), each a cycle and a
+    rank (over logical ranks the process's count divided by the
     ranks)."""
 
     def __init__(self, engine: "NodeShardedCudaEngine", k: int = 4):
@@ -1630,7 +1633,7 @@ class NodeProfile:
         self.per_cycle = {
             f: round(max(r[f] / share / max(r["cycles"], 1) for r in rows),
                      2)
-            for f in ("kernels", "nccl", "launch_calls")}
+            for f in ("kernels", "nccl", "launch_calls", "device_us")}
 
     def _check(self) -> None:
         pass

@@ -423,7 +423,8 @@ def _kernels_row(eng, per_cycle) -> dict:
     if per_cycle is not None:
         row.update(cuda_kernels_per_cycle=per_cycle["kernels"],
                    nccl_per_cycle=per_cycle["nccl"],
-                   launch_calls_per_cycle=per_cycle["launch_calls"])
+                   launch_calls_per_cycle=per_cycle["launch_calls"],
+                   device_us_per_cycle=per_cycle["device_us"])
     return row
 
 
@@ -503,8 +504,9 @@ def nodeshard_ab(nodes: int = 64, batch: int = 1024,
                  instrs_per_core: int = 64, ranks=(2, 4), reps: int = 3,
                  device="cuda") -> dict:
     """The exchange schedules' A/B ladder (JAX ``nodeshard_ab``): at each
-    rung the pairwise, a2a and butterfly schedules, interleaved best of
-    ``reps`` (a spawn a run, timed after an untimed run in its
+    rung the pairwise, a2a and butterfly schedules, and ``hier`` (not an
+    arm of JAX's: its combining count runs only there), interleaved best
+    of ``reps`` (a spawn a run, timed after an untimed run in its
     ranks), every arm's planes held against one
     card's run."""
     import dataclasses
@@ -529,7 +531,7 @@ def nodeshard_ab(nodes: int = 64, batch: int = 1024,
               "ops_per_sec": round(ref.instructions / ref_dt, 1)}
     print(json.dumps({"nodeshard_ab_single": single}), flush=True)
     arms = (("old_pairwise", "pairwise"), ("new_a2a", "a2a"),
-            ("new_butterfly", "butterfly"))
+            ("new_butterfly", "butterfly"), ("new_hier", "hier"))
     rows, exact = [], True
     for shards in (r for r in ranks if r <= cards):
         row = {"node_shards": shards}
@@ -555,7 +557,7 @@ def nodeshard_ab(nodes: int = 64, batch: int = 1024,
                 "cross_shard_msgs": eng.cross_shard_msgs,
                 "bit_exact": same, **_kernels_row(eng, per_cycle)}
         old = max(row["old_pairwise"]["ops_per_sec"], 1e-9)
-        for label in ("a2a", "butterfly"):
+        for label in ("a2a", "butterfly", "hier"):
             row[f"{label}_speedup_vs_pairwise"] = round(
                 row[f"new_{label}"]["ops_per_sec"] / old, 3)
         rows.append(row)

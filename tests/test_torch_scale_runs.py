@@ -142,8 +142,8 @@ def test_multi_device_modes_raise(mode, capsys):
     assert rec["bit_exact_vs_one_card"]
     row = rec["shards"][0]
     assert [row[k]["exchange_mode"] for k in (
-        "old_pairwise", "new_a2a", "new_butterfly")] == [
-        "pairwise", "a2a", "butterfly"]
+        "old_pairwise", "new_a2a", "new_butterfly", "new_hier")] == [
+        "pairwise", "a2a", "butterfly", "hier"]
     assert row["old_pairwise"]["collectives_per_cycle"]["ppermute"] == 2
 
 

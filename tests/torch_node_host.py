@@ -1,10 +1,14 @@
 """The node kernels' bodies (``csrc/node_cycle.cuh``) built with g++ for
 the host, and a launcher that runs them on CPU tensors.
 
-Each entry loops over what the card runs in parallel: N1, N3 and N4 over
-every (lane, node row), N2 over every (destination, lane) and the
-combining thread of each lane.  Those threads share nothing but integer
-atomics that commute, so the loop order does not change the result.
+Each entry loops over what the card runs in parallel.  N1 and N4: every
+(lane, node row), threads that share nothing but integer sums that
+commute, so the loop order does not change the result.  N2 and N3: a
+CTA at a time, its phases in order, each phase run by every thread of
+the CTA before the next begins (the barrier between them on the card);
+within a phase the threads share only ORs and sums that commute.  The
+shared tile starts as garbage, as on the card, so a phase that reads
+what no earlier phase wrote shows here.
 Set ``hpa2_tpu_torch.ops.node_cycle.HOST_LAUNCHER`` to :func:`launcher`'s
 result and a node-sharded run on the CPU goes through the kernels'
 bodies as a run on the card goes through the kernels."""
@@ -41,13 +45,27 @@ template <int MAXN, bool PACKED> void settle(const NodeArgs& x) {
     hpa2::n4_lane(x, l, red, 1);
   }
 }
-template <int MAXN> void deliver(const NodeArgs& x) {
-  for (int l = 0; l < x.a.b; ++l)
-    for (int i = 0; i < x.nl; ++i) hpa2::n3_node<MAXN>(x, l, i);
+// a phase-by-phase CTA loop: phase ph of every thread before ph + 1
+template <class Phase>
+void ctas(int ctas, int phases, size_t smem, Phase phase) {
+  std::vector<uint64_t> tile((smem + 7) / 8, 0xA5A5A5A5A5A5A5A5ull);
+  for (int cta = 0; cta < ctas; ++cta)
+    for (int ph = 0; ph < phases; ++ph)
+      for (int tid = 0; tid < hpa2::kNodeCta; ++tid)
+        phase(ph, cta, tid, (void*)tile.data());
+}
+int deliver(const NodeArgs& x) {
+  hpa2::DeliverPlan pl;
+  if (!hpa2::deliver_plan(x, pl, hpa2::kNodeSmem)) return 1;
+  ctas((x.a.b + pl.G - 1) / pl.G, hpa2::kN3Phases, pl.smem,
+       [&](int ph, int cta, int tid, void* sh) {
+         hpa2::n3_phase(x, pl, ph, cta, tid, sh);
+       });
+  return 0;
 }
 template <int MAXN> int go(const NodeArgs& x, int what) {
+  if (what == 1) return deliver(x);
   if (what == 0) x.a.packed ? ab<MAXN, true>(x) : ab<MAXN, false>(x);
-  else if (what == 1) deliver<MAXN>(x);
   else x.a.packed ? settle<MAXN, true>(x) : settle<MAXN, false>(x);
   return 0;
 }
@@ -65,11 +83,12 @@ extern "C" int hpa2_host_node_ab(const NodeArgs* x) { return dispatch(x, 0); }
 extern "C" int hpa2_host_node_deliver(const NodeArgs* x) { return dispatch(x, 1); }
 extern "C" int hpa2_host_node_settle(const NodeArgs* x) { return dispatch(x, 2); }
 extern "C" int hpa2_host_node_bucket(const BucketArgs* x) {
-  if (x->ndest < 1 || x->ndest > hpa2::kMaxShards) return 1;
-  for (int p = 0; p < x->ndest; ++p)
-    for (int l = 0; l < x->b; ++l) hpa2::n2_dest(*x, p, l);
-  if (x->combine)
-    for (int l = 0; l < x->b; ++l) hpa2::n2_combine(*x, l);
+  hpa2::BucketPlan pl;
+  if (!hpa2::bucket_plan(*x, pl, hpa2::kNodeSmem)) return 1;
+  ctas((x->b + pl.G - 1) / pl.G, hpa2::kN2Phases, pl.smem,
+       [&](int ph, int cta, int tid, void* sh) {
+         hpa2::n2_phase(*x, pl, ph, cta, tid, (uint32_t*)sh);
+       });
   return 0;
 }
 """
