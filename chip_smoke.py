@@ -4441,6 +4441,7 @@ def phase_nodekern():
             cfg, *arrays, mesh=make_mesh(node_shards=d, device="cuda",
                                          local=True),
             _check_calls=1, **kw), refs[key])
+    secs_setup = time.perf_counter() - t_phase
     for e in node_cycle.NODE_KERNELS:
         e.launches = 0
     t0 = time.perf_counter()
@@ -4490,6 +4491,7 @@ def phase_nodekern():
     # the CUDA kernels a cycle: one 4-cycle call (the window's seed and
     # gates included) at 64 nodes over 2 and 4 logical ranks
     rec["profile"] = {}
+    t_prof = time.perf_counter()
     for d in (2, 4):
         prof = NodeProfile(engs[f"64 nodes {d} ranks a2a"][0],
                            k=NODESHARD_PROFILE_K)
@@ -4501,10 +4503,12 @@ def phase_nodekern():
               f"(the tensor cycle's: 1,738.5 a rank over NCCL, PERF.md), "
               f"{prof.per_cycle['launch_calls']} kernel launch calls a "
               f"cycle a rank, {prof.per_cycle['device_us']} us of device "
-              "time a cycle a rank (every kernel but NCCL's)")
+              "time a cycle a rank (every kernel but NCCL's), of which the "
+              f"node kernels' {prof.per_cycle['node_us']}")
 
     # each kernel and its plain version on cycle 8's inputs, over 2
     # ranks (the kernels line's times) and over 4
+    t_time = time.perf_counter()
     for d in (2, 4):
         job = _NodeJob(_nodekern_time_rank, engs[f"64 nodes {d} ranks a2a"][0])
         run_node_sharded([job])
@@ -4513,20 +4517,64 @@ def phase_nodekern():
         rec[key] = {}
         for k, tm in times.items():
             bound = tm["bytes"] / HBM_BYTES_PER_S * 1e3
+            grid = tm["grid"]
             rec[key][k] = dict(ms=round(tm["ms"], 4),
                                wrapper_ms=round(tm["wrapper_ms"], 4),
                                plain_ms=round(tm["plain_ms"], 4),
-                               bound_ms=round(bound, 6), bytes=tm["bytes"])
+                               bound_ms=round(bound, 6), bytes=tm["bytes"],
+                               grid=grid, empty_ms=round(tm["empty_ms"], 4))
             print(f"[nodekern] {k}: {tm['ms']:.4f} ms a launch (CUDA "
                   f"events around the launch alone, median of 10, 64 "
                   f"nodes x 1,024 over {d} ranks, cycle "
                   f"{NODEKERN_KEEP_AT}'s inputs; the whole wrapper "
                   f"{tm['wrapper_ms']:.4f}), plain version "
                   f"{tm['plain_ms']:.4f} ms, bound {bound:.6f} ms "
-                  f"({tm['bytes']} B over 3.35 TB/s)")
-    rec["seconds"] = round(time.perf_counter() - t_phase, 1)
-    print(f"[nodekern] phase {rec['seconds']} s (budget 60 s)")
+                  f"({tm['bytes']} B over 3.35 TB/s); grid {grid['ctas']} "
+                  f"CTAs of {grid['threads']} threads ({grid['lanes']} "
+                  f"lanes, {grid['smem']} B shared each, "
+                  f"{grid['ctas_per_sm']} an SM at once) on "
+                  f"{grid['sms_covered']} of {grid['sms']} SMs; an empty "
+                  f"launch of that grid {tm['empty_ms']:.4f} ms)")
+    rec["ptxas"] = node_ptxas()
+    for k, rows in rec["ptxas"].items():
+        print(f"[nodekern] {k} ptxas: " + "; ".join(
+            f"{inst} {r['registers']} registers, {r['stack']} B frame, "
+            f"{r['spill_stores']}/{r['spill_loads']} B spilled"
+            for inst, r in rows.items()))
+    t_end = time.perf_counter()
+    rec["seconds"] = round(t_end - t_phase, 1)
+    rec["seconds_by_part"] = parts = dict(
+        setup=round(secs_setup, 1), runs=round(secs, 1),
+        checks=round(t_prof - t0 - secs, 1),
+        profile=round(t_time - t_prof, 1), timings=round(t_end - t_time, 1))
+    print(f"[nodekern] phase {rec['seconds']} s (budget 60 s): K2's "
+          f"references and the engines {parts['setup']} s, the runs "
+          f"{parts['runs']}, their checks against K2 {parts['checks']}, "
+          f"the profile {parts['profile']}, the kernel timings, grids and "
+          f"ptxas rows {parts['timings']}")
     return rec
+
+
+def node_ptxas():
+    """Registers, stack frame and spill bytes (stores, loads) of every
+    instantiation of each node kernel, from ptxas's census of the node
+    library's build: kernel -> "bound int32|packed" -> row."""
+    import re
+
+    from hpa2_tpu_torch.analysis.ir import ptxas_census
+    from hpa2_tpu_torch.ops import kernels, node_cycle
+
+    out = {e.name: {} for e in node_cycle.NODE_KERNELS}
+    for row in ptxas_census(kernels.NODE_CYCLE.build_log):
+        for name in out:
+            m = re.search(name + r"_kernel(?:ILi(\d+)ELb([01])E)?",
+                          row["name"])
+            if m:
+                inst = ("all" if m.group(1) is None else
+                        f"{m.group(1)} {'packed' if m.group(2) == '1' else 'int32'}")
+                out[name][inst] = {f: row[f] for f in (
+                    "registers", "stack", "spill_stores", "spill_loads")}
+    return out
 
 
 def node_entries(nodekern, nodeshard):
@@ -4559,10 +4607,12 @@ def node_entries(nodekern, nodeshard):
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "by_path": by_path,
-            "wrapper_ms": t["wrapper_ms"],
+            "wrapper_ms": t["wrapper_ms"], "grid": t["grid"],
+            "empty_launch_ms": t["empty_ms"],
+            "ptxas": nodekern["ptxas"][kern.name],
             "at_4_ranks": {f: nodekern["times_4_ranks"][kern.name][f]
                            for f in ("ms", "wrapper_ms", "plain_ms",
-                                     "bound_ms")}})
+                                     "bound_ms", "grid", "empty_ms")}})
     return out
 
 

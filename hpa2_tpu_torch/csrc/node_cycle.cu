@@ -14,10 +14,11 @@
 // entry allocates nothing and does not synchronise: it launches on the
 // caller's stream and returns the launch's error.  N1 and N4 are
 // instantiated for node bounds 8, 21 and 64 (split mode is the bound's),
-// each with int32 or packed planes; N2 and N3 are one kernel each, their
-// geometry and shared tile sized at launch (bucket_plan, deliver_plan).
-// A wider system, more than kMaxShards shards or a geometry the kernels
-// do not take (a shared tile over kNodeSmem) is refused.
+// each with int32 or packed planes; N2 and N3 are one kernel each.  Every
+// kernel's geometry and shared tile are sized at launch (ab_plan,
+// bucket_plan, deliver_plan, settle_plan; hpa2_node_geometry reports
+// them).  A wider system, more than kMaxShards shards or a geometry the
+// kernels do not take (a shared tile over kNodeSmem) is refused.
 #include <cuda_runtime.h>
 
 #include "node_cycle.cuh"
@@ -27,34 +28,26 @@ namespace {
 using hpa2::NodeArgs;
 using hpa2::BucketArgs;
 
-// thread t of lane g in this CTA: tid = t * group + g
-struct NodeThread {
-  int t, g, l;
-  __device__ explicit NodeThread(const NodeArgs& x) {
-    t = threadIdx.x / x.group;
-    g = threadIdx.x % x.group;
-    l = blockIdx.x * x.group + g;
-  }
-  __device__ bool lane_ok(const NodeArgs& x) const {
-    return t < x.tpl && l < x.a.b;
-  }
-};
-
+// N1: its three phases over the CTA's shared tile; the write phase sums
+// the counters over the cluster's tiles, so a cluster barrier comes
+// before it, and after it (a tile lives until its cluster has read it).
+// One CTA an SM at least: without it ptxas held every instantiation to
+// 72-96 registers and spilled 4-76 bytes; with it 96-120, no spill (the
+// tile's shared memory, not the registers, sets the CTAs an SM)
 template <int MAXN, bool PACKED>
-__global__ void __launch_bounds__(hpa2::kNodeCta)
-    node_ab_kernel(const __grid_constant__ NodeArgs x) {
-  __shared__ uint32_t red[hpa2::kABCount * hpa2::kNodeCta];
-  const NodeThread th(x);
-  for (int j = threadIdx.x; j < hpa2::kABCount * x.group; j += blockDim.x)
-    red[(j / x.group) * hpa2::kNodeCta + j % x.group] = 0;
-  __syncthreads();
-  if (th.lane_ok(x))
-    for (int i = th.t; i < x.nl; i += x.tpl)
-      hpa2::n1_node<MAXN, PACKED>(x, th.l, i, &red[th.g], hpa2::kNodeCta);
-  __syncthreads();
-  if (th.t == 0 && th.l < x.a.b)
-    for (int j = 0; j < hpa2::kABCount; ++j)
-      x.cnt[(size_t)j * x.a.b + th.l] = (int32_t)red[j * hpa2::kNodeCta + th.g];
+__global__ void __launch_bounds__(hpa2::kAbCta, 1)
+    node_ab_kernel(const __grid_constant__ NodeArgs x,
+                   const __grid_constant__ hpa2::NodePlan pl) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int32_t* sh = reinterpret_cast<int32_t*>(smem);
+#pragma unroll
+  for (int ph = 0; ph < hpa2::kN1Phases; ++ph) {
+    hpa2::n1_phase<MAXN, PACKED>(x, pl, ph, blockIdx.x, threadIdx.x, sh);
+    if (ph == 0)
+      __syncthreads();
+    else
+      cooperative_groups::this_cluster().sync();
+  }
 }
 
 // N2: its four phases over the CTA's shared tile
@@ -82,52 +75,28 @@ __global__ void __launch_bounds__(hpa2::kNodeCta)
   }
 }
 
+// N4: its three phases over the CTA's shared tile
 template <int MAXN, bool PACKED>
 __global__ void __launch_bounds__(hpa2::kNodeCta)
-    node_settle_kernel(const __grid_constant__ NodeArgs x) {
-  __shared__ uint32_t red[hpa2::kSettleRed * hpa2::kNodeCta];
-  const NodeThread th(x);
-  for (int j = threadIdx.x; j < hpa2::kSettleRed * x.group; j += blockDim.x)
-    red[(j / x.group) * hpa2::kNodeCta + j % x.group] = 0;
-  __syncthreads();
-  if (th.lane_ok(x))
-    for (int s = th.t; s < x.nl; s += x.tpl)
-      hpa2::n4_node<MAXN, PACKED>(x, th.l, s, &red[th.g], hpa2::kNodeCta);
-  __syncthreads();
-  if (th.t == 0 && th.l < x.a.b)
-    hpa2::n4_lane(x, th.l, &red[th.g], hpa2::kNodeCta);
+    node_settle_kernel(const __grid_constant__ NodeArgs x,
+                       const __grid_constant__ hpa2::NodePlan pl) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int32_t* sh = reinterpret_cast<int32_t*>(smem);
+#pragma unroll
+  for (int ph = 0; ph < hpa2::kN4Phases; ++ph) {
+    hpa2::n4_phase<MAXN, PACKED>(x, pl, ph, blockIdx.x, threadIdx.x, sh);
+    __syncthreads();
+  }
 }
 
-dim3 node_grid(const NodeArgs& x) {
-  return dim3((x.a.b + x.group - 1) / x.group);
-}
-
-template <class K>
-cudaError_t go(K kernel, dim3 grid, dim3 block, const NodeArgs& x,
-               cudaStream_t s) {
-  kernel<<<grid, block, 0, s>>>(x);
-  return cudaGetLastError();
-}
+// nothing: a launch of a kernel's grid with no work, the floor under
+// which no launch of that grid gets (hpa2_node_empty)
+__global__ void node_empty_kernel() {}
 
 // the node bound of the launch, or 0 when the kernels do not take it
 int bound_of(const NodeArgs& x) {
   if (!hpa2::node_geometry_ok(x)) return 0;
   return hpa2::node_kernel_bound(x.a);
-}
-
-template <int MAXN>
-cudaError_t launch_ab(const NodeArgs& x, cudaStream_t s) {
-  const dim3 block(x.tpl * x.group);
-  return x.a.packed ? go(node_ab_kernel<MAXN, true>, node_grid(x), block, x, s)
-                    : go(node_ab_kernel<MAXN, false>, node_grid(x), block, x, s);
-}
-
-template <int MAXN>
-cudaError_t launch_settle(const NodeArgs& x, cudaStream_t s) {
-  const dim3 block(x.tpl * x.group);
-  return x.a.packed
-             ? go(node_settle_kernel<MAXN, true>, node_grid(x), block, x, s)
-             : go(node_settle_kernel<MAXN, false>, node_grid(x), block, x, s);
 }
 
 // a kernel's shared tile above the default 48 KB needs the opt-in
@@ -137,18 +106,75 @@ cudaError_t allow_smem(K kernel) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, hpa2::kNodeSmem);
 }
 
-#define HPA2_NODE_ENTRY(name, fn)                                        \
-  extern "C" int name(const NodeArgs* args, int device, void* stream) {  \
-    const NodeArgs& x = *args;                                           \
-    const int bound = bound_of(x);                                       \
-    if (bound == 0) return (int)cudaErrorInvalidValue;                   \
-    cudaError_t err = cudaSetDevice(device);                             \
-    if (err != cudaSuccess) return (int)err;                             \
-    cudaStream_t s = (cudaStream_t)stream;                               \
-    if (bound == 8) return (int)fn<8>(x, s);                             \
-    if (bound == 21) return (int)fn<21>(x, s);                           \
-    return (int)fn<hpa2::kMaxNodes>(x, s);                               \
-  }
+// What a launch of N1 or N4 takes: its plan and its instantiation
+template <int MAXN, bool AB>
+bool node_launch(const NodeArgs& x, hpa2::NodePlan& pl,
+                 void (*&kernel)(NodeArgs, hpa2::NodePlan)) {
+  const bool ok = AB ? hpa2::ab_plan<MAXN>(x, pl, hpa2::kNodeSmem)
+                     : hpa2::settle_plan<MAXN>(x, pl, hpa2::kNodeSmem);
+  if (AB)
+    kernel = x.a.packed ? node_ab_kernel<MAXN, true> : node_ab_kernel<MAXN, false>;
+  else
+    kernel = x.a.packed ? node_settle_kernel<MAXN, true>
+                        : node_settle_kernel<MAXN, false>;
+  return ok;
+}
+
+template <bool AB>
+bool node_launch_of(const NodeArgs& x, hpa2::NodePlan& pl,
+                    void (*&kernel)(NodeArgs, hpa2::NodePlan)) {
+  const int bound = bound_of(x);
+  if (bound == 8) return node_launch<8, AB>(x, pl, kernel);
+  if (bound == 21) return node_launch<21, AB>(x, pl, kernel);
+  if (bound == hpa2::kMaxNodes)
+    return node_launch<hpa2::kMaxNodes, AB>(x, pl, kernel);
+  return false;
+}
+
+// N1's launch: NT-CTA clusters of NR x G threads; N4's: CTAs of
+// kNodeCta threads a tile of lanes
+template <bool AB>
+void node_config(const NodeArgs& x, const hpa2::NodePlan& pl,
+                 cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr) {
+  cfg = {};
+  cfg.gridDim = dim3((unsigned)(AB ? hpa2::ab_ctas(x, pl)
+                                   : (x.a.b + pl.G - 1) / pl.G));
+  cfg.blockDim = dim3(AB ? pl.NR * pl.G : hpa2::kNodeCta);
+  cfg.dynamicSmemBytes = pl.smem;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = AB ? pl.NT : 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+}
+
+template <class K>
+cudaError_t prepare(K kernel, const hpa2::NodePlan& pl) {
+  cudaError_t err = cudaSuccess;
+  if (pl.smem > 48 * 1024) err = allow_smem(kernel);
+  if (err == cudaSuccess && pl.NT > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+template <bool AB>
+int launch_node(const NodeArgs& x, int device, void* stream) {
+  hpa2::NodePlan pl;
+  void (*kernel)(NodeArgs, hpa2::NodePlan) = nullptr;
+  if (!node_launch_of<AB>(x, pl, kernel)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = prepare(kernel, pl);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  node_config<AB>(x, pl, cfg, attr);
+  cfg.stream = (cudaStream_t)stream;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, pl);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -157,8 +183,15 @@ extern "C" int hpa2_args_size() { return (int)sizeof(hpa2::Args); }
 extern "C" int hpa2_node_args_size() { return (int)sizeof(NodeArgs); }
 extern "C" int hpa2_bucket_args_size() { return (int)sizeof(BucketArgs); }
 
-HPA2_NODE_ENTRY(hpa2_node_ab, launch_ab)
-HPA2_NODE_ENTRY(hpa2_node_settle, launch_settle)
+extern "C" int hpa2_node_ab(const NodeArgs* args, int device, void* stream) {
+  return launch_node<true>(*args, device, stream);
+}
+
+extern "C" int hpa2_node_settle(const NodeArgs* args, int device,
+                                void* stream) {
+  return launch_node<false>(*args, device, stream);
+}
+
 
 extern "C" int hpa2_node_deliver(const NodeArgs* args, int device,
                                  void* stream) {
@@ -189,5 +222,79 @@ extern "C" int hpa2_node_bucket(const BucketArgs* args, int device,
   const dim3 grid((unsigned)((x.b + pl.G - 1) / pl.G));
   node_bucket_kernel<<<grid, hpa2::kNodeCta, pl.smem,
                        (cudaStream_t)stream>>>(x, pl);
+  return (int)cudaGetLastError();
+}
+
+// The geometry of a launch of kernel `which` (0 N1, 1 N2, 2 N3, 3 N4)
+// with `args` (a NodeArgs, a BucketArgs for N2): out = CTAs, threads a
+// CTA, bytes of dynamic shared memory, lanes a CTA, CTAs an SM holds at
+// once, CTAs a cluster.  Launches nothing; returns a CUDA error,
+// cudaErrorInvalidValue when the kernel does not take the launch.
+extern "C" int hpa2_node_geometry(int which, const void* args, int device,
+                                  int* out) {
+  const void* fn = nullptr;
+  int ctas = 0, threads = hpa2::kNodeCta, G = 0, smem = 0, cl = 1;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (which == 1) {
+    const BucketArgs& x = *static_cast<const BucketArgs*>(args);
+    hpa2::BucketPlan pl;
+    if (!hpa2::bucket_plan(x, pl, hpa2::kNodeSmem))
+      return (int)cudaErrorInvalidValue;
+    fn = (const void*)node_bucket_kernel;
+    G = pl.G, smem = pl.smem, ctas = (x.b + G - 1) / G;
+    if (smem > 48 * 1024) err = allow_smem(node_bucket_kernel);
+  } else if (which == 2) {
+    const NodeArgs& x = *static_cast<const NodeArgs*>(args);
+    hpa2::DeliverPlan pl;
+    if (bound_of(x) == 0 || !hpa2::deliver_plan(x, pl, hpa2::kNodeSmem))
+      return (int)cudaErrorInvalidValue;
+    fn = (const void*)node_deliver_kernel;
+    G = pl.G, smem = pl.smem, ctas = (x.a.b + G - 1) / G;
+    if (smem > 48 * 1024) err = allow_smem(node_deliver_kernel);
+  } else {
+    const NodeArgs& x = *static_cast<const NodeArgs*>(args);
+    hpa2::NodePlan pl;
+    void (*kernel)(NodeArgs, hpa2::NodePlan) = nullptr;
+    const bool ok = which == 0 ? node_launch_of<true>(x, pl, kernel)
+                               : node_launch_of<false>(x, pl, kernel);
+    if (!ok) return (int)cudaErrorInvalidValue;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    if (which == 0)
+      node_config<true>(x, pl, cfg, attr);
+    else
+      node_config<false>(x, pl, cfg, attr);
+    fn = (const void*)kernel;
+    G = pl.G, smem = pl.smem, cl = (int)cfg.attrs[0].val.clusterDim.x;
+    ctas = (int)cfg.gridDim.x, threads = (int)cfg.blockDim.x;
+    err = prepare(kernel, pl);
+  }
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = ctas;
+  out[1] = threads;
+  out[2] = smem;
+  out[3] = G;
+  out[4] = per_sm;
+  out[5] = cl;
+  return 0;
+}
+
+// An empty kernel launched as `ctas` CTAs of `threads` threads with
+// `smem` bytes of dynamic shared memory on the caller's stream: what a
+// launch of that grid costs the card with no work in it.
+extern "C" int hpa2_node_empty(int ctas, int threads, int smem, int device,
+                               void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > 48 * 1024) {
+    err = allow_smem(node_empty_kernel);
+    if (err != cudaSuccess) return (int)err;
+  }
+  node_empty_kernel<<<ctas, threads, smem, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

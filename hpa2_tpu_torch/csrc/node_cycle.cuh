@@ -39,19 +39,20 @@
 //
 // Planes are the rank's block, lane-last [nl, ..., B], int32 or packed
 // narrow, and updated in place.  None of the four needs a cluster or a
-// gate.  N1 and N4: a CTA holds `group` lanes x `tpl` threads a lane (tid
-// = t * group + g, so a warp reads neighbouring lanes of one node row),
-// thread t owns node rows t, t + tpl, ...; per-lane sums go through
-// shared memory.  N2 and N3: a CTA holds a tile of lanes and its threads
-// cover (entry, lane), lane fastest; each is a sequence of phase bodies
-// over a shared tile with a barrier between them (n2_phase, n3_phase),
-// which the host build runs phase by phase over every thread of a CTA.
+// gate.  Each kernel's CTA holds a tile of lanes and its threads cover
+// (work item, lane), lane fastest, so a warp reads neighbouring lanes of
+// a row; each is a sequence of phase bodies over a shared tile with a
+// barrier between them (n1_phase, n2_phase, n3_phase, n4_phase), which
+// the host build runs phase by phase over every thread of a CTA.
 //
 // What bounds them on an H100: each is a pass over the rank's planes and
 // the exchange blocks, a few KB a lane, so bytes over 3.35 TB/s give a few
-// microseconds at 1,024 lanes.  N1 and N4 are bound in practice by the
-// dependent loads of a node's chain; N2 and N3 read every entry's header
-// once, in parallel, and do their scans in shared memory.
+// microseconds at 1,024 lanes.  In practice a chain of dependent loads
+// bounds a thread: N1 and N4 gather every independent word of a node at
+// once before the one thread a node that runs its protocol or settles it
+// (N1's then walks only the trace word and the cache and directory
+// rows), and write their outputs a word a thread; N2 and N3 read every
+// entry's header once, in parallel, and do their scans in shared memory.
 #pragma once
 
 #include "cycle.cuh"
@@ -79,7 +80,8 @@ enum { kDestCompact = 1, kDestStat = 2 };
 // field for field by hpa2_tpu_torch/ops/node_cycle.py:NodeArgs.
 struct NodeArgs {
   Args a;
-  int32_t me, nl, shards, tpl, group, nblk;
+  int32_t me, nl, shards;
+  int32_t nblk;
   int32_t* payload;              // [W + SW + 3, 5 nl, B]  N1 out
   int32_t* cnt;                  // [7, B]                N1 out, N4 in
   const int32_t* blk[kMaxShards];  // N3: entry blocks [R, blen, B] in origin order
@@ -117,7 +119,6 @@ HPA2_HD int node_kernel_bound(const Args& a) {
 HPA2_HD bool node_geometry_ok(const NodeArgs& x) {
   return x.nl >= 1 && x.shards >= 1 && x.shards <= kMaxShards &&
          x.nl * x.shards == x.a.n && x.me >= 0 && x.me < x.shards &&
-         x.tpl >= 1 && x.group >= 1 && x.tpl * x.group <= kNodeCta &&
          x.nblk >= 0 && x.nblk <= kMaxShards;
 }
 
@@ -134,17 +135,30 @@ HPA2_HD size_t blk_at(int row, int cols, int col, int b, int l) {
 // ===== phases A and B of one node =====================================
 // The per-node body of cycle.cuh:phase_ab (its handler switch and issue,
 // line for line), with the node's plane row i and its global id gid
-// apart, and what it leaves returned instead of published in a lane
-// block's shared memory.  It is a copy: K2 and K3 calling it through
-// this interface raised their spills (the packed bound-8 and bound-21
-// instantiations from 8 to 40 bytes, over the ceiling the
-// pallas-cycle-body contract pins), so phase_ab keeps its own body until
-// the register work of ROADMAP queue 2 item 3.
+// apart, the words N1's gather phase staged fed in as arguments, and
+// what it leaves returned instead of published in a lane block's shared
+// memory.  It is a copy: K2 and K3 calling it through this interface
+// raised their spills (the packed bound-8 and bound-21 instantiations
+// from 8 to 40 bytes, over the ceiling the pallas-cycle-body contract
+// pins), so phase_ab keeps its own body until the register work of
+// ROADMAP queue 2 item 3.
 //
+// NodeIn is what the gather phase staged of one node: its nsw word and
+// window length, the receivers of its deferred slots 0, 1, 3 and 4, its
+// INV slot's words and its mailbox head's words (zero past W).
 // NodeAB is what the body leaves of one node: its candidates (the fresh
 // sends of slots 0, 1, 3 and 4, sender field zero, or a blocked node's
 // deferred receivers), its INV receiver set, its nsw word before
 // deliveries, and what the counters take.
+template <int MAXN>
+struct NodeIn {
+  int32_t nsw;
+  int tl;
+  int drecv[4];
+  int32_t inv[Bound<MAXN>::W];
+  int32_t head[Bound<MAXN>::W];
+};
+
 template <int MAXN>
 struct NodeAB {
   Slot<Bound<MAXN>::W> sl[4];
@@ -160,38 +174,37 @@ struct NodeAB {
 // node's global id gid is what the home, second-party and sender tests
 // and the REPLY_ID fan's own bit compare (a node shard's rows start at
 // its first node's id).  Its cache and directory rows are updated in
-// place; its mailbox is only read (the caller pops the head) and its
-// outbox not written.
+// place; its mailbox, nsw and outbox are not touched (the caller pops
+// the head and writes the rest).
 template <int MAXN, bool PACKED>
 HPA2_HD void node_ab(const Args& a, const int l, const int i, const int gid,
-                     const int seg, NodeAB<MAXN>& o) {
+                     const int seg, const NodeIn<MAXN>& in, NodeAB<MAXN>& o) {
   constexpr int KW = Bound<MAXN>::W, KSW = Bound<MAXN>::SW;
   constexpr bool SPLIT = Bound<MAXN>::SPLIT;
-  const int n = a.n, c = a.c, m = a.m, W = a.W;
+  const int n = a.n, c = a.c, m = a.m;
   const int32_t sh_mask = (int32_t)((1u << (n < kSplitBpw ? n : kSplitBpw)) - 1u);
   int32_t tmp[KW];
 
-  const int32_t nswv = HPA2_AT(a.nsw, i);
+  const int32_t nswv = in.nsw;
   const int mbc = nswv & a.count_mask;
   const int wt_in = (nswv >> a.off_wait) & 1;
   const int pw = (nswv >> a.off_pw) & 0xFF;
   const int pc = (nswv >> a.off_pc) & a.pc_mask;
-  const int tl = window_len(a, l, i, seg);
+  const int tl = in.tl;
   // deferred slots: receivers of 0, 1, 3, 4, and the INV slot's set
   int drecv[4];
-  int32_t ow2[KW], ish[KSW];
+  int32_t ish[KSW];
   bool blocked = false;
   int32_t dv2 = 0;
   HPA2_UNROLL for (int q = 0; q < 4; ++q) {
-    drecv[q] = deferred_recv(a, l, i, one_slot(q));
+    drecv[q] = in.drecv[q];
     blocked = blocked || drecv[q] != -1;
   }
-  deferred_inv<MAXN>(a, l, i, ow2);
-  msg_sharers<MAXN>(a, ow2, ish);
+  msg_sharers<MAXN>(a, in.inv, ish);
   HPA2_UNROLL for (int w = 0; w < KSW; ++w) dv2 |= ish[w];
   dv2 = dv2 != 0;
   blocked = blocked || dv2;
-  int inv_addr = dv2 ? fget<KW>(a, ow2, F_ADDR) : 0;
+  int inv_addr = dv2 ? fget<KW>(a, in.inv, F_ADDR) : 0;
 
   Slot<KW> sl[4];  // slots 0, 1, 3, 4
   HPA2_UNROLL for (int q = 0; q < 4; ++q) {
@@ -210,9 +223,7 @@ HPA2_HD void node_ab(const Args& a, const int l, const int i, const int gid,
   bool ev = false, inv_applied = false;
   if (has_msg) {
     // the head sits in slot 0; the caller pops it
-    int32_t head[KW];
-    HPA2_UNROLL for (int w = 0; w < KW; ++w)
-      head[w] = w < W ? HPA2_AT(a.mb[w], i * a.cap) : 0;
+    const int32_t* head = in.head;
     const int mt = fget<KW>(a, head, F_TYPE);
     const int snd = fget<KW>(a, head, F_SENDER);
     const int sr = fget<KW>(a, head, F_SECOND) - 1;
@@ -549,7 +560,225 @@ HPA2_HD void node_ab(const Args& a, const int l, const int i, const int gid,
   HPA2_UNROLL for (int w = 0; w < KSW; ++w) o.ish[w] = ish[w];
 }
 
-// ===== N1: phases A and B of node row i of lane l =====================
+// ===== N1 and N4: a CTA a tile of lanes ================================
+// Each kernel is a sequence of phase bodies over a CTA's shared tile of
+// word rows, a barrier between phases; the tile holds a row's words for
+// every (node row, lane) pair of the CTA, the lane fastest.
+//
+//   N1 (n1_phase): a CTA holds G lanes (kAbLanes, fewer when the tile
+//   does not fit) of NR node rows, one thread a pair, so each of a
+//   warp's accesses to a plane row is a row segment of 32 lanes (one
+//   128-byte line); the lanes' NT node tiles are a cluster, which sums
+//   the counters.
+//                  0 gather: every load of a pair that depends on no
+//                    other load, in flight together: nsw, the window
+//                    length (tr_len), the four deferred receivers, the
+//                    INV slot's and the mailbox head's W words; the
+//                    counters zeroed;
+//                  1 protocol: a pair with mail loads its mailbox slots
+//                    1 .. cap - 1 into the tile (the rotation's reads,
+//                    kRotBatch in flight); then runs node_ab on the
+//                    staged words (its own dependent loads: the trace
+//                    word, the cache and directory rows; a blocked node's
+//                    deferred words) and leaves in the tile its
+//                    candidates with the sender field, their receivers
+//                    and combining keys, the INV word and receiver set;
+//                    nsw and the counters' sums;
+//                  2 write, after the cluster's barrier, stores only: the
+//                    node tile 0 of the lanes writes their counters,
+//                    summed over the cluster's tiles (distributed shared
+//                    memory); every pair its mailbox rotation (every cap
+//                    slot moves, stale ones too, so the planes stay the
+//                    JAX package's), its payload words and its outbox;
+//   N4 (n4_phase): a CTA holds G lanes (kSettleLanes, fewer when the
+//   tile does not fit) of every node row; its threads are workers of the pairs, the threads beyond
+//   one a pair parts of a pair's work (node_workers).
+//                  0 gather: the acceptance words of the node's five
+//                    candidates, the four receivers and their type words,
+//                    the INV slot's words, nsw, the window length and
+//                    snap_taken; the sums zeroed;
+//                  1 settle, with no load of its own: a thread a (node
+//                    row, lane) clears the delivered slots, keeps the
+//                    rest and the INV remainder, decides phase D (flags a
+//                    snapshot in the tile) and adds its sums; the
+//                    threads with no node row load the lane inputs (the
+//                    telemetry, the counters, the cycle);
+//                  2 the parts of a flagged pair copy its node's cache
+//                    and directory rows to the snapshot planes, and a
+//                    thread a (row, lane) writes the lane's rows of the
+//                    stacked SUM and MAX once.
+//
+// Every tile word a phase reads was written by an earlier phase of the
+// same CTA, or of its cluster (the host build starts the tiles as
+// garbage to show it).
+constexpr int kN1Phases = 3;
+constexpr int kN4Phases = 3;
+
+// N1's and N4's launch geometry (ab_plan, settle_plan).  A CTA holds G
+// lanes of NR node rows; N4's the lanes' every node row (NR = nl, NT =
+// 1), N1's NT node tiles of NR rows, the cluster that holds one tile of
+// lanes.
+struct NodePlan {
+  int32_t G;                      // lanes a CTA
+  int32_t smem;                   // bytes of the shared tile
+  int32_t NR;                     // node rows a CTA
+  int32_t NT;                     // N1: node tiles, CTAs a cluster
+};
+
+// N1: lanes a CTA at most (a warp's row segment: one 128-byte line),
+// threads a CTA at most, and CTAs a cluster at most (non-portable above
+// 8); N4: lanes a CTA at most.  A card sweep of both (PERF.md) put 32
+// first for N1 and 4 for N4.
+constexpr int kAbLanes = 32;
+constexpr int kAbCta = 128;
+constexpr int kAbCluster = 16;
+constexpr int kSettleLanes = 4;
+
+// tile r of this CTA's cluster (rank `rank`, tiles of `words` words): on
+// the card the peer's shared memory through distributed shared memory,
+// in the host build the cluster's tiles side by side
+HPA2_HD const int32_t* cluster_tile(int32_t* sh, int rank, int r,
+                                    int words) {
+#ifdef __CUDA_ARCH__
+  return cooperative_groups::this_cluster().map_shared_rank(sh, r);
+#else
+  return sh + (long)(r - rank) * words;
+#endif
+}
+
+// N1's tile rows: staged by the gather (NSW .. HEAD), then the protocol's
+// (RECV is overwritten with each slot's receiver, INV with the INV word
+// offered, its sharer fields clear), then (cap - 1) x W rows MB: slots 1
+// .. cap - 1 of each mailbox word plane of a node with mail, loaded
+// beside the protocol for the rotation (mb_rows)
+template <int MAXN>
+struct AbTile {
+  static constexpr int KW = Bound<MAXN>::W, KSW = Bound<MAXN>::SW;
+  static constexpr int NSW = 0, TL = 1, RECV = 2, INV = RECV + 4,
+                       HEAD = INV + KW, SLOT = HEAD + KW,
+                       ISH = SLOT + 4 * KW, KEY = ISH + KSW, FLAGS = KEY + 4,
+                       MB = FLAGS + 1, kStaged = SLOT;
+  // the tile's rows a (node row, lane) pair
+  HPA2_HD static int rows(const Args& a) { return MB + (a.cap - 1) * a.W; }
+};
+enum { kFlagMsg = 1, kFlagBlocked = 2, kFlagInv = 4 };
+
+// N4's tile rows: staged by the gather (ACC .. TYPE: TYPE + q the word
+// of slot q's candidate that holds its type), then SNAP (a snapshot now)
+// by the settle; after the rows, a lane's sums [kSettleRed][G] and its
+// lane inputs [kLaneIn][G]: its exchange telemetry, counters and cycle
+template <int MAXN>
+struct SettleTile {
+  static constexpr int KW = Bound<MAXN>::W, KSW = Bound<MAXN>::SW;
+  static constexpr int ACC = 0, MASK = ACC + 5, RECV = MASK + KSW,
+                       INV = RECV + 4, NSW = INV + KW, TL = NSW + 1,
+                       TAKEN = TL + 1, TYPE = TAKEN + 1, SNAP = TYPE + 4,
+                       kRows = SNAP + 1, kStaged = SNAP;
+};
+enum { LI_FS = 0, LI_CNT = LI_FS + kFStats, LI_CYCLE = LI_CNT + kABCount,
+       kLaneIn };
+
+// the plan of a launch that node_geometry_ok took: `rows` tile rows a
+// node row and lane and `red` sums a lane, `lanes` lanes a CTA at most
+// (halved while the tile does not fit); false when not even one lane a
+// CTA fits
+HPA2_HD bool node_plan(const NodeArgs& x, int rows, int red, int lanes,
+                       NodePlan& pl, int max_smem) {
+  for (int G = lanes; G >= 1; G /= 2) {
+    const long long bytes = 4LL * G * ((long long)rows * x.nl + red);
+    if (bytes <= max_smem) {
+      pl.G = G;
+      pl.smem = (int32_t)bytes;
+      pl.NR = x.nl;
+      pl.NT = 1;
+      return true;
+    }
+  }
+  return false;
+}
+
+// N1's plan: G lanes a CTA (kAbLanes) and NR = kAbCta / G node rows (at
+// most nl, fewer while the tile does not fit), NT = ceil(nl / NR) CTAs a
+// cluster; while the tile does not fit or the cluster would pass
+// kAbCluster, G is halved (a long mailbox: NR grows back as G falls);
+// false when not even one lane a CTA does
+template <int MAXN>
+HPA2_HD bool ab_plan(const NodeArgs& x, NodePlan& pl, int max_smem) {
+  const long long rows = AbTile<MAXN>::rows(x.a);
+  for (int G = kAbLanes; G >= 1; G /= 2) {
+    int NR = kAbCta / G < x.nl ? kAbCta / G : x.nl;
+    while (NR > 1 && 4LL * G * (rows * NR + kABCount) > max_smem) NR /= 2;
+    const long long bytes = 4LL * G * (rows * NR + kABCount);
+    const int NT = (x.nl + NR - 1) / NR;
+    if (bytes <= max_smem && NT <= kAbCluster) {
+      pl.G = G;
+      pl.NR = NR;
+      pl.NT = NT;
+      pl.smem = (int32_t)bytes;
+      return true;
+    }
+  }
+  return false;
+}
+
+// N1's CTAs: the lanes' tiles, each a cluster of NT node tiles
+HPA2_HD int ab_ctas(const NodeArgs& x, const NodePlan& pl) {
+  return (x.a.b + pl.G - 1) / pl.G * pl.NT;
+}
+
+template <int MAXN>
+HPA2_HD bool settle_plan(const NodeArgs& x, NodePlan& pl, int max_smem) {
+  return node_plan(x, SettleTile<MAXN>::kRows, kSettleRed + kLaneIn,
+                   kSettleLanes, pl, max_smem);
+}
+
+// N4's threads as workers of its NG = nl * G (node row, lane) pairs:
+// pair p = i * G + g (lane fastest, so a warp's threads take
+// neighbouring lanes of a row), P parts of the CTA's threads a pair (P =
+// kNodeCta / NG, 1 when NG >= kNodeCta).  f(i, g, l, p, part, P) for
+// each pair of a lane below b and each part; a thread derives its pair
+// once and strides over its work by P, so the loops of a phase divide by
+// nothing but constants.
+template <class F>
+HPA2_HD void node_workers(int tid, int G, int nl, int l0, int b, F f) {
+  const int NG = nl * G, P = NG >= kNodeCta ? 1 : kNodeCta / NG;
+  for (int it = tid; it < NG * P; it += kNodeCta) {
+    const int p = it % NG, part = it / NG;
+    const int g = p % G, l = l0 + g;
+    if (l < b) f(p / G, g, l, p, part, P);
+  }
+}
+
+// A worker's share of the gather: rows part, part + P, ... of the ROWS
+// staged rows of its pair (ld(r) the word of row r), kGatherBatch loads
+// issued before any of their stores into the tile column `col` (rows NG
+// words apart).
+constexpr int kGatherBatch = 16;
+
+template <int ROWS, class Ld>
+HPA2_HD void gather_rows(int part, int P, int NG, int32_t* col, Ld ld) {
+  for (int r0 = part; r0 < ROWS; r0 += kGatherBatch * P) {
+    int32_t v[kGatherBatch];
+    HPA2_UNROLL for (int u = 0; u < kGatherBatch; ++u) {
+      const int r = r0 + u * P;
+      v[u] = r < ROWS ? ld(r) : 0;
+    }
+    HPA2_UNROLL for (int u = 0; u < kGatherBatch; ++u) {
+      const int r = r0 + u * P;
+      if (r < ROWS) col[r * NG] = v[u];
+    }
+  }
+}
+
+// mailbox words a thread of N1's protocol phase keeps in flight for the
+// rotation
+constexpr int kRotBatch = 32;
+
+// ===== N1: phase ph of thread tid of CTA cta ==========================
+// A CTA holds the G lanes of tile cta / NT and the NR node rows of tile
+// cta % NT (its rank in the cluster of the lanes' NT CTAs), a thread a
+// (node row, lane) pair, the lane fastest: so each of a warp's loads and
+// stores is a row segment of 32 lanes (one 128-byte line at G = 32).
 // The head is read from slot 0 and popped by rotating the mailbox left by
 // one (the reference's rotation).  A free node's fresh sends are staged
 // in its outbox with the sender and (packed) recv fields, as the words
@@ -557,72 +786,164 @@ HPA2_HD void node_ab(const Args& a, const int l, const int i, const int gid,
 // are there already.  The INV slot holds the INV word with its receiver
 // set.  The payload columns are the words the reference offers.
 template <int MAXN, bool PACKED>
-HPA2_HD void n1_node(const NodeArgs& x, const int l, const int i,
-                     uint32_t* red, const int stride) {
-  constexpr int KW = Bound<MAXN>::W, KSW = Bound<MAXN>::SW;
+HPA2_HD void n1_phase(const NodeArgs& x, const NodePlan& pl, int ph,
+                      int cta, int tid, int32_t* sh) {
+  using Tl = AbTile<MAXN>;
+  constexpr int KW = Tl::KW, KSW = Tl::KSW;
   constexpr bool SPLIT = Bound<MAXN>::SPLIT;
   const Args& a = x.a;
-  const int W = a.W, SW = a.SW, nl = x.nl, j0 = 5 * nl;
-  const int gid = x.me * nl + i;
-  const int snd_word = a.f_word[F_SENDER], snd_off = a.f_off[F_SENDER];
+  const int G = pl.G, nl = x.nl, W = a.W, SW = a.SW, cap = a.cap;
+  const int NP = pl.NR * G;                 // pairs (threads) a CTA
+  const int rank = cta % pl.NT, il = tid / G, g = tid % G;
+  const int i = rank * pl.NR + il, l = cta / pl.NT * G + g;
+  const bool mine = tid < NP && i < nl && l < a.b;
+  int32_t* col = sh + tid;
+  auto at = [&](int row) -> int32_t& { return col[row * NP]; };
+  uint32_t* red = reinterpret_cast<uint32_t*>(sh + Tl::rows(a) * NP);
+  if (ph == 0) {
+    for (int j = tid; j < kABCount * G; j += NP) red[j] = 0;
+    if (!mine) return;
+    gather_rows<Tl::kStaged>(0, 1, NP, col, [&](int r) -> int32_t {
+      if (r == Tl::NSW) return HPA2_AT(a.nsw, i);
+      if (r == Tl::TL) return window_len(a, l, i, a.seg);
+      if (r < Tl::INV) return deferred_recv(a, l, i, one_slot(r - Tl::RECV));
+      const int w = r < Tl::HEAD ? r - Tl::INV : r - Tl::HEAD;
+      if (w >= W) return 0;
+      return r < Tl::HEAD ? HPA2_AT(a.ob[w], i * kNSlots + 2)
+                          : HPA2_AT(a.mb[w], i * cap);
+    });
+    return;
+  }
+  if (ph == 1) {
+    if (!mine) return;
+    // the rotation's reads: slots 1 .. cap - 1 of the W planes of a node
+    // with mail into the rows MB, kRotBatch in flight
+    const int rot = (cap - 1) * W;
+    if (at(Tl::NSW) & a.count_mask)
+      for (int c0 = 0; c0 < rot; c0 += kRotBatch) {
+        int32_t v[kRotBatch];
+        HPA2_UNROLL for (int u = 0; u < kRotBatch; ++u) {
+          const int c = c0 + u;  // plane c / (cap - 1), slot c % .. + 1
+          if (c < rot)
+            v[u] = HPA2_AT(a.mb[c / (cap - 1)], i * cap + c % (cap - 1) + 1);
+        }
+        HPA2_UNROLL for (int u = 0; u < kRotBatch; ++u)
+          if (c0 + u < rot) at(Tl::MB + c0 + u) = v[u];
+      }
+    const int snd_word = a.f_word[F_SENDER], snd_off = a.f_off[F_SENDER];
+    const int gid = x.me * nl + i;
+    NodeIn<MAXN> in;
+    in.nsw = at(Tl::NSW);
+    in.tl = at(Tl::TL);
+    HPA2_UNROLL for (int q = 0; q < 4; ++q) in.drecv[q] = at(Tl::RECV + q);
+    HPA2_UNROLL for (int w = 0; w < KW; ++w) {
+      in.inv[w] = at(Tl::INV + w);
+      in.head[w] = at(Tl::HEAD + w);
+    }
+    NodeAB<MAXN> o;
+    node_ab<MAXN, PACKED>(a, l, i, gid, a.seg, in, o);
+    HPA2_AT(a.nsw, i) = o.nswp;
+    // the candidates of slots 0, 1, 3, 4: a blocked node's deferred
+    // words (in its outbox), else its fresh sends; the sender set
+    HPA2_UNROLL for (int q = 0; q < 4; ++q) {
+      const int r = o.blocked ? o.drecv[q] : o.sl[q].recv;
+      int32_t w[KW];
+      HPA2_UNROLL for (int j = 0; j < KW; ++j) {
+        const int32_t base =
+            o.blocked ? (j < W ? HPA2_AT(a.ob[j], i * kNSlots + one_slot(q)) : 0)
+                      : o.sl[q].w[j];
+        w[j] = base | (j == snd_word ? gid << snd_off : 0);
+        at(Tl::SLOT + q * KW + j) = w[j];
+      }
+      at(Tl::RECV + q) = r;
+      at(Tl::KEY + q) = r >= 0 && fget<KW>(a, w, F_TYPE) == READ_REQUEST
+                            ? fget<KW>(a, w, F_ADDR) + 1 : 0;
+    }
+    // the INV word offered (its sharer fields clear) and its set
+    int32_t w2[KW], inv_any = 0;
+    inv_word<MAXN>(a, w2, gid, o.inv_addr);
+    HPA2_UNROLL for (int j = 0; j < KW; ++j) at(Tl::INV + j) = w2[j];
+    HPA2_UNROLL for (int q = 0; q < KSW; ++q) {
+      at(Tl::ISH + q) = o.ish[q];
+      inv_any |= o.ish[q];
+    }
+    at(Tl::FLAGS) = (o.has_msg ? kFlagMsg : 0) | (o.blocked ? kFlagBlocked : 0) |
+                    (inv_any ? kFlagInv : 0);
+    const bool inc[kABCount] = {o.elig, o.rh, o.rm, o.wh, o.wm, o.ev,
+                                o.inv_applied};
+    HPA2_UNROLL for (int j = 0; j < kABCount; ++j)
+      if (inc[j]) sh_add(&red[j * G + g], 1);
+    return;
+  }
+  // ph == 2, after the cluster's barrier: the tile's first CTA writes the
+  // lanes' counters, summed over the cluster's tiles ...
+  if (rank == 0)
+    for (int j = tid; j < kABCount * G; j += NP) {
+      const int lj = cta / pl.NT * G + j % G;
+      if (lj >= a.b) continue;
+      uint32_t sum = 0;
+      for (int r = 0; r < pl.NT; ++r)
+        sum += reinterpret_cast<const uint32_t*>(
+            cluster_tile(sh, rank, r, pl.smem / 4) + Tl::rows(a) * NP)[j];
+      x.cnt[(size_t)(j / G) * a.b + lj] = (int32_t)sum;
+    }
+  if (!mine) return;
+  // ... and every thread its pair's stores: the mailbox rotated (slot s
+  // takes slot s + 1's word, the last slot the head; every cap slot
+  // moves, stale ones too, so the planes stay the JAX package's), the
+  // payload rows [W + SW + 3, 5 nl, B] in the candidate order and the
+  // outbox
+  const int flags = at(Tl::FLAGS);
+  if (flags & kFlagMsg)
+    for (int w = 0; w < W; ++w) {
+      int32_t* q = a.mb[w] + (size_t)i * cap * a.b + l;
+      for (int s = 0; s < cap; ++s)
+        q[(size_t)s * a.b] =
+            at(s < cap - 1 ? Tl::MB + w * (cap - 1) + s : Tl::HEAD + w);
+    }
+  const int R = W + SW + 3, j0 = 5 * nl;
+  HPA2_UNROLL for (int k = 0; k < 5; ++k) {
+    const int q = k < 2 ? k : k - 1;  // slot k's candidate (k != 2)
+    int32_t* pc = x.payload + (size_t)cand_col(nl, i, k) * a.b + l;
+    const size_t rs = (size_t)j0 * a.b;  // a payload row
+    for (int r = 0; r < W; ++r)
+      pc[r * rs] = at(k == 2 ? Tl::INV + r : Tl::SLOT + q * KW + r);
+    for (int r = 0; r < SW; ++r)
+      pc[(W + r) * rs] = k == 2 ? at(Tl::ISH + r) : 0;
+    pc[(W + SW) * rs] = k == 2 ? 0 : at(Tl::RECV + q) + 1;
+    pc[(W + SW + 1) * rs] = k < 3;
+    pc[(R - 1) * rs] = k == 2 ? 0 : at(Tl::KEY + q);
+  }
+  // the outbox: a free node's sends with the recv field (or ob_recv),
+  // and every node's INV slot with its receiver set
   const int recv_w = a.f_word[F_RECV], recv_off = a.f_off[F_RECV];
   const int sh_f0 = SPLIT ? F_SHR0 : F_AUX;
-
-  NodeAB<MAXN> o;
-  node_ab<MAXN, PACKED>(a, l, i, gid, a.seg, o);
-  if (o.has_msg) settle_mailbox<MAXN>(a, l, i, 1);
-  HPA2_AT(a.nsw, i) = o.nswp;
-
-  auto put_col = [&](int k, const int32_t* w, int recv_p1, const int32_t* mask,
-                     int key) {
-    const int col = cand_col(nl, i, k);
-    HPA2_UNROLL for (int q = 0; q < KW; ++q)
-      if (q < W) x.payload[blk_at(q, j0, col, a.b, l)] = w[q];
-    HPA2_UNROLL for (int q = 0; q < KSW; ++q)
-      if (q < SW) x.payload[blk_at(W + q, j0, col, a.b, l)] = mask[q];
-    x.payload[blk_at(W + SW, j0, col, a.b, l)] = recv_p1;
-    x.payload[blk_at(W + SW + 1, j0, col, a.b, l)] = k < 3;
-    x.payload[blk_at(W + SW + 2, j0, col, a.b, l)] = key;
-  };
-  int32_t zmask[KSW];
-  HPA2_UNROLL for (int q = 0; q < KSW; ++q) zmask[q] = 0;
-
-  HPA2_UNROLL for (int q = 0; q < 4; ++q) {
-    const int k = one_slot(q), row = i * kNSlots + k;
-    int32_t w[KW];
-    const int r = o.blocked ? o.drecv[q] : o.sl[q].recv;
-    HPA2_UNROLL for (int j = 0; j < KW; ++j) {
-      const int32_t base = o.blocked ? (j < W ? HPA2_AT(a.ob[j], row) : 0)
-                                     : o.sl[q].w[j];
-      w[j] = base | (j == snd_word ? gid << snd_off : 0);
+  HPA2_UNROLL for (int k = 0; k < 5; ++k) {
+    const int row = i * kNSlots + k;
+    if (k == 2) {
+      HPA2_UNROLL for (int j = 0; j < KW; ++j) {
+        if (j >= W) continue;
+        int32_t v = 0;
+        if (flags & kFlagInv) {
+          v = at(Tl::INV + j);
+          HPA2_UNROLL for (int q = 0; q < KSW; ++q)
+            if (q < (SPLIT ? SW : 1) && a.f_word[sh_f0 + q] == j)
+              v |= at(Tl::ISH + q) << a.f_off[sh_f0 + q];
+        }
+        HPA2_AT(a.ob[j], row) = v;
+      }
+      continue;
     }
-    if (!o.blocked && r >= 0) {
-      HPA2_UNROLL for (int j = 0; j < KW; ++j)
-        if (j < W)
-          HPA2_AT(a.ob[j], row) =
-              w[j] | (a.recv_packed && j == recv_w ? (r + 1) << recv_off : 0);
-      if (!a.recv_packed) HPA2_AT(a.ob_recv, row) = r;
-    }
-    const int key = r >= 0 && fget<KW>(a, w, F_TYPE) == READ_REQUEST
-                        ? fget<KW>(a, w, F_ADDR) + 1 : 0;
-    put_col(k, w, r + 1, zmask, key);
+    const int q = k < 2 ? k : k - 1;
+    const int r = at(Tl::RECV + q);
+    if ((flags & kFlagBlocked) || r < 0) continue;
+    HPA2_UNROLL for (int j = 0; j < KW; ++j)
+      if (j < W)
+        HPA2_AT(a.ob[j], row) =
+            at(Tl::SLOT + q * KW + j) |
+            (a.recv_packed && j == recv_w ? (r + 1) << recv_off : 0);
+    if (!a.recv_packed) HPA2_AT(a.ob_recv, row) = r;
   }
-  // the INV slot: the word offered, and in the outbox with its set
-  int32_t w2[KW];
-  inv_word<MAXN>(a, w2, gid, o.inv_addr);
-  put_col(2, w2, 0, o.ish, 0);
-  int32_t inv_any = 0;
-  HPA2_UNROLL for (int q = 0; q < KSW; ++q) inv_any |= o.ish[q];
-  if (inv_any)
-    HPA2_UNROLL for (int q = 0; q < KSW; ++q)
-      if (q < (SPLIT ? SW : 1)) fput<KW>(a, w2, sh_f0 + q, o.ish[q]);
-  HPA2_UNROLL for (int j = 0; j < KW; ++j)
-    if (j < W) HPA2_AT(a.ob[j], i * kNSlots + 2) = inv_any ? w2[j] : 0;
-
-  const bool inc[kABCount] = {o.elig, o.rh, o.rm, o.wh, o.wm, o.ev,
-                              o.inv_applied};
-  HPA2_UNROLL for (int j = 0; j < kABCount; ++j)
-    if (inc[j]) sh_add(&red[j * stride], 1);
 }
 
 // ===== helpers of N2 and N3 ============================================
@@ -1064,114 +1385,193 @@ HPA2_HD void n3_phase(const NodeArgs& x, const DeliverPlan& pl, int ph,
   }
 }
 
-// ===== N4: sender row s of lane l ======================================
-template <int MAXN, bool PACKED>
-HPA2_HD void n4_node(const NodeArgs& x, const int l, const int s,
-                     uint32_t* red, const int stride) {
-  constexpr int KW = Bound<MAXN>::W, KSW = Bound<MAXN>::SW;
-  constexpr bool SPLIT = Bound<MAXN>::SPLIT;
+// ===== N4: phase ph of thread tid (of kNodeCta) of CTA cta =============
+// lane input `row` (LI_*) of lane l
+HPA2_HD int32_t n4_lane_in(const NodeArgs& x, int l, int row) {
   const Args& a = x.a;
-  const int W = a.W, nl = x.nl, j0 = 5 * nl, c = a.c, m = a.m;
-  const int gid = x.me * nl + s;
-  const int type_w = a.f_word[F_TYPE], type_off = a.f_off[F_TYPE];
-  const int32_t type_mask = (int32_t)((1u << a.f_width[F_TYPE]) - 1u);
-  const int sh_f0 = SPLIT ? F_SHR0 : F_AUX;
-  auto acc = [&](int row, int k) -> int32_t {
-    return x.acc[blk_at(row, j0, cand_col(nl, s, k), a.b, l)];
-  };
-
-  uint32_t md = 0, ndefer = 0;
-  bool blocked_next = false;
-  HPA2_UNROLL for (int q = 0; q < 4; ++q) {
-    const int k = one_slot(q), row = s * kNSlots + k;
-    const int r = deferred_recv(a, l, s, k);
-    if (r < 0) continue;
-    const int32_t d = acc(0, k);
-    if (d) {
-      const int t = (HPA2_AT(a.ob[type_w], row) >> type_off) & type_mask;
-      md += d;
-      if (t < kNTypes) sh_add(&red[(R_MC + t) * stride], d);
-      HPA2_UNROLL for (int w = 0; w < KW; ++w)
-        if (w < W) HPA2_AT(a.ob[w], row) = 0;
-      if (!a.recv_packed) HPA2_AT(a.ob_recv, row) = -1;
-    } else {
-      blocked_next = true;
-      ++ndefer;
-    }
-  }
-  // the INV slot: the receivers that did not accept stay in its set
-  int32_t w2[KW], sv[KSW];
-  deferred_inv<MAXN>(a, l, s, w2);
-  msg_sharers<MAXN>(a, w2, sv);
-  int32_t sv_any = 0;
-  HPA2_UNROLL for (int w = 0; w < KSW; ++w) sv_any |= sv[w];
-  if (sv_any) {
-    int32_t rem[KSW], rem_any = 0;
-    HPA2_UNROLL for (int w = 0; w < KSW; ++w) {
-      rem[w] = w < a.SW ? sv[w] & ~acc(1 + w, 2) : 0;  // [1 + SW, ...] rows
-      rem_any |= rem[w];
-    }
-    const int32_t dinv = acc(0, 2);
-    if (dinv) {
-      md += dinv;
-      sh_add(&red[(R_MC + INV) * stride], dinv);
-    }
-    int32_t nw[KW];
-    inv_word<MAXN>(a, nw, gid, fget<KW>(a, w2, F_ADDR));
-    HPA2_UNROLL for (int j = 0; j < KSW; ++j)
-      if (j < (SPLIT ? a.SW : 1)) fput<KW>(a, nw, sh_f0 + j, rem[j]);
-    HPA2_UNROLL for (int w = 0; w < KW; ++w)
-      if (w < W) HPA2_AT(a.ob[w], s * kNSlots + 2) = rem_any ? nw[w] : 0;
-    if (rem_any) {
-      blocked_next = true;
-      ++ndefer;
-    }
-  }
-
-  const int32_t nswf = HPA2_AT(a.nsw, s);
-  const int count3 = nswf & a.count_mask;
-  const int wt = (nswf >> a.off_wait) & 1;
-  const int pc = (nswf >> a.off_pc) & a.pc_mask;
-  const int tl = window_len(a, l, s, a.seg);
-  // ===== phase D: dump-at-local-completion snapshots ===============
-  if (a.snapshots) {
-    const bool done = pc >= tl && wt == 0 && count3 == 0 && !blocked_next;
-    const bool taken = HPA2_AT(a.snap_taken, s) != 0;
-    if (done && !taken)
-      copy_rows<MAXN, PACKED>(a, l, s * c, (s + 1) * c, s * m, (s + 1) * m);
-    HPA2_AT(a.snap_taken, s) = (taken || done) ? 1 : 0;
-  }
-  const uint32_t active =
-      (uint32_t)(tl > pc ? tl - pc : 0) + wt + count3 + ndefer;
-  if (active) sh_add(&red[R_ACTIVE * stride], active);
-  if (count3 > a.cap) sh_add(&red[R_OVINC * stride], 1);
-  if (md) sh_add(&red[R_MD * stride], md);
+  if (row < LI_CNT) return x.fs[(size_t)(row - LI_FS) * a.b + l];
+  if (row < LI_CYCLE) return x.cnt[(size_t)(row - LI_CNT) * a.b + l];
+  return HPA2_AT(a.scalars, SC_CYCLE);
 }
 
-// N4's per-lane rows, once every node of the lane is settled
-HPA2_HD void n4_lane(const NodeArgs& x, const int l, const uint32_t* red,
-                     const int stride) {
+// row `row` of a lane's rows of the stacked SUM (row < kSumRows) and
+// MAX, from its sums `red` and its lane inputs `in` (rows G words apart)
+HPA2_HD int32_t n4_lane_row(int row, const uint32_t* red, const int32_t* in,
+                            int G) {
+  auto fs = [&](int r) { return in[(LI_FS + r) * G]; };
+  auto cnt = [&](int r) { return in[(LI_CNT + r) * G]; };
+  auto rd = [&](int r) { return (int32_t)red[r * G]; };
+  if (row >= kSumRows) {
+    const int32_t dg = fs(FS_DIAG);
+    switch (row - kSumRows) {
+      case M_HWM: return fs(FS_HWM);
+      case M_DIAG: return dg;
+      default:
+        return dg > 0 ? (int32_t)((dg & ~0xFFFF) | (in[LI_CYCLE * G] & 0xFFFF))
+                      : 0;
+    }
+  }
+  if (row >= G_MC && row < G_MC + kNTypes) return rd(R_MC + row - G_MC);
+  if (row > G_MD && row < G_MD + kABCount) return cnt(row - G_MD);
+  switch (row) {
+    case G_ACTIVE: return rd(R_ACTIVE);
+    case G_SENT: return fs(FS_SENT);
+    case G_XOVF: return fs(FS_OVF) > 1 ? 1 : fs(FS_OVF);
+    case G_OVINC: return rd(R_OVINC) ? 1 : 0;
+    case G_INSTR: return cnt(0);
+    case G_MD: return rd(R_MD);
+    case G_MCSAVED: return fs(FS_MC);
+    default: return fs(FS_COMB);  // G_COMB
+  }
+}
+
+template <int MAXN, bool PACKED>
+HPA2_HD void n4_phase(const NodeArgs& x, const NodePlan& pl, int ph,
+                      int cta, int tid, int32_t* sh) {
+  using Tl = SettleTile<MAXN>;
+  constexpr int T = kNodeCta, KW = Tl::KW, KSW = Tl::KSW;
+  constexpr bool SPLIT = Bound<MAXN>::SPLIT;
   const Args& a = x.a;
-  auto fs = [&](int row) { return x.fs[(size_t)row * a.b + l]; };
-  auto cnt = [&](int row) { return x.cnt[(size_t)row * a.b + l]; };
-  auto g = [&](int row, int32_t v) { x.gsum[(size_t)row * a.b + l] = v; };
-  g(G_ACTIVE, (int32_t)red[R_ACTIVE * stride]);
-  g(G_SENT, fs(FS_SENT));
-  g(G_XOVF, fs(FS_OVF) > 1 ? 1 : fs(FS_OVF));
-  g(G_OVINC, red[R_OVINC * stride] ? 1 : 0);
-  g(G_INSTR, cnt(0));
-  g(G_MD, (int32_t)red[R_MD * stride]);
-  for (int j = 1; j < kABCount; ++j) g(G_MD + j, cnt(j));
-  for (int t = 0; t < kNTypes; ++t)
-    g(G_MC + t, (int32_t)red[(R_MC + t) * stride]);
-  g(G_MCSAVED, fs(FS_MC));
-  g(G_COMB, fs(FS_COMB));
-  const int32_t dg = fs(FS_DIAG);
-  x.gmax[(size_t)M_HWM * a.b + l] = fs(FS_HWM);
-  x.gmax[(size_t)M_DIAG * a.b + l] = dg;
-  x.gmax[(size_t)M_DC * a.b + l] =
-      dg > 0 ? (int32_t)((dg & ~0xFFFF) | (HPA2_AT(a.scalars, SC_CYCLE) & 0xFFFF))
-             : 0;
+  const int G = pl.G, nl = x.nl, W = a.W, SW = a.SW, c = a.c, m = a.m;
+  const int l0 = cta * G, NG = nl * G, j0 = 5 * nl;
+  uint32_t* red = reinterpret_cast<uint32_t*>(sh + Tl::kRows * NG);
+  int32_t* lane_in = sh + Tl::kRows * NG + kSettleRed * G;
+  if (ph == 0) {
+    const int type_w = a.f_word[F_TYPE];
+    node_workers(tid, G, nl, l0, a.b,
+                 [&](int s, int, int l, int p, int part, int P) {
+      gather_rows<Tl::kStaged>(part, P, NG, sh + p, [&](int r) -> int32_t {
+        if (r < Tl::MASK)  // slot k's accepted count
+          return x.acc[blk_at(0, j0, cand_col(nl, s, r - Tl::ACC), a.b, l)];
+        if (r < Tl::RECV) {  // the INV slot's accepted bits, word w
+          const int w = r - Tl::MASK;
+          return w < SW ? x.acc[blk_at(1 + w, j0, cand_col(nl, s, 2), a.b, l)]
+                        : 0;
+        }
+        if (r < Tl::INV) return deferred_recv(a, l, s, one_slot(r - Tl::RECV));
+        if (r < Tl::NSW) {
+          const int w = r - Tl::INV;
+          return w < W ? HPA2_AT(a.ob[w], s * kNSlots + 2) : 0;
+        }
+        if (r == Tl::NSW) return HPA2_AT(a.nsw, s);
+        if (r == Tl::TL) return window_len(a, l, s, a.seg);
+        if (r == Tl::TAKEN) return a.snapshots ? HPA2_AT(a.snap_taken, s) : 0;
+        return HPA2_AT(a.ob[type_w], s * kNSlots + one_slot(r - Tl::TYPE));
+      });
+    });
+    for (int j = tid; j < kSettleRed * G; j += T) red[j] = 0;
+    return;
+  }
+  if (ph == 1) {
+    // the lane inputs, by the threads with no node row to settle (all
+    // of them after their settles when there are none)
+    const int t0 = NG < T ? NG : 0;
+    for (int j = tid - t0; j >= 0 && j < kLaneIn * G; j += T - t0) {
+      const int l = l0 + j % G;
+      if (l < a.b) lane_in[j] = n4_lane_in(x, l, j / G);
+    }
+    const int type_off = a.f_off[F_TYPE];
+    const int32_t type_mask = (int32_t)((1u << a.f_width[F_TYPE]) - 1u);
+    const int sh_f0 = SPLIT ? F_SHR0 : F_AUX;
+    for (int p = tid; p < NG; p += T) {
+      const int g = p % G, s = p / G, l = l0 + g;
+      if (l >= a.b) continue;
+      int32_t* col = sh + p;
+      auto at = [&](int row) -> int32_t& { return col[row * NG]; };
+      const int gid = x.me * nl + s;
+      uint32_t md = 0, ndefer = 0;
+      bool blocked_next = false;
+      HPA2_UNROLL for (int q = 0; q < 4; ++q) {
+        const int k = one_slot(q), row = s * kNSlots + k;
+        const int r = at(Tl::RECV + q);
+        if (r < 0) continue;
+        const int32_t d = at(Tl::ACC + k);
+        if (d) {
+          const int t = (at(Tl::TYPE + q) >> type_off) & type_mask;
+          md += d;
+          if (t < kNTypes) sh_add(&red[(R_MC + t) * G + g], d);
+          HPA2_UNROLL for (int w = 0; w < KW; ++w)
+            if (w < W) HPA2_AT(a.ob[w], row) = 0;
+          if (!a.recv_packed) HPA2_AT(a.ob_recv, row) = -1;
+        } else {
+          blocked_next = true;
+          ++ndefer;
+        }
+      }
+      // the INV slot: the receivers that did not accept stay in its set
+      int32_t w2[KW], sv[KSW];
+      HPA2_UNROLL for (int w = 0; w < KW; ++w) w2[w] = at(Tl::INV + w);
+      msg_sharers<MAXN>(a, w2, sv);
+      int32_t sv_any = 0;
+      HPA2_UNROLL for (int w = 0; w < KSW; ++w) sv_any |= sv[w];
+      if (sv_any) {
+        int32_t rem[KSW], rem_any = 0;
+        HPA2_UNROLL for (int w = 0; w < KSW; ++w) {
+          rem[w] = w < SW ? sv[w] & ~at(Tl::MASK + w) : 0;
+          rem_any |= rem[w];
+        }
+        const int32_t dinv = at(Tl::ACC + 2);
+        if (dinv) {
+          md += dinv;
+          sh_add(&red[(R_MC + INV) * G + g], dinv);
+        }
+        int32_t nw[KW];
+        inv_word<MAXN>(a, nw, gid, fget<KW>(a, w2, F_ADDR));
+        HPA2_UNROLL for (int j = 0; j < KSW; ++j)
+          if (j < (SPLIT ? SW : 1)) fput<KW>(a, nw, sh_f0 + j, rem[j]);
+        HPA2_UNROLL for (int w = 0; w < KW; ++w)
+          if (w < W) HPA2_AT(a.ob[w], s * kNSlots + 2) = rem_any ? nw[w] : 0;
+        if (rem_any) {
+          blocked_next = true;
+          ++ndefer;
+        }
+      }
+      const int32_t nswf = at(Tl::NSW);
+      const int count3 = nswf & a.count_mask;
+      const int wt = (nswf >> a.off_wait) & 1;
+      const int pc = (nswf >> a.off_pc) & a.pc_mask;
+      const int tl = at(Tl::TL);
+      // ===== phase D: dump-at-local-completion snapshots ===============
+      bool snap = false;
+      if (a.snapshots) {
+        const bool done = pc >= tl && wt == 0 && count3 == 0 && !blocked_next;
+        const bool taken = at(Tl::TAKEN) != 0;
+        snap = done && !taken;
+        HPA2_AT(a.snap_taken, s) = (taken || done) ? 1 : 0;
+      }
+      at(Tl::SNAP) = snap;
+      const uint32_t active =
+          (uint32_t)(tl > pc ? tl - pc : 0) + wt + count3 + ndefer;
+      if (active) sh_add(&red[R_ACTIVE * G + g], active);
+      if (count3 > a.cap) sh_add(&red[R_OVINC * G + g], 1);
+      if (md) sh_add(&red[R_MD * G + g], md);
+    }
+    return;
+  }
+  // ph == 2: a snapshot's rows (cache rows, then directory rows), a
+  // worker's share of a flagged node's ...
+  if (a.snapshots)
+    node_workers(tid, G, nl, l0, a.b,
+                 [&](int s, int, int l, int p, int part, int P) {
+      if (!sh[Tl::SNAP * NG + p]) return;
+      for (int r = part; r < c + m; r += P) {
+        if (r < c)
+          copy_rows<MAXN, PACKED>(a, l, s * c + r, s * c + r + 1, 0, 0);
+        else
+          copy_rows<MAXN, PACKED>(a, l, 0, 0, s * m + r - c,
+                                  s * m + r - c + 1);
+      }
+    });
+  // ... and the lane's rows of the stacked SUM and MAX
+  for (int idx = tid; idx < (kSumRows + kMaxRows) * G; idx += T) {
+    const int g = idx % G, row = idx / G, l = l0 + g;
+    if (l >= a.b) continue;
+    const int32_t v = n4_lane_row(row, red + g, lane_in + g, G);
+    if (row < kSumRows)
+      x.gsum[(size_t)row * a.b + l] = v;
+    else
+      x.gmax[(size_t)(row - kSumRows) * a.b + l] = v;
+  }
 }
 
 }  // namespace hpa2

@@ -62,15 +62,14 @@ from hpa2_tpu_torch.ops.cycle import (
 from hpa2_tpu_torch.ops.layout import (
     _NSCALAR, _NSLOTS, _NTYPES, _PACKED_CACHE, _PACKED_DIR, _SC_CYCLE,
     _SC_OVERFLOW, _SPLIT_BPW, TORCH_DTYPES, _mb_layout, _scalar_layout,
-    _sharer_words, _split_mode, _split_sw, field, packed_plane_dtypes,
+    _sharer_words, _split_mode, _split_sw, field, fields_of,
+    packed_plane_dtypes,
 )
 
 I32 = torch.int32
 
 #: node shards the kernels take (kMaxShards in csrc/node_cycle.cuh)
 MAX_SHARDS = 16
-#: threads a CTA of N1, N3 and N4 (kNodeCta)
-NODE_CTA = 256
 #: N1's per-lane counters: instructions, read hits, read misses, write
 #: hits, write misses, evictions, invalidations applied (kABCount)
 AB_COUNTS = 7
@@ -87,7 +86,7 @@ class NodeArgs(ctypes.Structure):
     _fields_ = (
         [("a", kernels.Args)]
         + [(f, ctypes.c_int32) for f in (
-            "me", "nl", "shards", "tpl", "group", "nblk")]
+            "me", "nl", "shards", "nblk")]
         + [("payload", ctypes.c_void_p), ("cnt", ctypes.c_void_p),
            ("blk", ctypes.c_void_p * MAX_SHARDS),
            ("fb", ctypes.c_void_p * MAX_SHARDS),
@@ -331,7 +330,11 @@ class NodeCycle:
         self.pdt = {f: TORCH_DTYPES[d] for f, d in
                     packed_plane_dtypes(config).items()} if packed else {}
         self.bucketer = NodeBucketer(self)
-        self.tpl = nl                       # one thread a node row
+        # a stage's NodeArgs, built for a window, a segment and the
+        # planes' storage (the key), then patched (:meth:`_args`)
+        self._arg_cache: Dict[str, tuple] = {}
+        self._ptr_fields = [f for f in fields_of(config, snapshots, packed)
+                            if f not in ("scalars", "msg_counts")]
         self.check = False
         self.launches = {e.name: 0 for e in NODE_KERNELS}
         self.checked = {e.name: [0, 0] for e in NODE_KERNELS}
@@ -343,6 +346,8 @@ class NodeCycle:
         # a list while :meth:`time_kept` times launches alone: the CUDA
         # events around each launch
         self.timed: Optional[list] = None
+        # each kernel's arguments at its last launch (:func:`geometry`)
+        self.last_args: Dict[str, ctypes.Structure] = {}
 
     # -- dispatch --------------------------------------------------------
 
@@ -369,6 +374,7 @@ class NodeCycle:
             ev[1].record()
             self.timed.append(ev)
         self.launches[entry.name] += 1
+        self.last_args[entry.name] = args
 
     def keeping(self, name: str) -> bool:
         return self.cycles == self.keep_at and name not in self.kept
@@ -385,16 +391,30 @@ class NodeCycle:
                 f"{entry.name}: the kernel differs from its plain version "
                 f"by {err}")
 
-    def _args(self, s, seg: int, window: int) -> NodeArgs:
-        x = NodeArgs()
-        x.a = kernels._kernel_args(
-            self.config, s, s["tr"], s["tr_len"], None, block=1, k=0,
-            window=window, n_seg=s["tr"].shape[1] // window, max_calls=0,
-            gate=False, snapshots=self.snapshots, packed=self.packed,
-            seg=seg)
-        x.me, x.nl, x.shards = self.me, self.nl, self.shards
-        x.tpl = self.tpl
-        x.group = max(1, NODE_CTA // self.tpl)
+    def _args(self, stage: str, s, seg: int, window: int) -> NodeArgs:
+        """Stage ``stage``'s NodeArgs: built by ``kernels._kernel_args``
+        once for a window, a segment and the storage of the planes it
+        points at (the pointers are the key: a plane replaced, or a copy
+        of the state, builds it anew), then reused with ``scalars``, a
+        new tensor every cycle, patched.  The stage sets its own tensors'
+        pointers (payload, counters, blocks, feedback) before each
+        launch; ``msg_counts``, which no node kernel reads, stays null."""
+        tr, tl = s["tr"], s["tr_len"]
+        key = (seg, window, tr.data_ptr(), tl.data_ptr(), tr.shape[1],
+               tl.shape[1]) + tuple(
+                   s[f].data_ptr() for f in self._ptr_fields)
+        hit = self._arg_cache.get(stage)
+        if hit is None or hit[0] != key:
+            x = NodeArgs()
+            x.a = kernels._kernel_args(
+                self.config, s, tr, tl, None, block=1, k=0, window=window,
+                n_seg=tr.shape[1] // window, max_calls=0, gate=False,
+                snapshots=self.snapshots, packed=self.packed, seg=seg)
+            x.a.msg_counts = None
+            x.me, x.nl, x.shards = self.me, self.nl, self.shards
+            hit = self._arg_cache[stage] = (key, x)
+        x = hit[1]
+        x.a.scalars = s["scalars"].data_ptr()
         return x
 
     # -- the four stages -------------------------------------------------
@@ -412,7 +432,7 @@ class NodeCycle:
         payload = torch.empty((self.R, 5 * self.nl, bb), dtype=I32,
                               device=dev)
         cnt = torch.empty((AB_COUNTS, bb), dtype=I32, device=dev)
-        x = self._args(s, seg, window)
+        x = self._args(NODE_AB.name, s, seg, window)
         x.payload, x.cnt = payload.data_ptr(), cnt.data_ptr()
         self.launch(launcher, NODE_AB, x, dev)
         if self.check:
@@ -442,7 +462,7 @@ class NodeCycle:
         for b, size in zip(blocks, sizes):
             fbs.append(flat[off:off + size].view(1 + self.SW, b.shape[1], bb))
             off += size
-        x = self._args(s, 0, s["tr"].shape[1])
+        x = self._args(NODE_DELIVER.name, s, 0, s["tr"].shape[1])
         order = sorted(range(len(blocks)), key=lambda i: origins[i])
         x.nblk = len(blocks)
         for j, i in enumerate(order):
@@ -472,7 +492,7 @@ class NodeCycle:
         acc = acc.contiguous()
         gsum = torch.empty((SUM_ROWS, bb), dtype=I32, device=dev)
         gmax = torch.empty((MAX_ROWS, bb), dtype=I32, device=dev)
-        x = self._args(s, seg, window)
+        x = self._args(NODE_SETTLE.name, s, seg, window)
         x.acc, x.cnt, x.fs = acc.data_ptr(), cnt.data_ptr(), fs.data_ptr()
         x.gsum, x.gmax = gsum.data_ptr(), gmax.data_ptr()
         self.launch(launcher, NODE_SETTLE, x, dev)
@@ -545,10 +565,23 @@ class NodeCycle:
         around it, the stream held busy while the host enqueues it),
         ``wrapper_ms`` and ``plain_ms`` the whole call, the wrapper's
         allocations and host work included; and the bytes it must move
-        (:meth:`_stage_bytes`)."""
+        (:meth:`_stage_bytes`).  A kernel runs on the same copy of the
+        planes every rep, the kept values copied back in before it (not
+        timed), as a cycle's stages find the rank's planes where they
+        were: so its NodeArgs are built once, as on the main path.
+        ``grid`` is the last timed launch's (:func:`geometry`) and
+        ``empty_ms`` an empty kernel's launch of that grid, timed alike
+        (:func:`empty_launch_ms`: the floor of a launch)."""
         out = {}
         for name in [e.name for e in NODE_KERNELS if e.name in self.kept]:
             kept = self.kept[name]
+            work = (None if name == NODE_BUCKET.name else _copies(kept[0]))
+
+            def restore(s0, work=work):
+                for f, v in s0.items():
+                    if f not in ("tr", "tr_len"):
+                        work[f].copy_(v)
+                return work
 
             dev = (kept[0] if name == NODE_BUCKET.name
                    else kept[0]["nsw"]).device
@@ -571,8 +604,8 @@ class NodeCycle:
             if name == NODE_AB.name:
                 s0, seg, w = kept
                 kern_fn = (lambda: functools.partial(
-                    self.node_ab, _copies(s0), seg, w))
-                plain = med(lambda: functools.partial(
+                    self.node_ab, restore(s0), seg, w))
+                plain_fn = (lambda: functools.partial(
                     ab_plain, self, _copies(s0), seg, w))
             elif name == NODE_BUCKET.name:
                 fsbuf, fs0, blocks, dests, k, src, combine = kept
@@ -583,24 +616,28 @@ class NodeCycle:
                                   self.bucketer.fsbuf.unbind(0)))
                     return functools.partial(self.bucketer, fs, blocks,
                                              dests, k, src, combine)
-                plain = med(lambda: functools.partial(
+                plain_fn = (lambda: functools.partial(
                     self.bucketer.plain, dict(fs0), blocks, dests, k, src,
                     combine))
             elif name == NODE_DELIVER.name:
                 s0, blocks, origins = kept
                 kern_fn = (lambda: functools.partial(
-                    self.node_deliver, _copies(s0), blocks, origins))
-                plain = med(lambda: functools.partial(
+                    self.node_deliver, restore(s0), blocks, origins))
+                plain_fn = (lambda: functools.partial(
                     deliver_plain, self, _copies(s0), blocks, origins))
             else:
                 s0, acc, cnt, fs, seg, w = kept
                 kern_fn = (lambda: functools.partial(
-                    self.node_settle, _copies(s0), acc, cnt, fs, seg, w))
-                plain = med(lambda: functools.partial(
+                    self.node_settle, restore(s0), acc, cnt, fs, seg, w))
+                plain_fn = (lambda: functools.partial(
                     settle_plain, self, _copies(s0), acc, cnt, fs, seg, w))
-            out[name] = dict(ms=launch_ms(kern_fn), wrapper_ms=med(kern_fn),
-                             plain_ms=plain,
-                             bytes=self._stage_bytes(name, kept))
+            entry = next(e for e in NODE_KERNELS if e.name == name)
+            ms = launch_ms(kern_fn)
+            grid = geometry(entry, self.last_args[name], dev)
+            out[name] = dict(ms=ms, wrapper_ms=med(kern_fn),
+                             plain_ms=med(plain_fn),
+                             bytes=self._stage_bytes(name, kept), grid=grid,
+                             empty_ms=empty_launch_ms(grid, dev, reps))
         return out
 
     def _stage_bytes(self, name: str, kept) -> int:
@@ -686,6 +723,58 @@ class NodeCycle:
                  + snap + (AB_COUNTS + len(exchange.FSTATS) + 1) * bb * 4)
         return (reads + _changed_bytes(s0, upd)
                 + (gsum.numel() + gmax.numel()) * 4)
+
+
+def geometry(entry: kernels.KernelEntry, args: ctypes.Structure,
+             device: torch.device) -> Dict[str, int]:
+    """What the card makes of a launch of ``entry`` with ``args`` (its
+    NodeArgs, or BucketArgs for N2): CTAs, threads a CTA, bytes of
+    dynamic shared memory, lanes a CTA, CTAs an SM holds at once, CTAs a
+    cluster, and the SMs the grid covers (one CTA each at least while
+    there are fewer CTAs than SMs).  Launches nothing; the card only."""
+    kernels.NODE_CYCLE.build()
+    fn = kernels.NODE_CYCLE._lib.hpa2_node_geometry
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    which = [e.name for e in NODE_KERNELS].index(entry.name)
+    with torch.cuda.device(device):
+        err = fn(which, ctypes.addressof(args), device.index or 0, out)
+    if err != 0:
+        raise RuntimeError(
+            f"{entry.name}: the geometry query failed: CUDA error {err}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return dict(ctas=out[0], threads=out[1], smem=out[2], lanes=out[3],
+                ctas_per_sm=out[4], cluster=out[5], sms=sms,
+                sms_covered=min(out[0], sms))
+
+
+def empty_launch_ms(grid: Dict[str, int], device: torch.device,
+                    reps: int = 10) -> float:
+    """The median over ``reps`` of an empty kernel's launch as ``grid``
+    (:func:`geometry`: CTAs, threads, shared memory), timed as
+    :meth:`NodeCycle.time_kept` times a launch alone (ms)."""
+    kernels.NODE_CYCLE.build()
+    fn = kernels.NODE_CYCLE._lib.hpa2_node_empty
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(device).cuda_stream
+    evs = []
+    with torch.cuda.device(device):
+        for _ in range(reps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda._sleep(SLEEP_CYCLES)
+            ev[0].record()
+            err = fn(grid["ctas"], grid["threads"], grid["smem"],
+                     device.index or 0, stream)
+            ev[1].record()
+            if err != 0:
+                raise RuntimeError(f"an empty launch failed: CUDA error {err}")
+            evs.append(ev)
+        torch.cuda.synchronize(device)
+    ms = sorted(a.elapsed_time(b) for a, b in evs)
+    return ms[len(ms) // 2]
 
 
 def _changed_bytes(before: Dict[str, torch.Tensor],
@@ -1006,5 +1095,5 @@ __all__ = [
     "AB_COUNTS", "CYCLES", "MAX_SHARDS", "NODE_AB", "NODE_BUCKET",
     "NODE_DELIVER", "NODE_KERNELS", "NODE_SETTLE", "NodeArgs",
     "NodeBucketer", "NodeCycle", "BucketArgs", "ab_plain",
-    "check_node_kernel_bound", "deliver_plain", "settle_plain",
+    "check_node_kernel_bound", "deliver_plain", "geometry", "settle_plain",
 ]

@@ -1555,6 +1555,7 @@ def _rank_profile(job: dict) -> dict:
     kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from hpa2_tpu_torch.ops import node_cycle
     from hpa2_tpu_torch.parallel.comm import LocalComm, world_comm
 
     eng = job["engine"]
@@ -1602,6 +1603,10 @@ def _rank_profile(job: dict) -> dict:
                    nccl=sum(1 for e in ran if "nccl" in e.name.lower()),
                    device_us=sum(e.time_range.elapsed_us() for e in ran
                                  if "nccl" not in e.name.lower()),
+                   node_us={k.name: sum(e.time_range.elapsed_us()
+                                        for e in ran
+                                        if f"{k.name}_kernel" in e.name)
+                            for k in node_cycle.NODE_KERNELS},
                    launch_calls=sum(1 for e in events if e.name in (
                        "cudaLaunchKernel", "cudaLaunchKernelExC",
                        "cuLaunchKernel", "cuLaunchKernelEx")))
@@ -1618,7 +1623,8 @@ class NodeProfile:
     NCCL's among them, the host's kernel launch calls and the device
     time of the kernels but NCCL's (``device_us``), each a cycle and a
     rank (over logical ranks the process's count divided by the
-    ranks)."""
+    ranks), and ``node_us`` the device time of each node kernel (N1-N4,
+    by name) a cycle and a rank."""
 
     def __init__(self, engine: "NodeShardedCudaEngine", k: int = 4):
         self.engine, self.mesh, self.k = engine, engine.mesh, k
@@ -1634,6 +1640,10 @@ class NodeProfile:
             f: round(max(r[f] / share / max(r["cycles"], 1) for r in rows),
                      2)
             for f in ("kernels", "nccl", "launch_calls", "device_us")}
+        self.per_cycle["node_us"] = {
+            k: round(max(r["node_us"][k] / share / max(r["cycles"], 1)
+                         for r in rows), 2)
+            for k in rows[0]["node_us"]} if rows else {}
 
     def _check(self) -> None:
         pass

@@ -424,7 +424,8 @@ def _kernels_row(eng, per_cycle) -> dict:
         row.update(cuda_kernels_per_cycle=per_cycle["kernels"],
                    nccl_per_cycle=per_cycle["nccl"],
                    launch_calls_per_cycle=per_cycle["launch_calls"],
-                   device_us_per_cycle=per_cycle["device_us"])
+                   device_us_per_cycle=per_cycle["device_us"],
+                   node_kernel_us_per_cycle=per_cycle["node_us"])
     return row
 
 

@@ -1,14 +1,12 @@
 """The node kernels' bodies (``csrc/node_cycle.cuh``) built with g++ for
 the host, and a launcher that runs them on CPU tensors.
 
-Each entry loops over what the card runs in parallel.  N1 and N4: every
-(lane, node row), threads that share nothing but integer sums that
-commute, so the loop order does not change the result.  N2 and N3: a
-CTA at a time, its phases in order, each phase run by every thread of
-the CTA before the next begins (the barrier between them on the card);
-within a phase the threads share only ORs and sums that commute.  The
-shared tile starts as garbage, as on the card, so a phase that reads
-what no earlier phase wrote shows here.
+Each entry loops over what the card runs in parallel: a CTA at a time,
+its phases in order, each phase run by every thread of the CTA before
+the next begins (the barrier between them on the card); within a phase
+the threads share only ORs and sums that commute.  The shared tile
+starts as garbage, as on the card, so a phase that reads what no
+earlier phase wrote shows here.
 Set ``hpa2_tpu_torch.ops.node_cycle.HOST_LAUNCHER`` to :func:`launcher`'s
 result and a node-sharded run on the CPU goes through the kernels'
 bodies as a run on the card goes through the kernels."""
@@ -28,31 +26,20 @@ SHIM = r"""
 #include "node_cycle.cuh"
 using hpa2::NodeArgs;
 using hpa2::BucketArgs;
-template <int MAXN, bool PACKED> void ab(const NodeArgs& x) {
-  for (int l = 0; l < x.a.b; ++l) {
-    uint32_t red[hpa2::kABCount] = {0};
-    for (int t = 0; t < x.tpl; ++t)
-      for (int i = t; i < x.nl; i += x.tpl)
-        hpa2::n1_node<MAXN, PACKED>(x, l, i, red, 1);
-    for (int j = 0; j < hpa2::kABCount; ++j)
-      x.cnt[(size_t)j * x.a.b + l] = (int32_t)red[j];
-  }
-}
-template <int MAXN, bool PACKED> void settle(const NodeArgs& x) {
-  for (int l = 0; l < x.a.b; ++l) {
-    uint32_t red[hpa2::kSettleRed] = {0};
-    for (int s = 0; s < x.nl; ++s) hpa2::n4_node<MAXN, PACKED>(x, l, s, red, 1);
-    hpa2::n4_lane(x, l, red, 1);
-  }
-}
-// a phase-by-phase CTA loop: phase ph of every thread before ph + 1
+// a phase-by-phase loop over clusters of `cl` CTAs of `threads` threads:
+// phase ph of every thread of every CTA of the cluster before ph + 1,
+// each CTA with its own tile of `smem` bytes (a multiple of 4), the
+// cluster's side by side
 template <class Phase>
-void ctas(int ctas, int phases, size_t smem, Phase phase) {
-  std::vector<uint64_t> tile((smem + 7) / 8, 0xA5A5A5A5A5A5A5A5ull);
-  for (int cta = 0; cta < ctas; ++cta)
+void ctas(int ctas, int phases, size_t smem, Phase phase, int cl = 1,
+          int threads = hpa2::kNodeCta) {
+  std::vector<uint64_t> tiles((smem * cl + 7) / 8, 0xA5A5A5A5A5A5A5A5ull);
+  for (int c0 = 0; c0 < ctas; c0 += cl)
     for (int ph = 0; ph < phases; ++ph)
-      for (int tid = 0; tid < hpa2::kNodeCta; ++tid)
-        phase(ph, cta, tid, (void*)tile.data());
+      for (int cta = c0; cta < c0 + cl; ++cta)
+        for (int tid = 0; tid < threads; ++tid)
+          phase(ph, cta, tid,
+                (void*)((char*)tiles.data() + (size_t)(cta - c0) * smem));
 }
 int deliver(const NodeArgs& x) {
   hpa2::DeliverPlan pl;
@@ -63,18 +50,45 @@ int deliver(const NodeArgs& x) {
        });
   return 0;
 }
-template <int MAXN> int go(const NodeArgs& x, int what) {
-  if (what == 1) return deliver(x);
-  if (what == 0) x.a.packed ? ab<MAXN, true>(x) : ab<MAXN, false>(x);
-  else x.a.packed ? settle<MAXN, true>(x) : settle<MAXN, false>(x);
+template <int MAXN, bool PACKED> int ab(const NodeArgs& x) {
+  hpa2::NodePlan pl;
+  if (!hpa2::ab_plan<MAXN>(x, pl, hpa2::kNodeSmem)) return 1;
+  ctas(hpa2::ab_ctas(x, pl), hpa2::kN1Phases, pl.smem,
+       [&](int ph, int cta, int tid, void* sh) {
+         hpa2::n1_phase<MAXN, PACKED>(x, pl, ph, cta, tid, (int32_t*)sh);
+       }, pl.NT, pl.NR * pl.G);
   return 0;
 }
-int dispatch(const NodeArgs* x, int what) {
+template <int MAXN, bool PACKED> int settle(const NodeArgs& x) {
+  hpa2::NodePlan pl;
+  if (!hpa2::settle_plan<MAXN>(x, pl, hpa2::kNodeSmem)) return 1;
+  ctas((x.a.b + pl.G - 1) / pl.G, hpa2::kN4Phases, pl.smem,
+       [&](int ph, int cta, int tid, void* sh) {
+         hpa2::n4_phase<MAXN, PACKED>(x, pl, ph, cta, tid, (int32_t*)sh);
+       });
+  return 0;
+}
+// the plan of N1 (what 0) or N4 (2): out = lanes a CTA, tile bytes,
+// node rows a CTA, CTAs a cluster
+template <int MAXN> int plan(const NodeArgs& x, int what, int* out) {
+  hpa2::NodePlan pl;
+  const bool ok = what == 0 ? hpa2::ab_plan<MAXN>(x, pl, hpa2::kNodeSmem)
+                            : hpa2::settle_plan<MAXN>(x, pl, hpa2::kNodeSmem);
+  out[0] = pl.G, out[1] = pl.smem, out[2] = pl.NR, out[3] = pl.NT;
+  return ok ? 0 : 1;
+}
+template <int MAXN> int go(const NodeArgs& x, int what, int* out) {
+  if (out) return plan<MAXN>(x, what, out);
+  if (what == 1) return deliver(x);
+  if (what == 0) return x.a.packed ? ab<MAXN, true>(x) : ab<MAXN, false>(x);
+  return x.a.packed ? settle<MAXN, true>(x) : settle<MAXN, false>(x);
+}
+int dispatch(const NodeArgs* x, int what, int* out = nullptr) {
   if (!hpa2::node_geometry_ok(*x)) return 1;
   const int bound = hpa2::node_kernel_bound(x->a);
-  if (bound == 8) return go<8>(*x, what);
-  if (bound == 21) return go<21>(*x, what);
-  if (bound == 64) return go<64>(*x, what);
+  if (bound == 8) return go<8>(*x, what, out);
+  if (bound == 21) return go<21>(*x, what, out);
+  if (bound == 64) return go<64>(*x, what, out);
   return 1;  // refused, as the launch would be
 }
 extern "C" int hpa2_node_args_size() { return (int)sizeof(NodeArgs); }
@@ -82,6 +96,9 @@ extern "C" int hpa2_bucket_args_size() { return (int)sizeof(BucketArgs); }
 extern "C" int hpa2_host_node_ab(const NodeArgs* x) { return dispatch(x, 0); }
 extern "C" int hpa2_host_node_deliver(const NodeArgs* x) { return dispatch(x, 1); }
 extern "C" int hpa2_host_node_settle(const NodeArgs* x) { return dispatch(x, 2); }
+extern "C" int hpa2_host_node_plan(const NodeArgs* x, int what, int* out) {
+  return dispatch(x, what, out);
+}
 extern "C" int hpa2_host_node_bucket(const BucketArgs* x) {
   hpa2::BucketPlan pl;
   if (!hpa2::bucket_plan(*x, pl, hpa2::kNodeSmem)) return 1;
@@ -120,6 +137,9 @@ def build():
         fn = getattr(lib, f"hpa2_host_node_{f}")
         fn.argtypes = [ctypes.POINTER(nc.NodeArgs)]
     lib.hpa2_host_node_bucket.argtypes = [ctypes.POINTER(nc.BucketArgs)]
+    lib.hpa2_host_node_plan.argtypes = [ctypes.POINTER(nc.NodeArgs),
+                                        ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
