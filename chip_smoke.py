@@ -4328,10 +4328,26 @@ NODEKERN_RUNS = (
 )
 #: the cycle of the timed call whose stage inputs time each kernel
 NODEKERN_KEEP_AT = 8
+#: the wide family's runs of ``[nodekern]`` over 4 logical ranks, a2a:
+#: (name, nodes, systems, instructions a core, cycles a call, the first
+#: of them checked); 256 nodes held against the general engine
+#: (snapshots on, no windows), and the node axis's own geometry,
+#: ``gpu_session``'s ``nodeshard4096`` widths with 2 instructions a core
+#: (cut from 32 for time) and 2-cycle calls (a checked cycle of its four
+#: ranks is ~3 s of plain versions)
+NODEKERN_WIDE_RUNS = (
+    ("256 nodes 4 ranks a2a", 256, 256, 4, 8),
+    ("4096 nodes 4 ranks a2a", 4096, 8, 2, 2),
+)
+#: the cycle of a 4-cycle call at 4,096 nodes whose stage inputs time
+#: each wide kernel, and the reps of those timings
+NODEKERN_WIDE_KEEP_AT = 2
+NODEKERN_WIDE_REPS = 3
 #: cycles a call of ``[nodekern]``'s runs (``[nodeshard]``'s 64 cut for
 #: time: the first call's launches are each held against their plain
-#: versions, ~27 ms a cycle a rank of plain work at 64 nodes)
-NODEKERN_K = 32
+#: versions, ~27 ms a cycle a rank of plain work at 64 nodes; 16 since
+#: the wide family's runs joined the phase)
+NODEKERN_K = 16
 
 
 def _node_rank_setup(job):
@@ -4369,11 +4385,13 @@ def _nodekern_time_rank(job):
     comm, tr, tl, planes = _node_rank_setup(job)
     eng = job["engine"]
     prog = NodeInterval(eng.config, comm, False, eng._window,
-                        eng.cycles_per_call, 1, packed=eng._packed)
-    prog.cycle.keep_at = NODEKERN_KEEP_AT
+                        job.get("k", eng.cycles_per_call), 1,
+                        packed=eng._packed)
+    prog.cycle.keep_at = job.get("keep_at", NODEKERN_KEEP_AT)
     prog(*planes(), tr, tl)
     comm.barrier()
-    out = prog.cycle.time_kept(reps=10) if comm.rank == 0 else None
+    out = (prog.cycle.time_kept(reps=job.get("reps", 10))
+           if comm.rank == 0 else None)
     comm.barrier()
     return dict(planes={}, status=0, times=out)
 
@@ -4405,7 +4423,7 @@ def phase_nodekern():
     logical (``make_mesh(..., local=True)``: threads of this process on
     ``cuda:0`` meeting through ``parallel/comm.py:LocalComm``).  The
     runs of :data:`NODEKERN_RUNS` (64 nodes x 1,024 systems x 8
-    instructions, window 16, k 32 (:data:`NODEKERN_K`), over 2 and 4
+    instructions, window 16, k 16 (:data:`NODEKERN_K`), over 2 and 4
     ranks, a2a and pairwise,
     butterfly at 4; 12 nodes packed and 22 split over 2), each run twice
     in its ranks: a first run whose first k-cycle call holds every N1-N4
@@ -4415,7 +4433,8 @@ def phase_nodekern():
     (``torch.profiler``) of one 4-cycle call at 64 nodes over 2 and 4
     ranks, and each kernel's and plain version's time on the inputs of
     cycle 8 of a 64-node a2a call over 2 ranks and over 4 (a rank's
-    entries and receivers differ).  Returns its record."""
+    entries and receivers differ); and the wide family's runs
+    (:func:`nodekern_wide`).  Returns its record."""
     import dataclasses
 
     from hpa2_tpu_torch.config import Semantics, SystemConfig
@@ -4535,6 +4554,8 @@ def phase_nodekern():
                   f"{grid['ctas_per_sm']} an SM at once) on "
                   f"{grid['sms_covered']} of {grid['sms']} SMs; an empty "
                   f"launch of that grid {tm['empty_ms']:.4f} ms)")
+    t_wide = time.perf_counter()
+    rec["wide"] = nodekern_wide()
     rec["ptxas"] = node_ptxas()
     for k, rows in rec["ptxas"].items():
         print(f"[nodekern] {k} ptxas: " + "; ".join(
@@ -4546,12 +4567,126 @@ def phase_nodekern():
     rec["seconds_by_part"] = parts = dict(
         setup=round(secs_setup, 1), runs=round(secs, 1),
         checks=round(t_prof - t0 - secs, 1),
-        profile=round(t_time - t_prof, 1), timings=round(t_end - t_time, 1))
-    print(f"[nodekern] phase {rec['seconds']} s (budget 60 s): K2's "
+        profile=round(t_time - t_prof, 1), timings=round(t_wide - t_time, 1),
+        wide=round(t_end - t_wide, 1))
+    print(f"[nodekern] phase {rec['seconds']} s (budget 90 s): K2's "
           f"references and the engines {parts['setup']} s, the runs "
           f"{parts['runs']}, their checks against K2 {parts['checks']}, "
-          f"the profile {parts['profile']}, the kernel timings, grids and "
-          f"ptxas rows {parts['timings']}")
+          f"the profile {parts['profile']}, the kernel timings and grids "
+          f"{parts['timings']}, the wide family's runs and timings and the "
+          f"ptxas rows {parts['wide']}")
+    return rec
+
+
+def nodekern_wide():
+    """``[nodekern]``'s wide family (``node_*_wide``, above 64 nodes) over
+    4 logical ranks on one card, the runs of :data:`NODEKERN_WIDE_RUNS`:
+    each run's first call holds every launch against its plain version
+    (max_abs_err 0) and retires every instruction; the 256-node run's
+    dumps, snapshots, per-system counters and cycle equal the general
+    engine's (``build_batched_run``) on the same arrays; each wide
+    kernel and its plain version timed alone on cycle
+    ``NODEKERN_WIDE_KEEP_AT``'s inputs at 4,096 nodes.  The launch counts
+    are zeroed just before the runs and read just after.  Returns its
+    record."""
+    from hpa2_tpu_torch.config import Semantics, SystemConfig
+    from hpa2_tpu_torch.ops import node_cycle
+    from hpa2_tpu_torch.parallel import NodeShardedCudaEngine, make_mesh
+    from hpa2_tpu_torch.parallel.sharding import run_node_sharded
+    from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
+
+    rec = {"runs": {}}
+    engs = {}
+    for name, n, b, t, k in NODEKERN_WIDE_RUNS:
+        cfg = SystemConfig(num_procs=n, msg_buffer_size=16,
+                           semantics=Semantics().robust(), max_instr_num=0)
+        arrays = gen_uniform_random_arrays(cfg, b, t, seed=n)
+        engs[name] = (cfg, arrays, NodeShardedCudaEngine(
+            cfg, *arrays, mesh=make_mesh(node_shards=4, device="cuda",
+                                         local=True),
+            block=b, cycles_per_call=k, snapshots=n == 256,
+            _check_calls=1))
+    for e in node_cycle.WIDE_KERNELS:
+        e.launches = 0
+    for name, (_, _, eng) in engs.items():
+        t1 = time.perf_counter()
+        run_node_sharded([eng])
+        print(f"[nodekern] {name}: ran in its ranks in "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+    launches = {e.name: e.launches for e in node_cycle.WIDE_KERNELS}
+    if not all(launches.values()):
+        raise AssertionError(f"nodekern: a wide kernel never ran: {launches}")
+    rec["launches"] = launches
+    checked = {e.name: [0, 0] for e in node_cycle.WIDE_KERNELS}
+    err_all = 0
+    for name, (cfg, arrays, eng) in engs.items():
+        for st in eng.rank_stats:
+            for k, (c, x) in st["checked"].items():
+                checked[k][0] += c
+                checked[k][1] = max(checked[k][1], x)
+        if eng.instructions != int(arrays[3].sum()):
+            raise AssertionError(f"nodekern {name}: {eng.instructions} "
+                                 f"instructions of {int(arrays[3].sum())}")
+        slow = max(eng.rank_stats, key=lambda r: r["seconds"])
+        row = dict(cycles=eng.cycle, instructions=eng.instructions,
+                   ms_per_cycle_first_call_checked=round(
+                       slow["seconds"] * 1e3 / max(slow["cycles"], 1), 3),
+                   node_launches_rank0=eng.rank_stats[0]["launches"])
+        if cfg.num_procs == 256:
+            got, grec = run_general(f"nodekern {name}", cfg, arrays,
+                                    "(the wide family's reference)")
+            err = state_err(f"nodekern {name} against the general engine",
+                            general_as_k2_arrays(got),
+                            k2_planes_as_arrays(cfg, eng.state))
+            if int(got["cycle"].max()) != eng.cycle:
+                raise AssertionError(
+                    f"nodekern {name}: cycle {eng.cycle} against the general "
+                    f"engine's {int(got['cycle'].max())}")
+            err_all = max(err_all, err)
+            row.update(general_max_abs_err=err, general_ms=grec["ms"])
+            print(f"[nodekern] {name}: dumps, snapshots, per-system counters "
+                  f"and cycle ({eng.cycle}) equal the general engine's "
+                  f"(build_batched_run) on the same arrays: max_abs_err={err}")
+        rec["runs"][name] = row
+        print(f"[nodekern] {name} ({cfg.num_procs} nodes x {eng.b} systems x "
+              f"{arrays[0].shape[2]} instructions, 4 logical ranks on "
+              f"cuda:0, {eng.cycles_per_call} cycles a call, the first "
+              f"checked): {eng.cycle} cycles, every instruction retired; "
+              f"rank 0's launches {row['node_launches_rank0']}")
+    for k, (c, x) in checked.items():
+        if c == 0 or x:
+            raise AssertionError(f"nodekern: {k} checked {c}, err {x}")
+    rec["checked"] = checked
+    rec["max_abs_err"] = err_all
+    print(f"[nodekern] wide family: every launch of each run's first call "
+          f"held against its plain version on the same inputs: {checked} "
+          "(launches checked, max_abs_err)")
+    # each wide kernel and its plain version on the 4,096-node run's kept
+    # cycle
+    name = NODEKERN_WIDE_RUNS[-1][0]
+    job = _NodeJob(_nodekern_time_rank, engs[name][2], k=4,
+                   keep_at=NODEKERN_WIDE_KEEP_AT, reps=NODEKERN_WIDE_REPS)
+    run_node_sharded([job])
+    times = next(r["times"] for r in job.rows if r["times"])
+    rec["times"] = {}
+    for k, tm in times.items():
+        bound = tm["bytes"] / HBM_BYTES_PER_S * 1e3
+        grid = tm["grid"]
+        rec["times"][k] = dict(
+            ms=round(tm["ms"], 4), wrapper_ms=round(tm["wrapper_ms"], 4),
+            plain_ms=round(tm["plain_ms"], 4), bound_ms=round(bound, 6),
+            bytes=tm["bytes"], grid=grid, empty_ms=round(tm["empty_ms"], 4))
+        print(f"[nodekern] {k}: {tm['ms']:.4f} ms a launch (CUDA events "
+              f"around the entry's launches alone, median of "
+              f"{NODEKERN_WIDE_REPS}, 4,096 nodes x 8 over 4 ranks, cycle "
+              f"{NODEKERN_WIDE_KEEP_AT} of a 4-cycle call's inputs; the "
+              f"whole wrapper "
+              f"{tm['wrapper_ms']:.4f}), plain version {tm['plain_ms']:.4f} "
+              f"ms, bound {bound:.6f} ms ({tm['bytes']} B over 3.35 TB/s); "
+              f"main launch's grid {grid['ctas']} CTAs of {grid['threads']} "
+              f"threads ({grid['ctas_per_sm']} an SM at once) on "
+              f"{grid['sms_covered']} of {grid['sms']} SMs; an empty launch "
+              f"of that grid {tm['empty_ms']:.4f} ms)")
     return rec
 
 
@@ -4564,16 +4699,52 @@ def node_ptxas():
     from hpa2_tpu_torch.analysis.ir import ptxas_census
     from hpa2_tpu_torch.ops import kernels, node_cycle
 
-    out = {e.name: {} for e in node_cycle.NODE_KERNELS}
+    out = {e.name: {} for e in node_cycle.ALL_NODE_KERNELS}
+    wide = {e.name for e in node_cycle.WIDE_KERNELS}
     for row in ptxas_census(kernels.NODE_CYCLE.build_log):
         for name in out:
-            m = re.search(name + r"_kernel(?:ILi(\d+)ELb([01])E)?",
+            # a wide entry's launches: node_<stage>_wide[_<launch>]_kernel
+            m = re.search(name + (r"(?:_([a-z]+))?_kernel" if name in wide
+                                  else r"_kernel(?:ILi(\d+)ELb([01])E)?"),
                           row["name"])
-            if m:
+            if not m:
+                continue
+            if name in wide:
+                inst = m.group(1) or "all"
+            else:
                 inst = ("all" if m.group(1) is None else
                         f"{m.group(1)} {'packed' if m.group(2) == '1' else 'int32'}")
-                out[name][inst] = {f: row[f] for f in (
-                    "registers", "stack", "spill_stores", "spill_loads")}
+            out[name][inst] = {f: row[f] for f in (
+                "registers", "stack", "spill_stores", "spill_loads")}
+    return out
+
+
+def wide_entries(nodekern):
+    """The kernels line's entries of the wide family: launches, checked
+    launches and max_abs_err on ``[nodekern]``'s wide runs (logical ranks
+    on one card), its timings and bounds at 4,096 nodes."""
+    from hpa2_tpu_torch.ops import node_cycle
+
+    wide = nodekern["wide"]
+    out = []
+    for kern in node_cycle.WIDE_KERNELS:
+        t = wide["times"][kern.name]
+        c, x = wide["checked"][kern.name]
+        out.append({
+            "name": kern.name, "route": "cuda", "source": kern.source,
+            "replaces": kern.replaces,
+            "launches": wide["launches"][kern.name],
+            "checked_launches": c,
+            "max_abs_err": max(x, wide["max_abs_err"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "wrapper_ms": t["wrapper_ms"],
+            "grid": t["grid"], "empty_launch_ms": t["empty_ms"],
+            "ptxas": nodekern["ptxas"][kern.name],
+            "by_path": {"nodekern wide logical ranks": {
+                "launches": wide["launches"][kern.name],
+                "checked_launches": c, "max_abs_err": x,
+                "general_engine_max_abs_err": wide["max_abs_err"]}}})
     return out
 
 
@@ -4903,7 +5074,8 @@ def smoke(argv) -> int:
                for p in kern_entry["by_path"].values()])
     print(json.dumps({"kernels": [stream_entry, call_entry,
                                   micro_entry(kernels.MICRO, micro)]
-                      + ablated + node_entries(nodekern, nodeshard)}))
+                      + ablated + node_entries(nodekern, nodeshard)
+                      + wide_entries(nodekern)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,8 +17,10 @@
 // each with int32 or packed planes; N2 and N3 are one kernel each.  Every
 // kernel's geometry and shared tile are sized at launch (ab_plan,
 // bucket_plan, deliver_plan, settle_plan; hpa2_node_geometry reports
-// them).  A wider system, more than kMaxShards shards or a geometry the
-// kernels do not take (a shared tile over kNodeSmem) is refused.
+// them).  A wider system runs on the wide family (hpa2_node_*_wide: W
+// and SW at run time, a thread a work item, no shared tile).  More than
+// kMaxShards shards or a geometry the kernels do not take (a shared
+// tile over kNodeSmem) is refused.
 #include <cuda_runtime.h>
 
 #include "node_cycle.cuh"
@@ -87,6 +89,94 @@ __global__ void __launch_bounds__(hpa2::kNodeCta)
     hpa2::n4_phase<MAXN, PACKED>(x, pl, ph, blockIdx.x, threadIdx.x, sh);
     __syncthreads();
   }
+}
+
+// The wide family (node_cycle.cuh, above kMaxNodes nodes): a kernel a
+// launch, a thread a work item
+__global__ void __launch_bounds__(hpa2::kWideCta)
+    node_ab_wide_kernel(const __grid_constant__ hpa2::WideArgs y) {
+  hpa2::w1_item(y, (size_t)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+__global__ void __launch_bounds__(hpa2::kWideCta)
+    node_ab_wide_rotate_kernel(const __grid_constant__ hpa2::WideArgs y) {
+  hpa2::w1_rotate(y, (size_t)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+__global__ void __launch_bounds__(hpa2::kWideCta)
+    node_bucket_wide_flags_kernel(const __grid_constant__ hpa2::WideBucketArgs y,
+                                  const __grid_constant__ hpa2::BucketPlan pl) {
+  hpa2::w2_flags(y, pl, (size_t)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+__global__ void __launch_bounds__(hpa2::kWideCta)
+    node_bucket_wide_scan_kernel(const __grid_constant__ hpa2::WideBucketArgs y,
+                                 const __grid_constant__ hpa2::BucketPlan pl) {
+  hpa2::w2_scan(y, pl, (size_t)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+__global__ void __launch_bounds__(hpa2::kWideCta)
+    node_bucket_wide_scatter_kernel(
+        const __grid_constant__ hpa2::WideBucketArgs y,
+        const __grid_constant__ hpa2::BucketPlan pl) {
+  hpa2::w2_scatter(y, pl, (size_t)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+__global__ void __launch_bounds__(hpa2::kWideCta)
+    node_deliver_wide_sets_kernel(const __grid_constant__ hpa2::WideArgs y,
+                                  const __grid_constant__ hpa2::DeliverPlan pl) {
+  hpa2::w3_sets(y, pl, (size_t)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+__global__ void __launch_bounds__(hpa2::kWideCta)
+    node_deliver_wide_take_kernel(const __grid_constant__ hpa2::WideArgs y,
+                                  const __grid_constant__ hpa2::DeliverPlan pl) {
+  hpa2::w3_take(y, pl, (size_t)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+__global__ void __launch_bounds__(hpa2::kWideCta)
+    node_settle_wide_kernel(const __grid_constant__ hpa2::WideArgs y) {
+  hpa2::w4_item(y, (size_t)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+__global__ void __launch_bounds__(hpa2::kWideCta)
+    node_settle_wide_lane_kernel(const __grid_constant__ hpa2::WideArgs y) {
+  hpa2::w4_lane(y, (size_t)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+// CTAs of kWideCta threads that cover `items` work items
+unsigned wide_grid(size_t items) {
+  return (unsigned)((items + hpa2::kWideCta - 1) / hpa2::kWideCta);
+}
+
+// a wide kernel's launch over `items` items on the caller's stream (none
+// when there are none)
+template <class... P, class... A>
+cudaError_t wide_launch(void (*kernel)(P...), size_t items, void* stream,
+                        const A&... args) {
+  if (items == 0) return cudaSuccess;
+  kernel<<<wide_grid(items), hpa2::kWideCta, 0, (cudaStream_t)stream>>>(
+      args...);
+  return cudaGetLastError();
+}
+
+// the work items of the wide family's main launch of kernel `which` (4
+// N1, 5 N2's scatter, 6 N3's sets, 7 N4's settle), 0 when it refuses
+size_t wide_items(int which, const void* args) {
+  if (which == 5) {
+    const auto& y = *static_cast<const hpa2::WideBucketArgs*>(args);
+    hpa2::BucketPlan pl;
+    if (!hpa2::wide_bucket_plan(y, pl)) return 0;
+    return hpa2::w2_scatter_items(y.x, pl);
+  }
+  const auto& y = *static_cast<const hpa2::WideArgs*>(args);
+  if (!hpa2::wide_ok(y.x)) return 0;
+  if (which == 6) {
+    hpa2::DeliverPlan pl;
+    if (!hpa2::wide_deliver_plan(y.x, pl)) return 0;
+    return (size_t)pl.J * y.x.a.b;
+  }
+  return (size_t)y.x.nl * y.x.a.b;
 }
 
 // nothing: a launch of a kernel's grid with no work, the floor under
@@ -225,7 +315,81 @@ extern "C" int hpa2_node_bucket(const BucketArgs* args, int device,
   return (int)cudaGetLastError();
 }
 
-// The geometry of a launch of kernel `which` (0 N1, 1 N2, 2 N3, 3 N4)
+extern "C" int hpa2_wide_args_size() { return (int)sizeof(hpa2::WideArgs); }
+extern "C" int hpa2_wide_bucket_args_size() {
+  return (int)sizeof(hpa2::WideBucketArgs);
+}
+
+// The wide family's entries: N1 two launches, N2 three, N3 two, N4 two, in
+// order on the caller's stream; each refuses (cudaErrorInvalidValue) a
+// launch the family does not take.  The rows they sum into (N1's cnt,
+// N2's bits, lane sums and keys, N3's flags and feedback rows, N4's red)
+// come zeroed.
+extern "C" int hpa2_node_ab_wide(const hpa2::WideArgs* y, int device,
+                                 void* stream) {
+  if (!hpa2::wide_ok(y->x)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  const size_t pairs = (size_t)y->x.nl * y->x.a.b;
+  if (err == cudaSuccess)
+    err = wide_launch(node_ab_wide_kernel, pairs, stream, *y);
+  if (err == cudaSuccess)
+    err = wide_launch(node_ab_wide_rotate_kernel, pairs * y->x.a.W, stream,
+                      *y);
+  return (int)err;
+}
+
+extern "C" int hpa2_node_bucket_wide(const hpa2::WideBucketArgs* y,
+                                     int device, void* stream) {
+  hpa2::BucketPlan pl;
+  if (!hpa2::wide_bucket_plan(*y, pl)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  const size_t b = y->x.b;
+  if (err == cudaSuccess)
+    err = wide_launch(node_bucket_wide_flags_kernel, (size_t)pl.nw * 32 * b,
+                      stream, *y, pl);
+  if (err == cudaSuccess)
+    err = wide_launch(node_bucket_wide_scan_kernel, (size_t)y->x.ndest * b,
+                      stream, *y, pl);
+  if (err == cudaSuccess)
+    err = wide_launch(node_bucket_wide_scatter_kernel,
+                      hpa2::w2_scatter_items(y->x, pl), stream, *y, pl);
+  return (int)err;
+}
+
+extern "C" int hpa2_node_deliver_wide(const hpa2::WideArgs* y, int device,
+                                      void* stream) {
+  hpa2::DeliverPlan pl;
+  if (!hpa2::wide_ok(y->x) || !hpa2::wide_deliver_plan(y->x, pl))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  const size_t b = y->x.a.b;
+  if (err == cudaSuccess)
+    err = wide_launch(node_deliver_wide_sets_kernel, (size_t)pl.J * b, stream,
+                      *y, pl);
+  if (err == cudaSuccess)
+    err = wide_launch(node_deliver_wide_take_kernel, (size_t)y->x.nl * b,
+                      stream, *y, pl);
+  return (int)err;
+}
+
+extern "C" int hpa2_node_settle_wide(const hpa2::WideArgs* y, int device,
+                                     void* stream) {
+  if (!hpa2::wide_ok(y->x)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  const size_t b = y->x.a.b;
+  if (err == cudaSuccess)
+    err = wide_launch(node_settle_wide_kernel, (size_t)y->x.nl * b, stream,
+                      *y);
+  if (err == cudaSuccess)
+    err = wide_launch(node_settle_wide_lane_kernel,
+                      (size_t)(hpa2::kSumRows + hpa2::kMaxRows) * b, stream,
+                      *y);
+  return (int)err;
+}
+
+// The geometry of a launch of kernel `which` (0 N1, 1 N2, 2 N3, 3 N4;
+// 4-7 the wide family's N1-N4, their main launch: N1's, N2's scatter,
+// N3's sets, N4's settle)
 // with `args` (a NodeArgs, a BucketArgs for N2): out = CTAs, threads a
 // CTA, bytes of dynamic shared memory, lanes a CTA, CTAs an SM holds at
 // once, CTAs a cluster.  Launches nothing; returns a CUDA error,
@@ -236,7 +400,17 @@ extern "C" int hpa2_node_geometry(int which, const void* args, int device,
   int ctas = 0, threads = hpa2::kNodeCta, G = 0, smem = 0, cl = 1;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (which == 1) {
+  if (which >= 4) {
+    const void* fns[4] = {(const void*)node_ab_wide_kernel,
+                          (const void*)node_bucket_wide_scatter_kernel,
+                          (const void*)node_deliver_wide_sets_kernel,
+                          (const void*)node_settle_wide_kernel};
+    const size_t items = which > 7 ? 0 : wide_items(which, args);
+    if (items == 0) return (int)cudaErrorInvalidValue;
+    fn = fns[which - 4];
+    threads = hpa2::kWideCta;
+    ctas = (int)wide_grid(items);
+  } else if (which == 1) {
     const BucketArgs& x = *static_cast<const BucketArgs*>(args);
     hpa2::BucketPlan pl;
     if (!hpa2::bucket_plan(x, pl, hpa2::kNodeSmem))

@@ -37,6 +37,10 @@
 //                   and the rank's rows of the one stacked SUM and the one
 //                   stacked MAX of the cycle.
 //
+// These four are instantiated at node bounds 8, 21 and 64; a wider
+// system runs the wide family (below: the same stages, its words at run
+// time, N1 the same protocol body).
+//
 // Planes are the rank's block, lane-last [nl, ..., B], int32 or packed
 // narrow, and updated in place.  None of the four needs a cluster or a
 // gate.  Each kernel's CTA holds a tile of lanes and its threads cover
@@ -143,6 +147,22 @@ HPA2_HD size_t blk_at(int row, int cols, int col, int b, int l) {
 // pins), so phase_ab keeps its own body until the register work of
 // ROADMAP queue 2 item 3.
 //
+// The body is generic over its words V, which holds the sharer sets and
+// message words and does every operation on them:
+//   RegWords<MAXN>  (node bounds 8, 21, 64) arrays indexed at compile
+//                   time only, so they stay in registers;
+//   WideWords       (the wide family, any n above 64; int32 planes, split
+//                   mode) SW = ceil(n / 31) and W = 2 + SW are run-time
+//                   values: a sharer set is a row of SW words of the
+//                   pair's scratch in global memory (word j at j * P,
+//                   the launch's pairs P apart, so a warp's accesses to
+//                   a word coalesce) and a message is its two header
+//                   words and a reference to the set its shr{w} fields
+//                   carry (none: zero), so that no word vector has to
+//                   live in registers.
+// A message refers to its set where RegWords copies it: the body changes
+// no set after packing it into a message.
+//
 // NodeIn is what the gather phase staged of one node: its nsw word and
 // window length, the receivers of its deferred slots 0, 1, 3 and 4, its
 // INV slot's words and its mailbox head's words (zero past W).
@@ -151,19 +171,247 @@ HPA2_HD size_t blk_at(int row, int cols, int col, int b, int l) {
 // deferred receivers), its INV receiver set, its nsw word before
 // deliveries, and what the counters take.
 template <int MAXN>
+struct RegWords {
+  static constexpr int KW = Bound<MAXN>::W, KSW = Bound<MAXN>::SW;
+  static constexpr bool SPLIT = Bound<MAXN>::SPLIT;
+  using Set = int32_t[KSW];
+  using Msg = int32_t[KW];
+  using SlotT = Slot<KW>;
+  HPA2_HD void bind(Set&, int) const {}
+  HPA2_HD void sharers(const Args& a, const Msg& w, Set& s) const {
+    msg_sharers<MAXN>(a, w, s);
+  }
+  HPA2_HD int field(const Args& a, const Msg& w, int f) const {
+    return fget<KW>(a, w, f);
+  }
+  HPA2_HD void pack(const Args& a, Msg& w, int type, int addr, int aux,
+                    bool has_aux, int second) const {
+    hpa2::pack<MAXN>(a, w, type, addr, aux, has_aux, second);
+  }
+  HPA2_HD void pack(const Args& a, Msg& w, int type, int addr, int aux,
+                    bool has_aux, int second, const Set& shr) const {
+    hpa2::pack<MAXN>(a, w, type, addr, aux, has_aux, second, shr);
+  }
+  HPA2_HD void put(SlotT& s, int recv, const Msg& w) const {
+    hpa2::put(s, recv, w);
+  }
+  HPA2_HD void clear(SlotT& s) const {
+    s.recv = -1;
+    HPA2_UNROLL for (int w = 0; w < KW; ++w) s.w[w] = 0;
+  }
+  // the home's sharer set of directory row `row` (word dw)
+  HPA2_HD void load_dir(const Args& a, int l, int row, int32_t dw,
+                        int32_t sh_mask, Set& d) const {
+    if (SPLIT) {
+      HPA2_UNROLL for (int w = 0; w < KSW; ++w)
+        d[w] = w < a.SW ? HPA2_AT(a.live.dirs[w], row) : 0;
+    } else {
+      d[0] = (dw >> kDwShShift) & sh_mask;
+    }
+  }
+  HPA2_HD void store_dir(const Args& a, int l, int row, const Set& d) const {
+    HPA2_UNROLL for (int w = 0; w < KSW; ++w)
+      if (w < a.SW) HPA2_AT(a.live.dirs[w], row) = d[w];
+  }
+  HPA2_HD int32_t word0(const Set& s) const { return s[0]; }
+  HPA2_HD int32_t any(const Set& s) const {
+    int32_t v = 0;
+    HPA2_UNROLL for (int w = 0; w < KSW; ++w) v |= s[w];
+    return v;
+  }
+  HPA2_HD int owner(const Set& s) const { return sv_owner<KSW>(s); }
+  HPA2_HD int count(const Set& s) const { return sv_count<KSW>(s); }
+  HPA2_HD bool test(const Set& s, int p) const { return sv_test<KSW>(s, p); }
+  HPA2_HD void bit(Set& s, int p) const { sv_bit<KSW>(s, p); }
+  HPA2_HD void zero(Set& d) const {
+    HPA2_UNROLL for (int w = 0; w < KSW; ++w) d[w] = 0;
+  }
+  HPA2_HD void copy(Set& d, const Set& s) const {
+    HPA2_UNROLL for (int w = 0; w < KSW; ++w) d[w] = s[w];
+  }
+  HPA2_HD void or_in(Set& d, const Set& s) const {
+    HPA2_UNROLL for (int w = 0; w < KSW; ++w) d[w] |= s[w];
+  }
+  // d = x & ~y
+  HPA2_HD void and_not(Set& d, const Set& x, const Set& y) const {
+    HPA2_UNROLL for (int w = 0; w < KSW; ++w) d[w] = x[w] & ~y[w];
+  }
+};
+
+// The wide family's loops over a run-time count of words: ld(j) for each
+// of n words, kWideBatch loads in flight before their stores st(j, v)
+// (a loop that stores between its loads would wait on every load, the
+// compiler not knowing the two apart).  A store of a batch may overwrite
+// a word a later load of the same batch has read already, never one a
+// later batch reads, as long as st(j) writes no word ld(j') reads for
+// j' > j + kWideBatch (the mailbox rotation: st(s) writes slot s, ld(s)
+// reads slot s + 1).
+constexpr int kWideBatch = 16;
+
+template <class Ld, class St>
+HPA2_HD void wide_each(int n, Ld ld, St st) {
+  for (int j0 = 0; j0 < n; j0 += kWideBatch) {
+    int32_t v[kWideBatch];
+    HPA2_UNROLL for (int u = 0; u < kWideBatch; ++u)
+      if (j0 + u < n) v[u] = ld(j0 + u);
+    HPA2_UNROLL for (int u = 0; u < kWideBatch; ++u)
+      if (j0 + u < n) st(j0 + u, v[u]);
+  }
+}
+
+// an OR of ld(j) over n words, kWideBatch loads in flight
+template <class Ld>
+HPA2_HD int32_t wide_or(int n, Ld ld) {
+  int32_t acc = 0;
+  for (int j0 = 0; j0 < n; j0 += kWideBatch)
+    HPA2_UNROLL for (int u = 0; u < kWideBatch; ++u)
+      if (j0 + u < n) acc |= ld(j0 + u);
+  return acc;
+}
+
+// the wide family's scratch rows a pair: its INV slot's and its mailbox
+// head's staged sets, then the body's
+enum { kSetInv = 0, kSetHead, kSetIsh, kSetDsh, kSetNdsh, kSetSv, kSetSnd,
+       kSetSelf, kWideSets };
+
+struct WideWords {
+  static constexpr bool SPLIT = true;
+  struct Set {
+    int32_t* p;
+  };
+  struct Msg {
+    int32_t h[2];                 // header words 0 and 1
+    const int32_t* set;           // its shr{w} words (stride P), or null
+  };
+  struct SlotT {
+    int recv;
+    Msg m;
+  };
+  int SW;
+  size_t P;                       // the scratch's stride: pairs a launch
+  int32_t* base;                  // this pair's scratch word 0
+  int32_t* const* dirs;           // [SW] live sharer planes
+  HPA2_HD void bind(Set& s, int k) const {
+    s.p = base + (size_t)k * SW * P;
+  }
+  // field f of a header (the wide layout keeps every field but shr{w}
+  // in words 0 and 1)
+  HPA2_HD static int hget(const Args& a, const int32_t* h, int f) {
+    return ((a.f_word[f] == 0 ? h[0] : h[1]) >> a.f_off[f]) &
+           (int32_t)((1u << a.f_width[f]) - 1u);
+  }
+  HPA2_HD static void hput(const Args& a, int32_t* h, int f, int32_t v) {
+    if (a.f_word[f] == 0)
+      h[0] |= v << a.f_off[f];
+    else
+      h[1] |= v << a.f_off[f];
+  }
+  HPA2_HD void sharers(const Args&, const Msg& w, Set& s) const {
+    if (w.set == nullptr) {
+      zero(s);
+      return;
+    }
+    wide_each(SW, [&](int j) { return w.set[j * P]; },
+              [&](int j, int32_t v) { s.p[j * P] = v; });
+  }
+  HPA2_HD int field(const Args& a, const Msg& w, int f) const {
+    return hget(a, w.h, f);
+  }
+  HPA2_HD void pack(const Args& a, Msg& w, int type, int addr, int aux,
+                    bool has_aux, int second) const {
+    w.h[0] = w.h[1] = 0;
+    w.set = nullptr;
+    hput(a, w.h, F_TYPE, type);
+    hput(a, w.h, F_ADDR, addr);
+    if (has_aux) hput(a, w.h, F_AUX, aux);
+    if (second >= -1) hput(a, w.h, F_SECOND, second + 1);
+  }
+  HPA2_HD void pack(const Args& a, Msg& w, int type, int addr, int aux,
+                    bool has_aux, int second, const Set& shr) const {
+    pack(a, w, type, addr, aux, has_aux, second);
+    w.set = shr.p;
+  }
+  HPA2_HD void put(SlotT& s, int recv, const Msg& w) const {
+    s.recv = recv;
+    s.m = w;
+  }
+  HPA2_HD void clear(SlotT& s) const {
+    s.recv = -1;
+    s.m.h[0] = s.m.h[1] = 0;
+    s.m.set = nullptr;
+  }
+  HPA2_HD void load_dir(const Args& a, int l, int row, int32_t, int32_t,
+                        Set& d) const {
+    wide_each(SW, [&](int j) { return HPA2_AT(dirs[j], row); },
+              [&](int j, int32_t v) { d.p[j * P] = v; });
+  }
+  HPA2_HD void store_dir(const Args& a, int l, int row, const Set& d) const {
+    wide_each(SW, [&](int j) { return d.p[j * P]; },
+              [&](int j, int32_t v) { HPA2_AT(dirs[j], row) = v; });
+  }
+  HPA2_HD int32_t word0(const Set& s) const { return s.p[0]; }
+  HPA2_HD int32_t any(const Set& s) const {
+    return wide_or(SW, [&](int j) { return s.p[j * P]; });
+  }
+  HPA2_HD int owner(const Set& s) const {
+    for (int j0 = 0; j0 < SW; j0 += kWideBatch) {
+      int32_t v[kWideBatch];
+      HPA2_UNROLL for (int u = 0; u < kWideBatch; ++u)
+        v[u] = j0 + u < SW ? s.p[(j0 + u) * P] : 0;
+      HPA2_UNROLL for (int u = 0; u < kWideBatch; ++u)
+        if (v[u] != 0) return find_owner(v[u]) + (j0 + u) * kSplitBpw;
+    }
+    return -1;
+  }
+  HPA2_HD int count(const Set& s) const {
+    int c = 0;
+    for (int j0 = 0; j0 < SW; j0 += kWideBatch)
+      HPA2_UNROLL for (int u = 0; u < kWideBatch; ++u)
+        if (j0 + u < SW) c += popc(s.p[(j0 + u) * P]);
+    return c;
+  }
+  HPA2_HD bool test(const Set& s, int p) const {
+    if (p < 0 || p >= SW * kSplitBpw) return false;
+    return ((s.p[(size_t)(p / kSplitBpw) * P] >> (p % kSplitBpw)) & 1) == 1;
+  }
+  HPA2_HD void bit(Set& s, int p) const {
+    for (int j = 0; j < SW; ++j) {
+      const int q = p - j * kSplitBpw;
+      s.p[j * P] = q >= 0 && q < kSplitBpw ? (int32_t)(1u << q) : 0;
+    }
+  }
+  HPA2_HD void zero(Set& d) const {
+    for (int j = 0; j < SW; ++j) d.p[j * P] = 0;
+  }
+  HPA2_HD void copy(Set& d, const Set& s) const {
+    if (d.p != s.p)
+      wide_each(SW, [&](int j) { return s.p[j * P]; },
+                [&](int j, int32_t v) { d.p[j * P] = v; });
+  }
+  HPA2_HD void or_in(Set& d, const Set& s) const {
+    wide_each(SW, [&](int j) { return d.p[j * P] | s.p[j * P]; },
+              [&](int j, int32_t v) { d.p[j * P] = v; });
+  }
+  HPA2_HD void and_not(Set& d, const Set& x, const Set& y) const {
+    wide_each(SW, [&](int j) { return x.p[j * P] & ~y.p[j * P]; },
+              [&](int j, int32_t v) { d.p[j * P] = v; });
+  }
+};
+
+template <class V>
 struct NodeIn {
   int32_t nsw;
   int tl;
   int drecv[4];
-  int32_t inv[Bound<MAXN>::W];
-  int32_t head[Bound<MAXN>::W];
+  typename V::Msg inv;
+  typename V::Msg head;
 };
 
-template <int MAXN>
+template <class V>
 struct NodeAB {
-  Slot<Bound<MAXN>::W> sl[4];
+  typename V::SlotT sl[4];
   int drecv[4];
-  int32_t ish[Bound<MAXN>::SW];
+  typename V::Set ish;
   int inv_addr;
   int32_t dv2, nswp;
   bool blocked, has_msg, elig, ev, inv_applied, rh, rm, wh, wm;
@@ -175,15 +423,19 @@ struct NodeAB {
 // and the REPLY_ID fan's own bit compare (a node shard's rows start at
 // its first node's id).  Its cache and directory rows are updated in
 // place; its mailbox, nsw and outbox are not touched (the caller pops
-// the head and writes the rest).
-template <int MAXN, bool PACKED>
-HPA2_HD void node_ab(const Args& a, const int l, const int i, const int gid,
-                     const int seg, const NodeIn<MAXN>& in, NodeAB<MAXN>& o) {
-  constexpr int KW = Bound<MAXN>::W, KSW = Bound<MAXN>::SW;
-  constexpr bool SPLIT = Bound<MAXN>::SPLIT;
+// the head and writes the rest).  WideWords's o.ish is bound by the
+// caller to the pair's kSetIsh row.
+template <class V, bool PACKED>
+HPA2_HD void node_ab(const Args& a, const V& v, const int l, const int i,
+                     const int gid, const int seg, const NodeIn<V>& in,
+                     NodeAB<V>& o) {
+  using Set = typename V::Set;
+  using Msg = typename V::Msg;
+  using SlotT = typename V::SlotT;
+  constexpr bool SPLIT = V::SPLIT;
   const int n = a.n, c = a.c, m = a.m;
   const int32_t sh_mask = (int32_t)((1u << (n < kSplitBpw ? n : kSplitBpw)) - 1u);
-  int32_t tmp[KW];
+  Msg tmp;
 
   const int32_t nswv = in.nsw;
   const int mbc = nswv & a.count_mask;
@@ -193,28 +445,26 @@ HPA2_HD void node_ab(const Args& a, const int l, const int i, const int gid,
   const int tl = in.tl;
   // deferred slots: receivers of 0, 1, 3, 4, and the INV slot's set
   int drecv[4];
-  int32_t ish[KSW];
+  Set ish;
+  v.bind(ish, kSetIsh);
   bool blocked = false;
   int32_t dv2 = 0;
   HPA2_UNROLL for (int q = 0; q < 4; ++q) {
     drecv[q] = in.drecv[q];
     blocked = blocked || drecv[q] != -1;
   }
-  msg_sharers<MAXN>(a, in.inv, ish);
-  HPA2_UNROLL for (int w = 0; w < KSW; ++w) dv2 |= ish[w];
+  v.sharers(a, in.inv, ish);
+  dv2 = v.any(ish);
   dv2 = dv2 != 0;
   blocked = blocked || dv2;
-  int inv_addr = dv2 ? fget<KW>(a, in.inv, F_ADDR) : 0;
+  int inv_addr = dv2 ? v.field(a, in.inv, F_ADDR) : 0;
 
-  Slot<KW> sl[4];  // slots 0, 1, 3, 4
-  HPA2_UNROLL for (int q = 0; q < 4; ++q) {
-    sl[q].recv = -1;
-    HPA2_UNROLL for (int w = 0; w < KW; ++w) sl[q].w[w] = 0;
-  }
-  Slot<KW>& sA0 = sl[0];
-  Slot<KW>& sA1 = sl[1];
-  Slot<KW>& sB0 = sl[2];
-  Slot<KW>& sB1 = sl[3];
+  SlotT sl[4];  // slots 0, 1, 3, 4
+  HPA2_UNROLL for (int q = 0; q < 4; ++q) v.clear(sl[q]);
+  SlotT& sA0 = sl[0];
+  SlotT& sA1 = sl[1];
+  SlotT& sB0 = sl[2];
+  SlotT& sB1 = sl[3];
 
   // ===== phase A: handle the mailbox head ==========================
   // (a blocked node handles nothing; its sends are its deferred ones)
@@ -223,13 +473,13 @@ HPA2_HD void node_ab(const Args& a, const int l, const int i, const int gid,
   bool ev = false, inv_applied = false;
   if (has_msg) {
     // the head sits in slot 0; the caller pops it
-    const int32_t* head = in.head;
-    const int mt = fget<KW>(a, head, F_TYPE);
-    const int snd = fget<KW>(a, head, F_SENDER);
-    const int sr = fget<KW>(a, head, F_SECOND) - 1;
-    const int ad = fget<KW>(a, head, F_ADDR);
-    const int aux = fget<KW>(a, head, F_AUX);
-    const int v = aux & 0xFF;
+    const Msg& head = in.head;
+    const int mt = v.field(a, head, F_TYPE);
+    const int snd = v.field(a, head, F_SENDER);
+    const int sr = v.field(a, head, F_SECOND) - 1;
+    const int ad = v.field(a, head, F_ADDR);
+    const int aux = v.field(a, head, F_AUX);
+    const int val = aux & 0xFF;
 
     const int home = ad / m, blk = ad % m, ci = ad % c;
     const bool is_home = gid == home, is_second = gid == sr;
@@ -241,35 +491,34 @@ HPA2_HD void node_ab(const Args& a, const int l, const int i, const int gid,
     const int mem_blk = dw & 0xFF;
     const int ds = (dw >> kDwStateShift) & 3;
     // the home's sharer set of the block
-    int32_t dsh[KSW];
-    if (SPLIT) {
-      HPA2_UNROLL for (int w = 0; w < KSW; ++w)
-        dsh[w] = w < a.SW ? HPA2_AT(a.live.dirs[w], i * m + blk) : 0;
-    } else {
-      dsh[0] = (dw >> kDwShShift) & sh_mask;
-    }
+    Set dsh;
+    v.bind(dsh, kSetDsh);
+    v.load_dir(a, l, i * m + blk, dw, sh_mask, dsh);
     const bool line_match = line_addr == ad;
     const bool line_me = line_state == ST_M || line_state == ST_E;
-    const int owner = sv_owner<KSW>(dsh);
+    const int owner = v.owner(dsh);
     const bool owner_is_snd = owner == snd;
-    int32_t snd_bit[KSW];
-    sv_bit<KSW>(snd_bit, snd);
+    Set snd_bit;
+    v.bind(snd_bit, kSetSnd);
+    v.bit(snd_bit, snd);
     const bool du = ds == D_U, dss = ds == D_S, dem = ds == D_EM;
 
     int nl_addr = line_addr, nl_val = line_val, nl_state = line_state;
     bool upd_line = false, upd_dir = false, mem_write = false;
     int nd_state = ds;
-    int32_t nd_sh[KSW], sv[KSW];
-    HPA2_UNROLL for (int w = 0; w < KSW; ++w) nd_sh[w] = dsh[w];
+    Set nd_sh, sv;
+    v.bind(nd_sh, kSetNdsh);
+    v.bind(sv, kSetSv);
+    v.copy(nd_sh, dsh);
     int mem_val = mem_blk;
 
     // evict the line (l_addr, l_val, l_state) into slot s
-    auto evict = [&](Slot<KW>& s, int l_addr, int l_val,
+    auto evict = [&](SlotT& s, int l_addr, int l_val,
                      int l_state) -> bool {
       if (l_addr == -1 || l_state == ST_I) return false;
-      pack<MAXN>(a, tmp, l_state == ST_M ? EVICT_MODIFIED : EVICT_SHARED,
-                 l_addr, l_val, true, -2);
-      put(s, l_addr / m, tmp);
+      v.pack(a, tmp, l_state == ST_M ? EVICT_MODIFIED : EVICT_SHARED,
+             l_addr, l_val, true, -2);
+      v.put(s, l_addr / m, tmp);
       return true;
     };
 
@@ -278,66 +527,66 @@ HPA2_HD void node_ab(const Args& a, const int l, const int i, const int gid,
         if (is_home) {
           if (du || dss || (dem && owner_is_snd)) {
             const bool excl = du || (dem && owner_is_snd);
-            pack<MAXN>(a, tmp, REPLY_RD, ad, mem_blk | (excl ? 256 : 0), true, -2);
-            put(sA0, snd, tmp);
+            v.pack(a, tmp, REPLY_RD, ad, mem_blk | (excl ? 256 : 0), true, -2);
+            v.put(sA0, snd, tmp);
           }
           const bool fwd = dem && !owner_is_snd;
           if (fwd) {
-            pack<MAXN>(a, tmp, WRITEBACK_INT, ad, 0, false, snd);
-            put(sA0, owner, tmp);
+            v.pack(a, tmp, WRITEBACK_INT, ad, 0, false, snd);
+            v.put(sA0, owner, tmp);
           }
           if (du || dss || fwd) upd_dir = true;
           if (du) nd_state = D_EM;
           if (fwd) nd_state = D_S;
-          HPA2_UNROLL for (int w = 0; w < KSW; ++w) {
-            if (du) nd_sh[w] = snd_bit[w];
-            if (dss || fwd) nd_sh[w] |= snd_bit[w];
-          }
+          if (du) v.copy(nd_sh, snd_bit);
+          if (dss || fwd) v.or_in(nd_sh, snd_bit);
         }
         break;
       case REPLY_RD:
         if (!line_match) ev = evict(sA0, line_addr, line_val, line_state);
         upd_line = true;
         nl_addr = ad;
-        nl_val = v;
+        nl_val = val;
         nl_state = ((aux >> 8) & 1) ? ST_E : ST_S;
         wt = 0;
         break;
       case WRITEBACK_INT:
         if (line_match && line_me) {
-          pack<MAXN>(a, tmp, FLUSH, ad, line_val, true, sr);
-          put(sA0, home, tmp);
-          if (sr != home) put(sA1, sr, tmp);
+          v.pack(a, tmp, FLUSH, ad, line_val, true, sr);
+          v.put(sA0, home, tmp);
+          if (sr != home) v.put(sA1, sr, tmp);
           upd_line = true;
           nl_state = ST_S;
         } else if (a.nack) {
-          pack<MAXN>(a, tmp, NACK, ad, 0, false, sr);
-          put(sA0, home, tmp);
+          v.pack(a, tmp, NACK, ad, 0, false, sr);
+          v.put(sA0, home, tmp);
         }
         break;
       case FLUSH:
         if (is_home) {
           mem_write = true;
-          mem_val = v;
+          mem_val = val;
         }
         if (is_second) {
           if (!line_match) ev = evict(sA0, line_addr, line_val, line_state);
           upd_line = true;
           nl_addr = ad;
-          nl_val = v;
+          nl_val = val;
           nl_state = ST_S;
           wt = 0;
         }
         break;
       case UPGRADE:
         if (is_home) {
-          HPA2_UNROLL for (int w = 0; w < KSW; ++w)
-            sv[w] = ds == D_S ? (dsh[w] & ~snd_bit[w]) : 0;
-          pack<MAXN>(a, tmp, REPLY_ID, ad, 0, false, -2, sv);
-          put(sA0, snd, tmp);
+          if (ds == D_S)
+            v.and_not(sv, dsh, snd_bit);
+          else
+            v.zero(sv);
+          v.pack(a, tmp, REPLY_ID, ad, 0, false, -2, sv);
+          v.put(sA0, snd, tmp);
           upd_dir = true;
           nd_state = D_EM;
-          HPA2_UNROLL for (int w = 0; w < KSW; ++w) nd_sh[w] = snd_bit[w];
+          v.copy(nd_sh, snd_bit);
         }
         break;
       case REPLY_ID:
@@ -347,11 +596,11 @@ HPA2_HD void node_ab(const Args& a, const int l, const int i, const int gid,
           nl_state = ST_M;
         }
         if (line_match) {
-          int32_t self_bit[KSW];
-          sv_bit<KSW>(self_bit, gid);
-          msg_sharers<MAXN>(a, head, sv);
-          HPA2_UNROLL for (int w = 0; w < KSW; ++w)
-            ish[w] = sv[w] & ~self_bit[w];
+          Set self_bit;
+          v.bind(self_bit, kSetSelf);
+          v.bit(self_bit, gid);
+          v.sharers(a, head, sv);
+          v.and_not(ish, sv, self_bit);
           inv_addr = ad;
         }
         wt = 0;
@@ -367,26 +616,25 @@ HPA2_HD void node_ab(const Args& a, const int l, const int i, const int gid,
         if (is_home) {
           if (a.eager_write) {
             mem_write = true;
-            mem_val = v;
+            mem_val = val;
           }
           if (du || (dem && owner_is_snd)) {
-            pack<MAXN>(a, tmp, REPLY_WR, ad, 0, false, -2);
-            put(sA0, snd, tmp);
+            v.pack(a, tmp, REPLY_WR, ad, 0, false, -2);
+            v.put(sA0, snd, tmp);
           }
           if (dss) {
-            HPA2_UNROLL for (int w = 0; w < KSW; ++w)
-              sv[w] = dsh[w] & ~snd_bit[w];
-            pack<MAXN>(a, tmp, REPLY_ID, ad, 0, false, -2, sv);
-            put(sA0, snd, tmp);
+            v.and_not(sv, dsh, snd_bit);
+            v.pack(a, tmp, REPLY_ID, ad, 0, false, -2, sv);
+            v.put(sA0, snd, tmp);
           }
           const bool wr_fwd = dem && !owner_is_snd;
           if (wr_fwd) {
-            pack<MAXN>(a, tmp, WRITEBACK_INV, ad, 0, false, snd);
-            put(sA0, owner, tmp);
+            v.pack(a, tmp, WRITEBACK_INV, ad, 0, false, snd);
+            v.put(sA0, owner, tmp);
           }
           if (du || dss || wr_fwd) {
             upd_dir = true;
-            HPA2_UNROLL for (int w = 0; w < KSW; ++w) nd_sh[w] = snd_bit[w];
+            v.copy(nd_sh, snd_bit);
           }
           if (du || dss) nd_state = D_EM;
         }
@@ -400,43 +648,43 @@ HPA2_HD void node_ab(const Args& a, const int l, const int i, const int gid,
         break;
       case WRITEBACK_INV:
         if (line_match && line_me) {
-          pack<MAXN>(a, tmp, FLUSH_INVACK, ad, line_val, true, sr);
-          put(sA0, home, tmp);
-          if (sr != home) put(sA1, sr, tmp);
+          v.pack(a, tmp, FLUSH_INVACK, ad, line_val, true, sr);
+          v.put(sA0, home, tmp);
+          if (sr != home) v.put(sA1, sr, tmp);
           upd_line = true;
           nl_state = ST_I;
         } else if (a.nack) {
-          pack<MAXN>(a, tmp, NACK, ad, 1, true, sr);
-          put(sA0, home, tmp);
+          v.pack(a, tmp, NACK, ad, 1, true, sr);
+          v.put(sA0, home, tmp);
         }
         break;
       case FLUSH_INVACK:
         if (is_home) {
           mem_write = true;
-          mem_val = v;
+          mem_val = val;
           upd_dir = true;
           nd_state = D_EM;
-          sv_bit<KSW>(nd_sh, sr);
+          v.bit(nd_sh, sr);
         }
         if (is_second) {
           upd_line = true;
           nl_addr = ad;
-          nl_val = a.flush_old_fill ? v : pw;
+          nl_val = a.flush_old_fill ? val : pw;
           nl_state = ST_M;
           wt = 0;
         }
         break;
       case EVICT_SHARED:
-        if (is_home && sv_test<KSW>(dsh, snd)) {
-          HPA2_UNROLL for (int w = 0; w < KSW; ++w) sv[w] = dsh[w] & ~snd_bit[w];
-          const int cnt = sv_count<KSW>(sv);
+        if (is_home && v.test(dsh, snd)) {
+          v.and_not(sv, dsh, snd_bit);
+          const int cnt = v.count(sv);
           upd_dir = true;
-          HPA2_UNROLL for (int w = 0; w < KSW; ++w) nd_sh[w] = sv[w];
+          v.copy(nd_sh, sv);
           if (cnt == 0) nd_state = D_U;
           if (cnt == 1 && ds == D_S) {
             nd_state = D_EM;
-            pack<MAXN>(a, tmp, UPGRADE_NOTIFY, ad, 0, false, -2);
-            put(sA0, sv_owner<KSW>(sv), tmp);
+            v.pack(a, tmp, UPGRADE_NOTIFY, ad, 0, false, -2);
+            v.put(sA0, v.owner(sv), tmp);
           }
         }
         break;
@@ -449,28 +697,28 @@ HPA2_HD void node_ab(const Args& a, const int l, const int i, const int gid,
       case EVICT_MODIFIED:
         if (is_home) {
           mem_write = true;
-          mem_val = v;
-          if (ds == D_EM && sv_test<KSW>(dsh, snd)) {
+          mem_val = val;
+          if (ds == D_EM && v.test(dsh, snd)) {
             upd_dir = true;
             nd_state = D_U;
-            HPA2_UNROLL for (int w = 0; w < KSW; ++w) nd_sh[w] = 0;
+            v.zero(nd_sh);
           }
         }
         break;
       case NACK:
         if (a.nack && is_home) {
           upd_dir = true;
-          sv_bit<KSW>(sv, sr);
+          v.bit(sv, sr);
           if (aux == 0) {
             nd_state = D_S;
-            HPA2_UNROLL for (int w = 0; w < KSW; ++w) nd_sh[w] |= sv[w];
-            pack<MAXN>(a, tmp, REPLY_RD, ad, mem_blk, true, -2);
+            v.or_in(nd_sh, sv);
+            v.pack(a, tmp, REPLY_RD, ad, mem_blk, true, -2);
           } else {
             nd_state = D_EM;
-            HPA2_UNROLL for (int w = 0; w < KSW; ++w) nd_sh[w] = sv[w];
-            pack<MAXN>(a, tmp, REPLY_WR, ad, 0, false, -2);
+            v.copy(nd_sh, sv);
+            v.pack(a, tmp, REPLY_WR, ad, 0, false, -2);
           }
-          put(sA0, sr, tmp);
+          v.put(sA0, sr, tmp);
         }
         break;
       default:
@@ -484,12 +732,10 @@ HPA2_HD void node_ab(const Args& a, const int l, const int i, const int gid,
       const int new_mem = mem_write ? mem_val : mem_blk;
       const int new_ds = upd_dir ? nd_state : ds;
       int32_t dwv = new_mem | (new_ds << kDwStateShift);
-      if (!SPLIT) dwv |= (upd_dir ? nd_sh[0] : dsh[0]) << kDwShShift;
+      if (!SPLIT) dwv |= (upd_dir ? v.word0(nd_sh) : v.word0(dsh)) << kDwShShift;
       dw_st<PACKED>(a, a.live, l, i * m + blk, dwv);
     }
-    if (SPLIT && upd_dir)
-      HPA2_UNROLL for (int w = 0; w < KSW; ++w)
-        if (w < a.SW) HPA2_AT(a.live.dirs[w], i * m + blk) = nd_sh[w];
+    if (SPLIT && upd_dir) v.store_dir(a, l, i * m + blk, nd_sh);
   }
   const int count2 = mbc - (has_msg ? 1 : 0);
 
@@ -511,24 +757,24 @@ HPA2_HD void node_ab(const Args& a, const int l, const int i, const int gid,
     const bool is_rd = op == 0, is_wr = op == 1;
     const bool rm = is_rd && !hit, wm = is_wr && !hit;
     if ((rm || wm) && l2_addr != -1 && l2_state != ST_I) {  // evict
-      pack<MAXN>(a, tmp, l2_state == ST_M ? EVICT_MODIFIED : EVICT_SHARED,
-                 l2_addr, l2_val, true, -2);
-      put(sB0, l2_addr / m, tmp);
+      v.pack(a, tmp, l2_state == ST_M ? EVICT_MODIFIED : EVICT_SHARED,
+             l2_addr, l2_val, true, -2);
+      v.put(sB0, l2_addr / m, tmp);
       ev_issue = true;
     }
     if (rm) {
-      pack<MAXN>(a, tmp, READ_REQUEST, ia, 0, false, -2);
-      put(sB1, home2, tmp);
+      v.pack(a, tmp, READ_REQUEST, ia, 0, false, -2);
+      v.put(sB1, home2, tmp);
     }
     if (wm) {
-      pack<MAXN>(a, tmp, WRITE_REQUEST, ia, iv, true, -2);
-      put(sB1, home2, tmp);
+      v.pack(a, tmp, WRITE_REQUEST, ia, iv, true, -2);
+      v.put(sB1, home2, tmp);
     }
     const bool wh_me = is_wr && hit && (l2_state == ST_M || l2_state == ST_E);
     const bool wh_s = is_wr && hit && l2_state == ST_S;
     if (wh_s) {
-      pack<MAXN>(a, tmp, UPGRADE, ia, 0, false, -2);
-      put(sB1, home2, tmp);
+      v.pack(a, tmp, UPGRADE, ia, 0, false, -2);
+      v.put(sB1, home2, tmp);
     }
     if (is_wr) pending = iv;
     if (rm || wm || wh_s) wt = 1;
@@ -557,7 +803,7 @@ HPA2_HD void node_ab(const Args& a, const int l, const int i, const int gid,
     o.drecv[q] = drecv[q];
     o.sl[q] = sl[q];
   }
-  HPA2_UNROLL for (int w = 0; w < KSW; ++w) o.ish[w] = ish[w];
+  v.copy(o.ish, ish);
 }
 
 // ===== N1 and N4: a CTA a tile of lanes ================================
@@ -832,7 +1078,8 @@ HPA2_HD void n1_phase(const NodeArgs& x, const NodePlan& pl, int ph,
       }
     const int snd_word = a.f_word[F_SENDER], snd_off = a.f_off[F_SENDER];
     const int gid = x.me * nl + i;
-    NodeIn<MAXN> in;
+    using V = RegWords<MAXN>;
+    NodeIn<V> in;
     in.nsw = at(Tl::NSW);
     in.tl = at(Tl::TL);
     HPA2_UNROLL for (int q = 0; q < 4; ++q) in.drecv[q] = at(Tl::RECV + q);
@@ -840,8 +1087,8 @@ HPA2_HD void n1_phase(const NodeArgs& x, const NodePlan& pl, int ph,
       in.inv[w] = at(Tl::INV + w);
       in.head[w] = at(Tl::HEAD + w);
     }
-    NodeAB<MAXN> o;
-    node_ab<MAXN, PACKED>(a, l, i, gid, a.seg, in, o);
+    NodeAB<V> o;
+    node_ab<V, PACKED>(a, V{}, l, i, gid, a.seg, in, o);
     HPA2_AT(a.nsw, i) = o.nswp;
     // the candidates of slots 0, 1, 3, 4: a blocked node's deferred
     // words (in its outbox), else its fresh sends; the sender set
@@ -1572,6 +1819,617 @@ HPA2_HD void n4_phase(const NodeArgs& x, const NodePlan& pl, int ph,
     else
       x.gmax[(size_t)(row - kSumRows) * a.b + l] = v;
   }
+}
+
+// ===== the wide family: N1-N4 above kMaxNodes nodes ====================
+// Systems wider than the widest register instantiation (the node axis
+// exists for them: 4,096 nodes over four ranks is SW = 133 sharer words
+// and W = 135 message words).  Split mode and int32 planes always
+// (packed planes hold at most 14 nodes).  W and SW are run-time values;
+// the word planes are reached through pointer tables in device memory
+// (WideArgs: mb, ob, dirs), so Args and the register kernels' argument
+// blocks keep their size.  Each kernel is a grid over the launch's work
+// items, one thread an item, the lane fastest (so a warp's accesses to a
+// plane row coalesce at any lane count), and no item reads what another
+// item of the same launch writes: the sums that cross items are integer
+// atomics into zeroed rows of global memory, and a step that needs every
+// item's result is a launch of its own.
+//   N1 node_ab_wide     two launches: an item a (node row, lane) pair:
+//                       the gather of its nsw, window length, deferred
+//                       receivers and staged INV and head sets (scratch
+//                       rows kSetInv, kSetHead), node_ab<WideWords> (the
+//                       one protocol body), and its stores: nsw, the
+//                       payload's R rows of its five candidates, the
+//                       outbox, whether it popped its head (the scratch's
+//                       last row); its counters added to cnt; then
+//                       rotate, an item a (word plane, pair): the popped
+//                       mailboxes rotated in place, a plane's slots in
+//                       flight together;
+//   N2 node_bucket_wide three launches: flags (an item a (destination,
+//                       entry, lane): the hit test over the destination's
+//                       nonzero mask words only, the multicast savings,
+//                       hier's keys, a key counted distinct by the item
+//                       whose OR set its bit), scan (an item a
+//                       (destination, lane): its flag words' exclusive
+//                       prefix and total), scatter (an item an (entry,
+//                       lane), a (destination, slot, lane) past the hits,
+//                       or a lane's telemetry fold);
+//   N3 node_deliver_wide two launches: sets (an item an (entry, lane):
+//                       its local receivers' flag bits, a point receiver
+//                       and its fan mask's words of this rank's nodes,
+//                       and in a receiver's summary words the bit of each
+//                       flag word it set), take (an item a (receiver,
+//                       lane): its A then B flag words that are not zero,
+//                       found from its summary words, in the global order
+//                       while its queue has room, each taken entry's words
+//                       into the mailbox and its feedback count and bit
+//                       added);
+//   N4 node_settle_wide two launches: settle (an item a (node row, lane):
+//                       delivered slots cleared, the rest and the INV
+//                       remainder kept, phase D, its sums added) and lane
+//                       (an item a (row, lane) of the stacked SUM and
+//                       MAX).
+// threads a CTA of the wide kernels: 64, so that the 8,192 (node row,
+// lane) items of a 4,096-node rank of 8 lanes are 128 CTAs, one an SM
+constexpr int kWideCta = 64;
+
+// What the wide family's N1, N3 and N4 take besides NodeArgs (whose
+// x.a's word-plane arrays hold the first planes only).  Mirrored by
+// ops/node_cycle.py:WideArgs.
+struct WideArgs {
+  NodeArgs x;
+  int32_t* const* mb;            // [W] mailbox word planes
+  int32_t* const* ob;            // [W] outbox word planes
+  int32_t* const* dirs;          // [SW] live sharer planes
+  int32_t* const* sdirs;         // [SW] snapshot sharer planes (snapshots)
+  int32_t* work;                 // N1: [kWideSets * SW + 1, nl * B] scratch
+  uint32_t* red;                 // N4: [kSettleRed, B] sums, zeroed
+  uint32_t* wa;                  // N3: [nch + nsup, nl, B] phase-A flags
+  uint32_t* wb;                  //     and phase-B flags, zeroed
+};
+
+// What the wide N2 takes besides BucketArgs (whose dmask is unused).
+// Mirrored by ops/node_cycle.py:WideBucketArgs.
+struct WideBucketArgs {
+  BucketArgs x;
+  const int32_t* dmask;          // [ndest, SW] a destination's node mask
+  int32_t dwlo[kMaxShards];      // its first and last nonzero mask words
+  int32_t dwhi[kMaxShards];
+  uint32_t* bits;                // [nw, B] hit flags, zeroed
+  uint32_t* base;                // [nw, B] hits before the word
+  uint32_t* tot;                 // [ndest, B] hits
+  uint32_t* lane;                // [3, B] multicast savings, shipped
+                                 // combinable entries, distinct keys; zeroed
+  uint32_t* keys;                // [nkw, B] key bitmap, zeroed
+};
+
+// *p |= v; true when no bit of v was set before (one caller a bit)
+HPA2_HD bool or_was_clear(uint32_t* p, uint32_t v) {
+#ifdef __CUDA_ARCH__
+  return (atomicOr(reinterpret_cast<unsigned int*>(p), v) & v) == 0;
+#else
+  const uint32_t old = *p;
+  *p |= v;
+  return (old & v) == 0;
+#endif
+}
+
+// the wide family takes the launch: a geometry node_geometry_ok takes,
+// more than kMaxNodes nodes in int32 planes, and the split layout it is
+// written for (every field but shr{w} in words 0 and 1, shr{j} all of
+// word 2 + j)
+HPA2_HD bool wide_ok(const NodeArgs& x) {
+  const Args& a = x.a;
+  if (!node_geometry_ok(x) || a.n <= kMaxNodes || a.packed || a.cap < 1 ||
+      a.SW != (a.n + kSplitBpw - 1) / kSplitBpw || a.W != 2 + a.SW)
+    return false;
+  for (int f = 0; f < F_SHR0; ++f)
+    if (a.f_word[f] < 0 || a.f_word[f] > 1) return false;
+  return a.f_word[F_SHR0] == 2 && a.f_off[F_SHR0] == 0 &&
+         a.f_width[F_SHR0] == kSplitBpw;
+}
+
+// ===== N1 wide: an item a (node row, lane) pair ========================
+HPA2_HD void w1_item(const WideArgs& y, size_t item) {
+  const NodeArgs& x = y.x;
+  const Args& a = x.a;
+  const int nl = x.nl, W = a.W, SW = a.SW, cap = a.cap;
+  const size_t P = (size_t)nl * a.b;
+  if (item >= P) return;
+  const int i = (int)(item / a.b), l = (int)(item % a.b);
+  const int gid = x.me * nl + i;
+  using V = WideWords;
+  const V v{SW, P, y.work + item, y.dirs};
+  // the gather: the INV slot's and the mailbox head's header words, and
+  // their sharer words staged in the scratch
+  NodeIn<V> in;
+  const int32_t nswv = HPA2_AT(a.nsw, i);
+  in.nsw = nswv;
+  in.tl = window_len(a, l, i, a.seg);
+  HPA2_UNROLL for (int q = 0; q < 4; ++q)
+    in.drecv[q] = deferred_recv(a, l, i, one_slot(q));
+  V::Set sinv, shead;
+  v.bind(sinv, kSetInv);
+  v.bind(shead, kSetHead);
+  const int row2 = i * kNSlots + 2;
+  in.inv.h[0] = HPA2_AT(y.ob[0], row2);
+  in.inv.h[1] = HPA2_AT(y.ob[1], row2);
+  wide_each(SW, [&](int j) { return HPA2_AT(y.ob[2 + j], row2); },
+            [&](int j, int32_t v) { sinv.p[j * P] = v; });
+  in.inv.set = sinv.p;
+  const bool mail = (nswv & a.count_mask) != 0;
+  in.head.h[0] = mail ? HPA2_AT(y.mb[0], i * cap) : 0;
+  in.head.h[1] = mail ? HPA2_AT(y.mb[1], i * cap) : 0;
+  if (mail)
+    wide_each(SW, [&](int j) { return HPA2_AT(y.mb[2 + j], i * cap); },
+              [&](int j, int32_t v) { shead.p[j * P] = v; });
+  in.head.set = mail ? shead.p : nullptr;
+  NodeAB<V> o;
+  v.bind(o.ish, kSetIsh);
+  node_ab<V, false>(a, v, l, i, gid, a.seg, in, o);
+  HPA2_AT(a.nsw, i) = o.nswp;
+
+  // the payload's R rows of the five candidates: a blocked node's
+  // deferred words (in its outbox), else its fresh sends, with the
+  // sender field; the INV word offered (its sharer fields clear) with
+  // its set in the mask rows
+  const int snd_off = a.f_off[F_SENDER];
+  const int32_t inv_any = v.any(o.ish);
+  V::Msg winv;
+  v.pack(a, winv, INV, o.inv_addr, 0, false, -2);
+  V::hput(a, winv.h, F_SENDER, gid);
+  const int R = W + SW + 3;
+  const size_t rs = (size_t)5 * nl * a.b;  // a payload row
+  int recv[5];
+  HPA2_UNROLL for (int k = 0; k < 5; ++k) {
+    int32_t* pc = x.payload + (size_t)cand_col(nl, i, k) * a.b + l;
+    if (k == 2) {
+      pc[0] = winv.h[0];
+      pc[rs] = winv.h[1];
+      for (int j = 0; j < SW; ++j) pc[(2 + j) * rs] = 0;
+      wide_each(SW, [&](int j) { return o.ish.p[j * P]; },
+                [&](int j, int32_t v) { pc[(W + j) * rs] = v; });
+      pc[(W + SW) * rs] = 0;
+      pc[(W + SW + 1) * rs] = 1;
+      pc[(R - 1) * rs] = 0;
+      continue;
+    }
+    const int q = k < 2 ? k : k - 1, slot = one_slot(q);
+    const V::SlotT& sq = o.sl[q];
+    const int r = o.blocked ? o.drecv[q] : sq.recv;
+    recv[k] = r;
+    auto word = [&](int j) -> int32_t {
+      const int32_t w =
+          o.blocked ? HPA2_AT(y.ob[j], i * kNSlots + slot)
+          : j < 2   ? (j == 0 ? sq.m.h[0] : sq.m.h[1])
+          : sq.m.set != nullptr ? sq.m.set[(j - 2) * P] : 0;
+      return j == a.f_word[F_SENDER] ? w | gid << snd_off : w;
+    };
+    const int32_t h[2] = {word(0), word(1)};
+    wide_each(W, word, [&](int j, int32_t w) { pc[j * rs] = w; });
+    for (int j = 0; j < SW; ++j) pc[(W + j) * rs] = 0;
+    pc[(W + SW) * rs] = r + 1;
+    pc[(W + SW + 1) * rs] = k < 3;
+    pc[(R - 1) * rs] = r >= 0 && V::hget(a, h, F_TYPE) == READ_REQUEST
+                           ? V::hget(a, h, F_ADDR) + 1 : 0;
+  }
+  // the mailbox is rotated by w1_rotate
+  y.work[(size_t)kWideSets * SW * P + item] = o.has_msg;
+  // the outbox: every node's INV slot with its receiver set, a free
+  // node's sends with the recv field (or ob_recv)
+  wide_each(W,
+            [&](int j) -> int32_t {
+              return !inv_any ? 0
+                     : j < 2  ? (j == 0 ? winv.h[0] : winv.h[1])
+                              : o.ish.p[(j - 2) * P];
+            },
+            [&](int j, int32_t v) { HPA2_AT(y.ob[j], row2) = v; });
+  const int recv_w = a.f_word[F_RECV], recv_off = a.f_off[F_RECV];
+  HPA2_UNROLL for (int k = 0; k < 5; ++k) {
+    if (k == 2) continue;
+    const int q = k < 2 ? k : k - 1, r = recv[k];
+    if (o.blocked || r < 0) continue;
+    const V::SlotT& sq = o.sl[q];
+    const int row = i * kNSlots + k;
+    wide_each(W,
+              [&](int j) -> int32_t {
+                int32_t w = j < 2 ? (j == 0 ? sq.m.h[0] : sq.m.h[1])
+                            : sq.m.set != nullptr ? sq.m.set[(j - 2) * P] : 0;
+                if (j == a.f_word[F_SENDER]) w |= gid << snd_off;
+                if (a.recv_packed && j == recv_w) w |= (r + 1) << recv_off;
+                return w;
+              },
+              [&](int j, int32_t w) { HPA2_AT(y.ob[j], row) = w; });
+    if (!a.recv_packed) HPA2_AT(a.ob_recv, row) = r;
+  }
+  const bool inc[kABCount] = {o.elig, o.rh, o.rm, o.wh, o.wm, o.ev,
+                              o.inv_applied};
+  HPA2_UNROLL for (int j = 0; j < kABCount; ++j)
+    if (inc[j])
+      sh_add(reinterpret_cast<uint32_t*>(&x.cnt[(size_t)j * a.b + l]), 1);
+}
+
+// N1's launch 2, an item a (word plane w, pair): items W * nl * B.  A
+// pair that popped its head rotates mailbox plane w in place (every cap
+// slot moves, stale ones too, so the planes stay the JAX package's).
+HPA2_HD void w1_rotate(const WideArgs& y, size_t item) {
+  const NodeArgs& x = y.x;
+  const Args& a = x.a;
+  const size_t P = (size_t)x.nl * a.b;
+  if (item >= P * a.W) return;
+  const size_t p = item % P;
+  if (!y.work[(size_t)kWideSets * a.SW * P + p]) return;
+  const int w = (int)(item / P), i = (int)(p / a.b), l = (int)(p % a.b);
+  const int cap = a.cap;
+  int32_t* q = y.mb[w] + (size_t)i * cap * a.b + l;
+  const int32_t head = q[0];
+  wide_each(cap - 1, [&](int s) { return q[(size_t)(s + 1) * a.b]; },
+            [&](int s, int32_t v) { q[(size_t)s * a.b] = v; });
+  q[(size_t)(cap - 1) * a.b] = head;
+}
+
+// ===== N2 wide =========================================================
+// the plan of a launch: each destination's flag words (woff, nw) and the
+// key bitmap's words (nkw); false when the kernels do not take it
+HPA2_HD bool wide_bucket_plan(const WideBucketArgs& y, BucketPlan& pl) {
+  const BucketArgs& x = y.x;
+  if (x.ndest < 1 || x.ndest > kMaxShards || x.b < 1 || x.k < 1 ||
+      x.SW < 1 || x.nl < 1 || x.nkeys < 0 || x.W != 2 + x.SW)
+    return false;
+  int w = 0;
+  for (int p = 0; p < x.ndest; ++p) {
+    if (x.dblk[p] < 0 || x.dblk[p] >= kMaxShards || y.dwlo[p] < 0 ||
+        y.dwhi[p] >= x.SW)
+      return false;
+    pl.woff[p] = w;
+    w += (x.blen[x.dblk[p]] + 31) / 32;
+  }
+  pl.woff[x.ndest] = w;
+  pl.nw = w;
+  pl.nkw = x.combine ? (x.nkeys + 31) / 32 : 0;
+  pl.G = 1;
+  pl.smem = 0;
+  return true;
+}
+
+// launch 1, an item a (flag-word entry e, lane): items nw * 32 * B
+HPA2_HD void w2_flags(const WideBucketArgs& y, const BucketPlan& pl,
+                      size_t item) {
+  const BucketArgs& x = y.x;
+  const int l = (int)(item % x.b);
+  const int e = (int)(item / x.b);
+  if (e >= pl.nw * 32) return;
+  const int p = bucket_dest_of(x, pl, e >> 5);
+  const int j = e - pl.woff[p] * 32, J = x.blen[x.dblk[p]];
+  if (j >= J) return;
+  const int32_t* __restrict__ blk = x.blk[x.dblk[p]];
+  const int32_t* dm = y.dmask + (size_t)p * x.SW;
+  const int q = blk[blk_at(x.W + x.SW, J, j, x.b, l)] - 1;
+  bool hit = q >= 0 && q < x.n && ((x.dset[p] >> (q / x.nl)) & 1);
+  int pop = 0;
+  for (int w = y.dwlo[p]; w <= y.dwhi[p]; ++w) {
+    const int32_t mw = blk[blk_at(x.W + w, J, j, x.b, l)] & dm[w];
+    hit = hit || mw != 0;
+    pop += popc(mw);
+  }
+  if (!hit) return;
+  sh_or(reinterpret_cast<int32_t*>(&y.bits[(size_t)(e >> 5) * x.b + l]),
+        (int32_t)(1u << (e & 31)));
+  const int flags = x.dflags[p];
+  if ((flags & kDestStat) && pop > 1) sh_add(&y.lane[l], (uint32_t)(pop - 1));
+  if (x.combine && (flags & kDestCompact)) {
+    const int key = blk[blk_at(x.W + x.SW + 2, J, j, x.b, l)];
+    if (key >= 1 && key <= x.nkeys) {
+      sh_add(&y.lane[x.b + l], 1);
+      if (or_was_clear(&y.keys[(size_t)((key - 1) >> 5) * x.b + l],
+                       1u << ((key - 1) & 31)))
+        sh_add(&y.lane[2 * x.b + l], 1);
+    }
+  }
+}
+
+// launch 2, an item a (destination, lane): items ndest * B
+HPA2_HD void w2_scan(const WideBucketArgs& y, const BucketPlan& pl,
+                     size_t item) {
+  const BucketArgs& x = y.x;
+  const int l = (int)(item % x.b), p = (int)(item / x.b);
+  if (p >= x.ndest) return;
+  uint32_t run = 0;
+  for (int w = pl.woff[p]; w < pl.woff[p + 1]; ++w) {
+    const size_t at = (size_t)w * x.b + l;
+    y.base[at] = run;
+    run += (uint32_t)popc((int32_t)y.bits[at]);
+  }
+  y.tot[(size_t)p * x.b + l] = run;
+}
+
+// launch 3, an item an (entry, lane) (nw * 32 * B), then a (destination,
+// slot, lane) (ndest * k * B), then a lane (B)
+HPA2_HD size_t w2_scatter_items(const BucketArgs& x, const BucketPlan& pl) {
+  return ((size_t)pl.nw * 32 + (size_t)x.ndest * x.k + 1) * x.b;
+}
+
+HPA2_HD void w2_scatter(const WideBucketArgs& y, const BucketPlan& pl,
+                        size_t item) {
+  const BucketArgs& x = y.x;
+  const int k = x.k, R = x.W + x.SW + 3;
+  const size_t n_ent = (size_t)pl.nw * 32 * x.b;
+  const size_t n_tail = (size_t)x.ndest * k * x.b;
+  if (item < n_ent) {
+    const int l = (int)(item % x.b), e = (int)(item / x.b);
+    const int p = bucket_dest_of(x, pl, e >> 5);
+    const int j = e - pl.woff[p] * 32, J = x.blen[x.dblk[p]];
+    if (j >= J || !(x.dflags[p] & kDestCompact)) return;
+    const int bit = e & 31;
+    const size_t at = (size_t)(e >> 5) * x.b + l;
+    const uint32_t word = y.bits[at];
+    int64_t slot = k;
+    if ((word >> bit) & 1) {
+      const int pos = (int)y.base[at] + popc((int32_t)(word & ((1u << bit) - 1u)));
+      if (pos < k) {
+        const int32_t* __restrict__ blk = x.blk[x.dblk[p]];
+        int32_t* __restrict__ buf = x.buf[p];
+        for (int r = 0; r < R; ++r)
+          buf[blk_at(r, k, pos, x.b, l)] = blk[blk_at(r, J, j, x.b, l)];
+        slot = pos;
+      }
+    }
+    x.sel[p][(size_t)j * x.b + l] = slot;
+    return;
+  }
+  item -= n_ent;
+  if (item < n_tail) {
+    const int l = (int)(item % x.b);
+    const int slot = (int)((item / x.b) % k), p = (int)(item / ((size_t)x.b * k));
+    if (!(x.dflags[p] & kDestCompact) ||
+        slot < (int)y.tot[(size_t)p * x.b + l])
+      return;
+    int32_t* __restrict__ buf = x.buf[p];
+    for (int r = 0; r < R; ++r) buf[blk_at(r, k, slot, x.b, l)] = 0;
+    return;
+  }
+  item -= n_tail;
+  if (item >= (size_t)x.b) return;
+  // the lane's telemetry folded into fs once
+  const int l = (int)item;
+  int32_t* fs = x.fs;
+  auto at = [&](int row) -> int32_t& { return fs[(size_t)row * x.b + l]; };
+  int32_t sent = at(FS_SENT), hwm = at(FS_HWM), ovf = at(FS_OVF),
+          diag = at(FS_DIAG);
+  for (int p = 0; p < x.ndest; ++p) {
+    const int32_t t = (int32_t)y.tot[(size_t)p * x.b + l];
+    const int flags = x.dflags[p];
+    if ((flags & kDestCompact) && k < x.blen[x.dblk[p]]) {
+      hwm = t > hwm ? t : hwm;
+      if (t > k) {
+        ovf += t - k;
+        const int32_t word = (int32_t)(
+            ((uint32_t)(t < 0xFFFF ? t : 0xFFFF) << 16) |
+            ((uint32_t)(x.me & 255) << 8) | (uint32_t)(x.ddst[p] & 255));
+        diag = word > diag ? word : diag;
+      }
+    }
+    if (flags & kDestStat) {
+      sent += t;
+      hwm = t > hwm ? t : hwm;
+    }
+  }
+  at(FS_SENT) = sent;
+  at(FS_HWM) = hwm;
+  at(FS_OVF) = ovf;
+  at(FS_DIAG) = diag;
+  at(FS_MC) += (int32_t)y.lane[l];
+  if (x.combine)
+    at(FS_COMB) += (int32_t)(y.lane[x.b + l] - y.lane[2 * x.b + l]);
+}
+
+// ===== N3 wide =========================================================
+// the plan of a launch that wide_ok took: the entries (J, each block's
+// first, boff) and the flag words a receiver a phase (nch); after them a
+// phase's (nch + 31) / 32 summary words a receiver, bit u of summary
+// word s set when flag word 32 s + u is not zero
+HPA2_HD bool wide_deliver_plan(const NodeArgs& x, DeliverPlan& pl) {
+  int J = 0;
+  for (int b = 0; b < x.nblk; ++b) {
+    pl.boff[b] = J;
+    J += x.blen[b];
+  }
+  pl.boff[x.nblk] = J;
+  pl.J = J;
+  pl.nch = (J + 31) / 32;
+  pl.G = 1;
+  pl.smem = 0;
+  return J >= 1;
+}
+
+// launch 1, an item an (entry, lane): items J * B
+HPA2_HD void w3_sets(const WideArgs& y, const DeliverPlan& pl, size_t item) {
+  const NodeArgs& x = y.x;
+  const Args& a = x.a;
+  const int nl = x.nl, W = a.W, SW = a.SW;
+  const int l = (int)(item % a.b), e = (int)(item / a.b);
+  if (e >= pl.J) return;
+  const int lo = x.me * nl;
+  const int b = deliver_block_of(x, pl, e);
+  const int j = e - pl.boff[b], J = x.blen[b];
+  const int32_t* __restrict__ blk = x.blk[b];
+  uint32_t* flag = blk[blk_at(W + SW + 1, J, j, a.b, l)] != 0 ? y.wa : y.wb;
+  const int c = e >> 5, sup = pl.nch + (c >> 5);
+  const int32_t bit = (int32_t)(1u << (e & 31));
+  auto mark = [&](int i) {
+    sh_or(reinterpret_cast<int32_t*>(&flag[((size_t)c * nl + i) * a.b + l]),
+          bit);
+    sh_or(reinterpret_cast<int32_t*>(&flag[((size_t)sup * nl + i) * a.b + l]),
+          (int32_t)(1u << (c & 31)));
+  };
+  const int q = blk[blk_at(W + SW, J, j, a.b, l)] - 1 - lo;
+  if (q >= 0 && q < nl) mark(q);
+  const int w_hi = (lo + nl - 1) / kSplitBpw;
+  for (int w = lo / kSplitBpw; w <= w_hi && w < SW; ++w) {
+    int32_t m = blk[blk_at(W + w, J, j, a.b, l)] & 0x7FFFFFFF;
+    while (m) {
+      const int i = w * kSplitBpw + find_owner(m) - lo;
+      m &= m - 1;
+      if (i >= 0 && i < nl) mark(i);
+    }
+  }
+}
+
+// launch 2, an item a (receiver, lane): items nl * B
+HPA2_HD void w3_take(const WideArgs& y, const DeliverPlan& pl, size_t item) {
+  const NodeArgs& x = y.x;
+  const Args& a = x.a;
+  const int nl = x.nl, W = a.W, cap = a.cap;
+  const int l = (int)(item % a.b), i = (int)(item / a.b);
+  if (i >= nl) return;
+  const int gid = x.me * nl + i;
+  const int32_t nswv = HPA2_AT(a.nsw, i);
+  const int count2 = nswv & a.count_mask, room = cap - count2;
+  int rank = 0;
+  auto take = [&](int e) {
+    const int b = deliver_block_of(x, pl, e);
+    const int j = e - pl.boff[b], J = x.blen[b];
+    const int32_t* __restrict__ blk = x.blk[b];
+    const int slot = count2 + rank;
+    wide_each(W, [&](int w) { return blk[blk_at(w, J, j, a.b, l)]; },
+              [&](int w, int32_t v) { HPA2_AT(y.mb[w], i * cap + slot) = v; });
+    int32_t* fb = x.fb[b];
+    sh_add(reinterpret_cast<uint32_t*>(&fb[blk_at(0, J, j, a.b, l)]), 1);
+    sh_or(&fb[blk_at(1 + gid / kSplitBpw, J, j, a.b, l)],
+          (int32_t)(1u << (gid % kSplitBpw)));
+    ++rank;
+  };
+  // the summary words kWideBatch at a time, their loads in flight
+  // together; then only the flag words they mark
+  const int nsup = (pl.nch + 31) / 32;
+  for (int ph = 0; ph < 2 && rank < room; ++ph) {
+    const uint32_t* flag = ph == 0 ? y.wa : y.wb;
+    for (int s0 = 0; s0 < nsup && rank < room; s0 += kWideBatch) {
+      uint32_t sups[kWideBatch];
+      HPA2_UNROLL for (int u = 0; u < kWideBatch; ++u)
+        sups[u] = s0 + u < nsup
+            ? flag[((size_t)(pl.nch + s0 + u) * nl + i) * a.b + l] : 0u;
+      HPA2_UNROLL for (int u = 0; u < kWideBatch; ++u) {
+        uint32_t m = sups[u];
+        while (m && rank < room) {
+          const int c = (s0 + u) * 32 + find_owner((int32_t)m);
+          m &= m - 1u;
+          uint32_t word = flag[((size_t)c * nl + i) * a.b + l];
+          while (word && rank < room) {
+            take(c * 32 + find_owner((int32_t)word));
+            word &= word - 1u;
+          }
+        }
+      }
+    }
+  }
+  if (rank) HPA2_AT(a.nsw, i) = nswv + rank;
+}
+
+// ===== N4 wide =========================================================
+// launch 1, an item a (node row, lane) pair: items nl * B
+HPA2_HD void w4_item(const WideArgs& y, size_t item) {
+  const NodeArgs& x = y.x;
+  const Args& a = x.a;
+  const int nl = x.nl, W = a.W, SW = a.SW, c = a.c, m = a.m;
+  if (item >= (size_t)nl * a.b) return;
+  const int s = (int)(item / a.b), l = (int)(item % a.b);
+  const int gid = x.me * nl + s, j0 = 5 * nl;
+  uint32_t* red = y.red;
+  auto add = [&](int row, uint32_t v) {
+    if (v) sh_add(&red[(size_t)row * a.b + l], v);
+  };
+  const int type_w = a.f_word[F_TYPE], type_off = a.f_off[F_TYPE];
+  const int32_t type_mask = (int32_t)((1u << a.f_width[F_TYPE]) - 1u);
+  uint32_t md = 0, ndefer = 0;
+  bool blocked_next = false;
+  HPA2_UNROLL for (int q = 0; q < 4; ++q) {
+    const int k = one_slot(q), row = s * kNSlots + k;
+    const int r = deferred_recv(a, l, s, k);
+    if (r < 0) continue;
+    const int32_t d = x.acc[blk_at(0, j0, cand_col(nl, s, k), a.b, l)];
+    if (d) {
+      const int t = (HPA2_AT(y.ob[type_w], row) >> type_off) & type_mask;
+      md += d;
+      if (t < kNTypes) add(R_MC + t, d);
+      for (int w = 0; w < W; ++w) HPA2_AT(y.ob[w], row) = 0;
+      if (!a.recv_packed) HPA2_AT(a.ob_recv, row) = -1;
+    } else {
+      blocked_next = true;
+      ++ndefer;
+    }
+  }
+  // the INV slot: the receivers that did not accept stay in its set
+  const int row2 = s * kNSlots + 2, col2 = cand_col(nl, s, 2);
+  int32_t rem_any = 0;
+  const int32_t sv_any =
+      wide_or(SW, [&](int j) { return HPA2_AT(y.ob[2 + j], row2); });
+  if (sv_any) {
+    wide_each(SW,
+              [&](int j) {
+                return HPA2_AT(y.ob[2 + j], row2) &
+                       ~x.acc[blk_at(1 + j, j0, col2, a.b, l)];
+              },
+              [&](int j, int32_t rem) {
+                HPA2_AT(y.ob[2 + j], row2) = rem;
+                rem_any |= rem;
+              });
+    const int32_t dinv = x.acc[blk_at(0, j0, col2, a.b, l)];
+    if (dinv) {
+      md += dinv;
+      add(R_MC + INV, dinv);
+    }
+    int32_t h[2] = {HPA2_AT(y.ob[0], row2), HPA2_AT(y.ob[1], row2)};
+    const int addr = WideWords::hget(a, h, F_ADDR);
+    h[0] = h[1] = 0;
+    WideWords::hput(a, h, F_TYPE, INV);
+    WideWords::hput(a, h, F_ADDR, addr);
+    WideWords::hput(a, h, F_SENDER, gid);
+    HPA2_AT(y.ob[0], row2) = rem_any ? h[0] : 0;
+    HPA2_AT(y.ob[1], row2) = rem_any ? h[1] : 0;
+    if (rem_any) {
+      blocked_next = true;
+      ++ndefer;
+    }
+  }
+  const int32_t nswf = HPA2_AT(a.nsw, s);
+  const int count3 = nswf & a.count_mask;
+  const int wt = (nswf >> a.off_wait) & 1;
+  const int pc = (nswf >> a.off_pc) & a.pc_mask;
+  const int tl = window_len(a, l, s, a.seg);
+  // ===== phase D: dump-at-local-completion snapshots ===============
+  if (a.snapshots) {
+    const bool done = pc >= tl && wt == 0 && count3 == 0 && !blocked_next;
+    const bool taken = HPA2_AT(a.snap_taken, s) != 0;
+    HPA2_AT(a.snap_taken, s) = (taken || done) ? 1 : 0;
+    if (done && !taken) {
+      copy_rows<8, false>(a, l, s * c, s * c + c, s * m, s * m + m);
+      for (int r = s * m; r < s * m + m; ++r)
+        wide_each(SW, [&](int j) { return HPA2_AT(y.dirs[j], r); },
+                  [&](int j, int32_t v) { HPA2_AT(y.sdirs[j], r) = v; });
+    }
+  }
+  add(R_ACTIVE, (uint32_t)(tl > pc ? tl - pc : 0) + wt + count3 + ndefer);
+  add(R_OVINC, count3 > a.cap ? 1 : 0);
+  add(R_MD, md);
+}
+
+// launch 2, an item a (row, lane) of the stacked SUM and MAX: items
+// (kSumRows + kMaxRows) * B
+HPA2_HD void w4_lane(const WideArgs& y, size_t item) {
+  const NodeArgs& x = y.x;
+  const int b = x.a.b;
+  if (item >= (size_t)(kSumRows + kMaxRows) * b) return;
+  const int l = (int)(item % b), row = (int)(item / b);
+  uint32_t red[kSettleRed];
+  int32_t in[kLaneIn];
+  for (int r = 0; r < kSettleRed; ++r) red[r] = y.red[(size_t)r * b + l];
+  for (int r = 0; r < kLaneIn; ++r) in[r] = n4_lane_in(x, l, r);
+  const int32_t v = n4_lane_row(row, red, in, 1);
+  if (row < kSumRows)
+    x.gsum[(size_t)row * b + l] = v;
+  else
+    x.gmax[(size_t)(row - kSumRows) * b + l] = v;
 }
 
 }  // namespace hpa2

@@ -401,7 +401,8 @@ MICRO = CudaKernel(
 
 #: K1's node-sharded cycle (``ops/node_cycle.py``): four entries, N1-N4,
 #: each instantiated for node bounds 8, 21 and 64 (int32 and packed
-#: planes where it touches them)
+#: planes where it touches them), and the wide family's four entries for
+#: wider systems (``node_*_wide``: message and sharer words at run time)
 NODE_CYCLE = CudaKernel(
     "node_cycle", "node_cycle.cu", None, "hpa2_tpu/ops/pallas_engine.py:559",
     headers=("node_cycle.cuh",) + SHARED_SOURCES, params=())
@@ -527,7 +528,10 @@ def _plane_ptrs(state, prefix: str, split_sw: int) -> WordPlanes:
     for f in ("cachew", "dirw", "cvalw", "cmetaw", "dmemw", "dmetaw"):
         if prefix + f in state:
             setattr(p, f, state[prefix + f].data_ptr())
-    for w in range(split_sw):
+    # (a system wider than MAX_NODES has more planes than the arrays
+    # hold: the wide node kernels reach them through pointer tables of
+    # their own, ops/node_cycle.py:WideArgs)
+    for w in range(min(split_sw, MAX_SHARER_WORDS)):
         p.dirs[w] = state[f"{prefix}dirs{w}"].data_ptr()
     return p
 
@@ -565,7 +569,7 @@ def _kernel_args(config: SystemConfig, state, tr, tr_len, status, *,
     ptr = lambda f: state[f].data_ptr() if f in state else None  # noqa: E731
     a.live = _plane_ptrs(state, "", split_sw)
     a.nsw = ptr("nsw")
-    for w in range(W):
+    for w in range(min(W, MAX_WORDS)):
         a.mb[w], a.ob[w] = ptr(f"mb{w}"), ptr(f"ob{w}")
     a.ob_recv = ptr("ob_recv")
     if snapshots:

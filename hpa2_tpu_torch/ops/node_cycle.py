@@ -35,11 +35,18 @@ with the deliveries.  The plain versions compose to the cycle of the
 JAX package bit for bit, and each kernel equals its plain version on
 the same inputs.
 
+A system wider than the register instantiations' ``kernels.MAX_NODES``
+nodes runs on the wide family, four entries of their own
+(:data:`WIDE_KERNELS`: ``node_ab_wide``, ``node_bucket_wide``,
+``node_deliver_wide``, ``node_settle_wide``; the message and sharer
+words run-time values, the planes reached through pointer tables in
+device memory, :class:`WideArgs`), with the same plain versions.
+
 On a CUDA tensor a stage launches its kernel (or raises); on a CPU
 tensor it runs the plain version.  ``cycle="tensor"`` runs the plain
-versions on the card too: the reference ``[nodeshard]`` holds the first
-call against, and the path of systems wider than the kernels' 64-node
-bound.  With :attr:`NodeCycle.check` set, every launch is also run by
+versions on the card too, only where a caller names it: the reference
+``[nodeshard]`` and ``gpu_session``'s ``nodeshard4096`` hold the kernels
+against.  With :attr:`NodeCycle.check` set, every launch is also run by
 its plain version on copies of its inputs and the two are compared
 (:attr:`NodeCycle.checked`).
 """
@@ -114,6 +121,34 @@ class BucketArgs(ctypes.Structure):
     )
 
 
+class WideArgs(ctypes.Structure):
+    """Mirror of ``hpa2::WideArgs``: the wide family's N1, N3 and N4
+    arguments (``x.a``'s word-plane arrays hold the first planes only;
+    ``mb``, ``ob``, ``dirs`` and ``sdirs`` point at int64 tables of every
+    plane's address on the device) and their scratch and zeroed rows."""
+
+    _fields_ = [("x", NodeArgs)] + [(f, ctypes.c_void_p) for f in (
+        "mb", "ob", "dirs", "sdirs", "work", "red", "wa", "wb")]
+
+
+class WideBucketArgs(ctypes.Structure):
+    """Mirror of ``hpa2::WideBucketArgs``: the wide N2's arguments (the
+    destinations' node masks [ndest, SW] on the device, their nonzero
+    words, and the flag, scan and key rows)."""
+
+    _fields_ = ([("x", BucketArgs), ("dmask", ctypes.c_void_p),
+                 ("dwlo", ctypes.c_int32 * MAX_SHARDS),
+                 ("dwhi", ctypes.c_int32 * MAX_SHARDS)]
+                + [(f, ctypes.c_void_p) for f in (
+                    "bits", "base", "tot", "lane", "keys")])
+
+
+#: scratch sets a (node row, lane) pair of the wide N1 (kWideSets)
+WIDE_SETS = 8
+#: N4's sums a lane (kSettleRed): activity, mailbox overflow, deliveries
+#: and the deliveries of each type
+SETTLE_RED = 3 + _NTYPES
+
 _NODE = (ctypes.POINTER(NodeArgs),)
 NODE_AB = kernels.KernelEntry(
     kernels.NODE_CYCLE, "node_ab", "hpa2_node_ab",
@@ -130,6 +165,25 @@ NODE_SETTLE = kernels.KernelEntry(
     "hpa2_tpu/ops/pallas_engine.py:1562", _NODE)
 #: the four kernels of the node-sharded cycle
 NODE_KERNELS = (NODE_AB, NODE_BUCKET, NODE_DELIVER, NODE_SETTLE)
+_WIDE = (ctypes.POINTER(WideArgs),)
+NODE_AB_WIDE = kernels.KernelEntry(
+    kernels.NODE_CYCLE, "node_ab_wide", "hpa2_node_ab_wide",
+    "hpa2_tpu/ops/pallas_engine.py:640", _WIDE)
+NODE_BUCKET_WIDE = kernels.KernelEntry(
+    kernels.NODE_CYCLE, "node_bucket_wide", "hpa2_node_bucket_wide",
+    "hpa2_tpu/ops/pallas_engine.py:1463",
+    (ctypes.POINTER(WideBucketArgs),))
+NODE_DELIVER_WIDE = kernels.KernelEntry(
+    kernels.NODE_CYCLE, "node_deliver_wide", "hpa2_node_deliver_wide",
+    "hpa2_tpu/ops/pallas_engine.py:1517", _WIDE)
+NODE_SETTLE_WIDE = kernels.KernelEntry(
+    kernels.NODE_CYCLE, "node_settle_wide", "hpa2_node_settle_wide",
+    "hpa2_tpu/ops/pallas_engine.py:1562", _WIDE)
+#: the wide family's four, above ``kernels.MAX_NODES`` nodes
+WIDE_KERNELS = (NODE_AB_WIDE, NODE_BUCKET_WIDE, NODE_DELIVER_WIDE,
+                NODE_SETTLE_WIDE)
+#: every node kernel entry, in ``hpa2_node_geometry``'s order
+ALL_NODE_KERNELS = NODE_KERNELS + WIDE_KERNELS
 
 _DEST_COMPACT, _DEST_STAT = 1, 2
 _SIZES_CHECKED = []
@@ -146,7 +200,10 @@ class _CudaLauncher:
             kernels.NODE_CYCLE.build()
             lib = kernels.NODE_CYCLE._lib
             for fn, mirror in (("hpa2_node_args_size", NodeArgs),
-                               ("hpa2_bucket_args_size", BucketArgs)):
+                               ("hpa2_bucket_args_size", BucketArgs),
+                               ("hpa2_wide_args_size", WideArgs),
+                               ("hpa2_wide_bucket_args_size",
+                                WideBucketArgs)):
                 f = getattr(lib, fn)
                 f.restype = ctypes.c_int
                 if f() != ctypes.sizeof(mirror):
@@ -167,17 +224,37 @@ HOST_LAUNCHER = None
 
 
 def check_node_kernel_bound(config: SystemConfig, shards: int) -> None:
-    """Raise unless the node kernels take ``config`` over ``shards``."""
-    if config.num_procs > kernels.MAX_NODES:
-        raise ValueError(
-            f"num_procs={config.num_procs} exceeds the node kernels' bound "
-            f"of {kernels.MAX_NODES} nodes (a system's message and sharer "
-            "words are sized by the bound at compile time); name "
-            "cycle='tensor' to run the node-sharded cycle as tensor code")
+    """Raise unless the node kernels take ``config`` over ``shards``: the
+    register instantiations up to ``kernels.MAX_NODES`` nodes, the wide
+    family above (its words at run time), at most :data:`MAX_SHARDS`
+    shards either way, and row indices that fit int32."""
     if shards > MAX_SHARDS:
         raise ValueError(
             f"{shards} node shards exceed the node kernels' "
-            f"{MAX_SHARDS}; name cycle='tensor'")
+            f"{MAX_SHARDS} (a launch's blocks, buffers and destination "
+            "sets are fixed arrays of its argument block); name "
+            "cycle='tensor'")
+    n, cap = config.num_procs, config.msg_buffer_size
+    rows = n * max(cap, config.cache_size, config.mem_size, _NSLOTS)
+    if rows >= 2 ** 31:
+        raise ValueError(
+            f"num_procs={n}: {rows} rows of a plane overflow the kernels' "
+            "int32 row indices")
+    if n > kernels.MAX_NODES and not _wide_layout(config):
+        raise ValueError(
+            f"num_procs={n}: the wide node kernels take a message of two "
+            "header words and a sharer word each after them, not "
+            f"{_mb_layout(config)[0]}")
+
+
+@functools.lru_cache(maxsize=16)
+def _wide_layout(config: SystemConfig) -> bool:
+    """``config``'s message is the wide family's: two header words, then
+    sharer word j all of word 2 + j."""
+    layout, W = _mb_layout(config)
+    SW = _sharer_words(config)
+    return W == 2 + SW and all(layout[f"shr{j}"] == (2 + j, 0, _SPLIT_BPW)
+                               for j in range(SW))
 
 
 def _err(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
@@ -238,8 +315,8 @@ class NodeBucketer:
     def __call__(self, fs, blocks, dests, k, src, combine=False):
         nc = self.nc
         dev = blocks[0].device
-        if nc.keeping(NODE_BUCKET.name):
-            nc.kept[NODE_BUCKET.name] = (
+        if nc.keeping(nc.BUCKET.name):
+            nc.kept[nc.BUCKET.name] = (
                 self.fsbuf.clone(), {f: v.clone() for f, v in fs.items()},
                 [b.clone() for b in blocks], list(dests), k, src, combine)
         launcher = nc.launcher(dev)
@@ -253,7 +330,8 @@ class NodeBucketer:
                             device=dev) for d in comp]
         if nc.check:
             before = {f: v.clone() for f, v in fs.items()}
-        x = BucketArgs()
+        y = WideBucketArgs() if nc.wide else None
+        x = y.x if nc.wide else BucketArgs()
         x.n, x.nl, x.W, x.SW, x.b, x.k = nc.n, nc.nl, nc.W, nc.SW, bb, k
         x.ndest, x.combine, x.nkeys, x.me = len(dests), combine, nc.nkeys, src
         x.fs = self.fsbuf.data_ptr()
@@ -266,20 +344,45 @@ class NodeBucketer:
             x.dflags[i] = (_DEST_COMPACT if d.compact else 0) | (
                 _DEST_STAT if d.stat else 0)
             x.ddst[i] = d.dst
-            for w, v in enumerate(self.union(d.shards, "cpu").tolist()):
-                x.dmask[i][w] = v
+            u = self.union(d.shards, "cpu")
+            if nc.wide:
+                nz = u.nonzero().flatten().tolist() or [0, -1]
+                y.dwlo[i], y.dwhi[i] = nz[0], nz[-1]
+            else:
+                for w, v in enumerate(u.tolist()):
+                    x.dmask[i][w] = v
             if d.compact:
                 x.buf[i], x.sel[i] = out[p].data_ptr(), sels[p].data_ptr()
                 p += 1
-        nc.launch(launcher, NODE_BUCKET, x, dev)
+        if nc.wide:
+            keep = self._wide_rows(y, blocks, dests, k, combine, dev)
+        nc.launch(launcher, nc.BUCKET, y if nc.wide else x, dev)
         if nc.check:
             want_out, want_sels = self.plain(before, blocks, dests, k, src,
                                              combine)
-            nc.note_check(NODE_BUCKET, [_err(out, want_out)]
+            nc.note_check(nc.BUCKET, [_err(out, want_out)]
                           + [_err(a, b) for a, b in zip(sels, want_sels)]
                           + [_err(self.fsbuf[i], before[f])
                              for i, f in enumerate(exchange.FSTATS)])
         return out, sels
+
+    def _wide_rows(self, y: "WideBucketArgs", blocks, dests, k, combine,
+                   dev) -> list:
+        """The wide N2's device rows: the destinations' masks, the zeroed
+        flag, lane-sum and key rows, the scan rows; returns the tensors
+        (kept alive until the launch is enqueued)."""
+        nc, bb = self.nc, blocks[0].shape[-1]
+        dmask = torch.stack([self.union(d.shards, "cpu")
+                             for d in dests]).to(dev)
+        nw = sum(-(-blocks[d.block].shape[1] // 32) for d in dests)
+        nkw = -(-nc.nkeys // 32) if combine else 0
+        zero = torch.zeros((nw + 3 + nkw) * bb, dtype=I32, device=dev)
+        scan = torch.empty((nw + len(dests)) * bb, dtype=I32, device=dev)
+        y.dmask = dmask.data_ptr()
+        y.bits, y.lane = zero.data_ptr(), zero[nw * bb:].data_ptr()
+        y.keys = zero[(nw + 3) * bb:].data_ptr()
+        y.base, y.tot = scan.data_ptr(), scan[nw * bb:].data_ptr()
+        return [dmask, zero, scan]
 
 
 class NodeCycle:
@@ -335,9 +438,15 @@ class NodeCycle:
         self._arg_cache: Dict[str, tuple] = {}
         self._ptr_fields = [f for f in fields_of(config, snapshots, packed)
                             if f not in ("scalars", "msg_counts")]
+        # the register instantiations, or the wide family above their
+        # bound: the four entries this cycle launches
+        self.wide = n > kernels.MAX_NODES
+        self.entries = WIDE_KERNELS if self.wide else NODE_KERNELS
+        self.AB, self.BUCKET, self.DELIVER, self.SETTLE = self.entries
+        self._work: Optional[torch.Tensor] = None
         self.check = False
-        self.launches = {e.name: 0 for e in NODE_KERNELS}
-        self.checked = {e.name: [0, 0] for e in NODE_KERNELS}
+        self.launches = {e.name: 0 for e in self.entries}
+        self.checked = {e.name: [0, 0] for e in self.entries}
         # with keep_at set, the inputs of every stage of that cycle (its
         # first N2 launch) are kept for :meth:`time_kept`
         self.keep_at: Optional[int] = None
@@ -391,12 +500,14 @@ class NodeCycle:
                 f"{entry.name}: the kernel differs from its plain version "
                 f"by {err}")
 
-    def _args(self, stage: str, s, seg: int, window: int) -> NodeArgs:
-        """Stage ``stage``'s NodeArgs: built by ``kernels._kernel_args``
-        once for a window, a segment and the storage of the planes it
-        points at (the pointers are the key: a plane replaced, or a copy
-        of the state, builds it anew), then reused with ``scalars``, a
-        new tensor every cycle, patched.  The stage sets its own tensors'
+    def _args(self, stage: str, s, seg: int, window: int):
+        """Stage ``stage``'s NodeArgs (the wide family: its WideArgs,
+        whose ``x`` is the NodeArgs, with the planes' pointer tables on
+        the planes' device): built by ``kernels._kernel_args`` once for
+        a window, a segment and the storage of the planes it points at
+        (the pointers are the key: a plane replaced, or a copy of the
+        state, builds it anew), then reused with ``scalars``, a new
+        tensor every cycle, patched.  The stage sets its own tensors'
         pointers (payload, counters, blocks, feedback) before each
         launch; ``msg_counts``, which no node kernel reads, stays null."""
         tr, tl = s["tr"], s["tr_len"]
@@ -412,10 +523,37 @@ class NodeCycle:
                 snapshots=self.snapshots, packed=self.packed, seg=seg)
             x.a.msg_counts = None
             x.me, x.nl, x.shards = self.me, self.nl, self.shards
-            hit = self._arg_cache[stage] = (key, x)
+            tables = []
+            if self.wide:
+                y = WideArgs()
+                y.x = x
+                sw = _split_sw(self.config)
+                for name, planes in (
+                        ("mb", [f"mb{w}" for w in range(self.W)]),
+                        ("ob", [f"ob{w}" for w in range(self.W)]),
+                        ("dirs", [f"dirs{w}" for w in range(sw)]),
+                        ("sdirs", [f"snap_dirs{w}" for w in range(sw)]
+                         if self.snapshots else [])):
+                    if planes:
+                        t = torch.tensor([s[f].data_ptr() for f in planes],
+                                         dtype=torch.int64,
+                                         device=s["nsw"].device)
+                        tables.append(t)
+                        setattr(y, name, t.data_ptr())
+                x = y
+            hit = self._arg_cache[stage] = (key, x, tables)
         x = hit[1]
-        x.a.scalars = s["scalars"].data_ptr()
+        (x.x if self.wide else x).a.scalars = s["scalars"].data_ptr()
         return x
+
+    def _scratch(self, dev, bb: int) -> torch.Tensor:
+        """The wide N1's scratch [WIDE_SETS * SW + 1, nl * B] (kept): a
+        pair's sets, and whether it popped its head."""
+        shape = (WIDE_SETS * self.SW + 1, self.nl * bb)
+        w = self._work
+        if w is None or tuple(w.shape) != shape or w.device != dev:
+            w = self._work = torch.empty(shape, dtype=I32, device=dev)
+        return w
 
     # -- the four stages -------------------------------------------------
 
@@ -431,13 +569,18 @@ class NodeCycle:
         before = _copies(s) if self.check else None
         payload = torch.empty((self.R, 5 * self.nl, bb), dtype=I32,
                               device=dev)
-        cnt = torch.empty((AB_COUNTS, bb), dtype=I32, device=dev)
-        x = self._args(NODE_AB.name, s, seg, window)
+        # the wide N1 adds its counters into zeroed rows
+        cnt = (torch.zeros if self.wide else torch.empty)(
+            (AB_COUNTS, bb), dtype=I32, device=dev)
+        y = self._args(self.AB.name, s, seg, window)
+        x = y.x if self.wide else y
         x.payload, x.cnt = payload.data_ptr(), cnt.data_ptr()
-        self.launch(launcher, NODE_AB, x, dev)
+        if self.wide:
+            y.work = self._scratch(dev, bb).data_ptr()
+        self.launch(launcher, self.AB, y, dev)
         if self.check:
             upd, want_p, want_c = ab_plain(self, before, seg, window)
-            self.note_check(NODE_AB, [_err(payload, want_p),
+            self.note_check(self.AB, [_err(payload, want_p),
                                       _err(cnt, want_c)]
                             + [_err(s[f], v) for f, v in upd.items()])
         return payload, cnt
@@ -456,22 +599,32 @@ class NodeCycle:
         bb = s["nsw"].shape[1]
         before = _copies(s) if self.check else None
         sizes = [(1 + self.SW) * b.shape[1] * bb for b in blocks]
-        # N3 writes every feedback word once
-        flat = torch.empty(sum(sizes), dtype=I32, device=dev)
+        # N3 writes every feedback word once; the wide N3 adds into
+        # zeroed rows
+        flat = (torch.zeros if self.wide else torch.empty)(
+            sum(sizes), dtype=I32, device=dev)
         fbs, off = [], 0
         for b, size in zip(blocks, sizes):
             fbs.append(flat[off:off + size].view(1 + self.SW, b.shape[1], bb))
             off += size
-        x = self._args(NODE_DELIVER.name, s, 0, s["tr"].shape[1])
+        y = self._args(self.DELIVER.name, s, 0, s["tr"].shape[1])
+        x = y.x if self.wide else y
         order = sorted(range(len(blocks)), key=lambda i: origins[i])
         x.nblk = len(blocks)
         for j, i in enumerate(order):
             x.blk[j], x.fb[j] = blocks[i].data_ptr(), fbs[i].data_ptr()
             x.blen[j] = blocks[i].shape[1]
-        self.launch(launcher, NODE_DELIVER, x, dev)
+        if self.wide:
+            # the phase-A and phase-B flag words [nch, nl, B] and their
+            # summary words [ceil(nch / 32), nl, B], zeroed
+            nch = -(-sum(b.shape[1] for b in blocks) // 32)
+            flags = torch.zeros((2, nch - (-nch // 32), self.nl, bb),
+                                dtype=I32, device=dev)
+            y.wa, y.wb = flags[0].data_ptr(), flags[1].data_ptr()
+        self.launch(launcher, self.DELIVER, y, dev)
         if self.check:
             upd, want = deliver_plain(self, before, blocks, origins)
-            self.note_check(NODE_DELIVER,
+            self.note_check(self.DELIVER,
                             [_err(a, b) for a, b in zip(fbs, want)]
                             + [_err(s[f], v) for f, v in upd.items()])
         return fbs
@@ -492,14 +645,18 @@ class NodeCycle:
         acc = acc.contiguous()
         gsum = torch.empty((SUM_ROWS, bb), dtype=I32, device=dev)
         gmax = torch.empty((MAX_ROWS, bb), dtype=I32, device=dev)
-        x = self._args(NODE_SETTLE.name, s, seg, window)
+        y = self._args(self.SETTLE.name, s, seg, window)
+        x = y.x if self.wide else y
         x.acc, x.cnt, x.fs = acc.data_ptr(), cnt.data_ptr(), fs.data_ptr()
         x.gsum, x.gmax = gsum.data_ptr(), gmax.data_ptr()
-        self.launch(launcher, NODE_SETTLE, x, dev)
+        if self.wide:
+            red = torch.zeros((SETTLE_RED, bb), dtype=I32, device=dev)
+            y.red = red.data_ptr()
+        self.launch(launcher, self.SETTLE, y, dev)
         if self.check:
             upd, want_s, want_m = settle_plain(self, before, acc, cnt, fs,
                                                seg, window)
-            self.note_check(NODE_SETTLE, [_err(gsum, want_s),
+            self.note_check(self.SETTLE, [_err(gsum, want_s),
                                           _err(gmax, want_m)]
                             + [_err(s[f], v) for f, v in upd.items()])
         return gsum, gmax
@@ -510,23 +667,23 @@ class NodeCycle:
                  window: Optional[int] = None) -> Dict[str, torch.Tensor]:
         w = s["tr"].shape[1] if window is None else window
         comm, W, SW = self.comm, self.W, self.SW
-        if self.keeping(NODE_AB.name):
-            self.kept[NODE_AB.name] = (_copies(s), seg, w)
+        if self.keeping(self.AB.name):
+            self.kept[self.AB.name] = (_copies(s), seg, w)
         payload, cnt = self.node_ab(s, seg, w)
         bufs, origins, xctx, fs = exchange.forward(
             self.plan, comm, self.me, payload, None, self.k,
             ckey_row=W + SW + 2, nkeys=self.nkeys, bucketer=self.bucketer)
         blocks = [payload] + list(bufs)
-        if self.keeping(NODE_DELIVER.name):
-            self.kept[NODE_DELIVER.name] = (
+        if self.keeping(self.DELIVER.name):
+            self.kept[self.DELIVER.name] = (
                 _copies(s), [b.clone() for b in blocks], list(origins))
         fbs = self.node_deliver(s, blocks, origins)
         acc = fbs[0] + exchange.feedback(self.plan, comm, fbs[1:], xctx)
         fs_t = (self.bucketer.fsbuf if self.launcher(payload.device)
                 is not None else torch.stack([fs[f] for f in
                                               exchange.FSTATS]))
-        if self.keeping(NODE_SETTLE.name):
-            self.kept[NODE_SETTLE.name] = (
+        if self.keeping(self.SETTLE.name):
+            self.kept[self.SETTLE.name] = (
                 _copies(s), acc.clone(), cnt.clone(), fs_t.clone(), seg, w)
         gsum, gmax = self.node_settle(s, acc, cnt, fs_t, seg, w)
         self.cycles += 1
@@ -573,9 +730,9 @@ class NodeCycle:
         ``empty_ms`` an empty kernel's launch of that grid, timed alike
         (:func:`empty_launch_ms`: the floor of a launch)."""
         out = {}
-        for name in [e.name for e in NODE_KERNELS if e.name in self.kept]:
+        for name in [e.name for e in self.entries if e.name in self.kept]:
             kept = self.kept[name]
-            work = (None if name == NODE_BUCKET.name else _copies(kept[0]))
+            work = (None if name == self.BUCKET.name else _copies(kept[0]))
 
             def restore(s0, work=work):
                 for f, v in s0.items():
@@ -583,7 +740,7 @@ class NodeCycle:
                         work[f].copy_(v)
                 return work
 
-            dev = (kept[0] if name == NODE_BUCKET.name
+            dev = (kept[0] if name == self.BUCKET.name
                    else kept[0]["nsw"]).device
 
             def med(fn):
@@ -601,13 +758,13 @@ class NodeCycle:
                     self.timed = None
                 return ms[len(ms) // 2]
 
-            if name == NODE_AB.name:
+            if name == self.AB.name:
                 s0, seg, w = kept
                 kern_fn = (lambda: functools.partial(
                     self.node_ab, restore(s0), seg, w))
                 plain_fn = (lambda: functools.partial(
                     ab_plain, self, _copies(s0), seg, w))
-            elif name == NODE_BUCKET.name:
+            elif name == self.BUCKET.name:
                 fsbuf, fs0, blocks, dests, k, src, combine = kept
 
                 def kern_fn():
@@ -619,7 +776,7 @@ class NodeCycle:
                 plain_fn = (lambda: functools.partial(
                     self.bucketer.plain, dict(fs0), blocks, dests, k, src,
                     combine))
-            elif name == NODE_DELIVER.name:
+            elif name == self.DELIVER.name:
                 s0, blocks, origins = kept
                 kern_fn = (lambda: functools.partial(
                     self.node_deliver, restore(s0), blocks, origins))
@@ -631,7 +788,7 @@ class NodeCycle:
                     self.node_settle, restore(s0), acc, cnt, fs, seg, w))
                 plain_fn = (lambda: functools.partial(
                     settle_plain, self, _copies(s0), acc, cnt, fs, seg, w))
-            entry = next(e for e in NODE_KERNELS if e.name == name)
+            entry = next(e for e in self.entries if e.name == name)
             ms = launch_ms(kern_fn)
             grid = geometry(entry, self.last_args[name], dev)
             out[name] = dict(ms=ms, wrapper_ms=med(kern_fn),
@@ -647,7 +804,7 @@ class NodeCycle:
         changes (by its plain version on a copy of the inputs) and its
         outputs."""
         W, SW, R, nl = self.W, self.SW, self.R, self.nl
-        if name == NODE_BUCKET.name:
+        if name == self.BUCKET.name:
             _, fs0, blocks, dests, k, src, combine = kept
             _, sels = self.bucketer.plain(
                 {f: v.clone() for f, v in fs0.items()}, blocks, dests, k,
@@ -672,7 +829,7 @@ class NodeCycle:
                   s0[f"ob{self.layout['recv'][0]}"]).element_size()
         inv_b = sum(s0[f"ob{w}"][:, 2].element_size() for w in range(W))
         word_b = sum(s0[f"ob{w}"].element_size() for w in range(W))
-        if name == NODE_AB.name:
+        if name == self.AB.name:
             _, seg, w = kept
             upd, payload, cnt = ab_plain(self, _copies(s0), seg, w)
             count = s0["nsw"] & _scalar_layout(self.config, w)["count_mask"]
@@ -688,7 +845,7 @@ class NodeCycle:
                      + deferred * word_b)
             return (reads + _changed_bytes(s0, upd)
                     + (payload.numel() + cnt.numel()) * 4)
-        if name == NODE_DELIVER.name:
+        if name == self.DELIVER.name:
             blocks, origins = kept[1], kept[2]
             upd, fbs = deliver_plain(self, _copies(s0), blocks, origins)
             j = sum(b.shape[1] for b in blocks)
@@ -728,7 +885,8 @@ class NodeCycle:
 def geometry(entry: kernels.KernelEntry, args: ctypes.Structure,
              device: torch.device) -> Dict[str, int]:
     """What the card makes of a launch of ``entry`` with ``args`` (its
-    NodeArgs, or BucketArgs for N2): CTAs, threads a CTA, bytes of
+    NodeArgs, or BucketArgs for N2; the wide family's WideArgs and
+    WideBucketArgs, its main launch): CTAs, threads a CTA, bytes of
     dynamic shared memory, lanes a CTA, CTAs an SM holds at once, CTAs a
     cluster, and the SMs the grid covers (one CTA each at least while
     there are fewer CTAs than SMs).  Launches nothing; the card only."""
@@ -738,7 +896,7 @@ def geometry(entry: kernels.KernelEntry, args: ctypes.Structure,
                    ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 6)()
-    which = [e.name for e in NODE_KERNELS].index(entry.name)
+    which = [e.name for e in ALL_NODE_KERNELS].index(entry.name)
     with torch.cuda.device(device):
         err = fn(which, ctypes.addressof(args), device.index or 0, out)
     if err != 0:
@@ -1092,8 +1250,10 @@ def settle_plain(nc: NodeCycle, s, acc_tot: torch.Tensor,
 
 
 __all__ = [
-    "AB_COUNTS", "CYCLES", "MAX_SHARDS", "NODE_AB", "NODE_BUCKET",
-    "NODE_DELIVER", "NODE_KERNELS", "NODE_SETTLE", "NodeArgs",
-    "NodeBucketer", "NodeCycle", "BucketArgs", "ab_plain",
+    "AB_COUNTS", "ALL_NODE_KERNELS", "CYCLES", "MAX_SHARDS", "NODE_AB",
+    "NODE_AB_WIDE", "NODE_BUCKET", "NODE_BUCKET_WIDE", "NODE_DELIVER",
+    "NODE_DELIVER_WIDE", "NODE_KERNELS", "NODE_SETTLE", "NODE_SETTLE_WIDE",
+    "NodeArgs", "NodeBucketer", "NodeCycle", "BucketArgs", "WIDE_KERNELS",
+    "WideArgs", "WideBucketArgs", "ab_plain",
     "check_node_kernel_bound", "deliver_plain", "geometry", "settle_plain",
 ]

@@ -43,15 +43,18 @@ Where the port departs from the JAX code, and why:
   elision jump are global over the shards; :class:`DataShardedRun`
   keeps that (so every field, ``cycle`` included, equals the unsharded
   run) with one host read a cycle of every shard's condition terms.
-* **The fast path's node axis is tensor code on the card too.**  JAX
-  runs K1's node-sharded variant as XLA under ``shard_map`` (no Pallas
-  kernel can hold a collective), so the port's
+* **The fast path's node axis is four hand-written kernels between
+  NCCL calls.**  JAX runs K1's node-sharded variant as XLA under
+  ``shard_map`` (no Pallas kernel can hold a collective); the port's
   :class:`NodeShardedCudaEngine` and :class:`NodeShardedLaneSession` run
-  ``ops/cycle.py:build_cycle(axis_name=)`` with PyTorch ops on each
-  rank, the k-cycle loop on the rank's host (:class:`NodeInterval`, one
-  host read a call).  Splitting that cycle into hand-written kernels,
-  with the k cycles and their NCCL calls captured, is ROADMAP queue 2
-  item 9.
+  ``ops/node_cycle.py:NodeCycle`` on each rank: N1-N4 of
+  ``csrc/node_cycle.cu`` (the register instantiations up to 64 nodes,
+  the wide family above, to the 4,096 nodes of the node axis's own
+  geometry and past it) between the exchange's collectives, the k-cycle
+  loop on the rank's host (:class:`NodeInterval`, one host read a
+  call).  ``cycle="tensor"`` (the plain versions) runs only where a
+  caller names it.  Capturing the k cycles and their NCCL calls is
+  ROADMAP queue 2 item 8.
 * **The serving session's ranks live in a pool.**  JAX's single
   controller drives a mesh; here the controller process holds no card
   state and sends each command of the serving protocol to the ranks of
@@ -61,6 +64,7 @@ Where the port departs from the JAX code, and why:
 from __future__ import annotations
 
 import dataclasses
+import re
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -1292,9 +1296,10 @@ class NodeShardedCudaEngine(CudaEngine):
     ``ops/exchange.py``, at a cost that grows with the candidates that
     cross (bounded by ``exchange_slots``).  The cycle is K1's
     node-sharded variant, ``ops/node_cycle.py:NodeCycle``: four kernels
-    on the card (N1-N4, at most 64 nodes and 16 node shards) and their
-    plain versions on the CPU; ``cycle="tensor"`` names the plain
-    versions on the card too (wider systems run only so).  Its loop is
+    on the card (N1-N4, the register instantiations up to 64 nodes and
+    the wide family above; at most 16 node shards) and their plain
+    versions on the CPU; ``cycle="tensor"`` names the plain versions on
+    the card too.  Its loop is
     :class:`NodeInterval` on each rank's host.  ``run()`` starts the ranks through
     ``parallel/launch.py`` (one spawn a run, or in place under
     ``torchrun``) and gathers every rank's block back, so ``state``,
@@ -1605,13 +1610,23 @@ def _rank_profile(job: dict) -> dict:
                                  if "nccl" not in e.name.lower()),
                    node_us={k.name: sum(e.time_range.elapsed_us()
                                         for e in ran
-                                        if f"{k.name}_kernel" in e.name)
-                            for k in node_cycle.NODE_KERNELS},
+                                        if _is_node_kernel(k, e.name))
+                            for k in node_cycle.ALL_NODE_KERNELS},
                    launch_calls=sum(1 for e in events if e.name in (
                        "cudaLaunchKernel", "cudaLaunchKernelExC",
                        "cuLaunchKernel", "cuLaunchKernelEx")))
     comm.barrier()
     return out
+
+
+def _is_node_kernel(entry, name: str) -> bool:
+    """The CUDA kernel ``name`` is one of node kernel ``entry``'s launches
+    (a wide entry's: ``node_<stage>_wide[_<launch>]_kernel``)."""
+    from hpa2_tpu_torch.ops import node_cycle
+
+    if entry in node_cycle.WIDE_KERNELS:
+        return re.search(rf"{entry.name}(_[a-z]+)?_kernel", name) is not None
+    return f"{entry.name}_kernel" in name
 
 
 class NodeProfile:
@@ -1623,8 +1638,8 @@ class NodeProfile:
     NCCL's among them, the host's kernel launch calls and the device
     time of the kernels but NCCL's (``device_us``), each a cycle and a
     rank (over logical ranks the process's count divided by the
-    ranks), and ``node_us`` the device time of each node kernel (N1-N4,
-    by name) a cycle and a rank."""
+    ranks), and ``node_us`` the device time of each node kernel (N1-N4
+    and the wide family's, by name) a cycle and a rank."""
 
     def __init__(self, engine: "NodeShardedCudaEngine", k: int = 4):
         self.engine, self.mesh, self.k = engine, engine.mesh, k

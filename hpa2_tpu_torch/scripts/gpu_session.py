@@ -59,9 +59,10 @@ Steps, in the JAX session's order (``--skip`` takes step names, and
   nodeshard_ladder, nodeshard_ab
                      ``scale_runs nodeshard`` and ``nodeshard_ab``
   nodeshard4096      ``--measure-nodeshard`` at 4,096 nodes x 8 systems x
-                     32 instructions over 4 ranks, with no one-card
-                     reference and ``cycle="tensor"`` named (no card's
-                     kernel, K2's or the node cycle's, holds 4,096 nodes)
+                     32 instructions over 4 ranks on the node kernels'
+                     wide family, with its CUDA kernels a cycle, held
+                     against the ``cycle="tensor"`` run of the same arrays
+                     (no one-card kernel, K2, holds 4,096 nodes)
   nodeshard_x2, nodeshard_x4, nodeshard_x4_butterfly
                      the 64-node geometry at 2 and 4 ranks in the a2a
                      schedule and at 4 in the butterfly one, each held
@@ -89,7 +90,7 @@ scheduled runs' per-system scalars plane equal to the unscheduled run's
 counters equal with elision on and off (``--measure-elision``, and
 with elision skipping cycles, ``--measure-nodeshard-elision``), the
 node-sharded run's planes equal to K2's (``--measure-nodeshard`` with
-``compare`` 1)."""
+``compare`` 1) or to the ``cycle="tensor"`` run's (``compare`` 2)."""
 
 from __future__ import annotations
 
@@ -429,13 +430,15 @@ def measure_nodeshard_child(params, device="cuda") -> int:
     ``shards`` ranks (``NodeShardedCudaEngine``), timed on each rank after
     an untimed run in the same ranks (``sharded_s``, the slowest rank's;
     the wall around both runs, the spawn included, is
-    ``sharded_wall_s``), with the cross-shard traffic; with ``compare`` 1
-    the same arrays on K2 on one card, and nonzero unless every plane is
-    equal (``compare`` 0 for geometries no card's kernel holds).
+    ``sharded_wall_s``), with the cross-shard traffic and, on the card's
+    kernel path, the CUDA kernels a cycle (``NodeProfile``); with
+    ``compare`` 1 the same arrays on K2 on one card, with ``compare`` 2
+    the same arrays over the same ranks with ``cycle="tensor"`` (the node
+    cycle's plain versions; geometries K2 does not hold), and nonzero
+    unless every plane is equal (``compare`` 0: no reference).
     ``mode_idx`` indexes ``EXCHANGE_MODES`` (-1: a2a); ``tensor`` 1 names
-    the node cycle's plain versions (``cycle="tensor"``, which systems
-    wider than the node kernels' 64 nodes need), else its kernels; the
-    line records which."""
+    the node cycle's plain versions (``cycle="tensor"``), else its
+    kernels; the line records which."""
     import dataclasses
 
     import torch
@@ -444,6 +447,7 @@ def measure_nodeshard_child(params, device="cuda") -> int:
     from hpa2_tpu_torch.ops import exchange as xops
     from hpa2_tpu_torch.ops.cuda_engine import CudaEngine
     from hpa2_tpu_torch.parallel import NodeShardedCudaEngine
+    from hpa2_tpu_torch.parallel.sharding import NodeProfile, run_node_sharded
     from hpa2_tpu_torch.scripts.perf_sweep import _where
     from hpa2_tpu_torch.utils.trace import gen_uniform_random_arrays
 
@@ -461,7 +465,7 @@ def measure_nodeshard_child(params, device="cuda") -> int:
     kw = dict(block=block, cycles_per_call=k, snapshots=False,
               trace_window=window, gate=bool(gate))
 
-    def sharded():
+    def sharded(cycle=cycle):
         return NodeShardedCudaEngine(config, *arrays, node_shards=shards,
                                      device=dev.type, cycle=cycle, **kw)
 
@@ -496,8 +500,28 @@ def measure_nodeshard_child(params, device="cuda") -> int:
         "exchange_multicast_saved": stats.get("exchange_multicast_saved", 0),
         "exchange_combined": stats.get("exchange_combined", 0),
     }
+    if dev.type == "cuda" and cycle == "kernel":
+        prof = NodeProfile(shd, k=4)
+        run_node_sharded([prof])
+        rec.update(cuda_kernels_per_cycle=prof.per_cycle["kernels"],
+                   node_launches_per_cycle={
+                       k: round(v / max(st["cycles"], 1), 3)
+                       for k, v in st["launches"].items()})
     exact = True
-    if compare:
+    if compare == 2:
+        ref = sharded("tensor")
+        t0 = time.perf_counter()
+        ref.run(max_cycles=5_000_000)
+        exact = ref.cycle == shd.cycle and all(
+            torch.equal(v, shd.state[f]) for f, v in ref.state.items())
+        slow_ref = max(ref.rank_stats, key=lambda r: r["seconds"])
+        rec.update(tensor_s=round(slow_ref["seconds"], 6),
+                   tensor_wall_s=round(time.perf_counter() - t0, 6),
+                   tensor_ms_per_cycle=round(
+                       slow_ref["seconds"] * 1e3
+                       / max(slow_ref["cycles"], 1), 4),
+                   tensor_cycles=ref.cycle, bit_exact=exact)
+    elif compare:
         def single():
             return CudaEngine(config, *arrays, device=dev, **kw)
 
@@ -636,8 +660,8 @@ def steps():
     out.append(("multichip", _module("scripts.scale_runs", "multichip"),
                 1800, None, None))
     # one system bigger than a card: 64 nodes over 4 ranks against K2,
-    # the ladder, the schedules' A/B, and 4,096 nodes that no card's
-    # kernel holds (compare 0)
+    # the ladder, the schedules' A/B, and 4,096 nodes on the node kernels'
+    # wide family against the tensor cycle (compare 2)
     node64 = (64, 1024, 64, 512, 64, 16, 16, 0)
     out.append(("nodeshard", _measure_argv(
         "--measure-nodeshard", *node64, 4, 1, -1, 0), 1800, "nodeshard",
@@ -648,9 +672,10 @@ def steps():
     out.append(("nodeshard_ab", _module("scripts.scale_runs",
                                         "nodeshard_ab"),
                 2400, "nodeshard", None))
-    # no kernel holds 4,096 nodes: the step names the tensor cycle
+    # K2 does not hold 4,096 nodes: the step holds the node kernels'
+    # wide family against the tensor cycle
     out.append(("nodeshard4096", _measure_argv(
-        "--measure-nodeshard", 4096, 8, 32, 8, 64, 16, 16, 0, 4, 0, -1, 1),
+        "--measure-nodeshard", 4096, 8, 32, 8, 64, 16, 16, 0, 4, 2, -1, 0),
         2400, "nodeshard", None))
     for name, shards, mode_idx in (("nodeshard_x2", 2, 1),
                                    ("nodeshard_x4", 4, 1),

@@ -729,20 +729,62 @@ def test_node_kernels_over_logical_ranks_match_k2_on_card(card, n, d, mode,
 
 
 def test_node_kernels_refuse_wider_systems_on_card(card):
-    """Above the node kernels' 64 nodes the node-sharded path raises on
-    the card unless ``cycle="tensor"`` is named."""
+    """Above the node kernels' 16 shards the node-sharded path raises on
+    the card unless ``cycle="tensor"`` is named; a system wider than the
+    register instantiations' 64 nodes (128) runs on the wide family with
+    no cycle named, and equals its ``cycle="tensor"`` run."""
+    from hpa2_tpu_torch.ops import node_cycle
     from hpa2_tpu_torch.parallel import NodeShardedCudaEngine, make_mesh
 
     cfg = SystemConfig(num_procs=128, msg_buffer_size=16,
                        semantics=Semantics().robust())
     arrays = gen_uniform_random_arrays(cfg, 2, 2, seed=1)
-    mesh = make_mesh(node_shards=2, device="cuda", local=True)
     with pytest.raises(RuntimeError, match="cycle='tensor'"):
-        NodeShardedCudaEngine(cfg, *arrays, mesh=mesh, block=2).run()
-    eng = NodeShardedCudaEngine(cfg, *arrays, mesh=mesh, block=2,
+        NodeShardedCudaEngine(cfg, *arrays, mesh=make_mesh(
+            node_shards=32, device="cuda", local=True), block=2).run()
+    mesh = make_mesh(node_shards=2, device="cuda", local=True)
+    eng = NodeShardedCudaEngine(cfg, *arrays, mesh=mesh, block=2).run()
+    ref = NodeShardedCudaEngine(cfg, *arrays, mesh=mesh, block=2,
                                 cycle="tensor").run()
     assert eng.instructions == int(np.asarray(arrays[3]).sum())
-    assert set(eng.rank_stats[0]["launches"].values()) == {0}
+    assert set(ref.rank_stats[0]["launches"].values()) == {0}
+    assert all(eng.rank_stats[0]["launches"][e.name]
+               for e in node_cycle.WIDE_KERNELS)
+    for f, v in ref.state.items():
+        assert torch.equal(eng.state[f], v), f
+
+
+@pytest.mark.parametrize("n,d,mode", [
+    (96, 2, "a2a"), (160, 4, "pairwise"), (256, 4, "hier"),
+    (4096, 4, "a2a")])
+def test_wide_node_kernels_held_against_plain_on_card(card, n, d, mode):
+    """The wide family (``node_*_wide``) over logical ranks on one card:
+    every launch of the first call held against its plain version on
+    the same inputs (max_abs_err 0), every instruction retired; below
+    4,096 nodes the gathered planes equal the ``cycle="tensor"`` run's."""
+    from hpa2_tpu_torch.ops import node_cycle
+    from hpa2_tpu_torch.parallel import NodeShardedCudaEngine, make_mesh
+
+    cfg = SystemConfig(num_procs=n, msg_buffer_size=8,
+                       semantics=Semantics().robust(), exchange_mode=mode)
+    b, t = (8, 2) if n == 4096 else (32, 6)
+    arrays = gen_uniform_random_arrays(cfg, b, t, seed=n)
+    mesh = make_mesh(node_shards=d, device="cuda", local=True)
+    kw = dict(block=b, cycles_per_call=4, snapshots=n < 4096)
+    for e in node_cycle.WIDE_KERNELS:
+        e.launches = 0
+    eng = NodeShardedCudaEngine(cfg, *arrays, mesh=mesh, _check_calls=1,
+                                **kw).run()
+    assert eng.instructions == int(np.asarray(arrays[3]).sum())
+    assert all(e.launches for e in node_cycle.WIDE_KERNELS)
+    for st in eng.rank_stats:
+        for k, (c, x) in st["checked"].items():
+            assert c >= 4 and x == 0, k
+    if n < 4096:
+        ref = NodeShardedCudaEngine(cfg, *arrays, mesh=mesh, cycle="tensor",
+                                    **kw).run()
+        for f, v in ref.state.items():
+            assert torch.equal(eng.state[f], v), f
 
 
 def test_node_kernels_over_nccl_held_against_plain(two_cards):

@@ -253,13 +253,17 @@ def test_local_pool_failure_raises_without_hanging():
 
 
 def test_node_kernel_bounds_and_cycle_names():
-    """The kernels take at most 64 nodes and 16 shards (the path then
-    raises unless cycle="tensor" is named); an unknown cycle name
-    raises; a local mesh needs no card."""
+    """The kernels take any width the node axis does (64 nodes on the
+    register instantiations, 128 and 4,096 on the wide family) and at
+    most 16 shards (the path then raises unless cycle="tensor" is
+    named); an unknown cycle name raises; a local mesh needs no card."""
     node_cycle.check_node_kernel_bound(_cfg(64), 16)
+    node_cycle.check_node_kernel_bound(
+        dataclasses.replace(_cfg(64), num_procs=128), 2)
+    node_cycle.check_node_kernel_bound(
+        dataclasses.replace(_cfg(64), num_procs=4096), 4)
     with pytest.raises(ValueError, match="cycle='tensor'"):
-        node_cycle.check_node_kernel_bound(
-            dataclasses.replace(_cfg(64), num_procs=128), 2)
+        node_cycle.check_node_kernel_bound(_cfg(64), 32)
     with pytest.raises(ValueError, match="16"):
         node_cycle.check_node_kernel_bound(_cfg(64), 32)
     mesh = make_mesh(node_shards=4, device="cpu", local=True)

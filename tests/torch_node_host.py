@@ -99,6 +99,49 @@ extern "C" int hpa2_host_node_settle(const NodeArgs* x) { return dispatch(x, 2);
 extern "C" int hpa2_host_node_plan(const NodeArgs* x, int what, int* out) {
   return dispatch(x, what, out);
 }
+// the wide family: each launch's items in order, one launch after the
+// other (their items share only integer ORs and sums, which commute)
+template <class F>
+void items(size_t n, F f) {
+  for (size_t i = 0; i < n; ++i) f(i);
+}
+extern "C" int hpa2_wide_args_size() { return (int)sizeof(hpa2::WideArgs); }
+extern "C" int hpa2_wide_bucket_args_size() {
+  return (int)sizeof(hpa2::WideBucketArgs);
+}
+extern "C" int hpa2_host_node_ab_wide(const hpa2::WideArgs* y) {
+  if (!hpa2::wide_ok(y->x)) return 1;
+  const size_t pairs = (size_t)y->x.nl * y->x.a.b;
+  items(pairs, [&](size_t i) { hpa2::w1_item(*y, i); });
+  items(pairs * y->x.a.W, [&](size_t i) { hpa2::w1_rotate(*y, i); });
+  return 0;
+}
+extern "C" int hpa2_host_node_bucket_wide(const hpa2::WideBucketArgs* y) {
+  hpa2::BucketPlan pl;
+  if (!hpa2::wide_bucket_plan(*y, pl)) return 1;
+  const size_t b = y->x.b;
+  items((size_t)pl.nw * 32 * b, [&](size_t i) { hpa2::w2_flags(*y, pl, i); });
+  items((size_t)y->x.ndest * b, [&](size_t i) { hpa2::w2_scan(*y, pl, i); });
+  items(hpa2::w2_scatter_items(y->x, pl),
+        [&](size_t i) { hpa2::w2_scatter(*y, pl, i); });
+  return 0;
+}
+extern "C" int hpa2_host_node_deliver_wide(const hpa2::WideArgs* y) {
+  hpa2::DeliverPlan pl;
+  if (!hpa2::wide_ok(y->x) || !hpa2::wide_deliver_plan(y->x, pl)) return 1;
+  const size_t b = y->x.a.b;
+  items((size_t)pl.J * b, [&](size_t i) { hpa2::w3_sets(*y, pl, i); });
+  items((size_t)y->x.nl * b, [&](size_t i) { hpa2::w3_take(*y, pl, i); });
+  return 0;
+}
+extern "C" int hpa2_host_node_settle_wide(const hpa2::WideArgs* y) {
+  if (!hpa2::wide_ok(y->x)) return 1;
+  const size_t b = y->x.a.b;
+  items((size_t)y->x.nl * b, [&](size_t i) { hpa2::w4_item(*y, i); });
+  items((size_t)(hpa2::kSumRows + hpa2::kMaxRows) * b,
+        [&](size_t i) { hpa2::w4_lane(*y, i); });
+  return 0;
+}
 extern "C" int hpa2_host_node_bucket(const BucketArgs* x) {
   hpa2::BucketPlan pl;
   if (!hpa2::bucket_plan(*x, pl, hpa2::kNodeSmem)) return 1;
@@ -137,6 +180,11 @@ def build():
         fn = getattr(lib, f"hpa2_host_node_{f}")
         fn.argtypes = [ctypes.POINTER(nc.NodeArgs)]
     lib.hpa2_host_node_bucket.argtypes = [ctypes.POINTER(nc.BucketArgs)]
+    for f in ("ab", "deliver", "settle"):
+        getattr(lib, f"hpa2_host_node_{f}_wide").argtypes = [
+            ctypes.POINTER(nc.WideArgs)]
+    lib.hpa2_host_node_bucket_wide.argtypes = [
+        ctypes.POINTER(nc.WideBucketArgs)]
     lib.hpa2_host_node_plan.argtypes = [ctypes.POINTER(nc.NodeArgs),
                                         ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int)]
@@ -149,7 +197,7 @@ class HostLauncher:
 
     def __init__(self, lib):
         self.lib = lib
-        self.launches = {e.name: 0 for e in nc.NODE_KERNELS}
+        self.launches = {e.name: 0 for e in nc.ALL_NODE_KERNELS}
         self._lock = threading.Lock()
 
     def launch(self, entry, args, device) -> None:
