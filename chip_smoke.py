@@ -4684,9 +4684,10 @@ def nodekern_wide():
               f"{tm['wrapper_ms']:.4f}), plain version {tm['plain_ms']:.4f} "
               f"ms, bound {bound:.6f} ms ({tm['bytes']} B over 3.35 TB/s); "
               f"main launch's grid {grid['ctas']} CTAs of {grid['threads']} "
-              f"threads ({grid['ctas_per_sm']} an SM at once) on "
-              f"{grid['sms_covered']} of {grid['sms']} SMs; an empty launch "
-              f"of that grid {tm['empty_ms']:.4f} ms)")
+              f"threads ({grid['lanes']} pairs (N1w) or lanes (N2w) a CTA, "
+              f"{grid['smem']} B shared each, {grid['ctas_per_sm']} an SM at "
+              f"once) on {grid['sms_covered']} of {grid['sms']} SMs; an "
+              f"empty launch of that grid {tm['empty_ms']:.4f} ms)")
     return rec
 
 

@@ -18,7 +18,8 @@
 // kernel's geometry and shared tile are sized at launch (ab_plan,
 // bucket_plan, deliver_plan, settle_plan; hpa2_node_geometry reports
 // them).  A wider system runs on the wide family (hpa2_node_*_wide: W
-// and SW at run time, a thread a work item, no shared tile).  More than
+// and SW at run time; N1 and N2 phases over a shared tile, wide_ab_plan
+// and wide_bucket_plan; N3 and N4 a thread a work item).  More than
 // kMaxShards shards or a geometry the kernels do not take (a shared
 // tile over kNodeSmem) is refused.
 #include <cuda_runtime.h>
@@ -91,35 +92,46 @@ __global__ void __launch_bounds__(hpa2::kNodeCta)
   }
 }
 
-// The wide family (node_cycle.cuh, above kMaxNodes nodes): a kernel a
-// launch, a thread a work item
-__global__ void __launch_bounds__(hpa2::kWideCta)
-    node_ab_wide_kernel(const __grid_constant__ hpa2::WideArgs y) {
-  hpa2::w1_item(y, (size_t)blockIdx.x * blockDim.x + threadIdx.x);
+// The wide family (node_cycle.cuh, above kMaxNodes nodes).  N1: its five
+// phases over the CTA's shared tile, a warp a pair in the protocol phase;
+// two CTAs an SM (the tile is planned for two)
+__global__ void __launch_bounds__(hpa2::kWideAbCta, 2)
+    node_ab_wide_kernel(const __grid_constant__ hpa2::WideArgs y,
+                        const __grid_constant__ hpa2::WideAbPlan pl) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int32_t* sh = reinterpret_cast<int32_t*>(smem);
+#pragma unroll
+  for (int ph = 0; ph < hpa2::kN1wPhases; ++ph) {
+    hpa2::n1w_phase(y, pl, ph, blockIdx.x, threadIdx.x, sh);
+    __syncthreads();
+  }
 }
 
-__global__ void __launch_bounds__(hpa2::kWideCta)
-    node_ab_wide_rotate_kernel(const __grid_constant__ hpa2::WideArgs y) {
-  hpa2::w1_rotate(y, (size_t)blockIdx.x * blockDim.x + threadIdx.x);
-}
-
-__global__ void __launch_bounds__(hpa2::kWideCta)
-    node_bucket_wide_flags_kernel(const __grid_constant__ hpa2::WideBucketArgs y,
-                                  const __grid_constant__ hpa2::BucketPlan pl) {
-  hpa2::w2_flags(y, pl, (size_t)blockIdx.x * blockDim.x + threadIdx.x);
-}
-
-__global__ void __launch_bounds__(hpa2::kWideCta)
-    node_bucket_wide_scan_kernel(const __grid_constant__ hpa2::WideBucketArgs y,
-                                 const __grid_constant__ hpa2::BucketPlan pl) {
-  hpa2::w2_scan(y, pl, (size_t)blockIdx.x * blockDim.x + threadIdx.x);
-}
-
-__global__ void __launch_bounds__(hpa2::kWideCta)
-    node_bucket_wide_scatter_kernel(
+// N2: flags (three phases), then place (steps + 3 phases: the scan's
+// steps are the plan's)
+__global__ void __launch_bounds__(hpa2::kWideBucketCta)
+    node_bucket_wide_flags_kernel(
         const __grid_constant__ hpa2::WideBucketArgs y,
-        const __grid_constant__ hpa2::BucketPlan pl) {
-  hpa2::w2_scatter(y, pl, (size_t)blockIdx.x * blockDim.x + threadIdx.x);
+        const __grid_constant__ hpa2::WideBucketPlan pl) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* sh = reinterpret_cast<uint32_t*>(smem);
+#pragma unroll
+  for (int ph = 0; ph < hpa2::kN2wFlagPhases; ++ph) {
+    hpa2::n2w_flags_phase(y, pl, ph, blockIdx.x, threadIdx.x, sh);
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(hpa2::kWideBucketCta)
+    node_bucket_wide_place_kernel(
+        const __grid_constant__ hpa2::WideBucketArgs y,
+        const __grid_constant__ hpa2::WideBucketPlan pl) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* sh = reinterpret_cast<uint32_t*>(smem);
+  for (int ph = 0; ph < pl.steps + 3; ++ph) {
+    hpa2::n2w_place_phase(y, pl, ph, blockIdx.x, threadIdx.x, sh);
+    __syncthreads();
+  }
 }
 
 __global__ void __launch_bounds__(hpa2::kWideCta)
@@ -160,15 +172,9 @@ cudaError_t wide_launch(void (*kernel)(P...), size_t items, void* stream,
   return cudaGetLastError();
 }
 
-// the work items of the wide family's main launch of kernel `which` (4
-// N1, 5 N2's scatter, 6 N3's sets, 7 N4's settle), 0 when it refuses
+// the work items of the wide family's main launch of kernel `which` (6
+// N3's sets, 7 N4's settle), 0 when it refuses
 size_t wide_items(int which, const void* args) {
-  if (which == 5) {
-    const auto& y = *static_cast<const hpa2::WideBucketArgs*>(args);
-    hpa2::BucketPlan pl;
-    if (!hpa2::wide_bucket_plan(y, pl)) return 0;
-    return hpa2::w2_scatter_items(y.x, pl);
-  }
   const auto& y = *static_cast<const hpa2::WideArgs*>(args);
   if (!hpa2::wide_ok(y.x)) return 0;
   if (which == 6) {
@@ -320,40 +326,43 @@ extern "C" int hpa2_wide_bucket_args_size() {
   return (int)sizeof(hpa2::WideBucketArgs);
 }
 
-// The wide family's entries: N1 two launches, N2 three, N3 two, N4 two, in
+// The wide family's entries: N1 one launch, N2 two, N3 two, N4 two, in
 // order on the caller's stream; each refuses (cudaErrorInvalidValue) a
 // launch the family does not take.  The rows they sum into (N1's cnt,
-// N2's bits, lane sums and keys, N3's flags and feedback rows, N4's red)
-// come zeroed.
+// hier's key bitmap of N2, N3's flags and feedback rows, N4's red) come
+// zeroed.
 extern "C" int hpa2_node_ab_wide(const hpa2::WideArgs* y, int device,
                                  void* stream) {
-  if (!hpa2::wide_ok(y->x)) return (int)cudaErrorInvalidValue;
+  hpa2::WideAbPlan pl;
+  if (!hpa2::wide_ab_plan(*y, pl, hpa2::kWideAbSmem))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
-  const size_t pairs = (size_t)y->x.nl * y->x.a.b;
-  if (err == cudaSuccess)
-    err = wide_launch(node_ab_wide_kernel, pairs, stream, *y);
-  if (err == cudaSuccess)
-    err = wide_launch(node_ab_wide_rotate_kernel, pairs * y->x.a.W, stream,
-                      *y);
-  return (int)err;
+  if (err == cudaSuccess && pl.smem > 48 * 1024)
+    err = allow_smem(node_ab_wide_kernel);
+  if (err != cudaSuccess) return (int)err;
+  const int ctas = hpa2::wide_ab_ctas(y->x, pl);
+  if (ctas > 0)
+    node_ab_wide_kernel<<<ctas, hpa2::kWideAbCta, pl.smem,
+                          (cudaStream_t)stream>>>(*y, pl);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int hpa2_node_bucket_wide(const hpa2::WideBucketArgs* y,
                                      int device, void* stream) {
-  hpa2::BucketPlan pl;
-  if (!hpa2::wide_bucket_plan(*y, pl)) return (int)cudaErrorInvalidValue;
+  hpa2::WideBucketPlan pl;
+  if (!hpa2::wide_bucket_plan(*y, pl, hpa2::kWideBucketLanes))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
-  const size_t b = y->x.b;
-  if (err == cudaSuccess)
-    err = wide_launch(node_bucket_wide_flags_kernel, (size_t)pl.nw * 32 * b,
-                      stream, *y, pl);
-  if (err == cudaSuccess)
-    err = wide_launch(node_bucket_wide_scan_kernel, (size_t)y->x.ndest * b,
-                      stream, *y, pl);
-  if (err == cudaSuccess)
-    err = wide_launch(node_bucket_wide_scatter_kernel,
-                      hpa2::w2_scatter_items(y->x, pl), stream, *y, pl);
-  return (int)err;
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (pl.nwt > 0)
+    node_bucket_wide_flags_kernel<<<pl.nwt * pl.NLTF, hpa2::kWideBucketCta,
+                                    pl.smem1, st>>>(*y, pl);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  node_bucket_wide_place_kernel<<<pl.coff[y->x.ndest], hpa2::kWideBucketCta,
+                                  pl.smem2, st>>>(*y, pl);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int hpa2_node_deliver_wide(const hpa2::WideArgs* y, int device,
@@ -388,10 +397,11 @@ extern "C" int hpa2_node_settle_wide(const hpa2::WideArgs* y, int device,
 }
 
 // The geometry of a launch of kernel `which` (0 N1, 1 N2, 2 N3, 3 N4;
-// 4-7 the wide family's N1-N4, their main launch: N1's, N2's scatter,
+// 4-7 the wide family's N1-N4, their main launch: N1's, N2's place,
 // N3's sets, N4's settle)
-// with `args` (a NodeArgs, a BucketArgs for N2): out = CTAs, threads a
-// CTA, bytes of dynamic shared memory, lanes a CTA, CTAs an SM holds at
+// with `args` (a NodeArgs, a BucketArgs for N2; the wide family's
+// WideArgs, WideBucketArgs): out = CTAs, threads a CTA, bytes of dynamic
+// shared memory, lanes a CTA (N1w: pairs a CTA), CTAs an SM holds at
 // once, CTAs a cluster.  Launches nothing; returns a CUDA error,
 // cudaErrorInvalidValue when the kernel does not take the launch.
 extern "C" int hpa2_node_geometry(int which, const void* args, int device,
@@ -400,14 +410,31 @@ extern "C" int hpa2_node_geometry(int which, const void* args, int device,
   int ctas = 0, threads = hpa2::kNodeCta, G = 0, smem = 0, cl = 1;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (which >= 4) {
-    const void* fns[4] = {(const void*)node_ab_wide_kernel,
-                          (const void*)node_bucket_wide_scatter_kernel,
-                          (const void*)node_deliver_wide_sets_kernel,
+  if (which == 4) {
+    hpa2::WideAbPlan pl;
+    if (!hpa2::wide_ab_plan(*static_cast<const hpa2::WideArgs*>(args), pl,
+                            hpa2::kWideAbSmem))
+      return (int)cudaErrorInvalidValue;
+    fn = (const void*)node_ab_wide_kernel;
+    threads = hpa2::kWideAbCta;
+    ctas = hpa2::wide_ab_ctas(static_cast<const hpa2::WideArgs*>(args)->x, pl);
+    G = pl.TP, smem = pl.smem;
+    if (smem > 48 * 1024) err = allow_smem(node_ab_wide_kernel);
+  } else if (which == 5) {
+    hpa2::WideBucketPlan pl;
+    if (!hpa2::wide_bucket_plan(*static_cast<const hpa2::WideBucketArgs*>(args),
+                                pl, hpa2::kWideBucketLanes))
+      return (int)cudaErrorInvalidValue;
+    fn = (const void*)node_bucket_wide_place_kernel;
+    threads = hpa2::kWideBucketCta;
+    ctas = pl.coff[static_cast<const hpa2::WideBucketArgs*>(args)->x.ndest];
+    G = pl.LB, smem = pl.smem2;
+  } else if (which >= 6) {
+    const void* fns[2] = {(const void*)node_deliver_wide_sets_kernel,
                           (const void*)node_settle_wide_kernel};
     const size_t items = which > 7 ? 0 : wide_items(which, args);
     if (items == 0) return (int)cudaErrorInvalidValue;
-    fn = fns[which - 4];
+    fn = fns[which - 6];
     threads = hpa2::kWideCta;
     ctas = (int)wide_grid(items);
   } else if (which == 1) {

@@ -151,15 +151,16 @@ HPA2_HD size_t blk_at(int row, int cols, int col, int b, int l) {
 // message words and does every operation on them:
 //   RegWords<MAXN>  (node bounds 8, 21, 64) arrays indexed at compile
 //                   time only, so they stay in registers;
-//   WideWords       (the wide family, any n above 64; int32 planes, split
+//   TileWords       (the wide family, any n above 64; int32 planes, split
 //                   mode) SW = ceil(n / 31) and W = 2 + SW are run-time
-//                   values: a sharer set is a row of SW words of the
-//                   pair's scratch in global memory (word j at j * P,
-//                   the launch's pairs P apart, so a warp's accesses to
-//                   a word coalesce) and a message is its two header
-//                   words and a reference to the set its shr{w} fields
-//                   carry (none: zero), so that no word vector has to
-//                   live in registers.
+//                   values: a sharer set is SW consecutive words of the
+//                   pair's sets in N1w's shared tile, and a warp runs
+//                   the pair, each lane a set operation's words j, j +
+//                   32, ... (the reads of a set, any, owner and count,
+//                   warp reductions); a message is its two header words
+//                   and a reference to the set its shr{w} fields carry
+//                   (none: zero), so that no word vector has to live in
+//                   registers.
 // A message refers to its set where RegWords copies it: the body changes
 // no set after packing it into a message.
 //
@@ -259,6 +260,23 @@ HPA2_HD void wide_each(int n, Ld ld, St st) {
   }
 }
 
+// wide_each over the words j0, j0 + step, ... below n (a thread's share
+// of a loop its CTA or warp splits), kStrideBatch loads in flight: few,
+// since a thread takes few words of each such loop and every unrolled
+// load costs its instructions whether it runs or not
+constexpr int kStrideBatch = 4;
+
+template <class Ld, class St>
+HPA2_HD void strided_each(int j0, int step, int n, Ld ld, St st) {
+  for (int b0 = j0; b0 < n; b0 += step * kStrideBatch) {
+    int32_t v[kStrideBatch];
+    HPA2_UNROLL for (int u = 0; u < kStrideBatch; ++u)
+      if (b0 + u * step < n) v[u] = ld(b0 + u * step);
+    HPA2_UNROLL for (int u = 0; u < kStrideBatch; ++u)
+      if (b0 + u * step < n) st(b0 + u * step, v[u]);
+  }
+}
+
 // an OR of ld(j) over n words, kWideBatch loads in flight
 template <class Ld>
 HPA2_HD int32_t wide_or(int n, Ld ld) {
@@ -269,31 +287,87 @@ HPA2_HD int32_t wide_or(int n, Ld ld) {
   return acc;
 }
 
-// the wide family's scratch rows a pair: its INV slot's and its mailbox
-// head's staged sets, then the body's
+// the wide family's sets a pair: its INV slot's and its mailbox head's,
+// staged by N1w's gather, then the body's
 enum { kSetInv = 0, kSetHead, kSetIsh, kSetDsh, kSetNdsh, kSetSv, kSetSnd,
        kSetSelf, kWideSets };
 
-struct WideWords {
+// A warp runs a pair of N1w (TileWords): on the card, this thread's lane
+// and the lanes' stride over a set's words, a barrier of the warp, and
+// reductions over its lanes.  The host build runs a warp as one thread
+// (lane 0, stride 1: every word), so the same partition of a set's words
+// and the same body run there; only the reductions' hardware differs.
+HPA2_HD int warp_lane() {
+#ifdef __CUDA_ARCH__
+  return (int)(threadIdx.x & 31u);
+#else
+  return 0;
+#endif
+}
+
+HPA2_HD int warp_step() {
+#ifdef __CUDA_ARCH__
+  return 32;
+#else
+  return 1;
+#endif
+}
+
+HPA2_HD void warp_sync() {
+#ifdef __CUDA_ARCH__
+  __syncwarp();
+#endif
+}
+
+HPA2_HD uint32_t warp_or(uint32_t v) {
+#ifdef __CUDA_ARCH__
+  return __reduce_or_sync(0xFFFFFFFFu, v);
+#else
+  return v;
+#endif
+}
+
+HPA2_HD int warp_add(int v) {
+#ifdef __CUDA_ARCH__
+  return __reduce_add_sync(0xFFFFFFFFu, v);
+#else
+  return v;
+#endif
+}
+
+HPA2_HD int warp_min(int v) {
+#ifdef __CUDA_ARCH__
+  return __reduce_min_sync(0xFFFFFFFFu, v);
+#else
+  return v;
+#endif
+}
+
+struct TileWords {
   static constexpr bool SPLIT = true;
   struct Set {
     int32_t* p;
   };
   struct Msg {
     int32_t h[2];                 // header words 0 and 1
-    const int32_t* set;           // its shr{w} words (stride P), or null
+    const int32_t* set;           // its shr{w} words, or null
   };
   struct SlotT {
     int recv;
     Msg m;
   };
   int SW;
-  size_t P;                       // the scratch's stride: pairs a launch
-  int32_t* base;                  // this pair's scratch word 0
-  int32_t* const* dirs;           // [SW] live sharer planes
-  HPA2_HD void bind(Set& s, int k) const {
-    s.p = base + (size_t)k * SW * P;
+  int32_t* base;                  // this pair's set 0 (set k SW words on)
+  int32_t* const* dirs;           // [SW] live sharer planes (N1w: the
+                                  // tile's copy of the table)
+  // f(j) for this lane's words of a set, then the warp's barrier, so that
+  // a later read of another lane's word sees what f wrote
+  template <class F>
+  HPA2_HD void each(F f) const {
+    for (int j = warp_lane(); j < SW; j += warp_step()) f(j);
+    warp_sync();
   }
+  HPA2_HD void bind(Set& s, int k) const { s.p = base + k * SW; }
   // field f of a header (the wide layout keeps every field but shr{w}
   // in words 0 and 1)
   HPA2_HD static int hget(const Args& a, const int32_t* h, int f) {
@@ -311,8 +385,8 @@ struct WideWords {
       zero(s);
       return;
     }
-    wide_each(SW, [&](int j) { return w.set[j * P]; },
-              [&](int j, int32_t v) { s.p[j * P] = v; });
+    const int32_t* src = w.set;
+    each([&](int j) { s.p[j] = src[j]; });
   }
   HPA2_HD int field(const Args& a, const Msg& w, int f) const {
     return hget(a, w.h, f);
@@ -342,59 +416,57 @@ struct WideWords {
   }
   HPA2_HD void load_dir(const Args& a, int l, int row, int32_t, int32_t,
                         Set& d) const {
-    wide_each(SW, [&](int j) { return HPA2_AT(dirs[j], row); },
-              [&](int j, int32_t v) { d.p[j * P] = v; });
+    strided_each(warp_lane(), warp_step(), SW,
+                 [&](int j) { return HPA2_AT(dirs[j], row); },
+                 [&](int j, int32_t v) { d.p[j] = v; });
+    warp_sync();
   }
   HPA2_HD void store_dir(const Args& a, int l, int row, const Set& d) const {
-    wide_each(SW, [&](int j) { return d.p[j * P]; },
-              [&](int j, int32_t v) { HPA2_AT(dirs[j], row) = v; });
+    each([&](int j) { HPA2_AT(dirs[j], row) = d.p[j]; });
   }
   HPA2_HD int32_t word0(const Set& s) const { return s.p[0]; }
   HPA2_HD int32_t any(const Set& s) const {
-    return wide_or(SW, [&](int j) { return s.p[j * P]; });
+    uint32_t v = 0;
+    for (int j = warp_lane(); j < SW; j += warp_step()) v |= (uint32_t)s.p[j];
+    return (int32_t)warp_or(v);
   }
+  // the lowest member: the warp's first nonzero word
   HPA2_HD int owner(const Set& s) const {
-    for (int j0 = 0; j0 < SW; j0 += kWideBatch) {
-      int32_t v[kWideBatch];
-      HPA2_UNROLL for (int u = 0; u < kWideBatch; ++u)
-        v[u] = j0 + u < SW ? s.p[(j0 + u) * P] : 0;
-      HPA2_UNROLL for (int u = 0; u < kWideBatch; ++u)
-        if (v[u] != 0) return find_owner(v[u]) + (j0 + u) * kSplitBpw;
-    }
-    return -1;
+    int first = SW;
+    for (int j = warp_lane(); j < SW; j += warp_step())
+      if (s.p[j] != 0) {
+        first = j;
+        break;
+      }
+    first = warp_min(first);
+    return first < SW ? find_owner(s.p[first]) + first * kSplitBpw : -1;
   }
   HPA2_HD int count(const Set& s) const {
     int c = 0;
-    for (int j0 = 0; j0 < SW; j0 += kWideBatch)
-      HPA2_UNROLL for (int u = 0; u < kWideBatch; ++u)
-        if (j0 + u < SW) c += popc(s.p[(j0 + u) * P]);
-    return c;
+    for (int j = warp_lane(); j < SW; j += warp_step()) c += popc(s.p[j]);
+    return warp_add(c);
   }
   HPA2_HD bool test(const Set& s, int p) const {
     if (p < 0 || p >= SW * kSplitBpw) return false;
-    return ((s.p[(size_t)(p / kSplitBpw) * P] >> (p % kSplitBpw)) & 1) == 1;
+    return ((s.p[p / kSplitBpw] >> (p % kSplitBpw)) & 1) == 1;
   }
   HPA2_HD void bit(Set& s, int p) const {
-    for (int j = 0; j < SW; ++j) {
+    each([&](int j) {
       const int q = p - j * kSplitBpw;
-      s.p[j * P] = q >= 0 && q < kSplitBpw ? (int32_t)(1u << q) : 0;
-    }
+      s.p[j] = q >= 0 && q < kSplitBpw ? (int32_t)(1u << q) : 0;
+    });
   }
   HPA2_HD void zero(Set& d) const {
-    for (int j = 0; j < SW; ++j) d.p[j * P] = 0;
+    each([&](int j) { d.p[j] = 0; });
   }
   HPA2_HD void copy(Set& d, const Set& s) const {
-    if (d.p != s.p)
-      wide_each(SW, [&](int j) { return s.p[j * P]; },
-                [&](int j, int32_t v) { d.p[j * P] = v; });
+    if (d.p != s.p) each([&](int j) { d.p[j] = s.p[j]; });
   }
   HPA2_HD void or_in(Set& d, const Set& s) const {
-    wide_each(SW, [&](int j) { return d.p[j * P] | s.p[j * P]; },
-              [&](int j, int32_t v) { d.p[j * P] = v; });
+    each([&](int j) { d.p[j] |= s.p[j]; });
   }
   HPA2_HD void and_not(Set& d, const Set& x, const Set& y) const {
-    wide_each(SW, [&](int j) { return x.p[j * P] & ~y.p[j * P]; },
-              [&](int j, int32_t v) { d.p[j * P] = v; });
+    each([&](int j) { d.p[j] = x.p[j] & ~y.p[j]; });
   }
 };
 
@@ -423,8 +495,8 @@ struct NodeAB {
 // and the REPLY_ID fan's own bit compare (a node shard's rows start at
 // its first node's id).  Its cache and directory rows are updated in
 // place; its mailbox, nsw and outbox are not touched (the caller pops
-// the head and writes the rest).  WideWords's o.ish is bound by the
-// caller to the pair's kSetIsh row.
+// the head and writes the rest).  TileWords's o.ish is bound by the
+// caller to the pair's kSetIsh set.
 template <class V, bool PACKED>
 HPA2_HD void node_ab(const Args& a, const V& v, const int l, const int i,
                      const int gid, const int seg, const NodeIn<V>& in,
@@ -1828,49 +1900,55 @@ HPA2_HD void n4_phase(const NodeArgs& x, const NodePlan& pl, int ph,
 // (packed planes hold at most 14 nodes).  W and SW are run-time values;
 // the word planes are reached through pointer tables in device memory
 // (WideArgs: mb, ob, dirs), so Args and the register kernels' argument
-// blocks keep their size.  Each kernel is a grid over the launch's work
-// items, one thread an item, the lane fastest (so a warp's accesses to a
-// plane row coalesce at any lane count), and no item reads what another
-// item of the same launch writes: the sums that cross items are integer
-// atomics into zeroed rows of global memory, and a step that needs every
-// item's result is a launch of its own.
-//   N1 node_ab_wide     two launches: an item a (node row, lane) pair:
-//                       the gather of its nsw, window length, deferred
-//                       receivers and staged INV and head sets (scratch
-//                       rows kSetInv, kSetHead), node_ab<WideWords> (the
-//                       one protocol body), and its stores: nsw, the
-//                       payload's R rows of its five candidates, the
-//                       outbox, whether it popped its head (the scratch's
-//                       last row); its counters added to cnt; then
-//                       rotate, an item a (word plane, pair): the popped
-//                       mailboxes rotated in place, a plane's slots in
-//                       flight together;
-//   N2 node_bucket_wide three launches: flags (an item a (destination,
-//                       entry, lane): the hit test over the destination's
-//                       nonzero mask words only, the multicast savings,
-//                       hier's keys, a key counted distinct by the item
-//                       whose OR set its bit), scan (an item a
-//                       (destination, lane): its flag words' exclusive
-//                       prefix and total), scatter (an item an (entry,
-//                       lane), a (destination, slot, lane) past the hits,
-//                       or a lane's telemetry fold);
-//   N3 node_deliver_wide two launches: sets (an item an (entry, lane):
-//                       its local receivers' flag bits, a point receiver
-//                       and its fan mask's words of this rank's nodes,
-//                       and in a receiver's summary words the bit of each
-//                       flag word it set), take (an item a (receiver,
-//                       lane): its A then B flag words that are not zero,
-//                       found from its summary words, in the global order
-//                       while its queue has room, each taken entry's words
-//                       into the mailbox and its feedback count and bit
-//                       added);
-//   N4 node_settle_wide two launches: settle (an item a (node row, lane):
-//                       delivered slots cleared, the rest and the INV
-//                       remainder kept, phase D, its sums added) and lane
-//                       (an item a (row, lane) of the stacked SUM and
-//                       MAX).
-// threads a CTA of the wide kernels: 64, so that the 8,192 (node row,
-// lane) items of a 4,096-node rank of 8 lanes are 128 CTAs, one an SM
+// blocks keep their size.
+//   N1 node_ab_wide     one launch, a CTA a tile of TP consecutive (node
+//                       row, lane) pairs (pair i * B + l, the lanes
+//                       fastest, as the planes are laid out), phases
+//                       over a shared tile (n1w_phase): the CTA's threads
+//                       split every word loop over (word, pair), so that
+//                       each access is a coalesced run of the tile's
+//                       pairs (the gather, the payload rows, the outbox,
+//                       the mailbox rotation); a warp runs a pair's
+//                       protocol body,
+//                       node_ab<TileWords> (the one protocol body), its
+//                       lanes splitting every set operation over the
+//                       pair's sets in the tile (wide_ab_plan: TP from
+//                       SW; sets that do not fit even one pair a tile
+//                       go to the scratch y.work);
+//   N2 node_bucket_wide two launches, a CTA of 256 threads a tile of LB
+//                       lanes (wide_bucket_plan): flags (a CTA
+//                       kWideFlagWords flag words of every lane of its
+//                       tile, each (entry, lane)'s hit tested once, the
+//                       words built by shared ORs and written whole,
+//                       with the lane sums
+//                       of the multicast savings and hier's combining
+//                       count), then place (a CTA a chunk of S slots and
+//                       S entries of one compacting destination: a
+//                       CTA-wide scan of the lanes' flag-word popcounts,
+//                       each entry's slot, each slot's entry, and the
+//                       chunk of the [R, k, B] buffer written whole, hits
+//                       and zeroed tail alike, in 16-byte stores; and a
+//                       CTA a lane tile folding the telemetry);
+//   N3 node_deliver_wide two launches, a thread a work item: sets (an
+//                       item an (entry, lane): its local receivers' flag
+//                       bits, a point receiver and its fan mask's words
+//                       of this rank's nodes, and in a receiver's summary
+//                       words the bit of each flag word it set), take (an
+//                       item a (receiver, lane): its A then B flag words
+//                       that are not zero, found from its summary words,
+//                       in the global order while its queue has room,
+//                       each taken entry's words into the mailbox and its
+//                       feedback count and bit added);
+//   N4 node_settle_wide two launches, a thread a work item: settle (an
+//                       item a (node row, lane): delivered slots cleared,
+//                       the rest and the INV remainder kept, phase D, its
+//                       sums added) and lane (an item a (row, lane) of
+//                       the stacked SUM and MAX).
+// In N3's and N4's launches no item reads what another item of the same
+// launch writes: the sums that cross items are integer atomics into
+// zeroed rows of global memory, and a step that needs every item's
+// result is a launch of its own.
+// threads a CTA of N3's and N4's launches
 constexpr int kWideCta = 64;
 
 // What the wide family's N1, N3 and N4 take besides NodeArgs (whose
@@ -1882,7 +1960,8 @@ struct WideArgs {
   int32_t* const* ob;            // [W] outbox word planes
   int32_t* const* dirs;          // [SW] live sharer planes
   int32_t* const* sdirs;         // [SW] snapshot sharer planes (snapshots)
-  int32_t* work;                 // N1: [kWideSets * SW + 1, nl * B] scratch
+  int32_t* work;                 // N1: [nl * B, stride] the pairs' sets
+                                 // when even one pair's miss the tile
   uint32_t* red;                 // N4: [kSettleRed, B] sums, zeroed
   uint32_t* wa;                  // N3: [nch + nsup, nl, B] phase-A flags
   uint32_t* wb;                  //     and phase-B flags, zeroed
@@ -1895,12 +1974,11 @@ struct WideBucketArgs {
   const int32_t* dmask;          // [ndest, SW] a destination's node mask
   int32_t dwlo[kMaxShards];      // its first and last nonzero mask words
   int32_t dwhi[kMaxShards];
-  uint32_t* bits;                // [nw, B] hit flags, zeroed
-  uint32_t* base;                // [nw, B] hits before the word
-  uint32_t* tot;                 // [ndest, B] hits
-  uint32_t* lane;                // [3, B] multicast savings, shipped
-                                 // combinable entries, distinct keys; zeroed
-  uint32_t* keys;                // [nkw, B] key bitmap, zeroed
+  uint32_t* bits;                // [nw, B] hit flags (every word written)
+  uint32_t* part;                // [nwt, 3, B] a flags CTA's lane sums:
+                                 // multicast savings, shipped combinable
+                                 // entries, distinct keys
+  uint32_t* keys;                // [nkw, B] key bitmap, zeroed (hier)
 };
 
 // *p |= v; true when no bit of v was set before (one caller a bit)
@@ -1929,157 +2007,443 @@ HPA2_HD bool wide_ok(const NodeArgs& x) {
          a.f_width[F_SHR0] == kSplitBpw;
 }
 
-// ===== N1 wide: an item a (node row, lane) pair ========================
-HPA2_HD void w1_item(const WideArgs& y, size_t item) {
-  const NodeArgs& x = y.x;
-  const Args& a = x.a;
-  const int nl = x.nl, W = a.W, SW = a.SW, cap = a.cap;
-  const size_t P = (size_t)nl * a.b;
-  if (item >= P) return;
-  const int i = (int)(item / a.b), l = (int)(item % a.b);
-  const int gid = x.me * nl + i;
-  using V = WideWords;
-  const V v{SW, P, y.work + item, y.dirs};
-  // the gather: the INV slot's and the mailbox head's header words, and
-  // their sharer words staged in the scratch
-  NodeIn<V> in;
-  const int32_t nswv = HPA2_AT(a.nsw, i);
-  in.nsw = nswv;
-  in.tl = window_len(a, l, i, a.seg);
-  HPA2_UNROLL for (int q = 0; q < 4; ++q)
-    in.drecv[q] = deferred_recv(a, l, i, one_slot(q));
-  V::Set sinv, shead;
-  v.bind(sinv, kSetInv);
-  v.bind(shead, kSetHead);
-  const int row2 = i * kNSlots + 2;
-  in.inv.h[0] = HPA2_AT(y.ob[0], row2);
-  in.inv.h[1] = HPA2_AT(y.ob[1], row2);
-  wide_each(SW, [&](int j) { return HPA2_AT(y.ob[2 + j], row2); },
-            [&](int j, int32_t v) { sinv.p[j * P] = v; });
-  in.inv.set = sinv.p;
-  const bool mail = (nswv & a.count_mask) != 0;
-  in.head.h[0] = mail ? HPA2_AT(y.mb[0], i * cap) : 0;
-  in.head.h[1] = mail ? HPA2_AT(y.mb[1], i * cap) : 0;
-  if (mail)
-    wide_each(SW, [&](int j) { return HPA2_AT(y.mb[2 + j], i * cap); },
-              [&](int j, int32_t v) { shead.p[j * P] = v; });
-  in.head.set = mail ? shead.p : nullptr;
-  NodeAB<V> o;
-  v.bind(o.ish, kSetIsh);
-  node_ab<V, false>(a, v, l, i, gid, a.seg, in, o);
-  HPA2_AT(a.nsw, i) = o.nswp;
+// ===== N1 wide: a CTA a tile of pairs ==================================
+// A CTA holds TP consecutive (node row, lane) pairs, p = i * B + l, of
+// the launch's nl * B; five phases over its shared tile, a barrier
+// between them:
+//   0 gather: the pairs' words that depend on no other load, over (row,
+//     pair): nsw, the window length, the four deferred receivers, the
+//     INV slot's and the mailbox head's header words; the counters'
+//     sums zeroed;
+//   1 gather the sets, over (word, pair): the INV slot's sharer words,
+//     and the mailbox head's of a pair with mail;
+//   2 protocol, a warp a pair: node_ab<TileWords> on the staged words
+//     (its own dependent loads, the trace word, the cache and directory
+//     rows, by the whole warp), then the pair's candidates (receivers,
+//     header words, the set each refers to, combining keys), its INV
+//     word offered, its flags and counters into the tile, and nsw;
+//   3 write, stores only, over (word, pair): the payload's R rows of the
+//     five candidates in the global order (a blocked node's deferred
+//     words from its outbox), the outbox (every node's INV slot with its
+//     receiver set, a free node's sends with the sender and recv
+//     fields), the mailbox of a pair that popped its head rotated (slot
+//     s takes slot s + 1's word, the last slot the head: every cap slot
+//     moves, stale ones too, so the planes stay the JAX package's; a
+//     word is stored where it changes); the counters summed by lane in
+//     the tile;
+//   4 the counters added into cnt (zeroed), a lane's sum once a CTA.
+// Every tile word a phase reads was written by an earlier phase (the
+// host build starts the tile as garbage to show it).
+constexpr int kN1wPhases = 5;
+constexpr int kWideAbCta = 256;         // threads a CTA: 8 warps
+constexpr int kWideAbLgPairs = 5;       // log2 of the pairs a CTA at most
+// the tile a CTA at most: two CTAs an SM (the launch bounds' registers
+// allow two)
+constexpr int kWideAbSmem = 100 * 1024;
 
-  // the payload's R rows of the five candidates: a blocked node's
-  // deferred words (in its outbox), else its fresh sends, with the
-  // sender field; the INV word offered (its sharer fields clear) with
-  // its set in the mask rows
-  const int snd_off = a.f_off[F_SENDER];
-  const int32_t inv_any = v.any(o.ish);
-  V::Msg winv;
-  v.pack(a, winv, INV, o.inv_addr, 0, false, -2);
-  V::hput(a, winv.h, F_SENDER, gid);
-  const int R = W + SW + 3;
-  const size_t rs = (size_t)5 * nl * a.b;  // a payload row
-  int recv[5];
-  HPA2_UNROLL for (int k = 0; k < 5; ++k) {
-    int32_t* pc = x.payload + (size_t)cand_col(nl, i, k) * a.b + l;
-    if (k == 2) {
-      pc[0] = winv.h[0];
-      pc[rs] = winv.h[1];
-      for (int j = 0; j < SW; ++j) pc[(2 + j) * rs] = 0;
-      wide_each(SW, [&](int j) { return o.ish.p[j * P]; },
-                [&](int j, int32_t v) { pc[(W + j) * rs] = v; });
-      pc[(W + SW) * rs] = 0;
-      pc[(W + SW + 1) * rs] = 1;
-      pc[(R - 1) * rs] = 0;
-      continue;
+// N1w's scalar rows, [kW1Rows][TP] (the pairs fastest): staged by the
+// gather (NSW .. HEADH), then the protocol's: RECV each candidate's
+// receiver, INVH the INV word offered, SLH a free node's sends' header
+// words, SET the set their shr{w} words are (-1: none), KEY their
+// combining keys, FLAGS kFlag* and the counters from bit kW1Count
+enum { W1_NSW = 0, W1_TL, W1_RECV, W1_INVH = W1_RECV + 4,
+       W1_HEADH = W1_INVH + 2, W1_SLH = W1_HEADH + 2, W1_SET = W1_SLH + 8,
+       W1_KEY = W1_SET + 4, W1_FLAGS = W1_KEY + 4, kW1Rows };
+constexpr int kW1Count = 3;
+
+// N1w's launch geometry (wide_ab_plan)
+struct WideAbPlan {
+  int32_t TP;                     // pairs a CTA, a power of 2
+  int32_t lg;                     // log2(TP)
+  int32_t stride;                 // words a pair's sets: kWideSets * SW,
+                                  // odd, so that a warp's accesses to
+                                  // word j of its pairs hit distinct banks
+  int32_t global;                 // the sets in y.work, not the tile
+  int32_t tab;                    // the tile holds a copy of the plane
+                                  // tables mb, ob, dirs (2 W + SW pointers)
+  int32_t smem;                   // bytes of the shared tile
+};
+
+// the plan of a launch that wide_ok took: the largest TP (at most
+// 1 << kWideAbLgPairs) whose tile (the plane tables, scalar rows, counter
+// sums, sets) fits max_smem; when not even one pair's does, the largest
+// whose tables, scalar rows and sums do, the sets in the scratch y.work;
+// then the same without the tables (false without a scratch)
+HPA2_HD bool wide_ab_plan(const WideArgs& y, WideAbPlan& pl, int max_smem) {
+  if (!wide_ok(y.x)) return false;
+  const Args& a = y.x.a;
+  pl.stride = (kWideSets * a.SW) | 1;
+  const long long tab = 8LL * (2 * a.W + a.SW);
+  for (int mode = 0; mode < 3; ++mode)
+    for (int lg = kWideAbLgPairs; lg >= 0; --lg) {
+      const long long bytes = (mode < 2 ? tab : 0) + 4LL * (1 << lg) *
+          (kW1Rows + kABCount + (mode ? 0LL : (long long)pl.stride));
+      if (bytes <= max_smem && (mode == 0 || y.work != nullptr)) {
+        pl.TP = 1 << lg;
+        pl.lg = lg;
+        pl.global = mode > 0;
+        pl.tab = mode < 2;
+        pl.smem = (int32_t)bytes;
+        return true;
+      }
     }
-    const int q = k < 2 ? k : k - 1, slot = one_slot(q);
-    const V::SlotT& sq = o.sl[q];
-    const int r = o.blocked ? o.drecv[q] : sq.recv;
-    recv[k] = r;
-    auto word = [&](int j) -> int32_t {
-      const int32_t w =
-          o.blocked ? HPA2_AT(y.ob[j], i * kNSlots + slot)
-          : j < 2   ? (j == 0 ? sq.m.h[0] : sq.m.h[1])
-          : sq.m.set != nullptr ? sq.m.set[(j - 2) * P] : 0;
-      return j == a.f_word[F_SENDER] ? w | gid << snd_off : w;
-    };
-    const int32_t h[2] = {word(0), word(1)};
-    wide_each(W, word, [&](int j, int32_t w) { pc[j * rs] = w; });
-    for (int j = 0; j < SW; ++j) pc[(W + j) * rs] = 0;
-    pc[(W + SW) * rs] = r + 1;
-    pc[(W + SW + 1) * rs] = k < 3;
-    pc[(R - 1) * rs] = r >= 0 && V::hget(a, h, F_TYPE) == READ_REQUEST
-                           ? V::hget(a, h, F_ADDR) + 1 : 0;
-  }
-  // the mailbox is rotated by w1_rotate
-  y.work[(size_t)kWideSets * SW * P + item] = o.has_msg;
-  // the outbox: every node's INV slot with its receiver set, a free
-  // node's sends with the recv field (or ob_recv)
-  wide_each(W,
-            [&](int j) -> int32_t {
-              return !inv_any ? 0
-                     : j < 2  ? (j == 0 ? winv.h[0] : winv.h[1])
-                              : o.ish.p[(j - 2) * P];
-            },
-            [&](int j, int32_t v) { HPA2_AT(y.ob[j], row2) = v; });
-  const int recv_w = a.f_word[F_RECV], recv_off = a.f_off[F_RECV];
-  HPA2_UNROLL for (int k = 0; k < 5; ++k) {
-    if (k == 2) continue;
-    const int q = k < 2 ? k : k - 1, r = recv[k];
-    if (o.blocked || r < 0) continue;
-    const V::SlotT& sq = o.sl[q];
-    const int row = i * kNSlots + k;
-    wide_each(W,
-              [&](int j) -> int32_t {
-                int32_t w = j < 2 ? (j == 0 ? sq.m.h[0] : sq.m.h[1])
-                            : sq.m.set != nullptr ? sq.m.set[(j - 2) * P] : 0;
-                if (j == a.f_word[F_SENDER]) w |= gid << snd_off;
-                if (a.recv_packed && j == recv_w) w |= (r + 1) << recv_off;
-                return w;
-              },
-              [&](int j, int32_t w) { HPA2_AT(y.ob[j], row) = w; });
-    if (!a.recv_packed) HPA2_AT(a.ob_recv, row) = r;
-  }
-  const bool inc[kABCount] = {o.elig, o.rh, o.rm, o.wh, o.wm, o.ev,
-                              o.inv_applied};
-  HPA2_UNROLL for (int j = 0; j < kABCount; ++j)
-    if (inc[j])
-      sh_add(reinterpret_cast<uint32_t*>(&x.cnt[(size_t)j * a.b + l]), 1);
+  return false;
 }
 
-// N1's launch 2, an item a (word plane w, pair): items W * nl * B.  A
-// pair that popped its head rotates mailbox plane w in place (every cap
-// slot moves, stale ones too, so the planes stay the JAX package's).
-HPA2_HD void w1_rotate(const WideArgs& y, size_t item) {
+HPA2_HD int wide_ab_ctas(const NodeArgs& x, const WideAbPlan& pl) {
+  const long long pairs = (long long)x.nl * x.a.b;
+  return (int)((pairs + pl.TP - 1) >> pl.lg);
+}
+
+// phase ph of thread tid (of kWideAbCta) of CTA cta.  Outside the
+// protocol a thread keeps one pair, t = tid % TP, and takes its rows rg,
+// rg + NRG, ... (rg = tid / TP, NRG = kWideAbCta / TP), so that a warp's
+// accesses to a row are the tile's consecutive pairs
+HPA2_HD void n1w_phase(const WideArgs& y, const WideAbPlan& pl, int ph,
+                       int cta, int tid, int32_t* sh) {
+  constexpr int T = kWideAbCta;
   const NodeArgs& x = y.x;
   const Args& a = x.a;
-  const size_t P = (size_t)x.nl * a.b;
-  if (item >= P * a.W) return;
-  const size_t p = item % P;
-  if (!y.work[(size_t)kWideSets * a.SW * P + p]) return;
-  const int w = (int)(item / P), i = (int)(p / a.b), l = (int)(p % a.b);
-  const int cap = a.cap;
-  int32_t* q = y.mb[w] + (size_t)i * cap * a.b + l;
-  const int32_t head = q[0];
-  wide_each(cap - 1, [&](int s) { return q[(size_t)(s + 1) * a.b]; },
-            [&](int s, int32_t v) { q[(size_t)s * a.b] = v; });
-  q[(size_t)(cap - 1) * a.b] = head;
+  const int TP = pl.TP, lg = pl.lg, nl = x.nl, W = a.W, SW = a.SW;
+  const int cap = a.cap, b = a.b;
+  const size_t np = (size_t)nl * b, p0 = (size_t)cta << lg;
+  // the tile: the plane tables' copy (8-byte words first), the scalar
+  // rows, the counter sums, the sets
+  int32_t** tab = reinterpret_cast<int32_t**>(sh);
+  sh += pl.tab ? 2 * (2 * W + SW) : 0;
+  int32_t* const* mbt = pl.tab ? tab : y.mb;
+  int32_t* const* obt = pl.tab ? tab + W : y.ob;
+  int32_t* const* dirt = pl.tab ? tab + 2 * W : y.dirs;
+  uint32_t* red = reinterpret_cast<uint32_t*>(sh + kW1Rows * TP);
+  int32_t* sets = pl.global ? y.work + p0 * pl.stride
+                            : sh + (kW1Rows + kABCount) * TP;
+  auto at = [&](int row, int t) -> int32_t& { return sh[row * TP + t]; };
+  auto set = [&](int t, int k) -> int32_t* {
+    return sets + (size_t)t * pl.stride + (size_t)k * SW;
+  };
+  if (ph == 2) {
+    const int warp = tid / 32, lane = tid % 32;
+#ifndef __CUDA_ARCH__
+    if (lane) return;  // the host build runs a warp as its lane 0
+#endif
+    using V = TileWords;
+    for (int t = warp; t < TP; t += T / 32) {
+      const size_t p = p0 + t;
+      if (p >= np) break;
+      const int i = (int)(p / b), l = (int)(p % b), gid = x.me * nl + i;
+      const V v{SW, set(t, 0), dirt};
+      NodeIn<V> in;
+      in.nsw = at(W1_NSW, t);
+      in.tl = at(W1_TL, t);
+      HPA2_UNROLL for (int q = 0; q < 4; ++q) in.drecv[q] = at(W1_RECV + q, t);
+      const bool mail = (in.nsw & a.count_mask) != 0;
+      HPA2_UNROLL for (int w = 0; w < 2; ++w) {
+        in.inv.h[w] = at(W1_INVH + w, t);
+        in.head.h[w] = mail ? at(W1_HEADH + w, t) : 0;
+      }
+      in.inv.set = set(t, kSetInv);
+      in.head.set = mail ? set(t, kSetHead) : nullptr;
+      NodeAB<V> o;
+      v.bind(o.ish, kSetIsh);
+      node_ab<V, false>(a, v, l, i, gid, a.seg, in, o);
+      const int32_t inv_any = v.any(o.ish);
+      if (lane) continue;
+      HPA2_AT(a.nsw, i) = o.nswp;
+      // the candidates of slots 0, 1, 3, 4: a blocked node's deferred
+      // words (in its outbox, read by the write phase), else its fresh
+      // sends
+      HPA2_UNROLL for (int q = 0; q < 4; ++q) {
+        const int r = o.blocked ? o.drecv[q] : o.sl[q].recv;
+        int32_t h[2];
+        int sref = -1;
+        if (o.blocked) {
+          HPA2_UNROLL for (int w = 0; w < 2; ++w)
+            h[w] = HPA2_AT(obt[w], i * kNSlots + one_slot(q));
+        } else {
+          h[0] = o.sl[q].m.h[0];
+          h[1] = o.sl[q].m.h[1];
+          if (o.sl[q].m.set != nullptr)
+            sref = (int)((o.sl[q].m.set - v.base) / SW);
+        }
+        at(W1_RECV + q, t) = r;
+        at(W1_SLH + 2 * q, t) = h[0];
+        at(W1_SLH + 2 * q + 1, t) = h[1];
+        at(W1_SET + q, t) = sref;
+        at(W1_KEY + q, t) = r >= 0 && V::hget(a, h, F_TYPE) == READ_REQUEST
+                                ? V::hget(a, h, F_ADDR) + 1 : 0;
+      }
+      // the INV word offered (its sharer fields clear); its set stays in
+      // the pair's kSetIsh
+      int32_t hi[2] = {0, 0};
+      V::hput(a, hi, F_TYPE, INV);
+      V::hput(a, hi, F_ADDR, o.inv_addr);
+      V::hput(a, hi, F_SENDER, gid);
+      at(W1_INVH, t) = hi[0];
+      at(W1_INVH + 1, t) = hi[1];
+      const bool inc[kABCount] = {o.elig, o.rh, o.rm, o.wh, o.wm, o.ev,
+                                  o.inv_applied};
+      int flags = (o.has_msg ? kFlagMsg : 0) | (o.blocked ? kFlagBlocked : 0) |
+                  (inv_any ? kFlagInv : 0);
+      HPA2_UNROLL for (int j = 0; j < kABCount; ++j)
+        if (inc[j]) flags |= 1 << (kW1Count + j);
+      at(W1_FLAGS, t) = flags;
+    }
+    return;
+  }
+  if (ph == 4) {
+    // a lane's sums into cnt once
+    const int nslot = b >= TP ? TP : b;
+    for (int idx = tid; idx < kABCount * nslot; idx += T) {
+      const int s = idx % nslot, j = idx / nslot;
+      const uint32_t v = red[j * TP + s];
+      if (!v) continue;
+      const int l = b >= TP ? (int)((p0 + s) % b) : s;
+      sh_add(reinterpret_cast<uint32_t*>(&x.cnt[(size_t)j * b + l]), v);
+    }
+    return;
+  }
+  if (ph == 0) {
+    for (int j = tid; j < kABCount * TP; j += T) red[j] = 0;
+    if (pl.tab)
+      for (int j = tid; j < 2 * W + SW; j += T)
+        tab[j] = j < W ? y.mb[j] : j < 2 * W ? y.ob[j - W] : y.dirs[j - 2 * W];
+  }
+  const int R = W + SW + 3;
+  const size_t rs = (size_t)5 * nl * b;   // a payload row
+  const int snd_w = a.f_word[F_SENDER], snd_off = a.f_off[F_SENDER];
+  const int recv_w = a.f_word[F_RECV], recv_off = a.f_off[F_RECV];
+  // ph 3's words (words 0 and 1 hold every field but shr{w}, so the
+  // sender and recv fields are theirs): word r of pair t's candidate k
+  // in the payload (a blocked node's deferred words from its outbox)
+  auto pay = [&](int t, int i, int l, int k, int r) -> int32_t {
+    if (k == 2)
+      return r < 2 ? at(W1_INVH + r, t)
+             : r < W ? 0
+             : r < W + SW ? set(t, kSetIsh)[r - W]
+             : r == W + SW + 1 ? 1 : 0;
+    const int q = k < 2 ? k : k - 1;
+    if (r >= W)
+      return r < W + SW ? 0
+             : r == W + SW ? at(W1_RECV + q, t) + 1
+             : r == W + SW + 1 ? (k < 3 ? 1 : 0) : at(W1_KEY + q, t);
+    int32_t v;
+    if (at(W1_FLAGS, t) & kFlagBlocked) {
+      v = HPA2_AT(obt[r], i * kNSlots + k);
+    } else if (r < 2) {
+      v = at(W1_SLH + 2 * q + r, t);
+    } else {
+      const int sref = at(W1_SET + q, t);
+      v = sref >= 0 ? set(t, sref)[r - 2] : 0;
+    }
+    return r == snd_w ? v | (x.me * nl + i) << snd_off : v;
+  };
+  // whether pair t's outbox slot k takes new words (every node's INV
+  // slot; a free node's sends), and its word j
+  auto obset = [&](int t, int k) -> bool {
+    return k == 2 || (!(at(W1_FLAGS, t) & kFlagBlocked) &&
+                      at(W1_RECV + (k < 2 ? k : k - 1), t) >= 0);
+  };
+  auto obw = [&](int t, int i, int k, int j) -> int32_t {
+    if (k == 2)
+      return !(at(W1_FLAGS, t) & kFlagInv) ? 0
+             : j < 2 ? at(W1_INVH + j, t) : set(t, kSetIsh)[j - 2];
+    const int q = k < 2 ? k : k - 1, sref = at(W1_SET + q, t);
+    int32_t v = j < 2 ? at(W1_SLH + 2 * q + j, t)
+                : sref >= 0 ? set(t, sref)[j - 2] : 0;
+    if (j == snd_w) v |= (x.me * nl + i) << snd_off;
+    if (a.recv_packed && j == recv_w)
+      v |= (at(W1_RECV + q, t) + 1) << recv_off;
+    return v;
+  };
+  // ph 3 with a tile of whole nodes (TP a multiple of b): a row of the
+  // tile's payload is two runs, its A grid's 3 TP words (node, slot,
+  // lane) and its B grid's 2 TP, and a row of its outbox one run of 5 TP
+  // (node, slot, lane), so a thread takes a word of the run and every
+  // upr-th row, and a warp stores whole lines
+  const bool whole = TP % b == 0;
+  if (ph == 3 && whole) {
+    const int units = 5 * TP, upr = T / units, u = tid % units;
+    const int r0 = tid / units, i0 = (int)(p0 / b), lu = u % b;
+    if (r0 < upr) {
+      const int c = (u < 3 * TP ? u : u - 3 * TP) / b;
+      const int k = u < 3 * TP ? c % 3 : 3 + c % 2;
+      const int tu = (u < 3 * TP ? c / 3 : c / 2) * b + lu;
+      const size_t col = u < 3 * TP ? (size_t)3 * i0 + c
+                                    : (size_t)3 * nl + 2 * (size_t)i0 + c;
+      if (p0 + tu < np) {
+        const int iu = i0 + tu / b;
+        int32_t* pc = x.payload + col * b + lu;
+        strided_each(r0, upr, R, [&](int r) { return pay(tu, iu, lu, k, r); },
+                     [&](int r, int32_t v) { pc[r * rs] = v; });
+      }
+      const int c2 = u / b, k2 = c2 % 5, t2 = c2 / 5 * b + lu;
+      if (p0 + t2 < np && obset(t2, k2)) {
+        const int i2 = i0 + t2 / b;
+        strided_each(r0, upr, W, [&](int j) { return obw(t2, i2, k2, j); },
+                     [&](int j, int32_t v) {
+                       obt[j][(size_t)(i2 * kNSlots + k2) * b + lu] = v;
+                     });
+      }
+    }
+  }
+  // phases 0, 1 and 3: this thread's pair and rows
+  const int t = tid & (TP - 1), rg = tid >> lg, NRG = T >> lg;
+  const size_t p = p0 + t;
+  if (p >= np) return;
+  const int i = (int)(p / b), l = (int)(p % b);
+  if (ph == 0) {
+    strided_each(rg, NRG, W1_SLH, [&](int r) -> int32_t {
+      if (r == W1_NSW) return HPA2_AT(a.nsw, i);
+      if (r == W1_TL) return window_len(a, l, i, a.seg);
+      if (r < W1_INVH) return deferred_recv(a, l, i, one_slot(r - W1_RECV));
+      if (r < W1_HEADH) return HPA2_AT(y.ob[r - W1_INVH], i * kNSlots + 2);
+      return HPA2_AT(y.mb[r - W1_HEADH], i * cap);
+    }, [&](int r, int32_t v) { at(r, t) = v; });
+    return;
+  }
+  if (ph == 1) {
+    int32_t* inv = set(t, kSetInv);
+    strided_each(rg, NRG, SW,
+                 [&](int j) { return HPA2_AT(obt[2 + j], i * kNSlots + 2); },
+                 [&](int j, int32_t v) { inv[j] = v; });
+    if (at(W1_NSW, t) & a.count_mask) {
+      int32_t* head = set(t, kSetHead);
+      strided_each(rg, NRG, SW,
+                   [&](int j) { return HPA2_AT(mbt[2 + j], i * cap); },
+                   [&](int j, int32_t v) { head[j] = v; });
+    }
+    return;
+  }
+  // ph == 3: stores only
+  const int flags = at(W1_FLAGS, t);
+  if (!whole) {
+    // the payload rows of the five candidates and the outbox, this
+    // pair's rows
+    HPA2_UNROLL for (int k = 0; k < 5; ++k) {
+      int32_t* pc = x.payload + (size_t)cand_col(nl, i, k) * b + l;
+      strided_each(rg, NRG, R, [&](int r) { return pay(t, i, l, k, r); },
+                   [&](int r, int32_t v) { pc[r * rs] = v; });
+      if (obset(t, k))
+        strided_each(rg, NRG, W, [&](int j) { return obw(t, i, k, j); },
+                     [&](int j, int32_t v) {
+                       HPA2_AT(obt[j], i * kNSlots + k) = v;
+                     });
+    }
+  }
+  if (!a.recv_packed && rg == 0 && !(flags & kFlagBlocked))
+    HPA2_UNROLL for (int q = 0; q < 4; ++q) {
+      const int r = at(W1_RECV + q, t);
+      if (r >= 0) HPA2_AT(a.ob_recv, i * kNSlots + one_slot(q)) = r;
+    }
+  // the mailbox of a pair that popped its head, a word plane a row:
+  // slot s takes slot s + 1's word, the last slot the head; every slot
+  // is read and moved, and a word is stored where it changes (the old
+  // words are the ones read, and the head's)
+  if (flags & kFlagMsg)
+    for (int w = rg; w < W; w += NRG) {
+      int32_t* mq = mbt[w] + (size_t)i * cap * b + l;
+      const int32_t head =
+          w < 2 ? at(W1_HEADH + w, t) : set(t, kSetHead)[w - 2];
+      int32_t prev = head;              // the old word of slot s0 - 1
+      for (int s0 = 1; s0 < cap; s0 += kWideBatch) {
+        int32_t v[kWideBatch];
+        HPA2_UNROLL for (int u = 0; u < kWideBatch; ++u)
+          if (s0 + u < cap) v[u] = mq[(size_t)(s0 + u) * b];
+        HPA2_UNROLL for (int u = 0; u < kWideBatch; ++u)
+          if (s0 + u < cap) {
+            if (v[u] != prev) mq[(size_t)(s0 + u - 1) * b] = v[u];
+            prev = v[u];
+          }
+      }
+      if (head != prev) mq[(size_t)(cap - 1) * b] = head;
+    }
+  // the counters, summed by lane: a slot a pair while the tile's pairs
+  // are of distinct lanes (b >= TP), else a slot a lane
+  if (rg == 0) {
+    const int slot = b >= TP ? t : l;
+    HPA2_UNROLL for (int j = 0; j < kABCount; ++j)
+      if ((flags >> (kW1Count + j)) & 1) sh_add(&red[j * TP + slot], 1);
+  }
 }
 
-// ===== N2 wide =========================================================
-// the plan of a launch: each destination's flag words (woff, nw) and the
-// key bitmap's words (nkw); false when the kernels do not take it
-HPA2_HD bool wide_bucket_plan(const WideBucketArgs& y, BucketPlan& pl) {
+// ===== N2 wide: flags, then place ======================================
+// Two launches, a CTA of kWideBucketCta threads a tile of LB lanes
+// (wide_bucket_plan), threads over (item, lane) with the lane fastest:
+//   flags, a CTA kWideFlagWords flag word of its lanes (the flag words
+//   of every destination concatenated, woff), three phases:
+//     0 zero the tile;
+//     1 every (entry, lane) of its words tests bucket_hit once (the
+//       destination's nonzero mask words only) and ORs its bit into the
+//       lane's flag word in the tile; a stat destination's hit adds its
+//       multicast savings to the lane's sum; under hier a compacting
+//       destination's hit with a key counts one and sets the key's bit
+//       in the lane's bitmap (global, zeroed; a key counted distinct by
+//       the thread whose OR set its bit);
+//     2 the flag words and the lane sums written whole (bits, part);
+//   place, a CTA (after the NLT fold CTAs) a chunk of S slots and S
+//   entries of one compacting destination p and lane tile (S a multiple
+//   of NC, at least kWidePlaceWords words of the buffer where the slots
+//   allow), 3 + steps phases:
+//     0 a thread a (chunk of C flag words of p, lane): its popcount;
+//     1 .. steps: a CTA-wide scan of the NC chunks' counts a lane (a
+//       step a phase, doubling), the chunks' exclusive prefixes and the
+//       lane's hits;
+//     steps + 1: a thread (entries, lane) of the chunk, NC entries apart:
+//       each one's slot (sel: the prefix of its chunk, the popcounts of
+//       the words before it in the chunk, the bits below it; k when not
+//       shipped); and (slots, lane): each one's entry, -1 past the
+//       lane's hits (the chunk whose prefix holds it by a binary search,
+//       then its words);
+//     steps + 2: the chunk's slots of every row of buf written whole, an
+//       entry's row word or zero, four lanes a 16-byte store where the
+//       tile's lanes allow it;
+//   a fold CTA sums its lanes' hits of every destination and the flags
+//   CTAs' lane sums and folds them into fs once (the CTA owns the lane:
+//   no atomics in global memory).
+constexpr int kWideBucketCta = 256;
+constexpr int kWideBucketLanes = 32;    // lanes a tile at most
+constexpr int kWideFlagWords = 1;       // flag words a flags CTA
+constexpr int kWideFlagLanes = 8;       // lanes a flags CTA at most
+constexpr int kN2wFlagPhases = 3;
+// words of a buffer a place CTA writes at least, where its slots allow
+// (so that its prologue, a scan, is paid for)
+constexpr int kWidePlaceWords = 16384;
+// rows whose loads a thread of the place keeps in flight
+constexpr int kPlaceRows = 4;
+
+// N2w's launch geometry (wide_bucket_plan)
+struct WideBucketPlan {
+  int32_t nw;                     // flag words a lane, every destination
+  int32_t nkw;                    // key-bitmap words a lane (hier), else 0
+  int32_t woff[kMaxShards + 1];   // each destination's first flag word
+  int32_t LB;                     // lanes a tile
+  int32_t NLT;                    // lane tiles
+  int32_t LBF, NLTF;              // lanes a flags CTA's tile, its tiles
+  int32_t NC;                     // a place CTA's chunks of a lane's flag
+                                  // words (kWideBucketCta / LB)
+  int32_t S;                      // a place CTA's slots (and entries), a
+                                  // multiple of NC and of G
+  int32_t G;                      // slots a group: a 128-byte line of the
+                                  // tile's lanes where 32 % LB == 0
+  int32_t steps;                  // the scan's steps: ceil(log2(NC))
+  int32_t nwt;                    // flags CTAs a lane tile
+  int32_t coff[kMaxShards + 1];   // each destination's first place CTA
+  int32_t smem1, smem2;           // bytes of the two launches' tiles
+};
+
+// the plan of a launch, false when the kernels do not take it; at most
+// max_lanes lanes a tile (kWideBucketLanes on the card)
+HPA2_HD bool wide_bucket_plan(const WideBucketArgs& y, WideBucketPlan& pl,
+                              int max_lanes) {
   const BucketArgs& x = y.x;
   if (x.ndest < 1 || x.ndest > kMaxShards || x.b < 1 || x.k < 1 ||
-      x.SW < 1 || x.nl < 1 || x.nkeys < 0 || x.W != 2 + x.SW)
+      x.SW < 1 || x.nl < 1 || x.nkeys < 0 || x.W != 2 + x.SW ||
+      max_lanes < 1)
     return false;
   int w = 0;
   for (int p = 0; p < x.ndest; ++p) {
     if (x.dblk[p] < 0 || x.dblk[p] >= kMaxShards || y.dwlo[p] < 0 ||
-        y.dwhi[p] >= x.SW)
+        y.dwhi[p] >= x.SW || x.blen[x.dblk[p]] < 1)
       return false;
     pl.woff[p] = w;
     w += (x.blen[x.dblk[p]] + 31) / 32;
@@ -2087,140 +2451,309 @@ HPA2_HD bool wide_bucket_plan(const WideBucketArgs& y, BucketPlan& pl) {
   pl.woff[x.ndest] = w;
   pl.nw = w;
   pl.nkw = x.combine ? (x.nkeys + 31) / 32 : 0;
-  pl.G = 1;
-  pl.smem = 0;
+  pl.LB = x.b < max_lanes ? x.b : max_lanes;
+  pl.NLT = (x.b + pl.LB - 1) / pl.LB;
+  pl.LBF = pl.LB < kWideFlagLanes ? pl.LB : kWideFlagLanes;
+  pl.NLTF = (x.b + pl.LBF - 1) / pl.LBF;
+  pl.NC = kWideBucketCta / pl.LB;
+  if (pl.NC < 1) return false;
+  pl.steps = 0;
+  while ((1 << pl.steps) < pl.NC) ++pl.steps;
+  pl.G = 32 % pl.LB == 0 && pl.NC % (32 / pl.LB) == 0 ? 32 / pl.LB : 1;
+  const long long chunk = (long long)(x.W + x.SW + 3) * pl.LB * pl.NC;
+  pl.S = pl.NC * (int)((kWidePlaceWords + chunk - 1) / chunk);
+  pl.nwt = (pl.nw + kWideFlagWords - 1) / kWideFlagWords;
+  long long c = pl.NLT;
+  for (int p = 0; p < x.ndest; ++p) {
+    pl.coff[p] = (int32_t)c;
+    if (x.dflags[p] & kDestCompact) {
+      const int J = x.blen[x.dblk[p]], span = J > x.k ? J : x.k;
+      c += (long long)((span + pl.S - 1) / pl.S) * pl.NLT;
+    }
+  }
+  if (c >= (1LL << 31)) return false;
+  pl.coff[x.ndest] = (int32_t)c;
+  pl.smem1 = 4 * pl.LBF * (kWideFlagWords + 3);
+  const int rows2 = 3 * pl.NC + pl.S > x.ndest + 3 ? 3 * pl.NC + pl.S
+                                                   : x.ndest + 3;
+  pl.smem2 = 4 * pl.LB * rows2;
   return true;
 }
 
-// launch 1, an item a (flag-word entry e, lane): items nw * 32 * B
-HPA2_HD void w2_flags(const WideBucketArgs& y, const BucketPlan& pl,
-                      size_t item) {
+// flags: phase ph of thread tid of CTA cta (word tile cta / NLTF, lane
+// tile cta % NLTF); tile: bits [kWideFlagWords][LBF], sums [3][LBF]
+HPA2_HD void n2w_flags_phase(const WideBucketArgs& y,
+                             const WideBucketPlan& pl, int ph, int cta,
+                             int tid, uint32_t* sh) {
+  constexpr int T = kWideBucketCta, FW = kWideFlagWords;
   const BucketArgs& x = y.x;
-  const int l = (int)(item % x.b);
-  const int e = (int)(item / x.b);
-  if (e >= pl.nw * 32) return;
-  const int p = bucket_dest_of(x, pl, e >> 5);
-  const int j = e - pl.woff[p] * 32, J = x.blen[x.dblk[p]];
-  if (j >= J) return;
+  const int LB = pl.LBF, wt = cta / pl.NLTF, l0 = (cta % pl.NLTF) * LB;
+  uint32_t* bits = sh;
+  uint32_t* sums = sh + FW * LB;
+  if (ph == 0) {
+    for (int i = tid; i < (FW + 3) * LB; i += T) sh[i] = 0;
+    return;
+  }
+  if (ph == 1) {
+    for (int idx = tid; idx < 32 * FW * LB; idx += T) {
+      const int g = idx % LB, e = idx / LB, l = l0 + g;
+      const int w = wt * FW + (e >> 5);
+      if (w >= pl.nw || l >= x.b) continue;
+      int p = 0;
+      while (p + 1 < x.ndest && w >= pl.woff[p + 1]) ++p;
+      const int j = (w - pl.woff[p]) * 32 + (e & 31), J = x.blen[x.dblk[p]];
+      if (j >= J) continue;
+      const int32_t* __restrict__ blk = x.blk[x.dblk[p]];
+      const int32_t* dm = y.dmask + (size_t)p * x.SW;
+      const int q = blk[blk_at(x.W + x.SW, J, j, x.b, l)] - 1;
+      bool hit = q >= 0 && q < x.n && ((x.dset[p] >> (q / x.nl)) & 1);
+      int pop = 0;
+      // the destination's nonzero mask words (no store between the
+      // loads: they go out together)
+      const int32_t* mrow = blk + blk_at(x.W, J, j, x.b, l);
+      const size_t mstep = (size_t)J * x.b;
+      for (int mw = y.dwlo[p]; mw <= y.dwhi[p]; ++mw) {
+        const int32_t m = mrow[mw * mstep] & dm[mw];
+        hit = hit || m != 0;
+        pop += popc(m);
+      }
+      if (!hit) continue;
+      sh_or(reinterpret_cast<int32_t*>(&bits[(e >> 5) * LB + g]),
+            (int32_t)(1u << (e & 31)));
+      const int flags = x.dflags[p];
+      if ((flags & kDestStat) && pop > 1) sh_add(&sums[g], (uint32_t)(pop - 1));
+      if (x.combine && (flags & kDestCompact)) {
+        const int key = blk[blk_at(x.W + x.SW + 2, J, j, x.b, l)];
+        if (key >= 1 && key <= x.nkeys) {
+          sh_add(&sums[LB + g], 1);
+          if (or_was_clear(&y.keys[(size_t)((key - 1) >> 5) * x.b + l],
+                           1u << ((key - 1) & 31)))
+            sh_add(&sums[2 * LB + g], 1);
+        }
+      }
+    }
+    return;
+  }
+  // ph == 2: the tile written whole
+  for (int idx = tid; idx < FW * LB; idx += T) {
+    const int g = idx % LB, w = wt * FW + idx / LB, l = l0 + g;
+    if (w < pl.nw && l < x.b) y.bits[(size_t)w * x.b + l] = bits[idx];
+  }
+  for (int idx = tid; idx < 3 * LB; idx += T) {
+    const int g = idx % LB, l = l0 + g;
+    if (l < x.b) y.part[((size_t)wt * 3 + idx / LB) * x.b + l] = sums[idx];
+  }
+}
+
+// a 16-byte group of words (its alignment lets a store of it be one
+// vector store)
+struct alignas(16) Words4 {
+  int32_t v[4];
+};
+
+// place: phase ph of thread tid of CTA cta
+HPA2_HD void n2w_place_phase(const WideBucketArgs& y,
+                             const WideBucketPlan& pl, int ph, int cta,
+                             int tid, uint32_t* sh) {
+  constexpr int T = kWideBucketCta;
+  const BucketArgs& x = y.x;
+  const int LB = pl.LB, NC = pl.NC, k = x.k;
+  if (cta < pl.NLT) {
+    // a fold CTA: its lanes' hits of every destination [ndest][LB] and
+    // the flags CTAs' lane sums [3][LB], then fs
+    const int l0 = cta * LB;
+    uint32_t* tot = sh;
+    uint32_t* sums = sh + x.ndest * LB;
+    if (ph == 0) {
+      for (int i = tid; i < (x.ndest + 3) * LB; i += T) sh[i] = 0;
+    } else if (ph == 1) {
+      const int g = tid % LB, part = tid / LB, l = l0 + g;
+      if (part >= NC || l >= x.b) return;
+      for (int p = 0; p < x.ndest; ++p) {
+        uint32_t c = 0;
+        for (int w = pl.woff[p] + part; w < pl.woff[p + 1]; w += NC)
+          c += (uint32_t)popc((int32_t)y.bits[(size_t)w * x.b + l]);
+        if (c) sh_add(&tot[p * LB + g], c);
+      }
+      for (int i = 0; i < 3; ++i) {
+        uint32_t c = 0;
+        for (int wt = part; wt < pl.nwt; wt += NC)
+          c += y.part[((size_t)wt * 3 + i) * x.b + l];
+        if (c) sh_add(&sums[i * LB + g], c);
+      }
+    } else if (ph == 2) {
+      for (int g = tid; g < LB; g += T) {
+        const int l = l0 + g;
+        if (l >= x.b) continue;
+        int32_t* fs = x.fs;
+        auto at = [&](int row) -> int32_t& { return fs[(size_t)row * x.b + l]; };
+        int32_t sent = at(FS_SENT), hwm = at(FS_HWM), ovf = at(FS_OVF),
+                diag = at(FS_DIAG);
+        for (int p = 0; p < x.ndest; ++p) {
+          const int32_t t = (int32_t)tot[p * LB + g];
+          const int flags = x.dflags[p];
+          if ((flags & kDestCompact) && k < x.blen[x.dblk[p]]) {
+            hwm = t > hwm ? t : hwm;
+            if (t > k) {
+              ovf += t - k;
+              const int32_t word = (int32_t)(
+                  ((uint32_t)(t < 0xFFFF ? t : 0xFFFF) << 16) |
+                  ((uint32_t)(x.me & 255) << 8) | (uint32_t)(x.ddst[p] & 255));
+              diag = word > diag ? word : diag;
+            }
+          }
+          if (flags & kDestStat) {
+            sent += t;
+            hwm = t > hwm ? t : hwm;
+          }
+        }
+        at(FS_SENT) = sent;
+        at(FS_HWM) = hwm;
+        at(FS_OVF) = ovf;
+        at(FS_DIAG) = diag;
+        at(FS_MC) += (int32_t)sums[g];
+        if (x.combine) at(FS_COMB) += (int32_t)(sums[LB + g] - sums[2 * LB + g]);
+      }
+    }
+    return;
+  }
+  // a place CTA: destination p, its chunk ch, lane tile lt
+  int p = 0;
+  while (p + 1 < x.ndest && cta >= pl.coff[p + 1]) ++p;
+  const int rel = cta - pl.coff[p], lt = rel % pl.NLT, ch = rel / pl.NLT;
+  const int nch = (pl.coff[p + 1] - pl.coff[p]) / pl.NLT;  // chunks of p
+  // the chunk's entries s0 .. s0 + S - 1; its slots in groups of G (a
+  // line of its lanes), group ch, ch + nch, ... (S / G of them), so that
+  // the lanes' hits, the slots below their counts, fall on many chunks
+  const int l0 = lt * LB, s0 = ch * pl.S, G = pl.G;
+  auto slot_of = [&](int m) { return (ch + m / G * nch) * G + m % G; };
+  const int J = x.blen[x.dblk[p]], nwp = pl.woff[p + 1] - pl.woff[p];
+  const int C = (nwp + NC - 1) / NC;              // flag words a chunk
+  const uint32_t* fw = y.bits + (size_t)pl.woff[p] * x.b;  // p's words
+  uint32_t* csum = sh;                            // [NC][LB] chunk counts
+  uint32_t* scan = sh + NC * LB;                  // [2][NC][LB]
+  int32_t* ent = reinterpret_cast<int32_t*>(sh + 3 * NC * LB);  // [S][LB]
+  const int g = tid % LB, c = tid / LB, l = l0 + g;
+  const bool mine = c < NC && l < x.b;
+  if (ph == 0) {
+    if (!mine) return;
+    uint32_t n = 0;
+    const int w1 = (c + 1) * C < nwp ? (c + 1) * C : nwp;
+    for (int w = c * C; w < w1; ++w) n += (uint32_t)popc((int32_t)fw[(size_t)w * x.b + l]);
+    csum[c * LB + g] = scan[c * LB + g] = n;
+    return;
+  }
+  if (ph <= pl.steps) {
+    if (!mine) return;
+    const int d = 1 << (ph - 1);
+    const uint32_t* in = scan + ((ph - 1) & 1) * NC * LB;
+    uint32_t* out = scan + (ph & 1) * NC * LB;
+    out[c * LB + g] = in[c * LB + g] + (c >= d ? in[(c - d) * LB + g] : 0u);
+    return;
+  }
+  const uint32_t* incl = scan + (pl.steps & 1) * NC * LB;
+  // the hits of lane g before chunk cc
+  auto before = [&](int cc) -> int {
+    return (int)(incl[cc * LB + g] - csum[cc * LB + g]);
+  };
+  if (ph == pl.steps + 1) {
+    if (!mine) return;
+    const int hits = (int)incl[(NC - 1) * LB + g];
+    for (int m = c; m < pl.S; m += NC) {
+      // entry j = s0 + m: its slot, when p compacts into a buffer
+      const int j = s0 + m;
+      if ((x.dflags[p] & kDestCompact) && j < J) {
+        const int w = j >> 5, bit = j & 31;
+        const uint32_t word = fw[(size_t)w * x.b + l];
+        int64_t slot = k;
+        if ((word >> bit) & 1) {
+          const int cw = w / C;
+          int pos = before(cw) + popc((int32_t)(word & ((1u << bit) - 1u)));
+          for (int u = cw * C; u < w; ++u)
+            pos += popc((int32_t)fw[(size_t)u * x.b + l]);
+          if (pos < k) slot = pos;
+        }
+        x.sel[p][(size_t)j * x.b + l] = slot;
+      }
+      // slot s = slot_of(m): its entry (-1: zero)
+      const int s = slot_of(m);
+      int e = -1;
+      if (s < k && s < hits) {
+        int lo = 0, hi = NC - 1;          // the last chunk with before <= s
+        while (lo < hi) {
+          const int mid = (lo + hi + 1) / 2;
+          if (before(mid) <= s) lo = mid; else hi = mid - 1;
+        }
+        int run = before(lo);
+        const int w1 = (lo + 1) * C < nwp ? (lo + 1) * C : nwp;
+        for (int w = lo * C; w < w1; ++w) {
+          uint32_t wm = fw[(size_t)w * x.b + l];
+          const int pc = popc((int32_t)wm);
+          if (s < run + pc) {
+            for (int u = s - run; u > 0; --u) wm &= wm - 1u;
+            e = w * 32 + find_owner((int32_t)wm);
+            break;
+          }
+          run += pc;
+        }
+      }
+      ent[m * LB + g] = e;
+    }
+    return;
+  }
+  if (ph != pl.steps + 2) return;
+  // the chunk's slots of every row of buf: a hit's row word, else zero
+  const int ns = pl.S;
+  const int R = x.W + x.SW + 3;
   const int32_t* __restrict__ blk = x.blk[x.dblk[p]];
-  const int32_t* dm = y.dmask + (size_t)p * x.SW;
-  const int q = blk[blk_at(x.W + x.SW, J, j, x.b, l)] - 1;
-  bool hit = q >= 0 && q < x.n && ((x.dset[p] >> (q / x.nl)) & 1);
-  int pop = 0;
-  for (int w = y.dwlo[p]; w <= y.dwhi[p]; ++w) {
-    const int32_t mw = blk[blk_at(x.W + w, J, j, x.b, l)] & dm[w];
-    hit = hit || mw != 0;
-    pop += popc(mw);
-  }
-  if (!hit) return;
-  sh_or(reinterpret_cast<int32_t*>(&y.bits[(size_t)(e >> 5) * x.b + l]),
-        (int32_t)(1u << (e & 31)));
-  const int flags = x.dflags[p];
-  if ((flags & kDestStat) && pop > 1) sh_add(&y.lane[l], (uint32_t)(pop - 1));
-  if (x.combine && (flags & kDestCompact)) {
-    const int key = blk[blk_at(x.W + x.SW + 2, J, j, x.b, l)];
-    if (key >= 1 && key <= x.nkeys) {
-      sh_add(&y.lane[x.b + l], 1);
-      if (or_was_clear(&y.keys[(size_t)((key - 1) >> 5) * x.b + l],
-                       1u << ((key - 1) & 31)))
-        sh_add(&y.lane[2 * x.b + l], 1);
+  int32_t* __restrict__ buf = x.buf[p];
+  const int nlb = x.b - l0 < LB ? x.b - l0 : LB;  // lanes of this tile
+  const bool vec = nlb % 4 == 0 && l0 % 4 == 0 && x.b % 4 == 0 &&
+                   ((size_t)buf & 15) == 0;
+  // a unit: four lanes (vec) or one of a slot; a thread keeps its unit
+  // and its entries across the rows it takes (rpt rows apart)
+  const int L = vec ? 4 : 1, per_row = ns * (nlb / L);
+  const size_t brow = (size_t)k * x.b, erow = (size_t)J * x.b;
+  const int units = per_row < T ? per_row : T;
+  const int rpt = per_row < T ? T / per_row : 1;   // rows at once
+  if (tid >= units * rpt) return;
+  const int r0 = tid / units;
+  for (int u = tid % units; u < per_row; u += units) {
+    const int si = u / (nlb / L), gl = (u - si * (nlb / L)) * L;
+    const int s = slot_of(si);
+    if (s >= k) continue;
+    const int32_t* src[4];
+    bool any = false;
+    HPA2_UNROLL for (int q = 0; q < 4; ++q) {
+      const int e = q < L ? ent[si * LB + gl + q] : -1;
+      src[q] = e >= 0 ? blk + blk_at(0, J, e, x.b, l0 + gl + q) : nullptr;
+      any = any || e >= 0;
+    }
+    int32_t* dst = buf + blk_at(0, k, s, x.b, l0 + gl);
+    auto put = [&](int r, const Words4& v) {
+      if (vec)
+        *reinterpret_cast<Words4*>(dst + r * brow) = v;
+      else
+        dst[r * brow] = v.v[0];
+    };
+    if (!any) {
+      const Words4 zero = {{0, 0, 0, 0}};
+      for (int r = r0; r < R; r += rpt) put(r, zero);
+      continue;
+    }
+    // a unit with hits: kPlaceRows rows' loads in flight before their
+    // stores
+    for (int rb = r0; rb < R; rb += rpt * kPlaceRows) {
+      Words4 v[kPlaceRows];
+      HPA2_UNROLL for (int u = 0; u < kPlaceRows; ++u)
+        HPA2_UNROLL for (int q = 0; q < 4; ++q) {
+          const int r = rb + u * rpt;
+          v[u].v[q] = r < R && src[q] != nullptr ? src[q][r * erow] : 0;
+        }
+      HPA2_UNROLL for (int u = 0; u < kPlaceRows; ++u)
+        if (rb + u * rpt < R) put(rb + u * rpt, v[u]);
     }
   }
-}
-
-// launch 2, an item a (destination, lane): items ndest * B
-HPA2_HD void w2_scan(const WideBucketArgs& y, const BucketPlan& pl,
-                     size_t item) {
-  const BucketArgs& x = y.x;
-  const int l = (int)(item % x.b), p = (int)(item / x.b);
-  if (p >= x.ndest) return;
-  uint32_t run = 0;
-  for (int w = pl.woff[p]; w < pl.woff[p + 1]; ++w) {
-    const size_t at = (size_t)w * x.b + l;
-    y.base[at] = run;
-    run += (uint32_t)popc((int32_t)y.bits[at]);
-  }
-  y.tot[(size_t)p * x.b + l] = run;
-}
-
-// launch 3, an item an (entry, lane) (nw * 32 * B), then a (destination,
-// slot, lane) (ndest * k * B), then a lane (B)
-HPA2_HD size_t w2_scatter_items(const BucketArgs& x, const BucketPlan& pl) {
-  return ((size_t)pl.nw * 32 + (size_t)x.ndest * x.k + 1) * x.b;
-}
-
-HPA2_HD void w2_scatter(const WideBucketArgs& y, const BucketPlan& pl,
-                        size_t item) {
-  const BucketArgs& x = y.x;
-  const int k = x.k, R = x.W + x.SW + 3;
-  const size_t n_ent = (size_t)pl.nw * 32 * x.b;
-  const size_t n_tail = (size_t)x.ndest * k * x.b;
-  if (item < n_ent) {
-    const int l = (int)(item % x.b), e = (int)(item / x.b);
-    const int p = bucket_dest_of(x, pl, e >> 5);
-    const int j = e - pl.woff[p] * 32, J = x.blen[x.dblk[p]];
-    if (j >= J || !(x.dflags[p] & kDestCompact)) return;
-    const int bit = e & 31;
-    const size_t at = (size_t)(e >> 5) * x.b + l;
-    const uint32_t word = y.bits[at];
-    int64_t slot = k;
-    if ((word >> bit) & 1) {
-      const int pos = (int)y.base[at] + popc((int32_t)(word & ((1u << bit) - 1u)));
-      if (pos < k) {
-        const int32_t* __restrict__ blk = x.blk[x.dblk[p]];
-        int32_t* __restrict__ buf = x.buf[p];
-        for (int r = 0; r < R; ++r)
-          buf[blk_at(r, k, pos, x.b, l)] = blk[blk_at(r, J, j, x.b, l)];
-        slot = pos;
-      }
-    }
-    x.sel[p][(size_t)j * x.b + l] = slot;
-    return;
-  }
-  item -= n_ent;
-  if (item < n_tail) {
-    const int l = (int)(item % x.b);
-    const int slot = (int)((item / x.b) % k), p = (int)(item / ((size_t)x.b * k));
-    if (!(x.dflags[p] & kDestCompact) ||
-        slot < (int)y.tot[(size_t)p * x.b + l])
-      return;
-    int32_t* __restrict__ buf = x.buf[p];
-    for (int r = 0; r < R; ++r) buf[blk_at(r, k, slot, x.b, l)] = 0;
-    return;
-  }
-  item -= n_tail;
-  if (item >= (size_t)x.b) return;
-  // the lane's telemetry folded into fs once
-  const int l = (int)item;
-  int32_t* fs = x.fs;
-  auto at = [&](int row) -> int32_t& { return fs[(size_t)row * x.b + l]; };
-  int32_t sent = at(FS_SENT), hwm = at(FS_HWM), ovf = at(FS_OVF),
-          diag = at(FS_DIAG);
-  for (int p = 0; p < x.ndest; ++p) {
-    const int32_t t = (int32_t)y.tot[(size_t)p * x.b + l];
-    const int flags = x.dflags[p];
-    if ((flags & kDestCompact) && k < x.blen[x.dblk[p]]) {
-      hwm = t > hwm ? t : hwm;
-      if (t > k) {
-        ovf += t - k;
-        const int32_t word = (int32_t)(
-            ((uint32_t)(t < 0xFFFF ? t : 0xFFFF) << 16) |
-            ((uint32_t)(x.me & 255) << 8) | (uint32_t)(x.ddst[p] & 255));
-        diag = word > diag ? word : diag;
-      }
-    }
-    if (flags & kDestStat) {
-      sent += t;
-      hwm = t > hwm ? t : hwm;
-    }
-  }
-  at(FS_SENT) = sent;
-  at(FS_HWM) = hwm;
-  at(FS_OVF) = ovf;
-  at(FS_DIAG) = diag;
-  at(FS_MC) += (int32_t)y.lane[l];
-  if (x.combine)
-    at(FS_COMB) += (int32_t)(y.lane[x.b + l] - y.lane[2 * x.b + l]);
 }
 
 // ===== N3 wide =========================================================
@@ -2380,11 +2913,11 @@ HPA2_HD void w4_item(const WideArgs& y, size_t item) {
       add(R_MC + INV, dinv);
     }
     int32_t h[2] = {HPA2_AT(y.ob[0], row2), HPA2_AT(y.ob[1], row2)};
-    const int addr = WideWords::hget(a, h, F_ADDR);
+    const int addr = TileWords::hget(a, h, F_ADDR);
     h[0] = h[1] = 0;
-    WideWords::hput(a, h, F_TYPE, INV);
-    WideWords::hput(a, h, F_ADDR, addr);
-    WideWords::hput(a, h, F_SENDER, gid);
+    TileWords::hput(a, h, F_TYPE, INV);
+    TileWords::hput(a, h, F_ADDR, addr);
+    TileWords::hput(a, h, F_SENDER, gid);
     HPA2_AT(y.ob[0], row2) = rem_any ? h[0] : 0;
     HPA2_AT(y.ob[1], row2) = rem_any ? h[1] : 0;
     if (rem_any) {

@@ -125,7 +125,9 @@ class WideArgs(ctypes.Structure):
     """Mirror of ``hpa2::WideArgs``: the wide family's N1, N3 and N4
     arguments (``x.a``'s word-plane arrays hold the first planes only;
     ``mb``, ``ob``, ``dirs`` and ``sdirs`` point at int64 tables of every
-    plane's address on the device) and their scratch and zeroed rows."""
+    plane's address on the device), N1's scratch (null unless its pairs'
+    sets miss the shared tile, :func:`wide_ab_scratch`) and the zeroed
+    rows of N3 and N4."""
 
     _fields_ = [("x", NodeArgs)] + [(f, ctypes.c_void_p) for f in (
         "mb", "ob", "dirs", "sdirs", "work", "red", "wa", "wb")]
@@ -134,17 +136,24 @@ class WideArgs(ctypes.Structure):
 class WideBucketArgs(ctypes.Structure):
     """Mirror of ``hpa2::WideBucketArgs``: the wide N2's arguments (the
     destinations' node masks [ndest, SW] on the device, their nonzero
-    words, and the flag, scan and key rows)."""
+    words, the flag words and the flags CTAs' lane sums its first launch
+    writes whole, and ``hier``'s zeroed key bitmap)."""
 
     _fields_ = ([("x", BucketArgs), ("dmask", ctypes.c_void_p),
                  ("dwlo", ctypes.c_int32 * MAX_SHARDS),
                  ("dwhi", ctypes.c_int32 * MAX_SHARDS)]
-                + [(f, ctypes.c_void_p) for f in (
-                    "bits", "base", "tot", "lane", "keys")])
+                + [(f, ctypes.c_void_p) for f in ("bits", "part", "keys")])
 
 
-#: scratch sets a (node row, lane) pair of the wide N1 (kWideSets)
+#: sets a (node row, lane) pair of the wide N1 (kWideSets)
 WIDE_SETS = 8
+#: the wide N1's scalar tile rows a pair (kW1Rows) and the tile a CTA at
+#: most (kWideAbSmem): the plan whose pairs' sets go to the scratch when
+#: not even one pair's fit (csrc/node_cycle.cuh: wide_ab_plan)
+WIDE_AB_ROWS = 27
+WIDE_AB_SMEM = 100 * 1024
+#: flag words a CTA of the wide N2's flags launch (kWideFlagWords)
+WIDE_FLAG_WORDS = 1
 #: N4's sums a lane (kSettleRed): activity, mailbox overflow, deliveries
 #: and the deliveries of each type
 SETTLE_RED = 3 + _NTYPES
@@ -247,6 +256,17 @@ def check_node_kernel_bound(config: SystemConfig, shards: int) -> None:
             f"{_mb_layout(config)[0]}")
 
 
+def wide_ab_scratch(sw: int) -> int:
+    """Words a pair's sets take in the wide N1's scratch when not even
+    one pair's fit its shared tile of at most :data:`WIDE_AB_SMEM` bytes
+    beside the plane tables' copy (its plan,
+    ``csrc/node_cycle.cuh:wide_ab_plan``), else 0."""
+    stride = (WIDE_SETS * sw) | 1
+    tables = 8 * (2 * (2 + sw) + sw)
+    fits = tables + 4 * (WIDE_AB_ROWS + AB_COUNTS + stride) <= WIDE_AB_SMEM
+    return 0 if fits else stride
+
+
 @functools.lru_cache(maxsize=16)
 def _wide_layout(config: SystemConfig) -> bool:
     """``config``'s message is the wide family's: two header words, then
@@ -277,6 +297,8 @@ class NodeBucketer:
     def __init__(self, nc: "NodeCycle"):
         self.nc = nc
         self.fsbuf: Optional[torch.Tensor] = None
+        # the wide N2's destination masks on the device, by destinations
+        self._dmask: Dict[tuple, torch.Tensor] = {}
 
     def stats_init(self, payload: torch.Tensor) -> dict:
         self.fsbuf = torch.zeros((len(exchange.FSTATS), payload.shape[-1]),
@@ -355,7 +377,7 @@ class NodeBucketer:
                 x.buf[i], x.sel[i] = out[p].data_ptr(), sels[p].data_ptr()
                 p += 1
         if nc.wide:
-            keep = self._wide_rows(y, blocks, dests, k, combine, dev)
+            keep = self._wide_rows(y, blocks, dests, combine, dev)
         nc.launch(launcher, nc.BUCKET, y if nc.wide else x, dev)
         if nc.check:
             want_out, want_sels = self.plain(before, blocks, dests, k, src,
@@ -366,23 +388,32 @@ class NodeBucketer:
                              for i, f in enumerate(exchange.FSTATS)])
         return out, sels
 
-    def _wide_rows(self, y: "WideBucketArgs", blocks, dests, k, combine,
+    def _wide_rows(self, y: "WideBucketArgs", blocks, dests, combine,
                    dev) -> list:
-        """The wide N2's device rows: the destinations' masks, the zeroed
-        flag, lane-sum and key rows, the scan rows; returns the tensors
-        (kept alive until the launch is enqueued)."""
+        """The wide N2's device rows: the destinations' masks (made once
+        a set of destinations and device), the flag words and lane sums
+        its first launch writes whole, and under ``hier``'s combining the
+        zeroed key bitmap; returns the tensors (kept alive until the
+        launch is enqueued)."""
         nc, bb = self.nc, blocks[0].shape[-1]
-        dmask = torch.stack([self.union(d.shards, "cpu")
-                             for d in dests]).to(dev)
+        key = (tuple(d.shards for d in dests), str(dev))
+        dmask = self._dmask.get(key)
+        if dmask is None:
+            dmask = self._dmask[key] = torch.stack(
+                [self.union(d.shards, "cpu") for d in dests]).to(dev)
         nw = sum(-(-blocks[d.block].shape[1] // 32) for d in dests)
-        nkw = -(-nc.nkeys // 32) if combine else 0
-        zero = torch.zeros((nw + 3 + nkw) * bb, dtype=I32, device=dev)
-        scan = torch.empty((nw + len(dests)) * bb, dtype=I32, device=dev)
+        nwt = -(-nw // WIDE_FLAG_WORDS)
+        rows = torch.empty((nw + 3 * nwt) * bb, dtype=I32, device=dev)
         y.dmask = dmask.data_ptr()
-        y.bits, y.lane = zero.data_ptr(), zero[nw * bb:].data_ptr()
-        y.keys = zero[(nw + 3) * bb:].data_ptr()
-        y.base, y.tot = scan.data_ptr(), scan[nw * bb:].data_ptr()
-        return [dmask, zero, scan]
+        y.bits, y.part = rows.data_ptr(), rows[nw * bb:].data_ptr()
+        keep = [dmask, rows]
+        if combine and nc.nkeys:
+            keys = torch.zeros(-(-nc.nkeys // 32) * bb, dtype=I32, device=dev)
+            y.keys = keys.data_ptr()
+            keep.append(keys)
+        else:
+            y.keys = None
+        return keep
 
 
 class NodeCycle:
@@ -546,10 +577,14 @@ class NodeCycle:
         (x.x if self.wide else x).a.scalars = s["scalars"].data_ptr()
         return x
 
-    def _scratch(self, dev, bb: int) -> torch.Tensor:
-        """The wide N1's scratch [WIDE_SETS * SW + 1, nl * B] (kept): a
-        pair's sets, and whether it popped its head."""
-        shape = (WIDE_SETS * self.SW + 1, self.nl * bb)
+    def _scratch(self, dev, bb: int) -> Optional[torch.Tensor]:
+        """The wide N1's scratch [nl * B, stride] (kept), the pairs' sets
+        when not even one pair's fit its shared tile
+        (:func:`wide_ab_scratch`), else None."""
+        stride = wide_ab_scratch(self.SW)
+        if not stride:
+            return None
+        shape = (self.nl * bb, stride)
         w = self._work
         if w is None or tuple(w.shape) != shape or w.device != dev:
             w = self._work = torch.empty(shape, dtype=I32, device=dev)
@@ -576,7 +611,8 @@ class NodeCycle:
         x = y.x if self.wide else y
         x.payload, x.cnt = payload.data_ptr(), cnt.data_ptr()
         if self.wide:
-            y.work = self._scratch(dev, bb).data_ptr()
+            work = self._scratch(dev, bb)
+            y.work = None if work is None else work.data_ptr()
         self.launch(launcher, self.AB, y, dev)
         if self.check:
             upd, want_p, want_c = ab_plain(self, before, seg, window)
@@ -1254,6 +1290,6 @@ __all__ = [
     "NODE_AB_WIDE", "NODE_BUCKET", "NODE_BUCKET_WIDE", "NODE_DELIVER",
     "NODE_DELIVER_WIDE", "NODE_KERNELS", "NODE_SETTLE", "NODE_SETTLE_WIDE",
     "NodeArgs", "NodeBucketer", "NodeCycle", "BucketArgs", "WIDE_KERNELS",
-    "WideArgs", "WideBucketArgs", "ab_plain",
+    "WideArgs", "WideBucketArgs", "ab_plain", "wide_ab_scratch",
     "check_node_kernel_bound", "deliver_plain", "geometry", "settle_plain",
 ]

@@ -1,7 +1,9 @@
-"""The wide family of the node kernels (``csrc/node_cycle.cuh``: the
-``w1``-``w4`` item bodies, ``node_ab<WideWords>``; the entries
-``node_*_wide`` of ``ops/node_cycle.py``) on the CPU: their bodies built
-with g++ and run an item at a time, launch after launch
+"""The wide family of the node kernels (``csrc/node_cycle.cuh``: N1's
+and N2's phase bodies ``n1w_phase``, ``node_ab<TileWords>``,
+``n2w_flags_phase``, ``n2w_place_phase``, N3's and N4's ``w3``/``w4``
+item bodies; the entries ``node_*_wide`` of ``ops/node_cycle.py``) on the
+CPU: their bodies built with g++ and run a CTA at a time phase by phase
+(N1, N2) or an item at a time (N3, N4), launch after launch
 (``tests/torch_node_host.py``), each launch held bit for bit against its
 plain version on the same inputs, at 96 nodes over 2 ranks and 160 over
 4, where a rank's first node falls inside a 31-bit sharer word (96 / 2

@@ -99,8 +99,17 @@ extern "C" int hpa2_host_node_settle(const NodeArgs* x) { return dispatch(x, 2);
 extern "C" int hpa2_host_node_plan(const NodeArgs* x, int what, int* out) {
   return dispatch(x, what, out);
 }
-// the wide family: each launch's items in order, one launch after the
-// other (their items share only integer ORs and sums, which commute)
+// the wide family: N1 and N2 a CTA at a time, phase by phase (their plans
+// at the limits hpa2_host_wide_limits sets: the card's unless a test
+// forces smaller tiles); N3's and N4's launches their items in order,
+// one launch after the other (their items share only integer ORs and
+// sums, which commute)
+static int g_wide_smem = hpa2::kWideAbSmem;
+static int g_wide_lanes = hpa2::kWideBucketLanes;
+extern "C" void hpa2_host_wide_limits(int smem, int lanes) {
+  g_wide_smem = smem;
+  g_wide_lanes = lanes;
+}
 template <class F>
 void items(size_t n, F f) {
   for (size_t i = 0; i < n; ++i) f(i);
@@ -109,21 +118,67 @@ extern "C" int hpa2_wide_args_size() { return (int)sizeof(hpa2::WideArgs); }
 extern "C" int hpa2_wide_bucket_args_size() {
   return (int)sizeof(hpa2::WideBucketArgs);
 }
+// N1w's plan: out = pairs a CTA, words a pair's sets, sets in the
+// scratch, tile bytes, CTAs
+extern "C" int hpa2_host_wide_ab_plan(const hpa2::WideArgs* y, int* out) {
+  hpa2::WideAbPlan pl;
+  if (!hpa2::wide_ab_plan(*y, pl, g_wide_smem)) return 1;
+  out[0] = pl.TP, out[1] = pl.stride, out[2] = pl.global, out[3] = pl.smem;
+  out[4] = hpa2::wide_ab_ctas(y->x, pl);
+  return 0;
+}
+// N2w's plan: out = lanes a tile, lane tiles, chunks a place CTA, scan
+// steps, flags CTAs, place CTAs (fold CTAs included), slots a place CTA
+extern "C" int hpa2_host_wide_bucket_plan(const hpa2::WideBucketArgs* y,
+                                          int* out) {
+  hpa2::WideBucketPlan pl;
+  if (!hpa2::wide_bucket_plan(*y, pl, g_wide_lanes)) return 1;
+  out[0] = pl.LB, out[1] = pl.NLT, out[2] = pl.NC, out[3] = pl.steps;
+  out[4] = pl.nwt * pl.NLTF, out[5] = pl.coff[y->x.ndest], out[6] = pl.S;
+  return 0;
+}
+// TileWords's set operations on sets x and y of sw words (the warp of
+// the host build): out = any(x), owner(x), count(x), test(x, p), then the
+// sets bit(p), x & ~y, x | y, a copy of x, zero, sw words each
+extern "C" void hpa2_host_tile_words(int sw, const int32_t* x,
+                                     const int32_t* y, int p, int32_t* out) {
+  std::vector<int32_t> sets(7 * (size_t)sw);
+  const hpa2::TileWords v{sw, sets.data(), nullptr};
+  hpa2::TileWords::Set s[7];
+  for (int k = 0; k < 7; ++k) v.bind(s[k], k);
+  for (int j = 0; j < sw; ++j) sets[j] = x[j], sets[sw + j] = y[j];
+  out[0] = v.any(s[0]), out[1] = v.owner(s[0]), out[2] = v.count(s[0]);
+  out[3] = v.test(s[0], p);
+  v.bit(s[2], p);
+  v.and_not(s[3], s[0], s[1]);
+  v.copy(s[4], s[0]);
+  v.or_in(s[4], s[1]);
+  v.copy(s[5], s[0]);
+  v.copy(s[6], s[0]);
+  v.zero(s[6]);
+  for (int k = 2; k < 7; ++k)
+    for (int j = 0; j < sw; ++j) out[4 + (k - 2) * sw + j] = sets[k * sw + j];
+}
 extern "C" int hpa2_host_node_ab_wide(const hpa2::WideArgs* y) {
-  if (!hpa2::wide_ok(y->x)) return 1;
-  const size_t pairs = (size_t)y->x.nl * y->x.a.b;
-  items(pairs, [&](size_t i) { hpa2::w1_item(*y, i); });
-  items(pairs * y->x.a.W, [&](size_t i) { hpa2::w1_rotate(*y, i); });
+  hpa2::WideAbPlan pl;
+  if (!hpa2::wide_ab_plan(*y, pl, g_wide_smem)) return 1;
+  ctas(hpa2::wide_ab_ctas(y->x, pl), hpa2::kN1wPhases, pl.smem,
+       [&](int ph, int cta, int tid, void* sh) {
+         hpa2::n1w_phase(*y, pl, ph, cta, tid, (int32_t*)sh);
+       }, 1, hpa2::kWideAbCta);
   return 0;
 }
 extern "C" int hpa2_host_node_bucket_wide(const hpa2::WideBucketArgs* y) {
-  hpa2::BucketPlan pl;
-  if (!hpa2::wide_bucket_plan(*y, pl)) return 1;
-  const size_t b = y->x.b;
-  items((size_t)pl.nw * 32 * b, [&](size_t i) { hpa2::w2_flags(*y, pl, i); });
-  items((size_t)y->x.ndest * b, [&](size_t i) { hpa2::w2_scan(*y, pl, i); });
-  items(hpa2::w2_scatter_items(y->x, pl),
-        [&](size_t i) { hpa2::w2_scatter(*y, pl, i); });
+  hpa2::WideBucketPlan pl;
+  if (!hpa2::wide_bucket_plan(*y, pl, g_wide_lanes)) return 1;
+  ctas(pl.nwt * pl.NLTF, hpa2::kN2wFlagPhases, pl.smem1,
+       [&](int ph, int cta, int tid, void* sh) {
+         hpa2::n2w_flags_phase(*y, pl, ph, cta, tid, (uint32_t*)sh);
+       }, 1, hpa2::kWideBucketCta);
+  ctas(pl.coff[y->x.ndest], pl.steps + 3, pl.smem2,
+       [&](int ph, int cta, int tid, void* sh) {
+         hpa2::n2w_place_phase(*y, pl, ph, cta, tid, (uint32_t*)sh);
+       }, 1, hpa2::kWideBucketCta);
   return 0;
 }
 extern "C" int hpa2_host_node_deliver_wide(const hpa2::WideArgs* y) {
@@ -185,6 +240,14 @@ def build():
             ctypes.POINTER(nc.WideArgs)]
     lib.hpa2_host_node_bucket_wide.argtypes = [
         ctypes.POINTER(nc.WideBucketArgs)]
+    lib.hpa2_host_wide_ab_plan.argtypes = [ctypes.POINTER(nc.WideArgs),
+                                           ctypes.POINTER(ctypes.c_int)]
+    lib.hpa2_host_wide_bucket_plan.argtypes = [
+        ctypes.POINTER(nc.WideBucketArgs), ctypes.POINTER(ctypes.c_int)]
+    lib.hpa2_host_wide_limits.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.hpa2_host_tile_words.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p]
     lib.hpa2_host_node_plan.argtypes = [ctypes.POINTER(nc.NodeArgs),
                                         ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int)]
